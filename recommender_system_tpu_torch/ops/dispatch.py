@@ -1,0 +1,41 @@
+"""Where the port runs: the device of its entry points and the kernel rule.
+
+- Entry points (``DCN(...)``, ``Scorer(...)``) run on the card unless the
+  caller names another device; with no card and no device named they raise.
+- A kernel wrapper launches its CUDA kernel for CUDA tensors and runs the
+  kernel's plain PyTorch version for CPU tensors. Nothing else selects.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` -> the card; raises if there is none. Any other value is taken
+    as the caller's explicit choice."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """True when the tensors lie on a CUDA device (launch the kernel), False
+    when they lie on the CPU (run the plain version). Raises for tensors on
+    different devices or on any other device type."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel and no plain version for device {device}")

@@ -1,0 +1,177 @@
+"""Hand-written CUDA kernels: build, binding and wrappers.
+
+Each kernel source ``csrc/<name>.cu`` exposes a plain C function. It is
+compiled with ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` at
+first use (the hash covers the source and the flags, so an edited source is
+rebuilt) and loaded with ``ctypes``. Nothing is built or loaded while this
+module is imported.
+
+Wrappers (see ``ops/dispatch.py``): a CUDA tensor launches the kernel, a CPU
+tensor runs the kernel's plain version. Each wrapper counts its launches in
+an integer attribute, ``<wrapper>.launches``, which only a launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from .dispatch import use_kernel
+from .interactions import cross_network
+
+_PACKAGE = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PACKAGE / "csrc"
+BUILD_DIR = _PACKAGE / "build"
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# source name -> {C function: (argument types, return type)}; every pointer
+# and the stream as c_void_p, or ctypes would pass a 32-bit int
+SOURCES = {
+    "cross": {"cross_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT)},
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libraries: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    if os.environ.get("CUDA_HOME"):
+        return str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path(name: str) -> Path:
+    source = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build() -> Dict[str, str]:
+    """Compile every kernel source that has no library yet, one ``nvcc`` per
+    source, all started together. Returns each compiled source's ``nvcc``
+    output (``-Xptxas -v``: registers, shared memory, spills); raises with
+    that output if a compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in SOURCES:
+        target = library_path(name)
+        if target.exists():
+            continue
+        partial = target.with_name(f"{target.name}.{os.getpid()}.part")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, target, partial, proc))
+    logs = {}
+    for name, target, partial, proc in jobs:
+        logs[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{logs[name]}")
+        os.replace(partial, target)
+    return logs
+
+
+def _library(name: str) -> ctypes.CDLL:
+    if name not in _libraries:
+        build()
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, (argtypes, restype) in SOURCES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _libraries[name] = lib
+    return _libraries[name]
+
+
+# ---------------------------------------------------------------------------
+# DCN cross stack (csrc/cross.cu)
+# ---------------------------------------------------------------------------
+
+CROSS_MAX_DIM = 1024
+# shared memory one block may take on the H100 (227 KB)
+CROSS_MAX_SHARED_BYTES = 232_448
+
+
+def check_cross_args(x0: torch.Tensor, weights: torch.Tensor,
+                     biases: torch.Tensor) -> None:
+    """Raise on anything the cross kernel does not take."""
+    for t, what in ((x0, "x0"), (weights, "weights"), (biases, "biases")):
+        if t.dtype != torch.float32:
+            raise TypeError(f"cross_fused kernel takes float32, {what} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"cross_fused kernel takes contiguous tensors, {what} is not")
+    if x0.dim() != 2 or weights.dim() != 2 or weights.shape != biases.shape:
+        raise ValueError("cross_fused takes x0 [B, D], weights and biases [L, D]; "
+                         f"got {tuple(x0.shape)}, {tuple(weights.shape)}, "
+                         f"{tuple(biases.shape)}")
+    B, D = x0.shape
+    L = weights.shape[0]
+    if weights.shape[1] != D:
+        raise ValueError(f"weights width {weights.shape[1]} != x0 width {D}")
+    if not 0 < D <= CROSS_MAX_DIM:
+        raise ValueError(f"cross_fused kernel takes 0 < D <= {CROSS_MAX_DIM}, got {D}")
+    if 2 * L * D * 4 > CROSS_MAX_SHARED_BYTES:
+        raise ValueError(f"cross_fused kernel: L={L}, D={D} needs "
+                         f"{2 * L * D * 4} bytes of shared memory, more than "
+                         f"{CROSS_MAX_SHARED_BYTES}")
+    if B >= 2 ** 31:
+        raise ValueError(f"cross_fused kernel takes B < 2**31, got {B}")
+
+
+def _cross_launch(x0: torch.Tensor, weights: torch.Tensor,
+                  biases: torch.Tensor) -> torch.Tensor:
+    check_cross_args(x0, weights, biases)
+    out = torch.empty_like(x0)
+    B, D = x0.shape
+    if B == 0:
+        return out
+    lib = _library("cross")
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        err = lib.cross_forward(x0.data_ptr(), weights.data_ptr(),
+                                biases.data_ptr(), out.data_ptr(), B, D,
+                                weights.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"cross_forward launch failed with CUDA error {err}")
+    cross_fused.launches += 1
+    return out
+
+
+class _CrossFused(torch.autograd.Function):
+    """Forward: the kernel on CUDA, ``cross_network`` on the CPU. Backward:
+    the VJP of ``cross_network`` recomputed from the saved inputs, as the JAX
+    package's ``_cross_bwd`` does; there is no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x0, weights, biases):
+        ctx.save_for_backward(x0, weights, biases)
+        if use_kernel(x0, weights, biases):
+            return _cross_launch(x0, weights, biases)
+        return cross_network(x0, weights, biases)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = cross_network(*inputs)
+        return torch.autograd.grad(out, inputs, grad)
+
+
+def cross_fused(x0: torch.Tensor, weights: torch.Tensor,
+                biases: torch.Tensor) -> torch.Tensor:
+    """DCN cross stack ``x_{l+1} = x0 (x_l.w_l) + b_l + x_l`` -> ``[B, D]``,
+    the whole stack in one kernel launch on CUDA."""
+    return _CrossFused.apply(x0, weights, biases)
+
+
+cross_fused.launches = 0

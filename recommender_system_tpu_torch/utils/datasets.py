@@ -1,0 +1,97 @@
+"""Host-side data: the Criteo schema, synthetic Criteo-shaped data, batching.
+
+Copies of the parts of ``recommender_system_tpu/utils/datasets.py`` that the
+DCN serving path uses, bit-exact with them (``tests/test_torch_utils.py``).
+Batches are dicts of fixed-shape numpy arrays.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+
+from .features import DenseFeat, SparseFeat
+
+CRITEO_DENSE = [f"I{i}" for i in range(1, 14)]
+CRITEO_SPARSE = [f"C{i}" for i in range(1, 27)]
+
+
+def criteo_columns(embedding_dim: int = 8,
+                   hash_buckets: int = 1 << 20) -> list:
+    """The typed schema for hashed Criteo (13 dense + 26 hashed sparse)."""
+    return ([DenseFeat(c, 1) for c in CRITEO_DENSE]
+            + [SparseFeat(c, hash_buckets, embedding_dim)
+               for c in CRITEO_SPARSE])
+
+
+def synthetic_criteo(
+    n_rows: int = 4096,
+    n_dense: int = 13,
+    n_sparse: int = 26,
+    vocab: int = 1000,
+    embedding_dim: int = 8,
+    seed: int = 0,
+) -> Tuple[list, Dict[str, np.ndarray], np.ndarray]:
+    """Criteo-shaped synthetic data with a learnable signal (for tests/bench)."""
+    rng = np.random.default_rng(seed)
+    columns: list = []
+    X: Dict[str, np.ndarray] = {}
+    logits = np.zeros(n_rows)
+    for i in range(n_dense):
+        name = f"I{i + 1}"
+        v = rng.uniform(0, 1, n_rows).astype(np.float32)
+        X[name] = v[:, None]
+        columns.append(DenseFeat(name, 1))
+        logits += (0.5 if i % 2 == 0 else -0.5) * (v - 0.5)
+    for i in range(n_sparse):
+        name = f"C{i + 1}"
+        ids = rng.integers(1, vocab, n_rows).astype(np.int32)
+        X[name] = ids
+        columns.append(SparseFeat(name, vocab, embedding_dim))
+        logits += 0.3 * np.sin(ids * (i + 1) * 0.37)
+    y = (rng.uniform(size=n_rows) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
+    return columns, X, y
+
+
+def iter_batches(
+    X: Dict[str, np.ndarray],
+    y: Optional[np.ndarray],
+    batch_size: int,
+    shuffle: bool = True,
+    seed: int = 0,
+    drop_remainder: bool = True,
+) -> Iterator:
+    """Minibatch iterator over a dict-of-arrays dataset (fixed shapes).
+
+    With ``drop_remainder`` every batch has the same shape.
+    """
+    is_dict = isinstance(X, dict)
+    n = len(next(iter(X.values()))) if is_dict else len(X)
+    idx = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    stop = n - batch_size + 1 if drop_remainder else n
+    for start in range(0, max(stop, 0), batch_size):
+        sel = idx[start: start + batch_size]
+        xb = {k: v[sel] for k, v in X.items()} if is_dict else X[sel]
+        if y is None:
+            yield xb
+        else:
+            yield xb, y[sel]
+
+
+def pad_to_batch(X, y, batch_size: int):
+    """Pad the last partial batch up to ``batch_size`` returning a validity mask."""
+    is_dict = isinstance(X, dict)
+    n = len(next(iter(X.values()))) if is_dict else len(X)
+    pad = (-n) % batch_size
+    if pad == 0:
+        return X, y, np.ones(n, bool)
+    if is_dict:
+        Xp = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+              for k, v in X.items()}
+    else:
+        Xp = np.concatenate([X, np.repeat(X[-1:], pad, axis=0)])
+    yp = None if y is None else np.concatenate([y, np.zeros(pad, y.dtype)])
+    mask = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
+    return Xp, yp, mask
