@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
+check them.
 
 Run from the repository root, on a machine with one H100:
 
@@ -7,24 +8,45 @@ Run from the repository root, on a machine with one H100:
 Phases, each of which raises on failure (exit code not 0):
 
 1. set-up: the card's name and power limit, TF32 off, the kernels built
-   from ``recommender_system_tpu_torch/csrc`` (one nvcc per source);
-2. every kernel against its plain PyTorch version on the card
-   (``cross_fused`` vs ``cross_network``, forward and gradient,
-   rtol=1e-4, atol=1e-5);
+   from ``recommender_system_tpu_torch/csrc`` (one nvcc per source, all
+   started together);
+2. every kernel against its plain PyTorch version on the card:
+   ``cross_fused`` vs ``cross_network``, forward and gradient (rtol=1e-4,
+   atol=1e-5); ``fused_adagrad_apply`` vs ``fused_adagrad_ref`` and
+   ``scatter_add_sorted`` vs ``scatter_add_dense_ref`` at the bench shape
+   (N=425,984 lookups into 2,600,000 rows of dim 9), at dims 8 to 128, at
+   N=1, with ids on the table's last row and with half the ids on one row
+   (rtol=1e-5, atol=1e-6 x the largest |value|; rows no id touches must
+   come back bitwise equal);
 3. serving at full width: DCN on 26 sparse fields of 100,000 ids (dim 8)
    and 13 dense fields, 6 cross layers, deep tower 256-128-64, f32, random
    weights from a seed; ``Scorer(batch_size=4096)`` answers requests of 1,
    1000, 4096 and 10,000 rows. The kernel counts must show one launch per
    padded batch, and every answer must equal a plain forward on the card
    (atol=1e-5 on probabilities) and the CPU path on 1000 rows;
+3b. fused training at ``bench.py``'s width: DeepFM (factor dim 8, deep tower
+   256-128-64 in bf16) with ``Adagrad(0.05)`` and
+   ``FusedAdagrad(0.05)``, three ``multi_step`` calls of K=8 pre-staged
+   batches of 16,384. ``fused_adagrad_apply`` must launch 24 times and
+   ``scatter_add_sorted`` never; one call runs under
+   ``torch.cuda.set_sync_debug_mode("error")``; losses finite and falling;
+   table rows no batch touched bitwise unchanged; AUC on 65,536 held-out
+   rows;
+3c. plain training: the same model without the fused optimizer, one call of
+   K=8; ``scatter_add_sorted`` must launch 8 times;
+3d. card against CPU: two fused steps at full width (f32 tower) on the card
+   and on the CPU from the same start; parameters and accumulators agree;
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
-   host overhead included); the Scorer's latency and throughput (host
-   clock), its device busy time per batch and its top kernels.
+   host overhead included), and the library call where there is one; the
+   Scorer's latency and throughput (host clock), its device busy time per
+   batch and its top kernels; the training throughput of a fused K=8 call
+   (CUDA events), its device idle share, the top device work of a step and
+   the count of host ops a step issues.
 
-The line before the last lists every kernel with its launches on the
-serving run, its error against the plain version, its time, its plain
-version's time and its bound; the last line is
+The line before the last lists every kernel with its launches on its main
+path, its error against the plain version, its times and its bound; the line
+before that names the card and its power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -51,6 +73,18 @@ RTOL, ATOL = 1e-4, 1e-5
 SERVE_BATCH = 4096
 REQUESTS = (1, 1000, 4096, 10_000)
 THROUGHPUT_ROWS = 65_536
+
+# bench.py's training width: 26 fields of 100,000 ids at factor dim 8 (a
+# table_d9 of 2,600,000 rows), 13 dense fields, batch 16,384, K=8
+VOCAB, FIELDS, FACTOR_DIM = 100_000, 26, 8
+TRAIN_BATCH, K = 16_384, 8
+# sparse row kernels: f32 sums are taken in another order than the plain
+# version's index_add_ (atomics on the card)
+SPARSE_RTOL, SPARSE_ATOL_SCALE = 1e-5, 1e-6
+LR, EPS = 0.05, 1e-7
+# card against CPU after two fused steps: f32 on both, GEMMs and reductions
+# summed in another order
+PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5
 
 
 def card_line() -> str:
@@ -158,6 +192,344 @@ def check_cross_kernel(cross_fused, cross_network) -> float:
     return max_err
 
 
+def sparse_rows_bound(n: int, touched: int, rows: int, dim: int, adagrad: bool):
+    """Least time for a sparse row kernel: the stream (slid and order, which
+    fit int32, and f32 cotangents) read once; Adagrad reads and writes param
+    and acc on the touched rows, the scatter-add writes its whole output. A
+    few flops per byte, so bytes bound both. (The port's stream is int64, 8
+    bytes a position more than the bound counts.)"""
+    stream = 8 * n + 4 * n * dim
+    nbytes = stream + (16 * touched * dim if adagrad else 4 * rows * dim)
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flop_ms = (n * dim + 5 * touched * dim) / PEAK_F32_FLOPS * 1e3
+    return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
+
+
+def bench_rows(seed: int, batch: int = TRAIN_BATCH) -> np.ndarray:
+    """The ``[batch, 26]`` rows of table_d9 that one synthetic Criteo batch
+    of bench.py's width looks up (ids of field f offset by f * VOCAB)."""
+    from recommender_system_tpu_torch.utils.datasets import synthetic_criteo
+
+    _, X, _ = synthetic_criteo(n_rows=batch, vocab=VOCAB,
+                               embedding_dim=FACTOR_DIM, seed=seed)
+    return np.stack([X[f"C{f + 1}"].astype(np.int64) + f * VOCAB
+                     for f in range(FIELDS)], axis=1)
+
+
+def sparse_cases(gen: torch.Generator):
+    """(name, lids, ct, rows) on the card for phase 2."""
+    dev = "cuda"
+    rows9 = FIELDS * VOCAB
+    bench = torch.as_tensor(bench_rows(0), device=dev).reshape(-1)
+    n = bench.numel()
+    yield "bench", bench, torch.randn(n, 9, generator=gen, device=dev), rows9
+    for dim in (8, 16, 32, 128):
+        lids = torch.randint(0, 100_000, (200_000,), generator=gen, device=dev)
+        yield f"dim{dim}", lids, torch.randn(200_000, dim, generator=gen, device=dev), 100_000
+    yield "n1", bench[:1], torch.randn(1, 9, generator=gen, device=dev), rows9
+    last = bench[:1000].clone()
+    last[::7] = rows9 - 1
+    yield "last_row", last, torch.randn(1000, 9, generator=gen, device=dev), rows9
+    # half the ids on one row; the cotangents lie on a grid of 1/8, so that
+    # every partial sum of the 213k-term row is exact in f32 and the order
+    # of summation cannot matter
+    skew = bench.clone()
+    skew[::2] = 12_345
+    ct = torch.randint(-8, 9, (n, 9), generator=gen, device=dev).float() / 8
+    yield "skewed", skew, ct, rows9
+
+
+def check_sparse_rows() -> dict:
+    """Phase 2 for csrc/sparse_rows.cu: both kernels against their plain
+    versions; returns the largest absolute error of each."""
+    from recommender_system_tpu_torch.ops.embedding_grad import (
+        scatter_add_dense_ref, scatter_add_sorted)
+    from recommender_system_tpu_torch.ops.fused_adagrad import (
+        fused_adagrad_apply, fused_adagrad_ref)
+    from recommender_system_tpu_torch.ops.stream_sort import blocked_sort, sort_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errs = {"fused_adagrad_apply": 0.0, "scatter_add_sorted": 0.0}
+
+    def close(name, got, want):
+        tol = SPARSE_ATOL_SCALE * max(want.abs().max().item(), 1e-30)
+        torch.testing.assert_close(got, want, rtol=SPARSE_RTOL, atol=tol)
+        err = (got - want).abs().max().item()
+        errs[name] = max(errs[name], err)
+        return err
+
+    for case, lids, ct, rows in sparse_cases(gen):
+        dim = ct.shape[1]
+        slid, order = sort_ids(lids)
+        if case == "bench":
+            # the stream the lookup gives the kernels: blocked_sort of [B, F]
+            ranges = [(f * VOCAB, VOCAB) for f in range(FIELDS)]
+            slid, order = blocked_sort(lids.reshape(-1, FIELDS), ranges)
+            if not torch.equal(slid, lids[order]):
+                raise RuntimeError("blocked_sort's stream does not read back the ids")
+        touched = torch.zeros(rows, dtype=torch.bool, device="cuda")
+        touched[lids] = True
+
+        out = scatter_add_sorted(slid, order, ct, rows)
+        want = scatter_add_dense_ref(lids, ct, rows)
+        torch.cuda.synchronize()
+        e1 = close("scatter_add_sorted", out, want)
+        if out[~touched].count_nonzero().item():
+            raise RuntimeError(f"scatter_add_sorted {case}: an untouched row is not 0")
+
+        table = torch.randn(rows, dim, generator=gen, device="cuda")
+        acc = 0.1 + torch.rand(rows, dim, generator=gen, device="cuda")
+        t1, a1 = table.clone(), acc.clone()
+        fused_adagrad_apply(t1, a1, lids, ct, lr=LR, eps=EPS, presorted=(slid, order))
+        want_t, want_a = fused_adagrad_ref(table, acc, lids, ct, LR, EPS)
+        torch.cuda.synchronize()
+        e2 = max(close("fused_adagrad_apply", t1, want_t),
+                 close("fused_adagrad_apply", a1, want_a))
+        if not (torch.equal(t1[~touched], table[~touched])
+                and torch.equal(a1[~touched], acc[~touched])):
+            raise RuntimeError(f"fused_adagrad_apply {case}: an untouched row changed")
+        print(f"kernel check sparse rows {case}: N={lids.numel()} rows={rows} dim={dim} "
+              f"touched={int(touched.sum())}: scatter_add_sorted max_abs_err={e1:.3e}, "
+              f"fused_adagrad_apply max_abs_err={e2:.3e}; untouched rows equal", flush=True)
+    return errs
+
+
+def staged_batches(seeds, device="cuda"):
+    """bench.py's pre-staged batches: synthetic Criteo of the bench width,
+    one seed per batch, stacked on a leading K axis on ``device``."""
+    from recommender_system_tpu_torch.utils.datasets import synthetic_criteo
+
+    data = [synthetic_criteo(n_rows=TRAIN_BATCH, vocab=VOCAB,
+                             embedding_dim=FACTOR_DIM, seed=s) for s in seeds]
+    cols = data[0][0]
+    batches = {k: torch.as_tensor(np.stack([X[k] for _, X, _ in data]), device=device)
+               for k in data[0][1]}
+    labels = torch.as_tensor(np.stack([y for _, _, y in data]), device=device)
+    return cols, batches, labels
+
+
+def deepfm(cols, dnn_dtype, device="cuda", seed=0):
+    from recommender_system_tpu_torch import DeepFM
+
+    return DeepFM(tuple(cols), hidden_units=(256, 128, 64), dnn_dtype=dnn_dtype,
+                  device=device, generator=torch.Generator().manual_seed(seed))
+
+
+def train_fused(cols, batches, labels, card):
+    """Phase 3b: returns (trainer, launches, losses of the three calls)."""
+    from recommender_system_tpu_torch import FusedAdagrad, Trainer
+    from recommender_system_tpu_torch.ops.embedding_grad import scatter_add_sorted
+    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
+    from recommender_system_tpu_torch.training import Adagrad
+    from recommender_system_tpu_torch.utils.datasets import synthetic_criteo
+
+    model = deepfm(cols, torch.bfloat16)
+    table = model.unified.embeddings.table_d9
+    start = table.detach().clone()
+    trainer = Trainer(model, Adagrad(LR), fused_embedding=FusedAdagrad(LR))
+    print(f"DeepFM: table {tuple(table.shape)}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters", flush=True)
+
+    fused_adagrad_apply.launches = scatter_add_sorted.launches = 0
+    calls = []
+    for call in range(3):
+        if call == 1:
+            # no step may wait for the device: a synchronising call raises
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            calls.append(trainer.multi_step(batches, labels))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = {"fused_adagrad_apply": fused_adagrad_apply.launches,
+                "scatter_add_sorted": scatter_add_sorted.launches}
+    print(f"fused training launches: {launches} over 3 calls of K={K}", flush=True)
+    if launches != {"fused_adagrad_apply": 3 * K, "scatter_add_sorted": 0}:
+        raise RuntimeError(f"fused training launched {launches}, want "
+                           f"{3 * K} fused_adagrad_apply and no scatter_add_sorted")
+    losses = torch.stack(calls).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"fused training losses not finite: {losses}")
+    if not losses[-1].mean() < losses[0].mean():
+        raise RuntimeError(f"fused training loss did not fall: {losses}")
+    print(f"fused training: call under set_sync_debug_mode('error') ran; mean loss "
+          f"per call {[round(float(m), 6) for m in losses.mean(axis=1)]}", flush=True)
+
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device="cuda")
+    for f in range(FIELDS):
+        touched[batches[f"C{f + 1}"].reshape(-1).long().clamp(0, VOCAB - 1) + f * VOCAB] = True
+    if not torch.equal(table.detach()[~touched], start[~touched]):
+        raise RuntimeError("fused training changed a table row no batch touched")
+    if torch.equal(table.detach()[touched], start[touched]):
+        raise RuntimeError("fused training left every touched row as it was")
+    print(f"fused training: {int((~touched).sum())} untouched rows bitwise unchanged",
+          flush=True)
+
+    _, X_test, y_test = synthetic_criteo(n_rows=65_536, vocab=VOCAB,
+                                         embedding_dim=FACTOR_DIM, seed=100)
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate(X_test, y_test, batch_size=TRAIN_BATCH)
+    print(f"fused training: evaluate on 65,536 held-out rows {metrics} in "
+          f"{time.perf_counter() - t0:.2f} s; on {card}", flush=True)
+    if not np.isfinite(metrics["logloss"]) or not 0.0 <= metrics["auc"] <= 1.0:
+        raise RuntimeError(f"evaluate gave {metrics}")
+    return trainer, launches, losses
+
+
+def train_plain(cols, batches, labels):
+    """Phase 3c: returns the launches of one plain K-step call."""
+    from recommender_system_tpu_torch import Trainer
+    from recommender_system_tpu_torch.ops.embedding_grad import scatter_add_sorted
+    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
+    from recommender_system_tpu_torch.training import Adagrad
+
+    trainer = Trainer(deepfm(cols, torch.bfloat16), Adagrad(LR))
+    fused_adagrad_apply.launches = scatter_add_sorted.launches = 0
+    losses = trainer.multi_step(batches, labels).cpu().numpy()
+    launches = {"fused_adagrad_apply": fused_adagrad_apply.launches,
+                "scatter_add_sorted": scatter_add_sorted.launches}
+    print(f"plain training launches: {launches} over 1 call of K={K}; losses {losses}",
+          flush=True)
+    if launches != {"fused_adagrad_apply": 0, "scatter_add_sorted": K}:
+        raise RuntimeError(f"plain training launched {launches}, want {K} "
+                           "scatter_add_sorted and no fused_adagrad_apply")
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"plain training losses not finite: {losses}")
+    return launches
+
+
+def card_against_cpu(cols, batches, labels):
+    """Phase 3d: two fused steps at full width (f32 tower) on the card and on
+    the CPU from the same start."""
+    from recommender_system_tpu_torch import FusedAdagrad, Trainer
+    from recommender_system_tpu_torch.training import Adagrad
+
+    model = deepfm(cols, None)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    runs = {}
+    for device, m in (("cuda", model), ("cpu", cpu_model)):
+        trainer = Trainer(m, Adagrad(LR), fused_embedding=FusedAdagrad(LR), device=device)
+        sub = {k: v[:2].to(device) for k, v in batches.items()}
+        trainer.multi_step(sub, labels[:2].to(device))
+        state = {n: p.detach().cpu() for n, p in m.named_parameters()}
+        state.update({f"opt:{n}": s["sum_of_squares"].cpu()
+                      for n, s in trainer.opt_state.items()})
+        state.update({f"slot:{n}": s[0].cpu() for n, s in trainer.fused_slots.items()})
+        runs[device] = state
+    worst = 0.0
+    for name, want in runs["cpu"].items():
+        got = runs["cuda"][name]
+        torch.testing.assert_close(got, want, rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+        worst = max(worst, (got - want).abs().max().item())
+    print(f"card against CPU: {len(runs['cpu'])} parameters and optimizer states "
+          f"agree after 2 fused steps (rtol={PARITY_RTOL}, atol={PARITY_ATOL}); "
+          f"largest difference {worst:.3e}", flush=True)
+
+
+def time_sparse_rows(card) -> dict:
+    """Phase 4 for the sparse row kernels at the bench shape: device time,
+    time per call, plain version, library call, bound; and each kernel's
+    device time on the bench stream with every other id on one hot row."""
+    from recommender_system_tpu_torch.ops.embedding_grad import (
+        scatter_add_dense_ref, scatter_add_sorted)
+    from recommender_system_tpu_torch.ops.fused_adagrad import (
+        fused_adagrad_apply, fused_adagrad_ref)
+    from recommender_system_tpu_torch.ops.stream_sort import blocked_sort, sort_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, dim = FIELDS * VOCAB, FACTOR_DIM + 1
+    rows2d = torch.as_tensor(bench_rows(0), device="cuda")
+    lids = rows2d.reshape(-1)
+    n = lids.numel()
+    slid, order = blocked_sort(rows2d, [(f * VOCAB, VOCAB) for f in range(FIELDS)])
+    ct = torch.randn(n, dim, generator=gen, device="cuda") * 1e-3
+    table = torch.randn(rows, dim, generator=gen, device="cuda") * 1e-4
+    acc = torch.full((rows, dim), 0.1, device="cuda")
+    touched = int(torch.unique(lids).numel())
+    hot = lids.clone()
+    hot[::2] = 12_345
+    hot_slid, hot_order = sort_ids(hot)
+    out = {}
+    fns = {
+        "fused_adagrad_apply": (
+            lambda: fused_adagrad_apply(table, acc, lids, ct, lr=LR, eps=EPS,
+                                        presorted=(slid, order)),
+            lambda: fused_adagrad_ref(table, acc, lids, ct, LR, EPS),
+            lambda: fused_adagrad_apply(table, acc, hot, ct, lr=LR, eps=EPS,
+                                        presorted=(hot_slid, hot_order)),
+            None, True, "sparse_rows_kernel"),
+        "scatter_add_sorted": (
+            lambda: scatter_add_sorted(slid, order, ct, rows),
+            lambda: scatter_add_dense_ref(lids, ct, rows),
+            lambda: scatter_add_sorted(hot_slid, hot_order, ct, rows),
+            lambda: torch.zeros(rows, dim, device="cuda").index_add_(0, lids, ct),
+            False, None),
+    }
+    for name, (kernel_fn, plain_fn, hot_fn, library_fn, adagrad, only) in fns.items():
+        kernel_dev = device_ms(kernel_fn)
+        if only and not all(only in k for k in kernel_dev):
+            raise RuntimeError(f"{name} ran other device work: {dict(kernel_dev)}")
+        plain_dev = device_ms(plain_fn)
+        rec = {"ms": sum(kernel_dev.values()), "plain_ms": sum(plain_dev.values()),
+               "call_ms": call_ms(kernel_fn), "plain_call_ms": call_ms(plain_fn),
+               "library_ms": (sum(device_ms(library_fn).values())
+                              if library_fn else None),
+               "hot_row_ms": sum(device_ms(hot_fn, iters=5).values())}
+        rec["bound_ms"], rec["bound_by"] = sparse_rows_bound(n, touched, rows, dim, adagrad)
+        out[name] = rec
+        split = ", ".join(f"{k[:40]} {v:.5f}" for k, v in kernel_dev.most_common())
+        print(f"timing {name} N={n} U={touched} rows={rows} dim={dim}: device "
+              f"{rec['ms']:.5f} ms ({split}; {100 * rec['bound_ms'] / rec['ms']:.1f}% "
+              f"of the bound {rec['bound_ms']:.5f} ms, {rec['bound_by']}), "
+              f"{rec['call_ms']:.5f} ms per call; plain: device {rec['plain_ms']:.5f} ms, "
+              f"{rec['plain_call_ms']:.5f} ms per call; library "
+              f"{rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 5)} "
+              f"ms; with {n // 2} positions on one row: device {rec['hot_row_ms']:.5f} ms; "
+              f"on {card}", flush=True)
+    return out
+
+
+def time_training(trainer, batches, labels, card) -> None:
+    """Phase 4 for training: throughput of a fused K-step call, its idle
+    share and the top device work of a step."""
+    calls = 5
+    trainer.multi_step(batches, labels)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        trainer.multi_step(batches, labels)
+    end.record()
+    end.synchronize()
+    call = start.elapsed_time(end) / calls
+    print(f"timing fused training: {K * TRAIN_BATCH / (call / 1e3):.1f} examples/s "
+          f"({call:.3f} ms per K={K} call of {TRAIN_BATCH} examples a step, "
+          f"{call / K:.3f} ms a step, CUDA events over {calls} calls); on {card}",
+          flush=True)
+
+    wall = host_ms(lambda: (trainer.multi_step(batches, labels), torch.cuda.synchronize()),
+                   iters=3, warmup=1)
+    per_name = device_ms(lambda: (trainer.multi_step(batches, labels),
+                                  torch.cuda.synchronize()), iters=3)
+    busy = sum(per_name.values())
+    wall_ms = statistics.median(wall)
+    print(f"fused training K={K} call: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+          f"wall, idle share {1 - busy / wall_ms:.3f}; top device work of a step:",
+          flush=True)
+    for name, ms in per_name.most_common(12):
+        print(f"  {ms / K:.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer.train_step({k: v[0] for k, v in batches.items()}, labels[0])
+    top = collections.Counter(e.name for e in prof.events() if e.cpu_parent is None)
+    print(f"fused training: {sum(top.values())} top-level host ops in one step; most "
+          f"frequent {top.most_common(6)}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -189,6 +561,7 @@ def main() -> int:
 
     # --- phase 2: kernels against their plain versions ---------------------
     cross_err = check_cross_kernel(cross_fused, cross_network)
+    sparse_errs = check_sparse_rows()
 
     # --- phase 3: serving at full width ------------------------------------
     cols, X, _ = synthetic_criteo(n_rows=max(REQUESTS), vocab=100_000,
@@ -237,6 +610,12 @@ def main() -> int:
     print(f"serving check: {len(REQUESTS)} requests equal the plain forward on the "
           f"card and the CPU path (atol={ATOL}); score std {spread:.4f}", flush=True)
 
+    # --- phases 3b-3d: training at bench.py's width ----------------------
+    train_cols, batches, labels = staged_batches(range(K))
+    trainer, fused_launches, _ = train_fused(train_cols, batches, labels, card)
+    plain_launches = train_plain(train_cols, batches, labels)
+    card_against_cpu(train_cols, batches, labels)
+
     # --- phase 4: timings --------------------------------------------------
     with torch.inference_mode():
         batch = {k: torch.as_tensor(v, device="cuda")
@@ -283,6 +662,15 @@ def main() -> int:
     for name, ms in serve_dev.most_common(8):
         print(f"  {ms:.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
 
+    sparse_times = time_sparse_rows(card)
+    time_training(trainer, batches, labels, card)
+
+    sparse_rows = [
+        ("fused_adagrad_apply", "recommender_system_tpu/ops/fused_adagrad.py:156",
+         fused_launches["fused_adagrad_apply"]),
+        ("scatter_add_sorted", "recommender_system_tpu/ops/embedding_grad.py:51",
+         plain_launches["scatter_add_sorted"]),
+    ]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "cross_fused", "route": "cuda",
@@ -292,7 +680,12 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "call_ms": kernel_call, "plain_call_ms": plain_call,
-    }]}))
+    }] + [{
+        "name": name, "route": "cuda",
+        "source": "recommender_system_tpu_torch/csrc/sparse_rows.cu",
+        "replaces": replaces, "launches": count, "max_abs_err": sparse_errs[name],
+        **sparse_times[name],
+    } for name, replaces, count in sparse_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

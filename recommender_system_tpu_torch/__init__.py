@@ -6,10 +6,13 @@ on the card unless the caller names another device; kernels are written by
 hand in ``csrc/`` and built at first use (``ops/kernels.py``).
 
 Ported so far: DCN served through ``Scorer``, with the cross stack as a CUDA
-kernel.
+kernel; DeepFM trained through ``Trainer``, with the fused sparse Adagrad
+(``FusedAdagrad``) and the sorted scatter-add of the lookup's backward as
+CUDA kernels.
 """
 
-from .models import DCN
+from .models import DCN, DeepFM
 from .serving import Scorer
+from .training import FusedAdagrad, Trainer
 
-__all__ = ["DCN", "Scorer"]
+__all__ = ["DCN", "DeepFM", "FusedAdagrad", "Scorer", "Trainer"]

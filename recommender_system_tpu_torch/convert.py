@@ -14,10 +14,17 @@ port's parameter or buffer of the same path:
 
 It raises on a leaf with no counterpart, on a shape that disagrees, and on a
 port parameter or buffer that no leaf filled.
+
+``load_jax_opt_state(trainer, opt_state)`` carries a JAX ``Trainer``'s
+optimizer state into the port's ``Trainer`` (``training/harness.py``), so
+that a run started by the JAX package continues in the port: optax
+Adagrad's ``sum_of_squares`` and Adam's ``mu``, ``nu`` and ``count`` for the
+parameters the dense optimizer updates, and the fused optimizer's slots
+``{path: (acc,)}``, each unpacked like its table.
 """
 from __future__ import annotations
 
-from typing import Iterator, Mapping, Optional, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,30 +57,106 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
             yield prefix + (key,), np.asarray(value)
 
 
+def _port_name(path: Tuple[str, ...]) -> str:
+    return ".".join(path[:-1] + (_RENAMES.get(path[-1], path[-1]),))
+
+
+def _copy_leaf(path: Tuple[str, ...], value: np.ndarray, name: str,
+               target: torch.Tensor) -> None:
+    """Copy one JAX leaf into ``target``: a ``table_d*`` stack (or a state of
+    its shape) unpacked, a Dense kernel transposed, the shape checked."""
+    if path[-1].startswith("table_d"):
+        value = unpack_stack(value, target.shape[0], target.shape[1])
+    elif path[-1] == "kernel":
+        value = value.T
+    if tuple(value.shape) != tuple(target.shape):
+        raise ValueError(f"JAX variable {'/'.join(path)} has shape "
+                         f"{value.shape}, {name} has {tuple(target.shape)}")
+    with torch.no_grad():
+        target.copy_(torch.as_tensor(np.array(value), dtype=target.dtype))
+
+
 def load_jax_params(model: torch.nn.Module, params: Mapping,
                     batch_stats: Optional[Mapping] = None) -> torch.nn.Module:
     """Fill ``model`` from the JAX package's variables; returns ``model``."""
-    targets = dict(model.named_parameters())
-    targets.update(model.named_buffers())
+    # parameters and persistent buffers (not, e.g., sort layouts)
+    targets = dict(model.state_dict(keep_vars=True))
     unfilled = {k for k in targets if not k.endswith("num_batches_tracked")}
     leaves = list(_leaves(params)) + list(_leaves(batch_stats or {}))
     for path, value in leaves:
-        name = ".".join(path[:-1] + (_RENAMES.get(path[-1], path[-1]),))
+        name = _port_name(path)
         if name not in targets:
             raise KeyError(f"JAX variable {'/'.join(path)} has no counterpart "
                            f"{name!r} in {type(model).__name__}")
-        target = targets[name]
-        if path[-1].startswith("table_d"):
-            value = unpack_stack(value, target.shape[0], target.shape[1])
-        elif path[-1] == "kernel":
-            value = value.T
-        if tuple(value.shape) != tuple(target.shape):
-            raise ValueError(f"JAX variable {'/'.join(path)} has shape "
-                             f"{value.shape}, {name} has {tuple(target.shape)}")
-        with torch.no_grad():
-            target.copy_(torch.as_tensor(np.ascontiguousarray(value),
-                                         dtype=target.dtype))
+        _copy_leaf(path, value, name, targets[name])
         unfilled.discard(name)
     if unfilled:
         raise KeyError(f"no JAX variable for {sorted(unfilled)}")
     return model
+
+
+# optax state fields that the port's optimizers keep under the same name
+_OPT_FIELDS = ("sum_of_squares", "mu", "nu")
+
+
+def load_jax_opt_state(trainer, opt_state, step: Optional[int] = None):
+    """Fill ``trainer``'s optimizer state from a JAX ``Trainer``'s
+    ``TrainState.opt_state``; returns ``trainer``.
+
+    ``opt_state`` is the optax state of ``optax.adagrad`` or ``optax.adam``
+    (a tuple of named tuples), or, with a fused embedding optimizer, the pair
+    ``(optax state, {table path: (acc,)})``. Adam's ``count`` sets
+    ``trainer.step``; ``step`` (the JAX ``TrainState.step``) sets it where
+    given. Raises on a leaf that nothing in ``trainer`` takes, on a shape
+    that disagrees, and on a state tensor of ``trainer`` that no leaf filled.
+    """
+    targets: Dict[str, torch.Tensor] = {}
+    for pname, slots in trainer.opt_state.items():
+        for key, tensor in slots.items():
+            targets[f"{key}:{pname}"] = tensor
+    for pname, slots in trainer.fused_slots.items():
+        for i, tensor in enumerate(slots):
+            targets[f"slot{i}:{pname}"] = tensor
+    unfilled = set(targets)
+
+    def fill(key: str, path: Tuple[str, ...], value) -> None:
+        if key not in targets:
+            raise KeyError(f"JAX optimizer state {'/'.join(path)} has no "
+                           f"counterpart {key!r} in the Trainer")
+        _copy_leaf(path, np.asarray(value), key, targets[key])
+        unfilled.discard(key)
+
+    def walk(node) -> None:
+        fields = getattr(node, "_fields", None)
+        if fields is not None:  # an optax state (a named tuple)
+            for field in fields:
+                value = getattr(node, field)
+                if field == "count":
+                    trainer.step = int(np.asarray(value))
+                elif field in _OPT_FIELDS:
+                    for path, leaf in _leaves(value):
+                        fill(f"{field}:{_port_name(path)}",
+                             (field,) + path, leaf)
+                else:
+                    raise KeyError(f"optax state field {field!r} of "
+                                   f"{type(node).__name__} has no counterpart")
+        elif isinstance(node, Mapping):  # the fused slots {path: (acc,)}
+            for path, slots in node.items():
+                if not isinstance(path, tuple):
+                    raise KeyError(f"JAX optimizer state key {path!r} is not "
+                                   "a fused slot path")
+                for i, leaf in enumerate(slots):
+                    fill(f"slot{i}:{'.'.join(path)}", path, leaf)
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+        else:
+            raise KeyError(f"JAX optimizer state leaf of type "
+                           f"{type(node).__name__} has no counterpart")
+
+    walk(opt_state)
+    if unfilled:
+        raise KeyError(f"no JAX optimizer state for {sorted(unfilled)}")
+    if step is not None:
+        trainer.step = int(step)
+    return trainer

@@ -7,7 +7,9 @@ maps each Flax parameter onto its counterpart by name. Dense layers are
 ``nn.Linear`` (weight ``[out, in]``, the transpose of Flax's kernel).
 
 BatchNorm and Dice run on their running statistics (eval mode) only; their
-batch statistics in train mode come with the training slice of the port.
+batch statistics in train mode come with the sequence-model slice of the
+port. Dropout in train mode draws its mask from a ``torch.Generator`` that
+the caller passes to ``DNN.forward``, never from torch's global generator.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ def _require_eval(module: nn.Module) -> None:
     if module.training:
         raise NotImplementedError(
             f"{type(module).__name__} runs in eval mode only; train-mode batch "
-            "statistics come with the training slice of the port")
+            "statistics come with the sequence-model slice of the port")
 
 
 def glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -109,6 +111,21 @@ def activation_fn(name: Optional[str]) -> Callable:
     return table[name]
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax's ``nn.Dropout`` in train mode: keep each element with
+    probability ``1 - rate`` and scale it by ``1 / (1 - rate)``, the mask
+    drawn from ``generator``."""
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator: pass "
+                         "generator= to the forward")
+    keep_prob = 1.0 - rate
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(keep_prob,
+                                                          generator=generator)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.where(keep.bool(), x / keep_prob, zero)
+
+
 class DNN(nn.Module):
     """MLP tower with optional BN, dropout, parametric activations, linear head.
 
@@ -148,13 +165,15 @@ class DNN(nn.Module):
             elif activation == "prelu":
                 self.add_module(f"prelu_{i}", PReLU(units, device=device))
             width = units
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.out_features = width if output_dim is None else output_dim
         if output_dim is not None:
             self.output = dense(width, output_dim, device=device,
                                 generator=generator, init=glorot_uniform_)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout masks in train mode; it must lie
+        on ``x``'s device. Eval mode, or a rate of 0, ignores it."""
         for i in range(len(self.hidden_units)):
             layer = getattr(self, f"dense_{i}")
             if self.dtype is None:
@@ -172,7 +191,8 @@ class DNN(nn.Module):
                 x = getattr(self, f"prelu_{i}")(x)
             else:
                 x = self._act(x)
-            x = self.dropout(x)
+            if self.training and self.dropout_rate > 0.0:
+                x = dropout(x, self.dropout_rate, generator)
         if self.output_dim is not None:
             x = self._out_act(self.output(x.to(torch.float32)))
         return x.to(torch.float32)

@@ -11,15 +11,24 @@ Supported here: shared tables via ``embedding_name``, ``use_hash`` (murmur
 hash into the vocab), ``trainable=False`` (detached lookup), per-table init
 std, dense columns with ``transform_fn``. Variable-length columns and their
 pooling come with the sequence-model slice of the port.
+
+The gather is ``take_fast``, whose backward is the sorted scatter-add kernel.
+For the fused sparse optimizer the Trainer sets ``capture`` to a list
+instead (the JAX package's perturb and sow hooks): each gather then reads the
+detached table, makes its ``[B, F, d]`` output a leaf that requires grad,
+and appends a ``Captured`` record, so that after ``backward()`` the leaf's
+``.grad`` is the lookup's cotangent, beside its rows and sorted stream.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..ops.embedding_grad import take_fast
+from ..ops.stream_sort import SortLayout
 from ..utils.features import (DenseFeat, FeatureColumn, SparseFeat,
                               VarLenSparseFeat, split_columns)
 from ..utils.hashing import hash_ids
@@ -100,6 +109,19 @@ class EmbedOutputs:
         return torch.cat(parts, dim=-1) if parts else None
 
 
+@dataclasses.dataclass
+class Captured:
+    """One gather in capture mode: ``embeds`` is the ``[B, F, d]`` leaf whose
+    ``.grad`` is the cotangent after ``backward()``, ``rows`` its ``[B*F]``
+    rows of ``table`` (the collection's ``table_d{d}``), ``presorted`` their
+    sorted stream from ``blocked_sort`` or None."""
+
+    table: str
+    embeds: torch.Tensor
+    rows: torch.Tensor
+    presorted: Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
 class EmbeddingCollection(nn.Module):
     """The fused lookup front end (see module docstring).
 
@@ -127,6 +149,19 @@ class EmbeddingCollection(nn.Module):
                                 device=generator.device).to(device)
             self.register_parameter(f"table_d{dim}",
                                     nn.Parameter(table * std.to(device)))
+        # single-valued columns by dim group, in column order, and each
+        # group's blocked_sort layout (absent: the generic sort)
+        self._by_dim: Dict[int, List[SparseFeat]] = {}
+        for fc in sparse:
+            self._by_dim.setdefault(fc.embedding_dim, []).append(fc)
+        self.sort_layouts = nn.ModuleDict()
+        for dim, fcs in self._by_dim.items():
+            specs = [self._specs[dim][fc.embedding_name] for fc in fcs]
+            layout = SortLayout.of([(s.offset, s.vocab) for s in specs])
+            if layout is not None:
+                self.sort_layouts[str(dim)] = layout.to(device)
+        # capture mode: None, or the list the gathers append to
+        self.capture: Optional[List[Captured]] = None
 
     @property
     def output_dim(self) -> int:
@@ -148,18 +183,36 @@ class EmbeddingCollection(nn.Module):
         ids = ids.to(torch.int64).clamp(0, spec.vocab - 1)
         return ids + spec.offset
 
+    def _presort(self, dim: int,
+                 rows: torch.Tensor) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """The dim group's ``[B, F]`` rows as a sorted stream, or None."""
+        key = str(dim)
+        return self.sort_layouts[key](rows) if key in self.sort_layouts else None
+
+    def _gather(self, dim: int, rows: torch.Tensor) -> torch.Tensor:
+        """``[B, F]`` rows -> ``[B, F, d]``: captured, or through ``take_fast``."""
+        table = self.table(dim)
+        flat = rows.reshape(-1)
+        shape = (*rows.shape, dim)
+        if self.capture is not None:
+            embeds = table.detach().index_select(0, flat).reshape(shape)
+            embeds.requires_grad_(True)
+            self.capture.append(Captured(f"table_d{dim}", embeds, flat,
+                                         self._presort(dim, rows)))
+            return embeds
+        presorted = (self._presort(dim, rows)
+                     if torch.is_grad_enabled() and table.requires_grad else None)
+        return take_fast(table, flat, presorted).reshape(shape)
+
     def forward(self, batch: Mapping[str, torch.Tensor]) -> EmbedOutputs:
         # --- fused single-valued sparse lookup: one gather per dim group ---
         sparse: Dict[str, torch.Tensor] = {}
         fused: Dict[int, Tuple[Tuple[str, ...], torch.Tensor]] = {}
-        by_dim: Dict[int, list] = {}
-        for fc in self._sparse_cols:
-            by_dim.setdefault(fc.embedding_dim, []).append(fc)
-        for dim, fcs in by_dim.items():
+        for dim, fcs in self._by_dim.items():
             rows = torch.stack(
                 [self._resolve_ids(fc, batch[fc.name].reshape(-1)) for fc in fcs],
                 dim=1)  # [B, F]
-            embeds = self.table(dim)[rows]  # [B, F, d]
+            embeds = self._gather(dim, rows)  # [B, F, d]
             if all(fc.trainable for fc in fcs):
                 fused[dim] = (tuple(fc.name for fc in fcs), embeds)
             for i, fc in enumerate(fcs):
@@ -180,3 +233,49 @@ class EmbeddingCollection(nn.Module):
             dense = torch.cat(parts, dim=-1)
 
         return EmbedOutputs(sparse, dense, fused)
+
+
+class UnifiedEmbedding(nn.Module):
+    """Embedding collection with the first-order (linear) weight fused in
+    (counterpart of the JAX package's ``UnifiedEmbedding``).
+
+    Each id's row stores ``[v_1..v_d, w]``, the factor vector and its linear
+    weight, in one ``table_d{d+1}`` of ``embeddings``, so one gather serves
+    both. ``dense_w [n_dense, 1]`` (normal, std 1e-4) weighs the dense
+    columns and ``bias`` is the global bias.
+
+    ``forward(batch) -> (EmbedOutputs with d-wide embeddings, linear [B, 1])``.
+    """
+
+    def __init__(self, feature_columns: Sequence[FeatureColumn], *,
+                 device: torch.device, generator: torch.Generator):
+        super().__init__()
+        sparse, varlen, dense = split_columns(tuple(feature_columns))
+        aug = [dataclasses.replace(fc, embedding_dim=fc.embedding_dim + 1)
+               for fc in sparse] + list(varlen) + list(dense)
+        self.embeddings = EmbeddingCollection(aug, device=device, generator=generator)
+        n_dense = sum(fc.dimension for fc in dense)
+        self.dense_w = (nn.Parameter(
+            (torch.randn(n_dense, 1, generator=generator, device=generator.device)
+             * 1e-4).to(device)) if n_dense else None)
+        self.bias = nn.Parameter(torch.zeros(1, device=device))
+
+    def forward(self, batch: Mapping[str, torch.Tensor]):
+        out = self.embeddings(batch)
+        first = next(iter(batch.values()))
+        linear = torch.zeros(first.shape[0], 1, device=first.device)
+        fused: Dict[int, Tuple[Tuple[str, ...], torch.Tensor]] = {}
+        fused_names = set()
+        for dim, (names, arr) in out.fused.items():
+            # one reduction over the fused [B, F, d+1] group
+            linear = linear + arr[..., -1].sum(dim=1, keepdim=True)
+            fused[dim - 1] = (names, arr[..., :-1])
+            fused_names.update(names)
+        for n, v in out.sparse.items():
+            if n not in fused_names:
+                linear = linear + v[..., -1:]
+        sparse = {n: v[..., :-1] for n, v in out.sparse.items()}
+        if out.dense is not None:
+            linear = linear + out.dense @ self.dense_w
+        linear = linear + self.bias
+        return EmbedOutputs(sparse, out.dense, fused), linear

@@ -1,1 +1,2 @@
 from .dcn import DCN
+from .deepfm import DeepFM

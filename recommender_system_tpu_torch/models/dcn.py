@@ -43,8 +43,9 @@ class DCN(nn.Module):
         self.head = dense(width + self.deep.out_features, 1, device=device,
                           generator=generator)
 
-    def forward(self, batch):
+    def forward(self, batch, generator: Optional[torch.Generator] = None):
+        """``generator`` draws the deep tower's dropout masks in train mode."""
         x0 = self.embeddings(batch).concat_flat()
         cross_out = self.cross(x0)
-        deep_out = self.deep(x0)
+        deep_out = self.deep(x0, generator=generator)
         return self.head(torch.cat([cross_out, deep_out], dim=-1))

@@ -9,6 +9,9 @@ module is imported.
 Wrappers (see ``ops/dispatch.py``): a CUDA tensor launches the kernel, a CPU
 tensor runs the kernel's plain version. Each wrapper counts its launches in
 an integer attribute, ``<wrapper>.launches``, which only a launch raises.
+The wrappers of ``csrc/sparse_rows.cu`` are ``fused_adagrad_apply``
+(``ops/fused_adagrad.py``) and ``scatter_add_sorted``
+(``ops/embedding_grad.py``); this module launches their kernels.
 """
 from __future__ import annotations
 
@@ -29,10 +32,15 @@ _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "build"
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_INT64, _FLOAT = ctypes.c_longlong, ctypes.c_float
 # source name -> {C function: (argument types, return type)}; every pointer
 # and the stream as c_void_p, or ctypes would pass a 32-bit int
 SOURCES = {
     "cross": {"cross_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT)},
+    "sparse_rows": {
+        "fused_adagrad_rows": ([_PTR] * 5 + [_INT64, _INT, _FLOAT, _FLOAT, _PTR], _INT),
+        "scatter_add_rows": ([_PTR] * 4 + [_INT64, _INT, _PTR], _INT),
+    },
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -175,3 +183,71 @@ def cross_fused(x0: torch.Tensor, weights: torch.Tensor,
 
 
 cross_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Row updates from a sorted id stream (csrc/sparse_rows.cu)
+# ---------------------------------------------------------------------------
+
+def check_sparse_rows_args(slid: torch.Tensor, order: torch.Tensor,
+                           ct: torch.Tensor, *rows: torch.Tensor) -> None:
+    """Raise on anything the sparse row kernels do not take: ``slid`` and
+    ``order`` int64 ``[N]``, ``ct`` float32 ``[N, dim]``, each table float32
+    ``[rows, dim]``, all contiguous. The ids are not checked against the
+    table's rows, which would need the host to read them: the lookup clamps
+    them."""
+    for t, what in ((slid, "slid"), (order, "order")):
+        if t.dtype != torch.int64 or t.dim() != 1:
+            raise TypeError(f"sparse row kernels take {what} as int64 [N], got "
+                            f"{t.dtype} {tuple(t.shape)}")
+    if ct.dtype != torch.float32 or ct.dim() != 2:
+        raise TypeError(f"sparse row kernels take ct as float32 [N, dim], got "
+                        f"{ct.dtype} {tuple(ct.shape)}")
+    if not slid.shape == order.shape == ct.shape[:1]:
+        raise ValueError(f"stream lengths differ: slid {tuple(slid.shape)}, order "
+                         f"{tuple(order.shape)}, ct {tuple(ct.shape)}")
+    for t in rows:
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != ct.shape[1]:
+            raise ValueError(f"sparse row kernels take float32 [rows, {ct.shape[1]}] "
+                             f"tables, got {t.dtype} {tuple(t.shape)}")
+        if t.shape != rows[0].shape:
+            raise ValueError(f"tables differ in shape: {[tuple(r.shape) for r in rows]}")
+    for t in (slid, order, ct, *rows):
+        if not t.is_contiguous():
+            raise ValueError("sparse row kernels take contiguous tensors")
+    if ct.shape[1] == 0 or ct.numel() >= 2 ** 62:
+        raise ValueError(f"sparse row kernels take 0 < dim and N*dim < 2**62, "
+                         f"got ct {tuple(ct.shape)}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch_fused_adagrad(param: torch.Tensor, acc: torch.Tensor,
+                         slid: torch.Tensor, order: torch.Tensor,
+                         ct: torch.Tensor, lr: float, eps: float) -> None:
+    """``fused_adagrad_rows`` on CUDA tensors, in place on ``param`` and
+    ``acc``; raises if the launch fails."""
+    check_sparse_rows_args(slid, order, ct, param, acc)
+    lib = _library("sparse_rows")
+    with torch.cuda.device(param.device):
+        err = lib.fused_adagrad_rows(slid.data_ptr(), order.data_ptr(), ct.data_ptr(),
+                                     param.data_ptr(), acc.data_ptr(), slid.shape[0],
+                                     ct.shape[1], lr, eps, _stream(param))
+    if err != 0:
+        raise RuntimeError(f"fused_adagrad_rows launch failed with CUDA error {err}")
+
+
+def launch_scatter_add(out: torch.Tensor, slid: torch.Tensor,
+                       order: torch.Tensor, ct: torch.Tensor) -> None:
+    """``scatter_add_rows`` on CUDA tensors into the zero-filled ``out``;
+    raises if the launch fails."""
+    check_sparse_rows_args(slid, order, ct, out)
+    lib = _library("sparse_rows")
+    with torch.cuda.device(out.device):
+        err = lib.scatter_add_rows(slid.data_ptr(), order.data_ptr(), ct.data_ptr(),
+                                   out.data_ptr(), slid.shape[0], ct.shape[1],
+                                   _stream(out))
+    if err != 0:
+        raise RuntimeError(f"scatter_add_rows launch failed with CUDA error {err}")

@@ -1,0 +1,269 @@
+"""Training and evaluation driver (counterpart of
+``recommender_system_tpu/training/harness.py``).
+
+``Trainer`` trains a model of the port on the card (or on the CPU when told)
+with a dense optimizer (``training/optim.py``) and, optionally, the fused
+sparse embedding optimizer ``FusedAdagrad``:
+
+- plain step: autograd gives every parameter its gradient, the tables'
+  through ``take_fast``'s backward (the sorted scatter-add kernel), and the
+  dense optimizer updates them all;
+- fused step: the embedding collections run in capture mode, so the tables
+  never enter autograd; after ``backward()`` each table's captured lookups
+  (one stream per ``table_d{d}``, its sites concatenated) go straight into
+  ``fused_adagrad_apply``, which updates the touched rows in place.
+
+Neither step reads a device value on the host, so a ``multi_step`` call of
+K steps over batches already on the device runs without a synchronisation.
+Unlike the JAX package's pure ``TrainState``, the parameters live in the
+model and the optimizer state in the Trainer, both updated in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+import time
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..layers.embedding import EmbeddingCollection
+from ..ops.dispatch import DeviceLike, resolve_device
+from ..ops.fused_adagrad import fused_adagrad_apply
+from ..utils import metrics as metrics_lib
+from ..utils.datasets import iter_batches, pad_to_batch
+from .losses import bce_with_logits
+from .optim import Adam, LearningRate, learning_rate_at
+
+_STACK_KEY_RE = re.compile(r"^table_d(\d+)$")
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedAdagrad:
+    """The fused sparse embedding optimizer: Adagrad on the touched rows of
+    each ``table_d{d}``, in place (``ops/fused_adagrad.py``). Matches
+    ``optax.adagrad`` on the dense scatter-added gradient.
+    ``learning_rate`` is a float or a callable of the step."""
+
+    learning_rate: LearningRate = 0.05
+    eps: float = 1e-7
+    initial_accumulator_value: float = 0.1
+
+    def init_slots(self, table: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return (torch.full_like(table, self.initial_accumulator_value,
+                                requires_grad=False),)
+
+    def apply(self, table: torch.Tensor, slots: Tuple[torch.Tensor, ...],
+              lids: torch.Tensor, ct: torch.Tensor, *, step: int,
+              presorted: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
+        fused_adagrad_apply(table, slots[0], lids, ct,
+                            lr=learning_rate_at(self.learning_rate, step),
+                            eps=self.eps, presorted=presorted)
+
+
+class Trainer:
+    """Train, predict and evaluate a model of the port.
+
+    >>> trainer = Trainer(model, Adagrad(0.05), fused_embedding=FusedAdagrad(0.05))
+    >>> losses = trainer.multi_step(batches, labels)   # K steps, on the device
+    >>> history = trainer.fit(X, y, batch_size=16384, steps_per_call=8)
+    >>> trainer.evaluate(X_test, y_test)               # {"auc", "logloss", "accuracy"}
+
+    The model must lie on ``device`` (the card unless another device is
+    named) and return one logit per row; the loss is ``bce_with_logits``
+    (multi-task and auxiliary losses come with later slices). ``optimizer`` (default ``Adam(1e-3)``, as the JAX package's)
+    updates the dense parameters, and the tables too when
+    ``fused_embedding`` is None. ``generator`` (default: seeded with
+    ``seed`` on the device) draws dropout masks; ``seed`` also seeds
+    ``fit``'s shuffling. ``mesh``, ``capacity_factor`` and
+    ``explicit_lookup`` come with the distributed slice of the port.
+    """
+
+    def __init__(self, model: torch.nn.Module, optimizer=None,
+                 fused_embedding: Optional[FusedAdagrad] = None, seed: int = 0,
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None, *, mesh=None,
+                 capacity_factor: Optional[float] = None,
+                 explicit_lookup: bool = False):
+        for name, given in (("mesh", mesh is not None),
+                            ("capacity_factor", capacity_factor is not None),
+                            ("explicit_lookup", explicit_lookup)):
+            if given:
+                raise NotImplementedError(
+                    f"{name} comes with the distributed slice of the port")
+        requested = resolve_device(device)
+        devices = {p.device for p in model.parameters()}
+        if len(devices) != 1:
+            raise ValueError(f"model spread over devices {sorted(map(str, devices))}")
+        (model_device,) = devices
+        if (model_device.type != requested.type
+                or requested.index not in (None, model_device.index)):
+            raise ValueError(f"model lies on {model_device}, Trainer trains on {requested}")
+        self.device = model_device
+        self.model = model
+        self.optimizer = optimizer if optimizer is not None else Adam(1e-3)
+        self.fused_embedding = fused_embedding
+        self.seed = seed
+        self.generator = (generator if generator is not None
+                          else torch.Generator(device=self.device).manual_seed(seed))
+        self._collections = [(prefix, m) for prefix, m in model.named_modules()
+                             if isinstance(m, EmbeddingCollection)]
+        self.init()
+
+    def init(self) -> "Trainer":
+        """(Re)start the optimizer state and the step count from the model's
+        current parameters."""
+        params = dict(self.model.named_parameters())
+        tables = {}
+        if self.fused_embedding is not None:
+            tables = {n: p for n, p in params.items()
+                      if _STACK_KEY_RE.match(n.rsplit(".", 1)[-1])}
+            if not tables:
+                raise ValueError("fused_embedding set but the model has no "
+                                 "embedding tables (table_d* parameters)")
+        self.tables: Dict[str, torch.nn.Parameter] = tables
+        self.dense_params = {n: p for n, p in params.items() if n not in tables}
+        self.opt_state = self.optimizer.init(self.dense_params)
+        self.fused_slots = {n: self.fused_embedding.init_slots(p.detach())
+                            for n, p in tables.items()}
+        self.step = 0
+        return self
+
+    # ------------------------------------------------------------------
+    def train_step(self, batch: Mapping[str, torch.Tensor],
+                   labels: torch.Tensor) -> torch.Tensor:
+        """One step on a batch on the model's device; returns the loss as a
+        0-d tensor on the device."""
+        fused = self.fused_embedding is not None
+        self.model.train()
+        for p in self.model.parameters():
+            p.grad = None
+        try:
+            if fused:
+                for _, coll in self._collections:
+                    coll.capture = []
+            logits = self.model(batch, generator=self.generator)
+            loss = bce_with_logits(logits, labels)
+            loss.backward()
+            captured = [(prefix, coll.capture or []) for prefix, coll in self._collections]
+        finally:
+            for _, coll in self._collections:
+                coll.capture = None
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in self.dense_params.items()}
+        self.optimizer.update(self.dense_params, grads, self.opt_state, self.step)
+        if fused:
+            self._fused_update(captured)
+        self.step += 1
+        return loss.detach()
+
+    def _fused_update(self, captured) -> None:
+        """One stream per table: its captured sites concatenated, presorted
+        when there is one site."""
+        sites: Dict[str, list] = {}
+        for prefix, records in captured:
+            for rec in records:
+                if rec.embeds.grad is not None:
+                    name = f"{prefix}.{rec.table}" if prefix else rec.table
+                    sites.setdefault(name, []).append(rec)
+        for name, table in self.tables.items():
+            recs = sites.get(name)
+            if not recs:
+                continue
+            dim = table.shape[1]
+            lids = torch.cat([r.rows for r in recs])
+            ct = torch.cat([r.embeds.grad.reshape(-1, dim) for r in recs]).contiguous()
+            presorted = recs[0].presorted if len(recs) == 1 else None
+            self.fused_embedding.apply(table.detach(), self.fused_slots[name], lids, ct,
+                                       step=self.step, presorted=presorted)
+
+    def multi_step(self, batches: Mapping[str, torch.Tensor],
+                   labels: torch.Tensor) -> torch.Tensor:
+        """K steps over batches already on the device, stacked on a leading
+        axis (``[K, B, ...]`` leaves, labels ``[K, B]``); returns the K
+        losses as a ``[K]`` tensor on the device."""
+        losses = [self.train_step({k: v[i] for k, v in batches.items()}, labels[i])
+                  for i in range(labels.shape[0])]
+        return torch.stack(losses)
+
+    def _to_device(self, xb: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v, device=self.device) for k, v in xb.items()}
+
+    def fit(self, X: Mapping[str, np.ndarray], y: np.ndarray, batch_size: int = 256,
+            epochs: int = 1, shuffle: bool = True, steps_per_call: int = 1):
+        """Train; returns a history with each epoch's mean loss and examples/s.
+        Batches go to the device in groups of ``steps_per_call``, each group
+        one ``multi_step`` call (the last group may be shorter)."""
+        history = {"loss": [], "examples_per_sec": []}
+        for epoch in range(epochs):
+            losses, group = [], []
+            n_examples = 0
+            t0 = time.perf_counter()
+            batches = iter_batches(X, y, batch_size, shuffle=shuffle, seed=self.seed + epoch)
+            for i, (xb, yb) in enumerate(batches, start=1):
+                group.append((self._to_device(xb),
+                              torch.as_tensor(yb, dtype=torch.float32, device=self.device)))
+                n_examples += len(yb)
+                if len(group) == steps_per_call:
+                    losses.append(self._run_group(group))
+                    group = []
+            if group:
+                losses.append(self._run_group(group))
+            # reading the mean waits for the last step
+            epoch_loss = float(torch.cat(losses).mean()) if losses else 0.0
+            history["loss"].append(epoch_loss)
+            history["examples_per_sec"].append(n_examples / (time.perf_counter() - t0))
+        return history
+
+    def _run_group(self, group) -> torch.Tensor:
+        batches = {k: torch.stack([xb[k] for xb, _ in group]) for k in group[0][0]}
+        return self.multi_step(batches, torch.stack([yb for _, yb in group]))
+
+    # ------------------------------------------------------------------
+    def _eval_logits(self, xb: Mapping[str, np.ndarray]) -> np.ndarray:
+        return self.model(self._to_device(xb)).cpu().numpy()
+
+    def predict(self, X: Mapping[str, np.ndarray], batch_size: int = 1024,
+                apply_sigmoid: bool = True) -> np.ndarray:
+        self.model.eval()
+        X, _, valid = pad_to_batch(X, None, batch_size)
+        with torch.inference_mode():
+            outs = [self._eval_logits(xb) for xb in
+                    iter_batches(X, None, batch_size, shuffle=False, drop_remainder=False)]
+        preds = np.concatenate(outs, axis=0)[valid]
+        if apply_sigmoid:
+            preds = 1.0 / (1.0 + np.exp(-preds))
+        return preds
+
+    def evaluate(self, X: Mapping[str, np.ndarray], y: np.ndarray,
+                 batch_size: int = 1024, streaming: bool = False) -> Dict[str, float]:
+        """Test metrics. ``streaming=True`` accumulates the histogram AUC,
+        logloss and accuracy batch by batch; otherwise the AUC is exact."""
+        if streaming:
+            return self.evaluate_stream(iter_batches(X, y, batch_size, shuffle=False,
+                                                     drop_remainder=False))
+        probs = self.predict(X, batch_size)[:, 0]
+        return {"auc": metrics_lib.auc(y, probs),
+                "logloss": metrics_lib.logloss(y, probs),
+                "accuracy": metrics_lib.accuracy(y, probs)}
+
+    def evaluate_stream(self, batches) -> Dict[str, float]:
+        """Streaming metrics over a ``(batch_dict, labels)`` iterator."""
+        self.model.eval()
+        stream = metrics_lib.StreamingAUC()
+        ll_sum = 0.0
+        correct = 0
+        n = 0
+        with torch.inference_mode():
+            for xb, yb in batches:
+                logits = self._eval_logits(xb).ravel()
+                yb = np.asarray(yb)
+                probs = 1.0 / (1.0 + np.exp(-logits))
+                stream.update(yb, probs)
+                p = np.clip(probs, 1e-7, 1 - 1e-7)
+                ll_sum += float(-(yb * np.log(p) + (1 - yb) * np.log(1 - p)).sum())
+                correct += int(((probs >= 0.5) == (yb > 0.5)).sum())
+                n += len(yb)
+        return {"auc": stream.result(), "logloss": ll_sum / max(n, 1),
+                "accuracy": correct / max(n, 1)}

@@ -1,0 +1,337 @@
+"""The port's sorted id streams and sparse row updates (``ops/stream_sort.py``,
+``ops/fused_adagrad.py``, ``ops/embedding_grad.py``) against the JAX
+package's: ``blocked_sort``, the plain references, and the Pallas kernels in
+interpret mode. On the CPU the wrappers run their plain versions."""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from recommender_system_tpu.layers.embedding import unpack_stack as j_unpack_stack
+from recommender_system_tpu.ops.embedding_grad import scatter_add_dense as j_scatter_add_dense
+from recommender_system_tpu.ops.embedding_grad import scatter_add_dense_ref as j_scatter_ref
+from recommender_system_tpu.ops.fused_adagrad import fused_adagrad_apply as j_fused_adagrad_apply
+from recommender_system_tpu.ops.fused_adagrad import fused_adagrad_ref as j_fused_adagrad_ref
+from recommender_system_tpu.ops.stream_sort import blocked_sort as j_blocked_sort
+from recommender_system_tpu_torch.convert import unpack_stack
+from recommender_system_tpu_torch.ops.embedding_grad import (
+    scatter_add_dense_ref, scatter_add_sorted, take_fast)
+from recommender_system_tpu_torch.ops.fused_adagrad import (
+    fused_adagrad_apply, fused_adagrad_ref)
+from recommender_system_tpu_torch.ops.kernels import check_sparse_rows_args
+from recommender_system_tpu_torch.ops.stream_sort import blocked_sort, sort_ids
+
+LR, EPS = 0.05, 1e-7
+# the same f32 operations in the same order on both sides: only XLA's and
+# PyTorch's rsqrt may differ, by an ulp
+REF_RTOL, REF_ATOL = 1e-6, 1e-7
+# against the Pallas kernels: both sides sum the same bf16-rounded
+# cotangents in f32, in another order (one-hot matrix products)
+KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
+
+
+# every JAX function is jitted, as the JAX package's own tests call them:
+# run op by op, each call would compile its operations one at a time
+_j_blocked_sort = jax.jit(j_blocked_sort, static_argnums=(1,))
+
+
+def _j_sort(rows, ranges):
+    return _j_blocked_sort(jnp.asarray(rows), tuple(map(tuple, ranges)))
+
+
+# ------------------------------------------------------------ blocked_sort
+
+def _rows(ranges, B, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([o + rng.integers(0, v, B) for o, v in ranges], axis=1)
+
+
+SORT_CASES = {
+    "disjoint": ([(0, 100), (100, 37), (137, 250)], 64),
+    "unsorted_offsets": ([(137, 250), (0, 100), (100, 37)], 64),
+    "packed_row_neighbours": ([(0, 13), (13, 29), (42, 5)], 32),
+    "shared_tables": ([(0, 50), (50, 20), (0, 50), (50, 20)], 48),
+    "one_column": ([(7, 900)], 257),
+    "bench_layout": ([(f * 1000, 1000) for f in range(26)], 256),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SORT_CASES))
+def test_blocked_sort_matches_jax(case):
+    ranges, B = SORT_CASES[case]
+    rows = _rows(ranges, B, seed=len(case))
+    want = _j_sort(rows, ranges)
+    got = blocked_sort(torch.from_numpy(rows), ranges)
+    assert want is not None and got is not None
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    slid, order = got
+    np.testing.assert_array_equal(slid.numpy(), rows.reshape(-1)[order.numpy()])
+
+
+def test_blocked_sort_one_dimensional_ids():
+    ids = 7 + np.random.default_rng(3).integers(0, 900, 257)
+    want = _j_sort(ids, [(7, 900)])
+    got = blocked_sort(torch.from_numpy(ids), [(7, 900)])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("ranges", [[(0, 10), (5, 10)], [(0, 10), (0, 10), (10, 10)]],
+                         ids=["partial_overlap", "ragged_groups"])
+def test_blocked_sort_refuses_like_jax(ranges):
+    rows = _rows(ranges, 8, seed=4)
+    assert _j_sort(rows, ranges) is None
+    assert blocked_sort(torch.from_numpy(rows), ranges) is None
+
+
+def test_blocked_sort_past_int31_equals_stable_sort():
+    # 22 id bits + 11 index bits: over JAX's int31 budget, inside int64's
+    ranges = [(0, 2 ** 22), (2 ** 22, 2 ** 22)]
+    rows = _rows(ranges, 1024, seed=5)
+    rows[:40, 0] = rows[0, 0]  # duplicates: the order among them must be stable
+    assert _j_sort(rows, ranges) is None
+    slid, order = blocked_sort(torch.from_numpy(rows), ranges)
+    want_slid, want_order = sort_ids(torch.from_numpy(rows))
+    torch.testing.assert_close(slid, want_slid, rtol=0, atol=0)
+    torch.testing.assert_close(order, want_order, rtol=0, atol=0)
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.argsort(rows.reshape(-1), kind="stable"))
+
+
+def test_embedding_collection_keeps_its_sort_layout():
+    """The lookup's layout is built once, with the collection: its tensors
+    are buffers that ``.to()`` moves and ``state_dict`` leaves out, and its
+    sort equals ``blocked_sort`` of the same rows."""
+    from recommender_system_tpu_torch.layers.embedding import EmbeddingCollection
+    from recommender_system_tpu_torch.utils.features import SparseFeat
+
+    cols = [SparseFeat(f"C{i}", vocabulary_size=v, embedding_dim=4)
+            for i, v in enumerate([40, 25, 35])]
+    coll = EmbeddingCollection(cols, device=torch.device("cpu"),
+                               generator=torch.Generator().manual_seed(0))
+    assert set(coll.state_dict()) == {"table_d4"}
+    assert {n for n, _ in coll.named_buffers()} == {
+        "sort_layouts.4.offsets", "sort_layouts.4.cols"}
+    ranges = [(0, 40), (40, 25), (65, 35)]
+    rows = torch.from_numpy(_rows(ranges, 64, seed=8))
+    for got, want in zip(coll._presort(4, rows), blocked_sort(rows, ranges)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    coll.to("meta")
+    assert {b.device.type for b in coll.buffers()} == {"meta"}
+
+
+# ------------------------------------------------- plain references vs JAX
+
+def _stream(rows, n, dim, seed, hot=None):
+    rng = np.random.default_rng(seed)
+    lids = rng.integers(0, rows, n).astype(np.int32)
+    if hot is not None:
+        lids[::2] = hot  # half the stream on one row
+    ct = rng.normal(size=(n, dim)).astype(np.float32)
+    return lids, ct
+
+
+REF_CASES = {
+    # (pack, dim, physical rows, N, hot row)
+    "unpacked_d128": (1, 128, 64, 300, None),
+    "unpacked_d8": (1, 8, 100, 513, None),
+    "packed_d9": (14, 9, 128, 513, None),
+    "packed_d8": (16, 8, 64, 700, None),
+    "hot_row": (14, 9, 64, 1000, 5),
+}
+
+
+def _jax_table(pack, dim, rows_phys, seed):
+    rng = np.random.default_rng(seed)
+    lanes = 128 if pack > 1 else dim
+    stack = rng.normal(size=(rows_phys, lanes)).astype(np.float32)
+    acc = (0.1 + rng.uniform(size=(rows_phys, lanes))).astype(np.float32)
+    return stack, acc
+
+
+@pytest.mark.parametrize("case", sorted(REF_CASES))
+def test_fused_adagrad_ref_matches_jax(case):
+    pack, dim, rows_phys, n, hot = REF_CASES[case]
+    stack, acc = _jax_table(pack, dim, rows_phys, seed=1)
+    rows = rows_phys * pack
+    lids, ct = _stream(rows, n, dim, seed=2, hot=hot)
+    want_s, want_a = jax.jit(functools.partial(
+        j_fused_adagrad_ref, pack=pack, dim=dim, lr=LR, eps=EPS))(
+            jnp.asarray(stack), jnp.asarray(acc), jnp.asarray(lids), jnp.asarray(ct))
+    table = torch.from_numpy(unpack_stack(stack, rows, dim).copy())
+    table_acc = torch.from_numpy(unpack_stack(acc, rows, dim).copy())
+    got_t, got_a = fused_adagrad_ref(table, table_acc, torch.from_numpy(lids).long(),
+                                     torch.from_numpy(ct), LR, EPS)
+    np.testing.assert_allclose(got_t.numpy(), unpack_stack(np.asarray(want_s), rows, dim),
+                               rtol=REF_RTOL, atol=REF_ATOL)
+    np.testing.assert_allclose(got_a.numpy(), unpack_stack(np.asarray(want_a), rows, dim),
+                               rtol=REF_RTOL, atol=REF_ATOL)
+    untouched = np.setdiff1d(np.arange(rows), lids)
+    np.testing.assert_array_equal(got_t.numpy()[untouched], table.numpy()[untouched])
+    np.testing.assert_array_equal(got_a.numpy()[untouched], table_acc.numpy()[untouched])
+
+
+def test_fused_adagrad_sums_duplicates_before_squaring():
+    table, acc = torch.zeros(8, 4), torch.zeros(8, 4)
+    lids = torch.tensor([3, 3, 3])
+    fused_adagrad_apply(table, acc, lids, torch.ones(3, 4), lr=1.0)
+    # g = 3 -> acc = 9, p = -3 / sqrt(9 + eps)
+    torch.testing.assert_close(acc[3], torch.full((4,), 9.0), rtol=0, atol=0)
+    torch.testing.assert_close(table[3], torch.full((4,), -3 / np.sqrt(9 + 1e-7),
+                                                    dtype=torch.float32))
+    assert torch.equal(table[[0, 1, 2, 4, 5, 6, 7]], torch.zeros(7, 4))
+
+
+@pytest.mark.parametrize("N,rows,dim", [(1000, 64, 8), (513, 1000, 128), (4096, 300, 9),
+                                        (1, 50, 9)])
+def test_scatter_add_ref_matches_jax(N, rows, dim):
+    lids, ct = _stream(rows, N, dim, seed=N)
+    want = jax.jit(j_scatter_ref, static_argnums=(2,))(jnp.asarray(lids), jnp.asarray(ct),
+                                                       rows)
+    got = scatter_add_dense_ref(torch.from_numpy(lids).long(), torch.from_numpy(ct), rows)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=REF_RTOL, atol=REF_ATOL)
+
+
+# ------------------------------------------ wrappers vs the Pallas kernels
+
+_j_scatter_add_dense = jax.jit(
+    lambda ids, g, rows: j_scatter_add_dense(ids, g, rows, tile_rows=128, chunk=256),
+    static_argnums=(2,))
+
+
+def _bf16(a):
+    return np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_adagrad(case):
+    """The case's inputs and the Pallas kernel's result (interpret mode)."""
+    pack, dim, rows_phys, n, hot = REF_CASES[case]
+    stack, acc = _jax_table(pack, dim, rows_phys, seed=3)
+    lids, ct = _stream(rows_phys * pack, n, dim, seed=4, hot=hot)
+    # the Pallas kernel rounds the cotangents to bf16; round both sides
+    ct = _bf16(ct)
+    want = jax.jit(lambda s, a, i, c: j_fused_adagrad_apply(
+        s, a, i, c, pack=pack, dim=dim, lr=LR, eps=EPS, tile_rows=64, chunk=128))(
+            jnp.asarray(stack), jnp.asarray(acc), jnp.asarray(lids), jnp.asarray(ct))
+    return stack, acc, lids, ct, [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("presort", [False, True], ids=["sorted_here", "presorted"])
+@pytest.mark.parametrize("case", ["packed_d9", "packed_d8", "unpacked_d128", "hot_row"])
+def test_fused_adagrad_apply_matches_pallas(case, presort):
+    pack, dim, rows_phys, _, _ = REF_CASES[case]
+    rows = rows_phys * pack
+    stack, acc, lids, ct, (want_s, want_a) = _pallas_adagrad(case)
+    table = torch.from_numpy(unpack_stack(stack, rows, dim).copy())
+    table_acc = torch.from_numpy(unpack_stack(acc, rows, dim).copy())
+    t_lids = torch.from_numpy(lids).long()
+    presorted = sort_ids(t_lids) if presort else None
+    before = fused_adagrad_apply.launches
+    out = fused_adagrad_apply(table, table_acc, t_lids, torch.from_numpy(ct), lr=LR,
+                              eps=EPS, presorted=presorted)
+    assert out[0] is table and out[1] is table_acc  # in place
+    assert fused_adagrad_apply.launches == before  # the CPU launches nothing
+    np.testing.assert_allclose(table.numpy(), j_unpack_stack(want_s, rows, dim),
+                               rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    np.testing.assert_allclose(table_acc.numpy(), j_unpack_stack(want_a, rows, dim),
+                               rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+
+
+@pytest.mark.parametrize("N,rows,dim", [(1000, 64, 8), (513, 1000, 128), (4096, 300, 9),
+                                        (7, 2048, 16)])
+def test_scatter_add_sorted_matches_pallas(N, rows, dim):
+    lids, ct = _stream(rows, N, dim, seed=N + 1)
+    ct = _bf16(ct)
+    want = _j_scatter_add_dense(jnp.asarray(lids), jnp.asarray(ct), rows)
+    slid, order = sort_ids(torch.from_numpy(lids))
+    before = scatter_add_sorted.launches
+    got = scatter_add_sorted(slid, order, torch.from_numpy(ct), rows)
+    assert scatter_add_sorted.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+
+
+def test_scatter_add_sorted_hot_row_matches_pallas():
+    rng = np.random.default_rng(1)
+    lids = np.full(5000, 37, np.int32)
+    ct = _bf16(rng.normal(size=(5000, 8)).astype(np.float32))
+    want = _j_scatter_add_dense(jnp.asarray(lids), jnp.asarray(ct), 256)
+    got = scatter_add_sorted(*sort_ids(torch.from_numpy(lids)), torch.from_numpy(ct), 256)
+    # a 5000-term sum of unit normals: f32 rounding of the running sum
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------- take_fast
+
+@pytest.mark.parametrize("presort", [False, True], ids=["sorted_here", "presorted"])
+def test_take_fast_gradient_equals_autograd(presort):
+    rng = np.random.default_rng(6)
+    ranges = [(0, 40), (40, 25), (65, 35)]
+    rows2d = torch.from_numpy(_rows(ranges, 64, seed=7))
+    table = torch.from_numpy(rng.normal(size=(100, 9)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(64 * 3, 9)).astype(np.float32))
+    rows = rows2d.reshape(-1)
+
+    a = table.clone().requires_grad_(True)
+    presorted = blocked_sort(rows2d, ranges) if presort else None
+    out = take_fast(a, rows, presorted)
+    (out * ct).sum().backward()
+    b = table.clone().requires_grad_(True)
+    (b[rows] * ct).sum().backward()
+    torch.testing.assert_close(out.detach(), table[rows], rtol=0, atol=0)
+    # both sum each row's cotangents in stream order
+    torch.testing.assert_close(a.grad, b.grad, rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------------------------------- the wrappers
+
+def _bad_sparse_args():
+    slid = torch.arange(4)
+    order = torch.arange(4)
+    ct = torch.zeros(4, 9)
+    table = torch.zeros(10, 9)
+    return {
+        "int32_ids": ((slid.int(), order, ct, table), TypeError),
+        "2d_order": ((slid, order[:, None], ct, table), TypeError),
+        "f64_ct": ((slid, order, ct.double(), table), TypeError),
+        "lengths_differ": ((slid[:3], order, ct, table), ValueError),
+        "table_width": ((slid, order, ct, torch.zeros(10, 8)), ValueError),
+        "tables_differ": ((slid, order, ct, table, torch.zeros(11, 9)), ValueError),
+        "non_contiguous": ((slid, order, torch.zeros(9, 4).t(), table), ValueError),
+        "zero_dim": ((slid, order, torch.zeros(4, 0), torch.zeros(10, 0)), ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_sparse_args()))
+def test_sparse_row_kernels_reject(case):
+    args, error = _bad_sparse_args()[case]
+    with pytest.raises(error):
+        check_sparse_rows_args(*args)
+
+
+def test_sparse_row_kernels_accept_bench_shape():
+    n, rows = 425_984, 2_600_000
+    ids = torch.empty(n, dtype=torch.int64)
+    check_sparse_rows_args(ids, ids, torch.empty(n, 9), torch.empty(rows, 9),
+                           torch.empty(rows, 9))
+
+
+def test_wrappers_neither_launch_nor_fall_back_off_the_cpu():
+    """A tensor that is neither on the CPU nor on a CUDA device raises: no
+    wrapper runs its plain version for it."""
+    meta = {"slid": torch.empty(4, dtype=torch.int64, device="meta"),
+            "ct": torch.empty(4, 9, device="meta"),
+            "table": torch.empty(10, 9, device="meta")}
+    with pytest.raises(ValueError, match="no kernel"):
+        scatter_add_sorted(meta["slid"], meta["slid"], meta["ct"], 10)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_adagrad_apply(meta["table"], meta["table"], meta["slid"], meta["ct"], lr=LR)
+    with pytest.raises(ValueError, match="different devices"):
+        scatter_add_sorted(meta["slid"], torch.arange(4), torch.zeros(4, 9), 10)
