@@ -12,12 +12,18 @@ Phases, each of which raises on failure (exit code not 0):
    started together);
 2. every kernel against its plain PyTorch version on the card:
    ``cross_fused`` vs ``cross_network``, forward and gradient (rtol=1e-4,
+   atol=1e-5); ``din_attention_fused`` vs ``din_attention_ref`` at DIN's
+   bench shape (B=8,192, T=50, K=32, scorer 80-40) in all eight
+   combinations of activation, softmax and scores, at T=13, T=1, B=1 and
+   with a scorer of 128-64, each with a row that has no valid position,
+   forward and gradient through the autograd Function (rtol=1e-4,
    atol=1e-5); ``fused_adagrad_apply`` vs ``fused_adagrad_ref`` and
    ``scatter_add_sorted`` vs ``scatter_add_dense_ref`` at the bench shape
    (N=425,984 lookups into 2,600,000 rows of dim 9), at dims 8 to 128, at
-   N=1, with ids on the table's last row and with half the ids on one row
-   (rtol=1e-5, atol=1e-6 x the largest |value|; rows no id touches must
-   come back bitwise equal);
+   N=1, with ids on the table's last row, with half the ids on one row, and
+   on DIN's two-site stream of table_d32 (425,984 positions, ~184,000 on
+   the padding row) (rtol=1e-5, atol=1e-6 x the largest |value|; rows no
+   id touches must come back bitwise equal);
 3. serving at full width: DCN on 26 sparse fields of 100,000 ids (dim 8)
    and 13 dense fields, 6 cross layers, deep tower 256-128-64, f32, random
    weights from a seed; ``Scorer(batch_size=4096)`` answers requests of 1,
@@ -36,13 +42,30 @@ Phases, each of which raises on failure (exit code not 0):
    K=8; ``scatter_add_sorted`` must launch 8 times;
 3d. card against CPU: two fused steps at full width (f32 tower) on the card
    and on the CPU from the same start; parameters and accumulators agree;
+3f. DIN training at ``benchmarks/model_step.py``'s width (user_id 100,000
+   ids, item_id 200,000 ids and a T=50 history on the same table_d32 of
+   300,000 x 32, attention 80-40, BatchNorm, Dice tower 256-128-64, f32,
+   batch 8,192), K=8 batches built as model_step.py builds them (seeds
+   0-7): fused, three calls, each step one attention launch and one
+   ``fused_adagrad_apply`` (the two lookup sites of table_d32 go as one
+   stream) and no scatter-add, one call under
+   ``set_sync_debug_mode("error")``, losses falling, untouched rows
+   bitwise unchanged, the BatchNorm statistics moved; plain, one call, two
+   ``scatter_add_sorted`` launches a step; then two fused steps on the card
+   and on the CPU, whose parameters, BatchNorm statistics and accumulators
+   agree;
+3e. DIN serving: ``Scorer(batch_size=8192)`` with the DIN that 3f trained
+   answers requests of 1, 1000, 8192 and 20,000 rows, one attention launch
+   per padded batch; the answers equal a plain forward on the card
+   (atol=1e-5) and the CPU path on 1000 rows;
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
-   host overhead included), and the library call where there is one; the
+   host overhead included), and the library call where there is one; each
    Scorer's latency and throughput (host clock), its device busy time per
    batch and its top kernels; the training throughput of a fused K=8 call
    (CUDA events), its device idle share, the top device work of a step and
-   the count of host ops a step issues.
+   the count of host ops a step issues, for DeepFM and for DIN; and the
+   share of DIN's step that its padding row takes in ``fused_adagrad_apply``.
 
 The line before the last lists every kernel with its launches on its main
 path, its error against the plain version, its times and its bound; the line
@@ -85,6 +108,11 @@ LR, EPS = 0.05, 1e-7
 # card against CPU after two fused steps: f32 on both, GEMMs and reductions
 # summed in another order
 PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5
+
+# benchmarks/model_step.py's DIN width: user_id 100,000 ids, item_id
+# 200,000 ids with its history (T=50, padding id 0) on the same table, dim
+# 32 (table_d32 of 300,000 rows), batch 8,192
+DIN_USERS, DIN_ITEMS, DIN_T, DIN_DIM, DIN_BATCH = 100_000, 200_000, 50, 32, 8192
 
 
 def card_line() -> str:
@@ -192,6 +220,94 @@ def check_cross_kernel(cross_fused, cross_network) -> float:
     return max_err
 
 
+def din_bound(B: int, T: int, K: int, H1: int, H2: int):
+    """Least time for the DIN attention: query, keys and mask read and the
+    pooled output written once, the weights read once; the scorer's flops
+    with the first layer folded per row (``csrc/din_attention.cu``),
+    2*B*T*(K*H1 + H1*H2 + H2), plus the per-row query term and fold and the
+    pooling, 2*B*(2*K*H1 + T*K), all f32 outside the tensor cores."""
+    nbytes = 4 * (B * K + B * T * K + B * T + B * K
+                  + 4 * K * H1 + H1 + H1 * H2 + 2 * H2 + 1)
+    flops = 2 * B * T * (K * H1 + H1 * H2 + H2) + 2 * B * (2 * K * H1 + T * K)
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flop_ms = flops / PEAK_F32_FLOPS * 1e3
+    return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
+
+
+def din_inputs(gen, B, T, K, H1, H2):
+    """Random DIN attention inputs on the card: lengths uniform on 1..T, the
+    first row with no valid position; weights at glorot scale."""
+    q = torch.randn(B, K, generator=gen, device="cuda")
+    keys = torch.randn(B, T, K, generator=gen, device="cuda")
+    lengths = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
+    lengths[0] = 0
+    mask = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
+    weights = []
+    for fan_in, fan_out in ((4 * K, H1), (H1, H2), (H2, 1)):
+        limit = math.sqrt(6.0 / (fan_in + fan_out))
+        weights.append((torch.rand(fan_in, fan_out, generator=gen, device="cuda") * 2 - 1)
+                       * limit)
+        weights.append(torch.randn(fan_out, generator=gen, device="cuda") * 0.1)
+    return q, keys, mask, weights
+
+
+def check_din_kernel() -> float:
+    """Phase 2 for csrc/din_attention.cu: ``din_attention_fused`` against
+    ``din_attention_ref`` on the card, forward and gradient through the
+    autograd Function; returns the largest absolute error of the forward."""
+    from recommender_system_tpu_torch.ops import kernels
+    from recommender_system_tpu_torch.ops.kernels import din_attention_fused, din_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flags = [(a, wn, rs) for a in ("sigmoid", "relu") for wn in (True, False)
+             for rs in (False, True)]
+    # (B, T, K, H1, H2, flag combinations, gradient checked)
+    cases = [(DIN_BATCH, DIN_T, DIN_DIM, 80, 40, flags, False),
+             (DIN_BATCH, DIN_T, DIN_DIM, 80, 40, flags[:1], True),
+             (64, 13, 8, 10, 5, flags, True),     # T not a multiple of 4
+             (300, 1, DIN_DIM, 80, 40, flags, True),   # T = 1
+             (1, DIN_T, DIN_DIM, 80, 40, flags, True),  # B = 1
+             (257, DIN_T, DIN_DIM, 128, 64, flags[:4], True)]  # opt-in shared memory
+    max_err = 0.0
+    for B, T, K, H1, H2, combos, grad in cases:
+        q, keys, mask, weights = din_inputs(gen, B, T, K, H1, H2)
+        smem = kernels.din_shared_bytes(T, K, H1, H2)
+        for activation, wn, rs in combos:
+            with torch.inference_mode():
+                out = din_attention_fused(q, keys, mask, *weights, activation, wn, rs)
+                torch.cuda.synchronize()
+                ref = din_attention_ref(q, keys, mask, *weights, activation, wn, rs)
+                torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+            err = (out - ref).abs().max().item()
+            max_err = max(max_err, err)
+            if wn:
+                # the first row has no valid position: weights 1/T, the mean key
+                want = (torch.full((T,), 1.0 / T, device="cuda") if rs
+                        else keys[0].mean(dim=0))
+                torch.testing.assert_close(out[0], want, rtol=RTOL, atol=ATOL)
+            grad_note = ""
+            if grad:
+                # one fixed cotangent for both: under the softmax b3's
+                # gradient is zero up to rounding, and a cotangent made from
+                # each forward's own output would carry its rounding there
+                cot = torch.randn(out.shape, generator=gen, device="cuda")
+                grads = []
+                for fn in (din_attention_fused, din_attention_ref):
+                    args = [t.clone().requires_grad_(True) for t in (q, keys, *weights)]
+                    out_g = fn(args[0], args[1], mask, *args[2:], activation, wn, rs)
+                    grads.append(torch.autograd.grad(out_g, args, cot))
+                    torch.cuda.synchronize()
+                for g_kernel, g_plain in zip(*grads):
+                    torch.testing.assert_close(g_kernel, g_plain, rtol=RTOL, atol=ATOL)
+                grad_note = ", gradients match"
+            print(f"kernel check din_attention_fused B={B} T={T} K={K} H1={H1} H2={H2} "
+                  f"{activation} weight_normalization={wn} return_scores={rs} "
+                  f"(shared memory {smem} B at one row a block): max_abs_err={err:.3e}{grad_note}",
+                  flush=True)
+    return max_err
+
+
 def sparse_rows_bound(n: int, touched: int, rows: int, dim: int, adagrad: bool):
     """Least time for a sparse row kernel: the stream (slid and order, which
     fit int32, and f32 cotangents) read once; Adagrad reads and writes param
@@ -216,6 +332,43 @@ def bench_rows(seed: int, batch: int = TRAIN_BATCH) -> np.ndarray:
                      for f in range(FIELDS)], axis=1)
 
 
+def din_batch(seed: int, batch: int = DIN_BATCH):
+    """One DIN batch as ``benchmarks/model_step.py:86-95`` builds it:
+    history lengths uniform on 5..50, padding id 0, random labels."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(5, DIN_T + 1, size=batch)
+    hist = rng.integers(1, DIN_ITEMS, size=(batch, DIN_T)).astype(np.int32)
+    hist[np.arange(DIN_T)[None, :] >= lengths[:, None]] = 0
+    X = {"user_id": rng.integers(1, DIN_USERS, size=batch).astype(np.int32),
+         "item_id": rng.integers(1, DIN_ITEMS, size=batch).astype(np.int32),
+         "hist_item_id": hist,
+         "price": rng.normal(size=(batch, 1)).astype(np.float32)}
+    return X, rng.integers(0, 2, size=batch).astype(np.float32)
+
+
+def din_columns():
+    """``benchmarks/model_step.py:79-85``'s DIN schema: table_d32 holds
+    user_id's 100,000 rows, then item_id's 200,000, which the history
+    shares."""
+    from recommender_system_tpu_torch.utils.features import (DenseFeat, SparseFeat,
+                                                             VarLenSparseFeat)
+
+    return (SparseFeat("user_id", DIN_USERS, DIN_DIM),
+            SparseFeat("item_id", DIN_ITEMS, DIN_DIM, embedding_name="item_id"),
+            VarLenSparseFeat(SparseFeat("hist_item_id", DIN_ITEMS, DIN_DIM,
+                                        embedding_name="item_id"), maxlen=DIN_T),
+            DenseFeat("price", 1))
+
+
+def din_stream(X) -> np.ndarray:
+    """DIN's two lookup sites of table_d32 as the fused step concatenates
+    them: the [B, 2] user and item group, then the [B, T] history."""
+    group = np.stack([X["user_id"].astype(np.int64),
+                      X["item_id"].astype(np.int64) + DIN_USERS], axis=1)
+    return np.concatenate([group.reshape(-1),
+                           X["hist_item_id"].astype(np.int64).reshape(-1) + DIN_USERS])
+
+
 def sparse_cases(gen: torch.Generator):
     """(name, lids, ct, rows) on the card for phase 2."""
     dev = "cuda"
@@ -237,6 +390,11 @@ def sparse_cases(gen: torch.Generator):
     skew[::2] = 12_345
     ct = torch.randint(-8, 9, (n, 9), generator=gen, device=dev).float() / 8
     yield "skewed", skew, ct, rows9
+    # DIN's two-site stream of table_d32 (425,984 positions), ~184,000 of
+    # them on the padding row; cotangents on the 1/8 grid again
+    din = torch.as_tensor(din_stream(din_batch(0)[0]), device=dev)
+    ct = torch.randint(-8, 9, (din.numel(), DIN_DIM), generator=gen, device=dev).float() / 8
+    yield "din_two_sites", din, ct, DIN_USERS + DIN_ITEMS
 
 
 def check_sparse_rows() -> dict:
@@ -398,33 +556,34 @@ def train_plain(cols, batches, labels):
     return launches
 
 
-def card_against_cpu(cols, batches, labels):
-    """Phase 3d: two fused steps at full width (f32 tower) on the card and on
-    the CPU from the same start."""
+def card_against_cpu(model, batches, labels, name):
+    """Phases 3d and 3f: two fused steps at full width (f32) on the card and
+    on the CPU from the same start; parameters, BatchNorm statistics and
+    optimizer states agree."""
     from recommender_system_tpu_torch import FusedAdagrad, Trainer
     from recommender_system_tpu_torch.training import Adagrad
 
-    model = deepfm(cols, None)
     cpu_model = copy.deepcopy(model).to("cpu")
     runs = {}
     for device, m in (("cuda", model), ("cpu", cpu_model)):
         trainer = Trainer(m, Adagrad(LR), fused_embedding=FusedAdagrad(LR), device=device)
         sub = {k: v[:2].to(device) for k, v in batches.items()}
         trainer.multi_step(sub, labels[:2].to(device))
-        state = {n: p.detach().cpu() for n, p in m.named_parameters()}
+        # parameters and persistent buffers (BatchNorm statistics)
+        state = {n: t.detach().cpu() for n, t in m.state_dict().items()}
         state.update({f"opt:{n}": s["sum_of_squares"].cpu()
                       for n, s in trainer.opt_state.items()})
         state.update({f"slot:{n}": s[0].cpu() for n, s in trainer.fused_slots.items()})
         runs[device] = state
     worst = 0.0
-    for name, want in runs["cpu"].items():
-        got = runs["cuda"][name]
+    for key, want in runs["cpu"].items():
+        got = runs["cuda"][key]
         torch.testing.assert_close(got, want, rtol=PARITY_RTOL, atol=PARITY_ATOL,
-                                   msg=lambda m, name=name: f"{name}: {m}")
+                                   msg=lambda m, key=key: f"{key}: {m}")
         worst = max(worst, (got - want).abs().max().item())
-    print(f"card against CPU: {len(runs['cpu'])} parameters and optimizer states "
-          f"agree after 2 fused steps (rtol={PARITY_RTOL}, atol={PARITY_ATOL}); "
-          f"largest difference {worst:.3e}", flush=True)
+    print(f"card against CPU, {name}: {len(runs['cpu'])} parameters, statistics and "
+          f"optimizer states agree after 2 fused steps (rtol={PARITY_RTOL}, "
+          f"atol={PARITY_ATOL}); largest difference {worst:.3e}", flush=True)
 
 
 def time_sparse_rows(card) -> dict:
@@ -490,10 +649,12 @@ def time_sparse_rows(card) -> dict:
     return out
 
 
-def time_training(trainer, batches, labels, card) -> None:
-    """Phase 4 for training: throughput of a fused K-step call, its idle
-    share and the top device work of a step."""
+def time_training(trainer, batches, labels, card, name) -> dict:
+    """Phase 4 for a training path: throughput of a fused K-step call, its
+    idle share and the top device work of a step; returns the step's device
+    time by kernel name and the step time."""
     calls = 5
+    k, batch = labels.shape
     trainer.multi_step(batches, labels)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -504,9 +665,9 @@ def time_training(trainer, batches, labels, card) -> None:
     end.record()
     end.synchronize()
     call = start.elapsed_time(end) / calls
-    print(f"timing fused training: {K * TRAIN_BATCH / (call / 1e3):.1f} examples/s "
-          f"({call:.3f} ms per K={K} call of {TRAIN_BATCH} examples a step, "
-          f"{call / K:.3f} ms a step, CUDA events over {calls} calls); on {card}",
+    print(f"timing {name}: {k * batch / (call / 1e3):.1f} examples/s "
+          f"({call:.3f} ms per K={k} call of {batch} examples a step, "
+          f"{call / k:.3f} ms a step, CUDA events over {calls} calls); on {card}",
           flush=True)
 
     wall = host_ms(lambda: (trainer.multi_step(batches, labels), torch.cuda.synchronize()),
@@ -515,19 +676,269 @@ def time_training(trainer, batches, labels, card) -> None:
                                   torch.cuda.synchronize()), iters=3)
     busy = sum(per_name.values())
     wall_ms = statistics.median(wall)
-    print(f"fused training K={K} call: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+    print(f"{name} K={k} call: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
           f"wall, idle share {1 - busy / wall_ms:.3f}; top device work of a step:",
           flush=True)
-    for name, ms in per_name.most_common(12):
-        print(f"  {ms / K:.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+    for kernel, ms in per_name.most_common(12):
+        print(f"  {ms / k:.4f} ms  {100 * ms / busy:5.1f}%  {kernel[:90]}")
 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        trainer.train_step({k: v[0] for k, v in batches.items()}, labels[0])
+        trainer.train_step({key: v[0] for key, v in batches.items()}, labels[0])
     top = collections.Counter(e.name for e in prof.events() if e.cpu_parent is None)
-    print(f"fused training: {sum(top.values())} top-level host ops in one step; most "
+    print(f"{name}: {sum(top.values())} top-level host ops in one step; most "
           f"frequent {top.most_common(6)}", flush=True)
+    return {"step_ms": call / k, "busy_ms": busy / k,
+            "per_step": collections.Counter({n: ms / k for n, ms in per_name.items()})}
+
+
+# ---------------------------------------------------------------------------
+# DIN at benchmarks/model_step.py's width
+# ---------------------------------------------------------------------------
+
+DIN_REQUESTS = (1, 1000, DIN_BATCH, 20_000)
+
+
+def din_staged(seeds):
+    """model_step.py's DIN batches, one seed each, stacked on a leading K
+    axis on the card."""
+    data = [din_batch(s) for s in seeds]
+    batches = {k: torch.as_tensor(np.stack([X[k] for X, _ in data]), device="cuda")
+               for k in data[0][0]}
+    labels = torch.as_tensor(np.stack([y for _, y in data]), device="cuda")
+    return batches, labels
+
+
+def din_model():
+    """DIN at model_step.py's width (attention 80-40 sigmoid, BatchNorm on
+    the 97-wide concat, Dice tower 256-128-64, f32) on the card, weights
+    from seed 0."""
+    from recommender_system_tpu_torch import DIN
+
+    model = DIN(din_columns(), behavior_feature_list=("item_id",), device="cuda",
+                generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        # the default init std of 1e-4 would leave the embeddings, and so
+        # the attention, no say in the output
+        model.embeddings.table_d32.normal_(
+            0.0, 0.1, generator=torch.Generator(device="cuda").manual_seed(1))
+    return model
+
+
+def din_counts():
+    from recommender_system_tpu_torch.ops.embedding_grad import scatter_add_sorted
+    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
+    from recommender_system_tpu_torch.ops.kernels import din_attention_fused
+
+    return (din_attention_fused, fused_adagrad_apply, scatter_add_sorted)
+
+
+def read_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in din_counts()}
+
+
+def zero_counts() -> None:
+    for fn in din_counts():
+        fn.launches = 0
+
+
+def train_din_fused(batches, labels, card):
+    """Phase 3f, fused: three K=8 calls; returns (trainer, launches)."""
+    from recommender_system_tpu_torch import FusedAdagrad, Trainer
+    from recommender_system_tpu_torch.training import Adagrad
+
+    model = din_model()
+    table = model.embeddings.table_d32
+    start, bn_start = table.detach().clone(), model.bn.running_mean.clone()
+    trainer = Trainer(model, Adagrad(LR), fused_embedding=FusedAdagrad(LR))
+    print(f"DIN: table {tuple(table.shape)}, {sum(p.numel() for p in model.parameters())} "
+          f"parameters, BatchNorm width {model.bn.running_mean.numel()}", flush=True)
+
+    zero_counts()
+    calls = []
+    for call in range(3):
+        if call == 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            calls.append(trainer.multi_step(batches, labels))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # a step: one attention forward (its backward is the plain VJP); one
+    # fused_adagrad_apply, since the [B, 2] group and the [B, T] history of
+    # table_d32 go as one stream; no scatter-add
+    want = {"din_attention_fused": 3 * K, "fused_adagrad_apply": 3 * K,
+            "scatter_add_sorted": 0}
+    print(f"DIN fused training launches: {launches} over 3 calls of K={K}", flush=True)
+    if launches != want:
+        raise RuntimeError(f"DIN fused training launched {launches}, want {want}")
+    losses = torch.stack(calls).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"DIN fused training losses not finite: {losses}")
+    if not losses[-1].mean() < losses[0].mean():
+        raise RuntimeError(f"DIN fused training loss did not fall: {losses}")
+    print(f"DIN fused training: call under set_sync_debug_mode('error') ran; mean loss "
+          f"per call {[round(float(m), 6) for m in losses.mean(axis=1)]}", flush=True)
+
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device="cuda")
+    touched[batches["user_id"].reshape(-1).long()] = True
+    touched[batches["item_id"].reshape(-1).long() + DIN_USERS] = True
+    touched[batches["hist_item_id"].reshape(-1).long() + DIN_USERS] = True
+    if not torch.equal(table.detach()[~touched], start[~touched]):
+        raise RuntimeError("DIN fused training changed a table row no batch touched")
+    if torch.equal(table.detach()[touched], start[touched]):
+        raise RuntimeError("DIN fused training left every touched row as it was")
+    if torch.equal(model.bn.running_mean, bn_start):
+        raise RuntimeError("DIN fused training left the BatchNorm statistics as they were")
+    print(f"DIN fused training: {int((~touched).sum())} untouched rows bitwise unchanged; "
+          f"BatchNorm running mean moved by up to "
+          f"{(model.bn.running_mean - bn_start).abs().max().item():.4f}; on {card}",
+          flush=True)
+    return trainer, launches
+
+
+def train_din_plain(batches, labels):
+    """Phase 3f, plain: one K=8 call; returns the launches."""
+    from recommender_system_tpu_torch import Trainer
+    from recommender_system_tpu_torch.training import Adagrad
+
+    trainer = Trainer(din_model(), Adagrad(LR))
+    zero_counts()
+    losses = trainer.multi_step(batches, labels).cpu().numpy()
+    launches = read_counts()
+    # a step: two take_fast lookups of table_d32 (the [B, 2] group and the
+    # [B, T] history), each with one scatter-add in its backward
+    want = {"din_attention_fused": K, "fused_adagrad_apply": 0, "scatter_add_sorted": 2 * K}
+    print(f"DIN plain training launches: {launches} over 1 call of K={K}; losses {losses}",
+          flush=True)
+    if launches != want:
+        raise RuntimeError(f"DIN plain training launched {launches}, want {want}")
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"DIN plain training losses not finite: {losses}")
+    return launches
+
+
+def serve_din(model):
+    """Phase 3e: the trained DIN through Scorer; returns (scorer, requests,
+    launches)."""
+    from recommender_system_tpu_torch import Scorer
+    from recommender_system_tpu_torch.ops.kernels import din_attention_ref
+
+    X, _ = din_batch(100, max(DIN_REQUESTS))
+    requests = {n: {k: v[:n] for k, v in X.items()} for n in DIN_REQUESTS}
+    scorer = Scorer(model, batch_size=DIN_BATCH)
+    zero_counts()
+    answers = {n: scorer(req) for n, req in requests.items()}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    padded = sum(-(-n // DIN_BATCH) for n in DIN_REQUESTS)
+    print(f"DIN serving launches: {launches} for {padded} padded batches", flush=True)
+    if launches != {"din_attention_fused": padded, "fused_adagrad_apply": 0,
+                    "scatter_add_sorted": 0}:
+        raise RuntimeError(f"DIN serving launched {launches} for {padded} padded batches")
+
+    a = model.attention
+
+    def plain_forward(req):
+        with torch.inference_mode():
+            batch = {k: torch.as_tensor(v, device="cuda") for k, v in req.items()}
+            emb = model.embeddings(batch)
+            query = emb.sparse["item_id"]
+            att = din_attention_ref(query, emb.varlen_raw["hist_item_id"],
+                                    emb.varlen_mask["hist_item_id"], a.w1, a.b1, a.w2,
+                                    a.b2, a.w3, a.b3)
+            x = torch.cat([emb.sparse["user_id"], att, query, emb.dense], dim=-1)
+            return torch.sigmoid(model.deep(model.bn(x))).cpu().numpy()
+
+    for n, got in answers.items():
+        if got.shape != (n, 1) or got.dtype != np.float32 or not np.isfinite(got).all():
+            raise RuntimeError(f"DIN request of {n} rows answered {got.shape} {got.dtype}")
+        np.testing.assert_allclose(got, plain_forward(requests[n]), rtol=0, atol=ATOL)
+    spread = float(np.std(answers[max(DIN_REQUESTS)]))
+    if spread < 1e-3:
+        raise RuntimeError(f"DIN scores barely vary (std {spread}): inputs have no say")
+    cpu_scorer = Scorer(copy.deepcopy(model).to("cpu"), batch_size=DIN_BATCH, device="cpu")
+    np.testing.assert_allclose(answers[1000], cpu_scorer(requests[1000]), rtol=0, atol=ATOL)
+    print(f"DIN serving check: {len(DIN_REQUESTS)} requests equal the plain forward on the "
+          f"card and the CPU path (atol={ATOL}); score std {spread:.4f}", flush=True)
+    return scorer, requests, launches
+
+
+def time_din(trainer, scorer, requests, batches, labels, card) -> dict:
+    """Phase 4 for DIN: the attention kernel at the main path's inputs, the
+    Scorer's latency, throughput and idle share, the fused step's
+    throughput and idle share, and the padding row's share of the step."""
+    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
+    from recommender_system_tpu_torch.ops.kernels import din_attention_fused, din_attention_ref
+
+    model = trainer.model.eval()
+    a = model.attention
+    weights = (a.w1, a.b1, a.w2, a.b2, a.w3, a.b3)
+    with torch.inference_mode():
+        emb = model.embeddings({k: v[0] for k, v in batches.items()})
+        q = emb.sparse["item_id"].contiguous()
+        keys = emb.varlen_raw["hist_item_id"]
+        mask = emb.varlen_mask["hist_item_id"].float()
+        kernel_dev = device_ms(lambda: din_attention_fused(q, keys, mask, *weights))
+        plain_dev = device_ms(lambda: din_attention_ref(q, keys, mask, *weights))
+        rec = {"call_ms": call_ms(lambda: din_attention_fused(q, keys, mask, *weights)),
+               "plain_call_ms": call_ms(lambda: din_attention_ref(q, keys, mask, *weights))}
+    if not all("din_attention_kernel" in name for name in kernel_dev):
+        raise RuntimeError(f"din_attention_fused ran other device work: {dict(kernel_dev)}")
+    B, T, Kd = keys.shape
+    H1, H2 = a.w1.shape[1], a.w2.shape[1]
+    rec.update(ms=sum(kernel_dev.values()), plain_ms=sum(plain_dev.values()), library_ms=None)
+    rec["bound_ms"], rec["bound_by"] = din_bound(B, T, Kd, H1, H2)
+    print(f"timing din_attention_fused B={B} T={T} K={Kd} H1={H1} H2={H2}: device "
+          f"{rec['ms']:.5f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound "
+          f"{rec['bound_ms']:.5f} ms, {rec['bound_by']}), {rec['call_ms']:.5f} ms per call; "
+          f"plain din_attention_ref: device {rec['plain_ms']:.5f} ms in {len(plain_dev)} "
+          f"kernel kinds, {rec['plain_call_ms']:.5f} ms per call; on {card}", flush=True)
+
+    lat = {n: host_ms(lambda n=n: scorer(requests[n]), iters=30) for n in (1, DIN_BATCH)}
+    for n, times in lat.items():
+        print(f"timing DIN Scorer {n}-row request: median {statistics.median(times):.3f} ms, "
+              f"min {min(times):.3f} ms, max {max(times):.3f} ms over {len(times)}; "
+              f"on {card}", flush=True)
+    X_big, _ = din_batch(101, THROUGHPUT_ROWS)
+    big = host_ms(lambda: scorer(X_big), iters=5, warmup=1)
+    print(f"timing DIN Scorer throughput over {THROUGHPUT_ROWS} rows: "
+          f"{THROUGHPUT_ROWS / (statistics.median(big) / 1e3):.1f} examples/s "
+          f"(median of {len(big)} calls, {statistics.median(big):.2f} ms each); on {card}",
+          flush=True)
+    serve_dev = device_ms(lambda: scorer(requests[DIN_BATCH]), iters=10)
+    busy = sum(serve_dev.values())
+    wall = statistics.median(lat[DIN_BATCH])
+    print(f"DIN Scorer {DIN_BATCH}-row request: device busy {busy:.4f} ms of {wall:.4f} ms "
+          f"wall, idle share {1 - busy / wall:.3f}; top device work:", flush=True)
+    for name, ms in serve_dev.most_common(8):
+        print(f"  {ms:.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+
+    step = time_training(trainer, batches, labels, card, "DIN fused training")
+    # the padding row: fused_adagrad_apply on one step's stream, and on the
+    # same stream without its padding positions (item id 0, row 100,000)
+    lids = torch.as_tensor(din_stream(din_batch(0)[0]), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ct = torch.randn(lids.numel(), DIN_DIM, generator=gen, device="cuda") * 1e-3
+    table = torch.randn(DIN_USERS + DIN_ITEMS, DIN_DIM, generator=gen, device="cuda")
+    acc = torch.full_like(table, 0.1)
+    pad = lids == DIN_USERS
+    kernel = "sparse_rows_kernel"
+    hot = {}
+    for what, (ids, c) in {"with": (lids, ct), "without": (lids[~pad], ct[~pad])}.items():
+        dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, lr=LR,
+                                                                  eps=EPS), iters=5)
+        hot[what] = sum(ms for name, ms in dev.items() if kernel in name)
+    in_step = sum(ms for name, ms in step["per_step"].items() if kernel in name)
+    print(f"DIN padding row: {int(pad.sum())} of {lids.numel()} positions of a step's stream; "
+          f"fused_adagrad_rows takes {hot['with']:.4f} ms on the stream and "
+          f"{hot['without']:.4f} ms without its padding positions; in the step it takes "
+          f"{in_step:.4f} ms of {step['busy_ms']:.4f} ms device busy and of "
+          f"{step['step_ms']:.4f} ms a step ({100 * in_step / step['step_ms']:.1f}%); "
+          f"on {card}", flush=True)
+    return rec
 
 
 def main() -> int:
@@ -561,6 +972,7 @@ def main() -> int:
 
     # --- phase 2: kernels against their plain versions ---------------------
     cross_err = check_cross_kernel(cross_fused, cross_network)
+    din_err = check_din_kernel()
     sparse_errs = check_sparse_rows()
 
     # --- phase 3: serving at full width ------------------------------------
@@ -614,7 +1026,14 @@ def main() -> int:
     train_cols, batches, labels = staged_batches(range(K))
     trainer, fused_launches, _ = train_fused(train_cols, batches, labels, card)
     plain_launches = train_plain(train_cols, batches, labels)
-    card_against_cpu(train_cols, batches, labels)
+    card_against_cpu(deepfm(train_cols, None), batches, labels, "DeepFM")
+
+    # --- phases 3f and 3e: DIN at model_step.py's width, trained, then served
+    din_batches, din_labels = din_staged(range(K))
+    din_trainer, din_fused_launches = train_din_fused(din_batches, din_labels, card)
+    din_plain_launches = train_din_plain(din_batches, din_labels)
+    card_against_cpu(din_model(), din_batches, din_labels, "DIN")
+    din_scorer, din_requests, din_serve_launches = serve_din(din_trainer.model)
 
     # --- phase 4: timings --------------------------------------------------
     with torch.inference_mode():
@@ -663,13 +1082,15 @@ def main() -> int:
         print(f"  {ms:.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
 
     sparse_times = time_sparse_rows(card)
-    time_training(trainer, batches, labels, card)
+    time_training(trainer, batches, labels, card, "fused training")
+    din_times = time_din(din_trainer, din_scorer, din_requests, din_batches, din_labels, card)
 
+    # launches on DeepFM's paths, and on DIN's beside them
     sparse_rows = [
         ("fused_adagrad_apply", "recommender_system_tpu/ops/fused_adagrad.py:156",
-         fused_launches["fused_adagrad_apply"]),
+         fused_launches["fused_adagrad_apply"], din_fused_launches["fused_adagrad_apply"]),
         ("scatter_add_sorted", "recommender_system_tpu/ops/embedding_grad.py:51",
-         plain_launches["scatter_add_sorted"]),
+         plain_launches["scatter_add_sorted"], din_plain_launches["scatter_add_sorted"]),
     ]
     print(card)
     print(json.dumps({"kernels": [{
@@ -680,12 +1101,20 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "call_ms": kernel_call, "plain_call_ms": plain_call,
+    }, {
+        "name": "din_attention_fused", "route": "cuda",
+        "source": "recommender_system_tpu_torch/csrc/din_attention.cu",
+        "replaces": "recommender_system_tpu/ops/pallas_kernels.py:190",
+        "launches": din_fused_launches["din_attention_fused"], "max_abs_err": din_err,
+        **din_times,
+        "serving_launches": din_serve_launches["din_attention_fused"],
+        "plain_training_launches": din_plain_launches["din_attention_fused"],
     }] + [{
         "name": name, "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/sparse_rows.cu",
         "replaces": replaces, "launches": count, "max_abs_err": sparse_errs[name],
-        **sparse_times[name],
-    } for name, replaces, count in sparse_rows]}))
+        **sparse_times[name], "din_launches": din_count,
+    } for name, replaces, count, din_count in sparse_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

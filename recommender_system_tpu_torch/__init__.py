@@ -8,11 +8,12 @@ hand in ``csrc/`` and built at first use (``ops/kernels.py``).
 Ported so far: DCN served through ``Scorer``, with the cross stack as a CUDA
 kernel; DeepFM trained through ``Trainer``, with the fused sparse Adagrad
 (``FusedAdagrad``) and the sorted scatter-add of the lookup's backward as
-CUDA kernels.
+CUDA kernels; DIN served and trained, with the DIN target attention as a
+CUDA kernel.
 """
 
-from .models import DCN, DeepFM
+from .models import DCN, DIN, DeepFM
 from .serving import Scorer
 from .training import FusedAdagrad, Trainer
 
-__all__ = ["DCN", "DeepFM", "FusedAdagrad", "Scorer", "Trainer"]
+__all__ = ["DCN", "DIN", "DeepFM", "FusedAdagrad", "Scorer", "Trainer"]

@@ -9,8 +9,11 @@ port's parameter or buffer of the same path:
   stack, unpacked to the logical ``[V, d]`` table (``unpack_stack``);
 - a Flax Dense ``kernel [in, out]``: ``weight [out, in]``, transposed;
 - a Flax BatchNorm ``scale``: ``weight``; ``bias``, ``alpha``, ``weights``,
-  ``biases`` and every other name: the same name;
-- ``batch_stats`` ``mean`` / ``var``: ``running_mean`` / ``running_var``.
+  ``biases``, DIN attention's ``w1``-``w3`` and ``b1``-``b3`` (not Dense
+  kernels: kept in the JAX layout) and every other name: the same name;
+- ``batch_stats`` ``mean`` / ``var``: the ``running_mean`` /
+  ``running_var`` buffers of the port's ``BatchNorm`` (in ``bn``,
+  ``bn_{i}`` and each ``Dice``'s ``BatchNorm_0``).
 
 It raises on a leaf with no counterpart, on a shape that disagrees, and on a
 port parameter or buffer that no leaf filled.

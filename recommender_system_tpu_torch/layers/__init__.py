@@ -1,3 +1,4 @@
-from .core import DNN, Dice, PReLU, PredictionLayer, activation_fn
+from .core import DNN, BatchNorm, Dice, PReLU, PredictionLayer, activation_fn
 from .embedding import EmbeddingCollection, EmbedOutputs, build_table_specs
 from .interaction import CrossNet
+from .sequence import DinAttention

@@ -6,10 +6,11 @@ Module and parameter names follow the JAX package (``dense_{i}``,
 maps each Flax parameter onto its counterpart by name. Dense layers are
 ``nn.Linear`` (weight ``[out, in]``, the transpose of Flax's kernel).
 
-BatchNorm and Dice run on their running statistics (eval mode) only; their
-batch statistics in train mode come with the sequence-model slice of the
-port. Dropout in train mode draws its mask from a ``torch.Generator`` that
-the caller passes to ``DNN.forward``, never from torch's global generator.
+``BatchNorm`` is Flax's ``nn.BatchNorm`` (momentum 0.9): in train mode it
+normalises with the batch statistics and moves its running statistics, in
+eval mode it uses them. Dropout in train mode draws its mask from a
+``torch.Generator`` that the caller passes to ``DNN.forward``, never from
+torch's global generator.
 """
 from __future__ import annotations
 
@@ -20,16 +21,53 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# Flax's BatchNorm momentum 0.9 keeps 0.9 of the old running value; torch's
-# momentum is the share of the new batch.
-_BN_MOMENTUM = 0.1
 
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm`` over the last axis, exactly.
 
-def _require_eval(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} runs in eval mode only; train-mode batch "
-            "statistics come with the sequence-model slice of the port")
+    Train mode normalises with the batch's mean and its fast variance
+    ``E[x^2] - E[x]^2`` clipped at 0, both over every axis but the last,
+    and moves the running statistics to ``0.9 * old + 0.1 * batch`` (the
+    momentum every caller in the JAX package sets), the variance biased as
+    Flax keeps it (``nn.BatchNorm1d`` keeps
+    it unbiased, so it cannot stand in). Eval mode normalises with the
+    running statistics. Names as ``convert.py`` maps Flax's: ``weight``
+    (Flax ``scale``), ``bias``, buffers ``running_mean`` and ``running_var``
+    (``batch_stats`` ``mean`` and ``var``).
+    """
+
+    momentum = 0.9
+
+    def __init__(self, features: int, epsilon: float = 1e-5, use_scale: bool = True,
+                 use_bias: bool = True, *, device: torch.device):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = (nn.Parameter(torch.ones(features, device=device))
+                       if use_scale else None)
+        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                     if use_bias else None)
+        self.register_buffer("running_mean", torch.zeros(features, device=device))
+        self.register_buffer("running_var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.float32)
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            var = torch.clamp(torch.mean(x * x, dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.epsilon)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (x - mean) * mul
+        if self.bias is not None:
+            y = y + self.bias
+        return y
 
 
 def glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -81,13 +119,12 @@ class Dice(nn.Module):
                  device: torch.device):
         super().__init__()
         # named as Flax names the inner BatchNorm of ``Dice``
-        self.BatchNorm_0 = nn.BatchNorm1d(features, eps=epsilon, momentum=_BN_MOMENTUM,
-                                          affine=False, device=device)
+        self.BatchNorm_0 = BatchNorm(features, epsilon=epsilon, use_scale=False,
+                                     use_bias=False, device=device)
         self.alpha = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x):
-        _require_eval(self)
-        p = torch.sigmoid(self.BatchNorm_0(x.to(torch.float32)))
+        p = torch.sigmoid(self.BatchNorm_0(x))
         return self.alpha * (1.0 - p) * x + p * x
 
 
@@ -158,8 +195,7 @@ class DNN(nn.Module):
                                                 generator=generator,
                                                 init=glorot_uniform_))
             if use_bn:
-                self.add_module(f"bn_{i}", nn.BatchNorm1d(
-                    units, momentum=_BN_MOMENTUM, device=device))
+                self.add_module(f"bn_{i}", BatchNorm(units, device=device))
             if activation == "dice":
                 self.add_module(f"dice_{i}", Dice(units, device=device))
             elif activation == "prelu":
@@ -182,9 +218,7 @@ class DNN(nn.Module):
                 x = F.linear(x.to(self.dtype), layer.weight.to(self.dtype),
                              layer.bias.to(self.dtype))
             if self.use_bn:
-                bn = getattr(self, f"bn_{i}")
-                _require_eval(bn)
-                x = bn(x.to(torch.float32))
+                x = getattr(self, f"bn_{i}")(x)
             if self.activation == "dice":
                 x = getattr(self, f"dice_{i}")(x)
             elif self.activation == "prelu":

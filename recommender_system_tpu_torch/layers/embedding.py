@@ -9,15 +9,18 @@ lane-packed as ``[ceil(V/P), 128]`` for the TPU; ``convert.py`` unpacks it.
 
 Supported here: shared tables via ``embedding_name``, ``use_hash`` (murmur
 hash into the vocab), ``trainable=False`` (detached lookup), per-table init
-std, dense columns with ``transform_fn``. Variable-length columns and their
-pooling come with the sequence-model slice of the port.
+std, dense columns with ``transform_fn``, and variable-length columns: each
+is one ``[B, T]`` gather (``lookup``) with its mask (from ``length_name`` or
+from the ids, id 0 being padding), optional per-position weights and its
+pooled vector (``ops/seqpool.py``).
 
 The gather is ``take_fast``, whose backward is the sorted scatter-add kernel.
 For the fused sparse optimizer the Trainer sets ``capture`` to a list
-instead (the JAX package's perturb and sow hooks): each gather then reads the
-detached table, makes its ``[B, F, d]`` output a leaf that requires grad,
-and appends a ``Captured`` record, so that after ``backward()`` the leaf's
-``.grad`` is the lookup's cotangent, beside its rows and sorted stream.
+instead (the JAX package's perturb and sow hooks): each gather (a dim
+group's ``[B, F]`` or a varlen column's ``[B, T]``) then reads the detached
+table, makes its output a leaf that requires grad, and appends a
+``Captured`` record, so that after ``backward()`` the leaf's ``.grad`` is
+the lookup's cotangent, beside its rows.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 from torch import nn
 
 from ..ops.embedding_grad import take_fast
+from ..ops.seqpool import id_mask, length_mask, sequence_pooling, weighted_sequence
 from ..ops.stream_sort import SortLayout
 from ..utils.features import (DenseFeat, FeatureColumn, SparseFeat,
                               VarLenSparseFeat, split_columns)
@@ -78,6 +82,9 @@ class EmbedOutputs:
     dense: Optional[torch.Tensor]       # [B, sum(dims)] or None
     fused: Dict[int, Tuple[Tuple[str, ...], torch.Tensor]] = \
         dataclasses.field(default_factory=dict)
+    varlen_raw: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)  # [B, T, d]
+    varlen_mask: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)  # [B, T] bool
+    pooled: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)  # [B, d]
 
     def sparse_stack(self, names: Optional[Sequence[str]] = None) -> torch.Tensor:
         """Stack single-valued sparse embeddings into [B, F, d] (uniform dim)."""
@@ -90,13 +97,14 @@ class EmbedOutputs:
 
     def concat_flat(self, include_dense: bool = True,
                     sparse_names: Optional[Sequence[str]] = None) -> Optional[torch.Tensor]:
-        """Flattened ``[sparse embeds | dense]``.
+        """Flattened ``[sparse embeds | pooled varlen | dense]``.
 
-        The order is the JAX package's: with one fused dim group, the fields
-        in column order; otherwise ``self.sparse``'s order, which is dim group
-        by dim group (``EmbeddingCollection.forward``), not column order.
-        Transplanted weights depend on it."""
-        if sparse_names is None and len(self.fused) == 1:
+        The order is the JAX package's: with one fused dim group and no
+        varlen column, the fields in column order; otherwise
+        ``self.sparse``'s order, which is dim group by dim group
+        (``EmbeddingCollection.forward``), not column order, then the pooled
+        varlen columns. Transplanted weights depend on it."""
+        if sparse_names is None and len(self.fused) == 1 and not self.pooled:
             (fnames, arr), = self.fused.values()
             if len(fnames) == len(self.sparse):
                 parts = [arr.reshape(arr.shape[0], -1)]
@@ -104,6 +112,7 @@ class EmbedOutputs:
                     parts.append(self.dense)
                 return torch.cat(parts, dim=-1)
         parts = [self.sparse[n] for n in (sparse_names or self.sparse.keys())]
+        parts += list(self.pooled.values())
         if include_dense and self.dense is not None:
             parts.append(self.dense)
         return torch.cat(parts, dim=-1) if parts else None
@@ -111,15 +120,24 @@ class EmbedOutputs:
 
 @dataclasses.dataclass
 class Captured:
-    """One gather in capture mode: ``embeds`` is the ``[B, F, d]`` leaf whose
-    ``.grad`` is the cotangent after ``backward()``, ``rows`` its ``[B*F]``
-    rows of ``table`` (the collection's ``table_d{d}``), ``presorted`` their
-    sorted stream from ``blocked_sort`` or None."""
+    """One gather in capture mode: ``embeds`` is the ``[B, F, d]`` (or
+    ``[B, T, d]``) leaf whose ``.grad`` is the cotangent after
+    ``backward()``, ``rows2d`` its ``[B, F]`` rows of ``table`` (the
+    collection's ``table_d{d}``), ``layout`` the site's ``SortLayout`` or
+    None."""
 
     table: str
     embeds: torch.Tensor
-    rows: torch.Tensor
-    presorted: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    rows2d: torch.Tensor
+    layout: Optional[SortLayout]
+
+    @property
+    def rows(self) -> torch.Tensor:
+        return self.rows2d.reshape(-1)
+
+    def presorted(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """The rows' sorted stream from the layout, or None."""
+        return None if self.layout is None else self.layout(self.rows2d)
 
 
 class EmbeddingCollection(nn.Module):
@@ -134,11 +152,7 @@ class EmbeddingCollection(nn.Module):
         super().__init__()
         self.feature_columns = tuple(feature_columns)
         sparse, varlen, dense = split_columns(self.feature_columns)
-        if varlen:
-            raise NotImplementedError(
-                f"VarLenSparseFeat columns ({', '.join(fc.name for fc in varlen)}) "
-                "and their pooling come with the sequence-model slice of the port")
-        self._sparse_cols, self._dense_cols = sparse, dense
+        self._sparse_cols, self._varlen_cols, self._dense_cols = sparse, varlen, dense
         self._specs = build_table_specs(self.feature_columns)
         for dim, group in self._specs.items():
             total = sum(s.vocab for s in group.values())
@@ -165,44 +179,60 @@ class EmbeddingCollection(nn.Module):
 
     @property
     def output_dim(self) -> int:
-        """Width of ``concat_flat()``: every sparse embedding and dense column."""
-        return (sum(fc.embedding_dim for fc in self._sparse_cols)
+        """Width of ``concat_flat()``: every sparse embedding, pooled varlen
+        column and dense column."""
+        return (sum(fc.embedding_dim for fc in (*self._sparse_cols, *self._varlen_cols))
                 + sum(fc.dimension for fc in self._dense_cols))
 
     def table(self, dim: int) -> nn.Parameter:
         return getattr(self, f"table_d{dim}")
 
-    def _resolve_ids(self, fc: SparseFeat, ids: torch.Tensor) -> torch.Tensor:
+    def _resolve_ids(self, fc: FeatureColumn, ids: torch.Tensor) -> torch.Tensor:
         spec = self._specs[fc.embedding_dim][fc.embedding_name]
         # an explicit vocabulary file (applied host-side) takes precedence
         # over hashing, as in the JAX package
-        if fc.use_hash and not fc.vocabulary_path:
+        base = getattr(fc, "sparsefeat", fc)
+        if fc.use_hash and not base.vocabulary_path:
             ids = hash_ids(ids, spec.vocab, mask_zero=True)
         # clamp, as the JAX package's gather does: out-of-range ids read the
         # table's first or last row instead of raising
         ids = ids.to(torch.int64).clamp(0, spec.vocab - 1)
         return ids + spec.offset
 
+    def _layout(self, dim: int) -> Optional[SortLayout]:
+        key = str(dim)
+        return self.sort_layouts[key] if key in self.sort_layouts else None
+
     def _presort(self, dim: int,
                  rows: torch.Tensor) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """The dim group's ``[B, F]`` rows as a sorted stream, or None."""
-        key = str(dim)
-        return self.sort_layouts[key](rows) if key in self.sort_layouts else None
+        layout = self._layout(dim)
+        return None if layout is None else layout(rows)
 
-    def _gather(self, dim: int, rows: torch.Tensor) -> torch.Tensor:
-        """``[B, F]`` rows -> ``[B, F, d]``: captured, or through ``take_fast``."""
+    def _gather(self, dim: int, rows: torch.Tensor, group: bool) -> torch.Tensor:
+        """``[B, F]`` rows -> ``[B, F, d]``: captured, or through ``take_fast``.
+        A dim group's gather (``group``) sorts its stream by the group's
+        layout where there is one; a varlen column's, generically."""
         table = self.table(dim)
         flat = rows.reshape(-1)
         shape = (*rows.shape, dim)
         if self.capture is not None:
             embeds = table.detach().index_select(0, flat).reshape(shape)
             embeds.requires_grad_(True)
-            self.capture.append(Captured(f"table_d{dim}", embeds, flat,
-                                         self._presort(dim, rows)))
+            self.capture.append(Captured(f"table_d{dim}", embeds, rows,
+                                         self._layout(dim) if group else None))
             return embeds
-        presorted = (self._presort(dim, rows)
-                     if torch.is_grad_enabled() and table.requires_grad else None)
+        presorted = (self._presort(dim, rows) if group and torch.is_grad_enabled()
+                     and table.requires_grad else None)
         return take_fast(table, flat, presorted).reshape(shape)
+
+    def lookup(self, fc: FeatureColumn, ids: torch.Tensor) -> torch.Tensor:
+        """Embed ids of any shape for one column -> ``ids.shape + (d,)``; a
+        frozen column's lookup is detached (and never captured)."""
+        rows = self._resolve_ids(fc, ids)
+        if not fc.trainable:
+            return self.table(fc.embedding_dim).detach()[rows]
+        return self._gather(fc.embedding_dim, rows, group=False)
 
     def forward(self, batch: Mapping[str, torch.Tensor]) -> EmbedOutputs:
         # --- fused single-valued sparse lookup: one gather per dim group ---
@@ -212,12 +242,32 @@ class EmbeddingCollection(nn.Module):
             rows = torch.stack(
                 [self._resolve_ids(fc, batch[fc.name].reshape(-1)) for fc in fcs],
                 dim=1)  # [B, F]
-            embeds = self._gather(dim, rows)  # [B, F, d]
+            embeds = self._gather(dim, rows, group=True)  # [B, F, d]
             if all(fc.trainable for fc in fcs):
                 fused[dim] = (tuple(fc.name for fc in fcs), embeds)
             for i, fc in enumerate(fcs):
                 e = embeds[:, i, :]
                 sparse[fc.name] = e if fc.trainable else e.detach()
+
+        # --- varlen features: raw sequences, masks, pooled vectors ---
+        varlen_raw: Dict[str, torch.Tensor] = {}
+        varlen_mask: Dict[str, torch.Tensor] = {}
+        pooled: Dict[str, torch.Tensor] = {}
+        for fc in self._varlen_cols:
+            ids = batch[fc.name]  # [B, T]
+            seq = self.lookup(fc, ids)  # [B, T, d]
+            if fc.length_name is not None:
+                mask = length_mask(batch[fc.length_name], fc.maxlen)
+            else:
+                mask = id_mask(ids)
+            varlen_raw[fc.name] = seq
+            varlen_mask[fc.name] = mask
+            if fc.weight_name is not None:
+                seq_w = weighted_sequence(seq, batch[fc.weight_name], mask,
+                                          normalize=fc.weight_norm)
+            else:
+                seq_w = seq
+            pooled[fc.name] = sequence_pooling(seq_w, mask, mode=fc.combiner)
 
         # --- dense features (+ optional transform_fn) ---
         dense = None
@@ -232,7 +282,7 @@ class EmbeddingCollection(nn.Module):
                 parts.append(v.to(torch.float32))
             dense = torch.cat(parts, dim=-1)
 
-        return EmbedOutputs(sparse, dense, fused)
+        return EmbedOutputs(sparse, dense, fused, varlen_raw, varlen_mask, pooled)
 
 
 class UnifiedEmbedding(nn.Module):
@@ -251,8 +301,11 @@ class UnifiedEmbedding(nn.Module):
                  device: torch.device, generator: torch.Generator):
         super().__init__()
         sparse, varlen, dense = split_columns(tuple(feature_columns))
-        aug = [dataclasses.replace(fc, embedding_dim=fc.embedding_dim + 1)
-               for fc in sparse] + list(varlen) + list(dense)
+        aug = ([dataclasses.replace(fc, embedding_dim=fc.embedding_dim + 1)
+                for fc in sparse]
+               + [dataclasses.replace(fc, sparsefeat=dataclasses.replace(
+                   fc.sparsefeat, embedding_dim=fc.embedding_dim + 1)) for fc in varlen]
+               + list(dense))
         self.embeddings = EmbeddingCollection(aug, device=device, generator=generator)
         n_dense = sum(fc.dimension for fc in dense)
         self.dense_w = (nn.Parameter(
@@ -274,8 +327,13 @@ class UnifiedEmbedding(nn.Module):
         for n, v in out.sparse.items():
             if n not in fused_names:
                 linear = linear + v[..., -1:]
+        for v in out.pooled.values():
+            linear = linear + v[..., -1:]
         sparse = {n: v[..., :-1] for n, v in out.sparse.items()}
+        varlen_raw = {n: v[..., :-1] for n, v in out.varlen_raw.items()}
+        pooled = {n: v[..., :-1] for n, v in out.pooled.items()}
         if out.dense is not None:
             linear = linear + out.dense @ self.dense_w
         linear = linear + self.bias
-        return EmbedOutputs(sparse, out.dense, fused), linear
+        return EmbedOutputs(sparse, out.dense, fused, varlen_raw, out.varlen_mask,
+                            pooled), linear

@@ -1,2 +1,3 @@
 from .dcn import DCN
 from .deepfm import DeepFM
+from .din import DIN

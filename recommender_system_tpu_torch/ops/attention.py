@@ -1,0 +1,39 @@
+"""DIN target attention (counterpart of ``recommender_system_tpu/ops/attention.py``).
+
+``din_attention`` scores a behaviour sequence against a target query with a
+2-hidden-layer MLP over ``[q, k, q-k, q*k]``, masks invalid steps, optionally
+softmax-normalises, and pools the keys. It is ``din_attention_fused``
+(``ops/kernels.py``): on the card always the kernel of
+``csrc/din_attention.cu``, on the CPU its plain version.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Optional
+
+import torch
+
+from .kernels import din_attention_fused
+
+
+def din_attention(query: torch.Tensor, keys: torch.Tensor, mask: torch.Tensor,
+                  w1, b1, w2, b2, w3, b3, activation: str = "sigmoid",
+                  weight_normalization: bool = True, return_scores: bool = False,
+                  use_pallas: Optional[bool] = None, dtype=None,
+                  remat: bool = False) -> torch.Tensor:
+    """``query [B, K]``, ``keys [B, T, K]``, ``mask [B, T]`` -> pooled
+    ``[B, K]`` (or weights ``[B, T]``).
+
+    ``use_pallas`` is accepted for the JAX package's signature and ignored:
+    the kernel runs on every CUDA tensor. The kernel computes in f32, so
+    ``dtype`` is ignored, as on the JAX package's kernel path. ``remat``, the
+    JAX package's hand-written backward (``ops/din_vjp.py``), is not ported.
+    """
+    if remat:
+        raise NotImplementedError(
+            "din_attention(remat=True) comes with the DIEN slice of the port")
+    if dtype is not None:
+        warnings.warn("din_attention: the kernel computes in f32; "
+                      f"dtype={dtype} is ignored", stacklevel=2)
+    return din_attention_fused(query, keys, mask, w1, b1, w2, b2, w3, b3,
+                               activation, weight_normalization, return_scores)

@@ -9,9 +9,13 @@ module is imported.
 Wrappers (see ``ops/dispatch.py``): a CUDA tensor launches the kernel, a CPU
 tensor runs the kernel's plain version. Each wrapper counts its launches in
 an integer attribute, ``<wrapper>.launches``, which only a launch raises.
-The wrappers of ``csrc/sparse_rows.cu`` are ``fused_adagrad_apply``
-(``ops/fused_adagrad.py``) and ``scatter_add_sorted``
-(``ops/embedding_grad.py``); this module launches their kernels.
+
+- ``cross_fused`` (``csrc/cross.cu``), plain version ``cross_network``;
+- ``din_attention_fused`` (``csrc/din_attention.cu``), plain version
+  ``din_attention_ref``;
+- ``fused_adagrad_apply`` (``ops/fused_adagrad.py``) and
+  ``scatter_add_sorted`` (``ops/embedding_grad.py``), whose kernels are in
+  ``csrc/sparse_rows.cu``; this module launches them.
 """
 from __future__ import annotations
 
@@ -24,9 +28,11 @@ from pathlib import Path
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from .dispatch import use_kernel
 from .interactions import cross_network
+from .seqpool import NEG_INF
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE / "csrc"
@@ -37,6 +43,7 @@ _INT64, _FLOAT = ctypes.c_longlong, ctypes.c_float
 # and the stream as c_void_p, or ctypes would pass a 32-bit int
 SOURCES = {
     "cross": {"cross_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT)},
+    "din_attention": {"din_attention_forward": ([_PTR] * 10 + [_INT] * 8 + [_PTR], _INT)},
     "sparse_rows": {
         "fused_adagrad_rows": ([_PTR] * 5 + [_INT64, _INT, _FLOAT, _FLOAT, _PTR], _INT),
         "scatter_add_rows": ([_PTR] * 4 + [_INT64, _INT, _PTR], _INT),
@@ -105,9 +112,9 @@ def _library(name: str) -> ctypes.CDLL:
 # DCN cross stack (csrc/cross.cu)
 # ---------------------------------------------------------------------------
 
-CROSS_MAX_DIM = 1024
 # shared memory one block may take on the H100 (227 KB)
-CROSS_MAX_SHARED_BYTES = 232_448
+MAX_SHARED_BYTES = 232_448
+CROSS_MAX_DIM = 1024
 
 
 def check_cross_args(x0: torch.Tensor, weights: torch.Tensor,
@@ -128,12 +135,16 @@ def check_cross_args(x0: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"weights width {weights.shape[1]} != x0 width {D}")
     if not 0 < D <= CROSS_MAX_DIM:
         raise ValueError(f"cross_fused kernel takes 0 < D <= {CROSS_MAX_DIM}, got {D}")
-    if 2 * L * D * 4 > CROSS_MAX_SHARED_BYTES:
+    if 2 * L * D * 4 > MAX_SHARED_BYTES:
         raise ValueError(f"cross_fused kernel: L={L}, D={D} needs "
                          f"{2 * L * D * 4} bytes of shared memory, more than "
-                         f"{CROSS_MAX_SHARED_BYTES}")
+                         f"{MAX_SHARED_BYTES}")
     if B >= 2 ** 31:
         raise ValueError(f"cross_fused kernel takes B < 2**31, got {B}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _cross_launch(x0: torch.Tensor, weights: torch.Tensor,
@@ -145,10 +156,9 @@ def _cross_launch(x0: torch.Tensor, weights: torch.Tensor,
         return out
     lib = _library("cross")
     with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
         err = lib.cross_forward(x0.data_ptr(), weights.data_ptr(),
                                 biases.data_ptr(), out.data_ptr(), B, D,
-                                weights.shape[0], stream)
+                                weights.shape[0], _stream(x0))
     if err != 0:
         raise RuntimeError(f"cross_forward launch failed with CUDA error {err}")
     cross_fused.launches += 1
@@ -186,6 +196,157 @@ cross_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# DIN target attention (csrc/din_attention.cu)
+# ---------------------------------------------------------------------------
+
+DIN_MAX_HIDDEN = 256
+DIN_ACTIVATIONS = {"sigmoid": torch.sigmoid, "relu": F.relu}
+
+
+def din_attention_ref(query: torch.Tensor, keys: torch.Tensor, mask: torch.Tensor,
+                      w1, b1, w2, b2, w3, b3, activation: str = "sigmoid",
+                      weight_normalization: bool = True,
+                      return_scores: bool = False) -> torch.Tensor:
+    """Plain version: ``query [B, K]``, ``keys [B, T, K]``, ``mask [B, T]``
+    (bool, or float and valid where > 0.5) -> pooled ``[B, K]`` (or the
+    weights ``[B, T]``). The scorer MLP over ``[q, k, q-k, q*k]`` has its
+    first layer folded exactly as the JAX package's ``din_attention_ref``
+    folds it, ``q (Wq+Wm) + [k | q*k] [Wk-Wm ; Wp]``; a masked position
+    scores ``NEG_INF`` before the softmax (or 0 without it)."""
+    if activation not in DIN_ACTIVATIONS:
+        raise ValueError(activation)
+    act = DIN_ACTIVATIONS[activation]
+    K = keys.shape[-1]
+    wq, wk, wm, wp = w1[:K], w1[K:2 * K], w1[2 * K:3 * K], w1[3 * K:]
+    ck = torch.cat([keys, query[:, None, :] * keys], dim=-1)
+    wkp = torch.cat([wk - wm, wp], dim=0)
+    h_pre = (query @ (wq + wm))[:, None, :] + ck @ wkp
+    h = act(h_pre + b1)
+    h = act(h @ w2 + b2)
+    score = (h @ w3 + b3)[..., 0]
+    valid = mask if mask.dtype == torch.bool else mask > 0.5
+    if weight_normalization:
+        score = torch.softmax(torch.where(valid, score, NEG_INF), dim=-1)
+    else:
+        score = torch.where(valid, score, 0.0)
+    if return_scores:
+        return score
+    return torch.einsum("bt,btk->bk", score, keys)
+
+
+def din_shared_bytes(T: int, K: int, H1: int, H2: int) -> int:
+    """Shared memory of a block of the kernel that stages one batch row at a
+    time (the layout of ``csrc/din_attention.cu``; it stages up to 4 where
+    they fit)."""
+    Tp = -(-T // 4) * 4
+    per_row = K * Tp + K * H1 + K + 2 * T + H1
+    weights = 3 * K * H1 + H1 * H2 + H1 + 2 * H2 + 1
+    return 4 * (per_row + 8 * H1 * 4 + weights)
+
+
+def check_din_args(query, keys, mask, w1, b1, w2, b2, w3, b3, activation) -> None:
+    """Raise on anything the DIN attention kernel does not take."""
+    named = dict(query=query, keys=keys, mask=mask, w1=w1, b1=b1, w2=w2, b2=b2,
+                 w3=w3, b3=b3)
+    for what, t in named.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"din_attention_fused kernel takes float32, {what} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"din_attention_fused kernel takes contiguous tensors, "
+                             f"{what} is not")
+    if activation not in DIN_ACTIVATIONS:
+        raise ValueError(f"din_attention_fused kernel takes activation sigmoid or relu, "
+                         f"not {activation!r}")
+    if keys.dim() != 3 or query.dim() != 2 or w1.dim() != 2 or w2.dim() != 2:
+        raise ValueError("din_attention_fused takes query [B, K], keys [B, T, K], "
+                         "w1 [4K, H1], w2 [H1, H2]; got "
+                         f"{tuple(query.shape)}, {tuple(keys.shape)}, "
+                         f"{tuple(w1.shape)}, {tuple(w2.shape)}")
+    B, T, K = keys.shape
+    H1, H2 = w1.shape[1], w2.shape[1]
+    want = dict(query=(B, K), mask=(B, T), w1=(4 * K, H1), b1=(H1,), w2=(H1, H2),
+                b2=(H2,), w3=(H2, 1), b3=(1,))
+    for what, shape in want.items():
+        if tuple(named[what].shape) != shape:
+            raise ValueError(f"din_attention_fused: {what} has shape "
+                             f"{tuple(named[what].shape)}, want {shape}")
+    if T == 0 or K == 0:
+        raise ValueError(f"din_attention_fused kernel takes T > 0 and K > 0, got {T}, {K}")
+    if not (0 < H1 <= DIN_MAX_HIDDEN and 0 < H2 <= DIN_MAX_HIDDEN):
+        raise ValueError(f"din_attention_fused kernel takes hidden widths in "
+                         f"1..{DIN_MAX_HIDDEN}, got {H1}, {H2}")
+    need = din_shared_bytes(T, K, H1, H2)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"din_attention_fused kernel: T={T}, K={K}, H1={H1}, H2={H2} "
+                         f"needs {need} bytes of shared memory, more than "
+                         f"{MAX_SHARED_BYTES}")
+    if B >= 2 ** 31:
+        raise ValueError(f"din_attention_fused kernel takes B < 2**31, got {B}")
+
+
+def _din_launch(query, keys, mask, w1, b1, w2, b2, w3, b3, activation: str,
+                weight_normalization: bool, return_scores: bool) -> torch.Tensor:
+    check_din_args(query, keys, mask, w1, b1, w2, b2, w3, b3, activation)
+    B, T, K = keys.shape
+    out = torch.empty((B, T if return_scores else K), dtype=torch.float32,
+                      device=keys.device)
+    if B == 0:
+        return out
+    lib = _library("din_attention")
+    with torch.cuda.device(keys.device):
+        err = lib.din_attention_forward(
+            *(t.data_ptr() for t in (query, keys, mask, w1, b1, w2, b2, w3, b3, out)),
+            B, T, K, w1.shape[1], w2.shape[1], int(activation == "relu"),
+            int(weight_normalization), int(return_scores), _stream(keys))
+    if err != 0:
+        raise RuntimeError(f"din_attention_forward launch failed with CUDA error {err}")
+    din_attention_fused.launches += 1
+    return out
+
+
+class _DinAttentionFused(torch.autograd.Function):
+    """Forward: the kernel on CUDA, ``din_attention_ref`` on the CPU.
+    Backward: the VJP of ``din_attention_ref`` recomputed from the saved
+    inputs, as the JAX package's ``_din_bwd`` does; there is no backward
+    kernel. The mask gets no cotangent."""
+
+    @staticmethod
+    def forward(ctx, query, keys, mask, w1, b1, w2, b2, w3, b3, activation,
+                weight_normalization, return_scores):
+        ctx.save_for_backward(query, keys, mask, w1, b1, w2, b2, w3, b3)
+        ctx.flags = (activation, weight_normalization, return_scores)
+        args = (query, keys, mask, w1, b1, w2, b2, w3, b3, *ctx.flags)
+        if use_kernel(query, keys, mask, w1, b1, w2, b2, w3, b3):
+            return _din_launch(*args)
+        return din_attention_ref(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        query, keys, mask, *weights = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(True) for t in (query, keys, *weights)]
+        with torch.enable_grad():
+            out = din_attention_ref(inputs[0], inputs[1], mask, *inputs[2:], *ctx.flags)
+        dq, dk, *dw = torch.autograd.grad(out, inputs, grad)
+        return (dq, dk, None, *dw, None, None, None)
+
+
+def din_attention_fused(query: torch.Tensor, keys: torch.Tensor, mask: torch.Tensor,
+                        w1, b1, w2, b2, w3, b3, activation: str = "sigmoid",
+                        weight_normalization: bool = True,
+                        return_scores: bool = False) -> torch.Tensor:
+    """DIN target attention -> pooled ``[B, K]`` (or weights ``[B, T]``), in
+    one kernel launch on CUDA. ``mask`` is bool or float (valid where
+    > 0.5, as the TPU kernel reads it); the inputs are made contiguous."""
+    args = [t.contiguous() for t in (query, keys, mask.to(torch.float32),
+                                      w1, b1, w2, b2, w3, b3)]
+    return _DinAttentionFused.apply(*args, activation, weight_normalization,
+                                    return_scores)
+
+
+din_attention_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Row updates from a sorted id stream (csrc/sparse_rows.cu)
 # ---------------------------------------------------------------------------
 
@@ -218,10 +379,6 @@ def check_sparse_rows_args(slid: torch.Tensor, order: torch.Tensor,
     if ct.shape[1] == 0 or ct.numel() >= 2 ** 62:
         raise ValueError(f"sparse row kernels take 0 < dim and N*dim < 2**62, "
                          f"got ct {tuple(ct.shape)}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def launch_fused_adagrad(param: torch.Tensor, acc: torch.Tensor,

@@ -23,7 +23,8 @@ class Scorer:
     >>> probs = scorer(features)     # any number of rows -> numpy [n, 1]
 
     The model must already lie on ``device`` (the card unless another device
-    is named); it is put in eval mode.
+    is named); each call puts it in eval mode (BatchNorm on its running
+    statistics), since a ``Trainer`` sharing it puts it in train mode.
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 1024,
@@ -55,6 +56,7 @@ class Scorer:
         n = len(next(iter(features.values())))
         Xp, _, _ = pad_to_batch(features, None, self.batch_size)
         total = len(next(iter(Xp.values())))
+        self.model.eval()
         out = []
         with torch.inference_mode():
             for start in range(0, total, self.batch_size):

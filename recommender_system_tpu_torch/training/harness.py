@@ -13,6 +13,12 @@ sparse embedding optimizer ``FusedAdagrad``:
   (one stream per ``table_d{d}``, its sites concatenated) go straight into
   ``fused_adagrad_apply``, which updates the touched rows in place.
 
+A table looked up at several sites (DIN's ``[B, 2]`` user and item group
+and its ``[B, T]`` history) is one stream of all its sites, with no size
+threshold. The train step runs the model in train mode, so BatchNorm and
+Dice normalise with the batch and move their running statistics;
+``predict`` and ``evaluate`` run it in eval mode.
+
 Neither step reads a device value on the host, so a ``multi_step`` call of
 K steps over batches already on the device runs without a synchronisation.
 Unlike the JAX package's pure ``TrainState``, the parameters live in the
@@ -174,7 +180,7 @@ class Trainer:
             dim = table.shape[1]
             lids = torch.cat([r.rows for r in recs])
             ct = torch.cat([r.embeds.grad.reshape(-1, dim) for r in recs]).contiguous()
-            presorted = recs[0].presorted if len(recs) == 1 else None
+            presorted = recs[0].presorted() if len(recs) == 1 else None
             self.fused_embedding.apply(table.detach(), self.fused_slots[name], lids, ct,
                                        step=self.step, presorted=presorted)
 

@@ -1,8 +1,9 @@
-"""Host-side data: the Criteo schema, synthetic Criteo-shaped data, batching.
+"""Host-side data: the Criteo schema, synthetic Criteo-shaped and behaviour
+data, batching.
 
 Copies of the parts of ``recommender_system_tpu/utils/datasets.py`` that the
-DCN serving path uses, bit-exact with them (``tests/test_torch_utils.py``).
-Batches are dicts of fixed-shape numpy arrays.
+port's paths use, bit-exact with them (``tests/test_torch_utils.py``,
+``tests/test_torch_din.py``). Batches are dicts of fixed-shape numpy arrays.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-from .features import DenseFeat, SparseFeat
+from .features import DenseFeat, SparseFeat, VarLenSparseFeat
 
 CRITEO_DENSE = [f"I{i}" for i in range(1, 14)]
 CRITEO_SPARSE = [f"C{i}" for i in range(1, 27)]
@@ -50,6 +51,40 @@ def synthetic_criteo(
         columns.append(SparseFeat(name, vocab, embedding_dim))
         logits += 0.3 * np.sin(ids * (i + 1) * 0.37)
     y = (rng.uniform(size=n_rows) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
+    return columns, X, y
+
+
+def synthetic_behavior(
+    n_rows: int = 2048,
+    n_items: int = 500,
+    n_users: int = 200,
+    seq_len: int = 10,
+    embedding_dim: int = 8,
+    seed: int = 0,
+):
+    """Behaviour-sequence synthetic data: the label depends on whether the
+    target item's "category" (item_id % 8) appears in the history, the
+    signal DIN's attention should pick up."""
+    rng = np.random.default_rng(seed)
+    user = rng.integers(1, n_users, n_rows).astype(np.int32)
+    item = rng.integers(1, n_items, n_rows).astype(np.int32)
+    hist = rng.integers(1, n_items, (n_rows, seq_len)).astype(np.int32)
+    hist_len = rng.integers(1, seq_len + 1, n_rows).astype(np.int32)
+    pos_mask = np.arange(seq_len)[None, :] < hist_len[:, None]
+    hist = np.where(pos_mask, hist, 0)
+    match = ((hist % 8) == (item[:, None] % 8)) & pos_mask
+    p = np.where(match.any(1), 0.85, 0.2)
+    y = (rng.uniform(size=n_rows) < p).astype(np.float32)
+
+    columns = [
+        SparseFeat("user_id", n_users, embedding_dim),
+        SparseFeat("item_id", n_items, embedding_dim),
+        VarLenSparseFeat(
+            SparseFeat("hist_item_id", n_items, embedding_dim, embedding_name="item_id"),
+            maxlen=seq_len, combiner="mean", length_name="hist_len",
+        ),
+    ]
+    X = {"user_id": user, "item_id": item, "hist_item_id": hist, "hist_len": hist_len}
     return columns, X, y
 
 

@@ -234,9 +234,26 @@ def test_embedding_init_std_per_table():
 
 
 def test_varlen_columns_wait_for_sequence_slice():
-    cols = [tfeatures.VarLenSparseFeat(tfeatures.SparseFeat("h", 10, 4), maxlen=3)]
-    with pytest.raises(NotImplementedError, match="sequence"):
-        DCN(cols, device="cpu", generator=_gen())
+    """Varlen columns, which the sequence-model slice brought: their pooled
+    vectors join the cross stack's input as in the JAX package's DCN."""
+    def schema(mod):
+        return _schema(mod) + [
+            mod.VarLenSparseFeat(mod.SparseFeat("h", 50, 8, embedding_name="C0"), maxlen=3),
+            mod.VarLenSparseFeat(mod.SparseFeat("g", 20, 4), maxlen=4, combiner="sum")]
+
+    rng = np.random.default_rng(9)
+    X = _batch(B, (8,) * 5, False)
+    X["h"] = rng.integers(0, 50, (B, 3)).astype(np.int32)
+    X["g"] = rng.integers(0, 20, (B, 4)).astype(np.int32)
+    jmodel = JDCN(tuple(schema(jfeatures)), cross_layers=2, hidden_units=(16, 8))
+    params = _redraw(jmodel.init(jax.random.PRNGKey(0), X)["params"], rng)
+    model = load_jax_params(DCN(schema(tfeatures), cross_layers=2, hidden_units=(16, 8),
+                                device="cpu", generator=_gen()), params).eval()
+    assert model.cross.weights.shape[1] == 3 + 5 * 8 + 8 + 4
+    want = np.asarray(jmodel.apply({"params": params}, X))
+    with torch.inference_mode():
+        got = model({k: torch.from_numpy(v) for k, v in X.items()}).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("dim", [1, 4, 8, 9, 40, 128, 200])

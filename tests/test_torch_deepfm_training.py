@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from recommender_system_tpu.layers.core import DNN as JDNN
 from recommender_system_tpu.models import DeepFM as JDeepFM
 from recommender_system_tpu.ops.interactions import bi_interaction as j_bi_interaction
 from recommender_system_tpu.ops.interactions import fm_interaction as j_fm_interaction
@@ -44,6 +45,17 @@ BF16_RTOL, BF16_ATOL = 1e-2, 2e-4
 
 def _gen():
     return torch.Generator().manual_seed(0)
+
+
+def _flat(tree, prefix=""):
+    """A nested dict of arrays -> {"a/b/c": array}."""
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
 
 
 # ----------------------------------------------------------------- metrics
@@ -126,9 +138,29 @@ def test_dropout_draws_from_its_generator():
 @pytest.mark.parametrize("kw", [dict(use_bn=True), dict(activation="dice")],
                          ids=["batchnorm", "dice"])
 def test_batch_statistics_wait_for_sequence_slice(kw):
-    dnn = DNN(8, (4,), device="cpu", generator=_gen(), **kw).train()
-    with pytest.raises(NotImplementedError, match="sequence"):
-        dnn(torch.ones(3, 8))
+    """Train-mode BatchNorm and Dice, which the sequence-model slice brought:
+    the tower normalises with the batch statistics and leaves Flax's running
+    statistics."""
+    rng = np.random.default_rng(4)
+    x = (rng.normal(size=(64, 8)) * 2 + 0.5).astype(np.float32)
+    jdnn = JDNN((4,), **kw)
+    variables = jdnn.init(jax.random.PRNGKey(0), x)
+    params = jax.tree_util.tree_map(
+        lambda a: rng.normal(0.0, 0.3, np.shape(a)).astype(np.float32), variables["params"])
+    stats = jax.tree_util.tree_map(np.asarray, variables["batch_stats"])
+    want, mutated = jdnn.apply({"params": params, "batch_stats": stats}, x, train=True,
+                               mutable=["batch_stats"])
+    dnn = load_jax_params(DNN(8, (4,), device="cpu", generator=_gen(), **kw), params,
+                          stats).train()
+    got = dnn(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    flat = _flat(mutated["batch_stats"])
+    assert flat
+    for path, value in flat.items():
+        *scope, key = path.split("/")
+        name = ".".join(scope + [{"mean": "running_mean", "var": "running_var"}[key]])
+        np.testing.assert_allclose(dnn.get_buffer(name).numpy(), np.asarray(value),
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
 
 
 # ------------------------------------------------------- DeepFM vs JAX
