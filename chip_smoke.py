@@ -17,13 +17,21 @@ Phases, each of which raises on failure (exit code not 0):
    combinations of activation, softmax and scores, at T=13, T=1, B=1 and
    with a scorer of 128-64, each with a row that has no valid position,
    forward and gradient through the autograd Function (rtol=1e-4,
-   atol=1e-5); ``fused_adagrad_apply`` vs ``fused_adagrad_ref`` and
-   ``scatter_add_sorted`` vs ``scatter_add_dense_ref`` at the bench shape
-   (N=425,984 lookups into 2,600,000 rows of dim 9), at dims 8 to 128, at
-   N=1, with ids on the table's last row, with half the ids on one row, and
-   on DIN's two-site stream of table_d32 (425,984 positions, ~184,000 on
-   the padding row) (rtol=1e-5, atol=1e-6 x the largest |value|; rows no
-   id touches must come back bitwise equal);
+   atol=1e-5); ``fm_fused`` vs ``fm_ref`` at B=16,384, D=221, k=8 and at
+   B=1, D=1, k=1, at D=13, k=64, and at Ds that are not multiples of 32,
+   forward and gradient through the Function (rtol=1e-4, atol=1e-5);
+   ``fused_adagrad_apply``, ``fused_sgd_apply`` and ``fused_adam_apply``
+   (lazy Adam at step 0, and at step 3 from non-zero moments) vs
+   ``fused_adagrad_ref``, ``fused_sgd_ref`` and ``fused_adam_ref``, and
+   ``scatter_add_sorted`` vs ``scatter_add_dense_ref``, at the bench shape
+   (N=425,984 lookups into 2,600,000 rows of dim 9), at dims 8 to 128 (33
+   among them), at N=1 and N=0, with ids on the table's last row, with half
+   the ids on one row, with rows named only by all-zero cotangents or by
+   cotangents that cancel, and on DIN's two-site stream of table_d32
+   (425,984 positions, ~184,000 on the padding row) (rtol=1e-5, atol=1e-6 x
+   the largest |value|: the plain versions' ``index_add_`` sums in another
+   order; rows no id touches, and for Adam the rows whose summed gradient
+   is zero, must come back bitwise equal);
 3. serving at full width: DCN on 26 sparse fields of 100,000 ids (dim 8)
    and 13 dense fields, 6 cross layers, deep tower 256-128-64, f32, random
    weights from a seed; ``Scorer(batch_size=4096)`` answers requests of 1,
@@ -58,14 +66,36 @@ Phases, each of which raises on failure (exit code not 0):
    answers requests of 1, 1000, 8192 and 20,000 rows, one attention launch
    per padded batch; the answers equal a plain forward on the card
    (atol=1e-5) and the CPU path on 1000 rows;
+3g. the Criteo CTR models at ``benchmarks/model_step.py``'s width (26
+   fields of 100,000 ids at dim 8, 13 dense fields, f32 towers 256-128-64,
+   batch 8,192, K=8 pre-staged batches, seeds 0-7), built as model_step.py
+   builds them, weights from seed 0: WideDeep with ``SGD(0.01)`` and
+   ``FusedSGD(0.01)`` (table_d9 2,600,000 x 9), three calls, 24
+   ``fused_sgd_apply`` launches; NFM with ``Adam(1e-3)`` and
+   ``FusedAdam(1e-3)`` (table_d8 with m and v), three calls, 24
+   ``fused_adam_apply`` launches, its BatchNorm statistics moved; each with
+   one call under ``set_sync_debug_mode("error")``, losses finite and
+   falling, untouched rows bitwise unchanged (Adam's m and v too); FM with
+   ``FusedAdam``, one call (8 launches), ``init_from_fm`` into FNN (the copy
+   equals the FM table's first 8 columns), FNN with ``FusedSGD``, one call
+   (8 launches); DCN (6 cross layers) with ``Adagrad(0.05)`` and
+   ``FusedAdagrad(0.05)``, one call: 8 ``cross_fused`` and 8
+   ``fused_adagrad_apply`` launches; then two steps of WideDeep/FusedSGD and
+   of NFM/FusedAdam on the card and on the CPU from the same start, whose
+   parameters, BatchNorm statistics and optimizer states agree;
+3h. ``FMLayer`` on x [16,384, 221], k=8: 8 forward and backward passes, one
+   ``fm_fused`` launch per forward, output and gradients equal to the plain
+   version's;
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
    host overhead included), and the library call where there is one; each
    Scorer's latency and throughput (host clock), its device busy time per
    batch and its top kernels; the training throughput of a fused K=8 call
    (CUDA events), its device idle share, the top device work of a step and
-   the count of host ops a step issues, for DeepFM and for DIN; and the
-   share of DIN's step that its padding row takes in ``fused_adagrad_apply``.
+   the count of host ops a step issues, for DeepFM, DIN, WideDeep and NFM;
+   the share of DIN's step that its padding row takes in
+   ``fused_adagrad_apply``; and each sparse row kernel's time on a stream
+   with a hot row and on DIN's step stream.
 
 The line before the last lists every kernel with its launches on its main
 path, its error against the plain version, its times and its bound; the line
@@ -108,6 +138,11 @@ LR, EPS = 0.05, 1e-7
 # card against CPU after two fused steps: f32 on both, GEMMs and reductions
 # summed in another order
 PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5
+
+# benchmarks/model_step.py's Criteo width: bench.py's fields at batch 8,192,
+# f32 towers; the reference's SGD recipe and the Adam it pairs with
+CTR_BATCH = 8192
+SGD_LR, ADAM_LR = 0.01, 1e-3
 
 # benchmarks/model_step.py's DIN width: user_id 100,000 ids, item_id
 # 200,000 ids with its history (T=50, padding id 0) on the same table, dim
@@ -220,6 +255,60 @@ def check_cross_kernel(cross_fused, cross_network) -> float:
     return max_err
 
 
+def fm_bound(B: int, D: int, k: int):
+    """Least time for the FM logit: x read once, w1 and v read once, the
+    output written once; ``4*B*D*k + 2*B*D`` f32 flops (the TPU kernel's
+    cost estimate)."""
+    byte_ms = 4 * (B * D + D + D * k + B) / PEAK_BYTES_PER_S * 1e3
+    flop_ms = (4 * B * D * k + 2 * B * D) / PEAK_F32_FLOPS * 1e3
+    return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
+
+
+def fm_inputs(gen, B, D, k):
+    """Random FM inputs on the card: x normal, w1 and v at 1/sqrt(D) scale."""
+    x = torch.randn(B, D, generator=gen, device="cuda")
+    w1 = torch.randn(D, 1, generator=gen, device="cuda") / math.sqrt(D)
+    v = torch.randn(D, k, generator=gen, device="cuda") / math.sqrt(D)
+    return x, w1, v
+
+
+def check_fm_kernel() -> float:
+    """Phase 2 for csrc/fm.cu: ``fm_fused`` against ``fm_ref`` on the card,
+    forward and gradient through the autograd Function; returns the largest
+    absolute error of the forward."""
+    from recommender_system_tpu_torch.ops.kernels import fm_fused, fm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    max_err = 0.0
+    # the FMLayer path's shape, the smallest, a dense-column width with a
+    # wide factor count (8 chunks), Ds that are not multiples of 32, a
+    # factor count that is not a multiple of the kernel's chunk of 8, and
+    # v past 48 KB of shared memory
+    for B, D, k in [(16_384, 221, 8), (1, 1, 1), (4096, 13, 64), (1000, 100, 8),
+                    (333, 45, 3), (257, 221, 20), (64, 1500, 8)]:
+        x, w1, v = fm_inputs(gen, B, D, k)
+        with torch.inference_mode():
+            out = fm_fused(x, w1, v)
+            torch.cuda.synchronize()
+            ref = fm_ref(x, w1, v)
+            torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+        err = (out - ref).abs().max().item()
+        max_err = max(max_err, err)
+        cot = torch.randn(out.shape, generator=gen, device="cuda")
+        grads = []
+        for fn in (fm_fused, fm_ref):
+            args = [t.clone().requires_grad_(True) for t in (x, w1, v)]
+            grads.append(torch.autograd.grad(fn(*args), args, cot))
+            torch.cuda.synchronize()
+        for g_kernel, g_plain in zip(*grads):
+            # both are the plain VJP, on the same inputs
+            torch.testing.assert_close(g_kernel, g_plain, rtol=RTOL, atol=ATOL)
+        print(f"kernel check fm_fused B={B} D={D} k={k}: max_abs_err={err:.3e}, "
+              "gradients match", flush=True)
+    return max_err
+
+
 def din_bound(B: int, T: int, K: int, H1: int, H2: int):
     """Least time for the DIN attention: query, keys and mask read and the
     pooled output written once, the weights read once; the scorer's flops
@@ -308,16 +397,27 @@ def check_din_kernel() -> float:
     return max_err
 
 
-def sparse_rows_bound(n: int, touched: int, rows: int, dim: int, adagrad: bool):
+# tables each sparse row rule reads and writes on a touched row, and its
+# flops per touched element
+RULE_TABLES = {"sgd": 1, "adagrad": 2, "adam": 3}
+RULE_FLOPS = {"sgd": 2, "adagrad": 5, "adam": 12}
+
+
+def sparse_rows_bound(n: int, touched: int, rows: int, dim: int, rule: str):
     """Least time for a sparse row kernel: the stream (slid and order, which
-    fit int32, and f32 cotangents) read once; Adagrad reads and writes param
-    and acc on the touched rows, the scatter-add writes its whole output. A
-    few flops per byte, so bytes bound both. (The port's stream is int64, 8
+    fit int32, and f32 cotangents) read once; an update rule reads and
+    writes its tables (SGD param; Adagrad param and acc; Adam param, m and
+    v) on the touched rows, the scatter-add writes its whole output. A few
+    flops per byte, so bytes bound them all. (The port's stream is int64, 8
     bytes a position more than the bound counts.)"""
     stream = 8 * n + 4 * n * dim
-    nbytes = stream + (16 * touched * dim if adagrad else 4 * rows * dim)
+    if rule == "scatter":
+        nbytes, flops = stream + 4 * rows * dim, n * dim
+    else:
+        nbytes = stream + 8 * RULE_TABLES[rule] * touched * dim
+        flops = n * dim + RULE_FLOPS[rule] * touched * dim
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    flop_ms = (n * dim + 5 * touched * dim) / PEAK_F32_FLOPS * 1e3
+    flop_ms = flops / PEAK_F32_FLOPS * 1e3
     return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
 
 
@@ -376,10 +476,11 @@ def sparse_cases(gen: torch.Generator):
     bench = torch.as_tensor(bench_rows(0), device=dev).reshape(-1)
     n = bench.numel()
     yield "bench", bench, torch.randn(n, 9, generator=gen, device=dev), rows9
-    for dim in (8, 16, 32, 128):
+    for dim in (8, 9, 16, 32, 33, 128):
         lids = torch.randint(0, 100_000, (200_000,), generator=gen, device=dev)
         yield f"dim{dim}", lids, torch.randn(200_000, dim, generator=gen, device=dev), 100_000
     yield "n1", bench[:1], torch.randn(1, 9, generator=gen, device=dev), rows9
+    yield "n0", bench[:0], torch.zeros(0, 9, device=dev), rows9
     last = bench[:1000].clone()
     last[::7] = rows9 - 1
     yield "last_row", last, torch.randn(1000, 9, generator=gen, device=dev), rows9
@@ -390,6 +491,17 @@ def sparse_cases(gen: torch.Generator):
     skew[::2] = 12_345
     ct = torch.randint(-8, 9, (n, 9), generator=gen, device=dev).float() / 8
     yield "skewed", skew, ct, rows9
+    # rows named by the stream whose summed gradient is zero: row 0 (id 0 of
+    # field 1, which the batches never hold) with all-zero cotangents at 200
+    # positions, row VOCAB with two that cancel; Adam must leave both as
+    # they are. The rest on the 1/8 grid.
+    zero = bench[:2000].clone()
+    ct = torch.randint(-8, 9, (2000, 9), generator=gen, device=dev).float() / 8
+    zero[::10] = 0
+    ct[::10] = 0.0
+    zero[1], zero[2] = VOCAB, VOCAB
+    ct[1], ct[2] = 0.5, -0.5
+    yield "zero_rows", zero, ct, rows9
     # DIN's two-site stream of table_d32 (425,984 positions), ~184,000 of
     # them on the padding row; cotangents on the 1/8 grid again
     din = torch.as_tensor(din_stream(din_batch(0)[0]), device=dev)
@@ -397,24 +509,34 @@ def sparse_cases(gen: torch.Generator):
     yield "din_two_sites", din, ct, DIN_USERS + DIN_ITEMS
 
 
+SPARSE_KERNELS = ("fused_adagrad_apply", "fused_sgd_apply", "fused_adam_apply",
+                  "scatter_add_sorted")
+
+
 def check_sparse_rows() -> dict:
-    """Phase 2 for csrc/sparse_rows.cu: both kernels against their plain
+    """Phase 2 for csrc/sparse_rows.cu: the four kernels against their plain
     versions; returns the largest absolute error of each."""
     from recommender_system_tpu_torch.ops.embedding_grad import (
         scatter_add_dense_ref, scatter_add_sorted)
     from recommender_system_tpu_torch.ops.fused_adagrad import (
-        fused_adagrad_apply, fused_adagrad_ref)
+        fused_adagrad_apply, fused_adagrad_ref, fused_adam_apply, fused_adam_ref,
+        fused_sgd_apply, fused_sgd_ref)
     from recommender_system_tpu_torch.ops.stream_sort import blocked_sort, sort_ids
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    errs = {"fused_adagrad_apply": 0.0, "scatter_add_sorted": 0.0}
+    errs = dict.fromkeys(SPARSE_KERNELS, 0.0)
 
     def close(name, got, want):
         tol = SPARSE_ATOL_SCALE * max(want.abs().max().item(), 1e-30)
-        torch.testing.assert_close(got, want, rtol=SPARSE_RTOL, atol=tol)
+        torch.testing.assert_close(got, want, rtol=SPARSE_RTOL, atol=tol,
+                                   msg=lambda m: f"{name} {case}: {m}")
         err = (got - want).abs().max().item()
         errs[name] = max(errs[name], err)
         return err
+
+    def unchanged(name, keep, pairs):
+        if not all(torch.equal(new[keep], old[keep]) for new, old in pairs):
+            raise RuntimeError(f"{name} {case}: a row it must not update changed")
 
     for case, lids, ct, rows in sparse_cases(gen):
         dim = ct.shape[1]
@@ -425,39 +547,68 @@ def check_sparse_rows() -> dict:
             slid, order = blocked_sort(lids.reshape(-1, FIELDS), ranges)
             if not torch.equal(slid, lids[order]):
                 raise RuntimeError("blocked_sort's stream does not read back the ids")
+        presorted = (slid, order)
         touched = torch.zeros(rows, dtype=torch.bool, device="cuda")
         touched[lids] = True
 
         out = scatter_add_sorted(slid, order, ct, rows)
         want = scatter_add_dense_ref(lids, ct, rows)
         torch.cuda.synchronize()
-        e1 = close("scatter_add_sorted", out, want)
+        e_scatter = close("scatter_add_sorted", out, want)
         if out[~touched].count_nonzero().item():
             raise RuntimeError(f"scatter_add_sorted {case}: an untouched row is not 0")
+        # Adam's rows: touched with a summed gradient that is not zero
+        nonzero = want.ne(0).any(dim=1)
 
         table = torch.randn(rows, dim, generator=gen, device="cuda")
         acc = 0.1 + torch.rand(rows, dim, generator=gen, device="cuda")
         t1, a1 = table.clone(), acc.clone()
-        fused_adagrad_apply(t1, a1, lids, ct, lr=LR, eps=EPS, presorted=(slid, order))
+        fused_adagrad_apply(t1, a1, lids, ct, lr=LR, eps=EPS, presorted=presorted)
         want_t, want_a = fused_adagrad_ref(table, acc, lids, ct, LR, EPS)
         torch.cuda.synchronize()
-        e2 = max(close("fused_adagrad_apply", t1, want_t),
-                 close("fused_adagrad_apply", a1, want_a))
-        if not (torch.equal(t1[~touched], table[~touched])
-                and torch.equal(a1[~touched], acc[~touched])):
-            raise RuntimeError(f"fused_adagrad_apply {case}: an untouched row changed")
+        e_adagrad = max(close("fused_adagrad_apply", t1, want_t),
+                        close("fused_adagrad_apply", a1, want_a))
+        unchanged("fused_adagrad_apply", ~touched, [(t1, table), (a1, acc)])
+
+        t1 = table.clone()
+        fused_sgd_apply(t1, lids, ct, lr=SGD_LR, presorted=presorted)
+        want_t = fused_sgd_ref(table, lids, ct, SGD_LR)
+        torch.cuda.synchronize()
+        e_sgd = close("fused_sgd_apply", t1, want_t)
+        unchanged("fused_sgd_apply", ~touched, [(t1, table)])
+
+        e_adam = 0.0
+        for step in (0, 3):
+            if step == 0:
+                m = torch.zeros_like(table)
+                v = torch.zeros_like(table)
+            else:
+                m = 0.1 * torch.randn(rows, dim, generator=gen, device="cuda")
+                v = 0.01 * torch.rand(rows, dim, generator=gen, device="cuda")
+            state = [t.clone() for t in (table, m, v)]
+            fused_adam_apply(*state, lids, ct, lr=ADAM_LR, step=step, presorted=presorted)
+            wants = fused_adam_ref(table, m, v, lids, ct, ADAM_LR, step)
+            torch.cuda.synchronize()
+            for got, w in zip(state, wants):
+                e_adam = max(e_adam, close("fused_adam_apply", got, w))
+            unchanged("fused_adam_apply", ~nonzero, zip(state, (table, m, v)))
+        zero_rows = int((touched & ~nonzero).sum())
         print(f"kernel check sparse rows {case}: N={lids.numel()} rows={rows} dim={dim} "
-              f"touched={int(touched.sum())}: scatter_add_sorted max_abs_err={e1:.3e}, "
-              f"fused_adagrad_apply max_abs_err={e2:.3e}; untouched rows equal", flush=True)
+              f"touched={int(touched.sum())} (summed gradient zero: {zero_rows}): "
+              f"max_abs_err scatter_add_sorted {e_scatter:.3e}, fused_adagrad_apply "
+              f"{e_adagrad:.3e}, fused_sgd_apply {e_sgd:.3e}, fused_adam_apply "
+              f"{e_adam:.3e} (steps 0 and 3); untouched rows equal", flush=True)
+        if case == "zero_rows" and zero_rows != 2:
+            raise RuntimeError(f"zero_rows: {zero_rows} rows with a zero sum, want 2")
     return errs
 
 
-def staged_batches(seeds, device="cuda"):
+def staged_batches(seeds, device="cuda", batch=TRAIN_BATCH):
     """bench.py's pre-staged batches: synthetic Criteo of the bench width,
     one seed per batch, stacked on a leading K axis on ``device``."""
     from recommender_system_tpu_torch.utils.datasets import synthetic_criteo
 
-    data = [synthetic_criteo(n_rows=TRAIN_BATCH, vocab=VOCAB,
+    data = [synthetic_criteo(n_rows=batch, vocab=VOCAB,
                              embedding_dim=FACTOR_DIM, seed=s) for s in seeds]
     cols = data[0][0]
     batches = {k: torch.as_tensor(np.stack([X[k] for _, X, _ in data]), device=device)
@@ -473,56 +624,84 @@ def deepfm(cols, dnn_dtype, device="cuda", seed=0):
                   device=device, generator=torch.Generator().manual_seed(seed))
 
 
-def train_fused(cols, batches, labels, card):
-    """Phase 3b: returns (trainer, launches, losses of the three calls)."""
-    from recommender_system_tpu_torch import FusedAdagrad, Trainer
-    from recommender_system_tpu_torch.ops.embedding_grad import scatter_add_sorted
-    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
-    from recommender_system_tpu_torch.training import Adagrad
-    from recommender_system_tpu_torch.utils.datasets import synthetic_criteo
+def touched_rows(batches, rows: int) -> torch.Tensor:
+    """The rows of a Criteo table (field f's ids offset by f * VOCAB) that
+    the staged batches look up, as a bool mask on the card."""
+    touched = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    for f in range(FIELDS):
+        touched[batches[f"C{f + 1}"].reshape(-1).long().clamp(0, VOCAB - 1) + f * VOCAB] = True
+    return touched
 
-    model = deepfm(cols, torch.bfloat16)
-    table = model.unified.embeddings.table_d9
-    start = table.detach().clone()
-    trainer = Trainer(model, Adagrad(LR), fused_embedding=FusedAdagrad(LR))
-    print(f"DeepFM: table {tuple(table.shape)}, "
-          f"{sum(p.numel() for p in model.parameters())} parameters", flush=True)
 
-    fused_adagrad_apply.launches = scatter_add_sorted.launches = 0
-    calls = []
-    for call in range(3):
+def train_checked(name, model, batches, labels, optimizer, fused, calls, want, card,
+                  touched=None):
+    """``calls`` K-step calls of ``model`` through ``Trainer`` (the second
+    under ``set_sync_debug_mode("error")``: no step may wait for the
+    device); the launches must equal ``want``, the losses be finite and,
+    over several calls, fall; table rows that ``touched`` (default: the
+    Criteo rows the batches look up) leaves out keep their values and slots
+    bitwise; a BatchNorm's statistics move. Returns (trainer, launches)."""
+    from recommender_system_tpu_torch import Trainer
+
+    (tname, table), = [(n, p) for n, p in model.named_parameters()
+                       if n.rsplit(".", 1)[-1].startswith("table_d")]
+    trainer = Trainer(model, optimizer, fused_embedding=fused)
+    start = [table.detach().clone(), *(t.clone() for t in trainer.fused_slots[tname])]
+    bn_start = model.bn.running_mean.clone() if hasattr(model, "bn") else None
+    print(f"{name}: {tname} {tuple(table.shape)}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"{type(optimizer).__name__} + {type(fused).__name__}", flush=True)
+
+    zero_counts()
+    calls_out = []
+    for call in range(calls):
         if call == 1:
-            # no step may wait for the device: a synchronising call raises
             torch.cuda.set_sync_debug_mode("error")
         try:
-            calls.append(trainer.multi_step(batches, labels))
+            calls_out.append(trainer.multi_step(batches, labels))
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    launches = {"fused_adagrad_apply": fused_adagrad_apply.launches,
-                "scatter_add_sorted": scatter_add_sorted.launches}
-    print(f"fused training launches: {launches} over 3 calls of K={K}", flush=True)
-    if launches != {"fused_adagrad_apply": 3 * K, "scatter_add_sorted": 0}:
-        raise RuntimeError(f"fused training launched {launches}, want "
-                           f"{3 * K} fused_adagrad_apply and no scatter_add_sorted")
-    losses = torch.stack(calls).cpu().numpy()
+    launches = read_counts()
+    print(f"{name} training launches: {launches} over {calls} call(s) of K={K}", flush=True)
+    if launches != want:
+        raise RuntimeError(f"{name} training launched {launches}, want {want}")
+    losses = torch.stack(calls_out).cpu().numpy()
     if not np.isfinite(losses).all():
-        raise RuntimeError(f"fused training losses not finite: {losses}")
-    if not losses[-1].mean() < losses[0].mean():
-        raise RuntimeError(f"fused training loss did not fall: {losses}")
-    print(f"fused training: call under set_sync_debug_mode('error') ran; mean loss "
-          f"per call {[round(float(m), 6) for m in losses.mean(axis=1)]}", flush=True)
+        raise RuntimeError(f"{name} training losses not finite: {losses}")
+    if calls > 1 and not losses[-1].mean() < losses[0].mean():
+        raise RuntimeError(f"{name} training loss did not fall: {losses}")
 
-    touched = torch.zeros(table.shape[0], dtype=torch.bool, device="cuda")
-    for f in range(FIELDS):
-        touched[batches[f"C{f + 1}"].reshape(-1).long().clamp(0, VOCAB - 1) + f * VOCAB] = True
-    if not torch.equal(table.detach()[~touched], start[~touched]):
-        raise RuntimeError("fused training changed a table row no batch touched")
-    if torch.equal(table.detach()[touched], start[touched]):
-        raise RuntimeError("fused training left every touched row as it was")
-    print(f"fused training: {int((~touched).sum())} untouched rows bitwise unchanged",
-          flush=True)
+    if touched is None:
+        touched = touched_rows(batches, table.shape[0])
+    after = [table.detach(), *trainer.fused_slots[tname]]
+    if not all(torch.equal(a[~touched], b[~touched]) for a, b in zip(after, start)):
+        raise RuntimeError(f"{name} training changed a row (or its slots) no batch touched")
+    if torch.equal(table.detach()[touched], start[0][touched]):
+        raise RuntimeError(f"{name} training left every touched row as it was")
+    note = ""
+    if bn_start is not None:
+        moved = (model.bn.running_mean - bn_start).abs().max().item()
+        if moved == 0.0:
+            raise RuntimeError(f"{name} training left the BatchNorm statistics as they were")
+        note = f"; BatchNorm running mean moved by up to {moved:.4g}"
+    sync = " (call 2 under set_sync_debug_mode('error'))" if calls > 1 else ""
+    print(f"{name} training: mean loss per call {[float(x) for x in losses.mean(axis=1)]}"
+          f"{sync}; {int((~touched).sum())} untouched rows bitwise unchanged with their "
+          f"{len(start) - 1} slot(s){note}; on {card}", flush=True)
+    return trainer, launches
 
+
+def train_fused(cols, batches, labels, card):
+    """Phase 3b: three fused calls, then evaluate; returns (trainer,
+    launches)."""
+    from recommender_system_tpu_torch import FusedAdagrad
+    from recommender_system_tpu_torch.training import Adagrad
+    from recommender_system_tpu_torch.utils.datasets import synthetic_criteo
+
+    trainer, launches = train_checked(
+        "DeepFM", deepfm(cols, torch.bfloat16), batches, labels, Adagrad(LR),
+        FusedAdagrad(LR), 3, launches_want(fused_adagrad_apply=3 * K), card)
     _, X_test, y_test = synthetic_criteo(n_rows=65_536, vocab=VOCAB,
                                          embedding_dim=FACTOR_DIM, seed=100)
     t0 = time.perf_counter()
@@ -531,49 +710,50 @@ def train_fused(cols, batches, labels, card):
           f"{time.perf_counter() - t0:.2f} s; on {card}", flush=True)
     if not np.isfinite(metrics["logloss"]) or not 0.0 <= metrics["auc"] <= 1.0:
         raise RuntimeError(f"evaluate gave {metrics}")
-    return trainer, launches, losses
+    return trainer, launches
 
 
 def train_plain(cols, batches, labels):
     """Phase 3c: returns the launches of one plain K-step call."""
     from recommender_system_tpu_torch import Trainer
-    from recommender_system_tpu_torch.ops.embedding_grad import scatter_add_sorted
-    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
     from recommender_system_tpu_torch.training import Adagrad
 
     trainer = Trainer(deepfm(cols, torch.bfloat16), Adagrad(LR))
-    fused_adagrad_apply.launches = scatter_add_sorted.launches = 0
+    zero_counts()
     losses = trainer.multi_step(batches, labels).cpu().numpy()
-    launches = {"fused_adagrad_apply": fused_adagrad_apply.launches,
-                "scatter_add_sorted": scatter_add_sorted.launches}
+    launches = read_counts()
     print(f"plain training launches: {launches} over 1 call of K={K}; losses {losses}",
           flush=True)
-    if launches != {"fused_adagrad_apply": 0, "scatter_add_sorted": K}:
+    if launches != launches_want(scatter_add_sorted=K):
         raise RuntimeError(f"plain training launched {launches}, want {K} "
-                           "scatter_add_sorted and no fused_adagrad_apply")
+                           "scatter_add_sorted and nothing else")
     if not np.isfinite(losses).all():
         raise RuntimeError(f"plain training losses not finite: {losses}")
     return launches
 
 
-def card_against_cpu(model, batches, labels, name):
-    """Phases 3d and 3f: two fused steps at full width (f32) on the card and
-    on the CPU from the same start; parameters, BatchNorm statistics and
-    optimizer states agree."""
+def card_against_cpu(model, batches, labels, name, optimizer=None, fused=None):
+    """Phases 3d, 3f and 3g: two fused steps at full width (f32) on the card
+    and on the CPU from the same start; parameters, BatchNorm statistics and
+    optimizer states agree. ``optimizer`` and ``fused`` make the Trainer's
+    optimizers (default ``Adagrad(LR)`` and ``FusedAdagrad(LR)``)."""
     from recommender_system_tpu_torch import FusedAdagrad, Trainer
     from recommender_system_tpu_torch.training import Adagrad
 
+    optimizer = optimizer or (lambda: Adagrad(LR))
+    fused = fused or (lambda: FusedAdagrad(LR))
     cpu_model = copy.deepcopy(model).to("cpu")
     runs = {}
     for device, m in (("cuda", model), ("cpu", cpu_model)):
-        trainer = Trainer(m, Adagrad(LR), fused_embedding=FusedAdagrad(LR), device=device)
+        trainer = Trainer(m, optimizer(), fused_embedding=fused(), device=device)
         sub = {k: v[:2].to(device) for k, v in batches.items()}
         trainer.multi_step(sub, labels[:2].to(device))
         # parameters and persistent buffers (BatchNorm statistics)
         state = {n: t.detach().cpu() for n, t in m.state_dict().items()}
-        state.update({f"opt:{n}": s["sum_of_squares"].cpu()
-                      for n, s in trainer.opt_state.items()})
-        state.update({f"slot:{n}": s[0].cpu() for n, s in trainer.fused_slots.items()})
+        state.update({f"opt:{key}:{n}": t.cpu() for n, slots in trainer.opt_state.items()
+                      for key, t in slots.items()})
+        state.update({f"slot{i}:{n}": t.cpu() for n, slots in trainer.fused_slots.items()
+                      for i, t in enumerate(slots)})
         runs[device] = state
     worst = 0.0
     for key, want in runs["cpu"].items():
@@ -588,12 +768,15 @@ def card_against_cpu(model, batches, labels, name):
 
 def time_sparse_rows(card) -> dict:
     """Phase 4 for the sparse row kernels at the bench shape: device time,
-    time per call, plain version, library call, bound; and each kernel's
-    device time on the bench stream with every other id on one hot row."""
+    time per call, plain version, library call, bound; each kernel's device
+    time on the bench stream with every other id on one hot row; and the
+    update rules' on DIN's step stream (two sites of table_d32, the padding
+    row's cotangents zero as in training)."""
     from recommender_system_tpu_torch.ops.embedding_grad import (
         scatter_add_dense_ref, scatter_add_sorted)
     from recommender_system_tpu_torch.ops.fused_adagrad import (
-        fused_adagrad_apply, fused_adagrad_ref)
+        fused_adagrad_apply, fused_adagrad_ref, fused_adam_apply, fused_adam_ref,
+        fused_sgd_apply, fused_sgd_ref)
     from recommender_system_tpu_torch.ops.stream_sort import blocked_sort, sort_ids
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -605,11 +788,22 @@ def time_sparse_rows(card) -> dict:
     ct = torch.randn(n, dim, generator=gen, device="cuda") * 1e-3
     table = torch.randn(rows, dim, generator=gen, device="cuda") * 1e-4
     acc = torch.full((rows, dim), 0.1, device="cuda")
+    m, v = torch.zeros_like(table), torch.zeros_like(table)
     touched = int(torch.unique(lids).numel())
     hot = lids.clone()
     hot[::2] = 12_345
     hot_slid, hot_order = sort_ids(hot)
+
+    din_lids = torch.as_tensor(din_stream(din_batch(0)[0]), device="cuda")
+    din_ct = torch.randn(din_lids.numel(), DIN_DIM, generator=gen, device="cuda") * 1e-3
+    din_ct[din_lids == DIN_USERS] = 0.0
+    din_table = torch.randn(DIN_USERS + DIN_ITEMS, DIN_DIM, generator=gen, device="cuda")
+    din_state = [torch.full_like(din_table, 0.1), torch.zeros_like(din_table),
+                 torch.zeros_like(din_table)]
+    din_sorted = sort_ids(din_lids)
     out = {}
+    # name: (kernel, plain version, hot row, DIN's stream, library call,
+    # rule, kernel name)
     fns = {
         "fused_adagrad_apply": (
             lambda: fused_adagrad_apply(table, acc, lids, ct, lr=LR, eps=EPS,
@@ -617,15 +811,36 @@ def time_sparse_rows(card) -> dict:
             lambda: fused_adagrad_ref(table, acc, lids, ct, LR, EPS),
             lambda: fused_adagrad_apply(table, acc, hot, ct, lr=LR, eps=EPS,
                                         presorted=(hot_slid, hot_order)),
-            None, True, "sparse_rows_kernel"),
+            lambda: fused_adagrad_apply(din_table, din_state[0], din_lids, din_ct, lr=LR,
+                                        eps=EPS, presorted=din_sorted),
+            None, "adagrad", "sparse_rows_kernel"),
+        "fused_sgd_apply": (
+            lambda: fused_sgd_apply(table, lids, ct, lr=SGD_LR, presorted=(slid, order)),
+            lambda: fused_sgd_ref(table, lids, ct, SGD_LR),
+            lambda: fused_sgd_apply(table, hot, ct, lr=SGD_LR, presorted=(hot_slid, hot_order)),
+            lambda: fused_sgd_apply(din_table, din_lids, din_ct, lr=SGD_LR,
+                                    presorted=din_sorted),
+            # one PyTorch call for the same update; it rounds per position
+            lambda: table.index_add_(0, lids, ct, alpha=-SGD_LR),
+            "sgd", "sparse_rows_kernel"),
+        "fused_adam_apply": (
+            lambda: fused_adam_apply(table, m, v, lids, ct, lr=ADAM_LR, step=0,
+                                     presorted=(slid, order)),
+            lambda: fused_adam_ref(table, m, v, lids, ct, ADAM_LR, 0),
+            lambda: fused_adam_apply(table, m, v, hot, ct, lr=ADAM_LR, step=0,
+                                     presorted=(hot_slid, hot_order)),
+            lambda: fused_adam_apply(din_table, *din_state[1:], din_lids, din_ct, lr=ADAM_LR,
+                                     step=0, presorted=din_sorted),
+            None, "adam", "lazy_adam_rows_kernel"),
         "scatter_add_sorted": (
             lambda: scatter_add_sorted(slid, order, ct, rows),
             lambda: scatter_add_dense_ref(lids, ct, rows),
             lambda: scatter_add_sorted(hot_slid, hot_order, ct, rows),
+            None,
             lambda: torch.zeros(rows, dim, device="cuda").index_add_(0, lids, ct),
-            False, None),
+            "scatter", None),
     }
-    for name, (kernel_fn, plain_fn, hot_fn, library_fn, adagrad, only) in fns.items():
+    for name, (kernel_fn, plain_fn, hot_fn, din_fn, library_fn, rule, only) in fns.items():
         kernel_dev = device_ms(kernel_fn)
         if only and not all(only in k for k in kernel_dev):
             raise RuntimeError(f"{name} ran other device work: {dict(kernel_dev)}")
@@ -635,16 +850,21 @@ def time_sparse_rows(card) -> dict:
                "library_ms": (sum(device_ms(library_fn).values())
                               if library_fn else None),
                "hot_row_ms": sum(device_ms(hot_fn, iters=5).values())}
-        rec["bound_ms"], rec["bound_by"] = sparse_rows_bound(n, touched, rows, dim, adagrad)
+        if din_fn:
+            rec["din_stream_ms"] = sum(device_ms(din_fn, iters=5).values())
+        rec["bound_ms"], rec["bound_by"] = sparse_rows_bound(n, touched, rows, dim, rule)
         out[name] = rec
         split = ", ".join(f"{k[:40]} {v:.5f}" for k, v in kernel_dev.most_common())
+        library = rec["library_ms"] if rec["library_ms"] is None else round(rec["library_ms"], 5)
+        din = (f"; on DIN's step stream ({din_lids.numel()} positions, "
+               f"{int((din_lids == DIN_USERS).sum())} on the padding row): device "
+               f"{rec['din_stream_ms']:.5f} ms" if din_fn else "")
         print(f"timing {name} N={n} U={touched} rows={rows} dim={dim}: device "
               f"{rec['ms']:.5f} ms ({split}; {100 * rec['bound_ms'] / rec['ms']:.1f}% "
               f"of the bound {rec['bound_ms']:.5f} ms, {rec['bound_by']}), "
               f"{rec['call_ms']:.5f} ms per call; plain: device {rec['plain_ms']:.5f} ms, "
-              f"{rec['plain_call_ms']:.5f} ms per call; library "
-              f"{rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 5)} "
-              f"ms; with {n // 2} positions on one row: device {rec['hot_row_ms']:.5f} ms; "
+              f"{rec['plain_call_ms']:.5f} ms per call; library {library} ms; with "
+              f"{n // 2} positions on one row: device {rec['hot_row_ms']:.5f} ms{din}; "
               f"on {card}", flush=True)
     return out
 
@@ -726,77 +946,48 @@ def din_model():
     return model
 
 
-def din_counts():
+def counted():
+    """Every kernel wrapper, each with its launch count."""
     from recommender_system_tpu_torch.ops.embedding_grad import scatter_add_sorted
-    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
-    from recommender_system_tpu_torch.ops.kernels import din_attention_fused
+    from recommender_system_tpu_torch.ops.fused_adagrad import (
+        fused_adagrad_apply, fused_adam_apply, fused_sgd_apply)
+    from recommender_system_tpu_torch.ops.kernels import (cross_fused, din_attention_fused,
+                                                          fm_fused)
 
-    return (din_attention_fused, fused_adagrad_apply, scatter_add_sorted)
+    return (cross_fused, fm_fused, din_attention_fused, fused_adagrad_apply, fused_sgd_apply,
+            fused_adam_apply, scatter_add_sorted)
 
 
 def read_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in din_counts()}
+    return {fn.__name__: fn.launches for fn in counted()}
 
 
 def zero_counts() -> None:
-    for fn in din_counts():
+    for fn in counted():
         fn.launches = 0
 
 
+def launches_want(**launches) -> dict:
+    """Every wrapper's count: the ones named, and 0 for the rest."""
+    return {**{fn.__name__: 0 for fn in counted()}, **launches}
+
+
 def train_din_fused(batches, labels, card):
-    """Phase 3f, fused: three K=8 calls; returns (trainer, launches)."""
-    from recommender_system_tpu_torch import FusedAdagrad, Trainer
+    """Phase 3f, fused: three K=8 calls; returns (trainer, launches). A
+    step: one attention forward (its backward is the plain VJP); one
+    fused_adagrad_apply, since the [B, 2] group and the [B, T] history of
+    table_d32 go as one stream; no scatter-add."""
+    from recommender_system_tpu_torch import FusedAdagrad
     from recommender_system_tpu_torch.training import Adagrad
 
-    model = din_model()
-    table = model.embeddings.table_d32
-    start, bn_start = table.detach().clone(), model.bn.running_mean.clone()
-    trainer = Trainer(model, Adagrad(LR), fused_embedding=FusedAdagrad(LR))
-    print(f"DIN: table {tuple(table.shape)}, {sum(p.numel() for p in model.parameters())} "
-          f"parameters, BatchNorm width {model.bn.running_mean.numel()}", flush=True)
-
-    zero_counts()
-    calls = []
-    for call in range(3):
-        if call == 1:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            calls.append(trainer.multi_step(batches, labels))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    launches = read_counts()
-    # a step: one attention forward (its backward is the plain VJP); one
-    # fused_adagrad_apply, since the [B, 2] group and the [B, T] history of
-    # table_d32 go as one stream; no scatter-add
-    want = {"din_attention_fused": 3 * K, "fused_adagrad_apply": 3 * K,
-            "scatter_add_sorted": 0}
-    print(f"DIN fused training launches: {launches} over 3 calls of K={K}", flush=True)
-    if launches != want:
-        raise RuntimeError(f"DIN fused training launched {launches}, want {want}")
-    losses = torch.stack(calls).cpu().numpy()
-    if not np.isfinite(losses).all():
-        raise RuntimeError(f"DIN fused training losses not finite: {losses}")
-    if not losses[-1].mean() < losses[0].mean():
-        raise RuntimeError(f"DIN fused training loss did not fall: {losses}")
-    print(f"DIN fused training: call under set_sync_debug_mode('error') ran; mean loss "
-          f"per call {[round(float(m), 6) for m in losses.mean(axis=1)]}", flush=True)
-
-    touched = torch.zeros(table.shape[0], dtype=torch.bool, device="cuda")
+    touched = torch.zeros(DIN_USERS + DIN_ITEMS, dtype=torch.bool, device="cuda")
     touched[batches["user_id"].reshape(-1).long()] = True
     touched[batches["item_id"].reshape(-1).long() + DIN_USERS] = True
     touched[batches["hist_item_id"].reshape(-1).long() + DIN_USERS] = True
-    if not torch.equal(table.detach()[~touched], start[~touched]):
-        raise RuntimeError("DIN fused training changed a table row no batch touched")
-    if torch.equal(table.detach()[touched], start[touched]):
-        raise RuntimeError("DIN fused training left every touched row as it was")
-    if torch.equal(model.bn.running_mean, bn_start):
-        raise RuntimeError("DIN fused training left the BatchNorm statistics as they were")
-    print(f"DIN fused training: {int((~touched).sum())} untouched rows bitwise unchanged; "
-          f"BatchNorm running mean moved by up to "
-          f"{(model.bn.running_mean - bn_start).abs().max().item():.4f}; on {card}",
-          flush=True)
-    return trainer, launches
+    return train_checked(
+        "DIN", din_model(), batches, labels, Adagrad(LR), FusedAdagrad(LR), 3,
+        launches_want(din_attention_fused=3 * K, fused_adagrad_apply=3 * K), card,
+        touched=touched)
 
 
 def train_din_plain(batches, labels):
@@ -810,7 +1001,7 @@ def train_din_plain(batches, labels):
     launches = read_counts()
     # a step: two take_fast lookups of table_d32 (the [B, 2] group and the
     # [B, T] history), each with one scatter-add in its backward
-    want = {"din_attention_fused": K, "fused_adagrad_apply": 0, "scatter_add_sorted": 2 * K}
+    want = launches_want(din_attention_fused=K, scatter_add_sorted=2 * K)
     print(f"DIN plain training launches: {launches} over 1 call of K={K}; losses {losses}",
           flush=True)
     if launches != want:
@@ -835,8 +1026,7 @@ def serve_din(model):
     launches = read_counts()
     padded = sum(-(-n // DIN_BATCH) for n in DIN_REQUESTS)
     print(f"DIN serving launches: {launches} for {padded} padded batches", flush=True)
-    if launches != {"din_attention_fused": padded, "fused_adagrad_apply": 0,
-                    "scatter_add_sorted": 0}:
+    if launches != launches_want(din_attention_fused=padded):
         raise RuntimeError(f"DIN serving launched {launches} for {padded} padded batches")
 
     a = model.attention
@@ -941,6 +1131,121 @@ def time_din(trainer, scorer, requests, batches, labels, card) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The Criteo CTR models at benchmarks/model_step.py's width, and FMLayer
+# ---------------------------------------------------------------------------
+
+def ctr_model(name: str, cols, device="cuda"):
+    """A Criteo CTR model as ``benchmarks/model_step.py:51-66`` builds it
+    (f32 towers 256-128-64; DCN with 6 cross layers), weights from seed 0."""
+    from recommender_system_tpu_torch import CTR_MODELS
+
+    kw = {"fm": {}, "dcn": dict(cross_layers=6, hidden_units=(256, 128, 64))}.get(
+        name, dict(hidden_units=(256, 128, 64)))
+    return CTR_MODELS[name](tuple(cols), **kw, device=device,
+                            generator=torch.Generator().manual_seed(0))
+
+
+def train_ctr_models(card) -> dict:
+    """Phase 3g: WideDeep, NFM, FM -> FNN and DCN at model_step.py's width;
+    returns the trained WideDeep and NFM trainers, their batches, and each
+    path's launches."""
+    from recommender_system_tpu_torch import (FusedAdagrad, FusedAdam, FusedSGD,
+                                              init_from_fm)
+    from recommender_system_tpu_torch.training import SGD, Adagrad, Adam
+
+    cols, batches, labels = staged_batches(range(K), batch=CTR_BATCH)
+    out = {"batches": (batches, labels), "launches": {}}
+    out["wide_deep"], out["launches"]["wide_deep"] = train_checked(
+        "WideDeep", ctr_model("wide_deep", cols), batches, labels, SGD(SGD_LR),
+        FusedSGD(SGD_LR), 3, launches_want(fused_sgd_apply=3 * K), card)
+    out["nfm"], out["launches"]["nfm"] = train_checked(
+        "NFM", ctr_model("nfm", cols), batches, labels, Adam(ADAM_LR), FusedAdam(ADAM_LR),
+        3, launches_want(fused_adam_apply=3 * K), card)
+    fm, out["launches"]["fm"] = train_checked(
+        "FM", ctr_model("fm", cols), batches, labels, Adam(ADAM_LR), FusedAdam(ADAM_LR), 1,
+        launches_want(fused_adam_apply=K), card)
+    fnn = init_from_fm(ctr_model("fnn", cols), fm.model)
+    if not torch.equal(fnn.embeddings.table_d8, fm.model.unified.embeddings.table_d9[:, :8]):
+        raise RuntimeError("init_from_fm: FNN's table_d8 is not the FM table's first 8 columns")
+    print("init_from_fm: FNN's table_d8 equals the trained FM's table_d9[:, :8]", flush=True)
+    _, out["launches"]["fnn"] = train_checked(
+        "FNN", fnn, batches, labels, SGD(SGD_LR), FusedSGD(SGD_LR), 1,
+        launches_want(fused_sgd_apply=K), card)
+    _, out["launches"]["dcn"] = train_checked(
+        "DCN", ctr_model("dcn", cols), batches, labels, Adagrad(LR), FusedAdagrad(LR), 1,
+        launches_want(cross_fused=K, fused_adagrad_apply=K), card)
+    card_against_cpu(ctr_model("wide_deep", cols), batches, labels, "WideDeep",
+                     lambda: SGD(SGD_LR), lambda: FusedSGD(SGD_LR))
+    card_against_cpu(ctr_model("nfm", cols), batches, labels, "NFM",
+                     lambda: Adam(ADAM_LR), lambda: FusedAdam(ADAM_LR))
+    return out
+
+
+FM_B, FM_D, FM_K = 16_384, 221, 8
+
+
+def fm_layer_path(card):
+    """Phase 3h: ``FMLayer`` at the JAX package's dispatch-benchmark shape,
+    K forward and backward passes; returns (layer, an input, launches)."""
+    from recommender_system_tpu_torch.layers import FMLayer
+    from recommender_system_tpu_torch.ops.kernels import fm_ref
+
+    layer = FMLayer(FM_D, FM_K, device="cuda", generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xs = [torch.randn(FM_B, FM_D, generator=gen, device="cuda") for _ in range(K)]
+    cots = [torch.randn(FM_B, 1, generator=gen, device="cuda") for _ in range(K)]
+    params = [layer.w0, layer.w1, layer.v]
+    zero_counts()
+    results = []
+    for x, cot in zip(xs, cots):
+        xg = x.clone().requires_grad_(True)
+        out = layer(xg)
+        results.append((out.detach(), torch.autograd.grad(out, [xg, *params], cot)))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"FMLayer launches: {launches} over {K} forward and backward passes", flush=True)
+    if launches != launches_want(fm_fused=K):
+        raise RuntimeError(f"FMLayer launched {launches}, want {K} fm_fused")
+    worst = 0.0
+    for x, cot, (out, grads) in zip(xs, cots, results):
+        xg = x.clone().requires_grad_(True)
+        plain = [t.detach().clone().requires_grad_(True) for t in params]
+        want = fm_ref(xg, plain[1], plain[2]) + plain[0]
+        torch.testing.assert_close(out, want.detach(), rtol=RTOL, atol=ATOL)
+        worst = max(worst, (out - want).abs().max().item())
+        for g, w in zip(grads, torch.autograd.grad(want, [xg, *plain], cot)):
+            torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL * max(1.0, w.abs().max().item()))
+    if not torch.isfinite(torch.cat([o for o, _ in results])).all():
+        raise RuntimeError("FMLayer gave values that are not finite")
+    print(f"FMLayer x [{FM_B}, {FM_D}], k={FM_K}: outputs equal w0 + fm_ref "
+          f"(max_abs_err {worst:.3e}), gradients of x, w0, w1, v equal the plain VJP's; "
+          f"on {card}", flush=True)
+    return layer, xs[0], launches
+
+
+def time_fm(layer, x, card) -> dict:
+    """Phase 4 for csrc/fm.cu at the FMLayer path's shape."""
+    from recommender_system_tpu_torch.ops.kernels import fm_fused, fm_ref
+
+    w1, v = layer.w1.detach(), layer.v.detach()
+    with torch.inference_mode():
+        kernel_dev = device_ms(lambda: fm_fused(x, w1, v))
+        plain_dev = device_ms(lambda: fm_ref(x, w1, v))
+        rec = {"call_ms": call_ms(lambda: fm_fused(x, w1, v)),
+               "plain_call_ms": call_ms(lambda: fm_ref(x, w1, v))}
+    if not all("fm_kernel" in name for name in kernel_dev):
+        raise RuntimeError(f"fm_fused ran other device work: {dict(kernel_dev)}")
+    rec.update(ms=sum(kernel_dev.values()), plain_ms=sum(plain_dev.values()), library_ms=None)
+    rec["bound_ms"], rec["bound_by"] = fm_bound(*x.shape, v.shape[1])
+    print(f"timing fm_fused B={x.shape[0]} D={x.shape[1]} k={v.shape[1]}: device "
+          f"{rec['ms']:.5f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound "
+          f"{rec['bound_ms']:.5f} ms, {rec['bound_by']}), {rec['call_ms']:.5f} ms per call; "
+          f"plain fm_ref: device {rec['plain_ms']:.5f} ms in {len(plain_dev)} kernel kinds, "
+          f"{rec['plain_call_ms']:.5f} ms per call; on {card}", flush=True)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -972,6 +1277,7 @@ def main() -> int:
 
     # --- phase 2: kernels against their plain versions ---------------------
     cross_err = check_cross_kernel(cross_fused, cross_network)
+    fm_err = check_fm_kernel()
     din_err = check_din_kernel()
     sparse_errs = check_sparse_rows()
 
@@ -1024,7 +1330,7 @@ def main() -> int:
 
     # --- phases 3b-3d: training at bench.py's width ----------------------
     train_cols, batches, labels = staged_batches(range(K))
-    trainer, fused_launches, _ = train_fused(train_cols, batches, labels, card)
+    trainer, fused_launches = train_fused(train_cols, batches, labels, card)
     plain_launches = train_plain(train_cols, batches, labels)
     card_against_cpu(deepfm(train_cols, None), batches, labels, "DeepFM")
 
@@ -1034,6 +1340,11 @@ def main() -> int:
     din_plain_launches = train_din_plain(din_batches, din_labels)
     card_against_cpu(din_model(), din_batches, din_labels, "DIN")
     din_scorer, din_requests, din_serve_launches = serve_din(din_trainer.model)
+
+    # --- phases 3g and 3h: the Criteo CTR models at model_step.py's width,
+    # and FMLayer
+    ctr = train_ctr_models(card)
+    fm_layer, fm_x, fm_launches = fm_layer_path(card)
 
     # --- phase 4: timings --------------------------------------------------
     with torch.inference_mode():
@@ -1084,13 +1395,25 @@ def main() -> int:
     sparse_times = time_sparse_rows(card)
     time_training(trainer, batches, labels, card, "fused training")
     din_times = time_din(din_trainer, din_scorer, din_requests, din_batches, din_labels, card)
+    fm_times = time_fm(fm_layer, fm_x, card)
+    for name in ("wide_deep", "nfm"):
+        time_training(ctr[name], *ctr["batches"], card, f"{name} fused training")
 
-    # launches on DeepFM's paths, and on DIN's beside them
+    # launches on each kernel's main path, and on the other paths beside them
+    ctr_launches = ctr["launches"]
     sparse_rows = [
         ("fused_adagrad_apply", "recommender_system_tpu/ops/fused_adagrad.py:156",
-         fused_launches["fused_adagrad_apply"], din_fused_launches["fused_adagrad_apply"]),
+         fused_launches["fused_adagrad_apply"],
+         {"din": din_fused_launches["fused_adagrad_apply"],
+          "dcn": ctr_launches["dcn"]["fused_adagrad_apply"]}),
+        ("fused_sgd_apply", "recommender_system_tpu/ops/fused_adagrad.py:594",
+         ctr_launches["wide_deep"]["fused_sgd_apply"],
+         {"fnn": ctr_launches["fnn"]["fused_sgd_apply"]}),
+        ("fused_adam_apply", "recommender_system_tpu/ops/fused_adagrad.py:649",
+         ctr_launches["nfm"]["fused_adam_apply"],
+         {"fm": ctr_launches["fm"]["fused_adam_apply"]}),
         ("scatter_add_sorted", "recommender_system_tpu/ops/embedding_grad.py:51",
-         plain_launches["scatter_add_sorted"], din_plain_launches["scatter_add_sorted"]),
+         plain_launches["scatter_add_sorted"], {"din": din_plain_launches["scatter_add_sorted"]}),
     ]
     print(card)
     print(json.dumps({"kernels": [{
@@ -1101,6 +1424,12 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "call_ms": kernel_call, "plain_call_ms": plain_call,
+        "dcn_training_launches": ctr_launches["dcn"]["cross_fused"],
+    }, {
+        "name": "fm_fused", "route": "cuda",
+        "source": "recommender_system_tpu_torch/csrc/fm.cu",
+        "replaces": "recommender_system_tpu/ops/pallas_kernels.py:61",
+        "launches": fm_launches["fm_fused"], "max_abs_err": fm_err, **fm_times,
     }, {
         "name": "din_attention_fused", "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/din_attention.cu",
@@ -1113,8 +1442,8 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/sparse_rows.cu",
         "replaces": replaces, "launches": count, "max_abs_err": sparse_errs[name],
-        **sparse_times[name], "din_launches": din_count,
-    } for name, replaces, count, din_count in sparse_rows]}))
+        **sparse_times[name], "other_paths_launches": others,
+    } for name, replaces, count, others in sparse_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

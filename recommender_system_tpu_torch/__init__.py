@@ -5,15 +5,20 @@ It imports torch and numpy, never JAX nor the JAX package. Entry points run
 on the card unless the caller names another device; kernels are written by
 hand in ``csrc/`` and built at first use (``ops/kernels.py``).
 
-Ported so far: DCN served through ``Scorer``, with the cross stack as a CUDA
-kernel; DeepFM trained through ``Trainer``, with the fused sparse Adagrad
-(``FusedAdagrad``) and the sorted scatter-add of the lookup's backward as
-CUDA kernels; DIN served and trained, with the DIN target attention as a
-CUDA kernel.
+Ported so far: DCN served through ``Scorer`` and trained, with the cross
+stack as a CUDA kernel; DeepFM trained through ``Trainer``, with the fused
+sparse Adagrad (``FusedAdagrad``) and the sorted scatter-add of the
+lookup's backward as CUDA kernels; DIN served and trained, with the DIN
+target attention as a CUDA kernel; WideDeep, NFM, FM and FNN (with
+``init_from_fm``) trained, with the fused sparse SGD (``FusedSGD``) and the
+lazy sparse Adam (``FusedAdam``) as CUDA kernels; and ``FMLayer``, with the
+FM logit as a CUDA kernel. Every TPU kernel of the JAX package has its
+counterpart in ``csrc/``.
 """
 
-from .models import DCN, DIN, DeepFM
+from .models import CTR_MODELS, DCN, DIN, FM, FNN, NFM, DeepFM, WideDeep, init_from_fm
 from .serving import Scorer
-from .training import FusedAdagrad, Trainer
+from .training import FusedAdagrad, FusedAdam, FusedSGD, Trainer
 
-__all__ = ["DCN", "DIN", "DeepFM", "FusedAdagrad", "Scorer", "Trainer"]
+__all__ = ["CTR_MODELS", "DCN", "DIN", "DeepFM", "FM", "FNN", "FusedAdagrad", "FusedAdam",
+           "FusedSGD", "NFM", "Scorer", "Trainer", "WideDeep", "init_from_fm"]

@@ -9,8 +9,10 @@ port's parameter or buffer of the same path:
   stack, unpacked to the logical ``[V, d]`` table (``unpack_stack``);
 - a Flax Dense ``kernel [in, out]``: ``weight [out, in]``, transposed;
 - a Flax BatchNorm ``scale``: ``weight``; ``bias``, ``alpha``, ``weights``,
-  ``biases``, DIN attention's ``w1``-``w3`` and ``b1``-``b3`` (not Dense
-  kernels: kept in the JAX layout) and every other name: the same name;
+  ``biases``, DIN attention's ``w1``-``w3`` and ``b1``-``b3``, ``FMLayer``'s
+  ``w0``, ``w1`` and ``v``, FM's ``dense_factors`` and
+  ``UnifiedEmbedding``'s ``dense_w`` (not Dense kernels: kept in the JAX
+  layout) and every other name: the same name;
 - ``batch_stats`` ``mean`` / ``var``: the ``running_mean`` /
   ``running_var`` buffers of the port's ``BatchNorm`` (in ``bn``,
   ``bn_{i}`` and each ``Dice``'s ``BatchNorm_0``).
@@ -22,8 +24,10 @@ port parameter or buffer that no leaf filled.
 optimizer state into the port's ``Trainer`` (``training/harness.py``), so
 that a run started by the JAX package continues in the port: optax
 Adagrad's ``sum_of_squares`` and Adam's ``mu``, ``nu`` and ``count`` for the
-parameters the dense optimizer updates, and the fused optimizer's slots
-``{path: (acc,)}``, each unpacked like its table.
+parameters the dense optimizer updates (``optax.sgd`` keeps only
+``EmptyState``s, which carry nothing), and the fused optimizer's slots,
+each unpacked like its table: ``{path: (acc,)}`` of ``FusedAdagrad``,
+``{path: ()}`` of ``FusedSGD``, ``{path: (m, v)}`` of ``FusedAdam``.
 """
 from __future__ import annotations
 
@@ -106,9 +110,10 @@ def load_jax_opt_state(trainer, opt_state, step: Optional[int] = None):
     """Fill ``trainer``'s optimizer state from a JAX ``Trainer``'s
     ``TrainState.opt_state``; returns ``trainer``.
 
-    ``opt_state`` is the optax state of ``optax.adagrad`` or ``optax.adam``
-    (a tuple of named tuples), or, with a fused embedding optimizer, the pair
-    ``(optax state, {table path: (acc,)})``. Adam's ``count`` sets
+    ``opt_state`` is the optax state of ``optax.sgd``, ``optax.adagrad`` or
+    ``optax.adam`` (a tuple of named tuples), or, with a fused embedding
+    optimizer, the pair ``(optax state, {table path: slots})``. Adam's
+    ``count`` sets
     ``trainer.step``; ``step`` (the JAX ``TrainState.step``) sets it where
     given. Raises on a leaf that nothing in ``trainer`` takes, on a shape
     that disagrees, and on a state tensor of ``trainer`` that no leaf filled.
@@ -143,7 +148,7 @@ def load_jax_opt_state(trainer, opt_state, step: Optional[int] = None):
                 else:
                     raise KeyError(f"optax state field {field!r} of "
                                    f"{type(node).__name__} has no counterpart")
-        elif isinstance(node, Mapping):  # the fused slots {path: (acc,)}
+        elif isinstance(node, Mapping):  # the fused slots {path: (...)}
             for path, slots in node.items():
                 if not isinstance(path, tuple):
                     raise KeyError(f"JAX optimizer state key {path!r} is not "

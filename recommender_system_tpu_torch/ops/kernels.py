@@ -11,11 +11,13 @@ tensor runs the kernel's plain version. Each wrapper counts its launches in
 an integer attribute, ``<wrapper>.launches``, which only a launch raises.
 
 - ``cross_fused`` (``csrc/cross.cu``), plain version ``cross_network``;
+- ``fm_fused`` (``csrc/fm.cu``), plain version ``fm_ref``;
 - ``din_attention_fused`` (``csrc/din_attention.cu``), plain version
   ``din_attention_ref``;
-- ``fused_adagrad_apply`` (``ops/fused_adagrad.py``) and
-  ``scatter_add_sorted`` (``ops/embedding_grad.py``), whose kernels are in
-  ``csrc/sparse_rows.cu``; this module launches them.
+- ``fused_adagrad_apply``, ``fused_sgd_apply`` and ``fused_adam_apply``
+  (``ops/fused_adagrad.py``) and ``scatter_add_sorted``
+  (``ops/embedding_grad.py``), whose kernels are in ``csrc/sparse_rows.cu``;
+  this module launches them.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .dispatch import use_kernel
-from .interactions import cross_network
+from .interactions import cross_network, fm_interaction
 from .seqpool import NEG_INF
 
 _PACKAGE = Path(__file__).resolve().parent.parent
@@ -43,9 +45,12 @@ _INT64, _FLOAT = ctypes.c_longlong, ctypes.c_float
 # and the stream as c_void_p, or ctypes would pass a 32-bit int
 SOURCES = {
     "cross": {"cross_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT)},
+    "fm": {"fm_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT)},
     "din_attention": {"din_attention_forward": ([_PTR] * 10 + [_INT] * 8 + [_PTR], _INT)},
     "sparse_rows": {
         "fused_adagrad_rows": ([_PTR] * 5 + [_INT64, _INT, _FLOAT, _FLOAT, _PTR], _INT),
+        "fused_sgd_rows": ([_PTR] * 4 + [_INT64, _INT, _FLOAT, _PTR], _INT),
+        "fused_adam_rows": ([_PTR] * 6 + [_INT64, _INT] + [_FLOAT] * 8 + [_PTR], _INT),
         "scatter_add_rows": ([_PTR] * 4 + [_INT64, _INT, _PTR], _INT),
     },
 }
@@ -193,6 +198,91 @@ def cross_fused(x0: torch.Tensor, weights: torch.Tensor,
 
 
 cross_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# FM logit (csrc/fm.cu)
+# ---------------------------------------------------------------------------
+
+def fm_ref(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``x @ w1 + fm_interaction(x, v)`` -> ``[B, 1]``, as the
+    JAX package's ``_fm_ref``."""
+    return x @ w1 + fm_interaction(x, v)
+
+
+def fm_shared_bytes(D: int, k: int) -> int:
+    """Shared memory of a block of ``csrc/fm.cu``: v and v*v ``[k, D]`` and
+    w1 ``[D]``, float32."""
+    return 4 * D * (2 * k + 1)
+
+
+def check_fm_args(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on anything the FM kernel does not take."""
+    for t, what in ((x, "x"), (w1, "w1"), (v, "v")):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fm_fused kernel takes float32, {what} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"fm_fused kernel takes contiguous tensors, {what} is not")
+    if x.dim() != 2 or w1.dim() != 2 or v.dim() != 2:
+        raise ValueError("fm_fused takes x [B, D], w1 [D, 1] and v [D, k]; got "
+                         f"{tuple(x.shape)}, {tuple(w1.shape)}, {tuple(v.shape)}")
+    B, D = x.shape
+    k = v.shape[1]
+    if tuple(w1.shape) != (D, 1) or v.shape[0] != D:
+        raise ValueError(f"fm_fused: x is [{B}, {D}], so w1 must be [{D}, 1] and v "
+                         f"[{D}, k]; got {tuple(w1.shape)}, {tuple(v.shape)}")
+    if D == 0 or k == 0:
+        raise ValueError(f"fm_fused kernel takes D > 0 and k > 0, got D={D}, k={k}")
+    if fm_shared_bytes(D, k) > MAX_SHARED_BYTES:
+        raise ValueError(f"fm_fused kernel: D={D}, k={k} needs {fm_shared_bytes(D, k)} "
+                         f"bytes of shared memory, more than {MAX_SHARED_BYTES}")
+    if B >= 2 ** 31:
+        raise ValueError(f"fm_fused kernel takes B < 2**31, got {B}")
+
+
+def _fm_launch(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    check_fm_args(x, w1, v)
+    B, D = x.shape
+    out = torch.empty((B, 1), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    lib = _library("fm")
+    with torch.cuda.device(x.device):
+        err = lib.fm_forward(x.data_ptr(), w1.data_ptr(), v.data_ptr(), out.data_ptr(),
+                             B, D, v.shape[1], _stream(x))
+    if err != 0:
+        raise RuntimeError(f"fm_forward launch failed with CUDA error {err}")
+    fm_fused.launches += 1
+    return out
+
+
+class _FmFused(torch.autograd.Function):
+    """Forward: the kernel on CUDA, ``fm_ref`` on the CPU. Backward: the VJP
+    of ``fm_ref`` recomputed from the saved inputs, as the JAX package's
+    ``_fm_bwd`` does; there is no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w1, v):
+        ctx.save_for_backward(x, w1, v)
+        if use_kernel(x, w1, v):
+            return _fm_launch(x, w1, v)
+        return fm_ref(x, w1, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = fm_ref(*inputs)
+        return torch.autograd.grad(out, inputs, grad)
+
+
+def fm_fused(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """FM logit without the global bias, ``x.w1 + 0.5 sum((xv)^2 - x^2 v^2)``
+    -> ``[B, 1]``, in one kernel launch on CUDA."""
+    return _FmFused.apply(x, w1, v)
+
+
+fm_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -353,10 +443,11 @@ din_attention_fused.launches = 0
 def check_sparse_rows_args(slid: torch.Tensor, order: torch.Tensor,
                            ct: torch.Tensor, *rows: torch.Tensor) -> None:
     """Raise on anything the sparse row kernels do not take: ``slid`` and
-    ``order`` int64 ``[N]``, ``ct`` float32 ``[N, dim]``, each table float32
-    ``[rows, dim]``, all contiguous. The ids are not checked against the
-    table's rows, which would need the host to read them: the lookup clamps
-    them."""
+    ``order`` int64 ``[N]``, ``ct`` float32 ``[N, dim]``, each table (the
+    parameter and its state: one for SGD and the scatter-add, two for
+    Adagrad, three for Adam) float32 ``[rows, dim]`` of one shape, all
+    contiguous. The ids are not checked against the table's rows, which
+    would need the host to read them: the lookup clamps them."""
     for t, what in ((slid, "slid"), (order, "order")):
         if t.dtype != torch.int64 or t.dim() != 1:
             raise TypeError(f"sparse row kernels take {what} as int64 [N], got "
@@ -408,3 +499,36 @@ def launch_scatter_add(out: torch.Tensor, slid: torch.Tensor,
                                    _stream(out))
     if err != 0:
         raise RuntimeError(f"scatter_add_rows launch failed with CUDA error {err}")
+
+
+def launch_fused_sgd(param: torch.Tensor, slid: torch.Tensor, order: torch.Tensor,
+                     ct: torch.Tensor, lr: float) -> None:
+    """``fused_sgd_rows`` on CUDA tensors, in place on ``param``; raises if the
+    launch fails."""
+    check_sparse_rows_args(slid, order, ct, param)
+    lib = _library("sparse_rows")
+    with torch.cuda.device(param.device):
+        err = lib.fused_sgd_rows(slid.data_ptr(), order.data_ptr(), ct.data_ptr(),
+                                 param.data_ptr(), slid.shape[0], ct.shape[1], lr,
+                                 _stream(param))
+    if err != 0:
+        raise RuntimeError(f"fused_sgd_rows launch failed with CUDA error {err}")
+
+
+def launch_fused_adam(param: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                      slid: torch.Tensor, order: torch.Tensor, ct: torch.Tensor, *,
+                      lr: float, b1: float, b2: float, eps: float, bc1: float,
+                      bc2: float) -> None:
+    """``fused_adam_rows`` on CUDA tensors, in place on ``param``, ``m`` and
+    ``v``; ``bc1``, ``bc2`` are the reciprocal bias corrections. ``1 - b1``
+    and ``1 - b2`` are rounded to float32 once from the double, as the plain
+    version's scalar products round them. Raises if the launch fails."""
+    check_sparse_rows_args(slid, order, ct, param, m, v)
+    lib = _library("sparse_rows")
+    with torch.cuda.device(param.device):
+        err = lib.fused_adam_rows(slid.data_ptr(), order.data_ptr(), ct.data_ptr(),
+                                  param.data_ptr(), m.data_ptr(), v.data_ptr(),
+                                  slid.shape[0], ct.shape[1], lr, b1, b2, eps, bc1, bc2,
+                                  1.0 - b1, 1.0 - b2, _stream(param))
+    if err != 0:
+        raise RuntimeError(f"fused_adam_rows launch failed with CUDA error {err}")

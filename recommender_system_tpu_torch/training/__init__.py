@@ -1,3 +1,3 @@
-from .harness import FusedAdagrad, Trainer
+from .harness import FusedAdagrad, FusedAdam, FusedSGD, Trainer
 from .losses import bce_with_logits
-from .optim import Adagrad, Adam
+from .optim import SGD, Adagrad, Adam

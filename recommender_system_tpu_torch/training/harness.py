@@ -2,8 +2,9 @@
 ``recommender_system_tpu/training/harness.py``).
 
 ``Trainer`` trains a model of the port on the card (or on the CPU when told)
-with a dense optimizer (``training/optim.py``) and, optionally, the fused
-sparse embedding optimizer ``FusedAdagrad``:
+with a dense optimizer (``training/optim.py``: ``SGD``, ``Adagrad``,
+``Adam``) and, optionally, a fused sparse embedding optimizer:
+``FusedAdagrad``, ``FusedSGD`` or ``FusedAdam`` (lazy).
 
 - plain step: autograd gives every parameter its gradient, the tables'
   through ``take_fast``'s backward (the sorted scatter-add kernel), and the
@@ -11,7 +12,9 @@ sparse embedding optimizer ``FusedAdagrad``:
 - fused step: the embedding collections run in capture mode, so the tables
   never enter autograd; after ``backward()`` each table's captured lookups
   (one stream per ``table_d{d}``, its sites concatenated) go straight into
-  ``fused_adagrad_apply``, which updates the touched rows in place.
+  the fused optimizer's kernel (``fused_adagrad_apply``,
+  ``fused_sgd_apply`` or ``fused_adam_apply``), which updates the touched
+  rows in place.
 
 A table looked up at several sites (DIN's ``[B, 2]`` user and item group
 and its ``[B, T]`` history) is one stream of all its sites, with no size
@@ -29,14 +32,14 @@ from __future__ import annotations
 import dataclasses
 import re
 import time
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..layers.embedding import EmbeddingCollection
 from ..ops.dispatch import DeviceLike, resolve_device
-from ..ops.fused_adagrad import fused_adagrad_apply
+from ..ops.fused_adagrad import fused_adagrad_apply, fused_adam_apply, fused_sgd_apply
 from ..utils import metrics as metrics_lib
 from ..utils.datasets import iter_batches, pad_to_batch
 from .losses import bce_with_logits
@@ -68,26 +71,76 @@ class FusedAdagrad:
                             eps=self.eps, presorted=presorted)
 
 
+@dataclasses.dataclass(frozen=True)
+class FusedSGD:
+    """Fused sparse SGD: ``param[row] -= lr * G`` on the touched rows of each
+    ``table_d{d}``, in place (``fused_sgd_apply``); ``optax.sgd`` on the
+    dense scatter-added gradient, with no slots. ``SGD(0.01)`` and
+    ``FusedSGD(0.01)`` are the reference's training recipe."""
+
+    learning_rate: LearningRate = 0.01
+
+    def init_slots(self, table: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return ()
+
+    def apply(self, table: torch.Tensor, slots: Tuple[torch.Tensor, ...],
+              lids: torch.Tensor, ct: torch.Tensor, *, step: int,
+              presorted: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
+        fused_sgd_apply(table, lids, ct, lr=learning_rate_at(self.learning_rate, step),
+                        presorted=presorted)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedAdam:
+    """Fused sparse lazy Adam (``fused_adam_apply``): a row whose summed
+    gradient is non-zero this step gets the Adam update with bias
+    corrections at ``step + 1``; every other row keeps its parameters and
+    its stale moments, so no step sweeps the whole table. Slots
+    ``(m, v)``."""
+
+    learning_rate: LearningRate = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def init_slots(self, table: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return (torch.zeros_like(table, requires_grad=False),
+                torch.zeros_like(table, requires_grad=False))
+
+    def apply(self, table: torch.Tensor, slots: Tuple[torch.Tensor, ...],
+              lids: torch.Tensor, ct: torch.Tensor, *, step: int,
+              presorted: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
+        fused_adam_apply(table, slots[0], slots[1], lids, ct,
+                         lr=learning_rate_at(self.learning_rate, step), step=step,
+                         b1=self.b1, b2=self.b2, eps=self.eps, presorted=presorted)
+
+
+FusedOptimizer = Union[FusedAdagrad, FusedSGD, FusedAdam]
+
+
 class Trainer:
     """Train, predict and evaluate a model of the port.
 
     >>> trainer = Trainer(model, Adagrad(0.05), fused_embedding=FusedAdagrad(0.05))
+    >>> trainer = Trainer(model, SGD(0.01), fused_embedding=FusedSGD(0.01))
     >>> losses = trainer.multi_step(batches, labels)   # K steps, on the device
     >>> history = trainer.fit(X, y, batch_size=16384, steps_per_call=8)
     >>> trainer.evaluate(X_test, y_test)               # {"auc", "logloss", "accuracy"}
 
     The model must lie on ``device`` (the card unless another device is
     named) and return one logit per row; the loss is ``bce_with_logits``
-    (multi-task and auxiliary losses come with later slices). ``optimizer`` (default ``Adam(1e-3)``, as the JAX package's)
-    updates the dense parameters, and the tables too when
-    ``fused_embedding`` is None. ``generator`` (default: seeded with
+    (multi-task and auxiliary losses come with later slices). ``optimizer``
+    (default ``Adam(1e-3)``, as the JAX package's) updates the dense
+    parameters, and the tables too when ``fused_embedding`` is None;
+    otherwise ``fused_embedding`` (``FusedAdagrad``, ``FusedSGD`` or
+    ``FusedAdam``) updates the tables. ``generator`` (default: seeded with
     ``seed`` on the device) draws dropout masks; ``seed`` also seeds
     ``fit``'s shuffling. ``mesh``, ``capacity_factor`` and
     ``explicit_lookup`` come with the distributed slice of the port.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer=None,
-                 fused_embedding: Optional[FusedAdagrad] = None, seed: int = 0,
+                 fused_embedding: Optional[FusedOptimizer] = None, seed: int = 0,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None, *, mesh=None,
                  capacity_factor: Optional[float] = None,

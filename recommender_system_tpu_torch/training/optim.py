@@ -25,6 +25,24 @@ def learning_rate_at(learning_rate: LearningRate, step: int) -> float:
     return float(learning_rate(step)) if callable(learning_rate) else learning_rate
 
 
+class SGD:
+    """``optax.sgd`` without momentum: ``p += -lr * g``. It keeps no state
+    (optax's is two ``EmptyState``s)."""
+
+    def __init__(self, learning_rate: LearningRate):
+        self.learning_rate = learning_rate
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> State:
+        return {n: {} for n in params}
+
+    @torch.no_grad()
+    def update(self, params: Mapping[str, torch.Tensor],
+               grads: Mapping[str, torch.Tensor], state: State, step: int) -> None:
+        lr = learning_rate_at(self.learning_rate, step)
+        for name, p in params.items():
+            p.add_(grads[name] * -lr)
+
+
 class Adagrad:
     """``optax.adagrad``: ``sum_of_squares += g*g`` (starting at
     ``initial_accumulator_value``), then
