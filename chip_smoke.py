@@ -27,11 +27,15 @@ Phases, each of which raises on failure (exit code not 0):
    (N=425,984 lookups into 2,600,000 rows of dim 9), at dims 8 to 128 (33
    among them), at N=1 and N=0, with ids on the table's last row, with half
    the ids on one row, with rows named only by all-zero cotangents or by
-   cotangents that cancel, and on DIN's two-site stream of table_d32
-   (425,984 positions, ~184,000 on the padding row) (rtol=1e-5, atol=1e-6 x
-   the largest |value|: the plain versions' ``index_add_`` sums in another
-   order; rows no id touches, and for Adam the rows whose summed gradient
-   is zero, must come back bitwise equal);
+   cotangents that cancel, on DIN's two-site stream of table_d32 (425,984
+   positions, ~184,000 on the padding row), and on segments whose lengths
+   cycle through 1..70, so that segments start and end at every lane of the
+   kernels' 32-position tiles and cross up to three of them (rtol=1e-5,
+   atol=1e-6 x the largest |value|: the plain versions' ``index_add_`` sums
+   in another order; rows no id touches, and for Adam the rows whose summed
+   gradient is zero, must come back bitwise equal; on the bench,
+   half-on-one-row and cycled streams the scatter-add, Adagrad and SGD
+   launch twice on identical inputs and must agree bitwise);
 3. serving at full width: DCN on 26 sparse fields of 100,000 ids (dim 8)
    and 13 dense fields, 6 cross layers, deep tower 256-128-64, f32, random
    weights from a seed; ``Scorer(batch_size=4096)`` answers requests of 1,
@@ -182,17 +186,20 @@ def device_ms(fn, iters: int = 50) -> collections.Counter:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per_name = collections.Counter()
-    for event in prof.events():
-        if event.device_type == DeviceType.CUDA:
-            per_name[event.name] += event.time_range.elapsed_us() / 1e3 / iters
-    if not per_name:
-        raise RuntimeError("the profiler traced no device time")
-    return per_name
+    # a trace now and then comes back without device events; trace again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per_name = collections.Counter()
+        for event in prof.events():
+            if event.device_type == DeviceType.CUDA:
+                per_name[event.name] += event.time_range.elapsed_us() / 1e3 / iters
+        if per_name:
+            return per_name
+        print("device_ms: the profiler traced no device time; tracing again", flush=True)
+    raise RuntimeError("the profiler traced no device time in 3 traces")
 
 
 def host_ms(fn, iters: int, warmup: int = 3) -> list:
@@ -507,10 +514,24 @@ def sparse_cases(gen: torch.Generator):
     din = torch.as_tensor(din_stream(din_batch(0)[0]), device=dev)
     ct = torch.randint(-8, 9, (din.numel(), DIN_DIM), generator=gen, device=dev).float() / 8
     yield "din_two_sites", din, ct, DIN_USERS + DIN_ITEMS
+    # segments whose lengths cycle through 1..70, 32 times (79,520
+    # positions; a cycle is 2,485 = 21 mod 32): a segment starts and ends at
+    # every lane of the kernels' 32-position tiles and crosses one, two and
+    # three tile boundaries. Rows 3 apart leave untouched rows between them;
+    # the ids in random order.
+    lengths = torch.arange(1, 71, device=dev).repeat(32)
+    segment_rows = 3 * torch.arange(lengths.numel(), device=dev)
+    cycled = torch.repeat_interleave(segment_rows, lengths)
+    cycled = cycled[torch.randperm(cycled.numel(), generator=gen, device=dev)]
+    yield ("cycled_lengths", cycled, torch.randn(cycled.numel(), 9, generator=gen, device=dev),
+           int(segment_rows[-1]) + 1)
 
 
 SPARSE_KERNELS = ("fused_adagrad_apply", "fused_sgd_apply", "fused_adam_apply",
                   "scatter_add_sorted")
+# streams on which the tile-walk kernels launch twice on identical inputs
+# and must give bitwise-equal results
+TWICE_CASES = ("bench", "skewed", "cycled_lengths")
 
 
 def check_sparse_rows() -> dict:
@@ -538,6 +559,12 @@ def check_sparse_rows() -> dict:
         if not all(torch.equal(new[keep], old[keep]) for new, old in pairs):
             raise RuntimeError(f"{name} {case}: a row it must not update changed")
 
+    def same_again(name, first, launch):
+        """On the TWICE_CASES streams: a second launch on identical inputs
+        gives bitwise the same tensors."""
+        if case in TWICE_CASES and not all(map(torch.equal, first, launch())):
+            raise RuntimeError(f"{name} {case}: two launches on identical inputs differ")
+
     for case, lids, ct, rows in sparse_cases(gen):
         dim = ct.shape[1]
         slid, order = sort_ids(lids)
@@ -557,6 +584,8 @@ def check_sparse_rows() -> dict:
         e_scatter = close("scatter_add_sorted", out, want)
         if out[~touched].count_nonzero().item():
             raise RuntimeError(f"scatter_add_sorted {case}: an untouched row is not 0")
+        same_again("scatter_add_sorted", (out,),
+                   lambda: (scatter_add_sorted(slid, order, ct, rows),))
         # Adam's rows: touched with a summed gradient that is not zero
         nonzero = want.ne(0).any(dim=1)
 
@@ -569,6 +598,9 @@ def check_sparse_rows() -> dict:
         e_adagrad = max(close("fused_adagrad_apply", t1, want_t),
                         close("fused_adagrad_apply", a1, want_a))
         unchanged("fused_adagrad_apply", ~touched, [(t1, table), (a1, acc)])
+        same_again("fused_adagrad_apply", (t1, a1),
+                   lambda: fused_adagrad_apply(table.clone(), acc.clone(), lids, ct, lr=LR,
+                                               eps=EPS, presorted=presorted))
 
         t1 = table.clone()
         fused_sgd_apply(t1, lids, ct, lr=SGD_LR, presorted=presorted)
@@ -576,6 +608,9 @@ def check_sparse_rows() -> dict:
         torch.cuda.synchronize()
         e_sgd = close("fused_sgd_apply", t1, want_t)
         unchanged("fused_sgd_apply", ~touched, [(t1, table)])
+        same_again("fused_sgd_apply", (t1,),
+                   lambda: (fused_sgd_apply(table.clone(), lids, ct, lr=SGD_LR,
+                                            presorted=presorted),))
 
         e_adam = 0.0
         for step in (0, 3):
@@ -593,11 +628,13 @@ def check_sparse_rows() -> dict:
                 e_adam = max(e_adam, close("fused_adam_apply", got, w))
             unchanged("fused_adam_apply", ~nonzero, zip(state, (table, m, v)))
         zero_rows = int((touched & ~nonzero).sum())
+        twice = (" scatter-add, Adagrad and SGD bitwise equal over two launches;"
+                 if case in TWICE_CASES else "")
         print(f"kernel check sparse rows {case}: N={lids.numel()} rows={rows} dim={dim} "
               f"touched={int(touched.sum())} (summed gradient zero: {zero_rows}): "
               f"max_abs_err scatter_add_sorted {e_scatter:.3e}, fused_adagrad_apply "
               f"{e_adagrad:.3e}, fused_sgd_apply {e_sgd:.3e}, fused_adam_apply "
-              f"{e_adam:.3e} (steps 0 and 3); untouched rows equal", flush=True)
+              f"{e_adam:.3e} (steps 0 and 3);{twice} untouched rows equal", flush=True)
         if case == "zero_rows" and zero_rows != 2:
             raise RuntimeError(f"zero_rows: {zero_rows} rows with a zero sum, want 2")
     return errs

@@ -113,10 +113,12 @@ def load_jax_opt_state(trainer, opt_state, step: Optional[int] = None):
     ``opt_state`` is the optax state of ``optax.sgd``, ``optax.adagrad`` or
     ``optax.adam`` (a tuple of named tuples), or, with a fused embedding
     optimizer, the pair ``(optax state, {table path: slots})``. Adam's
-    ``count`` sets
-    ``trainer.step``; ``step`` (the JAX ``TrainState.step``) sets it where
-    given. Raises on a leaf that nothing in ``trainer`` takes, on a shape
-    that disagrees, and on a state tensor of ``trainer`` that no leaf filled.
+    ``count`` sets ``trainer.step``; ``step`` (the JAX ``TrainState.step``)
+    sets it where given. Raises on a leaf that nothing in ``trainer`` takes,
+    on a shape that disagrees, on a state tensor of ``trainer`` that no leaf
+    filled, and where neither a ``count`` nor ``step`` gives the step
+    (``optax.sgd`` and ``optax.adagrad`` keep no count): a continued run
+    would otherwise restart its bias corrections and schedules at step 0.
     """
     targets: Dict[str, torch.Tensor] = {}
     for pname, slots in trainer.opt_state.items():
@@ -126,6 +128,7 @@ def load_jax_opt_state(trainer, opt_state, step: Optional[int] = None):
         for i, tensor in enumerate(slots):
             targets[f"slot{i}:{pname}"] = tensor
     unfilled = set(targets)
+    counts = []
 
     def fill(key: str, path: Tuple[str, ...], value) -> None:
         if key not in targets:
@@ -140,7 +143,7 @@ def load_jax_opt_state(trainer, opt_state, step: Optional[int] = None):
             for field in fields:
                 value = getattr(node, field)
                 if field == "count":
-                    trainer.step = int(np.asarray(value))
+                    counts.append(int(np.asarray(value)))
                 elif field in _OPT_FIELDS:
                     for path, leaf in _leaves(value):
                         fill(f"{field}:{_port_name(path)}",
@@ -165,6 +168,8 @@ def load_jax_opt_state(trainer, opt_state, step: Optional[int] = None):
     walk(opt_state)
     if unfilled:
         raise KeyError(f"no JAX optimizer state for {sorted(unfilled)}")
-    if step is not None:
-        trainer.step = int(step)
+    if step is None and not counts:
+        raise ValueError("the optimizer state carries no step count (optax.sgd and "
+                         "optax.adagrad keep none): pass step=, the JAX TrainState.step")
+    trainer.step = int(step) if step is not None else counts[-1]
     return trainer

@@ -295,6 +295,19 @@ def test_load_jax_opt_state_places_adam_slots_and_count():
                            (states[2].opt_state[0], {}))
 
 
+def test_load_jax_opt_state_needs_a_step_without_a_count():
+    """optax.sgd's state (``EmptyState``s) carries no step count: without
+    ``step`` the load raises rather than restart the run at step 0."""
+    states, _ = _jax_run("wide_deep_fused_sgd")
+    stats = jax.tree_util.tree_map(np.asarray, dict(states[2].batch_stats))
+    trainer = _port_trainer("wide_deep_fused_sgd", states[2].params, stats, fused=True)
+    with pytest.raises(ValueError, match="pass step="):
+        load_jax_opt_state(trainer, states[2].opt_state)
+    assert trainer.step == 0
+    load_jax_opt_state(trainer, states[2].opt_state, step=2)
+    assert trainer.step == 2
+
+
 # ------------------------------------------------------------ FM -> FNN
 
 def test_init_from_fm_matches_jax():
