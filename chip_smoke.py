@@ -14,8 +14,9 @@ Phases, each of which raises on failure (exit code not 0):
    ``cross_fused`` vs ``cross_network``, forward and gradient (rtol=1e-4,
    atol=1e-5); ``din_attention_fused`` vs ``din_attention_ref`` at DIN's
    bench shape (B=8,192, T=50, K=32, scorer 80-40) in all eight
-   combinations of activation, softmax and scores, at T=13, T=1, B=1 and
-   with a scorer of 128-64, each with a row that has no valid position,
+   combinations of activation, softmax and scores, at T=13, T=1, B=1, at
+   K=6 (not a multiple of 4) and with a scorer of 128-64, each with a row
+   that has no valid position,
    forward and gradient through the autograd Function (rtol=1e-4,
    atol=1e-5); ``fm_fused`` vs ``fm_ref`` at B=16,384, D=221, k=8 and at
    B=1, D=1, k=1, at D=13, k=64, and at Ds that are not multiples of 32,
@@ -34,8 +35,8 @@ Phases, each of which raises on failure (exit code not 0):
    atol=1e-6 x the largest |value|: the plain versions' ``index_add_`` sums
    in another order; rows no id touches, and for Adam the rows whose summed
    gradient is zero, must come back bitwise equal; on the bench,
-   half-on-one-row and cycled streams the scatter-add, Adagrad and SGD
-   launch twice on identical inputs and must agree bitwise);
+   half-on-one-row and cycled streams the scatter-add, Adagrad, SGD and
+   lazy Adam launch twice on identical inputs and must agree bitwise);
 3. serving at full width: DCN on 26 sparse fields of 100,000 ids (dim 8)
    and 13 dense fields, 6 cross layers, deep tower 256-128-64, f32, random
    weights from a seed; ``Scorer(batch_size=4096)`` answers requests of 1,
@@ -92,7 +93,9 @@ Phases, each of which raises on failure (exit code not 0):
    version's;
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
-   host overhead included), and the library call where there is one; each
+   host overhead included), and the library call where there is one (the
+   DIN attention against two bounds: the tensor cores' at three TF32
+   passes, its ``bound_ms``, and f32 outside them, ``f32_bound_ms``); each
    Scorer's latency and throughput (host clock), its device busy time per
    batch and its top kernels; the training throughput of a fused K=8 call
    (CUDA events), its device idle share, the top device work of a step and
@@ -122,9 +125,10 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
-# tensor cores
+# tensor cores, dense TF32 FLOP/s in the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 
 RTOL, ATOL = 1e-4, 1e-5
 SERVE_BATCH = 4096
@@ -319,15 +323,18 @@ def check_fm_kernel() -> float:
 def din_bound(B: int, T: int, K: int, H1: int, H2: int):
     """Least time for the DIN attention: query, keys and mask read and the
     pooled output written once, the weights read once; the scorer's flops
-    with the first layer folded per row (``csrc/din_attention.cu``),
+    in their least form, the first layer folded per row,
     2*B*T*(K*H1 + H1*H2 + H2), plus the per-row query term and fold and the
-    pooling, 2*B*(2*K*H1 + T*K), all f32 outside the tensor cores."""
+    pooling, 2*B*(2*K*H1 + T*K). Returns (bound, what bounds it, the bound
+    in f32 outside the tensor cores): the bound is the tensor cores', where
+    an f32-accurate product takes three TF32 passes (3xTF32)."""
     nbytes = 4 * (B * K + B * T * K + B * T + B * K
                   + 4 * K * H1 + H1 + H1 * H2 + 2 * H2 + 1)
     flops = 2 * B * T * (K * H1 + H1 * H2 + H2) + 2 * B * (2 * K * H1 + T * K)
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    flop_ms = flops / PEAK_F32_FLOPS * 1e3
-    return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
+    tc_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    f32_ms = max(byte_ms, flops / PEAK_F32_FLOPS * 1e3)
+    return max(byte_ms, tc_ms), "bytes" if byte_ms >= tc_ms else "operations", f32_ms
 
 
 def din_inputs(gen, B, T, K, H1, H2):
@@ -361,6 +368,7 @@ def check_din_kernel() -> float:
     cases = [(DIN_BATCH, DIN_T, DIN_DIM, 80, 40, flags, False),
              (DIN_BATCH, DIN_T, DIN_DIM, 80, 40, flags[:1], True),
              (64, 13, 8, 10, 5, flags, True),     # T not a multiple of 4
+             (100, 7, 6, 12, 3, flags[:4], True),  # K not a multiple of 4: 4-byte copies
              (300, 1, DIN_DIM, 80, 40, flags, True),   # T = 1
              (1, DIN_T, DIN_DIM, 80, 40, flags, True),  # B = 1
              (257, DIN_T, DIN_DIM, 128, 64, flags[:4], True)]  # opt-in shared memory
@@ -399,7 +407,7 @@ def check_din_kernel() -> float:
                 grad_note = ", gradients match"
             print(f"kernel check din_attention_fused B={B} T={T} K={K} H1={H1} H2={H2} "
                   f"{activation} weight_normalization={wn} return_scores={rs} "
-                  f"(shared memory {smem} B at one row a block): max_abs_err={err:.3e}{grad_note}",
+                  f"(shared memory {smem} B at one row a group): max_abs_err={err:.3e}{grad_note}",
                   flush=True)
     return max_err
 
@@ -529,8 +537,8 @@ def sparse_cases(gen: torch.Generator):
 
 SPARSE_KERNELS = ("fused_adagrad_apply", "fused_sgd_apply", "fused_adam_apply",
                   "scatter_add_sorted")
-# streams on which the tile-walk kernels launch twice on identical inputs
-# and must give bitwise-equal results
+# streams on which the four tile-walk kernels launch twice on identical
+# inputs and must give bitwise-equal results
 TWICE_CASES = ("bench", "skewed", "cycled_lengths")
 
 
@@ -627,8 +635,15 @@ def check_sparse_rows() -> dict:
             for got, w in zip(state, wants):
                 e_adam = max(e_adam, close("fused_adam_apply", got, w))
             unchanged("fused_adam_apply", ~nonzero, zip(state, (table, m, v)))
+
+            def adam_again(step=step, m=m, v=v):
+                again = [t.clone() for t in (table, m, v)]
+                fused_adam_apply(*again, lids, ct, lr=ADAM_LR, step=step, presorted=presorted)
+                return again
+
+            same_again("fused_adam_apply", state, adam_again)
         zero_rows = int((touched & ~nonzero).sum())
-        twice = (" scatter-add, Adagrad and SGD bitwise equal over two launches;"
+        twice = (" scatter-add, Adagrad, SGD and Adam bitwise equal over two launches;"
                  if case in TWICE_CASES else "")
         print(f"kernel check sparse rows {case}: N={lids.numel()} rows={rows} dim={dim} "
               f"touched={int(touched.sum())} (summed gradient zero: {zero_rows}): "
@@ -868,7 +883,7 @@ def time_sparse_rows(card) -> dict:
                                      presorted=(hot_slid, hot_order)),
             lambda: fused_adam_apply(din_table, *din_state[1:], din_lids, din_ct, lr=ADAM_LR,
                                      step=0, presorted=din_sorted),
-            None, "adam", "lazy_adam_rows_kernel"),
+            None, "adam", "sparse_rows_kernel"),
         "scatter_add_sorted": (
             lambda: scatter_add_sorted(slid, order, ct, rows),
             lambda: scatter_add_dense_ref(lids, ct, rows),
@@ -1117,10 +1132,14 @@ def time_din(trainer, scorer, requests, batches, labels, card) -> dict:
     B, T, Kd = keys.shape
     H1, H2 = a.w1.shape[1], a.w2.shape[1]
     rec.update(ms=sum(kernel_dev.values()), plain_ms=sum(plain_dev.values()), library_ms=None)
-    rec["bound_ms"], rec["bound_by"] = din_bound(B, T, Kd, H1, H2)
+    rec["bound_ms"], rec["bound_by"], rec["f32_bound_ms"] = din_bound(B, T, Kd, H1, H2)
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    rec["share_of_f32_bound"] = rec["f32_bound_ms"] / rec["ms"]
     print(f"timing din_attention_fused B={B} T={T} K={Kd} H1={H1} H2={H2}: device "
-          f"{rec['ms']:.5f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound "
-          f"{rec['bound_ms']:.5f} ms, {rec['bound_by']}), {rec['call_ms']:.5f} ms per call; "
+          f"{rec['ms']:.5f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}% of the tensor-core "
+          f"bound {rec['bound_ms']:.5f} ms, {rec['bound_by']}, 3xTF32; "
+          f"{100 * rec['f32_bound_ms'] / rec['ms']:.1f}% of the f32 bound "
+          f"{rec['f32_bound_ms']:.5f} ms), {rec['call_ms']:.5f} ms per call; "
           f"plain din_attention_ref: device {rec['plain_ms']:.5f} ms in {len(plain_dev)} "
           f"kernel kinds, {rec['plain_call_ms']:.5f} ms per call; on {card}", flush=True)
 

@@ -1,0 +1,240 @@
+"""Time the port's kernels and steps from two trees in turns on one card.
+
+Run from the repository root, on a machine with one H100, with a second
+tree of the port (for example a ``git archive`` of the parent commit,
+unpacked into a directory that ``.gitignore`` lists):
+
+    python3 chip_turns.py parent=chip_parent change=. --order parent,change,change,parent
+
+Each turn is a process of its own, started in its tree's directory, so that
+it imports and builds that tree's ``recommender_system_tpu_torch`` (into the
+tree's own build directory). The timing code is this file's and the
+``chip_smoke.py`` beside it, the same for every turn. A turn measures, with
+TF32 off:
+
+- ``fused_adam_apply`` (lazy Adam) on ``bench.py``'s stream (N=425,984 into
+  2,600,000 rows of dim 9): device time from the profiler and time per call;
+  on the same stream with every other id on one hot row; on DIN's step
+  stream (two sites of table_d32, the padding row's cotangents zero);
+- the other three sparse row kernels (``fused_adagrad_apply``,
+  ``fused_sgd_apply``, ``scatter_add_sorted``) on the same three streams;
+- ``din_attention_fused`` at DIN's bench shape (B=8,192, T=50, K=32, 80-40)
+  on a DIN batch's embeddings: device time, time per call, and its largest
+  difference from ``din_attention_ref``;
+- DIN's and NFM's fused K=8 training step (``chip_smoke.time_training``:
+  CUDA events over 5 calls, device busy time and idle share).
+
+``--what adam,attention`` keeps only the parts named (default: all four,
+``adam,rows,attention,steps``).
+
+Each turn prints ``TURN <label> {json}``; the run ends with one line per
+metric listing every turn's value, and the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+
+def harness():
+    """This file's chip_smoke.py, whatever tree the turn imports."""
+    spec = importlib.util.spec_from_file_location("turns_smoke", HERE / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def time_adam(cs, torch) -> dict:
+    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adam_apply
+    from recommender_system_tpu_torch.ops.stream_sort import blocked_sort, sort_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, dim = cs.FIELDS * cs.VOCAB, cs.FACTOR_DIM + 1
+    rows2d = torch.as_tensor(cs.bench_rows(0), device="cuda")
+    lids = rows2d.reshape(-1)
+    slid, order = blocked_sort(rows2d, [(f * cs.VOCAB, cs.VOCAB) for f in range(cs.FIELDS)])
+    ct = torch.randn(lids.numel(), dim, generator=gen, device="cuda") * 1e-3
+    table = torch.randn(rows, dim, generator=gen, device="cuda") * 1e-4
+    m, v = torch.zeros_like(table), torch.zeros_like(table)
+    hot = lids.clone()
+    hot[::2] = 12_345
+    hot_sorted = sort_ids(hot)
+    din_lids = torch.as_tensor(cs.din_stream(cs.din_batch(0)[0]), device="cuda")
+    din_ct = torch.randn(din_lids.numel(), cs.DIN_DIM, generator=gen, device="cuda") * 1e-3
+    din_ct[din_lids == cs.DIN_USERS] = 0.0
+    din_table = torch.randn(cs.DIN_USERS + cs.DIN_ITEMS, cs.DIN_DIM, generator=gen,
+                            device="cuda")
+    din_m, din_v = torch.zeros_like(din_table), torch.zeros_like(din_table)
+    din_sorted = sort_ids(din_lids)
+
+    def bench():
+        fused_adam_apply(table, m, v, lids, ct, lr=cs.ADAM_LR, step=0, presorted=(slid, order))
+
+    return {
+        "adam_ms": sum(cs.device_ms(bench).values()),
+        "adam_call_ms": cs.call_ms(bench),
+        "adam_hot_row_ms": sum(cs.device_ms(
+            lambda: fused_adam_apply(table, m, v, hot, ct, lr=cs.ADAM_LR, step=0,
+                                     presorted=hot_sorted), iters=5).values()),
+        "adam_din_stream_ms": sum(cs.device_ms(
+            lambda: fused_adam_apply(din_table, din_m, din_v, din_lids, din_ct,
+                                     lr=cs.ADAM_LR, step=0, presorted=din_sorted),
+            iters=5).values()),
+    }
+
+
+def time_rows(cs, torch) -> dict:
+    from recommender_system_tpu_torch.ops.embedding_grad import scatter_add_sorted
+    from recommender_system_tpu_torch.ops.fused_adagrad import (fused_adagrad_apply,
+                                                                fused_sgd_apply)
+    from recommender_system_tpu_torch.ops.stream_sort import blocked_sort, sort_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, dim = cs.FIELDS * cs.VOCAB, cs.FACTOR_DIM + 1
+    rows2d = torch.as_tensor(cs.bench_rows(0), device="cuda")
+    lids = rows2d.reshape(-1)
+    bench = blocked_sort(rows2d, [(f * cs.VOCAB, cs.VOCAB) for f in range(cs.FIELDS)])
+    ct = torch.randn(lids.numel(), dim, generator=gen, device="cuda") * 1e-3
+    table = torch.randn(rows, dim, generator=gen, device="cuda") * 1e-4
+    acc = torch.full((rows, dim), 0.1, device="cuda")
+    hot = lids.clone()
+    hot[::2] = 12_345
+    hot_sorted = sort_ids(hot)
+    din_lids = torch.as_tensor(cs.din_stream(cs.din_batch(0)[0]), device="cuda")
+    din_ct = torch.randn(din_lids.numel(), cs.DIN_DIM, generator=gen, device="cuda") * 1e-3
+    din_ct[din_lids == cs.DIN_USERS] = 0.0
+    din_table = torch.randn(cs.DIN_USERS + cs.DIN_ITEMS, cs.DIN_DIM, generator=gen,
+                            device="cuda")
+    din_acc = torch.full_like(din_table, 0.1)
+    din_sorted = sort_ids(din_lids)
+    runs = {
+        "adagrad": lambda t, a, ids, c, s: fused_adagrad_apply(t, a, ids, c, lr=cs.LR,
+                                                               eps=cs.EPS, presorted=s),
+        "sgd": lambda t, a, ids, c, s: fused_sgd_apply(t, ids, c, lr=cs.SGD_LR, presorted=s),
+        "scatter": lambda t, a, ids, c, s: scatter_add_sorted(*s, c, t.shape[0]),
+    }
+    out = {}
+    for name, run in runs.items():
+        out[f"{name}_ms"] = sum(cs.device_ms(lambda: run(table, acc, lids, ct, bench)).values())
+        out[f"{name}_hot_row_ms"] = sum(cs.device_ms(
+            lambda: run(table, acc, hot, ct, hot_sorted), iters=5).values())
+        out[f"{name}_din_stream_ms"] = sum(cs.device_ms(
+            lambda: run(din_table, din_acc, din_lids, din_ct, din_sorted), iters=5).values())
+    return out
+
+
+def time_attention(cs, torch) -> dict:
+    from recommender_system_tpu_torch.ops.kernels import din_attention_fused, din_attention_ref
+
+    model = cs.din_model().eval()
+    a = model.attention
+    weights = (a.w1, a.b1, a.w2, a.b2, a.w3, a.b3)
+    batches, _ = cs.din_staged(range(1))
+    with torch.inference_mode():
+        emb = model.embeddings({k: v[0] for k, v in batches.items()})
+        q = emb.sparse["item_id"].contiguous()
+        keys = emb.varlen_raw["hist_item_id"]
+        mask = emb.varlen_mask["hist_item_id"].float()
+
+        def fused():
+            return din_attention_fused(q, keys, mask, *weights)
+
+        err = (fused() - din_attention_ref(q, keys, mask, *weights)).abs().max().item()
+        return {"din_attention_ms": sum(cs.device_ms(fused).values()),
+                "din_attention_call_ms": cs.call_ms(fused), "din_attention_max_abs_err": err}
+
+
+def time_steps(cs, torch, card) -> dict:
+    from recommender_system_tpu_torch import FusedAdagrad, FusedAdam, Trainer
+    from recommender_system_tpu_torch.training import Adagrad, Adam
+
+    out = {}
+    din = Trainer(cs.din_model(), Adagrad(cs.LR), fused_embedding=FusedAdagrad(cs.LR))
+    rec = cs.time_training(din, *cs.din_staged(range(cs.K)), card, "DIN fused training")
+    out["din_step_ms"], out["din_step_busy_ms"] = rec["step_ms"], rec["busy_ms"]
+    cols, batches, labels = cs.staged_batches(range(cs.K), batch=cs.CTR_BATCH)
+    nfm = Trainer(cs.ctr_model("nfm", cols), Adam(cs.ADAM_LR),
+                  fused_embedding=FusedAdam(cs.ADAM_LR))
+    rec = cs.time_training(nfm, batches, labels, card, "NFM fused training")
+    out["nfm_step_ms"], out["nfm_step_busy_ms"] = rec["step_ms"], rec["busy_ms"]
+    return out
+
+
+PARTS = ("adam", "rows", "attention", "steps")
+
+
+def turn(label: str, tree: Path, what) -> None:
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import recommender_system_tpu_torch as package
+
+    if not Path(package.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"imported {package.__file__}, not the package of {tree}")
+    cs = harness()
+    from recommender_system_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build()
+    card = cs.card_line()
+    rec = {"tree": str(tree)}
+    if "adam" in what:
+        rec.update(time_adam(cs, torch))
+    if "rows" in what:
+        rec.update(time_rows(cs, torch))
+    if "attention" in what:
+        rec.update(time_attention(cs, torch))
+    if "steps" in what:
+        rec.update(time_steps(cs, torch, card))
+    print(f"TURN {label} {json.dumps(rec)}", flush=True)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("trees", nargs="*", help="label=directory, one per tree")
+    parser.add_argument("--order", help="labels in the order of the turns")
+    parser.add_argument("--what", default=",".join(PARTS),
+                        help=f"parts to time, from {','.join(PARTS)}")
+    parser.add_argument("--turn", nargs=2, metavar=("LABEL", "TREE"), help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    what = args.what.split(",")
+    if not set(what) <= set(PARTS):
+        parser.error(f"--what takes parts from {PARTS}, got {what}")
+    if args.turn:
+        turn(args.turn[0], Path(args.turn[1]).resolve(), what)
+        return 0
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_turns: no CUDA device", file=sys.stderr)
+        return 2
+    trees = dict(t.split("=", 1) for t in args.trees)
+    order = args.order.split(",") if args.order else list(trees)
+    results = []
+    for label in order:
+        tree = Path(trees[label]).resolve()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--turn", label,
+                               str(tree), "--what", args.what], cwd=tree,
+                              capture_output=True, text=True)
+        sys.stdout.write(proc.stdout)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            raise RuntimeError(f"turn {label} in {tree} failed with {proc.returncode}")
+        line, = [x for x in proc.stdout.splitlines() if x.startswith(f"TURN {label} ")]
+        results.append((label, json.loads(line.split(" ", 2)[2])))
+    for key in [k for k in results[0][1] if k != "tree"]:
+        print(f"{key}: " + ", ".join(f"{label} {rec[key]:.5f}" for label, rec in results))
+    print(harness().card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -42,10 +42,10 @@
 // keep nvcc from contracting a multiply and an add into one fused
 // multiply-add.
 //
-// The scatter-add, Adagrad and SGD are independent per column: the tile
-// walk. A first version gave each thread one (position, column) pair: every
-// one of a position's dim threads loaded slid[i] and slid[i-1] (about 4*dim
-// metadata loads a position), took a 64-bit division t / dim, and a
+// All four rules take the tile walk. A first version gave each thread one
+// (position, column) pair: every one of a position's dim threads loaded
+// slid[i] and slid[i-1] (about 4*dim metadata loads a position), took a
+// 64-bit division t / dim, and a
 // segment's start thread ran a chain of 4-5 dependent round trips to memory
 // (slid[i], slid[i+1] in the segment search, order[i], ct, param) behind
 // branches that kept the compiler from hoisting any of them; it lost to one
@@ -69,16 +69,23 @@
 // Element indices advance by 32 with a quotient and remainder taken once, so
 // the walk does no division.
 //
-// Lazy Adam must see the whole row before it writes any column, so it takes
-// one warp per position instead: lane l sums column c0 + l for c0 = 0, 32,
-// ..., the warp votes (__any_sync) whether any column's sum is non-zero, and
-// only then updates the row, each chunk of 32 columns summed again if
-// dim > 32 (the same sum in the same order).
+// Lazy Adam must see all dim column sums of a segment before it writes any
+// column. It takes the same tile, ballot, ranks and galloping, then votes:
+// pass 1 sums each (segment, column) element of the tile as the other rules
+// do and keeps the sum in a per-warp scratch row of shared memory (element
+// e of the tile at scratch[e], so neighbouring lanes write neighbouring
+// words); a lane whose sum is not zero sets its segment's touched flag,
+// which the start lane zeroed while staging, so the flag is only ever
+// written as 1 and needs no atomics. After a __syncwarp, pass 2 updates m,
+// v and param for the elements of touched segments only, reading the sum
+// back from the scratch row. For dim > 32 the columns go in chunks of 32:
+// pass 1 ORs the flag over the chunks and keeps no sums, and pass 2 sums a
+// touched segment's chunk again (the same sum in the same order).
 //
 // Every rule sums a row's column from 0.f in stream order with __fadd_rn,
 // so its results do not depend on the launch. A hot row is one long serial
-// sum for the dim lanes that own its (start, column) elements, or for its
-// one warp: right, but slow (see PERF.md).
+// sum for the dim lanes that own its (start, column) elements: right, but
+// slow (see PERF.md).
 //
 // C interface, loaded with ctypes: each function returns cudaGetLastError()
 // after the launch; the Python wrapper checks shapes, types and devices.
@@ -95,9 +102,16 @@ constexpr int kWarps = kThreads / 32;
 constexpr int64_t kMaxBlocks = 132 * 16 * 8;
 constexpr unsigned kFull = 0xffffffffu;
 // (start, column) elements whose loads a lane starts before its first store
+// (lazy Adam: in each of its two passes)
 constexpr int kBatch = 4;
 
-enum class Rule { kScatterAdd, kAdagrad, kSgd };
+enum class Rule { kScatterAdd, kAdagrad, kSgd, kAdam };
+
+// The rules' scalars. Adam's bc1, bc2 are the reciprocal bias corrections,
+// and 1 - b1, 1 - b2 are rounded once from double, as in the plain version.
+struct Hyper {
+  float lr, eps, b1, b2, bc1, bc2, one_minus_b1, one_minus_b2;
+};
 
 // First position after i whose id differs from row = slid[i] (n if none).
 __device__ __forceinline__ int64_t segment_end(const int64_t* __restrict__ slid,
@@ -132,20 +146,147 @@ __device__ __forceinline__ float column_sum(float g, const int64_t* __restrict__
   return g;
 }
 
+// One warp's view of its tile in shared memory: the tile's order by lane;
+// its segments' row, first order, end (a stream position) and first lane by
+// rank.
+struct Tile {
+  int64_t p0;
+  const int64_t* order;
+  const int64_t* row;
+  const int64_t* first;
+  const int64_t* end;
+  const int* begin;
+};
+
+// The summed gradient of segment j in column c, whose first cotangent g0
+// was loaded already: the tile's later positions from its orders in shared
+// memory, the positions past the tile from order[].
+__device__ __forceinline__ float segment_sum(const Tile& t, const int64_t* __restrict__ order,
+                                             const float* __restrict__ ct, int dim, int j,
+                                             int c, float g0) {
+  float g = __fadd_rn(0.f, g0);
+  const int64_t first = t.p0 + t.begin[j];
+  const int64_t end = t.end[j];
+  if (end - first > 1) {
+    const int64_t inside = end < t.p0 + 32 ? end : t.p0 + 32;
+    for (int64_t q = first + 1; q < inside; ++q) {
+      g = __fadd_rn(g, ct[t.order[q - t.p0] * dim + c]);
+    }
+    g = column_sum(g, order, ct, inside, end, dim, c);
+  }
+  return g;
+}
+
+// A lane's elements in a chunk of cd columns: l, l + 32, ... as (rank j,
+// column c), advanced by 32 = q * cd + r with one carry.
+struct Walk {
+  int q, r, j, c;
+  __device__ __forceinline__ void next(int cd) {
+    j += q;
+    c += r;
+    if (c >= cd) {
+      c -= cd;
+      ++j;
+    }
+  }
+};
+
+// Lazy Adam on one tile of `segments` segments (see the note at the top).
+// first is the lane's walk when a chunk is all dim columns; scratch holds
+// the warp's 32 x 32 sums, touched its segments' flags.
+__device__ __forceinline__ void adam_tile(const Tile& t, const int64_t* __restrict__ order,
+                                          const float* __restrict__ ct,
+                                          float* __restrict__ param, float* __restrict__ m,
+                                          float* __restrict__ v, int dim, int segments,
+                                          int lane, Walk first, const Hyper& h,
+                                          float* scratch, int* touched) {
+  // pass 1: every element's sum, and the touched flags
+  for (int c0 = 0; c0 < dim; c0 += 32) {
+    const int cd = dim - c0 < 32 ? dim - c0 : 32;
+    Walk w = first;
+    if (cd != dim) w = Walk{32 / cd, 32 - 32 / cd * cd, lane / cd, lane - lane / cd * cd};
+    while (w.j < segments) {
+      int jk[kBatch], ck[kBatch];
+      float g[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        jk[k] = w.j;
+        ck[k] = w.c;
+        if (w.j < segments) g[k] = ct[t.first[w.j] * dim + c0 + w.c];
+        w.next(cd);
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (jk[k] >= segments) break;
+        const float sum = segment_sum(t, order, ct, dim, jk[k], c0 + ck[k], g[k]);
+        if (dim <= 32) scratch[jk[k] * cd + ck[k]] = sum;
+        if (sum != 0.f) touched[jk[k]] = 1;
+      }
+    }
+  }
+  __syncwarp();
+  // pass 2: the touched segments' m, v and param
+  for (int c0 = 0; c0 < dim; c0 += 32) {
+    const int cd = dim - c0 < 32 ? dim - c0 : 32;
+    Walk w = first;
+    if (cd != dim) w = Walk{32 / cd, 32 - 32 / cd * cd, lane / cd, lane - lane / cd * cd};
+    while (w.j < segments) {
+      int jk[kBatch], ck[kBatch];
+      int64_t o[kBatch];
+      float g[kBatch], pk[kBatch], mk[kBatch], vk[kBatch];
+      bool live[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        jk[k] = w.j;
+        ck[k] = w.c;
+        live[k] = w.j < segments && touched[w.j] != 0;
+        if (live[k]) {
+          const int c = c0 + w.c;
+          o[k] = t.row[w.j] * dim + c;
+          g[k] = dim <= 32 ? scratch[w.j * cd + w.c] : ct[t.first[w.j] * dim + c];
+          pk[k] = param[o[k]];
+          mk[k] = m[o[k]];
+          vk[k] = v[o[k]];
+        }
+        w.next(cd);
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (!live[k]) continue;
+        const float gk =
+            dim <= 32 ? g[k] : segment_sum(t, order, ct, dim, jk[k], c0 + ck[k], g[k]);
+        // fused_adam_ref's order of operations, with no fused multiply-add
+        const float m_new = __fadd_rn(__fmul_rn(h.b1, mk[k]), __fmul_rn(h.one_minus_b1, gk));
+        const float v_new = __fadd_rn(__fmul_rn(h.b2, vk[k]),
+                                      __fmul_rn(__fmul_rn(h.one_minus_b2, gk), gk));
+        const float num = __fmul_rn(h.lr, __fmul_rn(m_new, h.bc1));
+        const float den = __fadd_rn(__fsqrt_rn(__fmul_rn(v_new, h.bc2)), h.eps);
+        param[o[k]] = __fsub_rn(pk[k], __fdiv_rn(num, den));
+        m[o[k]] = m_new;
+        v[o[k]] = v_new;
+      }
+    }
+  }
+}
+
 // The tile walk (see the note at the top): one warp a tile of 32 stream
-// positions, grid-stride over tiles.
+// positions, grid-stride over tiles. s1 is Adagrad's acc or Adam's m, s2
+// Adam's v.
 template <Rule kRule>
 __global__ void __launch_bounds__(kThreads)
 sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__ order,
                    const float* __restrict__ ct, float* __restrict__ param,
-                   float* __restrict__ acc, int64_t n, int dim, float lr, float eps) {
-  // per warp: the tile's order by lane; its segments' row, first order,
-  // end (a stream position) and first lane by rank
+                   float* __restrict__ s1, float* __restrict__ s2, int64_t n, int dim,
+                   Hyper h) {
+  constexpr bool kAdam = kRule == Rule::kAdam;
   __shared__ int64_t s_order[kThreads];
   __shared__ int64_t s_row[kThreads];
   __shared__ int64_t s_first[kThreads];
   __shared__ int64_t s_end[kThreads];
   __shared__ int s_begin[kThreads];
+  // lazy Adam's per-warp scratch rows (32 segments x 32 columns) and flags
+  __shared__ float s_sum[kAdam ? kThreads * 32 : 1];
+  __shared__ int s_touched[kAdam ? kThreads : 1];
   const int lane = threadIdx.x & 31;
   const int base = threadIdx.x & ~31;
   int64_t* const w_order = s_order + base;
@@ -153,11 +294,9 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
   int64_t* const r_first = s_first + base;
   int64_t* const r_end = s_end + base;
   int* const r_begin = s_begin + base;
-  // a lane's elements l, l + 32, ... as (rank, column): 32 = q32 * dim + r32
-  const int q32 = 32 / dim;
-  const int r32 = 32 - q32 * dim;
-  const int j0 = lane / dim;
-  const int c0 = lane - j0 * dim;
+  const Tile view{0, w_order, r_row, r_first, r_end, r_begin};
+  // a lane's elements l, l + 32, ... as (rank, column) over all dim columns
+  const Walk first{32 / dim, 32 - 32 / dim * dim, lane / dim, lane - lane / dim * dim};
 
   const int64_t tiles = (n + 31) / 32;
   for (int64_t tile = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
@@ -194,11 +333,20 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
       r_first[rank] = ord;
       r_end[rank] = end;
       r_begin[rank] = lane;
+      if constexpr (kAdam) s_touched[base + rank] = 0;
     }
     __syncwarp();
+    Tile t = view;
+    t.p0 = p0;
 
-    int j = j0, col = c0;
-    while (j < segments) {
+    if constexpr (kAdam) {
+      adam_tile(t, order, ct, param, s1, s2, dim, segments, lane, first, h,
+                s_sum + base * 32, s_touched + base);
+      continue;
+    }
+
+    Walk w = first;
+    while (w.j < segments) {
       // every load of kBatch elements first: ct at each segment's first
       // position, and the table entries the rule reads
       int jk[kBatch], ck[kBatch];
@@ -206,43 +354,28 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
       float g[kBatch], pk[kBatch], ak[kBatch];
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
-        jk[k] = j;
-        ck[k] = col;
-        if (j < segments) {
-          o[k] = r_row[j] * dim + col;
-          g[k] = ct[r_first[j] * dim + col];
+        jk[k] = w.j;
+        ck[k] = w.c;
+        if (w.j < segments) {
+          o[k] = r_row[w.j] * dim + w.c;
+          g[k] = ct[r_first[w.j] * dim + w.c];
           if constexpr (kRule != Rule::kScatterAdd) pk[k] = param[o[k]];
-          if constexpr (kRule == Rule::kAdagrad) ak[k] = acc[o[k]];
+          if constexpr (kRule == Rule::kAdagrad) ak[k] = s1[o[k]];
         }
-        j += q32;
-        col += r32;
-        if (col >= dim) {
-          col -= dim;
-          ++j;
-        }
+        w.next(dim);
       }
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
         if (jk[k] >= segments) break;
-        const int c = ck[k];
-        float gk = __fadd_rn(0.f, g[k]);
-        const int64_t first = p0 + r_begin[jk[k]];
-        const int64_t end = r_end[jk[k]];
-        if (end - first > 1) {
-          const int64_t inside = end < p0 + 32 ? end : p0 + 32;
-          for (int64_t q = first + 1; q < inside; ++q) {
-            gk = __fadd_rn(gk, ct[w_order[q - p0] * dim + c]);
-          }
-          gk = column_sum(gk, order, ct, inside, end, dim, c);
-        }
+        const float gk = segment_sum(t, order, ct, dim, jk[k], ck[k], g[k]);
         if constexpr (kRule == Rule::kAdagrad) {
           // the plain version's order of operations, with no fused multiply-add
           const float a = __fadd_rn(ak[k], __fmul_rn(gk, gk));
-          acc[o[k]] = a;
-          const float inv = a > 0.f ? rsqrtf(__fadd_rn(a, eps)) : 0.f;
-          param[o[k]] = __fsub_rn(pk[k], __fmul_rn(__fmul_rn(lr, gk), inv));
+          s1[o[k]] = a;
+          const float inv = a > 0.f ? rsqrtf(__fadd_rn(a, h.eps)) : 0.f;
+          param[o[k]] = __fsub_rn(pk[k], __fmul_rn(__fmul_rn(h.lr, gk), inv));
         } else if constexpr (kRule == Rule::kSgd) {
-          param[o[k]] = __fsub_rn(pk[k], __fmul_rn(lr, gk));
+          param[o[k]] = __fsub_rn(pk[k], __fmul_rn(h.lr, gk));
         } else {
           param[o[k]] = gk;
         }
@@ -251,67 +384,18 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
   }
 }
 
-struct AdamHyper {
-  float lr, b1, b2, eps, bc1, bc2;
-  float one_minus_b1, one_minus_b2;  // 1 - b rounded once from double, as the plain version
-};
-
-__global__ void __launch_bounds__(kThreads)
-lazy_adam_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__ order,
-                      const float* __restrict__ ct, float* __restrict__ param,
-                      float* __restrict__ m, float* __restrict__ v, int64_t n, int dim,
-                      AdamHyper h) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / 32);
-  // Every lane of a warp has the same position i, so each branch on i, on
-  // its segment or on the vote is taken by the whole warp, and the
-  // full-mask vote is safe.
-  for (int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
-       i < n; i += warps) {
-    const int64_t row = slid[i];
-    if (i > 0 && slid[i - 1] == row) continue;
-    const int64_t end = segment_end(slid, i, n, row);
-    float g0 = 0.f;
-    bool touched = false;
-    for (int c0 = 0; c0 < dim && !touched; c0 += 32) {
-      const int col = c0 + lane;
-      const float g = col < dim ? column_sum(0.f, order, ct, i, end, dim, col) : 0.f;
-      if (c0 == 0) g0 = g;
-      touched = __any_sync(kFull, g != 0.f);
-    }
-    if (!touched) continue;
-    for (int c0 = 0; c0 < dim; c0 += 32) {
-      const int col = c0 + lane;
-      if (col >= dim) continue;
-      const float g = c0 == 0 ? g0 : column_sum(0.f, order, ct, i, end, dim, col);
-      const int64_t o = row * dim + col;
-      // fused_adam_ref's order of operations, with no fused multiply-add
-      const float m_new = __fadd_rn(__fmul_rn(h.b1, m[o]), __fmul_rn(h.one_minus_b1, g));
-      const float v_new = __fadd_rn(__fmul_rn(h.b2, v[o]),
-                                    __fmul_rn(__fmul_rn(h.one_minus_b2, g), g));
-      const float num = __fmul_rn(h.lr, __fmul_rn(m_new, h.bc1));
-      const float den = __fadd_rn(__fsqrt_rn(__fmul_rn(v_new, h.bc2)), h.eps);
-      param[o] = __fsub_rn(param[o], __fdiv_rn(num, den));
-      m[o] = m_new;
-      v[o] = v_new;
-    }
-  }
-}
-
-unsigned grid_for(int64_t threads) {
-  int64_t blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  return static_cast<unsigned>(blocks);
-}
-
 template <Rule kRule>
-cudaError_t launch(const int64_t* slid, const int64_t* order, const float* ct,
-                   float* param, float* acc, int64_t n, int dim, float lr, float eps,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* slid, const void* order, const void* ct, void* param,
+                   void* s1, void* s2, int64_t n, int dim, const Hyper& h, void* stream) {
   if (n <= 0 || dim <= 0) return cudaSuccess;
   // one warp a tile of 32 positions
-  sparse_rows_kernel<kRule><<<grid_for((n + 31) / 32 * 32), kThreads, 0, stream>>>(
-      slid, order, ct, param, acc, n, dim, lr, eps);
+  int64_t blocks = ((n + 31) / 32 + kWarps - 1) / kWarps;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  sparse_rows_kernel<kRule><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(slid), static_cast<const int64_t*>(order),
+      static_cast<const float*>(ct), static_cast<float*>(param), static_cast<float*>(s1),
+      static_cast<float*>(s2), n, dim, h);
   return cudaGetLastError();
 }
 
@@ -320,37 +404,26 @@ cudaError_t launch(const int64_t* slid, const int64_t* order, const float* ct,
 extern "C" int fused_adagrad_rows(const void* slid, const void* order, const void* ct,
                                   void* param, void* acc, long long n, int dim,
                                   float lr, float eps, void* stream) {
-  return launch<Rule::kAdagrad>(
-      static_cast<const int64_t*>(slid), static_cast<const int64_t*>(order),
-      static_cast<const float*>(ct), static_cast<float*>(param), static_cast<float*>(acc),
-      n, dim, lr, eps, static_cast<cudaStream_t>(stream));
+  const Hyper h{lr, eps, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  return launch<Rule::kAdagrad>(slid, order, ct, param, acc, nullptr, n, dim, h, stream);
 }
 
 extern "C" int fused_sgd_rows(const void* slid, const void* order, const void* ct,
                               void* param, long long n, int dim, float lr, void* stream) {
-  return launch<Rule::kSgd>(
-      static_cast<const int64_t*>(slid), static_cast<const int64_t*>(order),
-      static_cast<const float*>(ct), static_cast<float*>(param), nullptr, n, dim, lr, 0.f,
-      static_cast<cudaStream_t>(stream));
+  const Hyper h{lr, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  return launch<Rule::kSgd>(slid, order, ct, param, nullptr, nullptr, n, dim, h, stream);
 }
 
 extern "C" int scatter_add_rows(const void* slid, const void* order, const void* ct,
                                 void* out, long long n, int dim, void* stream) {
-  return launch<Rule::kScatterAdd>(
-      static_cast<const int64_t*>(slid), static_cast<const int64_t*>(order),
-      static_cast<const float*>(ct), static_cast<float*>(out), nullptr, n, dim, 0.f, 0.f,
-      static_cast<cudaStream_t>(stream));
+  const Hyper h{};
+  return launch<Rule::kScatterAdd>(slid, order, ct, out, nullptr, nullptr, n, dim, h, stream);
 }
 
 extern "C" int fused_adam_rows(const void* slid, const void* order, const void* ct,
                                void* param, void* m, void* v, long long n, int dim,
                                float lr, float b1, float b2, float eps, float bc1, float bc2,
                                float one_minus_b1, float one_minus_b2, void* stream) {
-  if (n <= 0 || dim <= 0) return cudaSuccess;
-  const AdamHyper h{lr, b1, b2, eps, bc1, bc2, one_minus_b1, one_minus_b2};
-  lazy_adam_rows_kernel<<<grid_for(n * 32), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(slid), static_cast<const int64_t*>(order),
-      static_cast<const float*>(ct), static_cast<float*>(param), static_cast<float*>(m),
-      static_cast<float*>(v), n, dim, h);
-  return cudaGetLastError();
+  const Hyper h{lr, eps, b1, b2, bc1, bc2, one_minus_b1, one_minus_b2};
+  return launch<Rule::kAdam>(slid, order, ct, param, m, v, n, dim, h, stream);
 }

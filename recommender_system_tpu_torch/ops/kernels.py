@@ -324,14 +324,30 @@ def din_attention_ref(query: torch.Tensor, keys: torch.Tensor, mask: torch.Tenso
     return torch.einsum("bt,btk->bk", score, keys)
 
 
-def din_shared_bytes(T: int, K: int, H1: int, H2: int) -> int:
-    """Shared memory of a block of the kernel that stages one batch row at a
-    time (the layout of ``csrc/din_attention.cu``; it stages up to 4 where
-    they fit)."""
-    Tp = -(-T // 4) * 4
-    per_row = K * Tp + K * H1 + K + 2 * T + H1
-    weights = 3 * K * H1 + H1 * H2 + H1 + 2 * H2 + 1
-    return 4 * (per_row + 8 * H1 * 4 + weights)
+# layer-1 tile counts that csrc/din_attention.cu instantiates, and the
+# n-tiles of its layer-2 chunk: the kernel rounds H1 up to 8 * a count and
+# H2 up to whole chunks, with zero weights past them
+DIN_TILES1 = (2, 4, 6, 8, 10, 12, 16, 24, 32)
+DIN_TILES2 = 5
+
+
+def din_shared_bytes(T: int, K: int, H1: int, H2: int, rows: int = 1) -> int:
+    """Shared memory of a block of ``csrc/din_attention.cu`` whose groups
+    hold ``rows`` batch rows (``make_layout`` there; the kernel takes up to
+    16 where they fit): both layers' weights split into TF32 big and small
+    parts in fragment order, ``Wq + Wm`` and the biases; two buffers of a
+    group's keys (rows padded to ``K`` rounded up to 8, plus 4), query and
+    mask; the group's per-row term and scores. Each part is rounded up to 4
+    floats."""
+    def up(x: int, m: int = 4) -> int:
+        return -(-x // m) * m
+
+    tiles1 = min((t for t in DIN_TILES1 if 8 * t >= H1), default=DIN_TILES1[-1])
+    S, K2, H1p, H2p = up(K, 8) + 4, up(2 * K, 8), 8 * tiles1, up(H2, 8 * DIN_TILES2)
+    weights = (up(2 * K2 * H1p) + up(2 * H1p * H2p) + up(K * H1) + up(H1p)
+               + 2 * up(H2p) + up(1))
+    buffer = up(rows * T * S) + up(rows * K) + up(rows * T)
+    return 4 * (weights + 2 * buffer + up(rows * H1p) + up(rows * T))
 
 
 def check_din_args(query, keys, mask, w1, b1, w2, b2, w3, b3, activation) -> None:

@@ -21,6 +21,7 @@ from recommender_system_tpu_torch.ops.attention import din_attention
 from recommender_system_tpu_torch.ops.kernels import (MAX_SHARED_BYTES, check_din_args,
                                                       din_attention_fused,
                                                       din_attention_ref, din_shared_bytes)
+from recommender_system_tpu_torch.ops.seqpool import NEG_INF
 
 # the same f32 operations on both sides, summed in another order
 REF_RTOL, REF_ATOL = 1e-5, 1e-6
@@ -28,6 +29,8 @@ REF_RTOL, REF_ATOL = 1e-5, 1e-6
 PALLAS_RTOL, PALLAS_ATOL = 1e-4, 1e-4
 # gradients: chained sums over T and the batch
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+# the CUDA kernel against its plain version (chip_smoke.py)
+KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 
 FLAGS = [(a, wn, rs) for a in ("sigmoid", "relu") for wn in (True, False)
          for rs in (False, True)]
@@ -255,6 +258,83 @@ def test_din_kernel_accepts_bench_shape_and_rejects_other_activations():
     check_din_args(*args, "relu")
     with pytest.raises(ValueError, match="activation"):
         check_din_args(*args, "dice")
-    # the bench shape needs the opt-in past 48 KB, even at one row a block
+    # the bench shape needs the opt-in past 48 KB, even at one row a group;
+    # groups of 5 rows (250 positions, 16 m-tiles of 16) fit, 10 do not
     assert 48 * 1024 < din_shared_bytes(T, K, H1, H2) <= MAX_SHARED_BYTES
+    assert din_shared_bytes(T, K, H1, H2, rows=5) <= MAX_SHARED_BYTES
+    assert din_shared_bytes(T, K, H1, H2, rows=10) > MAX_SHARED_BYTES
     assert din_shared_bytes(8000, 8, 10, 5) > MAX_SHARED_BYTES
+
+
+# ------------------------------------------------------------ 3xTF32
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32``
+    does: to nearest, ties away from zero. IEEE floats are sign and
+    magnitude, so adding half a unit of the 13 dropped bits to the int32
+    pattern rounds the magnitude, and a carry moves into the exponent."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's products: a_small b_big + a_big b_small + a_big b_big,
+    TF32 operands (each product exact in f32), f32 sums."""
+    (a_big, a_small), (b_big, b_small) = _split(a), _split(b)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One TF32 pass."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _din_emulated(mm, q, keys, mask, w1, b1, w2, b2, w3, b3, activation,
+                  weight_normalization, return_scores):
+    """``csrc/din_attention.cu``'s arithmetic with its two scorer products
+    through ``mm``: layer 1 ``[k | q*k] @ [Wk-Wm ; Wp]`` plus ``q (Wq+Wm)``
+    and ``b1`` per row, layer 2 ``h1 @ W2``; the rest f32, as the kernel."""
+    act = torch.sigmoid if activation == "sigmoid" else torch.relu
+    K = keys.shape[-1]
+    wq, wk, wm, wp = w1[:K], w1[K:2 * K], w1[2 * K:3 * K], w1[3 * K:]
+    ck = torch.cat([keys, q[:, None, :] * keys], dim=-1)
+    h1 = act((q @ (wq + wm))[:, None, :] + mm(ck, torch.cat([wk - wm, wp], dim=0)) + b1)
+    h2 = act(mm(h1, w2) + b2)
+    score = (h2 @ w3 + b3)[..., 0]
+    if weight_normalization:
+        score = torch.softmax(torch.where(mask, score, NEG_INF), dim=-1)
+    else:
+        score = torch.where(mask, score, 0.0)
+    return score if return_scores else torch.einsum("bt,btk->bk", score, keys)
+
+
+@pytest.mark.parametrize("flags", FLAGS, ids=FLAG_IDS)
+def test_3xtf32_products_hold_the_kernel_tolerance(flags):
+    """At DIN's widths (K=32, 80-40, T=50) the kernel's 3xTF32 products
+    stay within the tolerance ``chip_smoke.py`` holds the kernel to against
+    JAX's f32 ``din_attention_ref``; a single TF32 pass does not, as the
+    raw scores, where the products' error shows undamped, make plain."""
+    activation = flags[0]
+    q, keys, mask, weights = _inputs(B=6, T=50, K=32, H1=80, H2=40, seed=8)
+    args = [torch.from_numpy(a) for a in (q, keys, mask, *weights)]
+    want = np.asarray(j_din_ref(q, keys, jnp.asarray(mask), *weights, *flags))
+    three = _din_emulated(_mm_3xtf32, *args, *flags).numpy()
+    np.testing.assert_allclose(three, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    raw = (activation, False, True)
+    want_raw = np.asarray(j_din_ref(q, keys, jnp.asarray(mask), *weights, *raw))
+    one = _din_emulated(_mm_tf32, *args, *raw).numpy()
+    assert not np.allclose(one, want_raw, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+
+
+def test_tf32_rounding_is_rna():
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 3 * 2.0 ** -12,
+                      1.0 + 2.0 ** -12, 3.0, -0.0], dtype=torch.float32)
+    want = [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0 + 2.0 ** -10, 1.0, 3.0, -0.0]
+    assert _tf32(x).tolist() == want
+    big, small = _split(x)
+    assert torch.equal(big + small, x)
