@@ -11,16 +11,22 @@ Phases, each of which raises on failure (exit code not 0):
    from ``recommender_system_tpu_torch/csrc`` (one nvcc per source, all
    started together);
 2. every kernel against its plain PyTorch version on the card:
-   ``cross_fused`` vs ``cross_network``, forward and gradient (rtol=1e-4,
-   atol=1e-5); ``din_attention_fused`` vs ``din_attention_ref`` at DIN's
-   bench shape (B=8,192, T=50, K=32, scorer 80-40) in all eight
-   combinations of activation, softmax and scores, at T=13, T=1, B=1, at
-   K=6 (not a multiple of 4) and with a scorer of 128-64, each with a row
-   that has no valid position,
-   forward and gradient through the autograd Function (rtol=1e-4,
-   atol=1e-5); ``fm_fused`` vs ``fm_ref`` at B=16,384, D=221, k=8 and at
-   B=1, D=1, k=1, at D=13, k=64, and at Ds that are not multiples of 32,
-   forward and gradient through the Function (rtol=1e-4, atol=1e-5);
+   ``cross_fused`` vs ``cross_network`` at B=4,096 and 8,192 (D=221, L=6),
+   at 4,097 and 8,193 (a partial last tile of 32 rows) and at D=100 on
+   the tile kernel, and with x0 off 16-byte alignment, at D=1000 and L=16
+   on the register kernel, forward and gradient (rtol=1e-4, atol=1e-5), two
+   launches bitwise equal, and which of the two kernels ran; ``din_attention_fused`` vs
+   ``din_attention_ref`` at DIN's bench shape (B=8,192, T=50, K=32, scorer
+   80-40) in all eight combinations of activation, softmax and scores, at
+   T=13, T=1, B=1, at K=6 (not a multiple of 4) and with a scorer of
+   128-64, each with a row that has no valid position, forward and
+   gradient through the autograd Function (rtol=1e-4, atol=1e-5);
+   ``fm_fused`` vs ``fm_ref`` at B=16,384, D=221, k=8, at
+   B=16,385 and B=31 (a partial last group of 4 rows) and at B=1, D=1,
+   k=1, at D=13, k=64, and at Ds that are not multiples of 32, forward and
+   gradient through the Function (rtol=1e-4, atol=1e-5), two launches
+   bitwise equal, and which of the two kernels of ``csrc/fm.cu`` ran (the
+   register kernel for D <= 256, k <= 8, the wide kernel past them);
    ``fused_adagrad_apply``, ``fused_sgd_apply`` and ``fused_adam_apply``
    (lazy Adam at step 0, and at step 3 from non-zero moments) vs
    ``fused_adagrad_ref``, ``fused_sgd_ref`` and ``fused_adam_ref``, and
@@ -232,19 +238,31 @@ def check_cross_kernel(cross_fused, cross_network) -> float:
     absolute error of the forward."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
-    # the bench shape at three batch sizes, a D that is not a multiple of
-    # 32, the widest D the kernel takes, and weights beyond 48 KB of
-    # shared memory
-    for B, D, L in [(1, 221, 6), (1000, 221, 6), (4096, 221, 6), (1000, 100, 6),
-                    (1000, 1000, 6), (1000, 1000, 16)]:
-        x0 = torch.randn(B, D, generator=gen, device="cuda")
+    # the bench shape at the Scorer's and DCN training's batch sizes and
+    # at sizes that leave a partial last tile of the tile kernel's 32 rows,
+    # a D that is not a multiple of 32 (all on the tile kernel); x0 one float
+    # off 16-byte alignment, the widest D the kernel takes, and weights beyond
+    # 48 KB of shared memory (on the register kernel)
+    for B, D, L, shift in [(1, 221, 6, 0), (1000, 221, 6, 0), (4096, 221, 6, 0),
+                           (4097, 221, 6, 0), (8192, 221, 6, 0), (8193, 221, 6, 0),
+                           (1000, 100, 6, 0), (4096, 221, 6, 1), (1000, 1000, 6, 0),
+                           (1000, 1000, 16, 0)]:
+        x0 = torch.randn(B * D + shift, generator=gen, device="cuda")[shift:].view(B, D)
         w = torch.randn(L, D, generator=gen, device="cuda") * (0.2 / math.sqrt(D))
         b = torch.randn(L, D, generator=gen, device="cuda") * 0.1
         with torch.inference_mode():
             out = cross_fused(x0, w, b)
+            again = cross_fused(x0, w, b)
             torch.cuda.synchronize()
             ref = cross_network(x0, w, b)
             torch.cuda.synchronize()
+            ran = sorted(device_ms(lambda: cross_fused(x0, w, b), iters=1))
+        if not torch.equal(out, again):
+            raise RuntimeError(f"cross_fused B={B} D={D} L={L}: two launches on identical "
+                               "inputs differ")
+        want = "cross_tile_kernel" if D <= 256 and shift == 0 else "cross_stack_kernel"
+        if not all(want in name for name in ran):
+            raise RuntimeError(f"cross_fused B={B} D={D} L={L} ran {ran}, not {want}")
         torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
         err = (out - ref).abs().max().item()
         max_err = max(max_err, err)
@@ -261,8 +279,10 @@ def check_cross_kernel(cross_fused, cross_network) -> float:
             # gradient's largest entry
             torch.testing.assert_close(g_kernel, g_plain, rtol=RTOL,
                                        atol=ATOL * max(1.0, g_plain.abs().max().item()))
-        print(f"kernel check cross_fused B={B} D={D} L={L}: max_abs_err={err:.3e}, "
-              "gradients match", flush=True)
+        print(f"kernel check cross_fused B={B} D={D} L={L}"
+              f"{' x0 off 16-byte alignment' if shift else ''}: ran {', '.join(ran)}; "
+              f"max_abs_err={err:.3e}, two launches bitwise equal, gradients match",
+              flush=True)
     return max_err
 
 
@@ -287,22 +307,35 @@ def check_fm_kernel() -> float:
     """Phase 2 for csrc/fm.cu: ``fm_fused`` against ``fm_ref`` on the card,
     forward and gradient through the autograd Function; returns the largest
     absolute error of the forward."""
-    from recommender_system_tpu_torch.ops.kernels import fm_fused, fm_ref
+    from recommender_system_tpu_torch.ops.kernels import (FM_ROWS_FACTORS, FM_ROWS_MAX_DIM,
+                                                          fm_fused, fm_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     max_err = 0.0
-    # the FMLayer path's shape, the smallest, a dense-column width with a
-    # wide factor count (8 chunks), Ds that are not multiples of 32, a
-    # factor count that is not a multiple of the kernel's chunk of 8, and
-    # v past 48 KB of shared memory
-    for B, D, k in [(16_384, 221, 8), (1, 1, 1), (4096, 13, 64), (1000, 100, 8),
-                    (333, 45, 3), (257, 221, 20), (64, 1500, 8)]:
+    # the FMLayer path's shape, and at batches that leave a partial last
+    # group of the register kernel's 4 rows a warp, the smallest, a
+    # dense-column width with a wide factor count (8 chunks), Ds that are
+    # not multiples of 32, a factor count that is not a multiple of the wide
+    # kernel's chunk of 8, and v past 48 KB of shared memory (the last three
+    # on the wide kernel)
+    for B, D, k in [(16_384, 221, 8), (16_385, 221, 8), (31, 221, 8), (1, 1, 1),
+                    (4096, 13, 64), (1000, 100, 8), (333, 45, 3), (257, 221, 20),
+                    (64, 1500, 8)]:
         x, w1, v = fm_inputs(gen, B, D, k)
         with torch.inference_mode():
             out = fm_fused(x, w1, v)
+            again = fm_fused(x, w1, v)
             torch.cuda.synchronize()
             ref = fm_ref(x, w1, v)
             torch.cuda.synchronize()
+            ran = sorted(device_ms(lambda: fm_fused(x, w1, v), iters=1))
+        if not torch.equal(out, again):
+            raise RuntimeError(f"fm_fused B={B} D={D} k={k}: two launches on identical "
+                               "inputs differ")
+        rows_kernel = D <= FM_ROWS_MAX_DIM and k <= FM_ROWS_FACTORS
+        want = "fm_rows_kernel" if rows_kernel else "fm_wide_kernel"
+        if not all(want in name for name in ran):
+            raise RuntimeError(f"fm_fused B={B} D={D} k={k} ran {ran}, not {want}")
         torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
         err = (out - ref).abs().max().item()
         max_err = max(max_err, err)
@@ -315,8 +348,9 @@ def check_fm_kernel() -> float:
         for g_kernel, g_plain in zip(*grads):
             # both are the plain VJP, on the same inputs
             torch.testing.assert_close(g_kernel, g_plain, rtol=RTOL, atol=ATOL)
-        print(f"kernel check fm_fused B={B} D={D} k={k}: max_abs_err={err:.3e}, "
-              "gradients match", flush=True)
+        print(f"kernel check fm_fused B={B} D={D} k={k}: ran {', '.join(ran)}; "
+              f"max_abs_err={err:.3e}, two launches bitwise equal, gradients match",
+              flush=True)
     return max_err
 
 
@@ -1290,7 +1324,7 @@ def time_fm(layer, x, card) -> dict:
         plain_dev = device_ms(lambda: fm_ref(x, w1, v))
         rec = {"call_ms": call_ms(lambda: fm_fused(x, w1, v)),
                "plain_call_ms": call_ms(lambda: fm_ref(x, w1, v))}
-    if not all("fm_kernel" in name for name in kernel_dev):
+    if not all("fm_rows_kernel" in name for name in kernel_dev):
         raise RuntimeError(f"fm_fused ran other device work: {dict(kernel_dev)}")
     rec.update(ms=sum(kernel_dev.values()), plain_ms=sum(plain_dev.values()), library_ms=None)
     rec["bound_ms"], rec["bound_by"] = fm_bound(*x.shape, v.shape[1])
@@ -1416,7 +1450,7 @@ def main() -> int:
         plain_dev = device_ms(lambda: cross_network(x0, w, b))
         kernel_call = call_ms(lambda: cross_fused(x0, w, b))
         plain_call = call_ms(lambda: cross_network(x0, w, b))
-    if not all("cross_stack_kernel" in name for name in kernel_dev):
+    if not all("cross_tile_kernel" in name for name in kernel_dev):
         raise RuntimeError(f"cross_fused ran other device work: {dict(kernel_dev)}")
     kernel_ms, plain_ms = sum(kernel_dev.values()), sum(plain_dev.values())
     bound_ms, bound_by = cross_bound(B, D, L)

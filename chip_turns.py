@@ -22,10 +22,17 @@ TF32 off:
   on a DIN batch's embeddings: device time, time per call, and its largest
   difference from ``din_attention_ref``;
 - DIN's and NFM's fused K=8 training step (``chip_smoke.time_training``:
-  CUDA events over 5 calls, device busy time and idle share).
+  CUDA events over 5 calls, device busy time and idle share);
+- ``fm_fused`` at the ``FMLayer`` path's x [16,384, 221], k=8, and
+  ``cross_fused`` at the DCN Scorer's B=4,096 and DCN training's B=8,192
+  (D=221, L=6), on random inputs from a seed: device time, time per call,
+  the largest difference from ``fm_ref`` / ``cross_network``, and beside
+  each the card's practical floor for the same bytes, a plain device copy
+  (``torch.sum(x, 1)`` for the FM, ``x0.clone()`` for the cross stack),
+  timed the same way on the same warm inputs.
 
-``--what adam,attention`` keeps only the parts named (default: all four,
-``adam,rows,attention,steps``).
+``--what fm,cross`` keeps only the parts named (default: all six,
+``adam,rows,attention,steps,fm,cross``).
 
 Each turn prints ``TURN <label> {json}``; the run ends with one line per
 metric listing every turn's value, and the card's name and power limit.
@@ -166,7 +173,44 @@ def time_steps(cs, torch, card) -> dict:
     return out
 
 
-PARTS = ("adam", "rows", "attention", "steps")
+def kernel_and_floor(cs, name, kernel, plain, floor) -> dict:
+    """Device time (profiler) and time per call of ``kernel`` and of the
+    ``floor`` copy, and the kernel's largest difference from ``plain``."""
+    err = (kernel() - plain()).abs().max().item()
+    return {f"{name}_ms": sum(cs.device_ms(kernel).values()),
+            f"{name}_call_ms": cs.call_ms(kernel), f"{name}_max_abs_err": err,
+            f"{name}_floor_ms": sum(cs.device_ms(floor).values()),
+            f"{name}_floor_call_ms": cs.call_ms(floor)}
+
+
+def time_fm(cs, torch) -> dict:
+    from recommender_system_tpu_torch.ops.kernels import fm_fused, fm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x, w1, v = cs.fm_inputs(gen, cs.FM_B, cs.FM_D, cs.FM_K)
+    with torch.inference_mode():
+        return kernel_and_floor(cs, "fm", lambda: fm_fused(x, w1, v), lambda: fm_ref(x, w1, v),
+                                lambda: torch.sum(x, 1))
+
+
+def time_cross(cs, torch) -> dict:
+    from recommender_system_tpu_torch.ops.interactions import cross_network
+    from recommender_system_tpu_torch.ops.kernels import cross_fused
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    D, L = 221, 6
+    w = torch.randn(L, D, generator=gen, device="cuda") * (0.2 / D ** 0.5)
+    b = torch.randn(L, D, generator=gen, device="cuda") * 0.1
+    out = {}
+    for B in (cs.SERVE_BATCH, cs.CTR_BATCH):
+        x0 = torch.randn(B, D, generator=gen, device="cuda")
+        with torch.inference_mode():
+            out.update(kernel_and_floor(cs, f"cross_{B}", lambda: cross_fused(x0, w, b),
+                                        lambda: cross_network(x0, w, b), lambda: x0.clone()))
+    return out
+
+
+PARTS = ("adam", "rows", "attention", "steps", "fm", "cross")
 
 
 def turn(label: str, tree: Path, what) -> None:
@@ -193,6 +237,10 @@ def turn(label: str, tree: Path, what) -> None:
         rec.update(time_attention(cs, torch))
     if "steps" in what:
         rec.update(time_steps(cs, torch, card))
+    if "fm" in what:
+        rec.update(time_fm(cs, torch))
+    if "cross" in what:
+        rec.update(time_cross(cs, torch))
     print(f"TURN {label} {json.dumps(rec)}", flush=True)
 
 
@@ -231,7 +279,8 @@ def main() -> int:
         line, = [x for x in proc.stdout.splitlines() if x.startswith(f"TURN {label} ")]
         results.append((label, json.loads(line.split(" ", 2)[2])))
     for key in [k for k in results[0][1] if k != "tree"]:
-        print(f"{key}: " + ", ".join(f"{label} {rec[key]:.5f}" for label, rec in results))
+        form = ".3e" if key.endswith("_err") else ".5f"
+        print(f"{key}: " + ", ".join(f"{label} {rec[key]:{form}}" for label, rec in results))
     print(harness().card_line())
     return 0
 

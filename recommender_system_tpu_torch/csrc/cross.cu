@@ -9,113 +9,384 @@
 // Bound on the card: device memory. The stack reads x0 once (B*D*4 bytes)
 // and writes the result once (B*D*4 bytes), plus 2*L*D*4 bytes of weights
 // and biases; it does 5*B*D*L flops, about one flop per byte moved, far
-// below the H100's f32 ratio of ~20 flops per byte. So the design keeps
-// every intermediate x_l out of device memory: one warp owns one batch row,
-// each lane keeps its ceil(D/32) elements of x0 and x in registers (lane j
-// holds elements j, j+32, ...), loads and stores are coalesced 128-byte
-// rows, and the L layers run entirely in registers. Per layer each lane
-// forms a partial dot with w_l, a __shfl_xor_sync butterfly hands every lane
-// the full s = x_l . w_l, and the lane updates its elements. Weights and
-// biases are staged once per block in shared memory (2*L*D*4 bytes).
-// Everything is f32 with f32 accumulation.
+// below the H100's f32 ratio of ~20 flops per byte. So every intermediate
+// x_l stays in registers: lane j of a warp holds elements j, j+32, ... of x0
+// and x (kPerLane of them, a template); per layer each lane forms a partial
+// dot with w_l, a butterfly gives the row's s = x_l . w_l, and the lane
+// updates its elements.
+//
+// The first design gave each warp one row and each block of 8 warps its own
+// copy of the weights: at B=4,096 its 512 blocks staged 2*L*D floats each
+// (5.4 MB through L2, against 3.6 MB of x0) and issued their first x0 load
+// only after that staging and a __syncthreads; then each warp ran its six
+// dependent dot -> butterfly -> update rounds alone, with no second row to
+// overlap. At B=4,096 it is one wave, 40 % of the bound.
+//
+// cross_tile_kernel, for D <= 256 with x0 16-byte aligned (the DCN paths:
+// B=4,096 and 8,192, D=221, L=6):
+// - a persistent grid of one block of 16 warps an SM; a block takes tiles
+//   of kTileRows = 32 consecutive rows, one contiguous span of x0, copied
+//   16 bytes at a time with cp.async into one of two shared-memory buffers:
+//   the first tile's copy goes out before the weights', and each next
+//   tile's while the block computes this one. The weights are staged once
+//   an SM (1.4 MB through L2 at 132 blocks);
+// - a warp takes 2 rows of the tile, their layers interleaved, and per layer
+//   their dots share one butterfly (the offset 16 splits the rows, 8, 4, 2
+//   and 1 sum in full, and a shuffle from each row's lanes hands every lane
+//   both sums: 7 shuffles for 2 rows, against 10); an element of w_l or b_l
+//   read from shared memory serves both rows; each warp stores its rows
+//   straight from registers (128 bytes a warp's store).
+// The arithmetic of a row is as in the first design: an fma dot in the
+// lane's column order, summed over the lanes in the order 16, 8, 4, 2, 1,
+// and the update x0 * s + b + x, all f32.
+// cross_stack_kernel takes every other shape (D up to 1024, or x0 off
+// 16-byte alignment): the same layers on rows loaded into registers, one
+// block of 16 warps an SM, each warp's next rows' loads issued before its
+// layers.
+//
+// What holds the tile kernel back (chip_lab_fm_cross.py on an NVIDIA H100
+// 80GB HBM3 at 700 W): at B=4,096 it is one round of copy in, six layers
+// and stores; the copy in and out alone (no layers) takes ~2.7-3.0 us of its
+// ~4.6-4.7 us, against ~1.9-2.1 us for x0.clone(). Slower were: the results written
+// back into the tile and stored by the block 16 bytes at a time after a
+// barrier (~4.85 us), 4 rows a warp (half the SMs idle at B=4,096), 1 row a
+// warp, 8 warps of 1 or 2 rows, 32 warps of 1 or 2 rows, the first layers'
+// weights held in registers (128 registers, 7.8 us), and each warp copying
+// and waiting for its own rows 8 bytes at a time (5.4 us).
+//
+// ptxas (sm_90a, CUDA 12.8): cross_tile_kernel<7> 63 registers, no spills,
+// dynamic shared memory 2*32*D*4 + 2*L*D*4 bytes (67,184 at D=221, L=6);
+// <1..8> 32-66 registers, no spills; cross_stack_kernel<8, 1> 64 registers,
+// <16, 1> 88, <32, 1> 128 with 48 bytes of spills.
 //
 // C interface, loaded with ctypes: cross_forward returns cudaGetLastError()
 // after the launch (or cudaErrorInvalidValue for a D the templates do not
 // cover); the Python wrapper checks shapes, types and devices first.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-// Blocks loop over rows past this many, so the weights are staged at most
-// kMaxBlocks times: 8 resident blocks on each of the H100's 132 SMs.
-constexpr int kMaxBlocks = 132 * 8;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kDefaultSharedBytes = 48 * 1024;
+constexpr size_t kMaxSharedBytes = 232448;  // a block's most on the H100
+
+// Keeps the half of the n values in h that the lane's bit `offset` selects,
+// each summed with the other lane's: afterwards h[i] is value i + n/2 * bit.
+template <int n>
+__device__ __forceinline__ void split_sum(float* h, int offset, int lane) {
+  const bool bit = lane & offset;
+#pragma unroll
+  for (int i = 0; i < n / 2; ++i) {
+    const float keep = bit ? h[i + n / 2] : h[i];
+    const float send = bit ? h[i] : h[i + n / 2];
+    h[i] = keep + __shfl_xor_sync(kFull, send, offset);
+  }
+}
+
+// Every lane gets the full sum over the 32 lanes of each row's value s[r],
+// summed in the order 16, 8, 4, 2, 1 as a plain butterfly sums it.
+template <int kRows>
+__device__ __forceinline__ void row_sums(float (&s)[kRows], int lane) {
+  static_assert(kRows == 1 || kRows == 2 || kRows == 4, "1, 2 or 4 rows a warp");
+  float h[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) h[r] = s[r];
+  // the offsets 16 (and 8) split the rows; lane l then holds row
+  // l / (32 / kRows)
+  if constexpr (kRows >= 2) split_sum<kRows>(h, 16, lane);
+  if constexpr (kRows == 4) split_sum<2>(h, 8, lane);
+#pragma unroll
+  for (int offset = 32 / kRows / 2; offset > 0; offset >>= 1)
+    h[0] += __shfl_xor_sync(kFull, h[0], offset);
+  if constexpr (kRows == 1) {
+    s[0] = h[0];
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = __shfl_sync(kFull, h[0], r * (32 / kRows));
+  }
+}
+
+// The L layers on kRows rows held in registers: lane j holds elements j,
+// j+32, ... of x0 in a and of x_l in x; w_s and b_s are [L, D] in shared
+// memory, and an element of w_l or b_l read once serves all the rows. The
+// whole warp must call it.
+template <int kPerLane, int kRows>
+__device__ __forceinline__ void run_layers(const float (&a)[kRows][kPerLane],
+                                           float (&x)[kRows][kPerLane], const float* w_s,
+                                           const float* b_s, int dim, int layers, int lane) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) x[r][k] = a[r][k];
+  }
+  for (int l = 0; l < layers; ++l) {
+    const float* w = w_s + l * dim;
+    const float* b = b_s + l * dim;
+    float s[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int j = lane + 32 * k;
+      if (j < dim) {
+        const float wj = w[j];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) s[r] = fmaf(x[r][k], wj, s[r]);
+      }
+    }
+    row_sums<kRows>(s, lane);
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int j = lane + 32 * k;
+      if (j < dim) {
+        const float bj = b[j];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) x[r][k] = a[r][k] * s[r] + bj + x[r][k];
+      }
+    }
+  }
+}
+
+// --- cross_tile_kernel: D <= 256, x0 16-byte aligned -----------------------
+constexpr int kTileWarps = 16;
+constexpr int kTileRowsPerWarp = 2;
+// a multiple of 4, so that every tile starts 16-byte aligned
+constexpr int kTileRows = kTileWarps * kTileRowsPerWarp;
+constexpr int kTileMaxPerLane = 8;
+
+// Starts the copy of n floats from src (16-byte aligned) to dst in shared
+// memory, 16 bytes at a time, and commits it as this thread's next group.
+__device__ __forceinline__ void fetch(float* dst, const float* src, int n) {
+  const int n4 = n >> 2;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    __pipeline_memcpy_async(dst + 4 * i, src + 4 * i, 16);
+  for (int i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x)
+    __pipeline_memcpy_async(dst + i, src + i, 4);
+  __pipeline_commit();
+}
 
 template <int kPerLane>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kTileWarps * 32, 1)
+cross_tile_kernel(const float* __restrict__ x0, const float* __restrict__ weights,
+                  const float* __restrict__ biases, float* __restrict__ out,
+                  int batch, int dim, int layers) {
+  constexpr int kRows = kTileRowsPerWarp;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tile_floats = kTileRows * dim;  // two tiles, then w and b
+  float* w_s = smem + 2 * tile_floats;
+  float* b_s = w_s + layers * dim;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t tiles = (static_cast<int64_t>(batch) + kTileRows - 1) / kTileRows;
+  auto rows_of = [batch](int64_t t) {
+    const int64_t left = batch - t * kTileRows;
+    return static_cast<int>(left < kTileRows ? left : kTileRows);
+  };
+
+  // the first tile's copy goes out before the weights'
+  int64_t t = blockIdx.x;
+  fetch(smem, x0 + t * kTileRows * dim, rows_of(t) * dim);
+  for (int i = threadIdx.x; i < layers * dim; i += blockDim.x) {
+    __pipeline_memcpy_async(w_s + i, weights + i, 4);
+    __pipeline_memcpy_async(b_s + i, biases + i, 4);
+  }
+  __pipeline_commit();
+
+  for (int buf = 0; t < tiles; t += gridDim.x, buf ^= 1) {
+    float* tile = smem + buf * tile_floats;
+    // every thread is done with the other buffer (the tile before last)
+    // before the next tile's copy fills it
+    __syncthreads();
+    const int64_t next = t + gridDim.x;
+    if (next < tiles) {
+      fetch(smem + (buf ^ 1) * tile_floats, x0 + next * kTileRows * dim, rows_of(next) * dim);
+    } else {
+      __pipeline_commit();  // an empty group keeps the count
+    }
+    __pipeline_wait_prior(1);  // this tile and the weights have landed
+    __syncthreads();
+
+    const int rows = rows_of(t);
+    const int r0 = warp * kRows;
+    if (r0 < rows) {  // the same for the whole warp
+      float a[kRows][kPerLane], x[kRows][kPerLane];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k) {
+          const int j = lane + 32 * k;
+          a[r][k] = (r0 + r < rows && j < dim) ? tile[(r0 + r) * dim + j] : 0.f;
+        }
+      }
+      run_layers<kPerLane, kRows>(a, x, w_s, b_s, dim, layers, lane);
+      // the results go straight from registers to out, 128 bytes a warp's
+      // store
+      float* dst = out + t * kTileRows * dim;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k) {
+          const int j = lane + 32 * k;
+          if (r0 + r < rows && j < dim) dst[(r0 + r) * dim + j] = x[r][k];
+        }
+      }
+    }
+  }
+}
+
+size_t tile_shared_bytes(int dim, int layers) {
+  return (2 * static_cast<size_t>(kTileRows) + 2 * static_cast<size_t>(layers)) * dim *
+         sizeof(float);
+}
+
+// --- cross_stack_kernel: every other shape --------------------------------
+// Registers only: a persistent grid of one block of 16 warps an SM stages
+// the weights once, each warp takes kRows rows a group, issues the next
+// group's x0 loads before this group's layers, and stores from registers.
+constexpr int kWarps = 16;
+
+// Loads rows kRows*g .. kRows*g + kRows-1 of x0 (zeros past the batch and D).
+template <int kPerLane, int kRows>
+__device__ __forceinline__ void load_rows(float (&a)[kRows][kPerLane],
+                                          const float* __restrict__ x0, int64_t group,
+                                          int batch, int dim, int lane) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int64_t row = group * kRows + r;
+    const float* src = x0 + row * dim;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int j = lane + 32 * k;
+      a[r][k] = (row < batch && j < dim) ? __ldg(src + j) : 0.f;
+    }
+  }
+}
+
+template <int kPerLane, int kRows>
+__global__ void __launch_bounds__(kWarps * 32, 1)
 cross_stack_kernel(const float* __restrict__ x0, const float* __restrict__ weights,
                    const float* __restrict__ biases, float* __restrict__ out,
                    int batch, int dim, int layers) {
-  extern __shared__ float smem[];
-  float* w_s = smem;
-  float* b_s = smem + layers * dim;
-  const int n = layers * dim;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);
+  float* b_s = w_s + layers * dim;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t groups = (static_cast<int64_t>(batch) + kRows - 1) / kRows;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
+  int64_t group = static_cast<int64_t>(warp) * gridDim.x + blockIdx.x;
+
+  // the first rows are in flight while the block stages the weights
+  float a[kRows][kPerLane];
+  load_rows<kPerLane, kRows>(a, x0, group, batch, dim, lane);
+  for (int i = threadIdx.x; i < layers * dim; i += blockDim.x) {
     w_s[i] = weights[i];
     b_s[i] = biases[i];
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // The whole warp shares one row, so the row test never splits a warp and
-  // the full-mask shuffles below are safe.
-  for (int row = blockIdx.x * kWarpsPerBlock + warp; row < batch;
-       row += gridDim.x * kWarpsPerBlock) {
-    const float* x0_row = x0 + static_cast<size_t>(row) * dim;
-    float a[kPerLane];
-    float x[kPerLane];
+  // The whole warp shares a group of rows, so the loop test never splits a
+  // warp and the full-mask shuffles are safe.
+  for (; group < groups; group += stride) {
+    // the next rows' loads go out before this group's layers
+    float next[kRows][kPerLane];
+    load_rows<kPerLane, kRows>(next, x0, group + stride, batch, dim, lane);
+    float x[kRows][kPerLane];
+    run_layers<kPerLane, kRows>(a, x, w_s, b_s, dim, layers, lane);
+    const int64_t first = group * kRows;
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int j = lane + 32 * k;
-      a[k] = j < dim ? x0_row[j] : 0.f;
-      x[k] = a[k];
-    }
-    for (int l = 0; l < layers; ++l) {
-      const float* w = w_s + l * dim;
-      const float* b = b_s + l * dim;
-      float s = 0.f;
+    for (int r = 0; r < kRows; ++r) {
+      if (first + r >= batch) break;
+      float* dst = out + (first + r) * dim;
 #pragma unroll
       for (int k = 0; k < kPerLane; ++k) {
         const int j = lane + 32 * k;
-        if (j < dim) s = fmaf(x[k], w[j], s);
-      }
-#pragma unroll
-      for (int offset = 16; offset > 0; offset >>= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, offset);
-      }
-#pragma unroll
-      for (int k = 0; k < kPerLane; ++k) {
-        const int j = lane + 32 * k;
-        if (j < dim) x[k] = a[k] * s + b[j] + x[k];
+        if (j < dim) dst[j] = x[r][k];
       }
     }
-    float* out_row = out + static_cast<size_t>(row) * dim;
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int j = lane + 32 * k;
-      if (j < dim) out_row[j] = x[k];
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) a[r][k] = next[r][k];
     }
   }
 }
 
+int sm_count(cudaError_t* err) {
+  int device = 0, sms = 0;
+  *err = cudaGetDevice(&device);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return sms;
+}
+
+template <class Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= kDefaultSharedBytes) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 template <int kPerLane>
-cudaError_t launch(const float* x0, const float* weights, const float* biases,
-                   float* out, int batch, int dim, int layers,
-                   cudaStream_t stream) {
-  const size_t shared_bytes = 2 * static_cast<size_t>(layers) * dim * sizeof(float);
-  if (shared_bytes > kDefaultSharedBytes) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cross_stack_kernel<kPerLane>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shared_bytes));
-    if (err != cudaSuccess) return err;
-  }
-  int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  cross_stack_kernel<kPerLane><<<blocks, kWarpsPerBlock * 32, shared_bytes, stream>>>(
+cudaError_t launch_tile(const float* x0, const float* weights, const float* biases,
+                        float* out, int batch, int dim, int layers, cudaStream_t stream) {
+  const size_t bytes = tile_shared_bytes(dim, layers);
+  cudaError_t err = allow_shared(cross_tile_kernel<kPerLane>, bytes);
+  if (err != cudaSuccess) return err;
+  const int sms = sm_count(&err);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (static_cast<int64_t>(batch) + kTileRows - 1) / kTileRows;
+  const int blocks = static_cast<int>(tiles < sms ? tiles : sms);
+  cross_tile_kernel<kPerLane><<<blocks, kTileWarps * 32, bytes, stream>>>(
       x0, weights, biases, out, batch, dim, layers);
   return cudaGetLastError();
 }
+
+template <int kPerLane, int kRows>
+cudaError_t launch_stack(const float* x0, const float* weights, const float* biases,
+                         float* out, int batch, int dim, int layers, cudaStream_t stream) {
+  const size_t bytes = 2 * static_cast<size_t>(layers) * dim * sizeof(float);
+  cudaError_t err = allow_shared(cross_stack_kernel<kPerLane, kRows>, bytes);
+  if (err != cudaSuccess) return err;
+  const int sms = sm_count(&err);
+  if (err != cudaSuccess) return err;
+  const int64_t groups = (static_cast<int64_t>(batch) + kRows - 1) / kRows;
+  const int blocks = static_cast<int>(groups < sms ? groups : sms);
+  cross_stack_kernel<kPerLane, kRows><<<blocks, kWarps * 32, bytes, stream>>>(
+      x0, weights, biases, out, batch, dim, layers);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
 extern "C" int cross_forward(const float* x0, const float* weights,
                              const float* biases, float* out, int batch,
                              int dim, int layers, void* stream) {
+  if (batch <= 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dim <= 256) return launch<8>(x0, weights, biases, out, batch, dim, layers, s);
-  if (dim <= 512) return launch<16>(x0, weights, biases, out, batch, dim, layers, s);
-  if (dim <= 1024) return launch<32>(x0, weights, biases, out, batch, dim, layers, s);
+  if (dim <= 32 * kTileMaxPerLane && aligned16(x0) &&
+      tile_shared_bytes(dim, layers) <= kMaxSharedBytes) {
+    switch ((dim + 31) / 32) {
+      case 1: return launch_tile<1>(x0, weights, biases, out, batch, dim, layers, s);
+      case 2: return launch_tile<2>(x0, weights, biases, out, batch, dim, layers, s);
+      case 3: return launch_tile<3>(x0, weights, biases, out, batch, dim, layers, s);
+      case 4: return launch_tile<4>(x0, weights, biases, out, batch, dim, layers, s);
+      case 5: return launch_tile<5>(x0, weights, biases, out, batch, dim, layers, s);
+      case 6: return launch_tile<6>(x0, weights, biases, out, batch, dim, layers, s);
+      case 7: return launch_tile<7>(x0, weights, biases, out, batch, dim, layers, s);
+      default: return launch_tile<8>(x0, weights, biases, out, batch, dim, layers, s);
+    }
+  }
+  if (dim <= 256) return launch_stack<8, 1>(x0, weights, biases, out, batch, dim, layers, s);
+  if (dim <= 512) return launch_stack<16, 1>(x0, weights, biases, out, batch, dim, layers, s);
+  if (dim <= 1024) return launch_stack<32, 1>(x0, weights, biases, out, batch, dim, layers, s);
   return cudaErrorInvalidValue;
 }

@@ -12,20 +12,48 @@
 // Bound on the card: device memory. The function reads x once (B*D*4
 // bytes: 14.5 MB at B=16,384, D=221), the small w1 and v once, and writes
 // B*4 bytes; it does about 4*B*D*k + 2*B*D flops, under two flops per byte
-// at k=8, far below the H100's f32 ratio of ~20 flops per byte. So the
-// design reads x exactly once, coalesced, and keeps x.v and x^2.v^2 out of
-// device memory: one warp owns one batch row, lane l reads x[b, l], x[b,
-// l+32], ... and keeps partial sums of x.w1 and, for a chunk of kChunk
-// factor columns, of x.v[:, j] and x^2.v^2[:, j] in registers; a
-// __shfl_xor_sync butterfly gives every lane the row's sums. Factor counts
-// above kChunk loop over chunks, each reading the row again (from L1; at
-// k <= kChunk the row is read once). v, v*v (both transposed to [k][D], so
-// that the 32 lanes read 32 consecutive words: no bank conflicts) and w1 are
-// staged once per block in shared memory, (2k + 1)*D*4 bytes, opted in past
-// 48 KB. Blocks loop over rows, so the staging is repeated at most
-// kMaxBlocks times. f32 with f32 accumulation, v*v and x*x rounded as the
-// plain version rounds them; the sums are taken in another order than
-// cuBLAS's.
+// at k=8, far below the H100's f32 ratio of ~20 flops per byte.
+//
+// The first design (fm_wide_kernel below, kept for the shapes the register
+// kernel does not take) gave a warp one row: per element of x a lane made
+// 17 shared-memory loads (w1, v and v*v for 8 factors) and per row the warp
+// ran 17 five-step butterflies (85 shuffles), ~200 shared-memory
+// instructions a row; and each of up to 1,056 blocks staged v, v*v and w1
+// again, 15.9 MB through L2 at the FMLayer shape, more than x itself. It ran
+// at 16 % of the bound, held back by issue, not by memory.
+//
+// fm_rows_kernel, for D <= 256 and k <= 8 (the FMLayer path's D=221, k=8):
+// - the arithmetic is folded: sum_j x_d^2 v_dj^2 = x_d^2 * vv_d with
+//   vv_d = sum_j v_dj^2, so with a_d = w1_d and c_d = -vv_d / 2 the logit is
+//   sum_d x_d * (a_d + c_d x_d) + 0.5 * sum_j s_j^2, s_j = x.v[:, j]: 9 sums
+//   a row instead of 17, 10 FMAs an element instead of 17;
+// - lane l owns columns l, l+32, ... (kPerLane of them, a template) and holds
+//   their v (zero past k and D), a and c in registers for every row it
+//   serves; a persistent grid of one block an SM forms them once per block
+//   (v transposed through shared memory, ~1 MB through L2 in all);
+// - a warp takes kRows = 4 rows at once, and their 36 partial sums go through
+//   one reduce-scatter butterfly: the offsets 16 and 8 split the rows, 4, 2
+//   and 1 the factors (t in a plain butterfly), then s_j^2 is summed over the
+//   8 lanes that hold a row's s_j: 40 shuffles for 4 rows, 10 a row;
+// - x stays in flight: a block issues its warps' first rows before it
+//   stages v, and each warp issues its next rows' loads as soon as its
+//   FMAs are done, before its shuffles; 12 warps an SM keep ~42 KB of x
+//   in flight.
+// Every value is summed over the lanes in the order 16, 8, 4, 2, 1, as a
+// plain butterfly sums it (tests/test_torch_fm.py emulates the kernel's
+// order on the CPU). f32 with f32 accumulation; the sums are taken in
+// another order than cuBLAS's.
+//
+// What holds it back now (chip_lab_fm_cross.py on an NVIDIA H100 80GB HBM3
+// at 700 W): x's loads. At 0.0076-0.0078 ms it is within 1.2x of
+// torch.sum(x, 1), which reads the same bytes; issuing the next rows' loads
+// after the shuffles costs 0.0083-0.0084 ms, 16 warps a block (128
+// registers, spills) 0.0115-0.0119 ms, 8 warps 0.0074-0.0079 ms.
+//
+// ptxas (sm_90a, CUDA 12.8): fm_rows_kernel<7> (D=221) 168 registers, no
+// spills, 8,960 bytes of shared memory; <8> 168 registers, 4 bytes of
+// spills; <1..6> 75-157 registers, no spills; fm_wide_kernel 48 registers,
+// no spills, (2k + 1)*D*4 bytes of dynamic shared memory.
 //
 // C interface, loaded with ctypes: fm_forward returns cudaGetLastError()
 // after the launch; the Python wrapper checks shapes, types, devices and
@@ -36,10 +64,140 @@
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// --- fm_rows_kernel: D <= 32 * kMaxPerLane, k <= kFactors -------------------
+constexpr int kFactors = 8;
+constexpr int kMaxPerLane = 8;
+constexpr int kRows = 4;
+constexpr int kRowWarps = 12;
+
+// Loads rows 4g..4g+3 of x into xr (zeros past the batch and past D).
+template <int kPerLane>
+__device__ __forceinline__ void load_rows(float (&xr)[kRows][kPerLane],
+                                          const float* __restrict__ x, int64_t group,
+                                          int batch, int dim, int lane) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int64_t row = group * kRows + r;
+    const float* xrow = x + row * dim;
+#pragma unroll
+    for (int p = 0; p < kPerLane; ++p) {
+      const int d = lane + 32 * p;
+      xr[r][p] = (row < batch && d < dim) ? __ldg(xrow + d) : 0.f;
+    }
+  }
+}
+
+// Keeps the half of the 2 * kHalf values in `in` that the lane's bit
+// `offset` selects, each summed with the other lane's: afterwards out[i] is
+// value i + kHalf * bit.
+template <int kHalf>
+__device__ __forceinline__ void split_sum(const float* in, float* out, int offset, int lane) {
+  const bool bit = lane & offset;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float keep = bit ? in[i + kHalf] : in[i];
+    const float send = bit ? in[i] : in[i + kHalf];
+    out[i] = keep + __shfl_xor_sync(kFull, send, offset);
+  }
+}
+
+template <int kPerLane>
+__global__ void __launch_bounds__(kRowWarps * 32, 1)
+fm_rows_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+               const float* __restrict__ v, float* __restrict__ out, int batch, int dim,
+               int factors) {
+  constexpr int kCols = 32 * kPerLane;
+  __shared__ float vt_s[kFactors][kCols];  // v transposed, zero past k and D
+  __shared__ float a_s[kCols];
+  __shared__ float c_s[kCols];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t groups = (static_cast<int64_t>(batch) + kRows - 1) / kRows;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kRowWarps;
+  int64_t group = static_cast<int64_t>(warp) * gridDim.x + blockIdx.x;
+
+  // the first rows are in flight while the block stages v
+  float xr[kRows][kPerLane];
+  load_rows<kPerLane>(xr, x, group, batch, dim, lane);
+
+  for (int d = threadIdx.x; d < kCols; d += blockDim.x) {
+    float vv = 0.f;
+#pragma unroll
+    for (int j = 0; j < kFactors; ++j) {
+      const float vj = (d < dim && j < factors) ? v[d * factors + j] : 0.f;
+      vt_s[j][d] = vj;
+      vv = fmaf(vj, vj, vv);
+    }
+    a_s[d] = d < dim ? w1[d] : 0.f;
+    c_s[d] = -0.5f * vv;
+  }
+  __syncthreads();
+  float vr[kPerLane][kFactors], ar[kPerLane], cr[kPerLane];
+#pragma unroll
+  for (int p = 0; p < kPerLane; ++p) {
+    const int d = lane + 32 * p;
+    ar[p] = a_s[d];
+    cr[p] = c_s[d];
+#pragma unroll
+    for (int j = 0; j < kFactors; ++j) vr[p][j] = vt_s[j][d];
+  }
+
+  // The whole warp shares a group of rows, so the loop test never splits a
+  // warp and the full-mask shuffles below are safe.
+  for (; group < groups; group += stride) {
+    // acc[r * kVals + j] = s_j of row r for j < kFactors, t for j = kFactors
+    constexpr int kVals = kFactors + 1;
+    float acc[kRows * kVals];
+#pragma unroll
+    for (int i = 0; i < kRows * kVals; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < kPerLane; ++p) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float xd = xr[r][p];
+        float* a = acc + r * kVals;
+        a[kFactors] = fmaf(xd, fmaf(cr[p], xd, ar[p]), a[kFactors]);
+#pragma unroll
+        for (int j = 0; j < kFactors; ++j) a[j] = fmaf(xd, vr[p][j], a[j]);
+      }
+    }
+    // the next rows' loads go out before this group's shuffles
+    load_rows<kPerLane>(xr, x, group + stride, batch, dim, lane);
+
+    // rows: offset 16 keeps rows {0, 1} or {2, 3}, offset 8 one of them, so
+    // that lane l holds row (l >> 3) & 3 of the group
+    float half[2 * kVals], row[kVals];
+    split_sum<2 * kVals>(acc, half, 16, lane);
+    split_sum<kVals>(half, row, 8, lane);
+    // factors: offsets 4, 2, 1 leave lane l with s_{l & 7}; t in full
+    float t = row[kFactors];
+    t += __shfl_xor_sync(kFull, t, 4);
+    t += __shfl_xor_sync(kFull, t, 2);
+    t += __shfl_xor_sync(kFull, t, 1);
+    float s4[4], s2[2], s1[1];
+    split_sum<4>(row, s4, 4, lane);
+    split_sum<2>(s4, s2, 2, lane);
+    split_sum<1>(s2, s1, 1, lane);
+    float sq = __fmul_rn(s1[0], s1[0]);
+    sq += __shfl_xor_sync(kFull, sq, 4);
+    sq += __shfl_xor_sync(kFull, sq, 2);
+    sq += __shfl_xor_sync(kFull, sq, 1);
+    const int64_t r = group * kRows + ((lane >> 3) & 3);
+    if ((lane & 7) == 0 && r < batch) out[r] = fmaf(0.5f, sq, t);
+  }
+}
+
+// --- fm_wide_kernel: every other shape ------------------------------------
+// One warp a row; v, v*v (both transposed to [k][D], so that the 32 lanes
+// read 32 consecutive words: no bank conflicts) and w1 staged once per block
+// in shared memory, (2k + 1)*D*4 bytes, opted in past 48 KB. Factor counts
+// above kChunk loop over chunks, each reading the row again (from L1).
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxBlocks = 132 * 8;
 constexpr int kChunk = 8;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kDefaultSharedBytes = 48 * 1024;
 
 __device__ __forceinline__ float warp_sum(float s) {
@@ -49,9 +207,9 @@ __device__ __forceinline__ float warp_sum(float s) {
 }
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-fm_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-          const float* __restrict__ v, float* __restrict__ out, int batch, int dim,
-          int factors) {
+fm_wide_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+               const float* __restrict__ v, float* __restrict__ out, int batch, int dim,
+               int factors) {
   extern __shared__ float smem[];
   float* vt = smem;                           // [factors][dim]
   float* v2t = smem + factors * dim;          // [factors][dim], v*v
@@ -106,21 +264,58 @@ fm_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
-}  // namespace
+template <int kPerLane>
+cudaError_t launch_rows(const float* x, const float* w1, const float* v, float* out,
+                        int batch, int dim, int factors, cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int64_t groups = (static_cast<int64_t>(batch) + kRows - 1) / kRows;
+  const int blocks = static_cast<int>(groups < sms ? groups : sms);
+  fm_rows_kernel<kPerLane><<<blocks, kRowWarps * 32, 0, stream>>>(x, w1, v, out, batch, dim,
+                                                                   factors);
+  return cudaGetLastError();
+}
 
-extern "C" int fm_forward(const void* x, const void* w1, const void* v, void* out,
-                          int batch, int dim, int factors, void* stream) {
-  if (batch <= 0) return cudaSuccess;
+cudaError_t launch_wide(const float* x, const float* w1, const float* v, float* out,
+                        int batch, int dim, int factors, cudaStream_t stream) {
   const size_t shared_bytes = (2 * static_cast<size_t>(factors) + 1) * dim * sizeof(float);
   if (shared_bytes > kDefaultSharedBytes) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared_bytes));
+        fm_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shared_bytes));
     if (err != cudaSuccess) return err;
   }
   int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  fm_kernel<<<blocks, kWarpsPerBlock * 32, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1),
-      static_cast<const float*>(v), static_cast<float*>(out), batch, dim, factors);
+  fm_wide_kernel<<<blocks, kWarpsPerBlock * 32, shared_bytes, stream>>>(x, w1, v, out, batch,
+                                                                       dim, factors);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int fm_forward(const void* x_, const void* w1_, const void* v_, void* out_,
+                          int batch, int dim, int factors, void* stream_) {
+  if (batch <= 0) return cudaSuccess;
+  const auto* x = static_cast<const float*>(x_);
+  const auto* w1 = static_cast<const float*>(w1_);
+  const auto* v = static_cast<const float*>(v_);
+  auto* out = static_cast<float*>(out_);
+  const auto stream = static_cast<cudaStream_t>(stream_);
+  if (factors <= kFactors && dim <= 32 * kMaxPerLane) {
+    switch ((dim + 31) / 32) {
+      case 1: return launch_rows<1>(x, w1, v, out, batch, dim, factors, stream);
+      case 2: return launch_rows<2>(x, w1, v, out, batch, dim, factors, stream);
+      case 3: return launch_rows<3>(x, w1, v, out, batch, dim, factors, stream);
+      case 4: return launch_rows<4>(x, w1, v, out, batch, dim, factors, stream);
+      case 5: return launch_rows<5>(x, w1, v, out, batch, dim, factors, stream);
+      case 6: return launch_rows<6>(x, w1, v, out, batch, dim, factors, stream);
+      case 7: return launch_rows<7>(x, w1, v, out, batch, dim, factors, stream);
+      default: return launch_rows<8>(x, w1, v, out, batch, dim, factors, stream);
+    }
+  }
+  return launch_wide(x, w1, v, out, batch, dim, factors, stream);
 }

@@ -210,9 +210,19 @@ def fm_ref(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return x @ w1 + fm_interaction(x, v)
 
 
+# the shapes that csrc/fm.cu's register kernel (fm_rows_kernel) takes; its
+# wide kernel (fm_wide_kernel) takes the others
+FM_ROWS_MAX_DIM, FM_ROWS_FACTORS = 256, 8
+
+
 def fm_shared_bytes(D: int, k: int) -> int:
-    """Shared memory of a block of ``csrc/fm.cu``: v and v*v ``[k, D]`` and
-    w1 ``[D]``, float32."""
+    """Shared memory of a block of ``csrc/fm.cu`` for ``x [B, D]``, ``v [D,
+    k]``, float32: for D <= 256 and k <= 8 the register kernel's v
+    (transposed, 8 factors) and its two coefficients for ``32 * ceil(D /
+    32)`` columns; else the wide kernel's v and v*v ``[k, D]`` and w1
+    ``[D]``."""
+    if D <= FM_ROWS_MAX_DIM and k <= FM_ROWS_FACTORS:
+        return 4 * 32 * -(-D // 32) * (FM_ROWS_FACTORS + 2)
     return 4 * D * (2 * k + 1)
 
 

@@ -14,7 +14,8 @@ from recommender_system_tpu.ops.pallas_kernels import _fm_ref as j_fm_ref
 from recommender_system_tpu.ops.pallas_kernels import fm_fused as j_fm_fused
 from recommender_system_tpu_torch.convert import load_jax_params
 from recommender_system_tpu_torch.layers import FMLayer
-from recommender_system_tpu_torch.ops.kernels import (MAX_SHARED_BYTES, check_fm_args,
+from recommender_system_tpu_torch.ops.kernels import (FM_ROWS_FACTORS, FM_ROWS_MAX_DIM,
+                                                      MAX_SHARED_BYTES, check_fm_args,
                                                       fm_fused, fm_ref, fm_shared_bytes)
 
 # f32 on both sides; the three products are summed in another order (XLA's
@@ -138,6 +139,125 @@ def test_fm_layer_needs_a_card_unless_told(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA"):
         FMLayer(10, 4, generator=torch.Generator())
     FMLayer(10, 4, device="cpu", generator=torch.Generator())
+
+
+# ------------------------------------------ the kernel's arithmetic, emulated
+
+def _fma(a, b, c):
+    """fmaf in f32: the product of two f32 values is exact in f64, then one
+    f64 add and a rounding to f32 (twice rounded, which differs from the
+    card's single rounding only at rare ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _lane_sum(t):
+    """Sum over the last axis of 2**n lanes, as a xor butterfly pairs them:
+    the lanes that differ in the top bit first, the lowest bit last."""
+    while t.shape[-1] > 1:
+        n = t.shape[-1] // 2
+        t = t[..., :n] + t[..., n:]
+    return t[..., 0]
+
+
+def _fm_rows_emulated(x, w1, v):
+    """csrc/fm.cu's register kernel (D <= 256, k <= 8) in f32 torch: the
+    folded coefficients a = w1 and c = -vv/2 (vv = sum_j v_j^2 by fma), lane
+    l's partial sums over the columns l, l+32, ... in that order
+    (t = fma(x, fma(c, x, a), t) and s_j = fma(x, v_j, s_j)), each summed
+    over the 32 lanes in the order 16, 8, 4, 2, 1, then s_j^2 summed over
+    the factors in the order 4, 2, 1 and out = fma(0.5, sum, t)."""
+    B, D = x.shape
+    k = v.shape[1]
+    cols = 32 * -(-D // 32)
+    vp = torch.zeros(cols, 8)
+    vp[:D, :k] = v
+    a = torch.zeros(cols)
+    a[:D] = w1[:, 0]
+    vv = torch.zeros(cols)
+    for j in range(8):
+        vv = _fma(vp[:, j], vp[:, j], vv)
+    c = -0.5 * vv
+    xp = torch.zeros(B, cols)
+    xp[:, :D] = x
+    t = torch.zeros(B, 32)
+    s = torch.zeros(B, 8, 32)
+    for p in range(cols // 32):
+        lanes = slice(32 * p, 32 * p + 32)
+        xd = xp[:, lanes]
+        t = _fma(xd, _fma(c[lanes], xd, a[lanes]), t)
+        s = _fma(xd[:, None, :], vp[lanes].t()[None], s)
+    t, s = _lane_sum(t), _lane_sum(s)
+    sq = _lane_sum(s * s)
+    return _fma(torch.full_like(sq, 0.5), sq, t)[:, None]
+
+
+def _fm_wide_emulated(x, w1, v):
+    """csrc/fm.cu's wide kernel (one warp a row) in f32 torch: lane l's fma
+    partial sums of x.w1, x.v_j and x^2.v_j^2 over l, l+32, ..., each summed
+    over the lanes in the order 16, 8, 4, 2, 1; per factor
+    pair += fma(s, s, -q) in factor order, out = fma(0.5, pair, linear)."""
+    B, D = x.shape
+    k = v.shape[1]
+    cols = 32 * -(-D // 32)
+    xp = torch.zeros(B, cols)
+    xp[:, :D] = x
+    wp = torch.zeros(cols)
+    wp[:D] = w1[:, 0]
+    vp = torch.zeros(cols, k)
+    vp[:D] = v
+    x2, v2 = xp * xp, vp * vp
+    linear = torch.zeros(B, 32)
+    s = torch.zeros(B, k, 32)
+    q = torch.zeros(B, k, 32)
+    for p in range(cols // 32):
+        lanes = slice(32 * p, 32 * p + 32)
+        linear = _fma(xp[:, lanes], wp[lanes], linear)
+        s = _fma(xp[:, None, lanes], vp[lanes].t()[None], s)
+        q = _fma(x2[:, None, lanes], v2[lanes].t()[None], q)
+    linear, s, q = _lane_sum(linear), _lane_sum(s), _lane_sum(q)
+    pair = torch.zeros(B)
+    for j in range(k):
+        pair = pair + _fma(s[:, j], s[:, j], -q[:, j])
+    return _fma(torch.full_like(pair, 0.5), pair, linear)[:, None]
+
+
+# chip_smoke.py's check_fm_kernel shapes, at a small batch: (B, D, k) and the
+# batch the card checks
+KERNEL_SHAPES = [(64, 221, 8, 16_384), (5, 221, 8, 16_385), (31, 221, 8, 31),
+                 (1, 1, 1, 1), (64, 13, 64, 4096), (64, 100, 8, 1000), (64, 45, 3, 333),
+                 (64, 221, 20, 257), (16, 1500, 8, 64)]
+# chip_smoke.py's tolerance for the kernel against the plain version
+KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
+
+
+@pytest.mark.parametrize("B,D,k,card_B", KERNEL_SHAPES,
+                         ids=[f"B{c}_D{d}_k{k}" for _, d, k, c in KERNEL_SHAPES])
+def test_kernel_arithmetic_holds_the_tolerance(B, D, k, card_B):
+    """The order of sums of the kernel that takes (D, k), emulated in f32,
+    against the JAX package's ``_fm_ref`` at the tolerance ``chip_smoke.py``
+    holds the kernel to, on inputs at ``chip_smoke.fm_inputs``' scales."""
+    rng = np.random.default_rng(card_B + D + k)
+    x = rng.normal(size=(B, D)).astype(np.float32)
+    w1 = (rng.normal(size=(D, 1)) / np.sqrt(D)).astype(np.float32)
+    v = (rng.normal(size=(D, k)) / np.sqrt(D)).astype(np.float32)
+    rows_kernel = D <= FM_ROWS_MAX_DIM and k <= FM_ROWS_FACTORS
+    emulate = _fm_rows_emulated if rows_kernel else _fm_wide_emulated
+    got = emulate(*map(torch.from_numpy, (x, w1, v))).numpy()
+    want = np.asarray(_j_fm_ref(x, w1, v))
+    assert got.shape == want.shape == (B, 1)
+    np.testing.assert_allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+
+
+def test_folded_emulation_differs_from_the_plain_order():
+    """The emulation computes the folded form, not fm_ref's: on the same
+    inputs the two are close but not bitwise equal."""
+    rng = np.random.default_rng(0)
+    x, w1, v = (torch.from_numpy(a.astype(np.float32)) for a in
+                (rng.normal(size=(64, 221)), rng.normal(size=(221, 1)) / 15,
+                 rng.normal(size=(221, 8)) / 15))
+    got, plain = _fm_rows_emulated(x, w1, v), fm_ref(x, w1, v)
+    torch.testing.assert_close(got, plain, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    assert not torch.equal(got, plain)
 
 
 # ------------------------------------------------------- the kernel's checks
