@@ -31,8 +31,8 @@ Phases, each of which raises on failure (exit code not 0):
    (lazy Adam at step 0, and at step 3 from non-zero moments) vs
    ``fused_adagrad_ref``, ``fused_sgd_ref`` and ``fused_adam_ref``, and
    ``scatter_add_sorted`` vs ``scatter_add_dense_ref``, at the bench shape
-   (N=425,984 lookups into 2,600,000 rows of dim 9), at dims 8 to 128 (33
-   among them), at N=1 and N=0, with ids on the table's last row, with half
+   (N=425,984 lookups into 2,600,000 rows of dim 9), at dims 1 to 156 (33,
+   and FFM's 1 and 156, among them), at N=1 and N=0, with ids on the table's last row, with half
    the ids on one row, with rows named only by all-zero cotangents or by
    cotangents that cancel, on DIN's two-site stream of table_d32 (425,984
    positions, ~184,000 on the padding row), and on segments whose lengths
@@ -97,6 +97,18 @@ Phases, each of which raises on failure (exit code not 0):
 3h. ``FMLayer`` on x [16,384, 221], k=8: 8 forward and backward passes, one
    ``fm_fused`` launch per forward, output and gradients equal to the plain
    version's;
+3i. the rest of the Criteo CTR family at ``model_step.py``'s width (the
+   batches of 3g), each with ``Adagrad(0.05)`` and ``FusedAdagrad(0.05)``:
+   DeepCrossing (3 residual units of 256-128), PNN (inner products, tower
+   256-128-64) and AFM (8 attention units, linear term in table_d9), two
+   calls each, 16 ``fused_adagrad_apply`` launches; FFM (k=4: table_d1 of
+   its linear weights and table_d156 of its field-aware factors, 2,600,000
+   rows each), three calls, 48 launches (one a table a step), its losses
+   falling; PNN ``mode="both"`` with FGCNN (83 fields, 3,403 pairs), one
+   call, 8 launches; every table's untouched rows bitwise unchanged with
+   their slots; FFM with the plain step, one call, 16 ``scatter_add_sorted``
+   launches (dims 1 and 156); then two steps of PNN and of AFM on the card
+   and on the CPU, whose parameters and optimizer states agree;
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
    host overhead included), and the library call where there is one (the
@@ -105,7 +117,8 @@ Phases, each of which raises on failure (exit code not 0):
    Scorer's latency and throughput (host clock), its device busy time per
    batch and its top kernels; the training throughput of a fused K=8 call
    (CUDA events), its device idle share, the top device work of a step and
-   the count of host ops a step issues, for DeepFM, DIN, WideDeep and NFM;
+   the count of host ops a step issues, for DeepFM, DIN, WideDeep, NFM,
+   DeepCrossing, PNN, AFM and FFM;
    the share of DIN's step that its padding row takes in
    ``fused_adagrad_apply``; and each sparse row kernel's time on a stream
    with a hot row and on DIN's step stream.
@@ -525,7 +538,9 @@ def sparse_cases(gen: torch.Generator):
     bench = torch.as_tensor(bench_rows(0), device=dev).reshape(-1)
     n = bench.numel()
     yield "bench", bench, torch.randn(n, 9, generator=gen, device=dev), rows9
-    for dim in (8, 9, 16, 32, 33, 128):
+    # dims 1 and 156 are FFM's tables (its linear weights, and 39 fields x
+    # k=4 of field-aware factors: four column chunks of 32 and a tail of 28)
+    for dim in (1, 8, 9, 16, 32, 33, 128, 156):
         lids = torch.randint(0, 100_000, (200_000,), generator=gen, device=dev)
         yield f"dim{dim}", lids, torch.randn(200_000, dim, generator=gen, device=dev), 100_000
     yield "n1", bench[:1], torch.randn(1, 9, generator=gen, device=dev), rows9
@@ -726,15 +741,17 @@ def train_checked(name, model, batches, labels, optimizer, fused, calls, want, c
     device); the launches must equal ``want``, the losses be finite and,
     over several calls, fall; table rows that ``touched`` (default: the
     Criteo rows the batches look up) leaves out keep their values and slots
-    bitwise; a BatchNorm's statistics move. Returns (trainer, launches)."""
+    bitwise, in every ``table_d*`` of the model; a BatchNorm's statistics
+    move. Returns (trainer, launches)."""
     from recommender_system_tpu_torch import Trainer
 
-    (tname, table), = [(n, p) for n, p in model.named_parameters()
-                       if n.rsplit(".", 1)[-1].startswith("table_d")]
+    tables = {n: p for n, p in model.named_parameters()
+              if n.rsplit(".", 1)[-1].startswith("table_d")}
     trainer = Trainer(model, optimizer, fused_embedding=fused)
-    start = [table.detach().clone(), *(t.clone() for t in trainer.fused_slots[tname])]
+    start = {n: [t.detach().clone(), *(s.clone() for s in trainer.fused_slots[n])]
+             for n, t in tables.items()}
     bn_start = model.bn.running_mean.clone() if hasattr(model, "bn") else None
-    print(f"{name}: {tname} {tuple(table.shape)}, "
+    print(f"{name}: {', '.join(f'{n} {tuple(t.shape)}' for n, t in tables.items())}, "
           f"{sum(p.numel() for p in model.parameters())} parameters, "
           f"{type(optimizer).__name__} + {type(fused).__name__}", flush=True)
 
@@ -758,13 +775,17 @@ def train_checked(name, model, batches, labels, optimizer, fused, calls, want, c
     if calls > 1 and not losses[-1].mean() < losses[0].mean():
         raise RuntimeError(f"{name} training loss did not fall: {losses}")
 
-    if touched is None:
-        touched = touched_rows(batches, table.shape[0])
-    after = [table.detach(), *trainer.fused_slots[tname]]
-    if not all(torch.equal(a[~touched], b[~touched]) for a, b in zip(after, start)):
-        raise RuntimeError(f"{name} training changed a row (or its slots) no batch touched")
-    if torch.equal(table.detach()[touched], start[0][touched]):
-        raise RuntimeError(f"{name} training left every touched row as it was")
+    untouched = []
+    for tname, table in tables.items():
+        mask = touched if touched is not None else touched_rows(batches, table.shape[0])
+        after = [table.detach(), *trainer.fused_slots[tname]]
+        if not all(torch.equal(a[~mask], b[~mask]) for a, b in zip(after, start[tname])):
+            raise RuntimeError(f"{name} training changed a row of {tname} (or its slots) "
+                               "no batch touched")
+        if torch.equal(table.detach()[mask], start[tname][0][mask]):
+            raise RuntimeError(f"{name} training left every touched row of {tname} as it was")
+        untouched.append(f"{int((~mask).sum())} of {tname} with their "
+                         f"{len(start[tname]) - 1} slot(s)")
     note = ""
     if bn_start is not None:
         moved = (model.bn.running_mean - bn_start).abs().max().item()
@@ -773,8 +794,8 @@ def train_checked(name, model, batches, labels, optimizer, fused, calls, want, c
         note = f"; BatchNorm running mean moved by up to {moved:.4g}"
     sync = " (call 2 under set_sync_debug_mode('error'))" if calls > 1 else ""
     print(f"{name} training: mean loss per call {[float(x) for x in losses.mean(axis=1)]}"
-          f"{sync}; {int((~touched).sum())} untouched rows bitwise unchanged with their "
-          f"{len(start) - 1} slot(s){note}; on {card}", flush=True)
+          f"{sync}; untouched rows bitwise unchanged: {'; '.join(untouched)}{note}; "
+          f"on {card}", flush=True)
     return trainer, launches
 
 
@@ -1225,27 +1246,31 @@ def time_din(trainer, scorer, requests, batches, labels, card) -> dict:
 # The Criteo CTR models at benchmarks/model_step.py's width, and FMLayer
 # ---------------------------------------------------------------------------
 
-def ctr_model(name: str, cols, device="cuda"):
-    """A Criteo CTR model as ``benchmarks/model_step.py:51-66`` builds it
-    (f32 towers 256-128-64; DCN with 6 cross layers), weights from seed 0."""
+def ctr_model(name: str, cols, device="cuda", **overrides):
+    """A Criteo CTR model as ``benchmarks/model_step.py:51-68`` builds it
+    (f32 towers 256-128-64; DCN with 6 cross layers; DeepCrossing with 3
+    residual units of 256-128; PNN's inner products; AFM with 8 attention
+    units and its linear term; FFM with k=4), weights from seed 0."""
     from recommender_system_tpu_torch import CTR_MODELS
 
-    kw = {"fm": {}, "dcn": dict(cross_layers=6, hidden_units=(256, 128, 64))}.get(
-        name, dict(hidden_units=(256, 128, 64)))
-    return CTR_MODELS[name](tuple(cols), **kw, device=device,
+    kw = {"fm": {}, "dcn": dict(cross_layers=6, hidden_units=(256, 128, 64)),
+          "deep_crossing": dict(hidden_units=(256, 128), num_res_blocks=3),
+          "pnn": dict(mode="inner", hidden_units=(256, 128, 64)),
+          "afm": {}, "ffm": dict(factor_dim=4)}.get(name, dict(hidden_units=(256, 128, 64)))
+    return CTR_MODELS[name](tuple(cols), **{**kw, **overrides}, device=device,
                             generator=torch.Generator().manual_seed(0))
 
 
 def train_ctr_models(card) -> dict:
     """Phase 3g: WideDeep, NFM, FM -> FNN and DCN at model_step.py's width;
-    returns the trained WideDeep and NFM trainers, their batches, and each
-    path's launches."""
+    returns the trained WideDeep and NFM trainers, the columns and batches,
+    and each path's launches."""
     from recommender_system_tpu_torch import (FusedAdagrad, FusedAdam, FusedSGD,
                                               init_from_fm)
     from recommender_system_tpu_torch.training import SGD, Adagrad, Adam
 
     cols, batches, labels = staged_batches(range(K), batch=CTR_BATCH)
-    out = {"batches": (batches, labels), "launches": {}}
+    out = {"cols": cols, "batches": (batches, labels), "launches": {}}
     out["wide_deep"], out["launches"]["wide_deep"] = train_checked(
         "WideDeep", ctr_model("wide_deep", cols), batches, labels, SGD(SGD_LR),
         FusedSGD(SGD_LR), 3, launches_want(fused_sgd_apply=3 * K), card)
@@ -1269,6 +1294,55 @@ def train_ctr_models(card) -> dict:
                      lambda: SGD(SGD_LR), lambda: FusedSGD(SGD_LR))
     card_against_cpu(ctr_model("nfm", cols), batches, labels, "NFM",
                      lambda: Adam(ADAM_LR), lambda: FusedAdam(ADAM_LR))
+    return out
+
+
+def train_ctr_family(cols, batches, labels, card) -> dict:
+    """Phase 3i: DeepCrossing, PNN (inner), AFM and FFM at model_step.py's
+    width with ``Adagrad(0.05)`` and ``FusedAdagrad(0.05)``, PNN
+    ``mode="both"`` with FGCNN, FFM with the plain step, and two steps of
+    PNN and of AFM on the card against the CPU; returns the trainers and
+    each path's launches."""
+    from recommender_system_tpu_torch import FusedAdagrad, Trainer
+    from recommender_system_tpu_torch.training import Adagrad
+
+    t0 = time.perf_counter()
+    out = {"launches": {}}
+    for name, label in (("deep_crossing", "DeepCrossing"), ("pnn", "PNN"), ("afm", "AFM")):
+        out[name], out["launches"][name] = train_checked(
+            label, ctr_model(name, cols), batches, labels, Adagrad(LR), FusedAdagrad(LR), 2,
+            launches_want(fused_adagrad_apply=2 * K), card)
+    # FFM's two tables, table_d1 (its linear weights) and table_d156 (39
+    # fields x k=4), each one stream a step
+    out["ffm"], out["launches"]["ffm"] = train_checked(
+        "FFM", ctr_model("ffm", cols), batches, labels, Adagrad(LR), FusedAdagrad(LR), 3,
+        launches_want(fused_adagrad_apply=3 * 2 * K), card)
+    # PNN with every product and FGCNN's 57 generated fields: 83 fields,
+    # 3,403 pairs, a tower 7,483 wide
+    both = ctr_model("pnn", cols, mode="both", use_fgcnn=True)
+    _, out["launches"]["pnn_both_fgcnn"] = train_checked(
+        "PNN both+FGCNN", both, batches, labels, Adagrad(LR), FusedAdagrad(LR), 1,
+        launches_want(fused_adagrad_apply=K), card)
+    del both
+
+    # FFM's plain step: a scatter-add for each of its two lookups a step
+    trainer = Trainer(ctr_model("ffm", cols), Adagrad(LR))
+    zero_counts()
+    losses = trainer.multi_step(batches, labels).cpu().numpy()
+    launches = read_counts()
+    print(f"FFM plain training launches: {launches} over 1 call of K={K}; losses {losses}",
+          flush=True)
+    if launches != launches_want(scatter_add_sorted=2 * K):
+        raise RuntimeError(f"FFM plain training launched {launches}, want {2 * K} "
+                           "scatter_add_sorted and nothing else")
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"FFM plain training losses not finite: {losses}")
+    out["launches"]["ffm_plain"] = launches
+    del trainer
+
+    card_against_cpu(ctr_model("pnn", cols), batches, labels, "PNN")
+    card_against_cpu(ctr_model("afm", cols), batches, labels, "AFM")
+    print(f"phase 3i took {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -1436,6 +1510,9 @@ def main() -> int:
     ctr = train_ctr_models(card)
     fm_layer, fm_x, fm_launches = fm_layer_path(card)
 
+    # --- phase 3i: DeepCrossing, PNN, AFM and FFM at model_step.py's width
+    family = train_ctr_family(ctr["cols"], *ctr["batches"], card)
+
     # --- phase 4: timings --------------------------------------------------
     with torch.inference_mode():
         batch = {k: torch.as_tensor(v, device="cuda")
@@ -1488,14 +1565,19 @@ def main() -> int:
     fm_times = time_fm(fm_layer, fm_x, card)
     for name in ("wide_deep", "nfm"):
         time_training(ctr[name], *ctr["batches"], card, f"{name} fused training")
+    for name in ("deep_crossing", "pnn", "afm", "ffm"):
+        time_training(family[name], *ctr["batches"], card, f"{name} fused training")
 
     # launches on each kernel's main path, and on the other paths beside them
     ctr_launches = ctr["launches"]
+    family_launches = family["launches"]
     sparse_rows = [
         ("fused_adagrad_apply", "recommender_system_tpu/ops/fused_adagrad.py:156",
          fused_launches["fused_adagrad_apply"],
          {"din": din_fused_launches["fused_adagrad_apply"],
-          "dcn": ctr_launches["dcn"]["fused_adagrad_apply"]}),
+          "dcn": ctr_launches["dcn"]["fused_adagrad_apply"],
+          **{name: family_launches[name]["fused_adagrad_apply"]
+             for name in ("deep_crossing", "pnn", "afm", "ffm", "pnn_both_fgcnn")}}),
         ("fused_sgd_apply", "recommender_system_tpu/ops/fused_adagrad.py:594",
          ctr_launches["wide_deep"]["fused_sgd_apply"],
          {"fnn": ctr_launches["fnn"]["fused_sgd_apply"]}),
@@ -1503,7 +1585,9 @@ def main() -> int:
          ctr_launches["nfm"]["fused_adam_apply"],
          {"fm": ctr_launches["fm"]["fused_adam_apply"]}),
         ("scatter_add_sorted", "recommender_system_tpu/ops/embedding_grad.py:51",
-         plain_launches["scatter_add_sorted"], {"din": din_plain_launches["scatter_add_sorted"]}),
+         plain_launches["scatter_add_sorted"],
+         {"din": din_plain_launches["scatter_add_sorted"],
+          "ffm": family_launches["ffm_plain"]["scatter_add_sorted"]}),
     ]
     print(card)
     print(json.dumps({"kernels": [{

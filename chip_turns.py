@@ -31,8 +31,11 @@ TF32 off:
   (``torch.sum(x, 1)`` for the FM, ``x0.clone()`` for the cross stack),
   timed the same way on the same warm inputs.
 
-``--what fm,cross`` keeps only the parts named (default: all six,
-``adam,rows,attention,steps,fm,cross``).
+- the fused K=8 steps of DeepCrossing, PNN, AFM and FFM at
+  ``model_step.py``'s Criteo width (``family``).
+
+``--what fm,cross`` keeps only the parts named (default: all seven,
+``adam,rows,attention,steps,fm,cross,family``).
 
 Each turn prints ``TURN <label> {json}``; the run ends with one line per
 metric listing every turn's value, and the card's name and power limit.
@@ -173,6 +176,24 @@ def time_steps(cs, torch, card) -> dict:
     return out
 
 
+def time_family(cs, torch, card) -> dict:
+    """The fused K=8 steps of DeepCrossing, PNN (inner), AFM and FFM at
+    model_step.py's width with ``Adagrad`` and ``FusedAdagrad``, as
+    ``chip_smoke.py``'s phase 4 times them."""
+    from recommender_system_tpu_torch import FusedAdagrad, Trainer
+    from recommender_system_tpu_torch.training import Adagrad
+
+    cols, batches, labels = cs.staged_batches(range(cs.K), batch=cs.CTR_BATCH)
+    out = {}
+    for name in ("deep_crossing", "pnn", "afm", "ffm"):
+        trainer = Trainer(cs.ctr_model(name, cols), Adagrad(cs.LR),
+                          fused_embedding=FusedAdagrad(cs.LR))
+        rec = cs.time_training(trainer, batches, labels, card, f"{name} fused training")
+        out[f"{name}_step_ms"], out[f"{name}_step_busy_ms"] = rec["step_ms"], rec["busy_ms"]
+        del trainer
+    return out
+
+
 def kernel_and_floor(cs, name, kernel, plain, floor) -> dict:
     """Device time (profiler) and time per call of ``kernel`` and of the
     ``floor`` copy, and the kernel's largest difference from ``plain``."""
@@ -210,7 +231,7 @@ def time_cross(cs, torch) -> dict:
     return out
 
 
-PARTS = ("adam", "rows", "attention", "steps", "fm", "cross")
+PARTS = ("adam", "rows", "attention", "steps", "fm", "cross", "family")
 
 
 def turn(label: str, tree: Path, what) -> None:
@@ -241,6 +262,8 @@ def turn(label: str, tree: Path, what) -> None:
         rec.update(time_fm(cs, torch))
     if "cross" in what:
         rec.update(time_cross(cs, torch))
+    if "family" in what:
+        rec.update(time_family(cs, torch, card))
     print(f"TURN {label} {json.dumps(rec)}", flush=True)
 
 

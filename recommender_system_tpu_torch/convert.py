@@ -5,14 +5,22 @@ nested parameter dicts (``variables["params"]`` and
 ``variables["batch_stats"]``) as numpy arrays and copies each leaf into the
 port's parameter or buffer of the same path:
 
-- ``embeddings/table_d{d}``: the TPU's lane-packed ``[ceil(V/P), 128]``
-  stack, unpacked to the logical ``[V, d]`` table (``unpack_stack``);
+- ``embeddings/table_d{d}`` (and any other collection's, such as
+  ``linear/linear_tables/table_d1``): the TPU's lane-packed
+  ``[ceil(V/P), 128]`` stack, unpacked to the logical ``[V, d]`` table
+  (``unpack_stack``);
 - a Flax Dense ``kernel [in, out]``: ``weight [out, in]``, transposed;
+- a Flax Conv ``kernel [kh, kw, in, out]`` (FGCNN's ``conv_{i}``):
+  ``weight [out, in, kh, kw]``, the axes permuted ``(3, 2, 0, 1)``;
+- a leaf whose whole path the port has as it is: the same name, in the JAX
+  layout. This is how ``OuterProductLayer``'s ``kernel [k, P, k]`` is kept:
+  it is not a Dense kernel, and ``.T`` would swap its first and last axes
+  and keep its shape;
 - a Flax BatchNorm ``scale``: ``weight``; ``bias``, ``alpha``, ``weights``,
   ``biases``, DIN attention's ``w1``-``w3`` and ``b1``-``b3``, ``FMLayer``'s
-  ``w0``, ``w1`` and ``v``, FM's ``dense_factors`` and
-  ``UnifiedEmbedding``'s ``dense_w`` (not Dense kernels: kept in the JAX
-  layout) and every other name: the same name;
+  ``w0``, ``w1`` and ``v``, FM's and FFM's ``dense_factors`` and
+  ``UnifiedEmbedding``'s and ``LinearEmbedding``'s ``dense_w`` (not Dense
+  kernels: kept in the JAX layout) and every other name: the same name;
 - ``batch_stats`` ``mean`` / ``var``: the ``running_mean`` /
   ``running_var`` buffers of the port's ``BatchNorm`` (in ``bn``,
   ``bn_{i}`` and each ``Dice``'s ``BatchNorm_0``).
@@ -31,7 +39,7 @@ each unpacked like its table: ``{path: (acc,)}`` of ``FusedAdagrad``,
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+from typing import Container, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,18 +72,25 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
             yield prefix + (key,), np.asarray(value)
 
 
-def _port_name(path: Tuple[str, ...]) -> str:
+def _port_name(path: Tuple[str, ...], names: Container[str]) -> str:
+    """The port's name of a JAX leaf: its path as it is where the port has
+    that name among ``names``, else with the leaf renamed."""
+    kept = ".".join(path)
+    if kept in names:
+        return kept
     return ".".join(path[:-1] + (_RENAMES.get(path[-1], path[-1]),))
 
 
 def _copy_leaf(path: Tuple[str, ...], value: np.ndarray, name: str,
                target: torch.Tensor) -> None:
     """Copy one JAX leaf into ``target``: a ``table_d*`` stack (or a state of
-    its shape) unpacked, a Dense kernel transposed, the shape checked."""
+    its shape) unpacked, a Dense kernel transposed, a Conv kernel permuted to
+    ``[out, in, kh, kw]``, a kernel the port keeps under its own name as it
+    is; the shape checked."""
     if path[-1].startswith("table_d"):
         value = unpack_stack(value, target.shape[0], target.shape[1])
-    elif path[-1] == "kernel":
-        value = value.T
+    elif path[-1] == "kernel" and name.endswith(".weight"):
+        value = value.T if value.ndim == 2 else np.transpose(value, (3, 2, 0, 1))
     if tuple(value.shape) != tuple(target.shape):
         raise ValueError(f"JAX variable {'/'.join(path)} has shape "
                          f"{value.shape}, {name} has {tuple(target.shape)}")
@@ -91,7 +106,7 @@ def load_jax_params(model: torch.nn.Module, params: Mapping,
     unfilled = {k for k in targets if not k.endswith("num_batches_tracked")}
     leaves = list(_leaves(params)) + list(_leaves(batch_stats or {}))
     for path, value in leaves:
-        name = _port_name(path)
+        name = _port_name(path, targets)
         if name not in targets:
             raise KeyError(f"JAX variable {'/'.join(path)} has no counterpart "
                            f"{name!r} in {type(model).__name__}")
@@ -146,7 +161,7 @@ def load_jax_opt_state(trainer, opt_state, step: Optional[int] = None):
                     counts.append(int(np.asarray(value)))
                 elif field in _OPT_FIELDS:
                     for path, leaf in _leaves(value):
-                        fill(f"{field}:{_port_name(path)}",
+                        fill(f"{field}:{_port_name(path, trainer.opt_state)}",
                              (field,) + path, leaf)
                 else:
                     raise KeyError(f"optax state field {field!r} of "

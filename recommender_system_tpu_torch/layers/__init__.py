@@ -1,4 +1,6 @@
 from .core import DNN, BatchNorm, Dice, PReLU, PredictionLayer, activation_fn
-from .embedding import EmbeddingCollection, EmbedOutputs, build_table_specs
-from .interaction import CrossNet, FMLayer
+from .embedding import (EmbeddingCollection, EmbedOutputs, LinearEmbedding, UnifiedEmbedding,
+                        build_table_specs)
+from .interaction import (FGCNN, AFMAttention, CrossNet, FMLayer, InnerProductLayer,
+                          OuterProductLayer, ResBlock)
 from .sequence import DinAttention

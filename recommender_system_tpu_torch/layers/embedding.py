@@ -337,3 +337,51 @@ class UnifiedEmbedding(nn.Module):
         linear = linear + self.bias
         return EmbedOutputs(sparse, out.dense, fused, varlen_raw, out.varlen_mask,
                             pooled), linear
+
+
+class LinearEmbedding(nn.Module):
+    """First-order (wide) logit: one scalar weight per id and one per dense
+    column (counterpart of the JAX package's ``LinearEmbedding``), a dim-1
+    ``EmbeddingCollection`` over the one-hot encoding without the one-hots.
+
+    Each sparse or varlen column gets a dim-1 table ``linear_{name}``
+    (normal, std 1e-4), all stacked in ``linear_tables.table_d1``;
+    ``dense_w [n_dense, 1]`` (normal, std 1e-4) weighs the dense columns
+    and ``bias`` (zeros) is the global bias. ``forward(batch) -> [B, 1]``.
+    """
+
+    def __init__(self, feature_columns: Sequence[FeatureColumn], *,
+                 device: torch.device, generator: torch.Generator):
+        super().__init__()
+        sparse, varlen, dense = split_columns(tuple(feature_columns))
+        linear_cols = [dataclasses.replace(fc, embedding_dim=1, init_std=1e-4,
+                                           embedding_name=f"linear_{fc.embedding_name}")
+                       for fc in sparse]
+        linear_cols += [dataclasses.replace(fc, sparsefeat=dataclasses.replace(
+            fc.sparsefeat, embedding_dim=1, init_std=1e-4,
+            embedding_name=f"linear_{fc.embedding_name}")) for fc in varlen]
+        self.linear_tables = EmbeddingCollection(linear_cols + list(dense), device=device,
+                                                 generator=generator)
+        n_dense = sum(fc.dimension for fc in dense)
+        self.dense_w = (nn.Parameter(
+            (torch.randn(n_dense, 1, generator=generator, device=generator.device)
+             * 1e-4).to(device)) if n_dense else None)
+        self.bias = nn.Parameter(torch.zeros(1, device=device))
+
+    def forward(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        out = self.linear_tables(batch)
+        first = next(iter(batch.values()))
+        logit = torch.zeros(first.shape[0], 1, device=first.device)
+        fused_names = set()
+        for names, arr in out.fused.values():
+            # one reduction over the fused [B, F, 1] group
+            logit = logit + arr.sum(dim=1)
+            fused_names.update(names)
+        for n, v in out.sparse.items():
+            if n not in fused_names:
+                logit = logit + v
+        for v in out.pooled.values():
+            logit = logit + v
+        if out.dense is not None:
+            logit = logit + out.dense @ self.dense_w
+        return logit + self.bias

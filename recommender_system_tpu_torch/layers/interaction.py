@@ -1,14 +1,24 @@
 """Parametric interaction modules (counterparts of
-``recommender_system_tpu/layers/interaction.py``)."""
+``recommender_system_tpu/layers/interaction.py``).
+
+Module and parameter names are the JAX package's, so that ``convert.py``
+maps each Flax parameter onto its counterpart: Dense layers are
+``nn.Linear`` (``weight [out, in]``, the transpose of Flax's kernel),
+FGCNN's convolutions ``nn.Conv2d`` (``weight [out, in, kh, kw]``), and
+``OuterProductLayer`` keeps its ``kernel`` in the JAX layout.
+"""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dispatch import DeviceLike, resolve_device
+from ..ops.interactions import pairwise_inner, pairwise_outer
 from ..ops.kernels import cross_fused, fm_fused
+from .core import dense, lecun_normal_
 
 
 class FMLayer(nn.Module):
@@ -59,3 +69,115 @@ class CrossNet(nn.Module):
 
     def forward(self, x):
         return cross_fused(x, self.weights, self.biases)
+
+
+class InnerProductLayer(nn.Module):
+    """PNN's inner products ``<e_i, e_j>``, ``i < j`` (no parameters):
+    ``[B, F, k] -> [B, F(F-1)/2]``."""
+
+    def forward(self, embeds):
+        return pairwise_inner(embeds)
+
+
+class OuterProductLayer(nn.Module):
+    """PNN's kernel-weighted outer products: ``[B, F, k] -> [B, P]``.
+    Parameter ``kernel [k, P, k]``, P = F(F-1)/2, in the JAX package's
+    layout (``convert.py`` copies it as it is), ``normal(0, init_std)``."""
+
+    def __init__(self, num_fields: int, embedding_dim: int, init_std: float = 0.05, *,
+                 device: torch.device, generator: torch.Generator):
+        super().__init__()
+        pairs = num_fields * (num_fields - 1) // 2
+        self.kernel = nn.Parameter(
+            (torch.randn(embedding_dim, pairs, embedding_dim, generator=generator,
+                         device=generator.device) * init_std).to(device))
+
+    def forward(self, embeds):
+        return pairwise_outer(embeds, self.kernel)
+
+
+class AFMAttention(nn.Module):
+    """Attention pooling over interaction pairs: ``att_w`` (Dense, relu),
+    ``att_h`` (Dense to 1), a softmax over the pairs, the weighted sum:
+    ``[B, P, k] -> [B, k]``."""
+
+    def __init__(self, embedding_dim: int, attention_units: int, *,
+                 device: torch.device, generator: torch.Generator):
+        super().__init__()
+        self.att_w = dense(embedding_dim, attention_units, device=device, generator=generator)
+        self.att_h = dense(attention_units, 1, device=device, generator=generator)
+
+    def forward(self, pair_embeds):
+        score = self.att_h(F.relu(self.att_w(pair_embeds)))  # [B, P, 1]
+        att = torch.softmax(score, dim=1)
+        return torch.sum(att * pair_embeds, dim=1)
+
+
+class ResBlock(nn.Module):
+    """DeepCrossing's residual unit, ``relu(x + proj(MLP(x)))``: Dense
+    layers ``dense_{i}`` with relu, then ``proj`` back to the input width."""
+
+    def __init__(self, in_features: int, hidden_units: Sequence[int], *,
+                 device: torch.device, generator: torch.Generator):
+        super().__init__()
+        self.hidden_units = tuple(hidden_units)
+        width = in_features
+        for i, units in enumerate(self.hidden_units):
+            self.add_module(f"dense_{i}", dense(width, units, device=device,
+                                                generator=generator))
+            width = units
+        self.proj = dense(width, in_features, device=device, generator=generator)
+
+    def forward(self, x):
+        h = x
+        for i in range(len(self.hidden_units)):
+            h = F.relu(getattr(self, f"dense_{i}")(h))
+        return F.relu(x + self.proj(h))
+
+
+class FGCNN(nn.Module):
+    """Feature-generation CNN: per stage a convolution over the fields
+    (``conv_{i}``, kernel ``(kernel_width, 1)``, Flax's ``"SAME"`` padding,
+    tanh), a max pool of ``(pooling_width, 1)`` that floors, and a Dense
+    recombination (``recomb_{i}``, relu) into ``dnn_maps * H`` new fields:
+    ``[B, F, k] -> [B, F_new, k]``. The recombination reads the pooled maps
+    flattened as Flax's NHWC ``[B, H, k, C]``, so transplanted weights
+    match. With 26 fields and the defaults the stages keep 13 and 6 rows,
+    3 * 13 + 3 * 6 = 57 new fields."""
+
+    def __init__(self, num_fields: int, embedding_dim: int,
+                 filters: Sequence[int] = (14, 16), kernel_width: Sequence[int] = (7, 7),
+                 dnn_maps: Sequence[int] = (3, 3), pooling_width: Sequence[int] = (2, 2), *,
+                 device: torch.device, generator: torch.Generator):
+        super().__init__()
+        self.stages = tuple(zip(filters, kernel_width, dnn_maps, pooling_width))
+        k = embedding_dim
+        h, channels = num_fields, 1
+        self.out_fields = 0
+        for i, (f, kw, maps, pw) in enumerate(self.stages):
+            conv = nn.utils.skip_init(nn.Conv2d, channels, f, (kw, 1), padding="same",
+                                      device=device)
+            with torch.no_grad():
+                # Flax's lecun_normal over the fan-in kh * kw * in
+                flat = torch.empty(f, channels * kw, device=device)
+                lecun_normal_(flat, generator)
+                conv.weight.copy_(flat.reshape(conv.weight.shape))
+                conv.bias.zero_()
+            self.add_module(f"conv_{i}", conv)
+            h, channels = h // pw, f
+            self.add_module(f"recomb_{i}", dense(h * k * f, maps * h * k, device=device,
+                                                 generator=generator))
+            self.out_fields += maps * h
+
+    def forward(self, embeds):  # [B, F, k]
+        B, _, k = embeds.shape
+        x = embeds[:, None, :, :]  # [B, 1, F, k] (NCHW)
+        new_maps = []
+        for i, (_, _, maps, pw) in enumerate(self.stages):
+            x = torch.tanh(getattr(self, f"conv_{i}")(x))
+            x = F.max_pool2d(x, kernel_size=(pw, 1), stride=(pw, 1))
+            h = x.shape[2]
+            flat = x.permute(0, 2, 3, 1).reshape(B, -1)  # Flax's NHWC order
+            out = F.relu(getattr(self, f"recomb_{i}")(flat))
+            new_maps.append(out.reshape(B, maps * h, k))
+        return torch.cat(new_maps, dim=1)

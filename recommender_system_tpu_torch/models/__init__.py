@@ -1,13 +1,18 @@
+from .afm import AFM
 from .dcn import DCN
+from .deep_crossing import DeepCrossing
 from .deepfm import DeepFM
 from .din import DIN
+from .ffm import FFM
 from .fm import FM
 from .fnn import FNN, init_from_fm
 from .nfm import NFM
+from .pnn import PNN
 from .wide_deep import WideDeep
 
 # the Criteo CTR models that the port has, under the JAX package's names
 CTR_MODELS = {
-    "fm": FM, "fnn": FNN, "wide_deep": WideDeep, "deepfm": DeepFM, "dcn": DCN,
-    "nfm": NFM, "din": DIN,
+    "fm": FM, "ffm": FFM, "fnn": FNN, "wide_deep": WideDeep,
+    "deepfm": DeepFM, "dcn": DCN, "deep_crossing": DeepCrossing,
+    "pnn": PNN, "nfm": NFM, "afm": AFM, "din": DIN,
 }

@@ -1,7 +1,7 @@
 """Where the port runs: the device of its entry points and the kernel rule.
 
 - Entry points (the models ``DCN``, ``DeepFM``, ``DIN``, ``WideDeep``,
-  ``NFM``, ``FM`` and ``FNN``, the layer ``FMLayer``, ``Scorer`` and
+  ``NFM``, ``FM``, ``FNN``, ``DeepCrossing``, ``PNN``, ``AFM`` and ``FFM``, the layer ``FMLayer``, ``Scorer`` and
   ``Trainer``) run on the card unless the caller names another device;
   with no card and no device named they raise.
 - A kernel wrapper launches its CUDA kernel for CUDA tensors and runs the
