@@ -14,19 +14,25 @@ Phases, each of which raises on failure (exit code not 0):
    ``cross_fused`` vs ``cross_network`` at B=4,096 and 8,192 (D=221, L=6),
    at 4,097 and 8,193 (a partial last tile of 32 rows) and at D=100 on
    the tile kernel, and with x0 off 16-byte alignment, at D=1000 and L=16
-   on the register kernel, forward and gradient (rtol=1e-4, atol=1e-5), two
-   launches bitwise equal, and which of the two kernels ran; ``din_attention_fused`` vs
+   on the register kernel, and at x0 widths 1,053 and 3,000 and 29 layers
+   of 1,024 on the global kernel (one with x0 off alignment), forward and
+   gradient (rtol=1e-4, atol=1e-5), two launches bitwise equal, and which of
+   the three kernels ran; ``din_attention_fused`` vs
    ``din_attention_ref`` at DIN's bench shape (B=8,192, T=50, K=32, scorer
    80-40) in all eight combinations of activation, softmax and scores, at
    T=13, T=1, B=1, at K=6 (not a multiple of 4) and with a scorer of
-   128-64, each with a row that has no valid position, forward and
-   gradient through the autograd Function (rtol=1e-4, atol=1e-5);
+   128-64 on the tiled kernel, and on the global kernel at K=128 (T=50 and
+   T=1), at K=32, T=515 and with a scorer of 300-260, each with a row that
+   has no valid position, forward and gradient through the autograd
+   Function (rtol=1e-4, atol=1e-5), and which of the two kernels ran;
    ``fm_fused`` vs ``fm_ref`` at B=16,384, D=221, k=8, at
    B=16,385 and B=31 (a partial last group of 4 rows) and at B=1, D=1,
    k=1, at D=13, k=64, and at Ds that are not multiples of 32, forward and
    gradient through the Function (rtol=1e-4, atol=1e-5), two launches
-   bitwise equal, and which of the two kernels of ``csrc/fm.cu`` ran (the
-   register kernel for D <= 256, k <= 8, the wide kernel past them);
+   bitwise equal, and which of the three kernels of ``csrc/fm.cu`` ran (the
+   register kernel for D <= 256, k <= 8, the wide kernel past them while
+   its shared memory fits, the global kernel past that: D=3,419 and 4,000
+   at k=8, k=19 at D=1,500, D=20,000);
    ``fused_adagrad_apply``, ``fused_sgd_apply`` and ``fused_adam_apply``
    (lazy Adam at step 0, and at step 3 from non-zero moments) vs
    ``fused_adagrad_ref``, ``fused_sgd_ref`` and ``fused_adam_ref``, and
@@ -109,6 +115,24 @@ Phases, each of which raises on failure (exit code not 0):
    their slots; FFM with the plain step, one call, 16 ``scatter_add_sorted``
    launches (dims 1 and 156); then two steps of PNN and of AFM on the card
    and on the CPU, whose parameters and optimizer states agree;
+3j. DIEN at ``benchmarks/model_step.py``'s width (3f's columns and batches,
+   seeds 0-7, with a sampled history ``neg_hist_item_id`` on the same
+   table_d32: three lookup sites; ``use_negsampling``, GRU and AUGRU of
+   H=32, attention 80-40 over the GRU states, auxiliary tower 100-50, relu
+   tower 256-128-64, f32, batch 8,192) with ``Adagrad(0.05)`` and
+   ``FusedAdagrad(0.05)``: three fused calls, each step one attention
+   launch and one ``fused_adagrad_apply`` (the three sites one stream), one
+   call under ``set_sync_debug_mode("error")``, losses falling, untouched
+   rows bitwise unchanged; one plain call, three ``scatter_add_sorted``
+   launches a step; two fused steps on the card and on the CPU at batch
+   1,024, which agree; the trained DIEN through ``Scorer(batch_size=8192)``,
+   one attention launch per padded batch, its answers equal to the plain
+   attention's on the card and to the CPU path's on 1000 rows;
+3k. the global kernels on the paths that reach them: DCN served at x0
+   width 1,053 (26 fields at dim 40, 13 dense), ``fm_fused`` at D=4,000,
+   ``din_attention_fused`` at K=128, T=50, and one fused step of
+   ``DIEN(gru_hidden=128)`` at batch 1,024; each launch counted in
+   ``launches`` and in ``global_launches``, each answer against the CPU;
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
    host overhead included), and the library call where there is one (the
@@ -118,13 +142,21 @@ Phases, each of which raises on failure (exit code not 0):
    batch and its top kernels; the training throughput of a fused K=8 call
    (CUDA events), its device idle share, the top device work of a step and
    the count of host ops a step issues, for DeepFM, DIN, WideDeep, NFM,
-   DeepCrossing, PNN, AFM and FFM;
-   the share of DIN's step that its padding row takes in
-   ``fused_adagrad_apply``; and each sparse row kernel's time on a stream
-   with a hot row and on DIN's step stream.
+   DeepCrossing, PNN, AFM, FFM and DIEN; the device and host time of
+   DIEN's GRU, AUGRU, attention and auxiliary net (forward and backward);
+   the share of DIN's and DIEN's steps that their padding row takes in
+   ``fused_adagrad_apply``; each sparse row kernel's time on a stream
+   with a hot row and on DIN's step stream, back to back and with the L2
+   cache flushed before each call; and each global kernel at a shape of
+   its path.
+
+Every launch check compares all seven wrappers' launch counts and the
+``global_launches`` of the cross, FM and DIN attention wrappers, which must
+be 0 on every path but 3k's.
 
 The line before the last lists every kernel with its launches on its main
-path, its error against the plain version, its times and its bound; the line
+path (the three global kernels: on phase 3k's path), its error against the
+plain version, its times and its bound; the line
 before that names the card and its power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
@@ -135,6 +167,7 @@ import collections
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -175,12 +208,32 @@ SGD_LR, ADAM_LR = 0.01, 1e-3
 # 200,000 ids with its history (T=50, padding id 0) on the same table, dim
 # 32 (table_d32 of 300,000 rows), batch 8,192
 DIN_USERS, DIN_ITEMS, DIN_T, DIN_DIM, DIN_BATCH = 100_000, 200_000, 50, 32, 8192
+# DIEN (model_step.py:99-107) adds a sampled history on the same table: the
+# card-against-CPU steps and DIEN(gru_hidden=128)'s step take this batch
+DIEN_SMALL_BATCH = 1024
+# shapes that the global kernels of csrc/cross.cu, fm.cu and din_attention.cu
+# take: DCN's x0 of 26 fields at dim 40 and 13 dense (1,053 wide; vocabulary
+# cut, the width is what counts), an FM input past the wide kernel's shared
+# memory, the DIN attention at K=128
+WIDE_DIM, WIDE_VOCAB, WIDE_FM_D = 40, 10_000, 4000
 
 
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def clocks_during(fn, calls: int = 40) -> str:
+    """The card's SM and memory clocks, as ``nvidia-smi`` reads them while
+    ``calls`` queued calls of ``fn`` run on the device."""
+    for _ in range(calls):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    torch.cuda.synchronize()
     return out.strip().splitlines()[0]
 
 
@@ -246,20 +299,25 @@ def cross_bound(B: int, D: int, L: int):
     return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
 
 
-def check_cross_kernel(cross_fused, cross_network) -> float:
-    """Phase 2: the kernel against its plain version; returns the largest
-    absolute error of the forward."""
+def check_cross_kernel(cross_fused, cross_network) -> dict:
+    """Phase 2: the kernels against their plain version; returns the largest
+    absolute error of the forward, by kernel."""
+    from recommender_system_tpu_torch.ops.kernels import cross_kernel_takes
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err = 0.0
+    max_err = collections.Counter()
     # the bench shape at the Scorer's and DCN training's batch sizes and
     # at sizes that leave a partial last tile of the tile kernel's 32 rows,
     # a D that is not a multiple of 32 (all on the tile kernel); x0 one float
-    # off 16-byte alignment, the widest D the kernel takes, and weights beyond
-    # 48 KB of shared memory (on the register kernel)
+    # off 16-byte alignment, a D up to 1,024, and weights beyond 48 KB of
+    # shared memory (on the register kernel); DCN's x0 at dim 40 (1,053
+    # wide), off alignment too, 29 layers of 1,024 (past the shared memory)
+    # and D=3,000 (on the global kernel)
     for B, D, L, shift in [(1, 221, 6, 0), (1000, 221, 6, 0), (4096, 221, 6, 0),
                            (4097, 221, 6, 0), (8192, 221, 6, 0), (8193, 221, 6, 0),
                            (1000, 100, 6, 0), (4096, 221, 6, 1), (1000, 1000, 6, 0),
-                           (1000, 1000, 16, 0)]:
+                           (1000, 1000, 16, 0), (4096, 1053, 6, 0), (4097, 1053, 6, 1),
+                           (1000, 1024, 29, 0), (300, 3000, 3, 0)]:
         x0 = torch.randn(B * D + shift, generator=gen, device="cuda")[shift:].view(B, D)
         w = torch.randn(L, D, generator=gen, device="cuda") * (0.2 / math.sqrt(D))
         b = torch.randn(L, D, generator=gen, device="cuda") * 0.1
@@ -273,12 +331,15 @@ def check_cross_kernel(cross_fused, cross_network) -> float:
         if not torch.equal(out, again):
             raise RuntimeError(f"cross_fused B={B} D={D} L={L}: two launches on identical "
                                "inputs differ")
-        want = "cross_tile_kernel" if D <= 256 and shift == 0 else "cross_stack_kernel"
+        if not cross_kernel_takes(x0, w, b):
+            want = "cross_global_kernel"
+        else:
+            want = "cross_tile_kernel" if D <= 256 and shift == 0 else "cross_stack_kernel"
         if not all(want in name for name in ran):
             raise RuntimeError(f"cross_fused B={B} D={D} L={L} ran {ran}, not {want}")
         torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
         err = (out - ref).abs().max().item()
-        max_err = max(max_err, err)
+        max_err[want] = max(max_err[want], err)
 
         grads = []
         for fn in (cross_fused, cross_network):
@@ -316,24 +377,26 @@ def fm_inputs(gen, B, D, k):
     return x, w1, v
 
 
-def check_fm_kernel() -> float:
+def check_fm_kernel() -> dict:
     """Phase 2 for csrc/fm.cu: ``fm_fused`` against ``fm_ref`` on the card,
     forward and gradient through the autograd Function; returns the largest
-    absolute error of the forward."""
+    absolute error of the forward, by kernel."""
     from recommender_system_tpu_torch.ops.kernels import (FM_ROWS_FACTORS, FM_ROWS_MAX_DIM,
-                                                          fm_fused, fm_ref)
+                                                          fm_fused, fm_kernel_takes, fm_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(6)
-    max_err = 0.0
+    max_err = collections.Counter()
     # the FMLayer path's shape, and at batches that leave a partial last
     # group of the register kernel's 4 rows a warp, the smallest, a
     # dense-column width with a wide factor count (8 chunks), Ds that are
     # not multiples of 32, a factor count that is not a multiple of the wide
     # kernel's chunk of 8, and v past 48 KB of shared memory (the last three
-    # on the wide kernel)
+    # on the wide kernel); past the wide kernel's shared memory at k=8, at
+    # k=19 and at a D of 20,000 (on the global kernel)
     for B, D, k in [(16_384, 221, 8), (16_385, 221, 8), (31, 221, 8), (1, 1, 1),
                     (4096, 13, 64), (1000, 100, 8), (333, 45, 3), (257, 221, 20),
-                    (64, 1500, 8)]:
+                    (64, 1500, 8), (1000, 4000, 8), (333, 3419, 8), (64, 1500, 19),
+                    (7, 20_000, 2)]:
         x, w1, v = fm_inputs(gen, B, D, k)
         with torch.inference_mode():
             out = fm_fused(x, w1, v)
@@ -345,13 +408,17 @@ def check_fm_kernel() -> float:
         if not torch.equal(out, again):
             raise RuntimeError(f"fm_fused B={B} D={D} k={k}: two launches on identical "
                                "inputs differ")
-        rows_kernel = D <= FM_ROWS_MAX_DIM and k <= FM_ROWS_FACTORS
-        want = "fm_rows_kernel" if rows_kernel else "fm_wide_kernel"
+        if not fm_kernel_takes(x, w1, v):
+            want = "fm_global_kernel"
+        elif D <= FM_ROWS_MAX_DIM and k <= FM_ROWS_FACTORS:
+            want = "fm_rows_kernel"
+        else:
+            want = "fm_wide_kernel"
         if not all(want in name for name in ran):
             raise RuntimeError(f"fm_fused B={B} D={D} k={k} ran {ran}, not {want}")
         torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
         err = (out - ref).abs().max().item()
-        max_err = max(max_err, err)
+        max_err[want] = max(max_err[want], err)
         cot = torch.randn(out.shape, generator=gen, device="cuda")
         grads = []
         for fn in (fm_fused, fm_ref):
@@ -375,13 +442,27 @@ def din_bound(B: int, T: int, K: int, H1: int, H2: int):
     pooling, 2*B*(2*K*H1 + T*K). Returns (bound, what bounds it, the bound
     in f32 outside the tensor cores): the bound is the tensor cores', where
     an f32-accurate product takes three TF32 passes (3xTF32)."""
-    nbytes = 4 * (B * K + B * T * K + B * T + B * K
-                  + 4 * K * H1 + H1 + H1 * H2 + 2 * H2 + 1)
-    flops = 2 * B * T * (K * H1 + H1 * H2 + H2) + 2 * B * (2 * K * H1 + T * K)
-    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    byte_ms, flops = din_work(B, T, K, H1, H2)
     tc_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
     f32_ms = max(byte_ms, flops / PEAK_F32_FLOPS * 1e3)
     return max(byte_ms, tc_ms), "bytes" if byte_ms >= tc_ms else "operations", f32_ms
+
+
+def din_work(B: int, T: int, K: int, H1: int, H2: int):
+    """The DIN attention's least bytes (as ms at the memory rate) and flops,
+    as ``din_bound`` counts them."""
+    nbytes = 4 * (B * K + B * T * K + B * T + B * K
+                  + 4 * K * H1 + H1 + H1 * H2 + 2 * H2 + 1)
+    flops = 2 * B * T * (K * H1 + H1 * H2 + H2) + 2 * B * (2 * K * H1 + T * K)
+    return nbytes / PEAK_BYTES_PER_S * 1e3, flops
+
+
+def din_f32_bound(B: int, T: int, K: int, H1: int, H2: int):
+    """Least time for the DIN attention in f32 outside the tensor cores, as
+    the global kernel computes it: (bound, what bounds it)."""
+    byte_ms, flops = din_work(B, T, K, H1, H2)
+    flop_ms = flops / PEAK_F32_FLOPS * 1e3
+    return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
 
 
 def din_inputs(gen, B, T, K, H1, H2):
@@ -401,10 +482,11 @@ def din_inputs(gen, B, T, K, H1, H2):
     return q, keys, mask, weights
 
 
-def check_din_kernel() -> float:
+def check_din_kernel() -> dict:
     """Phase 2 for csrc/din_attention.cu: ``din_attention_fused`` against
     ``din_attention_ref`` on the card, forward and gradient through the
-    autograd Function; returns the largest absolute error of the forward."""
+    autograd Function; returns the largest absolute error of the forward,
+    by kernel."""
     from recommender_system_tpu_torch.ops import kernels
     from recommender_system_tpu_torch.ops.kernels import din_attention_fused, din_attention_ref
 
@@ -418,11 +500,28 @@ def check_din_kernel() -> float:
              (100, 7, 6, 12, 3, flags[:4], True),  # K not a multiple of 4: 4-byte copies
              (300, 1, DIN_DIM, 80, 40, flags, True),   # T = 1
              (1, DIN_T, DIN_DIM, 80, 40, flags, True),  # B = 1
-             (257, DIN_T, DIN_DIM, 128, 64, flags[:4], True)]  # opt-in shared memory
-    max_err = 0.0
+             (257, DIN_T, DIN_DIM, 128, 64, flags[:4], True),  # opt-in shared memory
+             # the global kernel: K=128 (DIEN(gru_hidden=128)), at T=1 too,
+             # T past 514 at K=32, hidden widths past 256
+             (1024, DIN_T, 128, 80, 40, flags, True),
+             (33, 1, 128, 80, 40, flags[:4], True),
+             (64, 515, DIN_DIM, 80, 40, flags[:4], True),
+             (100, 13, 8, 300, 260, flags[:4], True),
+             (64, 20, 128, 256, 64, flags[:4], True)]
+    max_err = collections.Counter()
     for B, T, K, H1, H2, combos, grad in cases:
         q, keys, mask, weights = din_inputs(gen, B, T, K, H1, H2)
         smem = kernels.din_shared_bytes(T, K, H1, H2)
+        fast = kernels.din_kernel_takes(q, keys, mask.float(), *weights, "sigmoid")
+        kernel = "din_attention_kernel" if fast else "din_attention_global_kernel"
+        with torch.inference_mode():
+            # the bool mask's conversion to float runs beside the kernel
+            ran = sorted(name for name in device_ms(
+                lambda: din_attention_fused(q, keys, mask, *weights), iters=1)
+                if "din_attention" in name)
+        if not ran or not all(kernel in name for name in ran):
+            raise RuntimeError(f"din_attention_fused B={B} T={T} K={K} H1={H1} H2={H2} "
+                               f"ran {ran}, not {kernel}")
         for activation, wn, rs in combos:
             with torch.inference_mode():
                 out = din_attention_fused(q, keys, mask, *weights, activation, wn, rs)
@@ -431,7 +530,7 @@ def check_din_kernel() -> float:
                 torch.cuda.synchronize()
             torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
             err = (out - ref).abs().max().item()
-            max_err = max(max_err, err)
+            max_err[kernel] = max(max_err[kernel], err)
             if wn:
                 # the first row has no valid position: weights 1/T, the mean key
                 want = (torch.full((T,), 1.0 / T, device="cuda") if rs
@@ -454,8 +553,9 @@ def check_din_kernel() -> float:
                 grad_note = ", gradients match"
             print(f"kernel check din_attention_fused B={B} T={T} K={K} H1={H1} H2={H2} "
                   f"{activation} weight_normalization={wn} return_scores={rs} "
-                  f"(shared memory {smem} B at one row a group): max_abs_err={err:.3e}{grad_note}",
-                  flush=True)
+                  f"(tiled kernel's shared memory {smem} B at one row a group): ran "
+                  f"{', '.join(re.search(r'din_attention\w*(<\w+>)?', n).group(0) for n in ran)}; "
+                  f"max_abs_err={err:.3e}{grad_note}", flush=True)
     return max_err
 
 
@@ -494,9 +594,11 @@ def bench_rows(seed: int, batch: int = TRAIN_BATCH) -> np.ndarray:
                      for f in range(FIELDS)], axis=1)
 
 
-def din_batch(seed: int, batch: int = DIN_BATCH):
+def din_batch(seed: int, batch: int = DIN_BATCH, negatives: bool = False):
     """One DIN batch as ``benchmarks/model_step.py:86-95`` builds it:
-    history lengths uniform on 5..50, padding id 0, random labels."""
+    history lengths uniform on 5..50, padding id 0, random labels; with
+    ``negatives``, DIEN's batch (``:99-101``): a sampled history
+    ``neg_hist_item_id`` drawn next, padded as the history."""
     rng = np.random.default_rng(seed)
     lengths = rng.integers(5, DIN_T + 1, size=batch)
     hist = rng.integers(1, DIN_ITEMS, size=(batch, DIN_T)).astype(np.int32)
@@ -505,30 +607,43 @@ def din_batch(seed: int, batch: int = DIN_BATCH):
          "item_id": rng.integers(1, DIN_ITEMS, size=batch).astype(np.int32),
          "hist_item_id": hist,
          "price": rng.normal(size=(batch, 1)).astype(np.float32)}
-    return X, rng.integers(0, 2, size=batch).astype(np.float32)
+    y = rng.integers(0, 2, size=batch).astype(np.float32)
+    if negatives:
+        neg = rng.integers(1, DIN_ITEMS, size=(batch, DIN_T)).astype(np.int32)
+        neg[np.arange(DIN_T)[None, :] >= lengths[:, None]] = 0
+        X["neg_hist_item_id"] = neg
+    return X, y
 
 
-def din_columns():
+def din_columns(negatives: bool = False):
     """``benchmarks/model_step.py:79-85``'s DIN schema: table_d32 holds
     user_id's 100,000 rows, then item_id's 200,000, which the history
-    shares."""
+    shares; with ``negatives``, DIEN's (``:102-104``), whose sampled
+    history shares them too."""
     from recommender_system_tpu_torch.utils.features import (DenseFeat, SparseFeat,
                                                              VarLenSparseFeat)
 
-    return (SparseFeat("user_id", DIN_USERS, DIN_DIM),
+    cols = (SparseFeat("user_id", DIN_USERS, DIN_DIM),
             SparseFeat("item_id", DIN_ITEMS, DIN_DIM, embedding_name="item_id"),
             VarLenSparseFeat(SparseFeat("hist_item_id", DIN_ITEMS, DIN_DIM,
                                         embedding_name="item_id"), maxlen=DIN_T),
             DenseFeat("price", 1))
+    if negatives:
+        cols += (VarLenSparseFeat(SparseFeat("neg_hist_item_id", DIN_ITEMS, DIN_DIM,
+                                             embedding_name="item_id"), maxlen=DIN_T),)
+    return cols
 
 
 def din_stream(X) -> np.ndarray:
-    """DIN's two lookup sites of table_d32 as the fused step concatenates
-    them: the [B, 2] user and item group, then the [B, T] history."""
+    """DIN's lookup sites of table_d32 as the fused step concatenates them:
+    the [B, 2] user and item group, then the [B, T] history (and DIEN's
+    [B, T] sampled history)."""
     group = np.stack([X["user_id"].astype(np.int64),
                       X["item_id"].astype(np.int64) + DIN_USERS], axis=1)
-    return np.concatenate([group.reshape(-1),
-                           X["hist_item_id"].astype(np.int64).reshape(-1) + DIN_USERS])
+    sites = [group.reshape(-1)]
+    sites += [X[name].astype(np.int64).reshape(-1) + DIN_USERS
+              for name in ("hist_item_id", "neg_hist_item_id") if name in X]
+    return np.concatenate(sites)
 
 
 def sparse_cases(gen: torch.Generator):
@@ -869,8 +984,9 @@ def card_against_cpu(model, batches, labels, name, optimizer=None, fused=None):
                                    msg=lambda m, key=key: f"{key}: {m}")
         worst = max(worst, (got - want).abs().max().item())
     print(f"card against CPU, {name}: {len(runs['cpu'])} parameters, statistics and "
-          f"optimizer states agree after 2 fused steps (rtol={PARITY_RTOL}, "
-          f"atol={PARITY_ATOL}); largest difference {worst:.3e}", flush=True)
+          f"optimizer states agree after {min(2, labels.shape[0])} fused step(s) "
+          f"(rtol={PARITY_RTOL}, atol={PARITY_ATOL}); largest difference {worst:.3e}",
+          flush=True)
 
 
 def time_sparse_rows(card) -> dict:
@@ -908,6 +1024,16 @@ def time_sparse_rows(card) -> dict:
     din_state = [torch.full_like(din_table, 0.1), torch.zeros_like(din_table),
                  torch.zeros_like(din_table)]
     din_sorted = sort_ids(din_lids)
+    # zeroing a buffer past the 50 MB L2 before a call leaves the call's
+    # stream and cotangents in device memory, as a training step leaves them
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def walk_ms(fn):
+        """Device time of the sparse row kernel alone, the L2 flushed
+        before each call."""
+        dev = device_ms(lambda: (flush.zero_(), fn()), iters=5)
+        return sum(ms for name, ms in dev.items() if "sparse_rows_kernel" in name)
+
     out = {}
     # name: (kernel, plain version, hot row, DIN's stream, library call,
     # rule, kernel name)
@@ -956,30 +1082,35 @@ def time_sparse_rows(card) -> dict:
                "call_ms": call_ms(kernel_fn), "plain_call_ms": call_ms(plain_fn),
                "library_ms": (sum(device_ms(library_fn).values())
                               if library_fn else None),
-               "hot_row_ms": sum(device_ms(hot_fn, iters=5).values())}
+               "hot_row_ms": sum(device_ms(hot_fn, iters=5).values()),
+               "hot_row_cold_ms": walk_ms(hot_fn), "hot_row_clocks": clocks_during(hot_fn)}
         if din_fn:
             rec["din_stream_ms"] = sum(device_ms(din_fn, iters=5).values())
+            rec["din_stream_cold_ms"] = walk_ms(din_fn)
         rec["bound_ms"], rec["bound_by"] = sparse_rows_bound(n, touched, rows, dim, rule)
         out[name] = rec
         split = ", ".join(f"{k[:40]} {v:.5f}" for k, v in kernel_dev.most_common())
         library = rec["library_ms"] if rec["library_ms"] is None else round(rec["library_ms"], 5)
         din = (f"; on DIN's step stream ({din_lids.numel()} positions, "
                f"{int((din_lids == DIN_USERS).sum())} on the padding row): device "
-               f"{rec['din_stream_ms']:.5f} ms" if din_fn else "")
+               f"{rec['din_stream_ms']:.5f} ms, the kernel {rec['din_stream_cold_ms']:.5f} "
+               f"ms with the L2 flushed before each call" if din_fn else "")
         print(f"timing {name} N={n} U={touched} rows={rows} dim={dim}: device "
               f"{rec['ms']:.5f} ms ({split}; {100 * rec['bound_ms'] / rec['ms']:.1f}% "
               f"of the bound {rec['bound_ms']:.5f} ms, {rec['bound_by']}), "
               f"{rec['call_ms']:.5f} ms per call; plain: device {rec['plain_ms']:.5f} ms, "
               f"{rec['plain_call_ms']:.5f} ms per call; library {library} ms; with "
-              f"{n // 2} positions on one row: device {rec['hot_row_ms']:.5f} ms{din}; "
+              f"{n // 2} positions on one row: device {rec['hot_row_ms']:.5f} ms, the kernel "
+              f"{rec['hot_row_cold_ms']:.5f} ms with the L2 flushed before each call, the "
+              f"clocks (SM, memory) {rec['hot_row_clocks']} during its walks{din}; "
               f"on {card}", flush=True)
     return out
 
 
 def time_training(trainer, batches, labels, card, name) -> dict:
     """Phase 4 for a training path: throughput of a fused K-step call, its
-    idle share and the top device work of a step; returns the step's device
-    time by kernel name and the step time."""
+    idle share and the top device work of a step (over 3 traced calls);
+    returns the step's device time by kernel name and the step time."""
     calls = 5
     k, batch = labels.shape
     trainer.multi_step(batches, labels)
@@ -1027,10 +1158,10 @@ def time_training(trainer, batches, labels, card, name) -> dict:
 DIN_REQUESTS = (1, 1000, DIN_BATCH, 20_000)
 
 
-def din_staged(seeds):
-    """model_step.py's DIN batches, one seed each, stacked on a leading K
-    axis on the card."""
-    data = [din_batch(s) for s in seeds]
+def din_staged(seeds, negatives: bool = False, batch: int = DIN_BATCH):
+    """model_step.py's DIN (or DIEN) batches, one seed each, stacked on a
+    leading K axis on the card."""
+    data = [din_batch(s, batch, negatives) for s in seeds]
     batches = {k: torch.as_tensor(np.stack([X[k] for X, _ in data]), device="cuda")
                for k in data[0][0]}
     labels = torch.as_tensor(np.stack([y for _, y in data]), device="cuda")
@@ -1066,17 +1197,30 @@ def counted():
 
 
 def read_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in counted()}
+    """Every wrapper's launches, and of them the launches of the global
+    kernels of the three wrappers that have one
+    (``<wrapper>.global_launches``)."""
+    counts = {fn.__name__: fn.launches for fn in counted()}
+    counts.update({global_key(fn.__name__): fn.global_launches
+                   for fn in counted() if hasattr(fn, "global_launches")})
+    return counts
 
 
 def zero_counts() -> None:
     for fn in counted():
         fn.launches = 0
+        if hasattr(fn, "global_launches"):
+            fn.global_launches = 0
 
 
 def launches_want(**launches) -> dict:
-    """Every wrapper's count: the ones named, and 0 for the rest."""
-    return {**{fn.__name__: 0 for fn in counted()}, **launches}
+    """Every count: the ones named, and 0 for the rest."""
+    return {**dict.fromkeys(read_counts(), 0), **launches}
+
+
+def global_key(name: str) -> str:
+    """The key of ``name``'s global kernel launches in ``read_counts``."""
+    return f"{name}.global_launches"
 
 
 def train_din_fused(batches, labels, card):
@@ -1232,14 +1376,266 @@ def time_din(trainer, scorer, requests, batches, labels, card) -> dict:
         dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, lr=LR,
                                                                   eps=EPS), iters=5)
         hot[what] = sum(ms for name, ms in dev.items() if kernel in name)
+    clocks = clocks_during(lambda: fused_adagrad_apply(table, acc, lids, ct, lr=LR, eps=EPS))
     in_step = sum(ms for name, ms in step["per_step"].items() if kernel in name)
     print(f"DIN padding row: {int(pad.sum())} of {lids.numel()} positions of a step's stream; "
-          f"fused_adagrad_rows takes {hot['with']:.4f} ms on the stream and "
+          f"fused_adagrad_rows takes {hot['with']:.4f} ms on the stream (clocks, SM and "
+          f"memory, {clocks} during its walks) and "
           f"{hot['without']:.4f} ms without its padding positions; in the step it takes "
           f"{in_step:.4f} ms of {step['busy_ms']:.4f} ms device busy and of "
           f"{step['step_ms']:.4f} ms a step ({100 * in_step / step['step_ms']:.1f}%); "
           f"on {card}", flush=True)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# DIEN at benchmarks/model_step.py's width
+# ---------------------------------------------------------------------------
+
+def dien_model(gru_hidden: int = 0, device: str = "cuda"):
+    """DIEN at model_step.py's width (``:99-107``: use_negsampling, GRU and
+    AUGRU of H=32 unless ``gru_hidden`` names another, attention 80-40
+    sigmoid over the GRU states, auxiliary tower 100-50, relu tower
+    256-128-64, f32) on ``device``, weights from seed 0, table_d32 at std
+    0.1 as DIN's."""
+    from recommender_system_tpu_torch import DIEN
+
+    model = DIEN(din_columns(negatives=True), behavior_feature_list=("item_id",),
+                 gru_hidden=gru_hidden, use_negsampling=True, device=device,
+                 generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.embeddings.table_d32.normal_(
+            0.0, 0.1, generator=torch.Generator(device=device).manual_seed(1))
+    return model
+
+
+def dien_touched(batches) -> torch.Tensor:
+    """The rows of table_d32 that DIEN's staged batches look up."""
+    touched = torch.zeros(DIN_USERS + DIN_ITEMS, dtype=torch.bool, device="cuda")
+    touched[batches["user_id"].reshape(-1).long()] = True
+    for name in ("item_id", "hist_item_id", "neg_hist_item_id"):
+        touched[batches[name].reshape(-1).long() + DIN_USERS] = True
+    return touched
+
+
+def train_dien(batches, labels, card):
+    """Phase 3j: DIEN fused (three K=8 calls) and plain (one call); returns
+    (trainer, fused launches, plain launches). A fused step: one attention
+    launch (its backward is the plain VJP); one fused_adagrad_apply, since
+    the [B, 2] group, the [B, T] history and the [B, T] sampled history of
+    table_d32 go as one stream. A plain step: one scatter-add for each of
+    the three lookups."""
+    from recommender_system_tpu_torch import FusedAdagrad, Trainer
+    from recommender_system_tpu_torch.training import Adagrad
+
+    trainer, fused_launches = train_checked(
+        "DIEN", dien_model(), batches, labels, Adagrad(LR), FusedAdagrad(LR), 3,
+        launches_want(din_attention_fused=3 * K, fused_adagrad_apply=3 * K), card,
+        touched=dien_touched(batches))
+
+    plain_trainer = Trainer(dien_model(), Adagrad(LR))
+    zero_counts()
+    losses = plain_trainer.multi_step(batches, labels).cpu().numpy()
+    plain_launches = read_counts()
+    want = launches_want(din_attention_fused=K, scatter_add_sorted=3 * K)
+    print(f"DIEN plain training launches: {plain_launches} over 1 call of K={K}; "
+          f"losses {losses}", flush=True)
+    if plain_launches != want:
+        raise RuntimeError(f"DIEN plain training launched {plain_launches}, want {want}")
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"DIEN plain training losses not finite: {losses}")
+    return trainer, fused_launches, plain_launches
+
+
+class plain_attention:
+    """Within: ``din_attention_fused`` (and the cross and FM wrappers) run
+    their plain version on CUDA tensors, as they do on the CPU."""
+
+    def __enter__(self):
+        from recommender_system_tpu_torch.ops import kernels
+
+        self.kernels, self.use_kernel = kernels, kernels.use_kernel
+        kernels.use_kernel = lambda *tensors: False
+
+    def __exit__(self, *exc):
+        self.kernels.use_kernel = self.use_kernel
+
+
+def serve_dien(model, card):
+    """Phase 3j, serving: the trained DIEN through Scorer, one attention
+    launch per padded batch; the answers equal the plain attention's on the
+    card and the CPU path's on 1000 rows. Returns the launches."""
+    from recommender_system_tpu_torch import Scorer
+
+    X, _ = din_batch(100, max(DIN_REQUESTS), negatives=True)
+    requests = {n: {k: v[:n] for k, v in X.items()} for n in DIN_REQUESTS}
+    scorer = Scorer(model, batch_size=DIN_BATCH)
+    zero_counts()
+    answers = {n: scorer(req) for n, req in requests.items()}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    padded = sum(-(-n // DIN_BATCH) for n in DIN_REQUESTS)
+    print(f"DIEN serving launches: {launches} for {padded} padded batches", flush=True)
+    if launches != launches_want(din_attention_fused=padded):
+        raise RuntimeError(f"DIEN serving launched {launches} for {padded} padded batches")
+    with plain_attention():
+        plain_answers = {n: scorer(req) for n, req in requests.items()}
+    for n, got in answers.items():
+        if got.shape != (n, 1) or got.dtype != np.float32 or not np.isfinite(got).all():
+            raise RuntimeError(f"DIEN request of {n} rows answered {got.shape} {got.dtype}")
+        np.testing.assert_allclose(got, plain_answers[n], rtol=0, atol=ATOL)
+    spread = float(np.std(answers[max(DIN_REQUESTS)]))
+    if spread < 1e-3:
+        raise RuntimeError(f"DIEN scores barely vary (std {spread}): inputs have no say")
+    cpu_scorer = Scorer(copy.deepcopy(model).to("cpu"), batch_size=DIN_BATCH, device="cpu")
+    np.testing.assert_allclose(answers[1000], cpu_scorer(requests[1000]), rtol=0, atol=ATOL)
+    print(f"DIEN serving check: {len(DIN_REQUESTS)} requests equal the plain attention's "
+          f"answers on the card and the CPU path (atol={ATOL}); score std {spread:.4f}; "
+          f"on {card}", flush=True)
+    return launches
+
+
+def check_global_shapes(card) -> dict:
+    """Phase 3k: at shapes that their fast kernels do not take, the cross,
+    FM and DIN attention wrappers launch their global kernels, each launch
+    counted in ``launches`` and ``global_launches``; the answers agree with
+    the CPU's. Returns each shape's counts."""
+    from recommender_system_tpu_torch import DCN, Scorer
+    from recommender_system_tpu_torch.ops.kernels import (din_attention_fused,
+                                                          din_attention_ref, fm_fused, fm_ref)
+    from recommender_system_tpu_torch.utils.datasets import synthetic_criteo
+
+    out = {}
+
+    def counted_run(what, want, fn):
+        zero_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        print(f"global kernel, {what}: {got}", flush=True)
+        if got != want:
+            raise RuntimeError(f"{what} counted {got}, want {want}")
+        out[what] = got
+        return result
+
+    # DCN's x0 of 26 fields at dim 40 and 13 dense: 1,053 wide
+    cols, X, _ = synthetic_criteo(n_rows=1000, vocab=WIDE_VOCAB, embedding_dim=WIDE_DIM,
+                                  seed=0)
+    model = DCN(tuple(cols), cross_layers=6, hidden_units=(256, 128, 64), device="cuda",
+                generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.embeddings.table_d40.normal_(
+            0.0, 0.1, generator=torch.Generator(device="cuda").manual_seed(1))
+    width = model.cross.weights.shape[1]
+    scorer = Scorer(model, batch_size=SERVE_BATCH)
+    padded = -(-X['I1'].shape[0] // SERVE_BATCH)
+    got = counted_run(f"DCN served at x0 width {width}",
+                      launches_want(cross_fused=padded, **{global_key("cross_fused"): padded}),
+                      lambda: scorer(X))
+    cpu = Scorer(copy.deepcopy(model).to("cpu"), batch_size=SERVE_BATCH, device="cpu")(X)
+    np.testing.assert_allclose(got, cpu, rtol=0, atol=ATOL)
+    if width != FIELDS * WIDE_DIM + 13 or float(np.std(got)) < 1e-3:
+        raise RuntimeError(f"DCN at x0 width {width}: scores std {np.std(got)}")
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x, w1, v = fm_inputs(gen, 1000, WIDE_FM_D, 8)
+    with torch.inference_mode():
+        got = counted_run(f"fm_fused at D={WIDE_FM_D}, k=8",
+                          launches_want(fm_fused=1, **{global_key("fm_fused"): 1}),
+                          lambda: fm_fused(x, w1, v))
+    torch.testing.assert_close(got.cpu(), fm_ref(x.cpu(), w1.cpu(), v.cpu()),
+                               rtol=RTOL, atol=ATOL)
+
+    q, keys, mask, weights = din_inputs(gen, DIN_BATCH, DIN_T, 128, 80, 40)
+    with torch.inference_mode():
+        got = counted_run("din_attention_fused at K=128, T=50",
+                          launches_want(din_attention_fused=1,
+                                        **{global_key("din_attention_fused"): 1}),
+                          lambda: din_attention_fused(q, keys, mask, *weights))
+        cpu = din_attention_ref(q.cpu(), keys.cpu(), mask.cpu(), *(w.cpu() for w in weights))
+    torch.testing.assert_close(got.cpu(), cpu, rtol=RTOL, atol=ATOL)
+
+    # DIEN(gru_hidden=128): the attention reads GRU states 128 wide
+    batches, labels = din_staged([0], negatives=True, batch=DIEN_SMALL_BATCH)
+    counted_run("one fused step of DIEN(gru_hidden=128) at batch 1,024",
+                launches_want(fused_adagrad_apply=1, din_attention_fused=1,
+                              **{global_key("din_attention_fused"): 1}),
+                lambda: card_against_cpu(dien_model(gru_hidden=128), batches, labels,
+                                         "DIEN(gru_hidden=128)"))
+    print(f"global kernels: each shape launched its wrapper's global kernel and agreed "
+          f"with the CPU; on {card}", flush=True)
+    return out
+
+
+def time_dien(trainer, batches, labels, card) -> None:
+    """Phase 4 for DIEN: the fused step's throughput, idle share, top
+    device work and host ops; the device and host time of its parts
+    (forward and backward at one batch's tensors); the padding row's share
+    of the step."""
+    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
+
+    step = time_training(trainer, batches, labels, card, "DIEN fused training")
+    model = trainer.model.train()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    with torch.no_grad():
+        emb = model.embeddings({k: v[0] for k, v in batches.items()})
+        keys = emb.varlen_raw["hist_item_id"]
+        neg = emb.varlen_raw["neg_hist_item_id"]
+        query = emb.sparse["item_id"]
+        mask = emb.varlen_mask["hist_item_id"]
+        states, _ = model.interest_gru(keys, mask=mask)
+        scores = model.attention(query, states, mask)
+    B, T, H = states.shape
+    cot_states = torch.randn(B, T, H, generator=gen, device="cuda")
+    cot_scores = torch.randn(B, T, generator=gen, device="cuda")
+    cot_h = torch.randn(B, H, generator=gen, device="cuda")
+    leaves = {n: t.detach().requires_grad_(True)
+              for n, t in (("keys", keys), ("neg", neg), ("query", query),
+                           ("states", states), ("scores", scores))}
+
+    def grads(out, cot, *inputs):
+        return torch.autograd.grad(out, [*inputs], cot)
+
+    parts = {
+        "GRU (interest_gru)": lambda: grads(
+            model.interest_gru(leaves["keys"], mask=mask)[0], cot_states, leaves["keys"],
+            *model.interest_gru.parameters()),
+        "AUGRU (augru)": lambda: grads(
+            model.augru(leaves["states"], leaves["scores"], mask=mask)[1], cot_h,
+            leaves["states"], leaves["scores"], *model.augru.parameters()),
+        "attention (kernel forward, plain VJP)": lambda: grads(
+            model.attention(leaves["query"], leaves["states"], mask), cot_scores,
+            leaves["query"], leaves["states"], *model.attention.parameters()),
+        "auxiliary net (positive and sampled)": lambda: grads(
+            model.aux_net(leaves["states"][:, :-1], leaves["keys"][:, 1:]).sum()
+            + model.aux_net(leaves["states"][:, :-1], leaves["neg"][:, 1:]).sum(), None,
+            leaves["states"], leaves["keys"], leaves["neg"], *model.aux_net.parameters()),
+    }
+    for name, fn in parts.items():
+        dev = sum(device_ms(fn, iters=3).values())
+        issue = statistics.median(host_ms(fn, iters=5, warmup=1))
+        torch.cuda.synchronize()
+        print(f"DIEN part {name}, forward and backward at B={B}, T={T}, H={H}: device "
+              f"{dev:.3f} ms, host {issue:.3f} ms to issue; on {card}", flush=True)
+
+    lids = torch.as_tensor(din_stream(din_batch(0, negatives=True)[0]), device="cuda")
+    ct = torch.randn(lids.numel(), DIN_DIM, generator=gen, device="cuda") * 1e-3
+    table = torch.randn(DIN_USERS + DIN_ITEMS, DIN_DIM, generator=gen, device="cuda")
+    acc = torch.full_like(table, 0.1)
+    pad = lids == DIN_USERS
+    kernel = "sparse_rows_kernel"
+    hot = {}
+    for what, (ids, c) in {"with": (lids, ct), "without": (lids[~pad], ct[~pad])}.items():
+        dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, lr=LR,
+                                                                  eps=EPS), iters=3)
+        hot[what] = sum(ms for name, ms in dev.items() if kernel in name)
+    in_step = sum(ms for name, ms in step["per_step"].items() if kernel in name)
+    print(f"DIEN padding row: {int(pad.sum())} of {lids.numel()} positions of a step's "
+          f"stream; fused_adagrad_rows takes {hot['with']:.4f} ms on the stream and "
+          f"{hot['without']:.4f} ms without its padding positions; in the step it takes "
+          f"{in_step:.4f} ms of {step['busy_ms']:.4f} ms device busy and of "
+          f"{step['step_ms']:.4f} ms a step ({100 * in_step / step['step_ms']:.1f}%); "
+          f"on {card}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1410,6 +1806,67 @@ def time_fm(layer, x, card) -> dict:
     return rec
 
 
+def time_global_kernels(card, errors: dict, counts: dict) -> list:
+    """Phase 4 for the global kernels, each at a shape of its path: the
+    cross stack at DCN's x0 1,053 wide and the Scorer's batch, the FM logit
+    at x [16,384, 4,000], k=8, the DIN attention at K=128 (the states of
+    DIEN(gru_hidden=128)), B=8,192, T=50, 80-40. Returns their entries of
+    the ``kernels`` line: ``errors`` gives each one's largest error in phase
+    2, ``counts`` phase 3k's counts."""
+    from recommender_system_tpu_torch.ops.interactions import cross_network
+    from recommender_system_tpu_torch.ops.kernels import (cross_fused, din_attention_fused,
+                                                          din_attention_ref, fm_fused, fm_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    D = FIELDS * WIDE_DIM + 13
+    x0 = torch.randn(SERVE_BATCH, D, generator=gen, device="cuda")
+    w = torch.randn(6, D, generator=gen, device="cuda") * (0.2 / math.sqrt(D))
+    b = torch.randn(6, D, generator=gen, device="cuda") * 0.1
+    x, w1, v = fm_inputs(gen, FM_B, WIDE_FM_D, 8)
+    q, keys, mask, weights = din_inputs(gen, DIN_BATCH, DIN_T, 128, 80, 40)
+    mask = mask.float()  # as the wrapper takes it, so that the kernel runs alone
+    cases = [
+        ("cross_fused", "cross.cu", "pallas_kernels.py:124", "cross_global_kernel",
+         lambda: cross_fused(x0, w, b), lambda: cross_network(x0, w, b),
+         cross_bound(SERVE_BATCH, D, 6), f"DCN served at x0 width {D}",
+         f"B={SERVE_BATCH} D={D} L=6"),
+        ("fm_fused", "fm.cu", "pallas_kernels.py:61", "fm_global_kernel",
+         lambda: fm_fused(x, w1, v), lambda: fm_ref(x, w1, v),
+         fm_bound(FM_B, WIDE_FM_D, 8), f"fm_fused at D={WIDE_FM_D}, k=8",
+         f"B={FM_B} D={WIDE_FM_D} k=8"),
+        ("din_attention_fused", "din_attention.cu", "pallas_kernels.py:190",
+         "din_attention_global_kernel",
+         lambda: din_attention_fused(q, keys, mask, *weights),
+         lambda: din_attention_ref(q, keys, mask, *weights),
+         din_f32_bound(DIN_BATCH, DIN_T, 128, 80, 40),
+         "one fused step of DIEN(gru_hidden=128) at batch 1,024",
+         f"B={DIN_BATCH} T={DIN_T} K=128 H1=80 H2=40"),
+    ]
+    entries = []
+    for name, source, replaces, kernel, fn, plain_fn, bound, path, shape in cases:
+        with torch.inference_mode():
+            kernel_dev = device_ms(fn)
+            plain_dev = device_ms(plain_fn)
+            rec = {"call_ms": call_ms(fn, iters=50), "plain_call_ms": call_ms(plain_fn, iters=50)}
+        if not all(kernel in k for k in kernel_dev):
+            raise RuntimeError(f"{name} at {shape} ran other device work: {dict(kernel_dev)}")
+        rec.update(ms=sum(kernel_dev.values()), plain_ms=sum(plain_dev.values()),
+                   library_ms=None)
+        rec["bound_ms"], rec["bound_by"] = bound
+        print(f"timing {name} ({kernel}) {shape}: device {rec['ms']:.5f} ms "
+              f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound {rec['bound_ms']:.5f} "
+              f"ms, {rec['bound_by']}), {rec['call_ms']:.5f} ms per call; plain: device "
+              f"{rec['plain_ms']:.5f} ms in {len(plain_dev)} kernel kinds, "
+              f"{rec['plain_call_ms']:.5f} ms per call; on {card}", flush=True)
+        entries.append({
+            "name": f"{name} ({kernel})", "route": "cuda",
+            "source": f"recommender_system_tpu_torch/csrc/{source}",
+            "replaces": f"recommender_system_tpu/ops/{replaces}",
+            "launches": counts[path][global_key(name)], "max_abs_err": errors[kernel],
+            **rec, "path": path, "timed_at": shape})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -1440,9 +1897,9 @@ def main() -> int:
                 print(f"  nvcc {name}: {line.strip()}")
 
     # --- phase 2: kernels against their plain versions ---------------------
-    cross_err = check_cross_kernel(cross_fused, cross_network)
-    fm_err = check_fm_kernel()
-    din_err = check_din_kernel()
+    cross_errs = check_cross_kernel(cross_fused, cross_network)
+    fm_errs = check_fm_kernel()
+    din_errs = check_din_kernel()
     sparse_errs = check_sparse_rows()
 
     # --- phase 3: serving at full width ------------------------------------
@@ -1460,15 +1917,15 @@ def main() -> int:
     scorer = Scorer(model, batch_size=SERVE_BATCH)
     requests = {n: {k: v[:n] for k, v in X.items()} for n in REQUESTS}
 
-    cross_fused.launches = 0
+    zero_counts()
     answers = {n: scorer(req) for n, req in requests.items()}
     torch.cuda.synchronize()
-    launches = {"cross_fused": cross_fused.launches}
+    launches = read_counts()
     batches = sum(-(-n // SERVE_BATCH) for n in REQUESTS)
     print(f"serving launches: {launches} for {batches} padded batches", flush=True)
-    if launches["cross_fused"] != batches:
-        raise RuntimeError(f"cross_fused launched {launches['cross_fused']} times "
-                           f"for {batches} served batches")
+    if launches != launches_want(cross_fused=batches):
+        raise RuntimeError(f"serving launched {launches} for {batches} served batches, "
+                           f"want {batches} cross_fused and nothing else")
 
     def plain_forward(req):
         with torch.inference_mode():
@@ -1512,6 +1969,20 @@ def main() -> int:
 
     # --- phase 3i: DeepCrossing, PNN, AFM and FFM at model_step.py's width
     family = train_ctr_family(ctr["cols"], *ctr["batches"], card)
+
+    # --- phase 3j: DIEN at model_step.py's width, trained, compared with the
+    # CPU on a small batch, then served
+    t0 = time.perf_counter()
+    dien_batches, dien_labels = din_staged(range(K), negatives=True)
+    dien_trainer, dien_fused_launches, dien_plain_launches = train_dien(
+        dien_batches, dien_labels, card)
+    card_against_cpu(dien_model(), {k: v[:, :DIEN_SMALL_BATCH] for k, v in dien_batches.items()},
+                     dien_labels[:, :DIEN_SMALL_BATCH], "DIEN")
+    dien_serve_launches = serve_dien(dien_trainer.model, card)
+    print(f"phase 3j took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # --- phase 3k: shapes the cross, FM and DIN attention kernels do not take
+    global_counts = check_global_shapes(card)
 
     # --- phase 4: timings --------------------------------------------------
     with torch.inference_mode():
@@ -1567,6 +2038,9 @@ def main() -> int:
         time_training(ctr[name], *ctr["batches"], card, f"{name} fused training")
     for name in ("deep_crossing", "pnn", "afm", "ffm"):
         time_training(family[name], *ctr["batches"], card, f"{name} fused training")
+    time_dien(dien_trainer, dien_batches, dien_labels, card)
+    global_entries = time_global_kernels(
+        card, {**cross_errs, **fm_errs, **din_errs}, global_counts)
 
     # launches on each kernel's main path, and on the other paths beside them
     ctr_launches = ctr["launches"]
@@ -1575,6 +2049,7 @@ def main() -> int:
         ("fused_adagrad_apply", "recommender_system_tpu/ops/fused_adagrad.py:156",
          fused_launches["fused_adagrad_apply"],
          {"din": din_fused_launches["fused_adagrad_apply"],
+          "dien": dien_fused_launches["fused_adagrad_apply"],
           "dcn": ctr_launches["dcn"]["fused_adagrad_apply"],
           **{name: family_launches[name]["fused_adagrad_apply"]
              for name in ("deep_crossing", "pnn", "afm", "ffm", "pnn_both_fgcnn")}}),
@@ -1587,6 +2062,7 @@ def main() -> int:
         ("scatter_add_sorted", "recommender_system_tpu/ops/embedding_grad.py:51",
          plain_launches["scatter_add_sorted"],
          {"din": din_plain_launches["scatter_add_sorted"],
+          "dien": dien_plain_launches["scatter_add_sorted"],
           "ffm": family_launches["ffm_plain"]["scatter_add_sorted"]}),
     ]
     print(card)
@@ -1594,7 +2070,8 @@ def main() -> int:
         "name": "cross_fused", "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/cross.cu",
         "replaces": "recommender_system_tpu/ops/pallas_kernels.py:124",
-        "launches": launches["cross_fused"], "max_abs_err": cross_err,
+        "launches": launches["cross_fused"],
+        "max_abs_err": max(cross_errs["cross_tile_kernel"], cross_errs["cross_stack_kernel"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "call_ms": kernel_call, "plain_call_ms": plain_call,
@@ -1603,16 +2080,21 @@ def main() -> int:
         "name": "fm_fused", "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/fm.cu",
         "replaces": "recommender_system_tpu/ops/pallas_kernels.py:61",
-        "launches": fm_launches["fm_fused"], "max_abs_err": fm_err, **fm_times,
+        "launches": fm_launches["fm_fused"],
+        "max_abs_err": max(fm_errs["fm_rows_kernel"], fm_errs["fm_wide_kernel"]), **fm_times,
     }, {
         "name": "din_attention_fused", "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/din_attention.cu",
         "replaces": "recommender_system_tpu/ops/pallas_kernels.py:190",
-        "launches": din_fused_launches["din_attention_fused"], "max_abs_err": din_err,
+        "launches": din_fused_launches["din_attention_fused"],
+        "max_abs_err": din_errs["din_attention_kernel"],
         **din_times,
         "serving_launches": din_serve_launches["din_attention_fused"],
         "plain_training_launches": din_plain_launches["din_attention_fused"],
-    }] + [{
+        "dien_launches": dien_fused_launches["din_attention_fused"],
+        "dien_serving_launches": dien_serve_launches["din_attention_fused"],
+        "dien_plain_training_launches": dien_plain_launches["din_attention_fused"],
+    }] + global_entries + [{
         "name": name, "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/sparse_rows.cu",
         "replaces": replaces, "launches": count, "max_abs_err": sparse_errs[name],

@@ -12,16 +12,18 @@ lookup's backward as CUDA kernels; DIN served and trained, with the DIN
 target attention as a CUDA kernel; WideDeep, NFM, FM and FNN (with
 ``init_from_fm``) trained, with the fused sparse SGD (``FusedSGD``) and the
 lazy sparse Adam (``FusedAdam``) as CUDA kernels; DeepCrossing, PNN (with
-FGCNN), AFM and FFM trained through the same sparse kernels; and
-``FMLayer``, with the FM logit as a CUDA kernel. Every TPU kernel of the JAX package has its
-counterpart in ``csrc/``.
+FGCNN), AFM and FFM trained through the same sparse kernels;
+``FMLayer``, with the FM logit as a CUDA kernel; and DIEN served and
+trained (its GRU and AUGRU plain PyTorch loops, its attention the DIN
+kernel, its three lookup sites one fused update). Every TPU kernel of the
+JAX package has its counterpart in ``csrc/``.
 """
 
-from .models import (AFM, CTR_MODELS, DCN, DIN, FFM, FM, FNN, NFM, PNN, DeepCrossing, DeepFM,
-                     WideDeep, init_from_fm)
+from .models import (AFM, CTR_MODELS, DCN, DIEN, DIN, FFM, FM, FNN, NFM, PNN, DeepCrossing,
+                     DeepFM, WideDeep, init_from_fm)
 from .serving import Scorer
 from .training import FusedAdagrad, FusedAdam, FusedSGD, Trainer
 
-__all__ = ["AFM", "CTR_MODELS", "DCN", "DIN", "DeepCrossing", "DeepFM", "FFM", "FM", "FNN",
-           "FusedAdagrad", "FusedAdam", "FusedSGD", "NFM", "PNN", "Scorer", "Trainer",
+__all__ = ["AFM", "CTR_MODELS", "DCN", "DIEN", "DIN", "DeepCrossing", "DeepFM", "FFM", "FM",
+           "FNN", "FusedAdagrad", "FusedAdam", "FusedSGD", "NFM", "PNN", "Scorer", "Trainer",
            "WideDeep", "init_from_fm"]

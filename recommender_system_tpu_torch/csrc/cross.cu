@@ -39,10 +39,16 @@
 // The arithmetic of a row is as in the first design: an fma dot in the
 // lane's column order, summed over the lanes in the order 16, 8, 4, 2, 1,
 // and the update x0 * s + b + x, all f32.
-// cross_stack_kernel takes every other shape (D up to 1024, or x0 off
-// 16-byte alignment): the same layers on rows loaded into registers, one
-// block of 16 warps an SM, each warp's next rows' loads issued before its
-// layers.
+// cross_stack_kernel takes D up to 1024 with the weights in shared memory
+// (2*L*D*4 bytes up to 227 KB), or x0 off 16-byte alignment: the same
+// layers on rows loaded into registers, one block of 16 warps an SM, each
+// warp's next rows' loads issued before its layers.
+// cross_global_kernel takes every other shape (D past 1024, as DCN's x0 of
+// 26 fields at dim 40 and 13 dense, 1,053 wide; or more layers than shared
+// memory holds): one warp a row, x_l kept in the row of out, the weights
+// read from global memory through L1 and L2. Its arithmetic is the other
+// kernels': the lane's columns j, j+32, ... in order, the same butterfly,
+// the same update.
 //
 // What holds the tile kernel back (chip_lab_fm_cross.py on an NVIDIA H100
 // 80GB HBM3 at 700 W): at B=4,096 it is one round of copy in, six layers
@@ -59,9 +65,12 @@
 // <1..8> 32-66 registers, no spills; cross_stack_kernel<8, 1> 64 registers,
 // <16, 1> 88, <32, 1> 128 with 48 bytes of spills.
 //
-// C interface, loaded with ctypes: cross_forward returns cudaGetLastError()
-// after the launch (or cudaErrorInvalidValue for a D the templates do not
-// cover); the Python wrapper checks shapes, types and devices first.
+// C interface, loaded with ctypes: cross_forward (the tile and stack
+// kernels) and cross_global_forward (the global kernel) return
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
+// their kernels do not take; the Python wrapper checks shapes, types and
+// devices first and picks the entry point (ops/kernels.py
+// cross_kernel_takes).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -318,6 +327,38 @@ cross_stack_kernel(const float* __restrict__ x0, const float* __restrict__ weigh
   }
 }
 
+// --- cross_global_kernel: every other shape ---------------------------------
+// One warp a row, a grid of blocks of kGlobalWarps warps striding over the
+// rows. x_l lives in the row of out: each lane reads back only the elements
+// it wrote, so the warp needs no barrier between layers.
+constexpr int kGlobalWarps = 8;
+
+__global__ void __launch_bounds__(kGlobalWarps * 32)
+cross_global_kernel(const float* __restrict__ x0, const float* __restrict__ weights,
+                    const float* __restrict__ biases, float* __restrict__ out,
+                    int batch, int dim, int layers) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kGlobalWarps;
+  // the whole warp shares a row, so the loop test never splits a warp
+  for (int64_t row = static_cast<int64_t>(blockIdx.x) * kGlobalWarps + (threadIdx.x >> 5);
+       row < batch; row += stride) {
+    const float* a = x0 + row * dim;
+    float* x = out + row * dim;
+    if (layers == 0) {
+      for (int j = lane; j < dim; j += 32) x[j] = a[j];
+    }
+    for (int l = 0; l < layers; ++l) {
+      const float* w = weights + static_cast<int64_t>(l) * dim;
+      const float* b = biases + static_cast<int64_t>(l) * dim;
+      const float* xl = l == 0 ? a : x;
+      float s[1] = {0.f};
+      for (int j = lane; j < dim; j += 32) s[0] = fmaf(xl[j], __ldg(w + j), s[0]);
+      row_sums<1>(s, lane);
+      for (int j = lane; j < dim; j += 32) x[j] = a[j] * s[0] + __ldg(b + j) + xl[j];
+    }
+  }
+}
+
 int sm_count(cudaError_t* err) {
   int device = 0, sms = 0;
   *err = cudaGetDevice(&device);
@@ -385,8 +426,27 @@ extern "C" int cross_forward(const float* x0, const float* weights,
       default: return launch_tile<8>(x0, weights, biases, out, batch, dim, layers, s);
     }
   }
+  if (2 * static_cast<size_t>(layers) * dim * sizeof(float) > kMaxSharedBytes) {
+    return cudaErrorInvalidValue;
+  }
   if (dim <= 256) return launch_stack<8, 1>(x0, weights, biases, out, batch, dim, layers, s);
   if (dim <= 512) return launch_stack<16, 1>(x0, weights, biases, out, batch, dim, layers, s);
   if (dim <= 1024) return launch_stack<32, 1>(x0, weights, biases, out, batch, dim, layers, s);
   return cudaErrorInvalidValue;
+}
+
+extern "C" int cross_global_forward(const float* x0, const float* weights,
+                                    const float* biases, float* out, int batch,
+                                    int dim, int layers, void* stream) {
+  if (batch <= 0) return cudaSuccess;
+  if (dim <= 0 || layers < 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  const int sms = sm_count(&err);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks_needed = (static_cast<int64_t>(batch) + kGlobalWarps - 1) / kGlobalWarps;
+  const int64_t most = static_cast<int64_t>(sms) * 8;
+  const int blocks = static_cast<int>(blocks_needed < most ? blocks_needed : most);
+  cross_global_kernel<<<blocks, kGlobalWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      x0, weights, biases, out, batch, dim, layers);
+  return cudaGetLastError();
 }

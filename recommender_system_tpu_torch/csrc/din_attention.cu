@@ -64,11 +64,30 @@
 // atol 1e-5. torch's TF32 flags do not reach this kernel: it takes TF32
 // operands only as the three-pass split.
 //
-// C interface, loaded with ctypes: din_attention_forward returns
+// din_attention_global_kernel takes the shapes the tiled kernel does not
+// (hidden widths past 256, or more than 227 KB of shared memory at one row
+// a group: K=128 at T=50, K=32 past T=514, K=64 past T=185). A block takes
+// one batch row at a time; each warp scores kGlobalPos = 8 positions at
+// once in f32 on the CUDA cores, lane j taking columns j, j+32, ... of each
+// layer with the weights read from global memory through L1 and L2 (a
+// weight load serves the 8 positions), [k | q*k] and the first layer's
+// output held in the warp's slice of shared memory, position-minor, so
+// that two 16-byte loads give a column's 8 positions. The first layer is
+// folded as in the tiled kernel, Wk - Wm and Wq + Wm formed as the weights
+// are read; the mask, the softmax and the pooling are the tiled kernel's.
+// Its shared memory grows with K, H1 and T, not with the weights: 4*(K +
+// H1 + T) bytes a block and 4*8*(2K + H1) a warp, each part rounded up to
+// 4 floats; it takes every shape where one warp's fits in 227 KB. Staging
+// the folded first layer in shared memory once a block, where it fits,
+// gained no more than the spread between runs (PERF.md), so it is not
+// kept.
+//
+// C interface, loaded with ctypes: din_attention_forward (the tiled kernel)
+// and din_attention_global_forward (the global kernel) return
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for sizes
-// the kernel does not take (hidden widths past 256, shared memory past
-// 227 KB at one row a group); the Python wrapper checks shapes, types and
-// devices first.
+// their kernels do not take; the Python wrapper checks shapes, types and
+// devices first and picks the entry point (ops/kernels.py
+// din_kernel_takes).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -485,6 +504,187 @@ din_attention_kernel(const float* __restrict__ query, const float* __restrict__ 
   }
 }
 
+// --- din_attention_global_kernel: the shapes the tiled kernel does not take
+constexpr int kGlobalPos = 8;    // positions a warp scores at once
+constexpr int kGlobalWarps = 8;  // the most warps a block
+
+// Shared memory of the global kernel, offsets in floats, 16-byte aligned:
+// per block q [K], a = q (Wq + Wm) [H1] and the scores [T]; per warp
+// [k | q*k] as [2K][kGlobalPos] and the first layer's output as
+// [H1][kGlobalPos].
+struct GlobalLayout {
+  int q, a, score, warp0, h1, per_warp, total;
+};
+
+GlobalLayout make_global_layout(int T, int K, int H1, int warps) {
+  GlobalLayout G;
+  G.q = 0;
+  G.a = G.q + round_up(K, 4);
+  G.score = G.a + round_up(H1, 4);
+  G.warp0 = G.score + round_up(T, 4);
+  G.h1 = 2 * K * kGlobalPos;  // within a warp's slice
+  G.per_warp = G.h1 + H1 * kGlobalPos;
+  G.total = G.warp0 + warps * G.per_warp;
+  return G;
+}
+
+__global__ void __launch_bounds__(kGlobalWarps * 32)
+din_attention_global_kernel(const float* __restrict__ query, const float* __restrict__ keys,
+                            const float* __restrict__ mask, const float* __restrict__ w1,
+                            const float* __restrict__ b1, const float* __restrict__ w2,
+                            const float* __restrict__ b2, const float* __restrict__ w3,
+                            const float* __restrict__ b3, float* __restrict__ out,
+                            int batch, int T, int K, int H1, int H2, GlobalLayout G,
+                            bool relu, bool softmax, bool scores) {
+  constexpr int P = kGlobalPos;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* q_s = smem + G.q;
+  float* a_s = smem + G.a;
+  float* score_s = smem + G.score;
+  const int tid = threadIdx.x;
+  const int threads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warps = threads >> 5;
+  float* ck = smem + G.warp0 + warp * G.per_warp;  // [2K][P]
+  float* h1 = ck + G.h1;                           // [H1][P]
+  const float bias3 = b3[0];
+  const int groups = (T + P - 1) / P;
+
+  for (long long row = blockIdx.x; row < batch; row += gridDim.x) {
+    for (int i = tid; i < K; i += threads) q_s[i] = query[row * K + i];
+    __syncthreads();
+    for (int j = tid; j < H1; j += threads) {
+      float s = 0.f;
+      for (int k = 0; k < K; ++k)
+        s = fmaf(q_s[k], __fadd_rn(w1[k * H1 + j], w1[(2 * K + k) * H1 + j]), s);
+      a_s[j] = s;
+    }
+    __syncthreads();
+
+    const float* krow = keys + row * T * K;
+    // a group of P positions a warp; the whole warp shares a group
+    for (int g = warp; g < groups; g += warps) {
+      const int t0 = g * P;
+      for (int i = lane; i < P * K; i += 32) {
+        const int p = i / K;
+        const int c = i - p * K;
+        const float kv = t0 + p < T ? krow[static_cast<long long>(t0 + p) * K + c] : 0.f;
+        ck[c * P + p] = kv;
+        ck[(K + c) * P + p] = __fmul_rn(q_s[c], kv);
+      }
+      __syncwarp();
+      // layer 1: lane j takes columns j, j + 32, ... for the P positions
+      for (int j = lane; j < H1; j += 32) {
+        float acc[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p) acc[p] = 0.f;
+#pragma unroll 4
+        for (int c = 0; c < 2 * K; ++c) {
+          const float w = c < K ? __fsub_rn(__ldg(w1 + (K + c) * H1 + j),
+                                            __ldg(w1 + (2 * K + c) * H1 + j))
+                                : __ldg(w1 + (2 * K + c) * H1 + j);
+          const float4 lo = *reinterpret_cast<const float4*>(ck + c * P);
+          const float4 hi = *reinterpret_cast<const float4*>(ck + c * P + 4);
+          acc[0] = fmaf(lo.x, w, acc[0]);
+          acc[1] = fmaf(lo.y, w, acc[1]);
+          acc[2] = fmaf(lo.z, w, acc[2]);
+          acc[3] = fmaf(lo.w, w, acc[3]);
+          acc[4] = fmaf(hi.x, w, acc[4]);
+          acc[5] = fmaf(hi.y, w, acc[5]);
+          acc[6] = fmaf(hi.z, w, acc[6]);
+          acc[7] = fmaf(hi.w, w, acc[7]);
+        }
+        const float aj = a_s[j];
+        const float bj = __ldg(b1 + j);
+#pragma unroll
+        for (int p = 0; p < P; ++p) h1[j * P + p] = act((aj + acc[p]) + bj, relu);
+      }
+      __syncwarp();
+      // layer 2, its activation and the dot with w3: lane n takes columns
+      // n, n + 32, ...
+      float part[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) part[p] = 0.f;
+      for (int n = lane; n < H2; n += 32) {
+        float z[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p) z[p] = 0.f;
+#pragma unroll 4
+        for (int j = 0; j < H1; ++j) {
+          const float w = __ldg(w2 + j * H2 + n);
+          const float4 lo = *reinterpret_cast<const float4*>(h1 + j * P);
+          const float4 hi = *reinterpret_cast<const float4*>(h1 + j * P + 4);
+          z[0] = fmaf(lo.x, w, z[0]);
+          z[1] = fmaf(lo.y, w, z[1]);
+          z[2] = fmaf(lo.z, w, z[2]);
+          z[3] = fmaf(lo.w, w, z[3]);
+          z[4] = fmaf(hi.x, w, z[4]);
+          z[5] = fmaf(hi.y, w, z[5]);
+          z[6] = fmaf(hi.z, w, z[6]);
+          z[7] = fmaf(hi.w, w, z[7]);
+        }
+        const float bn = __ldg(b2 + n);
+        const float wn = __ldg(w3 + n);
+#pragma unroll
+        for (int p = 0; p < P; ++p) part[p] = fmaf(act(z[p] + bn, relu), wn, part[p]);
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p) part[p] = warp_sum(part[p]);
+      if (lane == 0) {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          if (t0 + p < T) score_s[t0 + p] = part[p] + bias3;
+      }
+      __syncwarp();  // ck and h1 are rewritten by the warp's next group
+    }
+    __syncthreads();
+
+    // mask and softmax: one warp, as the tiled kernel does
+    if (warp == 0) {
+      const float* m = mask + row * T;
+      if (softmax) {
+        float mx = -INFINITY;
+        for (int t = lane; t < T; t += 32) {
+          const float v = m[t] > 0.5f ? score_s[t] : kNegInf;
+          score_s[t] = v;
+          mx = fmaxf(mx, v);
+        }
+        mx = warp_max(mx);
+        float sum = 0.f;
+        for (int t = lane; t < T; t += 32) {
+          const float e = expf(score_s[t] - mx);
+          score_s[t] = e;
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        for (int t = lane; t < T; t += 32) score_s[t] = score_s[t] / sum;
+      } else {
+        for (int t = lane; t < T; t += 32) score_s[t] = m[t] > 0.5f ? score_s[t] : 0.f;
+      }
+    }
+    __syncthreads();
+    if (scores) {
+      for (int t = tid; t < T; t += threads) out[row * T + t] = score_s[t];
+    } else {
+      for (int k = tid; k < K; k += threads) {
+        // four sums in flight, added at the end
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
+        int t = 0;
+        for (; t + 4 <= T; t += 4) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            p[u] = fmaf(score_s[t + u], krow[static_cast<long long>(t + u) * K + k], p[u]);
+        }
+        for (; t < T; ++t) p[0] = fmaf(score_s[t], krow[static_cast<long long>(t) * K + k], p[0]);
+        out[row * K + k] = (p[0] + p[1]) + (p[2] + p[3]);
+      }
+    }
+    __syncthreads();  // q, a and the scores are rewritten for the next row
+  }
+}
+
 using Kernel = void (*)(const float*, const float*, const float*, const float*,
                         const float*, const float*, const float*, const float*,
                         const float*, float*, int, int, int, int, int, Layout, bool, bool,
@@ -564,5 +764,48 @@ extern "C" int din_attention_forward(const float* query, const float* keys,
   kernel<<<static_cast<int>(blocks), warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       query, keys, mask, w1, b1, w2, b2, w3, b3, out, batch, T, K, H1, H2, L, relu != 0,
       softmax != 0, scores != 0, vec);
+  return cudaGetLastError();
+}
+
+extern "C" int din_attention_global_forward(const float* query, const float* keys,
+                                            const float* mask, const float* w1,
+                                            const float* b1, const float* w2,
+                                            const float* b2, const float* w3,
+                                            const float* b3, float* out, int batch, int T,
+                                            int K, int H1, int H2, int relu, int softmax,
+                                            int scores, void* stream) {
+  if (batch <= 0 || T <= 0 || K <= 0 || H1 <= 0 || H2 <= 0) return cudaErrorInvalidValue;
+  // as many warps as the shared memory holds, up to one a group of positions
+  const int groups = (T + kGlobalPos - 1) / kGlobalPos;
+  int warps = groups < kGlobalWarps ? groups : kGlobalWarps;
+  while (warps > 0 &&
+         sizeof(float) * static_cast<size_t>(make_global_layout(T, K, H1, warps).total) >
+             kMaxSharedBytes) {
+    --warps;
+  }
+  if (warps == 0) return cudaErrorInvalidValue;
+  const GlobalLayout G = make_global_layout(T, K, H1, warps);
+  const size_t smem = sizeof(float) * G.total;
+  if (smem > kDefaultSharedBytes) {
+    const cudaError_t err = cudaFuncSetAttribute(din_attention_global_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, din_attention_global_kernel,
+                                                        warps * 32, smem);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  long long blocks = static_cast<long long>(sms) * per_sm;
+  if (blocks > batch) blocks = batch;
+  din_attention_global_kernel<<<static_cast<int>(blocks), warps * 32, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      query, keys, mask, w1, b1, w2, b2, w3, b3, out, batch, T, K, H1, H2, G, relu != 0,
+      softmax != 0, scores != 0);
   return cudaGetLastError();
 }

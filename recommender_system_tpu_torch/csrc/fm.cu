@@ -50,14 +50,23 @@
 // after the shuffles costs 0.0083-0.0084 ms, 16 warps a block (128
 // registers, spills) 0.0115-0.0119 ms, 8 warps 0.0074-0.0079 ms.
 //
+// fm_global_kernel takes the shapes whose v, v*v and w1 do not fit in a
+// block's shared memory (4*D*(2k + 1) bytes past 227 KB: D past 3,418 at
+// k=8): fm_wide_kernel's warp a row and its order of sums, with v, v*v and
+// w1 read from global memory through L1 and L2 instead of staged, so its
+// results are those the wide kernel would give.
+//
 // ptxas (sm_90a, CUDA 12.8): fm_rows_kernel<7> (D=221) 168 registers, no
 // spills, 8,960 bytes of shared memory; <8> 168 registers, 4 bytes of
 // spills; <1..6> 75-157 registers, no spills; fm_wide_kernel 48 registers,
 // no spills, (2k + 1)*D*4 bytes of dynamic shared memory.
 //
-// C interface, loaded with ctypes: fm_forward returns cudaGetLastError()
-// after the launch; the Python wrapper checks shapes, types, devices and
-// the shared memory the shape needs.
+// C interface, loaded with ctypes: fm_forward (the rows and wide kernels)
+// and fm_global_forward (the global kernel) return cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for a shape their kernels do not
+// take; the Python wrapper checks shapes, types, devices and the shared
+// memory the shape needs, and picks the entry point (ops/kernels.py
+// fm_kernel_takes).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -199,6 +208,7 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxBlocks = 132 * 8;
 constexpr int kChunk = 8;
 constexpr size_t kDefaultSharedBytes = 48 * 1024;
+constexpr size_t kMaxSharedBytes = 232448;  // a block's most on the H100
 
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
@@ -206,24 +216,38 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-fm_wide_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-               const float* __restrict__ v, float* __restrict__ out, int batch, int dim,
-               int factors) {
-  extern __shared__ float smem[];
+// The wide kernel's body. kStaged: v, v*v and w1 staged in shared memory
+// (fm_wide_kernel); else read from global memory (fm_global_kernel), v*v
+// rounded as the staged copy rounds it.
+template <bool kStaged>
+__device__ __forceinline__ void fm_wide_rows(const float* __restrict__ x,
+                                             const float* __restrict__ w1,
+                                             const float* __restrict__ v,
+                                             float* __restrict__ out, int batch, int dim,
+                                             int factors, float* smem) {
   float* vt = smem;                           // [factors][dim]
   float* v2t = smem + factors * dim;          // [factors][dim], v*v
   float* w_s = smem + 2 * factors * dim;      // [dim]
-  const int n = factors * dim;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int d = e / factors;  // v is [dim][factors]: coalesced reads
-    const int j = e - d * factors;
-    const float ve = v[e];
-    vt[j * dim + d] = ve;
-    v2t[j * dim + d] = __fmul_rn(ve, ve);
+  if constexpr (kStaged) {
+    const int n = factors * dim;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int d = e / factors;  // v is [dim][factors]: coalesced reads
+      const int j = e - d * factors;
+      const float ve = v[e];
+      vt[j * dim + d] = ve;
+      v2t[j * dim + d] = __fmul_rn(ve, ve);
+    }
+    for (int d = threadIdx.x; d < dim; d += blockDim.x) w_s[d] = w1[d];
+    __syncthreads();
   }
-  for (int d = threadIdx.x; d < dim; d += blockDim.x) w_s[d] = w1[d];
-  __syncthreads();
+  auto w_at = [&](int d) { return kStaged ? w_s[d] : __ldg(w1 + d); };
+  auto v_at = [&](int j, int d) {
+    return kStaged ? vt[j * dim + d] : __ldg(v + static_cast<int64_t>(d) * factors + j);
+  };
+  // v*v as the staged copy holds it: ve is v_at(j, d)
+  auto v2_at = [&](int j, int d, float ve) {
+    return kStaged ? v2t[j * dim + d] : __fmul_rn(ve, ve);
+  };
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -233,7 +257,7 @@ fm_wide_kernel(const float* __restrict__ x, const float* __restrict__ w1,
        row += static_cast<int64_t>(gridDim.x) * kWarpsPerBlock) {
     const float* xr = x + row * dim;
     float linear = 0.f;
-    for (int d = lane; d < dim; d += 32) linear = fmaf(xr[d], w_s[d], linear);
+    for (int d = lane; d < dim; d += 32) linear = fmaf(xr[d], w_at(d), linear);
     float pair = 0.f;  // sum over the factors of (x.v_j)^2 - x^2.v_j^2
     for (int c0 = 0; c0 < factors; c0 += kChunk) {
       float s[kChunk], q[kChunk];
@@ -245,8 +269,9 @@ fm_wide_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
         for (int j = 0; j < kChunk; ++j) {
           if (c0 + j < factors) {
-            s[j] = fmaf(xd, vt[(c0 + j) * dim + d], s[j]);
-            q[j] = fmaf(x2, v2t[(c0 + j) * dim + d], q[j]);
+            const float ve = v_at(c0 + j, d);
+            s[j] = fmaf(xd, ve, s[j]);
+            q[j] = fmaf(x2, v2_at(c0 + j, d, ve), q[j]);
           }
         }
       }
@@ -262,6 +287,21 @@ fm_wide_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     linear = warp_sum(linear);
     if (lane == 0) out[row] = linear + 0.5f * pair;
   }
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+fm_wide_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+               const float* __restrict__ v, float* __restrict__ out, int batch, int dim,
+               int factors) {
+  extern __shared__ float smem[];
+  fm_wide_rows<true>(x, w1, v, out, batch, dim, factors, smem);
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+fm_global_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                 const float* __restrict__ v, float* __restrict__ out, int batch, int dim,
+                 int factors) {
+  fm_wide_rows<false>(x, w1, v, out, batch, dim, factors, nullptr);
 }
 
 template <int kPerLane>
@@ -282,6 +322,7 @@ cudaError_t launch_rows(const float* x, const float* w1, const float* v, float* 
 cudaError_t launch_wide(const float* x, const float* w1, const float* v, float* out,
                         int batch, int dim, int factors, cudaStream_t stream) {
   const size_t shared_bytes = (2 * static_cast<size_t>(factors) + 1) * dim * sizeof(float);
+  if (shared_bytes > kMaxSharedBytes) return cudaErrorInvalidValue;
   if (shared_bytes > kDefaultSharedBytes) {
     const cudaError_t err = cudaFuncSetAttribute(
         fm_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -318,4 +359,16 @@ extern "C" int fm_forward(const void* x_, const void* w1_, const void* v_, void*
     }
   }
   return launch_wide(x, w1, v, out, batch, dim, factors, stream);
+}
+
+extern "C" int fm_global_forward(const void* x_, const void* w1_, const void* v_, void* out_,
+                                 int batch, int dim, int factors, void* stream_) {
+  if (batch <= 0) return cudaSuccess;
+  if (dim <= 0 || factors <= 0) return cudaErrorInvalidValue;
+  int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  fm_global_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream_)>>>(
+      static_cast<const float*>(x_), static_cast<const float*>(w1_),
+      static_cast<const float*>(v_), static_cast<float*>(out_), batch, dim, factors);
+  return cudaGetLastError();
 }

@@ -3,4 +3,4 @@ from .embedding import (EmbeddingCollection, EmbedOutputs, LinearEmbedding, Unif
                         build_table_specs)
 from .interaction import (FGCNN, AFMAttention, CrossNet, FMLayer, InnerProductLayer,
                           OuterProductLayer, ResBlock)
-from .sequence import DinAttention
+from .sequence import AUGRULayer, DinAttention, GRULayer

@@ -30,8 +30,9 @@ class FMLayer(nn.Module):
     Parameters ``w0 [1]`` (zeros), ``w1 [D, 1]`` and ``v [D, factor_dim]``
     (both ``normal(0, init_std)``, drawn from ``generator`` in that order).
     ``use_pallas`` is accepted for the JAX package's signature and ignored:
-    the kernel always runs on the card. Runs on the card unless ``device``
-    names another."""
+    on the card it takes a kernel of ``csrc/fm.cu`` at every shape (the
+    global kernel where ``fm_kernel_takes`` is False). Runs on the card
+    unless ``device`` names another."""
 
     def __init__(self, in_features: int, factor_dim: int, init_std: float = 0.05,
                  use_pallas: Optional[bool] = None, *, device: DeviceLike = None,

@@ -1,6 +1,6 @@
-"""Behaviour-sequence attention: DIN target attention
-(counterpart of ``recommender_system_tpu/layers/sequence.py``'s
-``DinAttention``).
+"""Behaviour-sequence layers: DIN target attention and DIEN's recurrent
+layers (counterparts of ``recommender_system_tpu/layers/sequence.py``'s
+``DinAttention``, ``GRULayer`` and ``AUGRULayer``).
 
 ``DinAttention(K, ...)`` takes ``query [B, K]``, ``keys [B, T, K]`` and
 ``mask [B, T]`` and returns the pooled ``[B, K]`` (or the weights ``[B, T]``
@@ -10,6 +10,12 @@ the parameters ``w1 [4K, H1]``, ``b1``, ``w2 [H1, H2]``, ``b2``, ``w3 [H2, 1]``,
 ``b3`` kept in the JAX package's layout; any other scorer (dice, prelu,
 another depth) is a ``DNN`` named ``local_activation_unit`` over
 ``concat([q, k, q-k, q*k])``.
+
+``GRULayer(D, H)`` and ``AUGRULayer(D, H)`` run ``ops/rnn.py``'s ``gru`` and
+``augru`` on their parameters ``wx [D, 3H]``, ``wh [H, 3H]`` and ``bias
+[3H]``, named and laid out as the JAX package's so that ``convert.py`` copies
+them as they are. As there, ``wx`` is stored as drawn, uniform on ``[0,
+2/sqrt(D))``, and ``wx - 1/sqrt(D)`` enters the cell.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import din_attention
+from ..ops.rnn import GRUParams, augru, gru, input_scale, orthogonal_blocks
 from ..ops.seqpool import masked_softmax
 from .core import DNN, glorot_uniform_
 
@@ -77,3 +84,44 @@ class DinAttention(nn.Module):
         if self.return_score:
             return score
         return torch.einsum("bt,btk->bk", score, keys)
+
+
+class _Recurrent(nn.Module):
+    """The parameters GRU and AUGRU share: ``wx [D, 3H]`` uniform on ``[0,
+    2 scale)`` with ``scale = 1/sqrt(D)`` (the cell takes ``wx - scale``),
+    ``wh [H, 3H]`` three orthogonal blocks, ``bias [3H]`` zeros, drawn from
+    ``generator`` in that order. ``dtype`` casts the gate products'
+    operands (``ops/rnn.py``)."""
+
+    def __init__(self, input_dim: int, hidden: int, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None, *, device: torch.device,
+                 generator: torch.Generator):
+        super().__init__()
+        self.hidden = hidden
+        self.dtype = dtype
+        self.scale = input_scale(input_dim)
+        self.wx = nn.Parameter((torch.rand(input_dim, 3 * hidden, generator=generator,
+                                           device=generator.device)
+                                * (2 * self.scale)).to(device))
+        self.wh = nn.Parameter(orthogonal_blocks(generator, hidden, 3).to(device))
+        self.bias = (nn.Parameter(torch.zeros(3 * hidden, device=device))
+                     if use_bias else None)
+
+    def params(self) -> GRUParams:
+        return GRUParams(self.wx - self.scale, self.wh, self.bias)
+
+
+class GRULayer(_Recurrent):
+    """GRU over ``[B, T, D]`` -> (outputs ``[B, T, H]``, final ``[B, H]``)."""
+
+    def forward(self, inputs: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        return gru(self.params(), inputs, mask=mask, dtype=self.dtype)
+
+
+class AUGRULayer(_Recurrent):
+    """Attention-gated GRU: ``att_scores [B, T]`` scales each step's update
+    -> (outputs ``[B, T, H]``, final ``[B, H]``)."""
+
+    def forward(self, inputs: torch.Tensor, att_scores: torch.Tensor,
+                mask: Optional[torch.Tensor] = None):
+        return augru(self.params(), inputs, att_scores, mask=mask, dtype=self.dtype)

@@ -2,6 +2,7 @@ from .afm import AFM
 from .dcn import DCN
 from .deep_crossing import DeepCrossing
 from .deepfm import DeepFM
+from .dien import DIEN
 from .din import DIN
 from .ffm import FFM
 from .fm import FM
@@ -10,9 +11,9 @@ from .nfm import NFM
 from .pnn import PNN
 from .wide_deep import WideDeep
 
-# the Criteo CTR models that the port has, under the JAX package's names
+# the JAX package's CTR models, under its names
 CTR_MODELS = {
     "fm": FM, "ffm": FFM, "fnn": FNN, "wide_deep": WideDeep,
     "deepfm": DeepFM, "dcn": DCN, "deep_crossing": DeepCrossing,
-    "pnn": PNN, "nfm": NFM, "afm": AFM, "din": DIN,
+    "pnn": PNN, "nfm": NFM, "afm": AFM, "din": DIN, "dien": DIEN,
 }

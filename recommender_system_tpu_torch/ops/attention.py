@@ -3,8 +3,9 @@
 ``din_attention`` scores a behaviour sequence against a target query with a
 2-hidden-layer MLP over ``[q, k, q-k, q*k]``, masks invalid steps, optionally
 softmax-normalises, and pools the keys. It is ``din_attention_fused``
-(``ops/kernels.py``): on the card always the kernel of
-``csrc/din_attention.cu``, on the CPU its plain version.
+(``ops/kernels.py``): on the card a kernel of ``csrc/din_attention.cu`` at
+every shape (the tiled kernel where ``din_kernel_takes``, else the global
+kernel); on the CPU its plain version.
 """
 from __future__ import annotations
 
@@ -25,13 +26,14 @@ def din_attention(query: torch.Tensor, keys: torch.Tensor, mask: torch.Tensor,
     ``[B, K]`` (or weights ``[B, T]``).
 
     ``use_pallas`` is accepted for the JAX package's signature and ignored:
-    the kernel runs on every CUDA tensor. The kernel computes in f32, so
-    ``dtype`` is ignored, as on the JAX package's kernel path. ``remat``, the
-    JAX package's hand-written backward (``ops/din_vjp.py``), is not ported.
+    on the card it takes a kernel of ``csrc/din_attention.cu`` at every
+    shape (the global kernel where ``din_kernel_takes`` is False). The
+    kernels compute in f32, so ``dtype`` is ignored, as on the JAX package's
+    kernel path. ``remat=True`` (the JAX package's hand-written backward,
+    ``ops/din_vjp.py``, which saves only the inputs and recomputes the
+    scorer) takes the same path as ``remat=False``: the backward here always
+    recomputes the plain version from the saved inputs.
     """
-    if remat:
-        raise NotImplementedError(
-            "din_attention(remat=True) comes with the DIEN slice of the port")
     if dtype is not None:
         warnings.warn("din_attention: the kernel computes in f32; "
                       f"dtype={dtype} is ignored", stacklevel=2)

@@ -10,6 +10,17 @@ Wrappers (see ``ops/dispatch.py``): a CUDA tensor launches the kernel, a CPU
 tensor runs the kernel's plain version. Each wrapper counts its launches in
 an integer attribute, ``<wrapper>.launches``, which only a launch raises.
 
+``cross_fused``, ``fm_fused`` and ``din_attention_fused`` take every input the
+JAX package computes: each makes its inputs contiguous float32, and each
+source has, beside its fast kernels with their shared-memory and width
+limits, a global kernel that reads the weights from global memory and takes
+the other shapes. Before the launch, each wrapper asks its predicate
+(``cross_kernel_takes``, ``fm_kernel_takes``, ``din_kernel_takes``: True
+exactly where ``check_*_args`` would not raise) which of the two entry
+points to call, and counts a launch of the global kernel also in
+``<wrapper>.global_launches``. A CUDA tensor never runs the plain version;
+a build failure or a launch error raises.
+
 - ``cross_fused`` (``csrc/cross.cu``), plain version ``cross_network``;
 - ``fm_fused`` (``csrc/fm.cu``), plain version ``fm_ref``;
 - ``din_attention_fused`` (``csrc/din_attention.cu``), plain version
@@ -27,7 +38,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,9 +55,14 @@ _INT64, _FLOAT = ctypes.c_longlong, ctypes.c_float
 # source name -> {C function: (argument types, return type)}; every pointer
 # and the stream as c_void_p, or ctypes would pass a 32-bit int
 SOURCES = {
-    "cross": {"cross_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT)},
-    "fm": {"fm_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT)},
-    "din_attention": {"din_attention_forward": ([_PTR] * 10 + [_INT] * 8 + [_PTR], _INT)},
+    "cross": {"cross_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
+              "cross_global_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT)},
+    "fm": {"fm_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
+           "fm_global_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT)},
+    "din_attention": {
+        "din_attention_forward": ([_PTR] * 10 + [_INT] * 8 + [_PTR], _INT),
+        "din_attention_global_forward": ([_PTR] * 10 + [_INT] * 8 + [_PTR], _INT),
+    },
     "sparse_rows": {
         "fused_adagrad_rows": ([_PTR] * 5 + [_INT64, _INT, _FLOAT, _FLOAT, _PTR], _INT),
         "fused_sgd_rows": ([_PTR] * 4 + [_INT64, _INT, _FLOAT, _PTR], _INT),
@@ -122,30 +138,67 @@ MAX_SHARED_BYTES = 232_448
 CROSS_MAX_DIM = 1024
 
 
-def check_cross_args(x0: torch.Tensor, weights: torch.Tensor,
-                     biases: torch.Tensor) -> None:
-    """Raise on anything the cross kernel does not take."""
+def _cross_form_fault(x0: torch.Tensor, weights: torch.Tensor,
+                      biases: torch.Tensor) -> Optional[Exception]:
+    """What no kernel of ``csrc/cross.cu`` takes in these inputs, or None."""
     for t, what in ((x0, "x0"), (weights, "weights"), (biases, "biases")):
         if t.dtype != torch.float32:
-            raise TypeError(f"cross_fused kernel takes float32, {what} is {t.dtype}")
+            return TypeError(f"cross_fused kernel takes float32, {what} is {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"cross_fused kernel takes contiguous tensors, {what} is not")
+            return ValueError(f"cross_fused kernel takes contiguous tensors, {what} is not")
     if x0.dim() != 2 or weights.dim() != 2 or weights.shape != biases.shape:
-        raise ValueError("cross_fused takes x0 [B, D], weights and biases [L, D]; "
-                         f"got {tuple(x0.shape)}, {tuple(weights.shape)}, "
-                         f"{tuple(biases.shape)}")
+        return ValueError("cross_fused takes x0 [B, D], weights and biases [L, D]; "
+                          f"got {tuple(x0.shape)}, {tuple(weights.shape)}, "
+                          f"{tuple(biases.shape)}")
     B, D = x0.shape
     L = weights.shape[0]
     if weights.shape[1] != D:
-        raise ValueError(f"weights width {weights.shape[1]} != x0 width {D}")
-    if not 0 < D <= CROSS_MAX_DIM:
-        raise ValueError(f"cross_fused kernel takes 0 < D <= {CROSS_MAX_DIM}, got {D}")
+        return ValueError(f"weights width {weights.shape[1]} != x0 width {D}")
+    if not 0 < D < 2 ** 31 or B >= 2 ** 31 or L >= 2 ** 31:
+        return ValueError(f"cross_fused kernels take 0 < D, B, L < 2**31, got "
+                          f"B={B}, D={D}, L={L}")
+    return None
+
+
+def _cross_fault(x0: torch.Tensor, weights: torch.Tensor,
+                 biases: torch.Tensor) -> Optional[Exception]:
+    """Why the tile and stack kernels do not take these inputs, or None."""
+    fault = _cross_form_fault(x0, weights, biases)
+    if fault is not None:
+        return fault
+    L, D = weights.shape
+    if D > CROSS_MAX_DIM:
+        return ValueError(f"cross_fused kernel takes 0 < D <= {CROSS_MAX_DIM}, got {D}")
     if 2 * L * D * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"cross_fused kernel: L={L}, D={D} needs "
-                         f"{2 * L * D * 4} bytes of shared memory, more than "
-                         f"{MAX_SHARED_BYTES}")
-    if B >= 2 ** 31:
-        raise ValueError(f"cross_fused kernel takes B < 2**31, got {B}")
+        return ValueError(f"cross_fused kernel: L={L}, D={D} needs "
+                          f"{2 * L * D * 4} bytes of shared memory, more than "
+                          f"{MAX_SHARED_BYTES}")
+    return None
+
+
+def check_cross_args(x0: torch.Tensor, weights: torch.Tensor,
+                     biases: torch.Tensor) -> None:
+    """Raise on anything the tile and stack kernels do not take."""
+    fault = _cross_fault(x0, weights, biases)
+    if fault is not None:
+        raise fault
+
+
+def check_cross_global_args(x0: torch.Tensor, weights: torch.Tensor,
+                            biases: torch.Tensor) -> None:
+    """Raise on anything the global kernel does not take: it has no width
+    or shared-memory limit."""
+    fault = _cross_form_fault(x0, weights, biases)
+    if fault is not None:
+        raise fault
+
+
+def cross_kernel_takes(x0: torch.Tensor, weights: torch.Tensor,
+                       biases: torch.Tensor) -> bool:
+    """True exactly where ``check_cross_args`` would not raise: the shapes,
+    dtypes and layouts alone decide. Where it is False, ``cross_fused``
+    launches the global kernel."""
+    return _cross_fault(x0, weights, biases) is None
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -154,26 +207,28 @@ def _stream(t: torch.Tensor) -> int:
 
 def _cross_launch(x0: torch.Tensor, weights: torch.Tensor,
                   biases: torch.Tensor) -> torch.Tensor:
-    check_cross_args(x0, weights, biases)
+    fast = cross_kernel_takes(x0, weights, biases)
+    (check_cross_args if fast else check_cross_global_args)(x0, weights, biases)
     out = torch.empty_like(x0)
     B, D = x0.shape
     if B == 0:
         return out
+    entry = "cross_forward" if fast else "cross_global_forward"
     lib = _library("cross")
     with torch.cuda.device(x0.device):
-        err = lib.cross_forward(x0.data_ptr(), weights.data_ptr(),
-                                biases.data_ptr(), out.data_ptr(), B, D,
-                                weights.shape[0], _stream(x0))
+        err = getattr(lib, entry)(x0.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+                                  out.data_ptr(), B, D, weights.shape[0], _stream(x0))
     if err != 0:
-        raise RuntimeError(f"cross_forward launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
     cross_fused.launches += 1
+    cross_fused.global_launches += not fast
     return out
 
 
 class _CrossFused(torch.autograd.Function):
-    """Forward: the kernel on CUDA, ``cross_network`` on the CPU. Backward:
-    the VJP of ``cross_network`` recomputed from the saved inputs, as the JAX
-    package's ``_cross_bwd`` does; there is no backward kernel."""
+    """Forward: a kernel on CUDA, ``cross_network`` on the CPU. Backward:
+    the VJP of ``cross_network`` recomputed from the saved inputs, as the
+    JAX package's ``_cross_bwd`` does; there is no backward kernel."""
 
     @staticmethod
     def forward(ctx, x0, weights, biases):
@@ -192,12 +247,16 @@ class _CrossFused(torch.autograd.Function):
 
 def cross_fused(x0: torch.Tensor, weights: torch.Tensor,
                 biases: torch.Tensor) -> torch.Tensor:
-    """DCN cross stack ``x_{l+1} = x0 (x_l.w_l) + b_l + x_l`` -> ``[B, D]``,
-    the whole stack in one kernel launch on CUDA."""
-    return _CrossFused.apply(x0, weights, biases)
+    """DCN cross stack ``x_{l+1} = x0 (x_l.w_l) + b_l + x_l`` -> ``[B, D]``
+    float32, the whole stack in one kernel launch on CUDA: the tile or stack
+    kernel where ``cross_kernel_takes``, else the global kernel. The inputs
+    are made contiguous float32 first."""
+    args = [t.to(torch.float32).contiguous() for t in (x0, weights, biases)]
+    return _CrossFused.apply(*args)
 
 
 cross_fused.launches = 0
+cross_fused.global_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -226,48 +285,84 @@ def fm_shared_bytes(D: int, k: int) -> int:
     return 4 * D * (2 * k + 1)
 
 
-def check_fm_args(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise on anything the FM kernel does not take."""
+def _fm_form_fault(x: torch.Tensor, w1: torch.Tensor,
+                   v: torch.Tensor) -> Optional[Exception]:
+    """What no kernel of ``csrc/fm.cu`` takes in these inputs, or None."""
     for t, what in ((x, "x"), (w1, "w1"), (v, "v")):
         if t.dtype != torch.float32:
-            raise TypeError(f"fm_fused kernel takes float32, {what} is {t.dtype}")
+            return TypeError(f"fm_fused kernel takes float32, {what} is {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"fm_fused kernel takes contiguous tensors, {what} is not")
+            return ValueError(f"fm_fused kernel takes contiguous tensors, {what} is not")
     if x.dim() != 2 or w1.dim() != 2 or v.dim() != 2:
-        raise ValueError("fm_fused takes x [B, D], w1 [D, 1] and v [D, k]; got "
-                         f"{tuple(x.shape)}, {tuple(w1.shape)}, {tuple(v.shape)}")
+        return ValueError("fm_fused takes x [B, D], w1 [D, 1] and v [D, k]; got "
+                          f"{tuple(x.shape)}, {tuple(w1.shape)}, {tuple(v.shape)}")
     B, D = x.shape
     k = v.shape[1]
     if tuple(w1.shape) != (D, 1) or v.shape[0] != D:
-        raise ValueError(f"fm_fused: x is [{B}, {D}], so w1 must be [{D}, 1] and v "
-                         f"[{D}, k]; got {tuple(w1.shape)}, {tuple(v.shape)}")
+        return ValueError(f"fm_fused: x is [{B}, {D}], so w1 must be [{D}, 1] and v "
+                          f"[{D}, k]; got {tuple(w1.shape)}, {tuple(v.shape)}")
     if D == 0 or k == 0:
-        raise ValueError(f"fm_fused kernel takes D > 0 and k > 0, got D={D}, k={k}")
+        return ValueError(f"fm_fused kernel takes D > 0 and k > 0, got D={D}, k={k}")
+    if B >= 2 ** 31 or D >= 2 ** 31 or k >= 2 ** 31:
+        return ValueError(f"fm_fused kernels take B, D, k < 2**31, got B={B}, D={D}, k={k}")
+    return None
+
+
+def _fm_fault(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> Optional[Exception]:
+    """Why the rows and wide kernels do not take these inputs, or None."""
+    fault = _fm_form_fault(x, w1, v)
+    if fault is not None:
+        return fault
+    D, k = v.shape
     if fm_shared_bytes(D, k) > MAX_SHARED_BYTES:
-        raise ValueError(f"fm_fused kernel: D={D}, k={k} needs {fm_shared_bytes(D, k)} "
-                         f"bytes of shared memory, more than {MAX_SHARED_BYTES}")
-    if B >= 2 ** 31:
-        raise ValueError(f"fm_fused kernel takes B < 2**31, got {B}")
+        return ValueError(f"fm_fused kernel: D={D}, k={k} needs {fm_shared_bytes(D, k)} "
+                          f"bytes of shared memory, more than {MAX_SHARED_BYTES}")
+    return None
+
+
+def check_fm_args(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on anything the rows and wide kernels do not take."""
+    fault = _fm_fault(x, w1, v)
+    if fault is not None:
+        raise fault
+
+
+def check_fm_global_args(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on anything the global kernel does not take: it has no
+    shared-memory limit."""
+    fault = _fm_form_fault(x, w1, v)
+    if fault is not None:
+        raise fault
+
+
+def fm_kernel_takes(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> bool:
+    """True exactly where ``check_fm_args`` would not raise: the shapes,
+    dtypes and layouts alone decide. Where it is False, ``fm_fused``
+    launches the global kernel."""
+    return _fm_fault(x, w1, v) is None
 
 
 def _fm_launch(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    check_fm_args(x, w1, v)
+    fast = fm_kernel_takes(x, w1, v)
+    (check_fm_args if fast else check_fm_global_args)(x, w1, v)
     B, D = x.shape
     out = torch.empty((B, 1), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
+    entry = "fm_forward" if fast else "fm_global_forward"
     lib = _library("fm")
     with torch.cuda.device(x.device):
-        err = lib.fm_forward(x.data_ptr(), w1.data_ptr(), v.data_ptr(), out.data_ptr(),
-                             B, D, v.shape[1], _stream(x))
+        err = getattr(lib, entry)(x.data_ptr(), w1.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                  B, D, v.shape[1], _stream(x))
     if err != 0:
-        raise RuntimeError(f"fm_forward launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
     fm_fused.launches += 1
+    fm_fused.global_launches += not fast
     return out
 
 
 class _FmFused(torch.autograd.Function):
-    """Forward: the kernel on CUDA, ``fm_ref`` on the CPU. Backward: the VJP
+    """Forward: a kernel on CUDA, ``fm_ref`` on the CPU. Backward: the VJP
     of ``fm_ref`` recomputed from the saved inputs, as the JAX package's
     ``_fm_bwd`` does; there is no backward kernel."""
 
@@ -288,11 +383,14 @@ class _FmFused(torch.autograd.Function):
 
 def fm_fused(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """FM logit without the global bias, ``x.w1 + 0.5 sum((xv)^2 - x^2 v^2)``
-    -> ``[B, 1]``, in one kernel launch on CUDA."""
-    return _FmFused.apply(x, w1, v)
+    -> ``[B, 1]`` float32, in one kernel launch on CUDA: the rows or wide
+    kernel where ``fm_kernel_takes``, else the global kernel. The inputs are
+    made contiguous float32 first."""
+    return _FmFused.apply(*(t.to(torch.float32).contiguous() for t in (x, w1, v)))
 
 
 fm_fused.launches = 0
+fm_fused.global_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -360,68 +458,136 @@ def din_shared_bytes(T: int, K: int, H1: int, H2: int, rows: int = 1) -> int:
     return 4 * (weights + 2 * buffer + up(rows * H1p) + up(rows * T))
 
 
-def check_din_args(query, keys, mask, w1, b1, w2, b2, w3, b3, activation) -> None:
-    """Raise on anything the DIN attention kernel does not take."""
+def din_global_shared_bytes(T: int, K: int, H1: int, warps: int = 1) -> int:
+    """Shared memory of a block of ``csrc/din_attention.cu``'s global kernel
+    with ``warps`` warps (``make_global_layout`` there): the row's query,
+    its ``q (Wq + Wm)`` and its scores, each rounded up to 4 floats, and a
+    warp's ``[k | q*k]`` and first-layer output for 8 positions."""
+    def up(x: int) -> int:
+        return -(-x // 4) * 4
+
+    return 4 * (up(K) + up(H1) + up(T) + warps * 8 * (2 * K + H1))
+
+
+def _din_form_fault(query, keys, mask, w1, b1, w2, b2, w3, b3,
+                    activation) -> Optional[Exception]:
+    """What no kernel of ``csrc/din_attention.cu`` takes in these inputs, or
+    None."""
     named = dict(query=query, keys=keys, mask=mask, w1=w1, b1=b1, w2=w2, b2=b2,
                  w3=w3, b3=b3)
     for what, t in named.items():
         if t.dtype != torch.float32:
-            raise TypeError(f"din_attention_fused kernel takes float32, {what} is {t.dtype}")
+            return TypeError(f"din_attention_fused kernel takes float32, {what} is {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"din_attention_fused kernel takes contiguous tensors, "
-                             f"{what} is not")
+            return ValueError(f"din_attention_fused kernel takes contiguous tensors, "
+                              f"{what} is not")
     if activation not in DIN_ACTIVATIONS:
-        raise ValueError(f"din_attention_fused kernel takes activation sigmoid or relu, "
-                         f"not {activation!r}")
+        return ValueError(f"din_attention_fused kernel takes activation sigmoid or relu, "
+                          f"not {activation!r}")
     if keys.dim() != 3 or query.dim() != 2 or w1.dim() != 2 or w2.dim() != 2:
-        raise ValueError("din_attention_fused takes query [B, K], keys [B, T, K], "
-                         "w1 [4K, H1], w2 [H1, H2]; got "
-                         f"{tuple(query.shape)}, {tuple(keys.shape)}, "
-                         f"{tuple(w1.shape)}, {tuple(w2.shape)}")
+        return ValueError("din_attention_fused takes query [B, K], keys [B, T, K], "
+                          "w1 [4K, H1], w2 [H1, H2]; got "
+                          f"{tuple(query.shape)}, {tuple(keys.shape)}, "
+                          f"{tuple(w1.shape)}, {tuple(w2.shape)}")
     B, T, K = keys.shape
     H1, H2 = w1.shape[1], w2.shape[1]
     want = dict(query=(B, K), mask=(B, T), w1=(4 * K, H1), b1=(H1,), w2=(H1, H2),
                 b2=(H2,), w3=(H2, 1), b3=(1,))
     for what, shape in want.items():
         if tuple(named[what].shape) != shape:
-            raise ValueError(f"din_attention_fused: {what} has shape "
-                             f"{tuple(named[what].shape)}, want {shape}")
-    if T == 0 or K == 0:
-        raise ValueError(f"din_attention_fused kernel takes T > 0 and K > 0, got {T}, {K}")
-    if not (0 < H1 <= DIN_MAX_HIDDEN and 0 < H2 <= DIN_MAX_HIDDEN):
-        raise ValueError(f"din_attention_fused kernel takes hidden widths in "
-                         f"1..{DIN_MAX_HIDDEN}, got {H1}, {H2}")
+            return ValueError(f"din_attention_fused: {what} has shape "
+                              f"{tuple(named[what].shape)}, want {shape}")
+    if T == 0 or K == 0 or H1 == 0 or H2 == 0:
+        return ValueError(f"din_attention_fused kernel takes T, K, H1, H2 > 0, got "
+                          f"{T}, {K}, {H1}, {H2}")
+    if B >= 2 ** 31:
+        return ValueError(f"din_attention_fused kernel takes B < 2**31, got {B}")
+    return None
+
+
+def _din_fault(query, keys, mask, w1, b1, w2, b2, w3, b3,
+               activation) -> Optional[Exception]:
+    """Why the tiled kernel does not take these inputs, or None."""
+    fault = _din_form_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, activation)
+    if fault is not None:
+        return fault
+    T, K = keys.shape[1:]
+    H1, H2 = w1.shape[1], w2.shape[1]
+    if not (H1 <= DIN_MAX_HIDDEN and H2 <= DIN_MAX_HIDDEN):
+        return ValueError(f"din_attention_fused kernel takes hidden widths in "
+                          f"1..{DIN_MAX_HIDDEN}, got {H1}, {H2}")
     need = din_shared_bytes(T, K, H1, H2)
     if need > MAX_SHARED_BYTES:
-        raise ValueError(f"din_attention_fused kernel: T={T}, K={K}, H1={H1}, H2={H2} "
-                         f"needs {need} bytes of shared memory, more than "
-                         f"{MAX_SHARED_BYTES}")
-    if B >= 2 ** 31:
-        raise ValueError(f"din_attention_fused kernel takes B < 2**31, got {B}")
+        return ValueError(f"din_attention_fused kernel: T={T}, K={K}, H1={H1}, H2={H2} "
+                          f"needs {need} bytes of shared memory, more than "
+                          f"{MAX_SHARED_BYTES}")
+    return None
+
+
+def _din_global_fault(query, keys, mask, w1, b1, w2, b2, w3, b3,
+                      activation) -> Optional[Exception]:
+    """Why the global kernel does not take these inputs, or None."""
+    fault = _din_form_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, activation)
+    if fault is not None:
+        return fault
+    T, K = keys.shape[1:]
+    need = din_global_shared_bytes(T, K, w1.shape[1])
+    if need > MAX_SHARED_BYTES:
+        return ValueError(f"din_attention_fused global kernel: T={T}, K={K}, "
+                          f"H1={w1.shape[1]} needs {need} bytes of shared memory at one "
+                          f"warp, more than {MAX_SHARED_BYTES}")
+    return None
+
+
+def check_din_args(query, keys, mask, w1, b1, w2, b2, w3, b3, activation) -> None:
+    """Raise on anything the tiled kernel does not take."""
+    fault = _din_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, activation)
+    if fault is not None:
+        raise fault
+
+
+def check_din_global_args(query, keys, mask, w1, b1, w2, b2, w3, b3, activation) -> None:
+    """Raise on anything the global kernel does not take: no hidden-width
+    limit; its shared memory grows with T, K and H1 (at one warp, 227 KB
+    holds T + 18 K + 9 H1 up to about 58,000 floats)."""
+    fault = _din_global_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, activation)
+    if fault is not None:
+        raise fault
+
+
+def din_kernel_takes(query, keys, mask, w1, b1, w2, b2, w3, b3, activation) -> bool:
+    """True exactly where ``check_din_args`` would not raise: the shapes,
+    dtypes, layouts and the activation alone decide. Where it is False,
+    ``din_attention_fused`` launches the global kernel."""
+    return _din_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, activation) is None
 
 
 def _din_launch(query, keys, mask, w1, b1, w2, b2, w3, b3, activation: str,
                 weight_normalization: bool, return_scores: bool) -> torch.Tensor:
-    check_din_args(query, keys, mask, w1, b1, w2, b2, w3, b3, activation)
+    tensors = (query, keys, mask, w1, b1, w2, b2, w3, b3)
+    fast = din_kernel_takes(*tensors, activation)
+    (check_din_args if fast else check_din_global_args)(*tensors, activation)
     B, T, K = keys.shape
     out = torch.empty((B, T if return_scores else K), dtype=torch.float32,
                       device=keys.device)
     if B == 0:
         return out
+    entry = "din_attention_forward" if fast else "din_attention_global_forward"
     lib = _library("din_attention")
     with torch.cuda.device(keys.device):
-        err = lib.din_attention_forward(
-            *(t.data_ptr() for t in (query, keys, mask, w1, b1, w2, b2, w3, b3, out)),
+        err = getattr(lib, entry)(
+            *(t.data_ptr() for t in (*tensors, out)),
             B, T, K, w1.shape[1], w2.shape[1], int(activation == "relu"),
             int(weight_normalization), int(return_scores), _stream(keys))
     if err != 0:
-        raise RuntimeError(f"din_attention_forward launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
     din_attention_fused.launches += 1
+    din_attention_fused.global_launches += not fast
     return out
 
 
 class _DinAttentionFused(torch.autograd.Function):
-    """Forward: the kernel on CUDA, ``din_attention_ref`` on the CPU.
+    """Forward: a kernel on CUDA, ``din_attention_ref`` on the CPU.
     Backward: the VJP of ``din_attention_ref`` recomputed from the saved
     inputs, as the JAX package's ``_din_bwd`` does; there is no backward
     kernel. The mask gets no cotangent."""
@@ -431,10 +597,10 @@ class _DinAttentionFused(torch.autograd.Function):
                 weight_normalization, return_scores):
         ctx.save_for_backward(query, keys, mask, w1, b1, w2, b2, w3, b3)
         ctx.flags = (activation, weight_normalization, return_scores)
-        args = (query, keys, mask, w1, b1, w2, b2, w3, b3, *ctx.flags)
-        if use_kernel(query, keys, mask, w1, b1, w2, b2, w3, b3):
-            return _din_launch(*args)
-        return din_attention_ref(*args)
+        tensors = (query, keys, mask, w1, b1, w2, b2, w3, b3)
+        if use_kernel(*tensors):
+            return _din_launch(*tensors, *ctx.flags)
+        return din_attention_ref(*tensors, *ctx.flags)
 
     @staticmethod
     def backward(ctx, grad):
@@ -451,15 +617,17 @@ def din_attention_fused(query: torch.Tensor, keys: torch.Tensor, mask: torch.Ten
                         weight_normalization: bool = True,
                         return_scores: bool = False) -> torch.Tensor:
     """DIN target attention -> pooled ``[B, K]`` (or weights ``[B, T]``), in
-    one kernel launch on CUDA. ``mask`` is bool or float (valid where
-    > 0.5, as the TPU kernel reads it); the inputs are made contiguous."""
-    args = [t.contiguous() for t in (query, keys, mask.to(torch.float32),
-                                      w1, b1, w2, b2, w3, b3)]
+    one kernel launch on CUDA: the tiled kernel where ``din_kernel_takes``,
+    else the global kernel. ``mask`` is bool or float (valid where > 0.5, as
+    the TPU kernel reads it); the inputs are made contiguous float32."""
+    args = [t.to(torch.float32).contiguous() for t in (query, keys, mask,
+                                                        w1, b1, w2, b2, w3, b3)]
     return _DinAttentionFused.apply(*args, activation, weight_normalization,
                                     return_scores)
 
 
 din_attention_fused.launches = 0
+din_attention_fused.global_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .ops.dispatch import DeviceLike, resolve_device
+from .training.losses import logits_of
 from .utils.datasets import pad_to_batch
 
 
@@ -43,11 +44,7 @@ class Scorer:
         self.apply_sigmoid = apply_sigmoid
 
     def _score(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        out = self.model(batch)
-        if isinstance(out, tuple):
-            out = out[0]
-        if isinstance(out, list):
-            out = torch.cat(out, dim=-1)
+        out = logits_of(self.model(batch))
         if self.apply_sigmoid:
             out = torch.sigmoid(out)
         return out

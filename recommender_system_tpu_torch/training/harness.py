@@ -32,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import re
 import time
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,8 +42,8 @@ from ..ops.dispatch import DeviceLike, resolve_device
 from ..ops.fused_adagrad import fused_adagrad_apply, fused_adam_apply, fused_sgd_apply
 from ..utils import metrics as metrics_lib
 from ..utils.datasets import iter_batches, pad_to_batch
-from .losses import bce_with_logits
-from .optim import Adam, LearningRate, learning_rate_at
+from .losses import default_loss, logits_of
+from .optim import Adam, DecayedWeights, LearningRate, learning_rate_at
 
 _STACK_KEY_RE = re.compile(r"^table_d(\d+)$")
 
@@ -128,22 +128,27 @@ class Trainer:
     >>> trainer.evaluate(X_test, y_test)               # {"auc", "logloss", "accuracy"}
 
     The model must lie on ``device`` (the card unless another device is
-    named) and return one logit per row; the loss is ``bce_with_logits``
-    (multi-task and auxiliary losses come with later slices). ``optimizer``
-    (default ``Adam(1e-3)``, as the JAX package's) updates the dense
-    parameters, and the tables too when ``fused_embedding`` is None;
-    otherwise ``fused_embedding`` (``FusedAdagrad``, ``FusedSGD`` or
-    ``FusedAdam``) updates the tables. ``generator`` (default: seeded with
-    ``seed`` on the device) draws dropout masks; ``seed`` also seeds
-    ``fit``'s shuffling. ``mesh``, ``capacity_factor`` and
-    ``explicit_lookup`` come with the distributed slice of the port.
+    named). Its outputs go to ``loss_fn(outputs, labels, batch)``, by default
+    ``default_loss``: one logit per row, a ``(logits, aux)`` tuple (DIEN) or
+    a list of per-task logits with ``[B, T]`` labels. ``optimizer`` (default
+    ``Adam(1e-3)``, as the JAX package's) updates the dense parameters, and
+    the tables too when ``fused_embedding`` is None; otherwise
+    ``fused_embedding`` (``FusedAdagrad``, ``FusedSGD`` or ``FusedAdam``)
+    updates the tables. ``weight_decay`` adds ``weight_decay * p`` to the
+    gradient of every parameter ``optimizer`` updates, before it
+    (``DecayedWeights``, the JAX package's ``optax.add_decayed_weights``
+    chained in front). ``generator`` (default: seeded with ``seed`` on the
+    device) draws dropout masks; ``seed`` also seeds ``fit``'s shuffling.
+    ``mesh``, ``capacity_factor`` and ``explicit_lookup`` come with the
+    distributed slice of the port.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer=None,
                  fused_embedding: Optional[FusedOptimizer] = None, seed: int = 0,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None, *, mesh=None,
-                 capacity_factor: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None, *,
+                 loss_fn: Callable = default_loss, weight_decay: float = 0.0,
+                 mesh=None, capacity_factor: Optional[float] = None,
                  explicit_lookup: bool = False):
         for name, given in (("mesh", mesh is not None),
                             ("capacity_factor", capacity_factor is not None),
@@ -162,6 +167,9 @@ class Trainer:
         self.device = model_device
         self.model = model
         self.optimizer = optimizer if optimizer is not None else Adam(1e-3)
+        if weight_decay:
+            self.optimizer = DecayedWeights(self.optimizer, weight_decay)
+        self.loss_fn = loss_fn
         self.fused_embedding = fused_embedding
         self.seed = seed
         self.generator = (generator if generator is not None
@@ -202,8 +210,8 @@ class Trainer:
             if fused:
                 for _, coll in self._collections:
                     coll.capture = []
-            logits = self.model(batch, generator=self.generator)
-            loss = bce_with_logits(logits, labels)
+            outputs = self.model(batch, generator=self.generator)
+            loss = self.loss_fn(outputs, labels, batch)
             loss.backward()
             captured = [(prefix, coll.capture or []) for prefix, coll in self._collections]
         finally:
@@ -281,7 +289,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _eval_logits(self, xb: Mapping[str, np.ndarray]) -> np.ndarray:
-        return self.model(self._to_device(xb)).cpu().numpy()
+        """The model's logits on a batch (``logits_of``)."""
+        return logits_of(self.model(self._to_device(xb))).cpu().numpy()
 
     def predict(self, X: Mapping[str, np.ndarray], batch_size: int = 1024,
                 apply_sigmoid: bool = True) -> np.ndarray:
@@ -298,17 +307,28 @@ class Trainer:
     def evaluate(self, X: Mapping[str, np.ndarray], y: np.ndarray,
                  batch_size: int = 1024, streaming: bool = False) -> Dict[str, float]:
         """Test metrics. ``streaming=True`` accumulates the histogram AUC,
-        logloss and accuracy batch by batch; otherwise the AUC is exact."""
+        logloss and accuracy batch by batch; otherwise the AUC is exact. A
+        multi-task model (``[B, T]`` predictions, ``[B, T]`` labels) gets
+        ``task{t}_auc`` and ``task{t}_logloss`` per task."""
         if streaming:
             return self.evaluate_stream(iter_batches(X, y, batch_size, shuffle=False,
                                                      drop_remainder=False))
-        probs = self.predict(X, batch_size)[:, 0]
-        return {"auc": metrics_lib.auc(y, probs),
-                "logloss": metrics_lib.logloss(y, probs),
-                "accuracy": metrics_lib.accuracy(y, probs)}
+        probs = self.predict(X, batch_size)
+        flat = probs[:, 0] if probs.ndim > 1 and probs.shape[1] == 1 else probs
+        if flat.ndim == 1:
+            return {"auc": metrics_lib.auc(y, flat),
+                    "logloss": metrics_lib.logloss(y, flat),
+                    "accuracy": metrics_lib.accuracy(y, flat)}
+        y = np.asarray(y)
+        out = {}
+        for t in range(flat.shape[1]):
+            out[f"task{t}_auc"] = metrics_lib.auc(y[..., t], flat[:, t])
+            out[f"task{t}_logloss"] = metrics_lib.logloss(y[..., t], flat[:, t])
+        return out
 
     def evaluate_stream(self, batches) -> Dict[str, float]:
-        """Streaming metrics over a ``(batch_dict, labels)`` iterator."""
+        """Streaming metrics over a ``(batch_dict, labels)`` iterator; the
+        logits of a batch are raveled (a tuple's first element)."""
         self.model.eval()
         stream = metrics_lib.StreamingAUC()
         ll_sum = 0.0

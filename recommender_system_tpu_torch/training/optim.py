@@ -9,6 +9,8 @@ An optimizer holds no parameters: ``init(params)`` returns its state for a
 ``{name: tensor}`` dict, and ``update(params, grads, state, step)`` updates
 the parameters and the state in place. ``learning_rate`` is a float or a
 callable of the step (0 for the first update), as an optax schedule.
+``DecayedWeights(optimizer, weight_decay)`` is ``optax.chain(
+optax.add_decayed_weights(weight_decay), optimizer)``.
 """
 from __future__ import annotations
 
@@ -99,3 +101,23 @@ class Adam:
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
             p.add_((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) * -lr)
+
+
+class DecayedWeights:
+    """``optax.chain(optax.add_decayed_weights(weight_decay), optimizer)``:
+    ``g + weight_decay * p`` goes to ``optimizer`` in place of ``g``. It
+    keeps the state of ``optimizer`` (optax's ``add_decayed_weights`` keeps
+    an ``EmptyState``, which carries nothing)."""
+
+    def __init__(self, optimizer, weight_decay: float):
+        self.optimizer = optimizer
+        self.weight_decay = weight_decay
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> State:
+        return self.optimizer.init(params)
+
+    @torch.no_grad()
+    def update(self, params: Mapping[str, torch.Tensor],
+               grads: Mapping[str, torch.Tensor], state: State, step: int) -> None:
+        decayed = {name: g + self.weight_decay * params[name] for name, g in grads.items()}
+        self.optimizer.update(params, decayed, state, step)

@@ -1,6 +1,7 @@
 """The port's DCN cross stack (plain ``cross_network`` and the CPU path of the
 ``cross_fused`` wrapper) against the JAX package's ``cross_network`` and its
-Pallas ``cross_fused`` in interpret mode, forward and gradient."""
+Pallas ``cross_fused`` in interpret mode, forward and gradient; and the
+limits of the kernels' checks."""
 import numpy as np
 import pytest
 import torch
@@ -11,7 +12,9 @@ import jax.numpy as jnp
 from recommender_system_tpu.ops.interactions import cross_network as j_cross_network
 from recommender_system_tpu.ops.pallas_kernels import cross_fused as j_cross_fused
 from recommender_system_tpu_torch.ops.interactions import cross_network
-from recommender_system_tpu_torch.ops.kernels import check_cross_args, cross_fused
+from recommender_system_tpu_torch.ops.kernels import (check_cross_args,
+                                                      check_cross_global_args, cross_fused,
+                                                      cross_kernel_takes)
 
 # f32; the dots and the gradient's sums over the batch are taken in another
 # order than JAX takes them, over chained layers
@@ -89,3 +92,63 @@ def test_cross_kernel_rejects(case):
 
 def test_cross_kernel_accepts_bench_shape():
     check_cross_args(torch.zeros(4096, 221), torch.zeros(6, 221), torch.zeros(6, 221))
+
+
+def _meta(*shapes):
+    return [torch.empty(s, device="meta") for s in shapes]
+
+
+# (x0, weights, biases) shapes at the tile and stack kernels' limits -> taken
+# by them; every shape here but the last is taken by the global kernel
+CROSS_EDGES = {
+    "bench": (((4096, 221), (6, 221), (6, 221)), True),
+    "d_1024": (((8, 1024), (6, 1024), (6, 1024)), True),
+    "d_1025": (((8, 1025), (6, 1025), (6, 1025)), False),
+    # 2 * L * D * 4 bytes of shared memory against 232,448
+    "shared_1024x28": (((8, 1024), (28, 1024), (28, 1024)), True),
+    "shared_1024x29": (((8, 1024), (29, 1024), (29, 1024)), False),
+    "shared_128x227": (((8, 128), (227, 128), (227, 128)), True),
+    "shared_128x228": (((8, 128), (228, 128), (228, 128)), False),
+    "dcn_26x40_13": (((8, 1053), (6, 1053), (6, 1053)), False),
+    "batch_2_31": (((2 ** 31, 16), (2, 16), (2, 16)), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CROSS_EDGES))
+def test_cross_kernel_takes_at_its_limits(case):
+    shapes, taken = CROSS_EDGES[case]
+    args = _meta(*shapes)
+    assert cross_kernel_takes(*args) is taken
+    if taken:
+        check_cross_args(*args)
+    else:
+        with pytest.raises(ValueError):
+            check_cross_args(*args)
+    if case == "batch_2_31":
+        with pytest.raises(ValueError, match="2\\*\\*31"):
+            check_cross_global_args(*args)
+    else:
+        check_cross_global_args(*args)
+
+
+@pytest.mark.parametrize("case", sorted(_bad_args()))
+def test_cross_kernel_takes_nothing_check_rejects(case):
+    args, _ = _bad_args()[case]
+    assert cross_kernel_takes(*args) is False
+
+
+def test_cross_kernel_takes_only_contiguous_float32():
+    """The predicate sees the tensors as given; ``cross_fused`` hands it
+    contiguous float32 copies, so a bf16 or transposed x0 still reaches a
+    kernel (on the CPU: the plain version on the float32 copy)."""
+    x0, w, b = _meta((8, 16), (2, 16), (2, 16))
+    assert cross_kernel_takes(x0, w, b)
+    assert not cross_kernel_takes(torch.empty(16, 8, device="meta").t(), w, b)
+    assert not cross_kernel_takes(x0.bfloat16(), w, b)
+    x0, w, b = (torch.from_numpy(a) for a in _inputs(16, 8, 2))
+    x0_t = x0.t().contiguous().t()
+    with torch.inference_mode():
+        got = cross_fused(x0_t.bfloat16(), w, b)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, cross_network(x0.bfloat16().float(), w, b),
+                               rtol=0, atol=0)

@@ -123,8 +123,8 @@ def test_forward_matches_jax(name, dim):
 
 
 def test_ctr_models_names():
-    # every Criteo CTR model of the JAX package but DIEN (a later slice)
-    assert set(CTR_MODELS) == set(jmodels.CTR_MODELS) - {"dien"}
+    # every CTR model of the JAX package, under its name
+    assert set(CTR_MODELS) == set(jmodels.CTR_MODELS)
     for name, cls in CTR_MODELS.items():
         assert cls.__name__ == jmodels.CTR_MODELS[name].__name__
     assert port.WideDeep is CTR_MODELS["wide_deep"] and port.NFM is CTR_MODELS["nfm"]

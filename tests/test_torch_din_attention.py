@@ -2,7 +2,8 @@
 the ``din_attention_fused`` wrapper, ``din_attention`` and ``DinAttention``)
 against the JAX package's: its ``din_attention_ref``, its Pallas
 ``din_attention_fused`` in interpret mode, their VJP, and Flax's
-``DinAttention`` on transplanted weights."""
+``DinAttention`` on transplanted weights; and the limits of the kernels'
+checks."""
 import functools
 
 import numpy as np
@@ -19,8 +20,11 @@ from recommender_system_tpu_torch.convert import load_jax_params
 from recommender_system_tpu_torch.layers.sequence import DinAttention
 from recommender_system_tpu_torch.ops.attention import din_attention
 from recommender_system_tpu_torch.ops.kernels import (MAX_SHARED_BYTES, check_din_args,
+                                                      check_din_global_args,
                                                       din_attention_fused,
-                                                      din_attention_ref, din_shared_bytes)
+                                                      din_attention_ref,
+                                                      din_global_shared_bytes,
+                                                      din_kernel_takes, din_shared_bytes)
 from recommender_system_tpu_torch.ops.seqpool import NEG_INF
 
 # the same f32 operations on both sides, summed in another order
@@ -137,8 +141,10 @@ def test_din_attention_dispatch():
     with pytest.warns(UserWarning, match="ignored"):
         din_attention(args[0], args[1], torch.from_numpy(mask), *args[2:],
                       dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="DIEN"):
-        din_attention(args[0], args[1], torch.from_numpy(mask), *args[2:], remat=True)
+    # remat=True takes the same path: the backward recomputes from the inputs
+    got = din_attention(args[0], args[1], torch.from_numpy(mask), *args[2:], "relu",
+                        remat=True)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # ------------------------------------------------------------ DinAttention
@@ -338,3 +344,65 @@ def test_tf32_rounding_is_rna():
     assert _tf32(x).tolist() == want
     big, small = _split(x)
     assert torch.equal(big + small, x)
+
+
+def _din_meta(B, T, K, H1=80, H2=40):
+    return [torch.empty(s, device="meta") for s in
+            ((B, K), (B, T, K), (B, T), (4 * K, H1), (H1,), (H1, H2), (H2,), (H2, 1), (1,))]
+
+
+# (T, K) with the (80, 40) scorer at the tiled kernel's shared-memory edges
+# -> taken by it; the global kernel takes them all
+DIN_EDGES = {
+    "k32_t50": ((50, 32), True),
+    "k32_t514": ((514, 32), True),
+    "k32_t515": ((515, 32), False),
+    "k64_t185": ((185, 64), True),
+    "k64_t186": ((186, 64), False),
+    "k128_t1": ((1, 128), False),
+    "k128_t50": ((50, 128), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DIN_EDGES))
+def test_din_kernel_takes_at_its_limits(case):
+    (T, K), taken = DIN_EDGES[case]
+    args = _din_meta(64, T, K)
+    assert din_kernel_takes(*args, "sigmoid") is taken
+    assert (din_shared_bytes(T, K, 80, 40) <= MAX_SHARED_BYTES) is taken
+    if taken:
+        check_din_args(*args, "sigmoid")
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            check_din_args(*args, "sigmoid")
+    check_din_global_args(*args, "sigmoid")
+
+
+@pytest.mark.parametrize("case", sorted(_bad_args()))
+def test_din_kernel_takes_nothing_check_rejects(case):
+    args, _ = _bad_args()[case]
+    assert din_kernel_takes(*args, "sigmoid") is False
+
+
+def test_din_kernel_takes_no_other_activation_width_or_layout():
+    args = _din_meta(64, 50, 32)
+    assert din_kernel_takes(*args, "relu")
+    assert not din_kernel_takes(*args, "dice")
+    assert not din_kernel_takes(*_din_meta(64, 50, 32, H1=257), "sigmoid")
+    keys_t = torch.empty(64, 32, 50, device="meta").transpose(1, 2)
+    assert not din_kernel_takes(args[0], keys_t, *args[2:], "sigmoid")
+
+
+def test_din_global_kernel_limits():
+    """The global kernel takes any hidden width; its shared memory grows with
+    T, K and H1, and it refuses where one warp's does not fit."""
+    check_din_global_args(*_din_meta(4, 50, 32, H1=1024, H2=512), "relu")
+    check_din_global_args(*_din_meta(4, 8000, 8), "sigmoid")
+    assert din_global_shared_bytes(50, 128, 80) == 4 * (128 + 80 + 52 + 8 * 336)
+    assert din_global_shared_bytes(50, 128, 80, warps=7) <= MAX_SHARED_BYTES
+    far = _din_meta(4, 60_000, 8)
+    assert din_global_shared_bytes(60_000, 8, 80) > MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        check_din_global_args(*far, "sigmoid")
+    with pytest.raises(ValueError, match="activation"):
+        check_din_global_args(*_din_meta(4, 50, 32), "dice")

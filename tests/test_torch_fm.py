@@ -16,7 +16,9 @@ from recommender_system_tpu_torch.convert import load_jax_params
 from recommender_system_tpu_torch.layers import FMLayer
 from recommender_system_tpu_torch.ops.kernels import (FM_ROWS_FACTORS, FM_ROWS_MAX_DIM,
                                                       MAX_SHARED_BYTES, check_fm_args,
-                                                      fm_fused, fm_ref, fm_shared_bytes)
+                                                      check_fm_global_args, fm_fused,
+                                                      fm_kernel_takes, fm_ref,
+                                                      fm_shared_bytes)
 
 # f32 on both sides; the three products are summed in another order (XLA's
 # dots against PyTorch's), and the pair term subtracts two sums of similar
@@ -303,3 +305,42 @@ def test_fm_fused_neither_launches_nor_falls_back_off_the_cpu():
         fm_fused(*meta)
     with pytest.raises(ValueError, match="different devices"):
         fm_fused(meta[0], torch.zeros(12, 1), torch.zeros(12, 4))
+
+
+# (B, D, k) at the rows and wide kernels' limits -> taken by them: the
+# register kernel up to D=256, k=8, the wide kernel past them while
+# 4*D*(2k+1) bytes fit in 232,448; every shape here but the last is taken by
+# the global kernel
+FM_EDGES = {
+    "rows_256": ((64, 256, 8), True),
+    "wide_257": ((64, 257, 8), True),
+    "wide_3418_k8": ((64, 3418, 8), True),
+    "wide_3419_k8": ((64, 3419, 8), False),
+    "wide_1500_k18": ((64, 1500, 18), True),
+    "wide_1500_k19": ((64, 1500, 19), False),
+    "batch_2_31": ((2 ** 31, 12, 4), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FM_EDGES))
+def test_fm_kernel_takes_at_its_limits(case):
+    (B, D, k), taken = FM_EDGES[case]
+    args = [torch.empty(s, device="meta") for s in ((B, D), (D, 1), (D, k))]
+    assert fm_kernel_takes(*args) is taken
+    assert (fm_shared_bytes(D, k) <= MAX_SHARED_BYTES) is (taken or B >= 2 ** 31)
+    if taken:
+        check_fm_args(*args)
+    else:
+        with pytest.raises(ValueError):
+            check_fm_args(*args)
+    if case == "batch_2_31":
+        with pytest.raises(ValueError, match="2\\*\\*31"):
+            check_fm_global_args(*args)
+    else:
+        check_fm_global_args(*args)
+
+
+@pytest.mark.parametrize("case", sorted(_bad_fm_args()))
+def test_fm_kernel_takes_nothing_check_rejects(case):
+    args, _ = _bad_fm_args()[case]
+    assert fm_kernel_takes(*args) is False
