@@ -133,6 +133,30 @@ Phases, each of which raises on failure (exit code not 0):
    ``din_attention_fused`` at K=128, T=50, and one fused step of
    ``DIEN(gru_hidden=128)`` at batch 1,024; each launch counted in
    ``launches`` and in ``global_launches``, each answer against the CPU;
+3l. DSSM at ``benchmarks/model_step.py:109-122``'s width (3f's columns and
+   batches without the price column, seeds 0-7: the user tower reads
+   user_id and the mean-pooled T=50 history, the item tower item_id, all on
+   table_d32 of 300,000 x 32; towers 256-128-64, relu, f32; the in-batch
+   softmax at temperature 0.05) with ``Adagrad(0.05)`` and
+   ``FusedAdagrad(0.05)``: three fused calls, each step one
+   ``fused_adagrad_apply`` (two calls of the collection, three lookup
+   sites, one stream of 425,984 positions) and no scatter-add, one call
+   under ``set_sync_debug_mode("error")``, losses falling, untouched rows
+   bitwise unchanged and every touched user_id row moved; one plain call,
+   three ``scatter_add_sorted`` launches a step; two fused steps on the card
+   and on the CPU at batch 1,024, which agree; ``RetrievalIndex`` over item
+   ids 1..199,999 answering 1, 1,024 and 8,192 users at k=10 with no kernel
+   launch, ids and scores equal to a full product and sort on the card and
+   to the CPU path on 64 users (atol=1e-5, ties in either order), and the
+   8,192-user answer's recall@10 against each row's item_id;
+3m. MMOE at ``model_step.py:69-74``'s width (3g's Criteo batches, labels
+   ``[y, y[::-1]]``, 2 tasks, 4 experts of 64 units, towers of 64) with
+   ``Adagrad(0.05)`` and ``FusedAdagrad(0.05)``: two fused calls, 16
+   ``fused_adagrad_apply`` launches, losses falling, untouched rows bitwise
+   unchanged; two steps on the card and on the CPU, which agree;
+   ``Scorer(batch_size=8192)`` answering 1, 1,000 and 20,000 rows with
+   ``[n, 2]`` probabilities and no kernel launch, equal to the CPU path on
+   1,000 rows;
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
    host overhead included), and the library call where there is one (the
@@ -142,10 +166,12 @@ Phases, each of which raises on failure (exit code not 0):
    batch and its top kernels; the training throughput of a fused K=8 call
    (CUDA events), its device idle share, the top device work of a step and
    the count of host ops a step issues, for DeepFM, DIN, WideDeep, NFM,
-   DeepCrossing, PNN, AFM, FFM and DIEN; the device and host time of
-   DIEN's GRU, AUGRU, attention and auxiliary net (forward and backward);
-   the share of DIN's and DIEN's steps that their padding row takes in
-   ``fused_adagrad_apply``; each sparse row kernel's time on a stream
+   DeepCrossing, PNN, AFM, FFM, DIEN, DSSM and MMOE; the device and host
+   time of DIEN's GRU, AUGRU, attention and auxiliary net (forward and
+   backward); the share of DIN's, DIEN's and DSSM's steps that their padding
+   row takes in ``fused_adagrad_apply``; ``RetrievalIndex``'s latency at 1
+   and 1,024 users (host clock), its catalog build and the 1,024-user
+   query's top device work; each sparse row kernel's time on a stream
    with a hot row and on DIN's step stream, back to back and with the L2
    cache flushed before each call; and each global kernel at a shape of
    its path.
@@ -850,19 +876,22 @@ def touched_rows(batches, rows: int) -> torch.Tensor:
 
 
 def train_checked(name, model, batches, labels, optimizer, fused, calls, want, card,
-                  touched=None):
+                  touched=None, loss_fn=None):
     """``calls`` K-step calls of ``model`` through ``Trainer`` (the second
     under ``set_sync_debug_mode("error")``: no step may wait for the
     device); the launches must equal ``want``, the losses be finite and,
     over several calls, fall; table rows that ``touched`` (default: the
     Criteo rows the batches look up) leaves out keep their values and slots
     bitwise, in every ``table_d*`` of the model; a BatchNorm's statistics
-    move. Returns (trainer, launches)."""
+    move. ``loss_fn`` replaces the Trainer's ``default_loss``. Returns
+    (trainer, launches)."""
     from recommender_system_tpu_torch import Trainer
+    from recommender_system_tpu_torch.training import default_loss
 
     tables = {n: p for n, p in model.named_parameters()
               if n.rsplit(".", 1)[-1].startswith("table_d")}
-    trainer = Trainer(model, optimizer, fused_embedding=fused)
+    trainer = Trainer(model, optimizer, fused_embedding=fused,
+                      loss_fn=loss_fn or default_loss)
     start = {n: [t.detach().clone(), *(s.clone() for s in trainer.fused_slots[n])]
              for n, t in tables.items()}
     bn_start = model.bn.running_mean.clone() if hasattr(model, "bn") else None
@@ -954,20 +983,24 @@ def train_plain(cols, batches, labels):
     return launches
 
 
-def card_against_cpu(model, batches, labels, name, optimizer=None, fused=None):
+def card_against_cpu(model, batches, labels, name, optimizer=None, fused=None,
+                     loss_fn=None):
     """Phases 3d, 3f and 3g: two fused steps at full width (f32) on the card
     and on the CPU from the same start; parameters, BatchNorm statistics and
     optimizer states agree. ``optimizer`` and ``fused`` make the Trainer's
-    optimizers (default ``Adagrad(LR)`` and ``FusedAdagrad(LR)``)."""
+    optimizers (default ``Adagrad(LR)`` and ``FusedAdagrad(LR)``);
+    ``loss_fn`` replaces its ``default_loss``."""
     from recommender_system_tpu_torch import FusedAdagrad, Trainer
-    from recommender_system_tpu_torch.training import Adagrad
+    from recommender_system_tpu_torch.training import Adagrad, default_loss
 
     optimizer = optimizer or (lambda: Adagrad(LR))
+    loss_fn = loss_fn or default_loss
     fused = fused or (lambda: FusedAdagrad(LR))
     cpu_model = copy.deepcopy(model).to("cpu")
     runs = {}
     for device, m in (("cuda", model), ("cpu", cpu_model)):
-        trainer = Trainer(m, optimizer(), fused_embedding=fused(), device=device)
+        trainer = Trainer(m, optimizer(), fused_embedding=fused(), device=device,
+                          loss_fn=loss_fn)
         sub = {k: v[:2].to(device) for k, v in batches.items()}
         trainer.multi_step(sub, labels[:2].to(device))
         # parameters and persistent buffers (BatchNorm statistics)
@@ -1112,7 +1145,7 @@ def time_training(trainer, batches, labels, card, name) -> dict:
     idle share and the top device work of a step (over 3 traced calls);
     returns the step's device time by kernel name and the step time."""
     calls = 5
-    k, batch = labels.shape
+    k, batch = labels.shape[:2]
     trainer.multi_step(batches, labels)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1231,14 +1264,10 @@ def train_din_fused(batches, labels, card):
     from recommender_system_tpu_torch import FusedAdagrad
     from recommender_system_tpu_torch.training import Adagrad
 
-    touched = torch.zeros(DIN_USERS + DIN_ITEMS, dtype=torch.bool, device="cuda")
-    touched[batches["user_id"].reshape(-1).long()] = True
-    touched[batches["item_id"].reshape(-1).long() + DIN_USERS] = True
-    touched[batches["hist_item_id"].reshape(-1).long() + DIN_USERS] = True
     return train_checked(
         "DIN", din_model(), batches, labels, Adagrad(LR), FusedAdagrad(LR), 3,
         launches_want(din_attention_fused=3 * K, fused_adagrad_apply=3 * K), card,
-        touched=touched)
+        touched=table_d32_touched(batches))
 
 
 def train_din_plain(batches, labels):
@@ -1409,12 +1438,14 @@ def dien_model(gru_hidden: int = 0, device: str = "cuda"):
     return model
 
 
-def dien_touched(batches) -> torch.Tensor:
-    """The rows of table_d32 that DIEN's staged batches look up."""
+def table_d32_touched(batches) -> torch.Tensor:
+    """The rows of table_d32 that DIN's, DIEN's or DSSM's staged batches
+    look up."""
     touched = torch.zeros(DIN_USERS + DIN_ITEMS, dtype=torch.bool, device="cuda")
     touched[batches["user_id"].reshape(-1).long()] = True
     for name in ("item_id", "hist_item_id", "neg_hist_item_id"):
-        touched[batches[name].reshape(-1).long() + DIN_USERS] = True
+        if name in batches:
+            touched[batches[name].reshape(-1).long() + DIN_USERS] = True
     return touched
 
 
@@ -1431,7 +1462,7 @@ def train_dien(batches, labels, card):
     trainer, fused_launches = train_checked(
         "DIEN", dien_model(), batches, labels, Adagrad(LR), FusedAdagrad(LR), 3,
         launches_want(din_attention_fused=3 * K, fused_adagrad_apply=3 * K), card,
-        touched=dien_touched(batches))
+        touched=table_d32_touched(batches))
 
     plain_trainer = Trainer(dien_model(), Adagrad(LR))
     zero_counts()
@@ -1867,6 +1898,275 @@ def time_global_kernels(card, errors: dict, counts: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# DSSM and RetrievalIndex, MMOE, at benchmarks/model_step.py's width
+# ---------------------------------------------------------------------------
+
+# model_step.py:109-122: DSSM's towers over DIN's columns (the user tower
+# reads user_id and the mean-pooled history, the item tower item_id), the
+# in-batch softmax at temperature 0.05; the RetrievalIndex catalog is every
+# item id but the padding id 0
+DSSM_TEMPERATURE, RETRIEVAL_K = 0.05, 10
+RETRIEVAL_USERS = (1, 1024, DIN_BATCH)
+CATALOG = np.arange(1, DIN_ITEMS, dtype=np.int32)
+
+
+def dssm_loss(outputs, labels, batch):
+    """``model_step.py:119-121``: the in-batch softmax of the two towers'
+    embeddings, each row's own item its label (``labels`` unused)."""
+    from recommender_system_tpu_torch.training.losses import inbatch_softmax_loss
+
+    u, v = outputs
+    return inbatch_softmax_loss(u, v, batch["item_id"], temperature=DSSM_TEMPERATURE)
+
+
+def dssm_model(device: str = "cuda"):
+    """DSSM at model_step.py's width (towers 256-128-64, relu, f32, the
+    user and item columns on one table_d32 of 300,000 x 32) on ``device``,
+    weights from seed 0, table_d32 at std 0.1 as DIN's."""
+    from recommender_system_tpu_torch import DSSM
+
+    user_id, item_id, hist, _ = din_columns()
+    model = DSSM((user_id, hist), (item_id,), user_hidden_units=(256, 128, 64),
+                 item_hidden_units=(256, 128, 64), device=device,
+                 generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.embeddings.table_d32.normal_(
+            0.0, 0.1, generator=torch.Generator(device=device).manual_seed(1))
+    return model
+
+
+def dssm_staged(seeds, batch: int = DIN_BATCH):
+    """model_step.py's DSSM batches (DIN's, without the price column), one
+    seed each, stacked on a leading K axis on the card."""
+    batches, labels = din_staged(seeds, batch=batch)
+    return {k: v for k, v in batches.items() if k != "price"}, labels
+
+
+def dssm_stream(X) -> np.ndarray:
+    """DSSM's lookup sites of table_d32 in the order the fused step
+    concatenates them: the user tower's [B, 1] user_id and [B, T] history,
+    then the item tower's [B, 1] item_id."""
+    return np.concatenate([X["user_id"].astype(np.int64),
+                           X["hist_item_id"].astype(np.int64).reshape(-1) + DIN_USERS,
+                           X["item_id"].astype(np.int64) + DIN_USERS])
+
+
+def train_dssm(batches, labels, card):
+    """Phase 3l, training: three fused K=8 calls, one fused_adagrad_apply a
+    step (the three sites of table_d32 one stream) and no scatter-add; every
+    touched user_id row moved; one plain call, one scatter-add a site a
+    step. Returns (trainer, fused launches, plain launches)."""
+    from recommender_system_tpu_torch import FusedAdagrad, Trainer
+    from recommender_system_tpu_torch.training import Adagrad
+
+    model = dssm_model()
+    start = model.embeddings.table_d32.detach().clone()
+    trainer, fused_launches = train_checked(
+        "DSSM", model, batches, labels, Adagrad(LR), FusedAdagrad(LR), 3,
+        launches_want(fused_adagrad_apply=3 * K), card, touched=table_d32_touched(batches),
+        loss_fn=dssm_loss)
+    users = torch.unique(batches["user_id"].reshape(-1).long())
+    moved = (model.embeddings.table_d32.detach()[users] != start[users]).any(dim=1)
+    if not bool(moved.all()):
+        raise RuntimeError(f"DSSM fused training left {int((~moved).sum())} of "
+                           f"{users.numel()} touched user_id rows as they were")
+    print(f"DSSM fused training: all {users.numel()} touched user_id rows moved", flush=True)
+
+    plain = Trainer(dssm_model(), Adagrad(LR), loss_fn=dssm_loss)
+    zero_counts()
+    losses = plain.multi_step(batches, labels).cpu().numpy()
+    plain_launches = read_counts()
+    # a step: the user tower's two lookups (user_id; the history) and the
+    # item tower's one, each with one scatter-add in its backward
+    want = launches_want(scatter_add_sorted=3 * K)
+    print(f"DSSM plain training launches: {plain_launches} over 1 call of K={K}; "
+          f"losses {losses}", flush=True)
+    if plain_launches != want:
+        raise RuntimeError(f"DSSM plain training launched {plain_launches}, want {want}")
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"DSSM plain training losses not finite: {losses}")
+    return trainer, fused_launches, plain_launches
+
+
+def same_topk(got_ids, got_scores, want_ids, want_scores, atol: float) -> int:
+    """Scores equal within ``atol``; ids equal wherever a score lies more
+    than ``atol`` from its neighbours' (a tie may come in either order).
+    Returns the count of positions whose ids were compared."""
+    np.testing.assert_allclose(got_scores, want_scores, rtol=0, atol=atol)
+    gaps = np.abs(np.diff(want_scores, axis=-1)) > atol
+    apart = np.ones(want_scores.shape, bool)
+    apart[:, 1:] &= gaps
+    apart[:, :-1] &= gaps
+    np.testing.assert_array_equal(got_ids[apart], want_ids[apart])
+    return int(apart.sum())
+
+
+def serve_dssm(model, card):
+    """Phase 3l, serving: ``RetrievalIndex`` over the catalog, queried by 1,
+    1,024 and 8,192 users at k=10 (no kernel on the path); ids and scores
+    equal a brute force on the card (a full product and a sort, 1,024 users
+    at a time) and the CPU path's on 64 users; recall@10 of the 8,192-user answer against each
+    row's item_id. Returns (index, requests, launches)."""
+    from recommender_system_tpu_torch import RetrievalIndex
+    from recommender_system_tpu_torch.utils.metrics import recall_at_n
+
+    X, _ = din_batch(100, max(RETRIEVAL_USERS))
+    requests = {n: {k: X[k][:n] for k in ("user_id", "hist_item_id")}
+                for n in RETRIEVAL_USERS}
+    zero_counts()
+    t0 = time.perf_counter()
+    index = RetrievalIndex(model, {"item_id": CATALOG})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    answers = {n: index.query(req, k=RETRIEVAL_K) for n, req in requests.items()}
+    launches = read_counts()
+    if launches != launches_want():
+        raise RuntimeError(f"DSSM retrieval launched {launches}; its path has no kernel")
+    compared = 0
+    for n, (ids, scores) in answers.items():
+        if (ids.shape != (n, RETRIEVAL_K) or scores.dtype != np.float32
+                or not np.isfinite(scores).all() or (np.diff(scores, axis=-1) > 0).any()):
+            raise RuntimeError(f"DSSM query of {n} users answered {ids.shape} "
+                               f"{scores.dtype}, or not best first")
+        for lo in range(0, n, 1024):
+            with torch.inference_mode():
+                user = model.user_embedding({k: torch.as_tensor(v[lo:lo + 1024], device="cuda")
+                                             for k, v in requests[n].items()})
+                full = torch.matmul(user, index.item_embeddings.T)
+                top, order = torch.sort(full, dim=-1, descending=True)
+                want_scores = top[:, :RETRIEVAL_K].cpu().numpy()
+                want_ids = CATALOG[order[:, :RETRIEVAL_K].cpu().numpy()]
+            compared += same_topk(ids[lo:lo + 1024], scores[lo:lo + 1024], want_ids,
+                                  want_scores, ATOL)
+    positions = sum(RETRIEVAL_USERS) * RETRIEVAL_K
+    if compared < positions // 2:
+        raise RuntimeError(f"DSSM retrieval: only {compared} of {positions} top-k ids lie "
+                           f"apart from their neighbours by more than {ATOL}: the check "
+                           "against the brute force would be void")
+    cpu_index = RetrievalIndex(copy.deepcopy(model).to("cpu"), {"item_id": CATALOG},
+                               device="cpu")
+    mid = RETRIEVAL_USERS[1]
+    sub = {k: v[:64] for k, v in requests[mid].items()}
+    cpu_ids, cpu_scores = cpu_index.query(sub, k=RETRIEVAL_K)
+    same_topk(answers[mid][0][:64], answers[mid][1][:64], cpu_ids, cpu_scores, ATOL)
+    recall = recall_at_n(answers[DIN_BATCH][0], X["item_id"])
+    top = answers[DIN_BATCH][1]
+    print(f"DSSM retrieval check: catalog of {CATALOG.size} items embedded in "
+          f"{build_s:.3f} s; queries of {list(RETRIEVAL_USERS)} users at k={RETRIEVAL_K} "
+          f"equal a full product and sort on the card ({compared} of {positions} ids "
+          f"apart from ties and compared) and, on 64 users, the CPU path (atol={ATOL}, ties "
+          f"in either order); best scores' std over users {np.std(top[:, 0]):.4g}, mean "
+          f"gap from the best to the {RETRIEVAL_K}th {np.mean(top[:, 0] - top[:, -1]):.4g}; "
+          f"recall@{RETRIEVAL_K} of the "
+          f"{DIN_BATCH}-user answer against each row's item_id: {recall}; on {card}",
+          flush=True)
+    return index, requests, launches
+
+
+def time_dssm(trainer, index, requests, batches, labels, card) -> None:
+    """Phase 4 for DSSM: the fused step's throughput, idle share, top device
+    work and host ops; the padding row's share of fused_adagrad_rows; the
+    RetrievalIndex's latency at 1 and 1,024 users and its catalog build."""
+    from recommender_system_tpu_torch import RetrievalIndex
+    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
+
+    step = time_training(trainer, batches, labels, card, "DSSM fused training")
+    lids = torch.as_tensor(dssm_stream(din_batch(0)[0]), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    ct = torch.randn(lids.numel(), DIN_DIM, generator=gen, device="cuda") * 1e-3
+    table = torch.randn(DIN_USERS + DIN_ITEMS, DIN_DIM, generator=gen, device="cuda")
+    acc = torch.full_like(table, 0.1)
+    pad = lids == DIN_USERS
+    kernel = "sparse_rows_kernel"
+    hot = {}
+    for what, (ids, c) in {"with": (lids, ct), "without": (lids[~pad], ct[~pad])}.items():
+        dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, lr=LR,
+                                                                  eps=EPS), iters=3)
+        hot[what] = sum(ms for name, ms in dev.items() if kernel in name)
+    in_step = sum(ms for name, ms in step["per_step"].items() if kernel in name)
+    print(f"DSSM padding row: {int(pad.sum())} of {lids.numel()} positions of a step's "
+          f"stream; fused_adagrad_rows takes {hot['with']:.4f} ms on the stream and "
+          f"{hot['without']:.4f} ms without its padding positions; in the step it takes "
+          f"{in_step:.4f} ms of {step['busy_ms']:.4f} ms device busy and of "
+          f"{step['step_ms']:.4f} ms a step ({100 * in_step / step['step_ms']:.1f}%); "
+          f"on {card}", flush=True)
+
+    model = index.model
+    for n in RETRIEVAL_USERS[:2]:
+        times = host_ms(lambda n=n: index.query(requests[n], k=RETRIEVAL_K), iters=30)
+        print(f"timing RetrievalIndex query of {n} user(s), k={RETRIEVAL_K} over "
+              f"{CATALOG.size} items: median {statistics.median(times):.3f} ms, min "
+              f"{min(times):.3f} ms, max {max(times):.3f} ms over {len(times)}; on {card}",
+              flush=True)
+    build = host_ms(lambda: (RetrievalIndex(model, {"item_id": CATALOG}),
+                             torch.cuda.synchronize()), iters=5, warmup=1)
+    print(f"timing RetrievalIndex catalog build ({CATALOG.size} items through the item "
+          f"tower): median {statistics.median(build):.3f} ms over {len(build)}; on {card}",
+          flush=True)
+    mid = RETRIEVAL_USERS[1]
+    query_dev = device_ms(lambda: index.query(requests[mid], k=RETRIEVAL_K), iters=10)
+    busy = sum(query_dev.values())
+    print(f"RetrievalIndex {mid}-user query: device busy {busy:.4f} ms; top device work:",
+          flush=True)
+    for name, ms in query_dev.most_common(6):
+        print(f"  {ms:.4f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+
+
+MMOE_REQUESTS = (1, 1000, 20_000)
+
+
+def mmoe_model(cols, device: str = "cuda"):
+    """MMOE at model_step.py:69-71's width (2 tasks, 4 experts of 64 units,
+    towers of 64) over the Criteo columns, weights from seed 0."""
+    from recommender_system_tpu_torch import MMOE
+
+    return MMOE(feature_columns=tuple(cols), num_tasks=2, num_experts=4, expert_units=64,
+                tower_hidden_units=(64,), device=device,
+                generator=torch.Generator().manual_seed(0))
+
+
+def mmoe_path(cols, batches, labels, card):
+    """Phase 3m: MMOE fused (two K=8 calls, one fused_adagrad_apply a step),
+    two steps on the card against the CPU, and ``Scorer(batch_size=8192)``
+    answering 1, 1,000 and 20,000 rows with two probabilities a row (no
+    kernel on the path), equal to the CPU path on 1,000 rows. Labels are
+    model_step.py:74's ``[y, y[::-1]]``. Returns (trainer, labels,
+    launches)."""
+    from recommender_system_tpu_torch import FusedAdagrad, Scorer
+    from recommender_system_tpu_torch.training import Adagrad
+    from recommender_system_tpu_torch.utils.datasets import synthetic_criteo
+
+    labels2 = torch.stack([labels, labels.flip(-1)], dim=-1)  # [K, B, 2]
+    trainer, launches = train_checked(
+        "MMOE", mmoe_model(cols), batches, labels2, Adagrad(LR), FusedAdagrad(LR), 2,
+        launches_want(fused_adagrad_apply=2 * K), card)
+    card_against_cpu(mmoe_model(cols), batches, labels2, "MMOE")
+
+    _, X, _ = synthetic_criteo(n_rows=max(MMOE_REQUESTS), vocab=VOCAB,
+                               embedding_dim=FACTOR_DIM, seed=100)
+    requests = {n: {k: v[:n] for k, v in X.items()} for n in MMOE_REQUESTS}
+    scorer = Scorer(trainer.model, batch_size=CTR_BATCH)
+    zero_counts()
+    answers = {n: scorer(req) for n, req in requests.items()}
+    served = read_counts()
+    if served != launches_want():
+        raise RuntimeError(f"MMOE serving launched {served}; its path has no kernel")
+    for n, got in answers.items():
+        if got.shape != (n, 2) or got.dtype != np.float32 or not np.isfinite(got).all():
+            raise RuntimeError(f"MMOE request of {n} rows answered {got.shape} {got.dtype}")
+    cpu_scorer = Scorer(copy.deepcopy(trainer.model).to("cpu"), batch_size=CTR_BATCH,
+                        device="cpu")
+    np.testing.assert_allclose(answers[1000], cpu_scorer(requests[1000]), rtol=0, atol=ATOL)
+    spread = float(np.std(answers[max(MMOE_REQUESTS)], axis=0).min())
+    if spread < 1e-4:
+        raise RuntimeError(f"MMOE scores barely vary (std {spread}): inputs have no say")
+    print(f"MMOE serving check: {len(MMOE_REQUESTS)} requests answered [n, 2], the "
+          f"1,000-row one equal to the CPU path (atol={ATOL}); smaller task's score std "
+          f"{spread:.4f}; on {card}", flush=True)
+    return trainer, labels2, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -1984,6 +2284,22 @@ def main() -> int:
     # --- phase 3k: shapes the cross, FM and DIN attention kernels do not take
     global_counts = check_global_shapes(card)
 
+    # --- phase 3l: DSSM at model_step.py's width, trained, compared with the
+    # CPU on a small batch, then served through RetrievalIndex
+    t0 = time.perf_counter()
+    dssm_batches, dssm_labels = dssm_staged(range(K))
+    dssm_trainer, dssm_fused_launches, dssm_plain_launches = train_dssm(
+        dssm_batches, dssm_labels, card)
+    card_against_cpu(dssm_model(), {k: v[:, :DIEN_SMALL_BATCH] for k, v in dssm_batches.items()},
+                     dssm_labels[:, :DIEN_SMALL_BATCH], "DSSM", loss_fn=dssm_loss)
+    dssm_index, dssm_requests, _ = serve_dssm(dssm_trainer.model, card)
+    print(f"phase 3l took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # --- phase 3m: MMOE at model_step.py's Criteo width, trained and served
+    t0 = time.perf_counter()
+    mmoe_trainer, mmoe_labels, mmoe_launches = mmoe_path(ctr["cols"], *ctr["batches"], card)
+    print(f"phase 3m took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # --- phase 4: timings --------------------------------------------------
     with torch.inference_mode():
         batch = {k: torch.as_tensor(v, device="cuda")
@@ -2039,6 +2355,8 @@ def main() -> int:
     for name in ("deep_crossing", "pnn", "afm", "ffm"):
         time_training(family[name], *ctr["batches"], card, f"{name} fused training")
     time_dien(dien_trainer, dien_batches, dien_labels, card)
+    time_dssm(dssm_trainer, dssm_index, dssm_requests, dssm_batches, dssm_labels, card)
+    time_training(mmoe_trainer, ctr["batches"][0], mmoe_labels, card, "MMOE fused training")
     global_entries = time_global_kernels(
         card, {**cross_errs, **fm_errs, **din_errs}, global_counts)
 
@@ -2050,6 +2368,8 @@ def main() -> int:
          fused_launches["fused_adagrad_apply"],
          {"din": din_fused_launches["fused_adagrad_apply"],
           "dien": dien_fused_launches["fused_adagrad_apply"],
+          "dssm": dssm_fused_launches["fused_adagrad_apply"],
+          "mmoe": mmoe_launches["fused_adagrad_apply"],
           "dcn": ctr_launches["dcn"]["fused_adagrad_apply"],
           **{name: family_launches[name]["fused_adagrad_apply"]
              for name in ("deep_crossing", "pnn", "afm", "ffm", "pnn_both_fgcnn")}}),
@@ -2063,6 +2383,7 @@ def main() -> int:
          plain_launches["scatter_add_sorted"],
          {"din": din_plain_launches["scatter_add_sorted"],
           "dien": dien_plain_launches["scatter_add_sorted"],
+          "dssm": dssm_plain_launches["scatter_add_sorted"],
           "ffm": family_launches["ffm_plain"]["scatter_add_sorted"]}),
     ]
     print(card)

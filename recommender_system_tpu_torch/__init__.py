@@ -15,15 +15,17 @@ lazy sparse Adam (``FusedAdam``) as CUDA kernels; DeepCrossing, PNN (with
 FGCNN), AFM and FFM trained through the same sparse kernels;
 ``FMLayer``, with the FM logit as a CUDA kernel; and DIEN served and
 trained (its GRU and AUGRU plain PyTorch loops, its attention the DIN
-kernel, its three lookup sites one fused update). Every TPU kernel of the
-JAX package has its counterpart in ``csrc/``.
+kernel, its three lookup sites one fused update); DSSM trained with the
+in-batch or sampled softmax and served through ``RetrievalIndex``, and MMOE
+trained and served, both through the same sparse kernels. Every TPU kernel
+of the JAX package has its counterpart in ``csrc/``.
 """
 
-from .models import (AFM, CTR_MODELS, DCN, DIEN, DIN, FFM, FM, FNN, NFM, PNN, DeepCrossing,
-                     DeepFM, WideDeep, init_from_fm)
-from .serving import Scorer
+from .models import (AFM, CTR_MODELS, DCN, DIEN, DIN, DSSM, FFM, FM, FNN, MMOE, NFM, PNN,
+                     DeepCrossing, DeepFM, WideDeep, init_from_fm)
+from .serving import RetrievalIndex, Scorer
 from .training import FusedAdagrad, FusedAdam, FusedSGD, Trainer
 
-__all__ = ["AFM", "CTR_MODELS", "DCN", "DIEN", "DIN", "DeepCrossing", "DeepFM", "FFM", "FM",
-           "FNN", "FusedAdagrad", "FusedAdam", "FusedSGD", "NFM", "PNN", "Scorer", "Trainer",
-           "WideDeep", "init_from_fm"]
+__all__ = ["AFM", "CTR_MODELS", "DCN", "DIEN", "DIN", "DSSM", "DeepCrossing", "DeepFM", "FFM",
+           "FM", "FNN", "FusedAdagrad", "FusedAdam", "FusedSGD", "MMOE", "NFM", "PNN",
+           "RetrievalIndex", "Scorer", "Trainer", "WideDeep", "init_from_fm"]

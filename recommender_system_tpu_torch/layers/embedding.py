@@ -12,7 +12,9 @@ hash into the vocab), ``trainable=False`` (detached lookup), per-table init
 std, dense columns with ``transform_fn``, and variable-length columns: each
 is one ``[B, T]`` gather (``lookup``) with its mask (from ``length_name`` or
 from the ids, id 0 being padding), optional per-position weights and its
-pooled vector (``ops/seqpool.py``).
+pooled vector (``ops/seqpool.py``). ``forward(batch, columns=...)`` looks
+up only some columns (DSSM's towers); a single-valued group that is not the
+whole dim group takes the generic sort.
 
 The gather is ``take_fast``, whose backward is the sorted scatter-add kernel.
 For the fused sparse optimizer the Trainer sets ``capture`` to a list
@@ -203,26 +205,21 @@ class EmbeddingCollection(nn.Module):
         key = str(dim)
         return self.sort_layouts[key] if key in self.sort_layouts else None
 
-    def _presort(self, dim: int,
-                 rows: torch.Tensor) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-        """The dim group's ``[B, F]`` rows as a sorted stream, or None."""
-        layout = self._layout(dim)
-        return None if layout is None else layout(rows)
-
-    def _gather(self, dim: int, rows: torch.Tensor, group: bool) -> torch.Tensor:
-        """``[B, F]`` rows -> ``[B, F, d]``: captured, or through ``take_fast``.
-        A dim group's gather (``group``) sorts its stream by the group's
-        layout where there is one; a varlen column's, generically."""
+    def _gather(self, dim: int, rows: torch.Tensor,
+                layout: Optional[SortLayout]) -> torch.Tensor:
+        """``[B, F]`` rows -> ``[B, F, d]``: captured, or through ``take_fast``,
+        whose backward takes the stream sorted by ``layout`` where there is
+        one (a whole dim group's), else sorts it generically (a varlen
+        column's, or a column subset's)."""
         table = self.table(dim)
         flat = rows.reshape(-1)
         shape = (*rows.shape, dim)
         if self.capture is not None:
             embeds = table.detach().index_select(0, flat).reshape(shape)
             embeds.requires_grad_(True)
-            self.capture.append(Captured(f"table_d{dim}", embeds, rows,
-                                         self._layout(dim) if group else None))
+            self.capture.append(Captured(f"table_d{dim}", embeds, rows, layout))
             return embeds
-        presorted = (self._presort(dim, rows) if group and torch.is_grad_enabled()
+        presorted = (layout(rows) if layout is not None and torch.is_grad_enabled()
                      and table.requires_grad else None)
         return take_fast(table, flat, presorted).reshape(shape)
 
@@ -232,17 +229,33 @@ class EmbeddingCollection(nn.Module):
         rows = self._resolve_ids(fc, ids)
         if not fc.trainable:
             return self.table(fc.embedding_dim).detach()[rows]
-        return self._gather(fc.embedding_dim, rows, group=False)
+        return self._gather(fc.embedding_dim, rows, layout=None)
 
-    def forward(self, batch: Mapping[str, torch.Tensor]) -> EmbedOutputs:
+    def forward(self, batch: Mapping[str, torch.Tensor],
+                columns: Optional[Sequence[FeatureColumn]] = None) -> EmbedOutputs:
+        """Look up every column, or only ``columns`` (the JAX package's
+        ``columns=``, which DSSM's towers pass): their single-valued columns
+        are gathered by dim group and, unless they are the whole group,
+        sorted generically."""
+        if columns is None:
+            by_dim = self._by_dim
+            varlen_cols, dense_cols = self._varlen_cols, self._dense_cols
+        else:
+            sparse_cols, varlen_cols, dense_cols = split_columns(tuple(columns))
+            by_dim: Dict[int, List[SparseFeat]] = {}
+            for fc in sparse_cols:
+                by_dim.setdefault(fc.embedding_dim, []).append(fc)
+
         # --- fused single-valued sparse lookup: one gather per dim group ---
         sparse: Dict[str, torch.Tensor] = {}
         fused: Dict[int, Tuple[Tuple[str, ...], torch.Tensor]] = {}
-        for dim, fcs in self._by_dim.items():
+        for dim, fcs in by_dim.items():
             rows = torch.stack(
                 [self._resolve_ids(fc, batch[fc.name].reshape(-1)) for fc in fcs],
                 dim=1)  # [B, F]
-            embeds = self._gather(dim, rows, group=True)  # [B, F, d]
+            whole = fcs == self._by_dim[dim]
+            embeds = self._gather(dim, rows,
+                                  self._layout(dim) if whole else None)  # [B, F, d]
             if all(fc.trainable for fc in fcs):
                 fused[dim] = (tuple(fc.name for fc in fcs), embeds)
             for i, fc in enumerate(fcs):
@@ -253,7 +266,7 @@ class EmbeddingCollection(nn.Module):
         varlen_raw: Dict[str, torch.Tensor] = {}
         varlen_mask: Dict[str, torch.Tensor] = {}
         pooled: Dict[str, torch.Tensor] = {}
-        for fc in self._varlen_cols:
+        for fc in varlen_cols:
             ids = batch[fc.name]  # [B, T]
             seq = self.lookup(fc, ids)  # [B, T, d]
             if fc.length_name is not None:
@@ -271,9 +284,9 @@ class EmbeddingCollection(nn.Module):
 
         # --- dense features (+ optional transform_fn) ---
         dense = None
-        if self._dense_cols:
+        if dense_cols:
             parts = []
-            for fc in self._dense_cols:
+            for fc in dense_cols:
                 v = batch[fc.name]
                 if v.dim() == 1:
                     v = v[:, None]

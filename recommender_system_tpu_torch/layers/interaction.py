@@ -5,7 +5,8 @@ Module and parameter names are the JAX package's, so that ``convert.py``
 maps each Flax parameter onto its counterpart: Dense layers are
 ``nn.Linear`` (``weight [out, in]``, the transpose of Flax's kernel),
 FGCNN's convolutions ``nn.Conv2d`` (``weight [out, in, kh, kw]``), and
-``OuterProductLayer`` keeps its ``kernel`` in the JAX layout.
+``OuterProductLayer``'s ``kernel`` and ``MMoELayer``'s ``experts`` and
+``gates`` stay in the JAX layout.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from torch import nn
 from ..ops.dispatch import DeviceLike, resolve_device
 from ..ops.interactions import pairwise_inner, pairwise_outer
 from ..ops.kernels import cross_fused, fm_fused
-from .core import dense, lecun_normal_
+from .core import activation_fn, dense, lecun_normal_
 
 
 class FMLayer(nn.Module):
@@ -182,3 +183,65 @@ class FGCNN(nn.Module):
             out = F.relu(getattr(self, f"recomb_{i}")(flat))
             new_maps.append(out.reshape(B, maps * h, k))
         return torch.cat(new_maps, dim=1)
+
+
+class MMoELayer(nn.Module):
+    """Multi-gate mixture of experts: ``[B, D] -> T`` task inputs ``[B, H]``.
+
+    Parameters in the JAX package's layout (``convert.py`` copies them as
+    they are), each ``normal(0, init_std)`` drawn from ``generator`` in this
+    order: ``experts [D, H, E]``, ``expert_bias [H, E]``, ``gates [T, D,
+    E]``, ``gate_bias [T, E]``. The experts are one einsum, relu; each
+    task's gate a softmax over the experts; each task's input the gated sum
+    of the experts' outputs."""
+
+    def __init__(self, in_features: int, num_experts: int, expert_units: int,
+                 num_tasks: int, use_expert_bias: bool = True, use_gate_bias: bool = True,
+                 init_std: float = 0.05, *, device: torch.device,
+                 generator: torch.Generator):
+        super().__init__()
+        self.num_tasks = num_tasks
+
+        def normal(*shape):
+            return nn.Parameter((torch.randn(shape, generator=generator,
+                                             device=generator.device) * init_std).to(device))
+
+        self.experts = normal(in_features, expert_units, num_experts)
+        self.expert_bias = normal(expert_units, num_experts) if use_expert_bias else None
+        self.gates = normal(num_tasks, in_features, num_experts)
+        self.gate_bias = normal(num_tasks, num_experts) if use_gate_bias else None
+
+    def forward(self, x):  # [B, D]
+        expert_out = torch.einsum("bd,dhe->bhe", x, self.experts)
+        if self.expert_bias is not None:
+            expert_out = expert_out + self.expert_bias
+        expert_out = F.relu(expert_out)  # [B, H, E]
+        gate_logits = torch.einsum("bd,tde->bte", x, self.gates)
+        if self.gate_bias is not None:
+            gate_logits = gate_logits + self.gate_bias
+        gates = torch.softmax(gate_logits, dim=-1)  # [B, T, E]
+        task_outs = torch.einsum("bhe,bte->bth", expert_out, gates)
+        return [task_outs[:, t, :] for t in range(self.num_tasks)]
+
+
+class TowerLayer(nn.Module):
+    """A task's output tower: Dense layers ``dense_{i}`` with ``activation``,
+    then a linear ``output`` of ``output_dim``."""
+
+    def __init__(self, in_features: int, hidden_units: Sequence[int], output_dim: int,
+                 activation: str = "relu", *, device: torch.device,
+                 generator: torch.Generator):
+        super().__init__()
+        self.hidden_units = tuple(hidden_units)
+        self._act = activation_fn(activation)
+        width = in_features
+        for i, units in enumerate(self.hidden_units):
+            self.add_module(f"dense_{i}", dense(width, units, device=device,
+                                                generator=generator))
+            width = units
+        self.output = dense(width, output_dim, device=device, generator=generator)
+
+    def forward(self, x):
+        for i in range(len(self.hidden_units)):
+            x = self._act(getattr(self, f"dense_{i}")(x))
+        return self.output(x)

@@ -1,10 +1,10 @@
 """Where the port runs: the device of its entry points and the kernel rule.
 
 - Entry points (the models ``DCN``, ``DeepFM``, ``DIN``, ``DIEN``,
-  ``WideDeep``, ``NFM``, ``FM``, ``FNN``, ``DeepCrossing``, ``PNN``, ``AFM``
-  and ``FFM``, the layer ``FMLayer``, ``Scorer`` and ``Trainer``) run on the
-  card unless the caller names another device; with no card and no device
-  named they raise.
+  ``WideDeep``, ``NFM``, ``FM``, ``FNN``, ``DeepCrossing``, ``PNN``, ``AFM``,
+  ``FFM``, ``DSSM`` and ``MMOE``, the layer ``FMLayer``, ``Scorer``,
+  ``RetrievalIndex`` and ``Trainer``) run on the card unless the caller
+  names another device; with no card and no device named they raise.
 - A kernel wrapper launches its CUDA kernel for CUDA tensors and runs the
   kernel's plain PyTorch version for CPU tensors. Nothing else selects: the
   wrappers of the cross stack, the FM logit and the DIN attention pick

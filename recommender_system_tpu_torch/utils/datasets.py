@@ -1,13 +1,17 @@
 """Host-side data: the Criteo schema, synthetic Criteo-shaped and behaviour
-data, batching.
+data, the MovieLens and Amazon behaviour datasets, batching.
 
 Copies of the parts of ``recommender_system_tpu/utils/datasets.py`` that the
 port's paths use, bit-exact with them (``tests/test_torch_utils.py``,
-``tests/test_torch_din.py``). Batches are dicts of fixed-shape numpy arrays.
+``tests/test_torch_din.py``, ``tests/test_torch_behavior_data.py``). Batches
+are dicts of fixed-shape numpy arrays. The behaviour-data readers import
+pandas inside the functions that need it, so the module imports without it.
+Unlike the JAX package's, they take the data's path from the caller: they
+have no default data directory.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -86,6 +90,354 @@ def synthetic_behavior(
     ]
     X = {"user_id": user, "item_id": item, "hist_item_id": hist, "hist_len": hist_len}
     return columns, X, y
+
+
+# ---------------------------------------------------------------------------
+# MovieLens behaviour sequences (DIN/DIEN, and DSSM's retrieval rows)
+# ---------------------------------------------------------------------------
+
+def load_movielens_ratings(path: str):
+    """ml-100k ``u.data``: user_id \\t item_id \\t rating \\t timestamp."""
+    import pandas as pd
+
+    return pd.read_csv(
+        path, sep="\t", header=None,
+        names=["user_id", "item_id", "rating", "timestamp"],
+    )
+
+
+def build_behavior_dataset(
+    ratings,
+    seq_len: int = 10,
+    embedding_dim: int = 8,
+    like_threshold: int = 3,
+    test_frac: float = 0.2,
+    negsample: bool = False,
+    seed: int = 0,
+) -> Tuple[list, Dict[str, np.ndarray], np.ndarray, Dict[str, np.ndarray], np.ndarray]:
+    """Behaviour-sequence CTR dataset for DIN/DIEN from a ratings frame
+    (``load_movielens_ratings``): per user, the chronologically last
+    interaction is the labelled example (label = rating > like_threshold)
+    and the top-``seq_len`` liked earlier items its history, padded with id
+    0. Columns: ``user_id``, ``item_id`` and a ``hist_item_id`` varlen
+    column on the item table; with ``negsample``, a ``neg_hist_item_id``
+    column of per-position uniform negatives (DIEN's auxiliary loss).
+    Returns (columns, X_train, y_train, X_test, y_test)."""
+    ratings = ratings.sort_values("timestamp")
+
+    n_users = int(ratings["user_id"].max()) + 1
+    n_items = int(ratings["item_id"].max()) + 1
+
+    users, items, labels, hists, hist_lens = [], [], [], [], []
+    for uid, grp in ratings.groupby("user_id", sort=False):
+        if len(grp) < 2:
+            continue
+        hist_grp, last = grp.iloc[:-1], grp.iloc[-1]
+        liked = hist_grp[hist_grp["rating"] > like_threshold]
+        seq = liked.sort_values("rating", ascending=False)["item_id"].to_numpy()[:seq_len]
+        pad = np.zeros(seq_len, dtype=np.int32)
+        pad[: len(seq)] = seq
+        users.append(uid)
+        items.append(int(last["item_id"]))
+        labels.append(1.0 if last["rating"] > like_threshold else 0.0)
+        hists.append(pad)
+        hist_lens.append(len(seq))
+
+    columns = [
+        SparseFeat("user_id", n_users, embedding_dim),
+        SparseFeat("item_id", n_items, embedding_dim),
+        VarLenSparseFeat(
+            SparseFeat("hist_item_id", n_items, embedding_dim, embedding_name="item_id"),
+            maxlen=seq_len, combiner="mean", length_name="hist_len",
+        ),
+    ]
+    X = {
+        "user_id": np.asarray(users, np.int32),
+        "item_id": np.asarray(items, np.int32),
+        "hist_item_id": np.stack(hists).astype(np.int32),
+        "hist_len": np.asarray(hist_lens, np.int32),
+    }
+    if negsample:
+        rng = np.random.default_rng(seed)
+        neg = rng.integers(1, n_items, X["hist_item_id"].shape).astype(np.int32)
+        neg = np.where(X["hist_item_id"] > 0, neg, 0)
+        X["neg_hist_item_id"] = neg
+        columns.append(VarLenSparseFeat(
+            SparseFeat("neg_hist_item_id", n_items, embedding_dim,
+                       embedding_name="item_id"),
+            maxlen=seq_len, combiner="mean", length_name="hist_len"))
+    y = np.asarray(labels, np.float32)
+    n = len(y)
+    n_test = int(n * test_frac)
+    X_train = {k: v[: n - n_test] for k, v in X.items()}
+    X_test = {k: v[n - n_test:] for k, v in X.items()}
+    return columns, X_train, y[: n - n_test], X_test, y[n - n_test:]
+
+
+def gen_sequence_dataset(
+    interactions,
+    user_col: str = "user_id",
+    item_col: str = "item_id",
+    time_col: str = "timestamp",
+    seq_max_len: int = 50,
+    negsample: int = 0,
+    seed: int = 0,
+):
+    """Chronological prefix expansion for retrieval training (DSSM): each
+    prefix of a user's item sequence predicts the next item; each user's
+    last interaction is a test row; ``negsample`` uniform negatives of
+    unseen items per positive. Returns (train_rows, test_rows), each row
+    ``(user_id, item_id, label, history padded to seq_max_len, hist_len)``,
+    the history most recent first."""
+    rng = np.random.default_rng(seed)
+    interactions = interactions.sort_values(time_col)
+    all_items = interactions[item_col].unique()
+
+    train_rows, test_rows = [], []
+    for uid, grp in interactions.groupby(user_col, sort=False):
+        pos = grp[item_col].tolist()
+        if len(pos) < 2:
+            continue
+        neg = None
+        if negsample > 0:
+            candidates = np.setdiff1d(all_items, np.asarray(pos))
+            if len(candidates):
+                neg = rng.choice(candidates, size=len(pos) * negsample, replace=True)
+        for i in range(1, len(pos)):
+            hist = pos[:i][::-1][:seq_max_len]
+            padded = np.zeros(seq_max_len, dtype=np.int32)
+            padded[: len(hist)] = hist
+            row = (uid, pos[i], 1.0, padded, len(hist))
+            if i != len(pos) - 1:
+                train_rows.append(row)
+                if neg is not None:
+                    for k in range(negsample):
+                        train_rows.append(
+                            (uid, int(neg[i * negsample + k]), 0.0, padded, len(hist)))
+            else:
+                test_rows.append(row)
+    rng.shuffle(train_rows)
+    rng.shuffle(test_rows)
+    return train_rows, test_rows
+
+
+def rows_to_batch(rows, seq_max_len: int) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+    """Pack ``gen_sequence_dataset`` rows into a model-input dict."""
+    X = {
+        "user_id": np.asarray([r[0] for r in rows], np.int32),
+        "item_id": np.asarray([r[1] for r in rows], np.int32),
+        "hist_item_id": np.stack([r[3] for r in rows]).astype(np.int32),
+        "hist_len": np.asarray([r[4] for r in rows], np.int32),
+    }
+    y = np.asarray([r[2] for r in rows], np.float32)
+    return X, y
+
+
+# ---------------------------------------------------------------------------
+# Amazon behaviour sequences (DIN/DIEN)
+# ---------------------------------------------------------------------------
+
+def _open_maybe_gzip(path: str):
+    if path.endswith(".gz"):
+        import gzip
+
+        return gzip.open(path, "rt")
+    return open(path, "r")
+
+
+def load_amazon_reviews(reviews_path: str, meta_path: Optional[str] = None,
+                        max_rows: Optional[int] = None):
+    """Parse Amazon product-review JSON lines (the DIN paper's format):
+    ``reviews_path`` lines with reviewerID / asin / unixReviewTime, and
+    optionally ``meta_path`` lines with asin / categories (JSON or Python
+    literals), which give each item a category id.
+
+    Returns (df, n_users, n_items, n_cates, item_cate): df with integer
+    user_id / item_id / cate_id (from 1; 0 pads) and timestamp, sorted
+    chronologically, and ``item_cate[item_id] -> cate_id`` (row 0 pads)."""
+    import ast
+    import json
+
+    import pandas as pd
+
+    asin_cate: Dict[str, str] = {}
+    if meta_path is not None:
+        with _open_maybe_gzip(meta_path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    rec = ast.literal_eval(line)  # Python-literal meta lines
+                cats = rec.get("categories") or [["unknown"]]
+                asin_cate[rec["asin"]] = cats[0][-1] if cats[0] else "unknown"
+
+    users, asins, times = [], [], []
+    with _open_maybe_gzip(reviews_path) as f:
+        for i, line in enumerate(f):
+            if max_rows is not None and i >= max_rows:
+                break
+            line = line.strip()
+            if not line:
+                continue
+            rec = json.loads(line)
+            users.append(rec["reviewerID"])
+            asins.append(rec["asin"])
+            times.append(int(rec.get("unixReviewTime", 0)))
+
+    df = pd.DataFrame({"user": users, "asin": asins, "timestamp": times})
+    uuniq, uinv = np.unique(df["user"].to_numpy(), return_inverse=True)
+    iuniq, iinv = np.unique(df["asin"].to_numpy(), return_inverse=True)
+    df["user_id"] = (uinv + 1).astype(np.int32)
+    df["item_id"] = (iinv + 1).astype(np.int32)
+    cates = [asin_cate.get(a, "unknown") for a in iuniq]
+    cuniq, cinv = np.unique(np.asarray(cates), return_inverse=True)
+    item_cate = np.concatenate([[0], cinv + 1]).astype(np.int32)  # 0 pads
+    df["cate_id"] = item_cate[df["item_id"].to_numpy()]
+    df = df.sort_values("timestamp", kind="stable").reset_index(drop=True)
+    return df, len(uuniq) + 1, len(iuniq) + 1, len(cuniq) + 1, item_cate
+
+
+def build_amazon_behavior_dataset(
+    reviews_path: str,
+    meta_path: Optional[str] = None,
+    seq_len: int = 50,
+    embedding_dim: int = 8,
+    max_rows: Optional[int] = None,
+    negsample_hist: bool = False,
+    seed: int = 0,
+) -> Tuple[list, Dict[str, np.ndarray], np.ndarray, Dict[str, np.ndarray], np.ndarray]:
+    """The DIN paper's Amazon behaviour dataset: per user's chronological
+    review sequence, each next item over the history before it is a label-1
+    example, paired with one uniformly sampled item the user never reviewed
+    as a label-0 example over the same history; the last item tests, the
+    rest train. Item and category histories share the target columns'
+    tables. ``negsample_hist`` adds per-position negative histories
+    (``neg_hist_item_id``, ``neg_hist_cate_id``) for DIEN's auxiliary loss.
+    Returns (columns, X_train, y_train, X_test, y_test)."""
+    df, n_users, n_items, n_cates, item_cate = load_amazon_reviews(
+        reviews_path, meta_path, max_rows=max_rows)
+    rng = np.random.default_rng(seed)
+
+    def sample_neg(seen: set) -> int:
+        while True:
+            cand = int(rng.integers(1, n_items))
+            if cand not in seen:
+                return cand
+
+    rows_train: List[tuple] = []
+    rows_test: List[tuple] = []
+    for uid, grp in df.groupby("user_id", sort=False):
+        items = grp["item_id"].tolist()
+        if len(items) < 2:
+            continue
+        seen = set(items)
+        for i in range(1, len(items)):
+            hist = items[max(0, i - seq_len): i]
+            pad = np.zeros(seq_len, np.int32)
+            pad[: len(hist)] = hist
+            out = rows_test if i == len(items) - 1 else rows_train
+            out.append((uid, items[i], 1.0, pad, len(hist)))
+            out.append((uid, sample_neg(seen), 0.0, pad, len(hist)))
+
+    columns = [
+        SparseFeat("user_id", n_users, embedding_dim),
+        SparseFeat("item_id", n_items, embedding_dim),
+        SparseFeat("cate_id", n_cates, embedding_dim),
+        VarLenSparseFeat(
+            SparseFeat("hist_item_id", n_items, embedding_dim,
+                       embedding_name="item_id"),
+            maxlen=seq_len, combiner="mean", length_name="hist_len"),
+        VarLenSparseFeat(
+            SparseFeat("hist_cate_id", n_cates, embedding_dim,
+                       embedding_name="cate_id"),
+            maxlen=seq_len, combiner="mean", length_name="hist_len"),
+    ]
+
+    def pack(rows):
+        rng.shuffle(rows)
+        hist = np.stack([r[3] for r in rows]).astype(np.int32)
+        item = np.asarray([r[1] for r in rows], np.int32)
+        X = {
+            "user_id": np.asarray([r[0] for r in rows], np.int32),
+            "item_id": item,
+            "cate_id": item_cate[item],
+            "hist_item_id": hist,
+            "hist_cate_id": item_cate[hist],
+            "hist_len": np.asarray([r[4] for r in rows], np.int32),
+        }
+        if negsample_hist:
+            neg = rng.integers(1, n_items, hist.shape).astype(np.int32)
+            neg = np.where(hist > 0, neg, 0)
+            X["neg_hist_item_id"] = neg
+            X["neg_hist_cate_id"] = item_cate[neg]
+        return X, np.asarray([r[2] for r in rows], np.float32)
+
+    if negsample_hist:
+        columns.append(VarLenSparseFeat(
+            SparseFeat("neg_hist_item_id", n_items, embedding_dim,
+                       embedding_name="item_id"),
+            maxlen=seq_len, combiner="mean", length_name="hist_len"))
+        columns.append(VarLenSparseFeat(
+            SparseFeat("neg_hist_cate_id", n_cates, embedding_dim,
+                       embedding_name="cate_id"),
+            maxlen=seq_len, combiner="mean", length_name="hist_len"))
+
+    X_train, y_train = pack(rows_train)
+    X_test, y_test = pack(rows_test)
+    return columns, X_train, y_train, X_test, y_test
+
+
+def synthetic_amazon_reviews(
+    reviews_path: str,
+    meta_path: str,
+    n_users: int = 5000,
+    n_items: int = 2000,
+    n_cates: int = 20,
+    reviews_per_user: Tuple[int, int] = (5, 40),
+    seed: int = 0,
+) -> int:
+    """Write a deterministic synthetic dataset in the Amazon JSON-lines
+    format (a reviews file and a meta file) with a learnable structure: each
+    user has 2 preferred categories and ~85 % of their reviews stay inside
+    them. Returns the number of review lines written."""
+    import json
+
+    rng = np.random.default_rng(seed)
+    item_cate = rng.integers(0, n_cates, n_items)
+    with open(meta_path, "w") as f:
+        for i in range(n_items):
+            f.write(json.dumps({
+                "asin": f"B{i:09d}",
+                "categories": [["root", f"cate_{item_cate[i]:03d}"]],
+            }) + "\n")
+
+    cate_items = [np.where(item_cate == c)[0] for c in range(n_cates)]
+    n_written = 0
+    t0 = 1_300_000_000
+    with open(reviews_path, "w") as f:
+        for u in range(n_users):
+            prefs = rng.choice(n_cates, size=2, replace=False)
+            n_rev = int(rng.integers(*reviews_per_user))
+            t = t0 + int(rng.integers(0, 10_000_000))
+            for _ in range(n_rev):
+                if rng.random() < 0.85:
+                    pool = cate_items[int(prefs[rng.integers(0, 2)])]
+                    item = (int(pool[rng.integers(0, len(pool))]) if len(pool)
+                            else int(rng.integers(0, n_items)))
+                else:
+                    item = int(rng.integers(0, n_items))
+                t += int(rng.integers(1, 100_000))
+                f.write(json.dumps({
+                    "reviewerID": f"U{u:08d}",
+                    "asin": f"B{item:09d}",
+                    "unixReviewTime": t,
+                    "overall": float(rng.integers(1, 6)),
+                }) + "\n")
+                n_written += 1
+    return n_written
 
 
 def iter_batches(

@@ -1,5 +1,5 @@
-"""Evaluation metrics on the host: exact AUC, logloss, accuracy and the
-histogram ``StreamingAUC``.
+"""Evaluation metrics on the host: exact AUC, logloss, accuracy,
+``recall_at_n`` and the histogram ``StreamingAUC``.
 
 Numpy copies of ``recommender_system_tpu/utils/metrics.py``, bit-exact with
 it (``tests/test_torch_deepfm_training.py``). The JAX package builds
@@ -44,6 +44,12 @@ def accuracy(labels, probs, threshold: float = 0.5) -> float:
     labels = np.asarray(labels).ravel()
     pred = (np.asarray(probs).ravel() >= threshold).astype(labels.dtype)
     return float((pred == labels).mean())
+
+
+def recall_at_n(pred_item_lists, true_items) -> float:
+    """Fraction of rows whose true item appears in the predicted top-N list."""
+    hits = sum(1 for preds, t in zip(pred_item_lists, true_items) if t in preds)
+    return hits / max(len(true_items), 1)
 
 
 class StreamingAUC:

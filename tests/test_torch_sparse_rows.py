@@ -120,7 +120,7 @@ def test_embedding_collection_keeps_its_sort_layout():
         "sort_layouts.4.offsets", "sort_layouts.4.cols"}
     ranges = [(0, 40), (40, 25), (65, 35)]
     rows = torch.from_numpy(_rows(ranges, 64, seed=8))
-    for got, want in zip(coll._presort(4, rows), blocked_sort(rows, ranges)):
+    for got, want in zip(coll._layout(4)(rows), blocked_sort(rows, ranges)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     coll.to("meta")
     assert {b.device.type for b in coll.buffers()} == {"meta"}
