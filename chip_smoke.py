@@ -157,6 +157,22 @@ Phases, each of which raises on failure (exit code not 0):
    ``Scorer(batch_size=8192)`` answering 1, 1,000 and 20,000 rows with
    ``[n, 2]`` probabilities and no kernel launch, equal to the CPU path on
    1,000 rows;
+3n. the training CLI, ``main([...])`` of ``recommender_system_tpu_torch.train``
+   in this process: the port's native Criteo parser must build; a
+   Criteo-format TSV of 524,288 rows (4 packed groups of 8 x 16,384) and a
+   held-out file of 65,536 rows from the same token pools, written by this
+   script into a temporary directory; the README's north-star command
+   (``--stream --fused-embedding adagrad --batch-size 16384 --hash-buckets
+   1000000 --stream-eval-path``, 5 epochs: DeepFM's table_d9 26,000,000 x
+   9) with one ``fused_adagrad_apply`` a step and nothing else, losses
+   finite and falling, held-out AUC above 0.5; the same command to step 32,
+   and stopped at step 16 (checkpoints every 8) then resumed to 32, whose
+   final checkpoints must be bitwise equal; the README's in-memory quick
+   start on the same file (one ``scatter_add_sorted`` a step); every model
+   the CLI builds, one epoch of 2,048 synthetic rows, with the launches of
+   ``CLI_MODEL_LAUNCHES``; DeepFM (``--optimizer adagrad --learning-rate
+   0.05``) on the card against ``--device cpu``: train_loss at rtol 1e-4,
+   AUC and logloss within 2e-3;
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
    host overhead included), and the library call where there is one (the
@@ -173,8 +189,12 @@ Phases, each of which raises on failure (exit code not 0):
    and 1,024 users (host clock), its catalog build and the 1,024-user
    query's top device work; each sparse row kernel's time on a stream
    with a hot row and on DIN's step stream, back to back and with the L2
-   cache flushed before each call; and each global kernel at a shape of
-   its path.
+   cache flushed before each call; each global kernel at a shape of
+   its path; and the stream CLI: the CLI's own examples/s, CUDA events
+   around each packed group's call, the host's seconds by part (waiting for
+   the parser, bucketing, packing into pinned memory, issuing the copies
+   and the steps) and the device's idle share from a ``--profile-dir``
+   trace.
 
 Every launch check compares all seven wrappers' launch counts and the
 ``global_launches`` of the cross, FM and DIN attention wrappers, which must
@@ -193,10 +213,13 @@ import collections
 import copy
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2167,6 +2190,321 @@ def mmoe_path(cols, batches, labels, card):
     return trainer, labels2, launches
 
 
+# ---------------------------------------------------------------------------
+# The training CLI: python -m recommender_system_tpu_torch.train on the card
+# ---------------------------------------------------------------------------
+
+# a Criteo-format TSV of 4 packed groups of 8 batches of 16,384 rows, and a
+# held-out file drawn from the same token pools with other rows
+CLI_BATCH, CLI_K, CLI_GROUPS = 16_384, 8, 4
+CLI_ROWS, CLI_HELD_OUT = CLI_GROUPS * CLI_K * CLI_BATCH, 65_536
+CLI_BUCKETS = 1_000_000
+CLI_EPOCHS = 5  # the CLI's default
+# the resumed run: stopped at step 16 (checkpoints every 8), resumed to 32
+CLI_STOP, CLI_EVERY, CLI_TOTAL = 16, 8, 32
+# every model the CLI builds, a few steps at its defaults on synthetic data
+CLI_MODEL_ROWS = 2048
+# card against CPU for the CLI's DeepFM: train_loss per epoch at f32
+# tolerance; AUC and logloss, rounded to 4 places by the CLI, may move by a
+# swapped near-tie of the 409 held-out predictions
+CLI_LOSS_RTOL, CLI_METRIC_ATOL = 1e-4, 2e-3
+
+
+def write_criteo_tsv(path: str, rows: int, row_seed: int, pool_seed: int = 0) -> None:
+    """A Criteo-format TSV (``label \t I1..I13 \t C1..C26``) with a learnable
+    label: dense ints, 8-hex-digit tokens drawn skewed from per-column pools
+    of 20,000-100,000 tokens (``pool_seed`` fixes the pools and the tokens'
+    label effects, ``row_seed`` the rows), 5 % of the fields missing."""
+    pool_rng = np.random.default_rng(pool_seed)
+    vocabs = [20_000 * (1 + 2 * (i % 3)) for i in range(26)]
+    pools = [np.char.mod("%08x", pool_rng.integers(0, 2 ** 32, v, dtype=np.uint64))
+             for v in vocabs]
+    effects = [0.25 * np.sin(np.arange(v) * (i + 1) * 0.37) for i, v in enumerate(vocabs)]
+    rng = np.random.default_rng(row_seed)
+    logits = np.zeros(rows)
+    cols = []
+    for i in range(13):
+        v = rng.integers(0, 1000, rows)
+        logits += (0.4 if i % 2 == 0 else -0.4) * (v / 1000.0 - 0.5)
+        s = v.astype("U4")
+        s[rng.random(rows) < 0.05] = ""
+        cols.append(s)
+    for i in range(26):
+        ids = (rng.random(rows) ** 2 * vocabs[i]).astype(np.int64)
+        logits += effects[i][ids]
+        s = pools[i][ids]
+        s[rng.random(rows) < 0.05] = ""
+        cols.append(s)
+    y = (rng.random(rows) < 1.0 / (1.0 + np.exp(-logits))).astype(np.int64)
+    with open(path, "w") as f:
+        f.write("\n".join("\t".join(r) for r in zip(y.astype("U1"), *cols)) + "\n")
+
+
+def north_star(train_path: str, held_out: str, *more: str) -> list:
+    """The README's out-of-core command on the two files."""
+    return ["--stream", "--data-path", train_path, "--stream-eval-path", held_out,
+            "--fused-embedding", "adagrad", "--batch-size", str(CLI_BATCH),
+            "--hash-buckets", str(CLI_BUCKETS), *more]
+
+
+def cli_run(argv: list, want: dict, name: str, card) -> tuple:
+    """``main(argv)`` in this process, its launches counted; they must equal
+    ``want``. Returns (result, launches, seconds)."""
+    from recommender_system_tpu_torch.train import main
+
+    zero_counts()
+    t0 = time.perf_counter()
+    result = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"CLI {name}: {seconds:.1f} s, launches {launches}; on {card}", flush=True)
+    if launches != want:
+        raise RuntimeError(f"CLI {name} launched {launches}, want {want}")
+    losses = np.asarray(result["train_loss"])
+    if losses.size == 0 or not np.isfinite(losses).all():
+        raise RuntimeError(f"CLI {name}: train_loss {result['train_loss']}")
+    return result, launches, seconds
+
+
+def cli_north_star(train_path: str, held_out: str, card) -> tuple:
+    """Phase 3n (b): the north-star stream at full width, CLI_EPOCHS epochs
+    of CLI_ROWS rows: one fused_adagrad_apply a step and nothing else; the
+    held-out AUC above 0.5. Returns (result, launches)."""
+    steps = CLI_EPOCHS * CLI_ROWS // CLI_BATCH
+    result, launches, _ = cli_run(north_star(train_path, held_out),
+                                  launches_want(fused_adagrad_apply=steps),
+                                  "north-star stream", card)
+    if not (result["auc"] > 0.5 and np.isfinite(result["logloss"])):
+        raise RuntimeError(f"CLI north-star stream: held-out {result}")
+    if not result["train_loss"][-1] < result["train_loss"][0]:
+        raise RuntimeError(f"CLI north-star stream: loss did not fall {result['train_loss']}")
+    print(f"CLI north-star stream ({CLI_EPOCHS} epochs of {CLI_ROWS} rows, batch {CLI_BATCH}, "
+          f"{CLI_BUCKETS} buckets): {result}; on {card}", flush=True)
+    return result, launches
+
+
+def _checkpoint(path: str) -> dict:
+    from recommender_system_tpu_torch.training.checkpoint import FILE, latest_step
+
+    return torch.load(f"{path}/{latest_step(path)}/{FILE}", map_location="cuda",
+                      weights_only=True)
+
+
+def _tensors(tree, prefix=""):
+    if isinstance(tree, torch.Tensor):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensors(v, f"{prefix}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _tensors(v, f"{prefix}/{i}")
+
+
+def cli_resume(train_path: str, held_out: str, tmp: str, card) -> dict:
+    """Phase 3n (c): the north-star command run to CLI_TOTAL steps at once,
+    and stopped at CLI_STOP (checkpoints every CLI_EVERY), then resumed to
+    CLI_TOTAL; the two final checkpoints (parameters, the dense Adam's
+    moments, the tables' Adagrad slots, the step, the generator) must be
+    bitwise equal. Returns the resumed run's launches."""
+    whole, part = f"{tmp}/whole", f"{tmp}/part"
+    cli_run(north_star(train_path, held_out, "--stream-max-steps", str(CLI_TOTAL),
+                       "--checkpoint-dir", whole),
+            launches_want(fused_adagrad_apply=CLI_TOTAL), "stream to step 32", card)
+    cli_run(north_star(train_path, held_out, "--stream-max-steps", str(CLI_STOP),
+                       "--checkpoint-every", str(CLI_EVERY), "--checkpoint-dir", part),
+            launches_want(fused_adagrad_apply=CLI_STOP), "stream stopped at step 16", card)
+    saved = sorted(int(d) for d in os.listdir(part) if d.isdigit())
+    if saved != list(range(CLI_EVERY, CLI_STOP + 1, CLI_EVERY)):
+        raise RuntimeError(f"CLI stream saved checkpoints at steps {saved}")
+    for step in saved[:-1]:  # 1.9 GB each; the resumed run reads the last
+        shutil.rmtree(f"{part}/{step}")
+    _, launches, _ = cli_run(
+        north_star(train_path, held_out, "--stream-max-steps", str(CLI_TOTAL),
+                   "--checkpoint-dir", part, "--resume"),
+        launches_want(fused_adagrad_apply=CLI_TOTAL - CLI_STOP), "stream resumed to step 32",
+        card)
+    a, b = _checkpoint(whole), _checkpoint(part)
+    if not a["step"] == b["step"] == CLI_TOTAL:
+        raise RuntimeError(f"CLI resume: steps {a['step']} and {b['step']}")
+    ta, tb = dict(_tensors(a)), dict(_tensors(b))
+    if ta.keys() != tb.keys():
+        raise RuntimeError("CLI resume: the checkpoints hold different tensors")
+    unequal = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    if unequal:
+        raise RuntimeError(f"CLI resume: {len(unequal)} tensors differ from the "
+                           f"uninterrupted run's, e.g. {unequal[:4]}")
+    elements = sum(t.numel() for t in ta.values())
+    print(f"CLI resume: the resumed run's step-{CLI_TOTAL} checkpoint equals the "
+          f"uninterrupted run's bitwise ({len(ta)} tensors, {elements} elements: parameters, "
+          f"Adam moments, the table's Adagrad slot, the generator); on {card}", flush=True)
+    shutil.rmtree(whole)
+    shutil.rmtree(part)
+    return launches
+
+
+def cli_quick_start(train_path: str, card) -> dict:
+    """Phase 3n (d): the README's in-memory quick start on the training
+    file (10,000 rows, 8,000 trained, batch 512, 2 epochs): one
+    scatter_add_sorted a step and nothing else. Returns the launches."""
+    steps = 2 * ((10_000 - 10_000 // 5) // 512)
+    result, launches, _ = cli_run(
+        ["--model", "deepfm", "--dataset", "criteo", "--data-path", train_path,
+         "--hash-buckets", "50000", "--epochs", "2", "--batch-size", "512",
+         "--max-rows", "10000"], launches_want(scatter_add_sorted=steps), "quick start", card)
+    if not 0.0 <= result["auc"] <= 1.0 or not np.isfinite(result["logloss"]):
+        raise RuntimeError(f"CLI quick start: {result}")
+    print(f"CLI quick start: {result}; on {card}", flush=True)
+    return launches
+
+
+# the kernels each CLI model launches: per training step (the plain step,
+# the CLI's default), and per evaluation forward
+CLI_MODEL_LAUNCHES = {
+    "afm": ({"scatter_add_sorted": 1}, {}),
+    "dcn": ({"scatter_add_sorted": 1, "cross_fused": 1}, {"cross_fused": 1}),
+    "deep_crossing": ({"scatter_add_sorted": 1}, {}),
+    "deepfm": ({"scatter_add_sorted": 1}, {}),
+    "dien": ({"scatter_add_sorted": 3, "din_attention_fused": 1},
+             {"din_attention_fused": 1}),
+    "din": ({"scatter_add_sorted": 2, "din_attention_fused": 1}, {"din_attention_fused": 1}),
+    "dssm": ({"scatter_add_sorted": 3}, {}),
+    "ffm": ({"scatter_add_sorted": 2}, {}),
+    "fm": ({"scatter_add_sorted": 1}, {}),
+    "fnn": ({"scatter_add_sorted": 1}, {}),
+    "lstm": ({}, {}),
+    "mmoe": ({"scatter_add_sorted": 1}, {}),
+    "nfm": ({"scatter_add_sorted": 1}, {}),
+    "pnn": ({"scatter_add_sorted": 1}, {}),
+    "transformer": ({}, {}),
+    "wide_deep": ({"scatter_add_sorted": 1}, {}),
+}
+
+
+def cli_models(card) -> dict:
+    """Phase 3n (e): every model the CLI builds, one epoch of CLI_MODEL_ROWS
+    synthetic rows at its defaults (batch 256): the launches of
+    CLI_MODEL_LAUNCHES; then DeepFM with ``--optimizer adagrad
+    --learning-rate 0.05`` on the card and with ``--device cpu``, whose
+    train_loss, AUC and logloss agree. Returns {model: launches}."""
+    from recommender_system_tpu_torch.models import CTR_MODELS
+
+    names = sorted(CTR_MODELS) + ["dssm", "mmoe", "lstm", "transformer"]
+    if sorted(names) != sorted(CLI_MODEL_LAUNCHES):
+        raise RuntimeError(f"the CLI builds {sorted(names)}")
+    n_test = CLI_MODEL_ROWS // 5
+    steps = (CLI_MODEL_ROWS - n_test) // 256
+    evals = -(-n_test // 1024)
+    base = ["--dataset", "synthetic", "--max-rows", str(CLI_MODEL_ROWS), "--epochs", "1"]
+    out = {}
+    for name in names:
+        per_step, per_eval = CLI_MODEL_LAUNCHES[name]
+        want = launches_want(**{k: steps * per_step.get(k, 0) + evals * per_eval.get(k, 0)
+                                for k in set(per_step) | set(per_eval)})
+        result, out[name], _ = cli_run(["--model", name, *base], want, name, card)
+        print(f"  {name}: {result}", flush=True)
+    argv = ["--model", "deepfm", *base, "--optimizer", "adagrad", "--learning-rate", "0.05"]
+    card_result, _, _ = cli_run(argv, launches_want(scatter_add_sorted=steps),
+                                "deepfm adagrad", card)
+    cpu_result, _, _ = cli_run(argv + ["--device", "cpu"], launches_want(),
+                               "deepfm adagrad --device cpu", card)
+    np.testing.assert_allclose(card_result["train_loss"], cpu_result["train_loss"],
+                               rtol=CLI_LOSS_RTOL)
+    for key in ("auc", "logloss"):
+        np.testing.assert_allclose(card_result[key], cpu_result[key], rtol=0,
+                                   atol=CLI_METRIC_ATOL)
+    print(f"CLI DeepFM card against CPU: train_loss {card_result['train_loss']} / "
+          f"{cpu_result['train_loss']} (rtol={CLI_LOSS_RTOL}), auc {card_result['auc']} / "
+          f"{cpu_result['auc']}, logloss {card_result['logloss']} / {cpu_result['logloss']} "
+          f"(atol={CLI_METRIC_ATOL}); on {card}", flush=True)
+    return out
+
+
+def cli_path(card) -> dict:
+    """Phase 3n: the CLI on the card. The native parser must build; the
+    files go to a temporary directory."""
+    from recommender_system_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError(f"the port's native parser did not build: {native.build_error()}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    train_path, held_out = f"{tmp}/train.tsv", f"{tmp}/heldout.tsv"
+    write_criteo_tsv(train_path, CLI_ROWS, row_seed=1)
+    write_criteo_tsv(held_out, CLI_HELD_OUT, row_seed=2)
+    print(f"phase 3n: the native parser built ({native.library_path().name}); wrote "
+          f"{CLI_ROWS} and {CLI_HELD_OUT} rows ({os.path.getsize(train_path) / 1e6:.1f} and "
+          f"{os.path.getsize(held_out) / 1e6:.1f} MB) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    result, stream_launches = cli_north_star(train_path, held_out, card)
+    resume_launches = cli_resume(train_path, held_out, tmp, card)
+    quick_launches = cli_quick_start(train_path, card)
+    model_launches = cli_models(card)
+    print(f"phase 3n took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"tmp": tmp, "train": train_path, "held_out": held_out, "result": result,
+            "stream": stream_launches, "resume": resume_launches, "quick": quick_launches,
+            "models": model_launches}
+
+
+def device_busy_from_trace(path: str) -> tuple:
+    """(device busy ms, traced span ms) of a ``torch.profiler`` chrome trace:
+    the union of its kernel, copy and set intervals, and the span of all its
+    events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -math.inf
+    for lo, hi in device:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    return busy / 1e3, span / 1e3
+
+
+def time_cli(cli: dict, card) -> None:
+    """Phase 4 for the stream CLI: one epoch of the north-star command
+    through ``run_stream`` with its host clocks (waiting for the parser,
+    bucketing, packing, issuing the copies and the steps) and CUDA events
+    around each group's call; then one epoch under ``--profile-dir``, whose
+    trace gives the device's idle share."""
+    from recommender_system_tpu_torch.train import parse_args, run_stream
+
+    argv = north_star(cli["train"], cli["held_out"], "--epochs", "1")
+    timings = {}
+    t0 = time.perf_counter()
+    result = run_stream(parse_args(argv), timings=timings)
+    wall = time.perf_counter() - t0
+    events = timings["events"]
+    group_ms = [a.elapsed_time(b) for a, b in events]
+    first_to_last = events[0][0].elapsed_time(events[-1][1])
+    rows = len(events) * CLI_K * CLI_BATCH
+    print(f"timing stream CLI, 1 epoch of {CLI_ROWS} rows: the CLI's own figure "
+          f"{result['examples_per_sec']} examples/s (5-epoch run of phase 3n: "
+          f"{cli['result']['examples_per_sec']}); CUDA events: {len(events)} groups of "
+          f"K={CLI_K}, {statistics.mean(group_ms):.3f} ms a group on the device "
+          f"({statistics.mean(group_ms) / CLI_K:.3f} ms a step; min {min(group_ms):.3f}, "
+          f"max {max(group_ms):.3f}), {rows / (sum(group_ms) / 1e3):.1f} examples/s over the "
+          f"groups' device time, {rows / (first_to_last / 1e3):.1f} from the first group's "
+          f"start to the last one's end ({first_to_last:.1f} ms); run_stream wall "
+          f"{wall:.2f} s with model build and held-out evaluation; on {card}", flush=True)
+    host = {k: v for k, v in timings.items() if k.endswith("_s")}
+    print(f"stream CLI host seconds, 1 epoch: parser wait {host['parser_wait_s']:.3f}, "
+          f"bucketing and pooling {host['batch_s']:.3f} (both inside waiting for the next "
+          f"batch {host['input_s']:.3f}), packing into pinned memory {host['pack_s']:.3f}, "
+          f"issuing the copies {host['copy_s']:.3f}, issuing the steps {host['step_s']:.3f}; "
+          f"on {card}", flush=True)
+
+    trace_dir = f"{cli['tmp']}/trace"
+    run_stream(parse_args(argv + ["--profile-dir", trace_dir]))
+    busy, span = device_busy_from_trace(f"{trace_dir}/trace.json")
+    print(f"stream CLI under the profiler, 1 epoch: device busy {busy:.1f} ms of "
+          f"{span:.1f} ms traced, idle share {1 - busy / span:.3f}; on {card}", flush=True)
+    shutil.rmtree(cli["tmp"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -2300,6 +2638,10 @@ def main() -> int:
     mmoe_trainer, mmoe_labels, mmoe_launches = mmoe_path(ctr["cols"], *ctr["batches"], card)
     print(f"phase 3m took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # --- phase 3n: the training CLI, out of core at the README's north-star
+    # width and in memory, checkpoint and resume, every model it builds
+    cli = cli_path(card)
+
     # --- phase 4: timings --------------------------------------------------
     with torch.inference_mode():
         batch = {k: torch.as_tensor(v, device="cuda")
@@ -2359,6 +2701,7 @@ def main() -> int:
     time_training(mmoe_trainer, ctr["batches"][0], mmoe_labels, card, "MMOE fused training")
     global_entries = time_global_kernels(
         card, {**cross_errs, **fm_errs, **din_errs}, global_counts)
+    time_cli(cli, card)
 
     # launches on each kernel's main path, and on the other paths beside them
     ctr_launches = ctr["launches"]
@@ -2370,6 +2713,8 @@ def main() -> int:
           "dien": dien_fused_launches["fused_adagrad_apply"],
           "dssm": dssm_fused_launches["fused_adagrad_apply"],
           "mmoe": mmoe_launches["fused_adagrad_apply"],
+          "cli_north_star_stream": cli["stream"]["fused_adagrad_apply"],
+          "cli_resumed_stream": cli["resume"]["fused_adagrad_apply"],
           "dcn": ctr_launches["dcn"]["fused_adagrad_apply"],
           **{name: family_launches[name]["fused_adagrad_apply"]
              for name in ("deep_crossing", "pnn", "afm", "ffm", "pnn_both_fgcnn")}}),
@@ -2384,7 +2729,9 @@ def main() -> int:
          {"din": din_plain_launches["scatter_add_sorted"],
           "dien": dien_plain_launches["scatter_add_sorted"],
           "dssm": dssm_plain_launches["scatter_add_sorted"],
-          "ffm": family_launches["ffm_plain"]["scatter_add_sorted"]}),
+          "ffm": family_launches["ffm_plain"]["scatter_add_sorted"],
+          "cli_quick_start": cli["quick"]["scatter_add_sorted"],
+          "cli_models": sum(c["scatter_add_sorted"] for c in cli["models"].values())}),
     ]
     print(card)
     print(json.dumps({"kernels": [{
@@ -2397,6 +2744,7 @@ def main() -> int:
         "bound_by": bound_by, "library_ms": None,
         "call_ms": kernel_call, "plain_call_ms": plain_call,
         "dcn_training_launches": ctr_launches["dcn"]["cross_fused"],
+        "cli_dcn_launches": cli["models"]["dcn"]["cross_fused"],
     }, {
         "name": "fm_fused", "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/fm.cu",
@@ -2415,6 +2763,8 @@ def main() -> int:
         "dien_launches": dien_fused_launches["din_attention_fused"],
         "dien_serving_launches": dien_serve_launches["din_attention_fused"],
         "dien_plain_training_launches": dien_plain_launches["din_attention_fused"],
+        "cli_din_dien_launches": (cli["models"]["din"]["din_attention_fused"]
+                                  + cli["models"]["dien"]["din_attention_fused"]),
     }] + global_entries + [{
         "name": name, "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/sparse_rows.cu",

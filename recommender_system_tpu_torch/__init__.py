@@ -17,15 +17,22 @@ FGCNN), AFM and FFM trained through the same sparse kernels;
 trained (its GRU and AUGRU plain PyTorch loops, its attention the DIN
 kernel, its three lookup sites one fused update); DSSM trained with the
 in-batch or sampled softmax and served through ``RetrievalIndex``, and MMOE
-trained and served, both through the same sparse kernels. Every TPU kernel
-of the JAX package has its counterpart in ``csrc/``.
+trained and served, both through the same sparse kernels; the NLP
+models (``LSTMClassifier``, ``Transformer``, ``TransformerClassifier``);
+and the training CLI, ``python -m recommender_system_tpu_torch.train``
+(``ExperimentConfig``), in memory or out of core over a Criteo TSV through
+the native parser, with checkpoints. Every TPU kernel of the JAX package
+has its counterpart in ``csrc/``.
 """
 
+from .config import ExperimentConfig
 from .models import (AFM, CTR_MODELS, DCN, DIEN, DIN, DSSM, FFM, FM, FNN, MMOE, NFM, PNN,
-                     DeepCrossing, DeepFM, WideDeep, init_from_fm)
+                     DeepCrossing, DeepFM, LSTMClassifier, Transformer, TransformerClassifier,
+                     WideDeep, init_from_fm)
 from .serving import RetrievalIndex, Scorer
 from .training import FusedAdagrad, FusedAdam, FusedSGD, Trainer
 
-__all__ = ["AFM", "CTR_MODELS", "DCN", "DIEN", "DIN", "DSSM", "DeepCrossing", "DeepFM", "FFM",
-           "FM", "FNN", "FusedAdagrad", "FusedAdam", "FusedSGD", "MMOE", "NFM", "PNN",
-           "RetrievalIndex", "Scorer", "Trainer", "WideDeep", "init_from_fm"]
+__all__ = ["AFM", "CTR_MODELS", "DCN", "DIEN", "DIN", "DSSM", "DeepCrossing", "DeepFM",
+           "ExperimentConfig", "FFM", "FM", "FNN", "FusedAdagrad", "FusedAdam", "FusedSGD",
+           "LSTMClassifier", "MMOE", "NFM", "PNN", "RetrievalIndex", "Scorer", "Trainer",
+           "Transformer", "TransformerClassifier", "WideDeep", "init_from_fm"]

@@ -16,7 +16,7 @@ port's parameter or buffer of the same path:
   layout. This is how ``OuterProductLayer``'s ``kernel [k, P, k]`` is kept:
   it is not a Dense kernel, and ``.T`` would swap its first and last axes
   and keep its shape;
-- a Flax BatchNorm ``scale``: ``weight``; ``bias``, ``alpha``, ``weights``,
+- a Flax BatchNorm or LayerNorm ``scale``: ``weight``; ``bias``, ``alpha``, ``weights``,
   ``biases``, DIN attention's ``w1``-``w3`` and ``b1``-``b3``, ``FMLayer``'s
   ``w0``, ``w1`` and ``v``, FM's and FFM's ``dense_factors`` and
   ``UnifiedEmbedding``'s and ``LinearEmbedding``'s ``dense_w`` (not Dense
@@ -24,6 +24,11 @@ port's parameter or buffer of the same path:
 - ``batch_stats`` ``mean`` / ``var``: the ``running_mean`` /
   ``running_var`` buffers of the port's ``BatchNorm`` (in ``bn``,
   ``bn_{i}`` and each ``Dice``'s ``BatchNorm_0``).
+
+The NLP models (``LSTMClassifier``, ``Transformer``,
+``TransformerClassifier``) load the same way: their Dense kernels (``q``,
+``k``, ``v``, ``out``, ``in``, ``head``) transposed, square ones too, and
+``embedding`` / ``table``, ``wx``, ``wh`` and ``bias`` as they are.
 
 It raises on a leaf with no counterpart, on a shape that disagrees, and on a
 port parameter or buffer that no leaf filled.

@@ -25,7 +25,15 @@ Dice normalise with the batch and move their running statistics;
 Neither step reads a device value on the host, so a ``multi_step`` call of
 K steps over batches already on the device runs without a synchronisation.
 Unlike the JAX package's pure ``TrainState``, the parameters live in the
-model and the optimizer state in the Trainer, both updated in place.
+model and the optimizer state in the Trainer, both updated in place
+(``training/checkpoint.py`` saves and restores them).
+
+``fit`` trains in memory; ``fit_stream`` trains over an iterator of batches
+(the out-of-core path of ``utils.datasets.stream_criteo``), staging each
+batch, or K batches packed into one int32 and one float32 array, from
+pinned memory with asynchronous copies, as the JAX package's
+``_fit_stream_packed`` stages them. A model may take one tensor instead of
+a dict of columns (``LSTMClassifier``, ``TransformerClassifier``).
 """
 from __future__ import annotations
 
@@ -46,6 +54,16 @@ from .losses import default_loss, logits_of
 from .optim import Adam, DecayedWeights, LearningRate, learning_rate_at
 
 _STACK_KEY_RE = re.compile(r"^table_d(\d+)$")
+
+# a model's input: a dict of tensors, or one tensor (the sequence classifiers)
+Batch = Union[Mapping[str, torch.Tensor], torch.Tensor]
+
+
+def _map(fn: Callable, batch):
+    """``fn`` on each leaf of a dict batch, or on a tensor batch."""
+    if isinstance(batch, Mapping):
+        return {k: fn(v) for k, v in batch.items()}
+    return fn(batch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +143,7 @@ class Trainer:
     >>> trainer = Trainer(model, SGD(0.01), fused_embedding=FusedSGD(0.01))
     >>> losses = trainer.multi_step(batches, labels)   # K steps, on the device
     >>> history = trainer.fit(X, y, batch_size=16384, steps_per_call=8)
+    >>> history = trainer.fit_stream(stream_criteo(path, 16384), steps_per_call=8)
     >>> trainer.evaluate(X_test, y_test)               # {"auc", "logloss", "accuracy"}
 
     The model must lie on ``device`` (the card unless another device is
@@ -245,36 +264,43 @@ class Trainer:
             self.fused_embedding.apply(table.detach(), self.fused_slots[name], lids, ct,
                                        step=self.step, presorted=presorted)
 
-    def multi_step(self, batches: Mapping[str, torch.Tensor],
-                   labels: torch.Tensor) -> torch.Tensor:
+    def multi_step(self, batches: Batch, labels: torch.Tensor) -> torch.Tensor:
         """K steps over batches already on the device, stacked on a leading
-        axis (``[K, B, ...]`` leaves, labels ``[K, B]``); returns the K
-        losses as a ``[K]`` tensor on the device."""
-        losses = [self.train_step({k: v[i] for k, v in batches.items()}, labels[i])
+        axis (``[K, B, ...]`` leaves, or one ``[K, B, ...]`` tensor for a
+        model that takes a tensor; labels ``[K, B]``); returns the K losses
+        as a ``[K]`` tensor on the device."""
+        losses = [self.train_step(_map(lambda v, i=i: v[i], batches), labels[i])
                   for i in range(labels.shape[0])]
         return torch.stack(losses)
 
-    def _to_device(self, xb: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v, device=self.device) for k, v in xb.items()}
+    def _to_device(self, xb) -> Batch:
+        return _map(lambda v: torch.as_tensor(v, device=self.device), xb)
 
-    def fit(self, X: Mapping[str, np.ndarray], y: np.ndarray, batch_size: int = 256,
-            epochs: int = 1, shuffle: bool = True, steps_per_call: int = 1):
+    def fit(self, X, y: np.ndarray, batch_size: int = 256, epochs: int = 1,
+            shuffle: bool = True, steps_per_call: int = 1, log_every: int = 0):
         """Train; returns a history with each epoch's mean loss and examples/s.
-        Batches go to the device in groups of ``steps_per_call``, each group
-        one ``multi_step`` call (the last group may be shorter)."""
+        ``X`` is a dict of arrays, or one array for a model that takes a
+        tensor. Each epoch draws its order from ``seed + epoch``, as the JAX
+        package's ``fit``. Batches go to the device in groups of
+        ``steps_per_call``, each group one ``multi_step`` call (the last
+        group may be shorter). ``log_every`` prints the last loss whenever
+        the steps done are a multiple of it, which waits for the device."""
         history = {"loss": [], "examples_per_sec": []}
         for epoch in range(epochs):
             losses, group = [], []
-            n_examples = 0
+            n_examples = steps = 0
             t0 = time.perf_counter()
             batches = iter_batches(X, y, batch_size, shuffle=shuffle, seed=self.seed + epoch)
-            for i, (xb, yb) in enumerate(batches, start=1):
+            for xb, yb in batches:
                 group.append((self._to_device(xb),
                               torch.as_tensor(yb, dtype=torch.float32, device=self.device)))
                 n_examples += len(yb)
                 if len(group) == steps_per_call:
                     losses.append(self._run_group(group))
+                    steps += len(group)
                     group = []
+                if log_every and steps and steps % log_every == 0:
+                    print(f"epoch {epoch} step {steps} loss {float(losses[-1][-1]):.4f}")
             if group:
                 losses.append(self._run_group(group))
             # reading the mean waits for the last step
@@ -284,8 +310,262 @@ class Trainer:
         return history
 
     def _run_group(self, group) -> torch.Tensor:
-        batches = {k: torch.stack([xb[k] for xb, _ in group]) for k in group[0][0]}
+        first = group[0][0]
+        if isinstance(first, Mapping):
+            batches = {k: torch.stack([xb[k] for xb, _ in group]) for k in first}
+        else:
+            batches = torch.stack([xb for xb, _ in group])
         return self.multi_step(batches, torch.stack([yb for _, yb in group]))
+
+    # ------------------------------------------------------------------
+    # the out-of-core loop
+
+    def _stage(self, array: np.ndarray) -> torch.Tensor:
+        """An asynchronous host-to-device copy of ``array``, from pinned
+        memory on a card (torch's pinned allocator reuses a buffer only after
+        the copy that read it has finished)."""
+        host = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def fit_stream(self, batches, log_every: int = 0, steps_per_call: int = 1,
+                   checkpoint_every: int = 0, checkpoint_fn: Optional[Callable] = None,
+                   max_steps: int = 0, timings: Optional[dict] = None):
+        """Train over a ``(batch_dict, labels)`` iterator (the out-of-core
+        path); returns a history like :meth:`fit`'s with one entry for the
+        whole stream.
+
+        ``steps_per_call == 1``: each batch is staged (every leaf copied
+        from pinned memory, asynchronously) before the step of the one
+        before it is issued. ``steps_per_call > 1``: K batches are packed
+        into one int32 and one float32 array and one labels array (one
+        copy each from pinned memory) and trained in one ``multi_step``
+        call, pipelined one group deep as the JAX package's
+        ``_fit_stream_packed`` is; a batch of another size (a short last
+        one) drains the pipeline and trains on its own, in order.
+
+        ``checkpoint_every`` calls ``checkpoint_fn(trainer, steps_done)``
+        every that many steps; ``max_steps`` stops after that many steps (0:
+        run the stream dry). On the packed path both act a group at a time,
+        as in the JAX package. The host waits for the device only to print
+        (``log_every``), to save a checkpoint and at the end.
+
+        ``timings``, where given, accumulates the host's seconds in
+        ``input_s`` (waiting for the next batch), ``pack_s`` (packing into
+        pinned memory), ``copy_s`` (issuing the copies) and ``step_s``
+        (issuing the steps), and a pair of CUDA events around each
+        ``multi_step`` call in ``events`` (on a card)."""
+        clock = timings if timings is not None else {}
+        for key in ("input_s", "pack_s", "copy_s", "step_s"):
+            clock.setdefault(key, 0.0)
+        if timings is not None and self.device.type == "cuda":
+            clock.setdefault("events", [])
+        if steps_per_call > 1:
+            return self._fit_stream_packed(batches, log_every, steps_per_call,
+                                           checkpoint_every, checkpoint_fn, max_steps, clock)
+        losses = []
+        n_examples = 0
+        it = iter(batches)
+
+        def pull():
+            t0 = time.perf_counter()
+            item = next(it, None)
+            clock["input_s"] += time.perf_counter() - t0
+            if item is None:
+                return None
+            t0 = time.perf_counter()
+            xb, yb = item
+            staged = (_map(lambda v: self._stage(np.asarray(v)), xb),
+                      self._stage(np.asarray(yb, np.float32)))
+            clock["copy_s"] += time.perf_counter() - t0
+            return staged
+
+        t_start = time.perf_counter()
+        nxt = pull()
+        while nxt is not None:
+            xb, yb = nxt
+            nxt = pull()  # stage the next batch before this step is issued
+            losses.append(self._timed_call(clock, _map(lambda v: v[None], xb), yb[None]))
+            n_examples += int(yb.shape[0])
+            if log_every and len(losses) % log_every == 0:
+                print(f"stream step {len(losses)} loss {float(losses[-1][-1]):.4f}")
+            if checkpoint_every and checkpoint_fn is not None \
+                    and len(losses) % checkpoint_every == 0:
+                checkpoint_fn(self, len(losses))
+            if max_steps and len(losses) >= max_steps:
+                break
+        history = {"loss": [], "examples_per_sec": []}
+        flat = torch.cat(losses) if losses else torch.zeros(0)
+        history["loss"].append(float(flat.mean()) if losses else 0.0)
+        history["examples_per_sec"].append(
+            n_examples / max(time.perf_counter() - t_start, 1e-9))
+        return history
+
+    def _timed_call(self, clock: dict, batches: Batch, labels: torch.Tensor) -> torch.Tensor:
+        """``multi_step``, its host time counted in ``step_s`` and, where
+        ``clock`` keeps ``events``, CUDA events recorded around it."""
+        events = None
+        if "events" in clock:
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        t0 = time.perf_counter()
+        losses = self.multi_step(batches, labels)
+        clock["step_s"] += time.perf_counter() - t0
+        if events is not None:
+            events[1].record()
+            clock["events"].append(events)
+        return losses
+
+    @staticmethod
+    def _pack_spec(batch: Mapping[str, np.ndarray]) -> Dict[str, list]:
+        """The packing layout of a sample batch: for each kind ('i' integer,
+        'f' float), its ``(name, width, trailing shape, dtype)`` columns in
+        order."""
+        spec = {"i": [], "f": []}
+        for k, v in batch.items():
+            v = np.asarray(v)
+            kind = "i" if v.dtype.kind in "iub" else "f"
+            width = int(np.prod(v.shape[1:])) if v.ndim > 1 else 1
+            spec[kind].append((k, width, tuple(v.shape[1:]), v.dtype))
+        return {kind: feats for kind, feats in spec.items() if feats}
+
+    def _pack_group(self, spec, group) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """K ``(batch, labels)`` pairs -> ({kind: [K, B, W]}, labels [K, B,
+        ...]), written straight into pinned host buffers (on a card).
+        Integer features are packed as int32: ids outside its range raise,
+        as the JAX package's ``_pack_group`` does."""
+        pin = self.device.type == "cuda"
+        K, B = len(group), len(group[0][1])
+        packed = {}
+        for kind, feats in spec.items():
+            dtype = torch.int32 if kind == "i" else torch.float32
+            width = sum(w for _, w, _, _ in feats)
+            buf = torch.empty((K, B, width), dtype=dtype, pin_memory=pin)
+            out = buf.numpy()
+            for j, (xb, _) in enumerate(group):
+                off = 0
+                for k, w, _, _ in feats:
+                    a = np.asarray(xb[k]).reshape(B, -1)
+                    if (kind == "i" and a.dtype.itemsize > 4 and a.size
+                            and (a.max() >= 2 ** 31 or a.min() < -(2 ** 31))):
+                        raise ValueError(
+                            f"packed stream: feature {k!r} has {a.dtype} ids outside "
+                            f"int32 range; hash/bucket them below 2^31 or use "
+                            f"steps_per_call=1")
+                    out[j, :, off:off + w] = a
+                    off += w
+            packed[kind] = buf
+        labels = torch.from_numpy(np.stack([np.asarray(yb, np.float32) for _, yb in group]))
+        if pin:
+            labels = labels.pin_memory()
+        return packed, labels
+
+    @staticmethod
+    def _unpack(spec, packed: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """[K, B, W] arrays on the device -> the batches' ``[K, B, ...]``
+        leaves in their dtypes (views where the dtype is the packed one)."""
+        batches = {}
+        for kind, feats in spec.items():
+            arr = packed[kind]
+            K, B = arr.shape[:2]
+            off = 0
+            for k, w, shape, dtype in feats:
+                leaf = arr[:, :, off:off + w].reshape((K, B) + shape)
+                off += w
+                want = torch.from_numpy(np.empty(0, dtype)).dtype
+                batches[k] = leaf if leaf.dtype == want else leaf.to(want)
+        return batches
+
+    def _fit_stream_packed(self, batches, log_every, steps_per_call, checkpoint_every,
+                           checkpoint_fn, max_steps, clock):
+        """Packed groups of ``steps_per_call`` batches, pipelined one group
+        deep: group n + 1 is packed and its copies issued before group n's
+        call is issued."""
+        spec = None
+        expected_b = None
+        loss_chunks = []
+        n_examples = steps = 0
+        group = []
+        staged = None
+
+        def stage(g):
+            t0 = time.perf_counter()
+            packed, labels = self._pack_group(spec, g)
+            t1 = time.perf_counter()
+            on_device = ({k: v.to(self.device, non_blocking=True) for k, v in packed.items()},
+                         labels.to(self.device, non_blocking=True))
+            clock["pack_s"] += t1 - t0
+            clock["copy_s"] += time.perf_counter() - t1
+            return on_device
+
+        def dispatch(staged_group):
+            nonlocal steps
+            packed, labels = staged_group
+            losses = self._timed_call(clock, self._unpack(spec, packed), labels)
+            loss_chunks.append(losses)
+            steps += steps_per_call
+            if log_every and steps % log_every < steps_per_call:
+                print(f"stream step {steps} loss {float(losses[-1]):.4f}")
+            if (checkpoint_every and checkpoint_fn is not None
+                    and steps % checkpoint_every < steps_per_call):
+                checkpoint_fn(self, steps)
+
+        def flush_single(items):
+            nonlocal steps
+            for xb, yb in items:
+                t0 = time.perf_counter()
+                xd = {k: self._stage(np.asarray(v)) for k, v in xb.items()}
+                yd = self._stage(np.asarray(yb, np.float32))
+                clock["copy_s"] += time.perf_counter() - t0
+                loss_chunks.append(self._timed_call(
+                    clock, {k: v[None] for k, v in xd.items()}, yd[None]))
+                steps += 1
+
+        t_start = time.perf_counter()
+        stopped = False
+        it = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            item = next(it, None)
+            clock["input_s"] += time.perf_counter() - t0
+            if item is None:
+                break
+            xb, yb = item
+            if max_steps and steps >= max_steps:
+                stopped = True  # drop the staged group, as the JAX loop does
+                break
+            B = len(yb)
+            n_examples += B
+            if spec is None:
+                spec = self._pack_spec(xb)
+                expected_b = B
+            if B != expected_b:
+                # a batch of another size: run everything pending in order
+                if staged is not None:
+                    dispatch(staged)
+                    staged = None
+                flush_single(group + [(xb, yb)])
+                group = []
+                continue
+            group.append((xb, yb))
+            if len(group) == steps_per_call:
+                nxt = stage(group)
+                group = []
+                if staged is not None:
+                    dispatch(staged)
+                staged = nxt
+        if not stopped:
+            if staged is not None:
+                dispatch(staged)
+            flush_single(group)  # the tail of fewer than K batches
+        history = {"loss": [], "examples_per_sec": []}
+        if loss_chunks:
+            flat = torch.cat(loss_chunks)
+            history["loss"].append(float(flat.mean()))  # waits for the last step
+            history["examples_per_sec"].append(
+                n_examples / max(time.perf_counter() - t_start, 1e-9))
+        return history
 
     # ------------------------------------------------------------------
     def _eval_logits(self, xb: Mapping[str, np.ndarray]) -> np.ndarray:

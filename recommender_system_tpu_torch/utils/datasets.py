@@ -1,13 +1,14 @@
-"""Host-side data: the Criteo schema, synthetic Criteo-shaped and behaviour
-data, the MovieLens and Amazon behaviour datasets, batching.
+"""Host-side data: the Criteo schema, the Criteo TSV loader and its
+out-of-core stream, the Avazu CSV loader, synthetic Criteo-shaped and
+behaviour data, the MovieLens and Amazon behaviour datasets, batching.
 
 Copies of the parts of ``recommender_system_tpu/utils/datasets.py`` that the
 port's paths use, bit-exact with them (``tests/test_torch_utils.py``,
-``tests/test_torch_din.py``, ``tests/test_torch_behavior_data.py``). Batches
-are dicts of fixed-shape numpy arrays. The behaviour-data readers import
-pandas inside the functions that need it, so the module imports without it.
-Unlike the JAX package's, they take the data's path from the caller: they
-have no default data directory.
+``tests/test_torch_din.py``, ``tests/test_torch_behavior_data.py``,
+``tests/test_torch_criteo_data.py``). Batches are dicts of fixed-shape
+numpy arrays. The readers import pandas inside the functions that need it,
+so the module imports without it. Unlike the JAX package's, they take the
+data's path from the caller: they have no default data directory.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from .features import DenseFeat, SparseFeat, VarLenSparseFeat
+from .hashing import hash_strings_np
 
 CRITEO_DENSE = [f"I{i}" for i in range(1, 14)]
 CRITEO_SPARSE = [f"C{i}" for i in range(1, 27)]
@@ -27,6 +29,233 @@ def criteo_columns(embedding_dim: int = 8,
     return ([DenseFeat(c, 1) for c in CRITEO_DENSE]
             + [SparseFeat(c, hash_buckets, embedding_dim)
                for c in CRITEO_SPARSE])
+
+
+def load_criteo(
+    path: str,
+    embedding_dim: int = 8,
+    hash_buckets: Optional[int] = None,
+    test_frac: float = 0.2,
+    max_rows: Optional[int] = None,
+    engine: str = "auto",
+) -> Tuple[list, Dict[str, np.ndarray], np.ndarray, Dict[str, np.ndarray], np.ndarray]:
+    """Load a Criteo TSV into typed columns and a train/test split.
+
+    Dense I1..I13: missing -> 0, MinMax-scaled over the file. Sparse
+    C1..C26: hashed into ``hash_buckets`` (FNV-1a, 0 = missing) when given,
+    else integer-encoded by sorted value with 0 reserved (LabelEncoder
+    parity; vocabulary nunique + 1). ``engine``: 'auto' parses the hashed
+    mode with the native parser where it built and with pandas elsewhere;
+    'native' raises where it did not build; 'pandas' forces pandas (the
+    only engine of the LabelEncoder mode). Both engines give the same
+    hashes. The split is the last ``test_frac`` of the rows.
+
+    Returns (feature_columns, X_train, y_train, X_test, y_test).
+    """
+    use_native = False
+    if hash_buckets is not None and engine in ("auto", "native"):
+        from .. import native
+
+        use_native = native.available()
+        if engine == "native" and not use_native:
+            raise RuntimeError(f"native parser unavailable: {native.build_error()}")
+
+    columns: list = [DenseFeat(c, 1) for c in CRITEO_DENSE]
+    X: Dict[str, np.ndarray] = {}
+
+    if use_native:
+        from ..native import parse_criteo_native
+
+        y, dense, hashes = parse_criteo_native(path, max_rows=max_rows)
+        lo, hi = dense.min(axis=0), dense.max(axis=0)
+        span = np.where(hi > lo, hi - lo, 1.0)
+        dense = (dense - lo) / span
+        for i, c in enumerate(CRITEO_DENSE):
+            X[c] = dense[:, i:i + 1].astype(np.float32)
+        span_b = np.uint64(hash_buckets - 1)
+        bucketed = (hashes % span_b + np.uint64(1)).astype(np.int32)
+        bucketed = np.where(hashes == 0, 0, bucketed)  # missing -> padding id
+        for i, c in enumerate(CRITEO_SPARSE):
+            columns.append(SparseFeat(c, hash_buckets, embedding_dim))
+            X[c] = bucketed[:, i]
+    else:
+        import pandas as pd
+
+        names = ["label"] + CRITEO_DENSE + CRITEO_SPARSE
+        df = pd.read_csv(path, sep="\t", header=None, names=names, nrows=max_rows)
+        df[CRITEO_DENSE] = df[CRITEO_DENSE].fillna(0.0).astype(np.float64)
+        for c in CRITEO_DENSE:
+            lo, hi = df[c].min(), df[c].max()
+            df[c] = (df[c] - lo) / (hi - lo) if hi > lo else 0.0
+        for c in CRITEO_DENSE:
+            X[c] = df[c].to_numpy(np.float32)[:, None]
+        for c in CRITEO_SPARSE:
+            raw = df[c]
+            if hash_buckets is not None:
+                vals = [None if (isinstance(v, float) and np.isnan(v)) else str(v)
+                        for v in raw]
+                ids = hash_strings_np(vals, hash_buckets, mask_zero=True)
+                vocab = hash_buckets
+            else:
+                vals = raw.fillna("-1").astype(str).to_numpy()
+                uniq, inv = np.unique(vals, return_inverse=True)
+                ids = inv + 1  # 0 reserved for unseen
+                vocab = len(uniq) + 1
+            columns.append(SparseFeat(c, vocab, embedding_dim))
+            X[c] = ids.astype(np.int32)
+        y = df["label"].to_numpy(np.float32)
+
+    y = np.asarray(y, np.float32)
+    n = len(y)
+    n_test = int(n * test_frac)
+    tr = slice(0, n - n_test)
+    te = slice(n - n_test, n)
+    X_train = {k: v[tr] for k, v in X.items()}
+    X_test = {k: v[te] for k, v in X.items()}
+    return columns, X_train, y[tr], X_test, y[te]
+
+
+def stream_criteo(
+    path: str,
+    batch_size: int,
+    hash_buckets: int = 1 << 20,
+    chunk_rows: int = 1 << 18,
+    epochs: int = 1,
+    threads: int = 0,
+    prefetch_chunks: int = 2,
+    drop_remainder: bool = True,
+    shuffle_buffer_rows: int = 0,
+    seed: int = 0,
+    stats: Optional[Dict[str, float]] = None,
+) -> Iterator[Tuple[Dict[str, np.ndarray], np.ndarray]]:
+    """Out-of-core Criteo batches of exactly ``batch_size`` rows (the last
+    one shorter where ``drop_remainder`` is False), parsed in the
+    background.
+
+    A thread runs the native chunk parser (``native.iter_criteo_chunks``;
+    ctypes releases the GIL) into a queue of at most ``prefetch_chunks``
+    chunks of ``chunk_rows`` rows, so parsing overlaps the device. Dense
+    values become ``log1p(max(x, 0))``; tokens ``hash % (buckets - 1) + 1``
+    with 0 for a missing one, the in-memory hashed path's ids. Pair with
+    :func:`criteo_columns`. Raises where the native parser did not build.
+
+    ``shuffle_buffer_rows > 0`` keeps a pool of at least that many rows:
+    once it holds more, the whole pool is permuted and full batches leave
+    from its front until it is back at the bound. The permutations come
+    from one generator seeded with ``seed`` that advances across epochs, so
+    every epoch is shuffled differently and a rerun replays the same
+    batches. On close the queue is drained and the parser thread stops.
+
+    ``stats``, where given, accumulates seconds: ``parser_wait_s`` blocked
+    on the queue, ``batch_s`` concatenating, permuting and bucketing.
+    """
+    import queue
+    import threading
+    import time
+
+    from ..native import iter_criteo_chunks
+
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch_chunks))
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        """Put unless the consumer stopped; False once it has."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for _ in range(epochs):
+                for chunk in iter_criteo_chunks(path, chunk_rows, threads):
+                    if stop.is_set() or not put(chunk):
+                        return
+            put(None)
+        except BaseException as e:  # surface parser errors to the consumer
+            put(e)
+
+    worker = threading.Thread(target=produce, daemon=True)
+    worker.start()
+
+    span_b = np.uint64(hash_buckets - 1)
+    clock = {"parser_wait_s": 0.0, "batch_s": 0.0} if stats is None else stats
+    clock.setdefault("parser_wait_s", 0.0)
+    clock.setdefault("batch_s", 0.0)
+
+    def to_batch(labels, dense, hashes):
+        t0 = time.perf_counter()
+        X = {}
+        d = np.log1p(np.maximum(dense, 0.0))
+        for i, c in enumerate(CRITEO_DENSE):
+            X[c] = d[:, i:i + 1]
+        bucketed = (hashes % span_b + np.uint64(1)).astype(np.int32)
+        bucketed = np.where(hashes == 0, 0, bucketed)
+        for i, c in enumerate(CRITEO_SPARSE):
+            X[c] = bucketed[:, i]
+        clock["batch_s"] += time.perf_counter() - t0
+        return X, labels
+
+    def pool(pend_l, pend_d, pend_s):
+        t0 = time.perf_counter()
+        labels = np.concatenate(pend_l)
+        dense = np.concatenate(pend_d)
+        hashes = np.concatenate(pend_s)
+        if rng is not None:
+            perm = rng.permutation(len(labels))
+            labels, dense, hashes = labels[perm], dense[perm], hashes[perm]
+        clock["batch_s"] += time.perf_counter() - t0
+        return labels, dense, hashes
+
+    pend_l, pend_d, pend_s = [], [], []
+    pending = 0
+    pool_min = max(0, int(shuffle_buffer_rows))
+    rng = np.random.default_rng(seed) if pool_min else None
+    try:
+        while True:
+            t0 = time.perf_counter()
+            item = q.get()
+            clock["parser_wait_s"] += time.perf_counter() - t0
+            if item is None:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            labels, dense, hashes = item
+            pend_l.append(labels)
+            pend_d.append(dense)
+            pend_s.append(hashes)
+            pending += len(labels)
+            if pending < batch_size + pool_min:
+                continue
+            labels, dense, hashes = pool(pend_l, pend_d, pend_s)
+            n_full = ((len(labels) - pool_min) // batch_size) * batch_size
+            for lo in range(0, n_full, batch_size):
+                sl = slice(lo, lo + batch_size)
+                yield to_batch(labels[sl], dense[sl], hashes[sl])
+            pend_l = [labels[n_full:]]
+            pend_d = [dense[n_full:]]
+            pend_s = [hashes[n_full:]]
+            pending = len(labels) - n_full
+        if pending:
+            labels, dense, hashes = pool(pend_l, pend_d, pend_s)
+            n_full = (len(labels) // batch_size) * batch_size
+            for lo in range(0, n_full, batch_size):
+                sl = slice(lo, lo + batch_size)
+                yield to_batch(labels[sl], dense[sl], hashes[sl])
+            if len(labels) > n_full and not drop_remainder:
+                sl = slice(n_full, None)
+                yield to_batch(labels[sl], dense[sl], hashes[sl])
+    finally:
+        stop.set()
+        # drain so that the producer unblocks and exits
+        while not q.empty():
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
 
 
 def synthetic_criteo(
@@ -90,6 +319,131 @@ def synthetic_behavior(
     ]
     X = {"user_id": user, "item_id": item, "hist_item_id": hist, "hist_len": hist_len}
     return columns, X, y
+
+
+# ---------------------------------------------------------------------------
+# Avazu (hashed categorical CTR)
+# ---------------------------------------------------------------------------
+
+AVAZU_SPARSE = [
+    "C1", "banner_pos", "site_id", "site_domain", "site_category",
+    "app_id", "app_domain", "app_category", "device_id", "device_ip",
+    "device_model", "device_type", "device_conn_type",
+    "C14", "C15", "C16", "C17", "C18", "C19", "C20", "C21",
+]
+
+
+def load_avazu(
+    path: str,
+    embedding_dim: int = 8,
+    hash_buckets: int = 1_000_000,
+    test_frac: float = 0.2,
+    max_rows: Optional[int] = None,
+) -> Tuple[list, Dict[str, np.ndarray], np.ndarray, Dict[str, np.ndarray], np.ndarray]:
+    """Load an Avazu CTR CSV (kaggle ``train.csv`` schema) into typed
+    columns: the 21 categorical columns FNV-1a hashed into ``hash_buckets``
+    (0 = missing); ``hour`` (YYMMDDHH) expanded into ``hour_of_day`` (24 +
+    1) and ``day_of_week`` (7 + 1) instead of hashed. The split is the last
+    ``test_frac`` of the rows. Returns (columns, X_train, y_train, X_test,
+    y_test)."""
+    import pandas as pd
+
+    df = pd.read_csv(path, nrows=max_rows, dtype=str)
+    y = df["click"].to_numpy(np.float32)
+
+    columns: list = []
+    X: Dict[str, np.ndarray] = {}
+
+    ints = df["hour"].to_numpy(np.int64)
+    hod = (ints % 100).astype(np.int32)
+    dates = (ints // 100).astype(np.int64)  # YYMMDD
+    # int -> datetime64 casts count from the 1970 epoch
+    months = ((2000 + dates // 10000 - 1970).astype("datetime64[Y]")
+              .astype("datetime64[M]")
+              + ((dates // 100 % 100).astype("timedelta64[M]") - 1))
+    days = (months.astype("datetime64[D]")
+            + ((dates % 100).astype("timedelta64[D]") - 1))
+    # 1970-01-01 was a Thursday (weekday 3, Monday = 0)
+    dow = ((days.astype(np.int64) + 3) % 7).astype(np.int32)
+    columns.append(SparseFeat("hour_of_day", 25, embedding_dim))
+    X["hour_of_day"] = hod + 1  # 0 reserved for padding/missing
+    columns.append(SparseFeat("day_of_week", 8, embedding_dim))
+    X["day_of_week"] = dow + 1
+
+    for c in AVAZU_SPARSE:
+        vals = [None if (isinstance(v, float) and np.isnan(v)) else v for v in df[c]]
+        X[c] = hash_strings_np(vals, hash_buckets, mask_zero=True).astype(np.int32)
+        columns.append(SparseFeat(c, hash_buckets, embedding_dim))
+
+    n = len(y)
+    n_test = int(n * test_frac)
+    tr, te = slice(0, n - n_test), slice(n - n_test, n)
+    return (columns, {k: v[tr] for k, v in X.items()}, y[tr],
+            {k: v[te] for k, v in X.items()}, y[te])
+
+
+def synthetic_avazu(path: str, n_rows: int = 1_250_000, n_sites: int = 500,
+                    n_apps: int = 300, seed: int = 0) -> int:
+    """Write a deterministic synthetic CSV in the kaggle Avazu ``train.csv``
+    schema with a learnable structure: per-site and per-app quality scores,
+    banner position, hour-of-day and device-type effects, and a
+    multiplicative site-category x app-category latent term that linear
+    models cannot express. Mean CTR ~0.17. Returns the number of rows
+    written."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    n_cats = 20
+    q_site = rng.normal(0, 0.5, n_sites)
+    q_app = rng.normal(0, 0.4, n_apps)
+    u_sc = rng.normal(0, 1.0, (n_cats, 8)) / np.sqrt(8)
+    v_ac = rng.normal(0, 1.0, (n_cats, 8)) / np.sqrt(8)
+    site_cat = rng.integers(0, n_cats, n_sites)
+    app_cat = rng.integers(0, n_cats, n_apps)
+    dtype_eff = {0: 0.0, 1: 0.15, 4: -0.2, 5: -0.35}
+
+    site = rng.integers(0, n_sites, n_rows)
+    app = rng.integers(0, n_apps, n_rows)
+    pos = rng.choice([0, 1, 2, 3, 4, 5, 7], n_rows,
+                     p=[0.55, 0.25, 0.08, 0.05, 0.03, 0.02, 0.02])
+    day = rng.integers(0, 10, n_rows)
+    hod = rng.integers(0, 24, n_rows)
+    dtv = rng.choice([0, 1, 4, 5], n_rows, p=[0.06, 0.80, 0.09, 0.05])
+
+    cross = np.einsum("nk,nk->n", u_sc[site_cat[site]], v_ac[app_cat[app]])
+    logit = (-1.85 + q_site[site] + q_app[app] - 0.12 * pos
+             + 0.25 * np.sin(2 * np.pi * hod / 24.0)
+             + np.vectorize(dtype_eff.get)(dtv) + 1.3 * cross)
+    click = (rng.random(n_rows) < 1.0 / (1.0 + np.exp(-logit))).astype(np.int8)
+
+    df = pd.DataFrame({
+        "id": np.arange(n_rows, dtype=np.int64) + 10_000_000_000,
+        "click": click,
+        "hour": 14102100 + day * 100 + hod,
+        "C1": 1000 + rng.integers(0, 8, n_rows),
+        "banner_pos": pos,
+        "site_id": np.char.add("s", site.astype("U6")),
+        "site_domain": np.char.add("sd", (site // 5).astype("U6")),
+        "site_category": np.char.add("sc", site_cat[site].astype("U3")),
+        "app_id": np.char.add("a", app.astype("U6")),
+        "app_domain": np.char.add("ad", (app // 4).astype("U6")),
+        "app_category": np.char.add("ac", app_cat[app].astype("U3")),
+        "device_id": np.char.add("d", rng.integers(0, 200_000, n_rows).astype("U7")),
+        "device_ip": np.char.add("ip", rng.integers(0, 800_000, n_rows).astype("U7")),
+        "device_model": np.char.add("m", rng.integers(0, 3000, n_rows).astype("U5")),
+        "device_type": dtv,
+        "device_conn_type": rng.choice([0, 2, 3, 5], n_rows),
+        "C14": 15000 + rng.integers(0, 2000, n_rows),
+        "C15": rng.choice([300, 320, 728], n_rows),
+        "C16": rng.choice([50, 250, 90], n_rows),
+        "C17": 1700 + (site // 2),
+        "C18": rng.integers(0, 4, n_rows),
+        "C19": 30 + rng.integers(0, 60, n_rows),
+        "C20": rng.choice([-1, 100000, 100100, 100200], n_rows),
+        "C21": rng.integers(0, 100, n_rows),
+    })
+    df.to_csv(path, index=False)
+    return n_rows
 
 
 # ---------------------------------------------------------------------------

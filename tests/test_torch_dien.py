@@ -221,15 +221,27 @@ def _weighted_bce(logits, labels, positive):
 
 # ------------------------------------------------------------ training
 
+def _recording():
+    """An optax transformation that passes the updates on and keeps them as
+    its state: after ``add_decayed_weights`` it records each step's decayed
+    gradient ``g + wd * p``."""
+    return optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
+
+
 # kind -> (JAX dense optimizer, JAX fused optimizer, loss_fn, weight decay)
 JAX_KINDS = {
     "adagrad": (lambda: optax.adagrad(LR), None, None, 0.0),
     "fused": (lambda: optax.adagrad(LR), lambda: JFusedAdagrad(LR), None, 0.0),
     "custom_loss": (lambda: optax.adagrad(LR), None, _half_aux, 0.0),
     "adam_wd": (lambda: optax.adam(ADAM_LR), None, None, WD),
+    "adam_wd_recorded": (lambda: optax.chain(_recording(), optax.adam(ADAM_LR)), None, None,
+                         WD),
 }
 PORT_OPTIMIZERS = {"adagrad": lambda: Adagrad(LR), "fused": lambda: Adagrad(LR),
-                   "custom_loss": lambda: Adagrad(LR), "adam_wd": lambda: Adam(ADAM_LR)}
+                   "custom_loss": lambda: Adagrad(LR), "adam_wd": lambda: Adam(ADAM_LR),
+                   "adam_wd_recorded": lambda: Adam(ADAM_LR)}
 
 
 def _batches():
@@ -301,7 +313,7 @@ PARITY = {
     "fused_vs_jax_fused": (True, "fused", (BF16_RTOL, BF16_ATOL)),
     "plain_vs_jax_plain": (False, "adagrad", (F32_RTOL, F32_ATOL)),
     "plain_custom_loss": (False, "custom_loss", (F32_RTOL, F32_ATOL)),
-    "plain_adam_weight_decay": (False, "adam_wd", (F32_RTOL, F32_ATOL)),
+    "plain_adam_weight_decay": (False, "adam_wd_recorded", (F32_RTOL, F32_ATOL)),
 }
 
 
@@ -310,11 +322,105 @@ def test_dien_training_matches_jax(case):
     fused, kind, (rtol, atol) = PARITY[case]
     params, states, losses = _jax_run(kind)
     trainer = _port_trainer(kind, params, fused)
+    if kind == "adam_wd_recorded":
+        _adam_matches_jax_within_its_sensitivity(trainer, params, states, losses, rtol, atol)
+        return
     got = _multi_step(trainer, _batches())
     assert trainer.step == STEPS
     np.testing.assert_allclose(got.numpy(), losses, rtol=rtol, atol=atol)
     _assert_views(_view(trainer), _jax_view(kind, states[-1], JAX_KINDS[kind][1] is not None),
                   rtol, atol)
+
+
+# Adam with weight decay: where a gradient all but cancels its decay term the
+# Adam step is ill-conditioned. At attention.w2[1, 3] the first step's
+# gradient is 3.78e-6 against wd * p = -3.78e-6, so g + wd * p = 8.3e-9, next
+# to Adam's eps of 1e-8; m_hat / (sqrt(v_hat) + eps) then moves by ~8e7 per
+# unit of gradient, and an f32 difference of 3e-11 in g (1e-5 of it) moves
+# the parameter by ~1e-5 after 4 steps at lr 1e-2. So each step's decayed
+# gradients are held at f32 tolerance, ADAM_GRAD_RTOL of the size of their
+# terms (|g| + |wd * p|) plus ADAM_GRAD_FLOOR (attention.b3's gradient is
+# exactly zero, a softmax being blind to a shift of every score, and both
+# sides give rounding noise of up to 7.9e-10 there); the moments and the
+# parameters are held at F32_RTOL / F32_ATOL plus what the gradient
+# differences each step measured move them by through Adam, to first order
+# (_adam_bounds). That bound passes 1e-6 at about 15 of the model's 9,370
+# parameters (attention.w2[1, 3] 3.7e-5, against a difference of 5.8e-6).
+ADAM_GRAD_RTOL, ADAM_GRAD_FLOOR = 1e-4, 4e-9
+B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def _named(tree):
+    """A JAX parameter-shaped tree by the port's parameter names."""
+    return {n: p.detach().numpy().copy() for n, p in _port_dien(tree).named_parameters()}
+
+
+def _adam_bounds(grads, deltas, moments):
+    """First-order bounds on the differences of Adam's moments (per step)
+    and of the parameters after the last step, given the differences
+    ``deltas[t]`` of the decayed gradients ``grads[t]``; the
+    sensitivities are taken at the JAX run's moments ``moments[t] = (mu,
+    nu)``. One step is ``p -= lr * u`` with ``u = m_hat / (sqrt(v_hat) +
+    eps)``, so ``|dp| <= lr * sum_t (|dm_hat| / (sqrt(v_hat) + eps) +
+    |m_hat| |dv_hat| / (2 sqrt(v_hat) (sqrt(v_hat) + eps)^2))``."""
+    dm = dv = dp = 0.0
+    out = []
+    for t, (g, d, (mu, nu)) in enumerate(zip(grads, deltas, moments)):
+        dm = B1 * dm + (1 - B1) * d
+        dv = B2 * dv + (1 - B2) * (2 * np.abs(g) * d + d * d)
+        bc1, bc2 = 1 - B1 ** (t + 1), 1 - B2 ** (t + 1)
+        m_hat, sv = mu / bc1, np.sqrt(nu / bc2)
+        dv_term = np.divide(np.abs(m_hat), 2 * sv * (sv + ADAM_EPS) ** 2,
+                            out=np.zeros_like(sv), where=sv > 0)
+        dp = dp + ADAM_LR * (dm / bc1 / (sv + ADAM_EPS) + dv_term * dv / bc2)
+        out.append((dm, dv))
+    return out, dp
+
+
+def _assert_within(got, want, rtol, atol, bound, name):
+    excess = np.abs(got - want) - (atol + rtol * np.abs(want) + bound)
+    assert excess.max() <= 0, (f"{name}: {np.argmax(excess)} off by "
+                               f"{np.abs(got - want).ravel()[np.argmax(excess)]:.3g}")
+
+
+def _adam_matches_jax_within_its_sensitivity(trainer, params, states, losses, rtol, atol):
+    """Step by step: the losses at f32 tolerance, the decayed gradients at
+    ``ADAM_GRAD_RTOL`` and ``ADAM_GRAD_FLOOR``, the moments and the final
+    parameters at f32 tolerance plus ``_adam_bounds`` of the measured
+    gradient differences."""
+    named = dict(trainer.model.named_parameters())
+    before_jax = _named(params)
+    got_losses, grads, deltas, moments = [], [], [], []
+    for t, batch in enumerate(_batches()):
+        before = {n: p.detach().clone() for n, p in named.items()}
+        got_losses.append(float(_multi_step(trainer, [batch])[0]))
+        _, (recorded, (adam, _)) = states[t].opt_state
+        want = _named(recorded)
+        mu, nu = _named(adam.mu), _named(adam.nu)
+        step_grads, step_deltas = {}, {}
+        for n, p in named.items():
+            got = (p.grad + WD * before[n]).numpy()
+            raw = np.abs(want[n] - WD * before_jax[n]) + WD * np.abs(before_jax[n])
+            _assert_within(got, want[n], 0.0, 0.0, ADAM_GRAD_RTOL * raw + ADAM_GRAD_FLOOR,
+                           f"step {t} gradient {n}")
+            step_grads[n], step_deltas[n] = want[n], np.abs(got - want[n])
+        grads.append(step_grads)
+        deltas.append(step_deltas)
+        moments.append({n: (mu[n], nu[n]) for n in named})
+        before_jax = _named(states[t].params)
+    assert trainer.step == STEPS
+    np.testing.assert_allclose(got_losses, losses, rtol=rtol, atol=atol)
+    final = states[-1].replace(opt_state=(states[-1].opt_state[0], states[-1].opt_state[1][1]))
+    want_view = _jax_view("adam_wd_recorded", final, False)
+    got_view = _view(trainer)
+    assert got_view.keys() == want_view.keys()
+    for n in named:
+        per_step, dp = _adam_bounds([g[n] for g in grads], [d[n] for d in deltas],
+                                    [m[n] for m in moments])
+        dm, dv = per_step[-1]
+        _assert_within(got_view[n], want_view[n], rtol, atol, dp, n)
+        _assert_within(got_view[f"mu:{n}"], want_view[f"mu:{n}"], rtol, atol, dm, f"mu:{n}")
+        _assert_within(got_view[f"nu:{n}"], want_view[f"nu:{n}"], rtol, atol, dv, f"nu:{n}")
 
 
 def test_weight_decay_state_carries_across():
