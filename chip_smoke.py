@@ -173,6 +173,31 @@ Phases, each of which raises on failure (exit code not 0):
    ``CLI_MODEL_LAUNCHES``; DeepFM (``--optimizer adagrad --learning-rate
    0.05``) on the card against ``--device cpu``: train_loss at rtol 1e-4,
    AUC and logloss within 2e-3;
+3o. the tables sharded by row over ``torch.distributed``
+   (``Trainer(mesh=...)``; the kernels built before any rank starts): (a)
+   one NCCL rank a card of the machine's cards, spawned here: DeepFM at
+   ``bench.py``'s width (bf16 tower) with ``Adagrad(0.05)`` and
+   ``FusedAdagrad(0.05)``, the explicit lookup at the README's capacity
+   factor 2.0, one K=8 call held to the single card's from the same start
+   (losses, every table row, accumulator and parameter at the
+   card-against-CPU tolerance), 8 ``fused_adagrad_apply`` launches a rank,
+   no overflow, a second call under ``set_sync_debug_mode("error")``, a
+   third timed; (b) four gloo ranks sharing card 0, a rehearsal of the
+   four-shard routing and of the per-shard launches whose times are no
+   speed figure: two steps each of DeepFM at ``bench.py``'s width (f32
+   tower) with ``FusedAdagrad``, the explicit lookup at 2.0 and the
+   full-capacity lookup, its plain step (``scatter_add_sorted``), WideDeep
+   with ``FusedSGD`` and NFM with ``FusedAdam`` (BatchNorm on the global
+   batch's moments) at ``model_step.py``'s Criteo width, and DIN at its
+   width with ``FusedAdagrad`` and the explicit lookup at a capacity factor
+   of 4 (nothing dropped), each held to the single card's steps (NFM's
+   Adam-trained parameters within ``ADAM_PARITY``, its moved rows the
+   single card's), its launches checked on every rank; (c) the README's multi-chip command
+   under ``python -m torch.distributed.run --nproc-per-node N`` with
+   ``--mesh-data N`` (N the card count) on 16,000 synthetic rows (310
+   steps): exit code 0, one JSON line, its checkpoint restored on one card
+   scoring the held-out rows as the run did. A rank that fails fails the
+   script;
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
    host overhead included), and the library call where there is one (the
@@ -201,7 +226,8 @@ Every launch check compares all seven wrappers' launch counts and the
 be 0 on every path but 3k's.
 
 The line before the last lists every kernel with its launches on its main
-path (the three global kernels: on phase 3k's path), its error against the
+path (the three global kernels: on phase 3k's path; kernels 3-7 also on
+phase 3o's runs, summed over ranks, as ``mesh_launches``), its error against the
 plain version, its times and its bound; the line
 before that names the card and its power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
@@ -2505,6 +2531,372 @@ def time_cli(cli: dict, card) -> None:
     shutil.rmtree(cli["tmp"])
 
 
+# ---------------------------------------------------------------------------
+# The distributed slice: Trainer(mesh=...) over NCCL on the machine's cards,
+# a rehearsal of four gloo ranks on one card, and the README's multi-chip
+# command under torchrun
+# ---------------------------------------------------------------------------
+
+MESH_CAPACITY = 2.0  # the README's multi-chip command's --capacity-factor
+GLOO_RANKS = 4
+# steps of each configuration of the gloo rehearsal, held to the
+# single-card step at the card-against-CPU tolerance (PARITY_*)
+GLOO_STEPS = 2
+# the README's multi-chip command on the synthetic stand-in: 16,000
+# training rows at the CLI's batch of 256, 5 epochs: 310 steps
+MULTICHIP_ROWS = 20_000
+MULTICHIP_ARGV = ["--model", "deepfm", "--fused-embedding", "adagrad", "--explicit-lookup",
+                  "--capacity-factor", "2.0", "--max-rows", str(MULTICHIP_ROWS)]
+
+
+def mesh_configs() -> dict:
+    """The gloo rehearsal's configurations: name -> (model builder, dense
+    optimizer, fused optimizer or None, batch maker, Trainer mesh options,
+    launches a rank per step). DeepFM at bench.py's width with an f32 tower
+    (the bf16 tower's GEMMs round each rank's partial gradient sums, which a
+    f32 tolerance would not hold); WideDeep and NFM at model_step.py's
+    Criteo width; DIN at its width, at a capacity that drops nothing (two
+    lookup sites: the JAX package splits their concatenation otherwise).
+    NFM's parameters are held by ``ADAM_PARITY`` (see ``_held_to``)."""
+    from recommender_system_tpu_torch import FusedAdagrad, FusedAdam, FusedSGD
+    from recommender_system_tpu_torch.training import SGD, Adagrad, Adam
+
+    bench = lambda: staged_batches(range(GLOO_STEPS), device="cpu")[1:]
+    criteo = lambda: staged_batches(range(GLOO_STEPS), device="cpu", batch=CTR_BATCH)[1:]
+    cols = lambda: staged_batches(range(1), device="cpu", batch=8)[0]
+    explicit = dict(capacity_factor=MESH_CAPACITY, explicit_lookup=True)
+    return {
+        "deepfm_fused_explicit": (lambda: deepfm(cols(), None), lambda: Adagrad(LR),
+                                  lambda: FusedAdagrad(LR), bench, explicit,
+                                  {"fused_adagrad_apply": 1}),
+        "deepfm_fused_full_capacity": (lambda: deepfm(cols(), None), lambda: Adagrad(LR),
+                                       lambda: FusedAdagrad(LR), bench,
+                                       dict(capacity_factor=MESH_CAPACITY),
+                                       {"fused_adagrad_apply": 1}),
+        "deepfm_plain": (lambda: deepfm(cols(), None), lambda: Adagrad(LR), None, bench, {},
+                         {"scatter_add_sorted": 1}),
+        "wide_deep_fused_sgd": (lambda: ctr_model("wide_deep", cols()), lambda: SGD(SGD_LR),
+                                lambda: FusedSGD(SGD_LR), criteo, explicit,
+                                {"fused_sgd_apply": 1}),
+        "nfm_fused_adam": (lambda: ctr_model("nfm", cols()), lambda: Adam(ADAM_LR),
+                           lambda: FusedAdam(ADAM_LR), criteo, explicit,
+                           {"fused_adam_apply": 1}),
+        "din_fused": (din_model, lambda: Adagrad(LR), lambda: FusedAdagrad(LR),
+                      lambda: din_staged(range(GLOO_STEPS)), dict(
+                          capacity_factor=float(GLOO_RANKS), explicit_lookup=True),
+                      {"din_attention_fused": 1, "fused_adagrad_apply": 1}),
+    }
+
+
+def _rank_batches(batches, labels, mesh):
+    """This rank's rows of K stacked global batches, on its card."""
+    b = labels.shape[1] // mesh.n
+    rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    return ({k: v[:, rows].to(mesh.device) for k, v in batches.items()},
+            labels[:, rows].to(mesh.device))
+
+
+def _whole_state(trainer) -> dict:
+    """The trainer's parameters, buffers and optimizer states on the host,
+    the sharded tables gathered whole (a collective under a mesh)."""
+    from recommender_system_tpu_torch.parallel.mesh import unshard_table
+
+    def whole(name, t):
+        if trainer.mesh is not None and name in trainer.sharded:
+            t = unshard_table(t.detach(), trainer.sharded[name], trainer.mesh)
+        return t.detach().to("cpu", copy=True)
+
+    state = {n: whole(n, t) for n, t in trainer.model.state_dict().items()}
+    state.update({f"opt:{k}:{n}": whole(n, t) for n, slots in trainer.opt_state.items()
+                  for k, t in slots.items()})
+    state.update({f"slot{i}:{n}": whole(n, t) for n, slots in trainer.fused_slots.items()
+                  for i, t in enumerate(slots)})
+    return state
+
+
+def _gather_objects(obj, mesh) -> list:
+    import torch.distributed as dist
+
+    out = [None] * mesh.n
+    dist.all_gather_object(out, obj, group=mesh.group)
+    return out
+
+
+def nccl_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """Phase 3o (a) on one rank of the NCCL group: DeepFM at bench.py's
+    width (bf16 tower) through Trainer(mesh=...) with FusedAdagrad and the
+    explicit lookup at the README's capacity factor: one K=8 call counted
+    and gathered, one under set_sync_debug_mode("error"), one timed."""
+    import torch.distributed as dist
+    from recommender_system_tpu_torch import FusedAdagrad, Trainer
+    from recommender_system_tpu_torch.parallel import make_mesh
+    from recommender_system_tpu_torch.training import Adagrad
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(world)
+        cols, batches, labels = staged_batches(range(K), device="cpu")
+        batches, labels = _rank_batches(batches, labels, mesh)
+        trainer = Trainer(deepfm(cols, torch.bfloat16, device=mesh.device), Adagrad(LR),
+                          fused_embedding=FusedAdagrad(LR), mesh=mesh,
+                          capacity_factor=MESH_CAPACITY, explicit_lookup=True)
+        zero_counts()
+        losses = trainer.multi_step(batches, labels)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        overflow = trainer.take_overflow()
+        state = _whole_state(trainer)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            trainer.multi_step(batches, labels)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.multi_step(batches, labels)
+        end.record()
+        end.synchronize()
+        per_rank = _gather_objects({"launches": launches,
+                                    "step_ms": start.elapsed_time(end) / K}, mesh)
+        if mesh.rank == 0:
+            torch.save({"losses": losses.cpu(), "overflow": overflow, "state": state,
+                        "ranks": per_rank}, os.path.join(out_dir, "nccl.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """Phase 3o (b) on one of four gloo ranks sharing card 0: each of
+    ``mesh_configs`` for GLOO_STEPS steps in one multi_step call, its
+    launches counted, its state gathered; rank 0 writes them."""
+    import torch.distributed as dist
+    from recommender_system_tpu_torch import Trainer
+    from recommender_system_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        # gloo carries the card's tensors through host memory: the group is
+        # passed, so the mesh takes it for the card
+        mesh = make_mesh(world, group=dist.group.WORLD, device=torch.device("cuda", 0))
+        for name, (model, optimizer, fused, data, mesh_kw, _) in mesh_configs().items():
+            batches, labels = _rank_batches(*data(), mesh)
+            trainer = Trainer(model(), optimizer(), fused_embedding=fused and fused(),
+                              mesh=mesh, **mesh_kw)
+            dist.barrier()
+            zero_counts()
+            t0 = time.perf_counter()
+            losses = trainer.multi_step(batches, labels)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_counts()
+            overflow = trainer.take_overflow()
+            state = _whole_state(trainer)
+            per_rank = _gather_objects({"launches": launches, "seconds": seconds}, mesh)
+            if mesh.rank == 0:
+                torch.save({"losses": losses.cpu(), "overflow": overflow, "state": state,
+                            "ranks": per_rank}, os.path.join(out_dir, f"{name}.pt"))
+            del trainer, state
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(fn, world: int, out_dir: str, timeout: float) -> None:
+    """Run ``fn(rank, world, init_file, out_dir)`` in ``world`` spawned
+    processes; any rank that fails or outlives ``timeout`` fails the phase
+    (the rest are stopped)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    init_file = os.path.join(out_dir, f"{fn.__name__}.group")
+    procs = [ctx.Process(target=fn, args=(r, world, init_file, out_dir)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        codes = [p.exitcode for p in procs]
+        if any(code != 0 for code in codes):
+            raise RuntimeError(f"{fn.__name__}: rank exit codes {codes} (None: still "
+                               f"running after {timeout:.0f} s)")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+
+
+# Adam moves a parameter by about lr a step whatever its gradient's size
+# (at most 1.1 lr in the first two steps), so where f32 summation order
+# flips the sign of a gradient that all but cancels, or a ReLU that sits at
+# zero, two runs differ by up to 2.2 lr a step: NFM's parameters after
+# GLOO_STEPS steps are held to that bound, its Adam moments and losses to
+# PARITY, and the rows its lazy Adam moved must be the single card's.
+ADAM_PARITY = 2.2 * ADAM_LR * GLOO_STEPS
+
+
+def _held_to(name: str, got: dict, trainer, losses, card, start=None) -> float:
+    """A mesh run's losses and whole state against the single-card
+    trainer's after the same steps (PARITY tolerance); with ``start`` (the
+    untrained model's state, for an Adam-trained model), its parameters
+    within ``ADAM_PARITY`` and each table's moved rows equal to the single
+    card's. Returns the largest difference; prints the elements past
+    PARITY."""
+    torch.testing.assert_close(got["losses"], losses.cpu(), rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                               msg=lambda m: f"{name} losses: {m}")
+    want = _whole_state(trainer)
+    if want.keys() != got["state"].keys():
+        raise RuntimeError(f"{name}: the mesh state names {sorted(got['state'])}, "
+                           f"the single card's {sorted(want)}")
+    worst, past = 0.0, 0
+    for key, value in want.items():
+        adam_param = start is not None and key in start
+        torch.testing.assert_close(got["state"][key], value, rtol=PARITY_RTOL,
+                                   atol=PARITY_ATOL + (ADAM_PARITY if adam_param else 0.0),
+                                   msg=lambda m, key=key: f"{name} {key}: {m}")
+        if value.is_floating_point():
+            worst = max(worst, (got["state"][key] - value).abs().max().item())
+            past += int((~torch.isclose(got["state"][key], value, rtol=PARITY_RTOL,
+                                        atol=PARITY_ATOL)).sum())
+        if adam_param and key.rsplit(".", 1)[-1].startswith("table_d"):
+            moved = [(t != start[key]).any(1) for t in (got["state"][key], value)]
+            if not torch.equal(*moved):
+                raise RuntimeError(f"{name} {key}: the mesh moved {int(moved[0].sum())} rows, "
+                                   f"the single card {int(moved[1].sum())}, not the same ones")
+    if past:
+        print(f"{name}: {past} elements past PARITY, within {ADAM_PARITY:.1e} (Adam)",
+              flush=True)
+    return worst
+
+
+def mesh_path(card) -> dict:
+    """Phase 3o: (a) NCCL over the machine's cards, (b) four gloo ranks
+    sharing card 0, (c) the README's multi-chip command under torchrun.
+    Returns each run's launches per rank and its times."""
+    from recommender_system_tpu_torch import FusedAdagrad, Trainer
+    from recommender_system_tpu_torch.training import Adagrad, Adam
+
+    t0 = time.perf_counter()
+    out = {"launches": {}, "times": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    world = torch.cuda.device_count()
+
+    # (a) NCCL, one rank a card, against the single card from the same start
+    _spawn_ranks(nccl_rank, world, tmp, timeout=300)
+    got = torch.load(os.path.join(tmp, "nccl.pt"), weights_only=False)
+    cols, batches, labels = staged_batches(range(K))
+    single = Trainer(deepfm(cols, torch.bfloat16), Adagrad(LR), fused_embedding=FusedAdagrad(LR))
+    losses = single.multi_step(batches, labels)
+    worst = _held_to("NCCL DeepFM", got, single, losses, card)
+    table = "unified.embeddings.table_d9"
+    bitwise = all(torch.equal(got["state"][k], v) for k, v in _whole_state(single).items())
+    ranks = got["ranks"]
+    want = launches_want(fused_adagrad_apply=K)
+    if any(r["launches"] != want for r in ranks) or got["overflow"] != 0:
+        raise RuntimeError(f"NCCL mesh: launches {[r['launches'] for r in ranks]} and "
+                           f"overflow {got['overflow']}, want {want} a rank and 0")
+    out["launches"]["nccl_deepfm"] = [r["launches"] for r in ranks]
+    out["times"]["nccl_deepfm_step_ms"] = [r["step_ms"] for r in ranks]
+    print(f"phase 3o (a): DeepFM at bench.py's width on {world} NCCL rank(s), "
+          f"{got['state'][table].shape[0]} rows of {table} over them, FusedAdagrad, explicit "
+          f"lookup at capacity factor {MESH_CAPACITY}: one K={K} call equals the single card's "
+          f"(losses {[round(float(x), 5) for x in got['losses']]}; largest difference "
+          f"{worst:.3e}, bitwise equal: {bitwise}), overflow {got['overflow']}; launches a "
+          f"rank {[r['launches']['fused_adagrad_apply'] for r in ranks]} fused_adagrad_apply; "
+          f"a call under set_sync_debug_mode('error'); {[round(r['step_ms'], 3) for r in ranks]}"
+          f" ms a step (CUDA events, a K={K} call); on {card}", flush=True)
+    del single
+
+    # (b) four gloo ranks sharing card 0: a rehearsal of the routing and of
+    # the per-shard launches, whose times are no speed figure
+    _spawn_ranks(gloo_rank, GLOO_RANKS, tmp, timeout=600)
+    for name, (model, optimizer, fused, data, _, per_step) in mesh_configs().items():
+        got = torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=False)
+        batches, labels = data()
+        batches, labels = {k: v.to("cuda") for k, v in batches.items()}, labels.to("cuda")
+        m = model()
+        start = ({n: t.detach().to("cpu", copy=True) for n, t in m.named_parameters()}
+                 if isinstance(optimizer(), Adam) else None)
+        single = Trainer(m, optimizer(), fused_embedding=fused and fused())
+        losses = single.multi_step(batches, labels)
+        worst = _held_to(f"gloo {name}", got, single, losses, card, start)
+        want = launches_want(**{k: v * GLOO_STEPS for k, v in per_step.items()})
+        ranks = got["ranks"]
+        if any(r["launches"] != want for r in ranks) or got["overflow"] != 0:
+            raise RuntimeError(f"gloo {name}: launches {[r['launches'] for r in ranks]}, "
+                               f"overflow {got['overflow']}; want {want} a rank and 0")
+        out["launches"][f"gloo_{name}"] = [r["launches"] for r in ranks]
+        out["times"][f"gloo_{name}_s"] = [r["seconds"] for r in ranks]
+        print(f"phase 3o (b): {name} on {GLOO_RANKS} gloo ranks sharing one card: "
+              f"{GLOO_STEPS} steps equal the single card's (largest difference {worst:.3e}), "
+              f"overflow 0, launches a rank {want}; rehearsal, no speed figure: "
+              f"{max(r['seconds'] for r in ranks):.3f} s for the call; on {card}", flush=True)
+        del single
+
+    # (c) the README's multi-chip command under torchrun, one rank a card
+    out["multichip"] = multichip_cli(tmp, world, card)
+    shutil.rmtree(tmp)
+    print(f"phase 3o took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def multichip_cli(tmp: str, world: int, card) -> dict:
+    """Phase 3o (c): ``python -m torch.distributed.run --nproc-per-node N
+    -m recommender_system_tpu_torch.train --mesh-data N`` with the README's
+    flags on the synthetic stand-in; its exit code, its JSON line, and its
+    checkpoint, which one card restores and which scores the held-out rows
+    as the mesh did."""
+    from recommender_system_tpu_torch import train
+    from recommender_system_tpu_torch.training.checkpoint import (latest_step,
+                                                                  restore_checkpoint)
+
+    ckpt = os.path.join(tmp, "multichip_ckpt")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(world), "-m", "recommender_system_tpu_torch.train", "--mesh-data", str(world),
+           *MULTICHIP_ARGV, "--checkpoint-dir", ckpt]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"the multi-chip command exited {run.returncode}:\n"
+                           f"{run.stderr[-4000:]}")
+    lines = [line for line in run.stdout.splitlines() if line.startswith("{")]
+    if len(lines) != 1:
+        raise RuntimeError(f"the multi-chip command printed {len(lines)} result lines:\n"
+                           f"{run.stdout[-2000:]}")
+    result = json.loads(lines[0])
+    config = train.parse_args(MULTICHIP_ARGV)
+    train_rows = MULTICHIP_ROWS - MULTICHIP_ROWS // 5
+    steps = config.epochs * (train_rows // config.batch_size)
+    if (len(result["train_loss"]) != config.epochs or not np.isfinite(result["train_loss"]).all()
+            or latest_step(ckpt) != steps):
+        raise RuntimeError(f"the multi-chip command: {result}, checkpoint at step "
+                           f"{latest_step(ckpt)}, want {config.epochs} epochs and step {steps}")
+    columns, _, _, X_test, y_test = train.build_data(config)
+    single = train.build_trainer(config, columns)
+    restore_checkpoint(ckpt, single)
+    metrics = single.evaluate(X_test, y_test)
+    for key in ("auc", "logloss"):
+        # the CLI prints them rounded to 4 places
+        if abs(metrics[key] - result[key]) > 5.1e-5:
+            raise RuntimeError(f"the restored checkpoint scores {key} {metrics[key]}, the "
+                               f"multi-chip run {result[key]}")
+    print(f"phase 3o (c): {' '.join(cmd[1:])} exited 0 in {seconds:.1f} s: {result}; its "
+          f"step-{steps} checkpoint restored on one card scores AUC {metrics['auc']:.6f}, "
+          f"logloss {metrics['logloss']:.6f} (the run's, to its 4 places); on {card}",
+          flush=True)
+    return {"result": result, "seconds": seconds, "steps": steps}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -2642,6 +3034,11 @@ def main() -> int:
     # width and in memory, checkpoint and resume, every model it builds
     cli = cli_path(card)
 
+    # --- phase 3o: the tables sharded by row over torch.distributed: NCCL
+    # over the machine's cards, four gloo ranks on one card, and the
+    # README's multi-chip command under torchrun
+    mesh = mesh_path(card)
+
     # --- phase 4: timings --------------------------------------------------
     with torch.inference_mode():
         batch = {k: torch.as_tensor(v, device="cuda")
@@ -2706,6 +3103,11 @@ def main() -> int:
     # launches on each kernel's main path, and on the other paths beside them
     ctr_launches = ctr["launches"]
     family_launches = family["launches"]
+    def on_mesh(kernel):
+        """Each phase-3o run's launches of ``kernel``, summed over ranks."""
+        return {run: sum(r[kernel] for r in ranks) for run, ranks in mesh["launches"].items()
+                if sum(r[kernel] for r in ranks)}
+
     sparse_rows = [
         ("fused_adagrad_apply", "recommender_system_tpu/ops/fused_adagrad.py:156",
          fused_launches["fused_adagrad_apply"],
@@ -2765,11 +3167,13 @@ def main() -> int:
         "dien_plain_training_launches": dien_plain_launches["din_attention_fused"],
         "cli_din_dien_launches": (cli["models"]["din"]["din_attention_fused"]
                                   + cli["models"]["dien"]["din_attention_fused"]),
+        "mesh_launches": on_mesh("din_attention_fused"),
     }] + global_entries + [{
         "name": name, "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/sparse_rows.cu",
         "replaces": replaces, "launches": count, "max_abs_err": sparse_errs[name],
         **sparse_times[name], "other_paths_launches": others,
+        "mesh_launches": on_mesh(name),
     } for name, replaces, count, others in sparse_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,10 @@ trained and served, both through the same sparse kernels; the NLP
 models (``LSTMClassifier``, ``Transformer``, ``TransformerClassifier``);
 and the training CLI, ``python -m recommender_system_tpu_torch.train``
 (``ExperimentConfig``), in memory or out of core over a Criteo TSV through
-the native parser, with checkpoints. Every TPU kernel of the JAX package
+the native parser, with checkpoints; and training over tables sharded by
+row on a ``torch.distributed`` process group (``parallel``: ``make_mesh``,
+the all-to-all lookup, the sharded fused update; ``Trainer(mesh=...)``,
+``--mesh-data`` under ``torchrun``). Every TPU kernel of the JAX package
 has its counterpart in ``csrc/``.
 """
 
@@ -29,10 +32,11 @@ from .config import ExperimentConfig
 from .models import (AFM, CTR_MODELS, DCN, DIEN, DIN, DSSM, FFM, FM, FNN, MMOE, NFM, PNN,
                      DeepCrossing, DeepFM, LSTMClassifier, Transformer, TransformerClassifier,
                      WideDeep, init_from_fm)
+from .parallel import Mesh, make_mesh
 from .serving import RetrievalIndex, Scorer
 from .training import FusedAdagrad, FusedAdam, FusedSGD, Trainer
 
 __all__ = ["AFM", "CTR_MODELS", "DCN", "DIEN", "DIN", "DSSM", "DeepCrossing", "DeepFM",
            "ExperimentConfig", "FFM", "FM", "FNN", "FusedAdagrad", "FusedAdam", "FusedSGD",
-           "LSTMClassifier", "MMOE", "NFM", "PNN", "RetrievalIndex", "Scorer", "Trainer",
-           "Transformer", "TransformerClassifier", "WideDeep", "init_from_fm"]
+           "LSTMClassifier", "MMOE", "Mesh", "NFM", "PNN", "RetrievalIndex", "Scorer", "Trainer",
+           "Transformer", "TransformerClassifier", "WideDeep", "init_from_fm", "make_mesh"]

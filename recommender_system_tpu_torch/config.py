@@ -4,11 +4,13 @@ optimizers and the run (counterpart of ``recommender_system_tpu/config.py``).
 ``ExperimentConfig`` has the JAX package's fields and defaults, plus
 ``device``: None runs on the card (and raises without one), any other value
 names the device, as ``--device cpu`` does on the command line.
+``build_mesh`` starts a ``torchrun`` job's process group for ``mesh_data``.
 ``recommender_system_tpu_torch.train`` turns one into a run.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Tuple
 
 
@@ -66,8 +68,8 @@ class ExperimentConfig:
     # restarts from the latest and skips the rows it consumed
     checkpoint_every: int = 0
 
-    # parallelism (None: one device); the mesh options come with the
-    # distributed slice of the port
+    # parallelism (None: one device): mesh_data ranks under torchrun, one a
+    # card; explicit_lookup and capacity_factor act with a mesh only
     mesh_data: Optional[int] = None
     mesh_model: int = 1
     explicit_lookup: bool = False
@@ -94,8 +96,21 @@ class ExperimentConfig:
         return table[self.optimizer](self.learning_rate)
 
     def build_mesh(self):
-        """None without ``mesh_data``; a mesh comes with the distributed
-        slice of the port and raises ``NotImplementedError`` until then."""
+        """None without ``mesh_data``; else the mesh over a ``torchrun`` job
+        of ``mesh_data`` ranks (``parallel.launch.initialize``: NCCL, one
+        rank a card; gloo with ``device='cpu'``). Raises unless
+        ``WORLD_SIZE`` is ``mesh_data``; ``mesh_model`` above 1 raises
+        ``NotImplementedError``."""
         if self.mesh_data is None:
             return None
-        raise NotImplementedError("mesh_data comes with the distributed slice of the port")
+        from .parallel import initialize, make_mesh
+
+        if self.mesh_model != 1:
+            make_mesh(self.mesh_data, self.mesh_model)  # raises NotImplementedError
+        world = os.environ.get("WORLD_SIZE")
+        if world is None or int(world) != self.mesh_data:
+            raise RuntimeError(
+                f"--mesh-data {self.mesh_data} runs under torchrun --nproc-per-node "
+                f"{self.mesh_data} (WORLD_SIZE is {world})")
+        initialize("gloo" if self.device == "cpu" else "nccl")
+        return make_mesh(self.mesh_data, self.mesh_model)

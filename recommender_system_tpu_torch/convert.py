@@ -41,6 +41,12 @@ parameters the dense optimizer updates (``optax.sgd`` keeps only
 ``EmptyState``s, which carry nothing), and the fused optimizer's slots,
 each unpacked like its table: ``{path: (acc,)}`` of ``FusedAdagrad``,
 ``{path: ()}`` of ``FusedSGD``, ``{path: (m, v)}`` of ``FusedAdam``.
+
+A JAX mesh state's leaves are global arrays, so ``np.asarray`` of each is
+the whole table or state. Into a collection that a mesh ``Trainer`` has
+sharded (``EmbeddingCollection.shard``), both functions put this rank's
+rows: the unpacked table (or state) padded to the JAX stack's rows and
+split as the mesh splits it (``parallel.mesh.shard_table``).
 """
 from __future__ import annotations
 
@@ -86,6 +92,38 @@ def _port_name(path: Tuple[str, ...], names: Container[str]) -> str:
     return ".".join(path[:-1] + (_RENAMES.get(path[-1], path[-1]),))
 
 
+def _sharding(model: torch.nn.Module, name: str):
+    """The sharded collection that holds parameter ``name`` of ``model``,
+    or None."""
+    from .layers.embedding import EmbeddingCollection
+
+    prefix = name.rsplit(".", 1)[0] if "." in name else ""
+    owner = model.get_submodule(prefix)
+    if isinstance(owner, EmbeddingCollection) and owner.mesh is not None:
+        return owner
+    return None
+
+
+def _copy(model: torch.nn.Module, param: str, path: Tuple[str, ...], value: np.ndarray,
+          name: str, target: torch.Tensor) -> None:
+    """``_copy_leaf``, but a table (or a state of its shape) of a collection
+    that a mesh has sharded is unpacked whole and this rank's rows taken."""
+    sharded = _sharding(model, param)
+    if sharded is None or not path[-1].startswith("table_d"):
+        _copy_leaf(path, value, name, target)
+        return
+    from .parallel.mesh import shard_table
+
+    dim = target.shape[1]
+    whole = torch.as_tensor(np.array(unpack_stack(value, sharded.total_rows[dim], dim)))
+    rows = shard_table(whole, sharded.mesh)
+    if rows.shape != target.shape:
+        raise ValueError(f"JAX variable {'/'.join(path)} gives this rank "
+                         f"{tuple(rows.shape)}, {name} has {tuple(target.shape)}")
+    with torch.no_grad():
+        target.copy_(rows.to(target.dtype))
+
+
 def _copy_leaf(path: Tuple[str, ...], value: np.ndarray, name: str,
                target: torch.Tensor) -> None:
     """Copy one JAX leaf into ``target``: a ``table_d*`` stack (or a state of
@@ -115,7 +153,7 @@ def load_jax_params(model: torch.nn.Module, params: Mapping,
         if name not in targets:
             raise KeyError(f"JAX variable {'/'.join(path)} has no counterpart "
                            f"{name!r} in {type(model).__name__}")
-        _copy_leaf(path, value, name, targets[name])
+        _copy(model, name, path, value, name, targets[name])
         unfilled.discard(name)
     if unfilled:
         raise KeyError(f"no JAX variable for {sorted(unfilled)}")
@@ -154,7 +192,8 @@ def load_jax_opt_state(trainer, opt_state, step: Optional[int] = None):
         if key not in targets:
             raise KeyError(f"JAX optimizer state {'/'.join(path)} has no "
                            f"counterpart {key!r} in the Trainer")
-        _copy_leaf(path, np.asarray(value), key, targets[key])
+        _copy(trainer.model, key.split(":", 1)[1], path, np.asarray(value), key,
+              targets[key])
         unfilled.discard(key)
 
     def walk(node) -> None:

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import Mesh, all_reduce_sum
+
 
 class BatchNorm(nn.Module):
     """Flax's ``nn.BatchNorm`` over the last axis, exactly.
@@ -34,9 +36,15 @@ class BatchNorm(nn.Module):
     running statistics. Names as ``convert.py`` maps Flax's: ``weight``
     (Flax ``scale``), ``bias``, buffers ``running_mean`` and ``running_var``
     (``batch_stats`` ``mean`` and ``var``).
+
+    Under a mesh (``mesh``, which the ``Trainer`` sets) train mode takes the
+    global batch's moments, as GSPMD computes Flax's: each rank's means of
+    ``x`` and ``x^2`` summed over ranks in one ``all_reduce_sum`` and
+    divided by the rank count (every rank holds as many rows).
     """
 
     momentum = 0.9
+    mesh: Optional[Mesh] = None
 
     def __init__(self, features: int, epsilon: float = 1e-5, use_scale: bool = True,
                  use_bias: bool = True, *, device: torch.device):
@@ -53,8 +61,10 @@ class BatchNorm(nn.Module):
         x = x.to(torch.float32)
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = torch.clamp(torch.mean(x * x, dim=axes) - mean * mean, min=0.0)
+            mean, mean2 = x.mean(dim=axes), torch.mean(x * x, dim=axes)
+            if self.mesh is not None:
+                mean, mean2 = all_reduce_sum(torch.stack([mean, mean2]), self.mesh) / self.mesh.n
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

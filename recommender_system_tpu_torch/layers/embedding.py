@@ -23,6 +23,13 @@ group's ``[B, F]`` or a varlen column's ``[B, T]``) then reads the detached
 table, makes its output a leaf that requires grad, and appends a
 ``Captured`` record, so that after ``backward()`` the leaf's ``.grad`` is
 the lookup's cotangent, beside its rows.
+
+Under a mesh (``shard``, which the ``Trainer`` calls) the collection holds
+only this rank's rows of each ``table_d*`` and every gather goes through the
+all-to-all exchange (``parallel.fused.alltoall_take``): in train mode at the
+``capacity_factor`` given (overflowed rows read zeros and are counted in the
+``Captured`` record), else at full capacity, which is exact. The captured
+cotangent is the one of the rows this rank looked up.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ from torch import nn
 from ..ops.embedding_grad import take_fast
 from ..ops.seqpool import id_mask, length_mask, sequence_pooling, weighted_sequence
 from ..ops.stream_sort import SortLayout
+from ..parallel.fused import alltoall_take
+from ..parallel.mesh import Mesh, shard_table
 from ..utils.features import (DenseFeat, FeatureColumn, SparseFeat,
                               VarLenSparseFeat, split_columns)
 from ..utils.hashing import hash_ids
@@ -126,12 +135,14 @@ class Captured:
     ``[B, T, d]``) leaf whose ``.grad`` is the cotangent after
     ``backward()``, ``rows2d`` its ``[B, F]`` rows of ``table`` (the
     collection's ``table_d{d}``), ``layout`` the site's ``SortLayout`` or
-    None."""
+    None; under a mesh, ``overflow`` the exchange's count of rows it
+    dropped."""
 
     table: str
     embeds: torch.Tensor
     rows2d: torch.Tensor
     layout: Optional[SortLayout]
+    overflow: Optional[torch.Tensor] = None
 
     @property
     def rows(self) -> torch.Tensor:
@@ -178,6 +189,25 @@ class EmbeddingCollection(nn.Module):
                 self.sort_layouts[str(dim)] = layout.to(device)
         # capture mode: None, or the list the gathers append to
         self.capture: Optional[List[Captured]] = None
+        # under a mesh: the mesh, the train-mode lookup's capacity factor
+        # (None: full capacity) and each table's logical rows
+        self.mesh: Optional[Mesh] = None
+        self.capacity_factor: Optional[float] = None
+        self.total_rows: Dict[int, int] = {}
+
+    def shard(self, mesh: Mesh, capacity_factor: Optional[float] = None) -> None:
+        """Keep only this rank's rows of each ``table_d*`` (``shard_table``:
+        the JAX package's row blocks) and look rows up through the
+        exchange, at ``capacity_factor`` in train mode (None: full
+        capacity)."""
+        if self.mesh is not None:
+            raise ValueError("the collection is sharded already")
+        for dim in self._specs:
+            table = self.table(dim)
+            self.total_rows[dim] = table.shape[0]
+            self.register_parameter(f"table_d{dim}", nn.Parameter(
+                shard_table(table.detach(), mesh), requires_grad=table.requires_grad))
+        self.mesh, self.capacity_factor = mesh, capacity_factor
 
     @property
     def output_dim(self) -> int:
@@ -214,6 +244,8 @@ class EmbeddingCollection(nn.Module):
         table = self.table(dim)
         flat = rows.reshape(-1)
         shape = (*rows.shape, dim)
+        if self.mesh is not None:
+            return self._exchange(dim, rows, shape)
         if self.capture is not None:
             embeds = table.detach().index_select(0, flat).reshape(shape)
             embeds.requires_grad_(True)
@@ -223,11 +255,31 @@ class EmbeddingCollection(nn.Module):
                      and table.requires_grad else None)
         return take_fast(table, flat, presorted).reshape(shape)
 
+    def _exchange(self, dim: int, rows: torch.Tensor, shape, frozen: bool = False
+                  ) -> torch.Tensor:
+        """The gather under a mesh: through ``alltoall_take``, captured as
+        ``_gather`` captures (the record carries the overflow)."""
+        table = self.table(dim)
+        capacity_factor = self.capacity_factor if self.training else None
+        if frozen or self.capture is not None:
+            with torch.no_grad():
+                embeds, overflow = alltoall_take(table.detach(), rows, self.mesh,
+                                                 capacity_factor)
+            embeds = embeds.reshape(shape)
+            if not frozen:
+                embeds.requires_grad_(True)
+                self.capture.append(Captured(f"table_d{dim}", embeds, rows, None, overflow))
+            return embeds
+        return alltoall_take(table, rows, self.mesh, capacity_factor)[0].reshape(shape)
+
     def lookup(self, fc: FeatureColumn, ids: torch.Tensor) -> torch.Tensor:
         """Embed ids of any shape for one column -> ``ids.shape + (d,)``; a
         frozen column's lookup is detached (and never captured)."""
         rows = self._resolve_ids(fc, ids)
         if not fc.trainable:
+            if self.mesh is not None:
+                return self._exchange(fc.embedding_dim, rows,
+                                      (*rows.shape, fc.embedding_dim), frozen=True)
             return self.table(fc.embedding_dim).detach()[rows]
         return self._gather(fc.embedding_dim, rows, layout=None)
 

@@ -15,7 +15,8 @@ auxiliary loss, target attention and AUGRU interest evolution
    state joins the deep input.
 
 ``forward`` returns ``(logits [B, 1], aux_loss)``; the ``Trainer``'s
-``default_loss`` adds the two.
+``default_loss`` adds the two. Under a mesh (``mesh``, which the ``Trainer``
+sets) ``aux_loss`` is the global batch's, the same on every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from ..layers.core import DNN, PredictionLayer, dense
 from ..layers.embedding import EmbeddingCollection
 from ..layers.sequence import AUGRULayer, DinAttention, GRULayer
 from ..ops.dispatch import DeviceLike, resolve_device
+from ..parallel.mesh import Mesh, replicated_sum
 from ..utils.features import FeatureColumn, split_columns
 
 
@@ -79,6 +81,8 @@ class DIEN(nn.Module):
     or ``torch.bfloat16`` for the GRU's and AUGRU's gate products, the
     auxiliary tower and the deep tower (the attention kernel computes in
     f32)."""
+
+    mesh: Optional[Mesh] = None
 
     def __init__(self, feature_columns: Sequence[FeatureColumn],
                  behavior_feature_list: Sequence[str] = ("item_id",),
@@ -150,7 +154,10 @@ class DIEN(nn.Module):
             pos_logit = self.aux_net(h, keys[:, 1:, :])
             neg_logit = self.aux_net(h, neg_keys[:, 1:, :])
             ce = (_softplus(-pos_logit) + _softplus(neg_logit)) * m
-            aux_loss = torch.sum(ce) / torch.clamp(torch.sum(m), min=1.0)
+            total, count = torch.sum(ce), torch.sum(m)
+            if self.mesh is not None:  # the global batch's mean, as GSPMD's
+                total, count = replicated_sum(torch.stack([total, count]), self.mesh)
+            aux_loss = total / torch.clamp(count, min=1.0)
 
         # 3. attention scores over the interest states, 4. interest evolution
         att_scores = self.attention(att_query, states, mask, generator=generator)

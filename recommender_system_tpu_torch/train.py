@@ -17,9 +17,17 @@ accuracy; per task for MMOE; recall@10 for DSSM). ``--stream`` trains out of
 core over a Criteo-format TSV through the native parser. Checkpoints go to
 ``--checkpoint-dir`` (``--resume`` continues from the latest);
 ``--profile-dir`` writes a ``torch.profiler`` trace of the training loop.
-The mesh options come with the distributed slice of the port:
-``--mesh-data`` raises ``NotImplementedError``, and ``--explicit-lookup``
-and ``--capacity-factor`` act with a mesh only, as in the JAX package.
+``--mesh-data N`` trains over N ranks under ``torchrun`` (the README's
+multi-chip command), one rank a card, the tables sharded by row:
+
+    torchrun --nproc-per-node 8 -m recommender_system_tpu_torch.train \
+        --model deepfm --mesh-data 8 --fused-embedding adagrad \
+        --explicit-lookup --capacity-factor 2.0
+
+Every rank runs the whole program on its rows of each batch; rank 0 prints
+the result and writes the checkpoints. ``--explicit-lookup`` and
+``--capacity-factor`` act with a mesh only, as in the JAX package;
+``--mesh-model`` above 1 raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -192,10 +200,11 @@ def build_trainer(config: ExperimentConfig, columns):
     """The ``Trainer`` of ``config`` over a new model of ``columns``: the
     dense optimizer of ``--optimizer``, the fused one of
     ``--fused-embedding`` at the same learning rate, the loss of
-    ``make_loss_fn``. ``--mesh-data`` raises ``NotImplementedError``."""
+    ``make_loss_fn``, over the mesh of ``--mesh-data`` (started first, so
+    that the model lies on this rank's card)."""
     from .training import FusedAdagrad, FusedAdam, FusedSGD, Trainer
 
-    config.build_mesh()
+    mesh = config.build_mesh()
     model = build_model(config, columns)
     fused = None
     if config.fused_embedding:
@@ -203,7 +212,9 @@ def build_trainer(config: ExperimentConfig, columns):
                  "adam": FusedAdam}[config.fused_embedding](config.learning_rate)
     return Trainer(model, config.build_optimizer(), fused_embedding=fused, seed=config.seed,
                    device=config.device, loss_fn=make_loss_fn(config),
-                   weight_decay=config.weight_decay)
+                   weight_decay=config.weight_decay, mesh=mesh,
+                   capacity_factor=config.capacity_factor,
+                   explicit_lookup=config.explicit_lookup)
 
 
 class _Profile:
@@ -378,7 +389,7 @@ def parse_args(argv=None) -> ExperimentConfig:
     p.add_argument("--weight-decay", type=float, default=defaults.weight_decay)
     p.add_argument("--seed", type=int, default=defaults.seed)
     p.add_argument("--mesh-data", type=int, default=None,
-                   help="comes with the distributed slice of the port (raises)")
+                   help="ranks of the mesh, under torchrun --nproc-per-node N")
     p.add_argument("--mesh-model", type=int, default=1)
     p.add_argument("--explicit-lookup", action="store_true",
                    help="mesh only: the explicit all-to-all embedding lookup")
@@ -440,10 +451,16 @@ def parse_args(argv=None) -> ExperimentConfig:
 
 
 def main(argv=None) -> dict:
-    """Parse ``argv``, run, print the result as one JSON line; returns it."""
+    """Parse ``argv``, run, print the result as one JSON line (on rank 0
+    under a mesh, whose process group it then ends); returns it."""
+    from .utils.logging import is_host_zero
+
     config = parse_args(argv)
     result = run(config)
-    print(json.dumps(result))
+    if is_host_zero():
+        print(json.dumps(result))
+    if config.mesh_data is not None:
+        torch.distributed.destroy_process_group()
     return result
 
 

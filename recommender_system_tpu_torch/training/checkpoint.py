@@ -8,6 +8,16 @@ the fused optimizer's slots (``()``, ``(acc,)`` or ``(m, v)`` per table),
 the step count and the dropout generator's state. It is written under a
 temporary name and renamed into place, so a reader sees a whole
 checkpoint or none.
+
+A checkpoint made under a mesh has the single-device layout, as the JAX
+package's (orbax saves global arrays): every rank calls
+``save_checkpoint``, each sharded table and its states are gathered, and
+rank 0 writes them, with its dropout generator's state as ``generator`` and
+every rank's in ``rank_generators``. ``restore_checkpoint`` restores any
+checkpoint on one device or on a mesh of any size, each rank taking its
+rows; a rank's generator comes back where the checkpoint kept one for it
+(a mesh of the same size), else it is seeded anew from
+``(seed + step, rank)``.
 """
 from __future__ import annotations
 
@@ -16,28 +26,55 @@ import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import rank_seed, shard_table, unshard_table
 
 FILE = "trainer.pt"
 
 
+def _map_tables(trainer, state: dict, fn) -> dict:
+    """``state``'s ``model``, ``opt_state`` and ``fused_slots`` with
+    ``fn(tensor, rows)`` applied to each sharded table's tensors (the table
+    and its states, all of its shape), ``rows`` its logical rows."""
+    def each(name, t):
+        return fn(t, trainer.sharded[name]) if name in trainer.sharded else t
+
+    return {
+        "model": {k: each(k, v) for k, v in state["model"].items()},
+        "opt_state": {n: {k: each(n, v) for k, v in slots.items()}
+                      for n, slots in state["opt_state"].items()},
+        "fused_slots": {n: tuple(each(n, v) for v in slots)
+                        for n, slots in state["fused_slots"].items()},
+    }
+
+
 def save_checkpoint(path: str, trainer, step: Optional[int] = None) -> str:
     """Save ``trainer`` under ``path/<step>`` (default: its step count),
-    replacing a checkpoint of that step; returns the directory."""
+    replacing a checkpoint of that step; returns the directory. Under a mesh
+    every rank calls it and rank 0 writes."""
     path = os.path.abspath(path)
     step = int(trainer.step if step is None else step)
     target = os.path.join(path, str(step))
-    partial = os.path.join(path, f".{step}.{os.getpid()}.partial")
-    os.makedirs(partial, exist_ok=True)
-    torch.save({
-        "model": trainer.model.state_dict(),
-        "opt_state": trainer.opt_state,
-        "fused_slots": trainer.fused_slots,
-        "step": trainer.step,
-        "generator": trainer.generator.get_state(),
-    }, os.path.join(partial, FILE))
-    if os.path.isdir(target):
-        shutil.rmtree(target)
-    os.replace(partial, target)
+    mesh = trainer.mesh
+    state = {"model": trainer.model.state_dict(), "opt_state": trainer.opt_state,
+             "fused_slots": trainer.fused_slots,
+             "step": trainer.step, "generator": trainer.generator.get_state()}
+    if mesh is not None:
+        state.update(_map_tables(trainer, state,
+                                 lambda t, rows: unshard_table(t, rows, mesh)))
+        state["rank_generators"] = [None] * mesh.n
+        dist.all_gather_object(state["rank_generators"], state["generator"],
+                               group=mesh.group)
+    if mesh is None or mesh.rank == 0:
+        partial = os.path.join(path, f".{step}.{os.getpid()}.partial")
+        os.makedirs(partial, exist_ok=True)
+        torch.save(state, os.path.join(partial, FILE))
+        if os.path.isdir(target):
+            shutil.rmtree(target)
+        os.replace(partial, target)
+    if mesh is not None:
+        dist.barrier(group=mesh.group)
     return target
 
 
@@ -52,7 +89,7 @@ def latest_step(path: str) -> Optional[int]:
 def restore_checkpoint(path: str, trainer, step: Optional[int] = None):
     """Restore ``trainer`` in place from ``path/<step>`` (default: the
     latest); returns it. The checkpoint's tensors must have the shapes of
-    the trainer's."""
+    the trainer's (under a mesh, of its tables before sharding)."""
     path = os.path.abspath(path)
     if step is None:
         step = latest_step(path)
@@ -60,6 +97,9 @@ def restore_checkpoint(path: str, trainer, step: Optional[int] = None):
             raise FileNotFoundError(f"no checkpoints under {path}")
     saved = torch.load(os.path.join(path, str(step), FILE), map_location=trainer.device,
                        weights_only=True)
+    mesh = trainer.mesh
+    if mesh is not None:
+        saved.update(_map_tables(trainer, saved, lambda t, rows: shard_table(t, mesh)))
     trainer.model.load_state_dict(saved["model"])
     with torch.no_grad():
         if saved["opt_state"].keys() != trainer.opt_state.keys():
@@ -76,5 +116,11 @@ def restore_checkpoint(path: str, trainer, step: Optional[int] = None):
             for tensor, value in zip(slots, saved["fused_slots"][name]):
                 tensor.copy_(value)
     trainer.step = int(saved["step"])
-    trainer.generator.set_state(saved["generator"].cpu())
+    generators = saved.get("rank_generators")
+    if mesh is None:
+        trainer.generator.set_state(saved["generator"].cpu())
+    elif generators is not None and len(generators) == mesh.n:
+        trainer.generator.set_state(generators[mesh.rank].cpu())
+    else:
+        trainer.generator.manual_seed(rank_seed(trainer.seed + trainer.step, mesh.rank))
     return trainer

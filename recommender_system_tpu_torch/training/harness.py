@@ -28,6 +28,19 @@ Unlike the JAX package's pure ``TrainState``, the parameters live in the
 model and the optimizer state in the Trainer, both updated in place
 (``training/checkpoint.py`` saves and restores them).
 
+Under a mesh (``Trainer(mesh=make_mesh(...))``, ``parallel/``) each rank
+holds its rows of every ``table_d*`` and its rows of each global batch; the
+tables' gathers go through the all-to-all exchange (``explicit_lookup``: at
+``capacity_factor``, else at full capacity), the model's outputs, the labels
+and the batch columns the loss reads are gathered, so every rank computes
+the global batch's loss, as GSPMD does; the replicated parameters' gradients
+are summed over ranks (one ``all_reduce``) and stay bitwise equal on every
+rank; the fused step sends each table's stream to its owners
+(``sharded_fused_update``), and the plain step's dense optimizer updates
+each rank's rows. BatchNorm (and Dice) and DIEN's auxiliary loss take the
+global batch's statistics. Dropout draws from a generator seeded from
+``(seed, rank)``.
+
 ``fit`` trains in memory; ``fit_stream`` trains over an iterator of batches
 (the out-of-core path of ``utils.datasets.stream_criteo``), staging each
 batch, or K batches packed into one int32 and one float32 array, from
@@ -48,6 +61,8 @@ import torch
 from ..layers.embedding import EmbeddingCollection
 from ..ops.dispatch import DeviceLike, resolve_device
 from ..ops.fused_adagrad import fused_adagrad_apply, fused_adam_apply, fused_sgd_apply
+from ..parallel.fused import sharded_fused_update
+from ..parallel.mesh import Mesh, gather_rows, rank_seed
 from ..utils import metrics as metrics_lib
 from ..utils.datasets import iter_batches, pad_to_batch
 from .losses import default_loss, logits_of
@@ -64,6 +79,34 @@ def _map(fn: Callable, batch):
     if isinstance(batch, Mapping):
         return {k: fn(v) for k, v in batch.items()}
     return fn(batch)
+
+
+def _gather_outputs(outputs, mesh: Mesh):
+    """A model's outputs on the global batch: every tensor with a batch
+    axis gathered over ranks (``gather_rows``), in tuples and lists alike;
+    a 0-d tensor (DIEN's auxiliary loss) is global already."""
+    if isinstance(outputs, (tuple, list)):
+        return type(outputs)(_gather_outputs(o, mesh) for o in outputs)
+    return outputs if outputs.dim() == 0 else gather_rows(outputs, mesh)
+
+
+class _GlobalBatch(Mapping):
+    """A rank's batch as the loss sees it: each column the loss reads is
+    gathered over ranks when it is first read."""
+
+    def __init__(self, batch: Mapping[str, torch.Tensor], mesh: Mesh):
+        self._batch, self._mesh, self._seen = batch, mesh, {}
+
+    def __getitem__(self, key):
+        if key not in self._seen:
+            self._seen[key] = self._mesh.all_gather(self._batch[key])
+        return self._seen[key]
+
+    def __iter__(self):
+        return iter(self._batch)
+
+    def __len__(self):
+        return len(self._batch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,9 +200,20 @@ class Trainer:
     gradient of every parameter ``optimizer`` updates, before it
     (``DecayedWeights``, the JAX package's ``optax.add_decayed_weights``
     chained in front). ``generator`` (default: seeded with ``seed`` on the
-    device) draws dropout masks; ``seed`` also seeds ``fit``'s shuffling.
-    ``mesh``, ``capacity_factor`` and ``explicit_lookup`` come with the
-    distributed slice of the port.
+    device, or with ``rank_seed(seed, rank)`` under a mesh) draws dropout
+    masks; ``seed`` also seeds ``fit``'s shuffling.
+
+    ``mesh`` (``parallel.make_mesh``) trains over its ranks (see the module
+    docstring): the Trainer shards the model's tables and must be built on
+    every rank from the same model. ``multi_step`` and ``train_step`` then
+    take this rank's rows of each batch; ``fit``, ``fit_stream``,
+    ``predict`` and ``evaluate`` take global data and split it.
+    ``capacity_factor`` bounds the exchange's buckets of the fused update
+    and, with ``explicit_lookup``, of the train-mode lookup (without it the
+    lookup runs at full capacity, the GSPMD gather's result); entries over
+    capacity are dropped and counted (``take_overflow``, the history's
+    ``embedding_overflow``). Both are ignored without a mesh, as in the JAX
+    package.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer=None,
@@ -167,14 +221,11 @@ class Trainer:
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None, *,
                  loss_fn: Callable = default_loss, weight_decay: float = 0.0,
-                 mesh=None, capacity_factor: Optional[float] = None,
+                 mesh: Optional[Mesh] = None, capacity_factor: float = 2.0,
                  explicit_lookup: bool = False):
-        for name, given in (("mesh", mesh is not None),
-                            ("capacity_factor", capacity_factor is not None),
-                            ("explicit_lookup", explicit_lookup)):
-            if given:
-                raise NotImplementedError(
-                    f"{name} comes with the distributed slice of the port")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh (make_mesh), not "
+                            f"{type(mesh).__name__}")
         requested = resolve_device(device)
         devices = {p.device for p in model.parameters()}
         if len(devices) != 1:
@@ -191,11 +242,35 @@ class Trainer:
         self.loss_fn = loss_fn
         self.fused_embedding = fused_embedding
         self.seed = seed
+        self.mesh, self.capacity_factor = mesh, capacity_factor
+        self.explicit_lookup = explicit_lookup
         self.generator = (generator if generator is not None
-                          else torch.Generator(device=self.device).manual_seed(seed))
+                          else torch.Generator(device=self.device).manual_seed(
+                              seed if mesh is None else rank_seed(seed, mesh.rank)))
         self._collections = [(prefix, m) for prefix, m in model.named_modules()
                              if isinstance(m, EmbeddingCollection)]
+        # under a mesh: each sharded table's name -> its logical rows
+        self.sharded: Dict[str, int] = {}
+        if mesh is not None:
+            self._shard_model()
         self.init()
+
+    def _shard_model(self) -> None:
+        """Shard every collection's tables and point BatchNorm and DIEN at
+        the mesh. The replicated parameters are each rank's own: every rank
+        builds the model from the same seed, as the JAX package places one
+        initial state on every device."""
+        mesh = self.mesh
+        if self.device != mesh.device:
+            raise ValueError(f"model lies on {self.device}, the mesh's ranks on {mesh.device}")
+        lookup_capacity = self.capacity_factor if self.explicit_lookup else None
+        for prefix, coll in self._collections:
+            coll.shard(mesh, lookup_capacity)
+            for dim, total in coll.total_rows.items():
+                self.sharded[f"{prefix}.table_d{dim}" if prefix else f"table_d{dim}"] = total
+        for m in self.model.modules():
+            if not isinstance(m, EmbeddingCollection) and hasattr(type(m), "mesh"):
+                m.mesh = mesh
 
     def init(self) -> "Trainer":
         """(Re)start the optimizer state and the step count from the model's
@@ -214,13 +289,30 @@ class Trainer:
         self.fused_slots = {n: self.fused_embedding.init_slots(p.detach())
                             for n, p in tables.items()}
         self.step = 0
+        self._overflow = torch.zeros((), dtype=torch.int64, device=self.device)
         return self
+
+    @property
+    def tracks_overflow(self) -> bool:
+        """True where steps count overflow: under a mesh with a fused
+        optimizer, as in the JAX package."""
+        return self.mesh is not None and self.fused_embedding is not None
+
+    def take_overflow(self) -> int:
+        """The entries the exchange dropped since the last call, summed
+        over ranks (a collective that waits for the device), and reset."""
+        total = self._overflow.clone()
+        self._overflow.zero_()
+        if self.mesh is not None:
+            self.mesh.all_reduce_(total)
+        return int(total)
 
     # ------------------------------------------------------------------
     def train_step(self, batch: Mapping[str, torch.Tensor],
                    labels: torch.Tensor) -> torch.Tensor:
-        """One step on a batch on the model's device; returns the loss as a
-        0-d tensor on the device."""
+        """One step on a batch on the model's device (under a mesh, this
+        rank's rows of the batch); returns the loss (the global batch's) as
+        a 0-d tensor on the device."""
         fused = self.fused_embedding is not None
         self.model.train()
         for p in self.model.parameters():
@@ -230,6 +322,11 @@ class Trainer:
                 for _, coll in self._collections:
                     coll.capture = []
             outputs = self.model(batch, generator=self.generator)
+            if self.mesh is not None:
+                outputs = _gather_outputs(outputs, self.mesh)
+                labels = self.mesh.all_gather(labels)
+                if isinstance(batch, Mapping):
+                    batch = _GlobalBatch(batch, self.mesh)
             loss = self.loss_fn(outputs, labels, batch)
             loss.backward()
             captured = [(prefix, coll.capture or []) for prefix, coll in self._collections]
@@ -238,28 +335,54 @@ class Trainer:
                 coll.capture = None
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in self.dense_params.items()}
+        if self.mesh is not None:
+            self._sum_replicated(grads)
         self.optimizer.update(self.dense_params, grads, self.opt_state, self.step)
         if fused:
             self._fused_update(captured)
         self.step += 1
         return loss.detach()
 
+    def _sum_replicated(self, grads: Dict[str, torch.Tensor]) -> None:
+        """Sum the replicated parameters' gradients over ranks in place, in
+        one ``all_reduce`` of their concatenation. Each rank's gradient is
+        the global loss's through its own rows, so the sum is the whole."""
+        names = [n for n in grads if n not in self.sharded]
+        if not names:
+            return
+        flat = self.mesh.all_reduce_(torch.cat([grads[n].reshape(-1) for n in names]))
+        for name, part in zip(names, flat.split([grads[n].numel() for n in names])):
+            grads[name] = part.view_as(grads[name])
+
     def _fused_update(self, captured) -> None:
         """One stream per table: its captured sites concatenated, presorted
-        when there is one site."""
+        when there is one site; under a mesh, sent to the owners
+        (``sharded_fused_update``), every rank taking part in each table's
+        exchange, and the overflow counted."""
         sites: Dict[str, list] = {}
         for prefix, records in captured:
             for rec in records:
+                if rec.overflow is not None:
+                    self._overflow += rec.overflow
                 if rec.embeds.grad is not None:
                     name = f"{prefix}.{rec.table}" if prefix else rec.table
                     sites.setdefault(name, []).append(rec)
         for name, table in self.tables.items():
-            recs = sites.get(name)
-            if not recs:
+            recs = sites.get(name, [])
+            if not recs and self.mesh is None:
                 continue
             dim = table.shape[1]
-            lids = torch.cat([r.rows for r in recs])
-            ct = torch.cat([r.embeds.grad.reshape(-1, dim) for r in recs]).contiguous()
+            if recs:
+                lids = torch.cat([r.rows for r in recs])
+                ct = torch.cat([r.embeds.grad.reshape(-1, dim) for r in recs]).contiguous()
+            else:  # a rank with no stream still takes part in the exchange
+                lids = torch.zeros(0, dtype=torch.int64, device=self.device)
+                ct = torch.zeros(0, dim, device=self.device)
+            if self.mesh is not None:
+                self._overflow += sharded_fused_update(
+                    self.fused_embedding, table.detach(), self.fused_slots[name], lids, ct,
+                    self.mesh, step=self.step, capacity_factor=self.capacity_factor)
+                continue
             presorted = recs[0].presorted() if len(recs) == 1 else None
             self.fused_embedding.apply(table.detach(), self.fused_slots[name], lids, ct,
                                        step=self.step, presorted=presorted)
@@ -284,17 +407,23 @@ class Trainer:
         package's ``fit``. Batches go to the device in groups of
         ``steps_per_call``, each group one ``multi_step`` call (the last
         group may be shorter). ``log_every`` prints the last loss whenever
-        the steps done are a multiple of it, which waits for the device."""
+        the steps done are a multiple of it, which waits for the device.
+        Under a mesh every rank passes the whole data and trains on its rows
+        of each batch; with a fused optimizer the history counts each
+        epoch's ``embedding_overflow``, summed over ranks."""
         history = {"loss": [], "examples_per_sec": []}
         for epoch in range(epochs):
             losses, group = [], []
             n_examples = steps = 0
+            self._overflow.zero_()
             t0 = time.perf_counter()
             batches = iter_batches(X, y, batch_size, shuffle=shuffle, seed=self.seed + epoch)
             for xb, yb in batches:
+                n_examples += len(yb)
+                if self.mesh is not None:
+                    xb, yb = self.mesh.shard_batch(xb), self.mesh.shard_batch(yb)
                 group.append((self._to_device(xb),
                               torch.as_tensor(yb, dtype=torch.float32, device=self.device)))
-                n_examples += len(yb)
                 if len(group) == steps_per_call:
                     losses.append(self._run_group(group))
                     steps += len(group)
@@ -307,6 +436,8 @@ class Trainer:
             epoch_loss = float(torch.cat(losses).mean()) if losses else 0.0
             history["loss"].append(epoch_loss)
             history["examples_per_sec"].append(n_examples / (time.perf_counter() - t0))
+            if self.tracks_overflow:
+                history.setdefault("embedding_overflow", []).append(self.take_overflow())
         return history
 
     def _run_group(self, group) -> torch.Tensor:
@@ -355,15 +486,38 @@ class Trainer:
         ``input_s`` (waiting for the next batch), ``pack_s`` (packing into
         pinned memory), ``copy_s`` (issuing the copies) and ``step_s``
         (issuing the steps), and a pair of CUDA events around each
-        ``multi_step`` call in ``events`` (on a card)."""
+        ``multi_step`` call in ``events`` (on a card).
+
+        Under a mesh every rank reads the whole stream and trains on its
+        rows of each batch (examples/s counts the global batches); with a
+        fused optimizer the history has the stream's
+        ``embedding_overflow``, summed over ranks."""
         clock = timings if timings is not None else {}
         for key in ("input_s", "pack_s", "copy_s", "step_s"):
             clock.setdefault(key, 0.0)
         if timings is not None and self.device.type == "cuda":
             clock.setdefault("events", [])
+        self._overflow.zero_()
+        if self.mesh is not None:
+            mesh = self.mesh
+            batches = ((mesh.shard_batch(xb), mesh.shard_batch(np.asarray(yb)))
+                       for xb, yb in batches)
         if steps_per_call > 1:
-            return self._fit_stream_packed(batches, log_every, steps_per_call,
-                                           checkpoint_every, checkpoint_fn, max_steps, clock)
+            history = self._fit_stream_packed(batches, log_every, steps_per_call,
+                                              checkpoint_every, checkpoint_fn, max_steps, clock)
+        else:
+            history = self._fit_stream_batches(batches, log_every, checkpoint_every,
+                                               checkpoint_fn, max_steps, clock)
+        if self.mesh is not None:
+            history["examples_per_sec"] = [v * self.mesh.n for v in history["examples_per_sec"]]
+        if self.tracks_overflow:
+            history["embedding_overflow"] = [self.take_overflow()]
+        return history
+
+    def _fit_stream_batches(self, batches, log_every, checkpoint_every, checkpoint_fn,
+                            max_steps, clock):
+        """The stream a batch at a time, the next batch staged before this
+        one's step is issued."""
         losses = []
         n_examples = 0
         it = iter(batches)
@@ -569,8 +723,18 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _eval_logits(self, xb: Mapping[str, np.ndarray]) -> np.ndarray:
-        """The model's logits on a batch (``logits_of``)."""
-        return logits_of(self.model(self._to_device(xb))).cpu().numpy()
+        """The model's logits on a batch (``logits_of``). Under a mesh (a
+        collective) each rank scores its rows of the batch, padded with
+        copies of its last row to a multiple of the ranks, and the logits
+        are gathered."""
+        if self.mesh is None:
+            return logits_of(self.model(self._to_device(xb))).cpu().numpy()
+        b = len(next(iter(xb.values()))) if isinstance(xb, Mapping) else len(xb)
+        pad = (-b) % self.mesh.n
+        if pad:
+            xb = _map(lambda v: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)]), xb)
+        local = self._to_device(self.mesh.shard_batch(xb))
+        return self.mesh.all_gather(logits_of(self.model(local))).cpu().numpy()[:b]
 
     def predict(self, X: Mapping[str, np.ndarray], batch_size: int = 1024,
                 apply_sigmoid: bool = True) -> np.ndarray:

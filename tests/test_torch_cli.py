@@ -2,7 +2,7 @@
 the JAX ``ExperimentConfig``'s fields for the same argv; ``build_data``
 builds the same columns and arrays for every dataset name (the DIEN
 negatives and MMOE's second task included); ``make_loss_fn`` computes the
-same losses; ``--mesh-data`` raises; without ``--device`` and with no card
+same losses; ``--mesh-data`` outside torchrun raises; without ``--device`` and with no card
 the CLI raises; ``main`` prints one JSON line. ``run`` itself:
 ``tests/test_torch_cli_run.py``."""
 import dataclasses
@@ -140,7 +140,9 @@ def test_make_loss_fn_matches_jax(model, dssm_loss):
 
 
 def test_mesh_data_raises():
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    """``--mesh-data`` runs under torchrun only (``tests/test_torch_parallel.py``
+    runs it there)."""
+    with pytest.raises(RuntimeError, match="torchrun"):
         train.main(["--model", "deepfm", "--dataset", "synthetic", "--max-rows", "256",
                     "--epochs", "1", "--mesh-data", "2", "--device", "cpu"])
 

@@ -397,9 +397,12 @@ def test_trainer_needs_a_card_unless_told(monkeypatch):
         Trainer(model, Adagrad(LR))
     with pytest.raises(RuntimeError, match="no CUDA"):
         DeepFM(model.unified.embeddings.feature_columns, generator=_gen())
-    for kw in (dict(mesh=object()), dict(capacity_factor=2.0), dict(explicit_lookup=True)):
-        with pytest.raises(NotImplementedError, match="distributed"):
-            Trainer(model, Adagrad(LR), device="cpu", **kw)
+    with pytest.raises(TypeError, match="Mesh"):
+        Trainer(model, Adagrad(LR), device="cpu", mesh=object())
+    # without a mesh the exchange's options are ignored, as in the JAX package
+    trainer = Trainer(model, Adagrad(LR), device="cpu", capacity_factor=0.5,
+                      explicit_lookup=True)
+    assert trainer.mesh is None and not trainer.tracks_overflow
 
 
 def test_port_imports_without_jax():
