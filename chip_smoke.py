@@ -198,6 +198,22 @@ Phases, each of which raises on failure (exit code not 0):
    steps): exit code 0, one JSON line, its checkpoint restored on one card
    scoring the held-out rows as the run did. A rank that fails fails the
    script;
+3p. the model axis: (a) four gloo ranks sharing card 0 as a 2 x 2
+   ('data', 'model') mesh, two steps at batch 8,192 each of FFM at
+   ``model_step.py``'s Criteo width with the plain ``Adagrad(0.05)`` step
+   (table_d156 of 2,600,000 x 156 column-sharded, rows over 'data' and 78
+   columns a model rank; table_d1 row-sharded; 4 ``scatter_add_sorted``
+   launches a rank), held to the single card at the touched rows with the
+   rest unchanged, and of MMOE at ``model_step.py:69-74``'s width with
+   ``FusedAdagrad(0.05)`` (its 4 experts of 64 units 2 a model rank; 2
+   ``fused_adagrad_apply`` launches a rank), held to the single card
+   whole; (b) ``--mesh-data 2 --mesh-model 2`` through the CLI under
+   ``python -m torch.distributed.run --nproc-per-node 4`` on gloo (MMOE at
+   embedding dim 64: a column-sharded table_d64), its checkpoint restored
+   on the card scoring the held-out rows as the run did; (c) LR, ItemCF /
+   UserCF and MF at MovieLens-100k's shape (943 users, 1,682 items,
+   100,000 ratings drawn from a seed), each on the card against its CPU
+   run, with no kernel launch;
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
    host overhead included), and the library call where there is one (the
@@ -227,8 +243,9 @@ be 0 on every path but 3k's.
 
 The line before the last lists every kernel with its launches on its main
 path (the three global kernels: on phase 3k's path; kernels 3-7 also on
-phase 3o's runs, summed over ranks, as ``mesh_launches``), its error against the
-plain version, its times and its bound; the line
+phase 3o's and 3p's runs, summed over ranks, as ``mesh_launches``, and
+kernels 4 and 5 on phase 3p's grid rank by rank as
+``grid_launches_per_rank``), its error against the plain version, its times and its bound; the line
 before that names the card and its power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
@@ -2599,11 +2616,9 @@ def _rank_batches(batches, labels, mesh):
 def _whole_state(trainer) -> dict:
     """The trainer's parameters, buffers and optimizer states on the host,
     the sharded tables gathered whole (a collective under a mesh)."""
-    from recommender_system_tpu_torch.parallel.mesh import unshard_table
-
     def whole(name, t):
-        if trainer.mesh is not None and name in trainer.sharded:
-            t = unshard_table(t.detach(), trainer.sharded[name], trainer.mesh)
+        if trainer.mesh is not None:
+            t = trainer.whole(name, t.detach())
         return t.detach().to("cpu", copy=True)
 
     state = {n: whole(n, t) for n, t in trainer.model.state_dict().items()}
@@ -2897,6 +2912,372 @@ def multichip_cli(tmp: str, world: int, card) -> dict:
     return {"result": result, "seconds": seconds, "steps": steps}
 
 
+# ---------------------------------------------------------------------------
+# The model axis: a 2 x 2 mesh of four gloo ranks on one card (FFM's
+# column-sharded table_d156, MMOE's experts split), --mesh-model under
+# torchrun, and the classics at MovieLens-100k's shape
+# ---------------------------------------------------------------------------
+
+GRID = (2, 2)
+GRID_STEPS = 2
+# the grid CLI: MMOE at embedding dim 64 (a column-sharded table_d64 of 26
+# fields of 1,000 ids, its 4 experts 2 a model rank), the plain step
+GRID_CLI_ROWS = 10_000
+GRID_CLI_ARGV = ["--model", "mmoe", "--embedding-dim", "64", "--optimizer", "adagrad",
+                 "--learning-rate", "0.05", "--dataset", "synthetic", "--max-rows",
+                 str(GRID_CLI_ROWS), "--epochs", "2", "--batch-size", "1024"]
+# MovieLens-100k's shape (u.data is not in the repo): 943 users, 1,682
+# items, 100,000 ratings of 1-5, drawn from a seed
+ML_USERS, ML_ITEMS, ML_RATINGS = 943, 1682, 100_000
+# the classics on the card against the CPU: f32 sums in another order over
+# chained steps (LR, MF); float64 similarities and scores (CF)
+CLASSIC_RTOL, CLASSIC_ATOL = 1e-4, 1e-6
+CF_TOL = 1e-12
+
+
+def grid_configs() -> dict:
+    """The grid's configurations at model_step.py's Criteo width: name ->
+    (model builder over the columns, dense optimizer, fused optimizer or
+    None, two-task labels, launches a rank per step). FFM with the plain
+    Adagrad step: table_d156 column-sharded (rows over 'data', 78 columns
+    a model rank), table_d1 row-sharded, one scatter-add each a step. MMOE
+    with FusedAdagrad: table_d8 row-sharded (the fused step), the experts
+    [221, 64, 4] split 2 a model rank, one fused update a step."""
+    from recommender_system_tpu_torch import FusedAdagrad
+    from recommender_system_tpu_torch.training import Adagrad
+
+    return {
+        "ffm_plain": (lambda cols: ctr_model("ffm", cols), lambda: Adagrad(LR), None, False,
+                      {"scatter_add_sorted": 2}),
+        "mmoe_fused": (mmoe_model, lambda: Adagrad(LR), lambda: FusedAdagrad(LR), True,
+                       {"fused_adagrad_apply": 1}),
+    }
+
+
+def _two_tasks(labels: torch.Tensor) -> torch.Tensor:
+    """model_step.py:74's MMOE labels ``[y, y[::-1]]`` of ``[K, B]`` labels."""
+    return torch.stack([labels, labels.flip(-1)], dim=-1)
+
+
+def _rows_state(trainer, rows: torch.Tensor, start: dict) -> dict:
+    """A grid trainer's state (a collective): each sharded table's and its
+    optimizer states' values at the global ``rows`` (sorted, on the card),
+    gathered; every other parameter whole; and whether every row outside
+    ``rows`` of every shard is bitwise as ``start`` kept it."""
+    mesh = trainer.mesh
+    state, unchanged = {}, True
+    tensors = {n: [("", p)] for n, p in trainer.model.named_parameters()}
+    for n, slots in trainer.opt_state.items():
+        tensors[n] += [(f"opt:{k}:", t) for k, t in slots.items()]
+    for name, parts in tensors.items():
+        placement = trainer.sharded.get(name)
+        for prefix, t in parts:
+            t = t.detach()
+            if placement is None:
+                state[prefix + name] = t.to("cpu", copy=True)
+                continue
+            per = t.shape[0]
+            lo = (mesh.data_index if placement.kind == "columns" else mesh.rank) * per
+            mine = (rows >= lo) & (rows < lo + per)
+            touched = torch.zeros(per, dtype=torch.bool, device=t.device)
+            touched[rows[mine] - lo] = True
+            unchanged &= bool(torch.equal(t[~touched], start[prefix + name][~touched]))
+            part = torch.zeros(rows.shape[0], t.shape[1], dtype=t.dtype, device=t.device)
+            part[mine] = t[rows[mine] - lo]
+            if placement.kind == "columns":
+                part = mesh.data_axis.all_reduce_(mesh.model_axis.all_gather(part, dim=1))
+            else:
+                part = mesh.all_reduce_(part)
+            state[prefix + name] = part[:, :placement.shape[1]].cpu()
+    flag = torch.tensor([int(unchanged)], device=mesh.device)
+    state["untouched_rows_unchanged"] = bool(mesh.all_reduce_(flag).item() == mesh.n)
+    return state
+
+
+def grid_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """Phase 3p (a) on one of four gloo ranks sharing card 0, laid out as a
+    2 x 2 mesh: each of ``grid_configs`` for GRID_STEPS steps in one
+    multi_step call, its launches counted; FFM's tables compared at the
+    rows the steps touched (the rest checked unchanged on each rank),
+    MMOE's state gathered whole; rank 0 writes them."""
+    import torch.distributed as dist
+    from recommender_system_tpu_torch import Trainer
+    from recommender_system_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(*GRID, group=dist.group.WORLD, device=torch.device("cuda", 0))
+        cols, batches, labels = staged_batches(range(GRID_STEPS), device="cpu", batch=CTR_BATCH)
+        rows = torch.nonzero(touched_rows({k: v.to("cuda") for k, v in batches.items()},
+                                          FIELDS * VOCAB)).reshape(-1)
+        for name, (model, optimizer, fused, tasks, _) in grid_configs().items():
+            mine, ys = _rank_batches(batches, _two_tasks(labels) if tasks else labels, mesh)
+            trainer = Trainer(model(cols), optimizer(), fused_embedding=fused and fused(),
+                              mesh=mesh)
+            start = {}
+            if fused is None:
+                for n in trainer.sharded:
+                    start[n] = trainer.model.get_parameter(n).detach().clone()
+                    start.update({f"opt:{k}:{n}": t.clone()
+                                  for k, t in trainer.opt_state[n].items()})
+            dist.barrier()
+            zero_counts()
+            t0 = time.perf_counter()
+            losses = trainer.multi_step(mine, ys)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_counts()
+            overflow = trainer.take_overflow()
+            state = _rows_state(trainer, rows, start) if fused is None else _whole_state(trainer)
+            shards = {n: (p.kind, tuple(trainer.model.get_parameter(n).shape))
+                      for n, p in trainer.sharded.items()}
+            per_rank = _gather_objects({"launches": launches, "seconds": seconds,
+                                        "shards": shards}, mesh)
+            if mesh.rank == 0:
+                torch.save({"losses": losses.cpu(), "overflow": overflow, "state": state,
+                            "rows": rows.cpu(), "ranks": per_rank},
+                           os.path.join(out_dir, f"grid_{name}.pt"))
+            del trainer, state, start
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _held_at_rows(name: str, got: dict, trainer, losses, card) -> float:
+    """A grid run's FFM state against the single card's at the touched rows
+    (tables and accumulators) and whole elsewhere, at PARITY; returns the
+    largest difference."""
+    torch.testing.assert_close(got["losses"], losses.cpu(), rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                               msg=lambda m: f"{name} losses: {m}")
+    if not got["state"].pop("untouched_rows_unchanged"):
+        raise RuntimeError(f"{name}: a row no step touched moved on the grid")
+    rows = got["rows"].to("cuda")
+    want = {n: p.detach() for n, p in trainer.model.named_parameters()}
+    want.update({f"opt:{k}:{n}": t for n, slots in trainer.opt_state.items()
+                 for k, t in slots.items()})
+    if want.keys() != got["state"].keys():
+        raise RuntimeError(f"{name}: the grid state names {sorted(got['state'])}, the single "
+                           f"card's {sorted(want)}")
+    worst = 0.0
+    for key, value in want.items():
+        if key.rsplit(".", 1)[-1].startswith("table_d"):
+            value = value[rows]
+        value = value.cpu()
+        torch.testing.assert_close(got["state"][key], value, rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                                   msg=lambda m, key=key: f"{name} {key}: {m}")
+        worst = max(worst, (got["state"][key] - value).abs().max().item())
+    return worst
+
+
+def grid_path(card) -> dict:
+    """Phase 3p: (a) the 2 x 2 grid of four gloo ranks on card 0 against
+    the single card, (b) ``--mesh-data 2 --mesh-model 2`` under torchrun on
+    gloo, its checkpoint restored on one card, (c) the classics on the card
+    against the CPU. Returns each grid run's launches per rank and times."""
+    from recommender_system_tpu_torch import Trainer
+
+    t0 = time.perf_counter()
+    out = {"launches": {}, "times": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_grid_")
+    _spawn_ranks(grid_rank, GRID[0] * GRID[1], tmp, timeout=400)
+    cols, batches, labels = staged_batches(range(GRID_STEPS), batch=CTR_BATCH)
+    for name, (model, optimizer, fused, tasks, per_step) in grid_configs().items():
+        got = torch.load(os.path.join(tmp, f"grid_{name}.pt"), weights_only=False)
+        single = Trainer(model(cols), optimizer(), fused_embedding=fused and fused())
+        losses = single.multi_step(batches, _two_tasks(labels) if tasks else labels)
+        if fused is None:
+            worst = _held_at_rows(f"grid {name}", got, single, losses, card)
+        else:
+            worst = _held_to(f"grid {name}", got, single, losses, card)
+        want = launches_want(**{k: v * GRID_STEPS for k, v in per_step.items()})
+        ranks = got["ranks"]
+        if any(r["launches"] != want for r in ranks) or got["overflow"] != 0:
+            raise RuntimeError(f"grid {name}: launches {[r['launches'] for r in ranks]}, "
+                               f"overflow {got['overflow']}; want {want} a rank and 0")
+        shards = ranks[0]["shards"]
+        # FFM's 2,600,000 rows in 5,079 wide rows of 512: half a data index
+        half = -(-FIELDS * VOCAB // 512) * 512 // GRID[0]
+        if name == "ffm_plain" and (
+                shards["field_embeddings.table_d156"] != ("columns", (half, 78))
+                or shards["linear.linear_tables.table_d1"][0] != "rows"):
+            raise RuntimeError(f"grid {name}: placements {shards}")
+        if name == "mmoe_fused" and (shards["mmoe.experts"] != ("experts", (221, 64, 2))
+                                     or shards["embeddings.table_d8"][0] != "rows"):
+            raise RuntimeError(f"grid {name}: placements {shards}")
+        out["launches"][f"grid_{name}"] = [r["launches"] for r in ranks]
+        out["times"][f"grid_{name}_s"] = [r["seconds"] for r in ranks]
+        at_rows = (f"; the tables at the {got['rows'].shape[0]} touched rows, the rest "
+                   f"unchanged" if fused is None else "")
+        print(f"phase 3p (a): {name} on a 2 x 2 grid of gloo ranks sharing one card "
+              f"(placements {shards}): {GRID_STEPS} steps at batch {CTR_BATCH} equal the "
+              f"single card's (largest difference {worst:.3e}{at_rows}), overflow 0, "
+              f"launches a rank {[{k: v for k, v in r['launches'].items() if v} for r in ranks]}"
+              f"; rehearsal, no speed figure: {max(r['seconds'] for r in ranks):.3f} s for "
+              f"the call; on {card}", flush=True)
+        del single
+    out["cli"] = grid_cli(tmp, card)
+    out["classics"] = classics_path(card)
+    shutil.rmtree(tmp)
+    print(f"phase 3p took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def grid_cli(tmp: str, card) -> dict:
+    """Phase 3p (b): ``torchrun --nproc-per-node 4 -m
+    recommender_system_tpu_torch.train --mesh-data 2 --mesh-model 2
+    --device cpu`` (gloo: NCCL takes one rank a card) with MMOE at
+    embedding dim 64; its checkpoint restored on one card scores the
+    held-out rows as the grid did."""
+    from recommender_system_tpu_torch import train
+    from recommender_system_tpu_torch.training.checkpoint import (latest_step,
+                                                                  restore_checkpoint)
+
+    ckpt = os.path.join(tmp, "grid_ckpt")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "4", "-m", "recommender_system_tpu_torch.train", *GRID_CLI_ARGV, "--device", "cpu",
+           "--mesh-data", "2", "--mesh-model", "2", "--checkpoint-dir", ckpt]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"the grid command exited {run.returncode}:\n{run.stderr[-4000:]}")
+    lines = [line for line in run.stdout.splitlines() if line.startswith("{")]
+    if len(lines) != 1:
+        raise RuntimeError(f"the grid command printed {len(lines)} result lines:\n"
+                           f"{run.stdout[-2000:]}")
+    result = json.loads(lines[0])
+    config = train.parse_args(GRID_CLI_ARGV)
+    steps = config.epochs * ((GRID_CLI_ROWS - GRID_CLI_ROWS // 5) // config.batch_size)
+    if (len(result["train_loss"]) != config.epochs or not np.isfinite(result["train_loss"]).all()
+            or latest_step(ckpt) != steps):
+        raise RuntimeError(f"the grid command: {result}, checkpoint at step "
+                           f"{latest_step(ckpt)}, want {config.epochs} epochs and step {steps}")
+    columns, _, _, X_test, y_test = train.build_data(config)
+    single = train.build_trainer(config, columns)
+    restore_checkpoint(ckpt, single)
+    if single.model.embeddings.table_d64.device.type != "cuda":
+        raise RuntimeError("the grid checkpoint did not come back on the card")
+    metrics = single.evaluate(X_test, y_test)
+    for key in ("task0_auc", "task0_logloss", "task1_auc", "task1_logloss"):
+        # the CLI prints them rounded to 4 places; the card sums in another order
+        if abs(metrics[key] - result[key]) > 2e-4:
+            raise RuntimeError(f"the restored grid checkpoint scores {key} {metrics[key]} on "
+                               f"the card, the grid run {result[key]}")
+    print(f"phase 3p (b): {' '.join(cmd[1:])} exited 0 in {seconds:.1f} s: {result}; its "
+          f"step-{steps} checkpoint restored on one card scores task0 AUC "
+          f"{metrics['task0_auc']:.6f}, task1 AUC {metrics['task1_auc']:.6f} (the run's, to "
+          f"2e-4); on {card}", flush=True)
+    return {"result": result, "seconds": seconds, "steps": steps}
+
+
+def movielens_like(seed: int = 0) -> np.ndarray:
+    """A [943, 1682] rating matrix with 100,000 ratings of 1-5, every user
+    with at least 20 (as in MovieLens-100k), users' counts and items drawn
+    with a long tail."""
+    rng = np.random.default_rng(seed)
+    user_p = rng.pareto(1.5, ML_USERS) + 1
+    item_p = rng.pareto(1.2, ML_ITEMS) + 1
+    counts = 20 + rng.multinomial(ML_RATINGS - 20 * ML_USERS, user_p / user_p.sum())
+    counts = np.minimum(counts, ML_ITEMS // 2)
+    for u in np.argsort(-user_p):  # what the cap cut goes to the next users
+        counts[u] += min(ML_ITEMS // 2 - counts[u], ML_RATINGS - counts.sum())
+    r = np.zeros((ML_USERS, ML_ITEMS))
+    for u, n in enumerate(counts):
+        items = rng.choice(ML_ITEMS, n, replace=False, p=item_p / item_p.sum())
+        r[u, items] = rng.integers(1, 6, n)
+    return r
+
+
+def _same_ranking(name: str, got: list, want: list, tol: float) -> None:
+    """Two rankings: the same scores position by position within ``tol``
+    (relative), and the same names wherever the scores around a position
+    are further apart than ``tol``."""
+    gs = np.asarray([s for _, s in got])
+    np.testing.assert_allclose(gs, [s for _, s in want], rtol=tol, atol=tol, err_msg=name)
+    for i, ((g, s), (w, _)) in enumerate(zip(got, want)):
+        near = [abs(s - o) <= tol * max(1.0, abs(s)) for o in gs[max(i - 1, 0):i + 2]]
+        if g != w and sum(near) < 2:
+            raise RuntimeError(f"{name}: position {i} is {g} on the card, {w} on the CPU")
+
+
+def classics_path(card) -> dict:
+    """Phase 3p (c): LR, ItemCF / UserCF and MF at MovieLens-100k's shape,
+    each on the card (the default device) against its CPU run; no kernel
+    on these paths."""
+    from recommender_system_tpu_torch.models import cf, lr, mf
+
+    r = movielens_like()
+    users = [f"u{i}" for i in range(ML_USERS)]
+    items = [f"i{j}" for j in range(ML_ITEMS)]
+    times = {}
+    zero_counts()
+    # LR: does a rating reach 4, from the user's and the item's mean rating
+    u_idx, i_idx = np.nonzero(r)
+    means_u = r.sum(1) / np.maximum((r > 0).sum(1), 1)
+    means_i = r.sum(0) / np.maximum((r > 0).sum(0), 1)
+    X = np.stack([means_u[u_idx], means_i[i_idx]], 1).astype(np.float32)
+    X = (X - X.mean(0)) / X.std(0)
+    y = (r[u_idx, i_idx] >= 4).astype(np.float32)
+    kw = dict(batch_size=256, lr=0.1, stop_type=lr.STOP_ITER, thresh=200, seed=0)
+    t0 = time.perf_counter()
+    theta, costs = lr.fit_logistic_regression(X, y, **kw)
+    times["lr_s"] = time.perf_counter() - t0
+    c_theta, c_costs = lr.fit_logistic_regression(X, y, device="cpu", **kw)
+    np.testing.assert_allclose(costs, c_costs, rtol=CLASSIC_RTOL, atol=CLASSIC_ATOL)
+    np.testing.assert_allclose(theta, c_theta, rtol=CLASSIC_RTOL, atol=CLASSIC_ATOL)
+    acc = float(((lr.predict_proba(theta, X) >= 0.5) == (y > 0.5)).mean())
+    # CF: the similarity matrices and ten users' recommendations
+    t0 = time.perf_counter()
+    item_cf = {t: cf.ItemCF(users, items, r, t) for t in ("euc", "pea")}
+    user_cf = {t: cf.UserCF(users, items, r, t) for t in ("euc", "pea")}
+    recs = {(t, u): (item_cf[t].recommend(u, 10), user_cf[t].recommend(u, 20, 10))
+            for t in ("euc", "pea") for u in users[:10]}
+    times["cf_s"] = time.perf_counter() - t0
+    for t in ("euc", "pea"):
+        c_item = cf.ItemCF(users, items, r, t, device="cpu")
+        c_user = cf.UserCF(users, items, r, t, device="cpu")
+        for got, want in ((item_cf[t].item_sim, c_item.item_sim),
+                          (user_cf[t].user_sim, c_user.user_sim)):
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=CF_TOL,
+                                       atol=CF_TOL)
+        for u in users[:10]:
+            _same_ranking(f"ItemCF {t} {u}", recs[t, u][0], c_item.recommend(u, 10), CF_TOL)
+            _same_ranking(f"UserCF {t} {u}", recs[t, u][1], c_user.recommend(u, 20, 10), CF_TOL)
+    # MF: 200 steps at latent dim 10
+    kw = dict(latent_dim=10, steps=200, lr=2e-4, beta=0.02, seed=0)
+    t0 = time.perf_counter()
+    p, q, losses = mf.matrix_factorization(r, **kw)
+    times["mf_s"] = time.perf_counter() - t0
+    c_p, c_q, c_losses = mf.matrix_factorization(r, device="cpu", **kw)
+    if len(losses) != len(c_losses):
+        raise RuntimeError(f"MF stopped after {len(losses)} steps on the card, "
+                           f"{len(c_losses)} on the CPU")
+    for got, want in ((losses, c_losses), (p, c_p), (q, c_q)):
+        np.testing.assert_allclose(got, want, rtol=CLASSIC_RTOL, atol=CLASSIC_ATOL)
+    for u in range(10):
+        _same_ranking(f"MF {u}", mf.recommend(u, p, q, r[u] > 0, items, 10),
+                      mf.recommend(u, c_p, c_q, r[u] > 0, items, 10, device="cpu"),
+                      CLASSIC_RTOL)
+    if read_counts() != launches_want():
+        raise RuntimeError(f"the classics launched {read_counts()}; their paths have none")
+    if not losses[-1] < losses[0] or not costs[-1] < costs[0]:
+        raise RuntimeError(f"the classics did not learn: LR {costs[0]} -> {costs[-1]}, "
+                           f"MF {losses[0]} -> {losses[-1]}")
+    print(f"phase 3p (c): the classics at MovieLens-100k's shape ({ML_USERS} users, "
+          f"{ML_ITEMS} items, {int((r > 0).sum())} ratings) on the card equal their CPU "
+          f"runs: LR 200 steps (cost {costs[0]:.5f} -> {costs[-1]:.5f}, accuracy {acc:.4f}), "
+          f"ItemCF and UserCF (euc, pea) similarities to {CF_TOL} and 10 users' top-10, MF "
+          f"200 steps at k=10 (loss {losses[0]:.1f} -> {losses[-1]:.1f}); host seconds on "
+          f"the card {times}; no kernel launch; on {card}", flush=True)
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -3039,6 +3420,11 @@ def main() -> int:
     # README's multi-chip command under torchrun
     mesh = mesh_path(card)
 
+    # --- phase 3p: the model axis: a 2 x 2 grid of gloo ranks on one card
+    # (FFM's column-sharded table, MMOE's experts), --mesh-model under
+    # torchrun, the classics at MovieLens-100k's shape
+    grid = grid_path(card)
+
     # --- phase 4: timings --------------------------------------------------
     with torch.inference_mode():
         batch = {k: torch.as_tensor(v, device="cuda")
@@ -3104,8 +3490,15 @@ def main() -> int:
     ctr_launches = ctr["launches"]
     family_launches = family["launches"]
     def on_mesh(kernel):
-        """Each phase-3o run's launches of ``kernel``, summed over ranks."""
-        return {run: sum(r[kernel] for r in ranks) for run, ranks in mesh["launches"].items()
+        """Each phase-3o and 3p run's launches of ``kernel``, summed over
+        ranks."""
+        runs = {**mesh["launches"], **grid["launches"]}
+        return {run: sum(r[kernel] for r in ranks) for run, ranks in runs.items()
+                if sum(r[kernel] for r in ranks)}
+
+    def on_grid(kernel):
+        """Each phase-3p run's launches of ``kernel``, rank by rank."""
+        return {run: [r[kernel] for r in ranks] for run, ranks in grid["launches"].items()
                 if sum(r[kernel] for r in ranks)}
 
     sparse_rows = [
@@ -3173,7 +3566,7 @@ def main() -> int:
         "source": "recommender_system_tpu_torch/csrc/sparse_rows.cu",
         "replaces": replaces, "launches": count, "max_abs_err": sparse_errs[name],
         **sparse_times[name], "other_paths_launches": others,
-        "mesh_launches": on_mesh(name),
+        "mesh_launches": on_mesh(name), "grid_launches_per_rank": on_grid(name),
     } for name, replaces, count, others in sparse_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

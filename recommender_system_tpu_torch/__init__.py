@@ -21,11 +21,17 @@ trained and served, both through the same sparse kernels; the NLP
 models (``LSTMClassifier``, ``Transformer``, ``TransformerClassifier``);
 and the training CLI, ``python -m recommender_system_tpu_torch.train``
 (``ExperimentConfig``), in memory or out of core over a Criteo TSV through
-the native parser, with checkpoints; and training over tables sharded by
-row on a ``torch.distributed`` process group (``parallel``: ``make_mesh``,
-the all-to-all lookup, the sharded fused update; ``Trainer(mesh=...)``,
-``--mesh-data`` under ``torchrun``). Every TPU kernel of the JAX package
-has its counterpart in ``csrc/``.
+the native parser, with checkpoints; training over tables sharded by row
+(and, on a model axis, by column) and MMOE's experts sharded over a
+``torch.distributed`` process group (``parallel``: ``make_mesh(data,
+model)``, the all-to-all lookups, the sharded fused update;
+``Trainer(mesh=...)``, ``--mesh-data`` and ``--mesh-model`` under
+``torchrun``); and the classics (logistic regression, ItemCF and UserCF,
+matrix factorization) in plain PyTorch on the card, with the host-side
+vocabulary encoding (``utils.vocab``) and the timing helpers
+(``utils.benchmark``). Every TPU kernel of the JAX package has its
+counterpart in ``csrc/``, and every public name of the JAX package has its
+counterpart or a stated reason (``tests/test_torch_surface.py``).
 """
 
 from .config import ExperimentConfig

@@ -4,7 +4,8 @@ optimizers and the run (counterpart of ``recommender_system_tpu/config.py``).
 ``ExperimentConfig`` has the JAX package's fields and defaults, plus
 ``device``: None runs on the card (and raises without one), any other value
 names the device, as ``--device cpu`` does on the command line.
-``build_mesh`` starts a ``torchrun`` job's process group for ``mesh_data``.
+``build_mesh`` starts a ``torchrun`` job's process group for ``mesh_data``
+x ``mesh_model`` ranks.
 ``recommender_system_tpu_torch.train`` turns one into a run.
 """
 from __future__ import annotations
@@ -68,8 +69,9 @@ class ExperimentConfig:
     # restarts from the latest and skips the rows it consumed
     checkpoint_every: int = 0
 
-    # parallelism (None: one device): mesh_data ranks under torchrun, one a
-    # card; explicit_lookup and capacity_factor act with a mesh only
+    # parallelism (None: one device): mesh_data x mesh_model ranks under
+    # torchrun, one a card; explicit_lookup and capacity_factor act with a
+    # mesh only
     mesh_data: Optional[int] = None
     mesh_model: int = 1
     explicit_lookup: bool = False
@@ -96,21 +98,21 @@ class ExperimentConfig:
         return table[self.optimizer](self.learning_rate)
 
     def build_mesh(self):
-        """None without ``mesh_data``; else the mesh over a ``torchrun`` job
-        of ``mesh_data`` ranks (``parallel.launch.initialize``: NCCL, one
-        rank a card; gloo with ``device='cpu'``). Raises unless
-        ``WORLD_SIZE`` is ``mesh_data``; ``mesh_model`` above 1 raises
-        ``NotImplementedError``."""
+        """None without ``mesh_data``; else the ``mesh_data`` x
+        ``mesh_model`` mesh over a ``torchrun`` job of that many ranks
+        (``parallel.launch.initialize``: NCCL, one rank a card; gloo with
+        ``device='cpu'``), its model groups of consecutive ranks
+        (``make_pod_mesh``). Raises unless ``WORLD_SIZE`` is
+        ``mesh_data * mesh_model``."""
         if self.mesh_data is None:
             return None
-        from .parallel import initialize, make_mesh
+        from .parallel import initialize, make_pod_mesh
 
-        if self.mesh_model != 1:
-            make_mesh(self.mesh_data, self.mesh_model)  # raises NotImplementedError
+        ranks = self.mesh_data * self.mesh_model
         world = os.environ.get("WORLD_SIZE")
-        if world is None or int(world) != self.mesh_data:
+        if world is None or int(world) != ranks:
             raise RuntimeError(
-                f"--mesh-data {self.mesh_data} runs under torchrun --nproc-per-node "
-                f"{self.mesh_data} (WORLD_SIZE is {world})")
+                f"--mesh-data {self.mesh_data} --mesh-model {self.mesh_model} runs under "
+                f"torchrun --nproc-per-node {ranks} (WORLD_SIZE is {world})")
         initialize("gloo" if self.device == "cpu" else "nccl")
-        return make_mesh(self.mesh_data, self.mesh_model)
+        return make_pod_mesh(self.mesh_model)

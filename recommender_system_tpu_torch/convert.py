@@ -43,10 +43,11 @@ each unpacked like its table: ``{path: (acc,)}`` of ``FusedAdagrad``,
 ``{path: ()}`` of ``FusedSGD``, ``{path: (m, v)}`` of ``FusedAdam``.
 
 A JAX mesh state's leaves are global arrays, so ``np.asarray`` of each is
-the whole table or state. Into a collection that a mesh ``Trainer`` has
-sharded (``EmbeddingCollection.shard``), both functions put this rank's
-rows: the unpacked table (or state) padded to the JAX stack's rows and
-split as the mesh splits it (``parallel.mesh.shard_table``).
+the whole table or state. Into a model that a mesh ``Trainer`` has sharded
+(``EmbeddingCollection.shard``, ``MMoELayer.shard``), both functions put
+this rank's part: the unpacked table (or state) padded to the JAX stack's
+rows and split by row or by row block and column, an expert tensor split on
+its expert axis, as the mesh places it (``parallel.mesh.Placement``).
 """
 from __future__ import annotations
 
@@ -92,36 +93,33 @@ def _port_name(path: Tuple[str, ...], names: Container[str]) -> str:
     return ".".join(path[:-1] + (_RENAMES.get(path[-1], path[-1]),))
 
 
-def _sharding(model: torch.nn.Module, name: str):
-    """The sharded collection that holds parameter ``name`` of ``model``,
-    or None."""
-    from .layers.embedding import EmbeddingCollection
-
-    prefix = name.rsplit(".", 1)[0] if "." in name else ""
+def _placement(model: torch.nn.Module, name: str):
+    """``(placement, mesh)`` of parameter ``name`` of ``model`` where a mesh
+    shards it (a table of a sharded collection, an MMOE expert slice), else
+    ``(None, None)``."""
+    prefix, _, local = name.rpartition(".")
     owner = model.get_submodule(prefix)
-    if isinstance(owner, EmbeddingCollection) and owner.mesh is not None:
-        return owner
-    return None
+    placement = getattr(owner, "placements", {}).get(local)
+    return (placement, owner.mesh) if placement is not None else (None, None)
 
 
 def _copy(model: torch.nn.Module, param: str, path: Tuple[str, ...], value: np.ndarray,
           name: str, target: torch.Tensor) -> None:
-    """``_copy_leaf``, but a table (or a state of its shape) of a collection
-    that a mesh has sharded is unpacked whole and this rank's rows taken."""
-    sharded = _sharding(model, param)
-    if sharded is None or not path[-1].startswith("table_d"):
+    """``_copy_leaf``, but a parameter (or a state of its shape) that a mesh
+    has sharded is copied whole (a table unpacked) and this rank's part
+    taken."""
+    placement, mesh = _placement(model, param)
+    if placement is None:
         _copy_leaf(path, value, name, target)
         return
-    from .parallel.mesh import shard_table
-
-    dim = target.shape[1]
-    whole = torch.as_tensor(np.array(unpack_stack(value, sharded.total_rows[dim], dim)))
-    rows = shard_table(whole, sharded.mesh)
-    if rows.shape != target.shape:
+    whole = torch.empty(placement.shape, dtype=target.dtype)
+    _copy_leaf(path, value, name, whole)
+    part = placement.shard(whole, mesh)
+    if part.shape != target.shape:
         raise ValueError(f"JAX variable {'/'.join(path)} gives this rank "
-                         f"{tuple(rows.shape)}, {name} has {tuple(target.shape)}")
+                         f"{tuple(part.shape)}, {name} has {tuple(target.shape)}")
     with torch.no_grad():
-        target.copy_(rows.to(target.dtype))
+        target.copy_(part.to(target.dtype))
 
 
 def _copy_leaf(path: Tuple[str, ...], value: np.ndarray, name: str,

@@ -25,11 +25,14 @@ table, makes its output a leaf that requires grad, and appends a
 the lookup's cotangent, beside its rows.
 
 Under a mesh (``shard``, which the ``Trainer`` calls) the collection holds
-only this rank's rows of each ``table_d*`` and every gather goes through the
-all-to-all exchange (``parallel.fused.alltoall_take``): in train mode at the
-``capacity_factor`` given (overflowed rows read zeros and are counted in the
-``Captured`` record), else at full capacity, which is exact. The captured
-cotangent is the one of the rows this rank looked up.
+only this rank's part of each ``table_d*`` (its ``placements``: rows, or,
+for a wide table under the plain step on a mesh with a model axis, a row
+block's columns) and every gather goes through the all-to-all exchange
+(``parallel.fused.alltoall_take``, or ``column_take`` for a column-sharded
+table): in train mode at the ``capacity_factor`` given (overflowed rows
+read zeros and are counted in the ``Captured`` record), else at full
+capacity, which is exact; a column-sharded table always at full capacity.
+The captured cotangent is the one of the rows this rank looked up.
 """
 from __future__ import annotations
 
@@ -42,8 +45,8 @@ from torch import nn
 from ..ops.embedding_grad import take_fast
 from ..ops.seqpool import id_mask, length_mask, sequence_pooling, weighted_sequence
 from ..ops.stream_sort import SortLayout
-from ..parallel.fused import alltoall_take
-from ..parallel.mesh import Mesh, shard_table
+from ..parallel.fused import alltoall_take, column_take
+from ..parallel.mesh import Mesh, Placement, sharding_rule
 from ..utils.features import (DenseFeat, FeatureColumn, SparseFeat,
                               VarLenSparseFeat, split_columns)
 from ..utils.hashing import hash_ids
@@ -190,23 +193,30 @@ class EmbeddingCollection(nn.Module):
         # capture mode: None, or the list the gathers append to
         self.capture: Optional[List[Captured]] = None
         # under a mesh: the mesh, the train-mode lookup's capacity factor
-        # (None: full capacity) and each table's logical rows
+        # (None: full capacity), each table's logical rows and its placement
         self.mesh: Optional[Mesh] = None
         self.capacity_factor: Optional[float] = None
         self.total_rows: Dict[int, int] = {}
+        self.placements: Dict[str, Placement] = {}
 
-    def shard(self, mesh: Mesh, capacity_factor: Optional[float] = None) -> None:
-        """Keep only this rank's rows of each ``table_d*`` (``shard_table``:
-        the JAX package's row blocks) and look rows up through the
-        exchange, at ``capacity_factor`` in train mode (None: full
-        capacity)."""
+    def shard(self, mesh: Mesh, capacity_factor: Optional[float] = None,
+              column_sharding: bool = False) -> None:
+        """Keep only this rank's part of each ``table_d*`` and look rows up
+        through the exchange, at ``capacity_factor`` in train mode (None:
+        full capacity). A table is split by row (the JAX package's row
+        blocks), or, with ``column_sharding`` where the JAX rule splits its
+        columns, by row over 'data' and by column over 'model'
+        (``parallel.mesh.sharding_rule``)."""
         if self.mesh is not None:
             raise ValueError("the collection is sharded already")
         for dim in self._specs:
             table = self.table(dim)
+            placement = sharding_rule(f"table_d{dim}", tuple(table.shape), mesh,
+                                      column_sharding)
             self.total_rows[dim] = table.shape[0]
+            self.placements[f"table_d{dim}"] = placement
             self.register_parameter(f"table_d{dim}", nn.Parameter(
-                shard_table(table.detach(), mesh), requires_grad=table.requires_grad))
+                placement.shard(table.detach(), mesh), requires_grad=table.requires_grad))
         self.mesh, self.capacity_factor = mesh, capacity_factor
 
     @property
@@ -258,8 +268,14 @@ class EmbeddingCollection(nn.Module):
     def _exchange(self, dim: int, rows: torch.Tensor, shape, frozen: bool = False
                   ) -> torch.Tensor:
         """The gather under a mesh: through ``alltoall_take``, captured as
-        ``_gather`` captures (the record carries the overflow)."""
+        ``_gather`` captures (the record carries the overflow), or, on a
+        column-sharded table, through ``column_take`` (never captured: the
+        fused step row-shards every table)."""
         table = self.table(dim)
+        if self.placements[f"table_d{dim}"].kind == "columns":
+            with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+                got = column_take(table, rows, self.mesh)
+            return got[:, :dim].reshape(shape)
         capacity_factor = self.capacity_factor if self.training else None
         if frozen or self.capture is not None:
             with torch.no_grad():

@@ -10,7 +10,7 @@ FGCNN's convolutions ``nn.Conv2d`` (``weight [out, in, kh, kw]``), and
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +19,7 @@ from torch import nn
 from ..ops.dispatch import DeviceLike, resolve_device
 from ..ops.interactions import pairwise_inner, pairwise_outer
 from ..ops.kernels import cross_fused, fm_fused
+from ..parallel.mesh import Mesh, Placement, gather_peers, peers_to_rows, sharding_rule
 from .core import activation_fn, dense, lecun_normal_
 
 
@@ -193,7 +194,14 @@ class MMoELayer(nn.Module):
     order: ``experts [D, H, E]``, ``expert_bias [H, E]``, ``gates [T, D,
     E]``, ``gate_bias [T, E]``. The experts are one einsum, relu; each
     task's gate a softmax over the experts; each task's input the gated sum
-    of the experts' outputs."""
+    of the experts' outputs.
+
+    Expert parallelism (``shard``, which the ``Trainer`` calls on a mesh
+    with a model axis): a rank keeps ``E / model`` experts (the last axis of
+    ``experts`` and ``expert_bias``), computes them on its data group's
+    rows (its model peers' rows, ``gather_peers``) and gets every expert's
+    output on its own rows back from its peers (``peers_to_rows``). The
+    gates stay replicated, on the rank's own rows."""
 
     def __init__(self, in_features: int, num_experts: int, expert_units: int,
                  num_tasks: int, use_expert_bias: bool = True, use_gate_bias: bool = True,
@@ -210,12 +218,33 @@ class MMoELayer(nn.Module):
         self.expert_bias = normal(expert_units, num_experts) if use_expert_bias else None
         self.gates = normal(num_tasks, in_features, num_experts)
         self.gate_bias = normal(num_tasks, num_experts) if use_gate_bias else None
+        self.mesh: Optional[Mesh] = None
+        self.placements: Dict[str, Placement] = {}
+
+    def shard(self, mesh: Mesh) -> None:
+        """Keep this rank's experts on a mesh with a model axis (the JAX
+        package's ``expert_sharding``); a no-op where ``model == 1``."""
+        if self.mesh is not None:
+            raise ValueError("the experts are sharded already")
+        if mesh.model == 1:
+            return
+        for name in ("experts", "expert_bias"):
+            param = getattr(self, name)
+            if param is None:
+                continue
+            placement = sharding_rule(name, tuple(param.shape), mesh)
+            self.placements[name] = placement
+            setattr(self, name, nn.Parameter(placement.shard(param.detach(), mesh)))
+        self.mesh = mesh
 
     def forward(self, x):  # [B, D]
-        expert_out = torch.einsum("bd,dhe->bhe", x, self.experts)
+        rows = x if self.mesh is None else gather_peers(x, self.mesh.model_axis)
+        expert_out = torch.einsum("bd,dhe->bhe", rows, self.experts)
         if self.expert_bias is not None:
             expert_out = expert_out + self.expert_bias
-        expert_out = F.relu(expert_out)  # [B, H, E]
+        expert_out = F.relu(expert_out)  # [B, H, E], or this rank's experts
+        if self.mesh is not None:
+            expert_out = peers_to_rows(expert_out, self.mesh.model_axis)
         gate_logits = torch.einsum("bd,tde->bte", x, self.gates)
         if self.gate_bias is not None:
             gate_logits = gate_logits + self.gate_bias

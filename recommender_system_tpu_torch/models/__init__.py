@@ -1,4 +1,5 @@
 from .afm import AFM
+from .cf import ItemCF, UserCF
 from .dcn import DCN
 from .deep_crossing import DeepCrossing
 from .deepfm import DeepFM
@@ -8,7 +9,9 @@ from .dssm import DSSM
 from .ffm import FFM
 from .fm import FM
 from .fnn import FNN, init_from_fm
+from .lr import fit_logistic_regression, predict_proba
 from .lstm import LSTMClassifier
+from .mf import matrix_factorization
 from .mmoe import MMOE
 from .nfm import NFM
 from .pnn import PNN

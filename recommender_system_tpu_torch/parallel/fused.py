@@ -22,6 +22,12 @@ fused rule (``cfg.apply``: the sparse Adagrad, SGD or lazy Adam kernel) to
 its shard with rebased ids. Both count the overflow as a device tensor; no
 step reads a value on the host.
 
+``column_take`` is the lookup on a column-sharded table (rows over
+'data', columns over 'model'): the ids of a rank's model peers go through
+the same exchange over the ranks that hold the same columns, at full
+capacity, and a second all-to-all over the model peers gives each rank the
+whole width of its rows.
+
 The capacity is ``ceil(capacity_factor * S / n)`` for a stream of ``S``
 entries a rank, at most ``S``; ``capacity_factor=None`` is the full
 capacity ``S``, which drops nothing.
@@ -33,11 +39,10 @@ import math
 from typing import Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from ..ops.embedding_grad import scatter_add_sorted
 from ..ops.stream_sort import sort_ids
-from .mesh import Mesh
+from .mesh import Mesh, peers_to_rows
 
 # an id past every owner: the padding of a stream split over the ranks
 _SENTINEL = 2 ** 31 - 1
@@ -101,9 +106,7 @@ def _bucket(values: torch.Tensor, sowner: torch.Tensor, slot: torch.Tensor, n: i
 def _exchange(send: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """One ``all_to_all_single`` of equal buckets: row block ``s`` goes to
     rank ``s``, and block ``s`` of the result came from rank ``s``."""
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=mesh.group)
-    return recv
+    return mesh.all_to_all(send)
 
 
 @dataclasses.dataclass
@@ -174,6 +177,29 @@ def alltoall_take(shard: torch.Tensor, rows: torch.Tensor, mesh: Mesh,
     cap = _capacity(rows.shape[0], mesh.n, capacity_factor)
     plan = plan_exchange(rows, rows // K, lambda r: r - lo, K, mesh, cap)
     return _Take.apply(shard, plan), plan.overflow
+
+
+def column_take(shard: torch.Tensor, rows: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The lookup on a column-sharded table (a collective over a mesh with
+    a model axis).
+
+    ``shard [K, c]`` is this rank's block: rows ``[d K, (d+1) K)`` of its
+    data index ``d``, columns ``[m c, (m+1) c)`` of its model index ``m``.
+    ``rows [S]`` are this rank's global row ids (every rank passes as many).
+    The model peers' ids are gathered (the data group's rows), exchanged
+    over the ranks that share this column slice by row block at full
+    capacity (exact, as the JAX package's GSPMD gather), and each peer gets
+    back this rank's columns of its rows. Returns ``[S, model * c]``, the
+    padded width. Differentiable with respect to ``shard``: the backward
+    sends each owner the cotangents of its columns and scatter-adds them
+    into its shard with ``scatter_add_sorted``; nothing is dropped."""
+    K = shard.shape[0]
+    peers, along = mesh.model_axis, mesh.data_axis
+    ids = peers.all_gather(rows.reshape(-1).to(torch.int64))
+    lo = along.rank * K
+    plan = plan_exchange(ids, ids // K, lambda r: r - lo, K, along,
+                         _capacity(ids.shape[0], along.n, None))
+    return peers_to_rows(_Take.apply(shard, plan), peers)
 
 
 def sharded_fused_update(cfg, shard: torch.Tensor, slots, lids: torch.Tensor,

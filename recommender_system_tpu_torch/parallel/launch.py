@@ -6,8 +6,9 @@ Every rank runs the same program (``torchrun --nproc-per-node N ...``).
 ``initialize()`` reads torchrun's ``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR`` and ``MASTER_PORT`` and starts the default group with NCCL,
 one rank a card (``LOCAL_RANK`` picks it); ``make_pod_mesh`` lays the mesh
-over every rank; ``host_batch_slice`` is the rows of a global batch this
-rank loads.
+over every rank, its model groups within a host; ``host_batch_slice`` is
+the rows of a global batch this rank loads, the rows ``Mesh.shard_batch``
+gives it.
 
 The JAX package's ``global_batch_from_local`` has no counterpart: torch has
 no global array. A rank keeps its own rows (``Mesh.shard_batch``), and the
@@ -50,12 +51,19 @@ def initialize(backend: str = "nccl") -> None:
 
 
 def make_pod_mesh(model_per_host: int = 1) -> Mesh:
-    """The mesh over every rank of the default group: 'model' would span
-    ``model_per_host`` ranks of a host and 'data' the rest; a model axis
-    comes with a later slice (``make_mesh`` raises for it)."""
+    """The mesh over every rank of the default group: 'model' spans
+    ``model_per_host`` consecutive ranks, which torchrun starts on one host
+    (its ``LOCAL_RANK`` order), so the lookup's exchange over the model
+    peers and MMOE's expert exchange stay on the host's links; 'data' spans
+    the rest. Raises where ``model_per_host`` does not divide the ranks, or
+    the ranks of a host (``LOCAL_WORLD_SIZE``)."""
     n = dist.get_world_size()
     if n % model_per_host:
         raise ValueError(f"{n} ranks do not split into model groups of {model_per_host}")
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", n))
+    if per_host % model_per_host:
+        raise ValueError(f"{per_host} ranks a host do not split into model groups of "
+                         f"{model_per_host}: a model group would span two hosts")
     return make_mesh(data=n // model_per_host, model=model_per_host)
 
 

@@ -24,10 +24,12 @@ multi-chip command), one rank a card, the tables sharded by row:
         --model deepfm --mesh-data 8 --fused-embedding adagrad \
         --explicit-lookup --capacity-factor 2.0
 
+``--mesh-model M`` adds a model axis of M consecutive ranks (``torchrun
+--nproc-per-node N*M``): MMOE's experts split over it and, under the plain
+step without ``--explicit-lookup``, tables of dim >= 64 split by column.
 Every rank runs the whole program on its rows of each batch; rank 0 prints
 the result and writes the checkpoints. ``--explicit-lookup`` and
-``--capacity-factor`` act with a mesh only, as in the JAX package;
-``--mesh-model`` above 1 raises ``NotImplementedError``.
+``--capacity-factor`` act with a mesh only, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -389,8 +391,9 @@ def parse_args(argv=None) -> ExperimentConfig:
     p.add_argument("--weight-decay", type=float, default=defaults.weight_decay)
     p.add_argument("--seed", type=int, default=defaults.seed)
     p.add_argument("--mesh-data", type=int, default=None,
-                   help="ranks of the mesh, under torchrun --nproc-per-node N")
-    p.add_argument("--mesh-model", type=int, default=1)
+                   help="data axis of the mesh, under torchrun --nproc-per-node data*model")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="model axis of the mesh (torchrun --nproc-per-node data*model)")
     p.add_argument("--explicit-lookup", action="store_true",
                    help="mesh only: the explicit all-to-all embedding lookup")
     p.add_argument("--capacity-factor", type=float, default=defaults.capacity_factor,

@@ -11,13 +11,15 @@ checkpoint or none.
 
 A checkpoint made under a mesh has the single-device layout, as the JAX
 package's (orbax saves global arrays): every rank calls
-``save_checkpoint``, each sharded table and its states are gathered, and
-rank 0 writes them, with its dropout generator's state as ``generator`` and
+``save_checkpoint``, each sharded table and its states (rows, or a row
+block's columns) and MMOE's expert slices are gathered, and rank 0 writes
+them, with its dropout generator's state as ``generator`` and
 every rank's in ``rank_generators``. ``restore_checkpoint`` restores any
-checkpoint on one device or on a mesh of any size, each rank taking its
-rows; a rank's generator comes back where the checkpoint kept one for it
-(a mesh of the same size), else it is seeded anew from
-``(seed + step, rank)``.
+checkpoint on one device or on a mesh of any shape, each rank taking its
+part; a rank's generator comes back where the checkpoint kept one for it
+(a mesh of the same size, a generator of the same device type), else it is
+seeded anew: from ``seed + step`` on one device, from ``(seed + step,
+rank)`` on a mesh. So a checkpoint made on the CPU restores on the card.
 """
 from __future__ import annotations
 
@@ -28,15 +30,15 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import rank_seed, shard_table, unshard_table
+from ..parallel.mesh import rank_seed
 
 FILE = "trainer.pt"
 
 
 def _map_tables(trainer, state: dict, fn) -> dict:
     """``state``'s ``model``, ``opt_state`` and ``fused_slots`` with
-    ``fn(tensor, rows)`` applied to each sharded table's tensors (the table
-    and its states, all of its shape), ``rows`` its logical rows."""
+    ``fn(tensor, placement)`` applied to each sharded parameter's tensors
+    (the parameter and its states, all of its shape)."""
     def each(name, t):
         return fn(t, trainer.sharded[name]) if name in trainer.sharded else t
 
@@ -62,7 +64,7 @@ def save_checkpoint(path: str, trainer, step: Optional[int] = None) -> str:
              "step": trainer.step, "generator": trainer.generator.get_state()}
     if mesh is not None:
         state.update(_map_tables(trainer, state,
-                                 lambda t, rows: unshard_table(t, rows, mesh)))
+                                 lambda t, placement: placement.unshard(t, mesh)))
         state["rank_generators"] = [None] * mesh.n
         dist.all_gather_object(state["rank_generators"], state["generator"],
                                group=mesh.group)
@@ -99,7 +101,8 @@ def restore_checkpoint(path: str, trainer, step: Optional[int] = None):
                        weights_only=True)
     mesh = trainer.mesh
     if mesh is not None:
-        saved.update(_map_tables(trainer, saved, lambda t, rows: shard_table(t, mesh)))
+        saved.update(_map_tables(trainer, saved,
+                                 lambda t, placement: placement.shard(t, mesh)))
     trainer.model.load_state_dict(saved["model"])
     with torch.no_grad():
         if saved["opt_state"].keys() != trainer.opt_state.keys():
@@ -117,10 +120,11 @@ def restore_checkpoint(path: str, trainer, step: Optional[int] = None):
                 tensor.copy_(value)
     trainer.step = int(saved["step"])
     generators = saved.get("rank_generators")
-    if mesh is None:
-        trainer.generator.set_state(saved["generator"].cpu())
-    elif generators is not None and len(generators) == mesh.n:
-        trainer.generator.set_state(generators[mesh.rank].cpu())
-    else:
-        trainer.generator.manual_seed(rank_seed(trainer.seed + trainer.step, mesh.rank))
+    kept = saved["generator"] if mesh is None else (
+        generators[mesh.rank] if generators is not None and len(generators) == mesh.n else None)
+    if kept is not None and kept.numel() == trainer.generator.get_state().numel():
+        trainer.generator.set_state(kept.cpu())
+    else:  # another mesh, or a generator of another device type
+        trainer.generator.manual_seed(trainer.seed + trainer.step if mesh is None
+                                      else rank_seed(trainer.seed + trainer.step, mesh.rank))
     return trainer

@@ -29,17 +29,21 @@ model and the optimizer state in the Trainer, both updated in place
 (``training/checkpoint.py`` saves and restores them).
 
 Under a mesh (``Trainer(mesh=make_mesh(...))``, ``parallel/``) each rank
-holds its rows of every ``table_d*`` and its rows of each global batch; the
-tables' gathers go through the all-to-all exchange (``explicit_lookup``: at
-``capacity_factor``, else at full capacity), the model's outputs, the labels
-and the batch columns the loss reads are gathered, so every rank computes
-the global batch's loss, as GSPMD does; the replicated parameters' gradients
-are summed over ranks (one ``all_reduce``) and stay bitwise equal on every
-rank; the fused step sends each table's stream to its owners
-(``sharded_fused_update``), and the plain step's dense optimizer updates
-each rank's rows. BatchNorm (and Dice) and DIEN's auxiliary loss take the
-global batch's statistics. Dropout draws from a generator seeded from
-``(seed, rank)``.
+holds its part of every ``table_d*`` (its rows; on a mesh with a model axis
+under the plain step without ``explicit_lookup``, a wide table's row block
+of 'data' and column slice of 'model', as the JAX rule places it) and its
+rows of each global batch; the tables' gathers go through the all-to-all
+exchange (``explicit_lookup``: at ``capacity_factor``, else at full
+capacity), the model's outputs, the labels and the batch columns the loss
+reads are gathered, so every rank computes the global batch's loss, as
+GSPMD does; the replicated parameters' gradients are summed over ranks (one
+``all_reduce``) and stay bitwise equal on every rank; MMOE's experts are
+split over 'model' (``MMoELayer.shard``) and their gradients summed over
+the ranks that hold the same experts; the fused step sends each table's
+stream to its owners (``sharded_fused_update``), and the plain step's dense
+optimizer updates each rank's part of a table with the exchange's gradient.
+BatchNorm (and Dice) and DIEN's auxiliary loss take the global batch's
+statistics. Dropout draws from a generator seeded from ``(seed, rank)``.
 
 ``fit`` trains in memory; ``fit_stream`` trains over an iterator of batches
 (the out-of-core path of ``utils.datasets.stream_criteo``), staging each
@@ -59,10 +63,11 @@ import numpy as np
 import torch
 
 from ..layers.embedding import EmbeddingCollection
+from ..layers.interaction import MMoELayer
 from ..ops.dispatch import DeviceLike, resolve_device
 from ..ops.fused_adagrad import fused_adagrad_apply, fused_adam_apply, fused_sgd_apply
 from ..parallel.fused import sharded_fused_update
-from ..parallel.mesh import Mesh, gather_rows, rank_seed
+from ..parallel.mesh import Mesh, Placement, gather_rows, rank_seed
 from ..utils import metrics as metrics_lib
 from ..utils.datasets import iter_batches, pad_to_batch
 from .losses import default_loss, logits_of
@@ -249,28 +254,42 @@ class Trainer:
                               seed if mesh is None else rank_seed(seed, mesh.rank)))
         self._collections = [(prefix, m) for prefix, m in model.named_modules()
                              if isinstance(m, EmbeddingCollection)]
-        # under a mesh: each sharded table's name -> its logical rows
-        self.sharded: Dict[str, int] = {}
+        # under a mesh: each sharded parameter's name -> its placement
+        self.sharded: Dict[str, Placement] = {}
         if mesh is not None:
             self._shard_model()
         self.init()
 
     def _shard_model(self) -> None:
-        """Shard every collection's tables and point BatchNorm and DIEN at
-        the mesh. The replicated parameters are each rank's own: every rank
-        builds the model from the same seed, as the JAX package places one
-        initial state on every device."""
+        """Shard every collection's tables (by column where the JAX rule
+        does: the plain step without the explicit lookup) and MMOE's
+        experts, and point BatchNorm and DIEN at the mesh. The replicated
+        parameters are each rank's own: every rank builds the model from the
+        same seed, as the JAX package places one initial state on every
+        device."""
         mesh = self.mesh
         if self.device != mesh.device:
             raise ValueError(f"model lies on {self.device}, the mesh's ranks on {mesh.device}")
         lookup_capacity = self.capacity_factor if self.explicit_lookup else None
-        for prefix, coll in self._collections:
-            coll.shard(mesh, lookup_capacity)
-            for dim, total in coll.total_rows.items():
-                self.sharded[f"{prefix}.table_d{dim}" if prefix else f"table_d{dim}"] = total
-        for m in self.model.modules():
-            if not isinstance(m, EmbeddingCollection) and hasattr(type(m), "mesh"):
-                m.mesh = mesh
+        column_sharding = self.fused_embedding is None and not self.explicit_lookup
+        for prefix, m in self.model.named_modules():
+            if isinstance(m, EmbeddingCollection):
+                m.shard(mesh, lookup_capacity, column_sharding)
+            elif isinstance(m, MMoELayer):
+                m.shard(mesh)
+            else:
+                if hasattr(type(m), "mesh"):
+                    m.mesh = mesh
+                continue
+            for local, placement in m.placements.items():
+                self.sharded[f"{prefix}.{local}" if prefix else local] = placement
+
+    def whole(self, name: str, tensor: torch.Tensor) -> torch.Tensor:
+        """Parameter ``name``'s tensor (or an optimizer state of its shape)
+        in the single-device layout: gathered where the mesh shards it (a
+        collective), else as it is."""
+        placement = self.sharded.get(name)
+        return tensor if placement is None else placement.unshard(tensor, self.mesh)
 
     def init(self) -> "Trainer":
         """(Re)start the optimizer state and the step count from the model's
@@ -344,15 +363,24 @@ class Trainer:
         return loss.detach()
 
     def _sum_replicated(self, grads: Dict[str, torch.Tensor]) -> None:
-        """Sum the replicated parameters' gradients over ranks in place, in
-        one ``all_reduce`` of their concatenation. Each rank's gradient is
-        the global loss's through its own rows, so the sum is the whole."""
-        names = [n for n in grads if n not in self.sharded]
-        if not names:
-            return
-        flat = self.mesh.all_reduce_(torch.cat([grads[n].reshape(-1) for n in names]))
-        for name, part in zip(names, flat.split([grads[n].numel() for n in names])):
-            grads[name] = part.view_as(grads[name])
+        """Sum the gradients of the parameters each rank holds whole over
+        ranks in place, in one ``all_reduce`` of their concatenation: each
+        rank's gradient is the global loss's through its own rows, so the
+        sum is the whole. An expert slice's gradient covers its data group's
+        rows and is summed over the ranks that hold the same experts; a
+        table's part has the exchange's gradient already."""
+        groups = {"replicated": [], "experts": []}
+        for n in grads:
+            kind = self.sharded[n].kind if n in self.sharded else "replicated"
+            if kind in groups:
+                groups[kind].append(n)
+        for kind, names in groups.items():
+            if not names:
+                continue
+            axis = self.mesh if kind == "replicated" else self.mesh.data_axis
+            flat = axis.all_reduce_(torch.cat([grads[n].reshape(-1) for n in names]))
+            for name, part in zip(names, flat.split([grads[n].numel() for n in names])):
+                grads[name] = part.view_as(grads[name])
 
     def _fused_update(self, captured) -> None:
         """One stream per table: its captured sites concatenated, presorted

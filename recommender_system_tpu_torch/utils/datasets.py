@@ -1,13 +1,14 @@
 """Host-side data: the Criteo schema, the Criteo TSV loader and its
 out-of-core stream, the Avazu CSV loader, synthetic Criteo-shaped and
-behaviour data, the MovieLens and Amazon behaviour datasets, batching.
+behaviour data, the MovieLens and Amazon behaviour datasets, the
+logistic-regression toy set, batching.
 
 Copies of the parts of ``recommender_system_tpu/utils/datasets.py`` that the
 port's paths use, bit-exact with them (``tests/test_torch_utils.py``,
 ``tests/test_torch_din.py``, ``tests/test_torch_behavior_data.py``,
-``tests/test_torch_criteo_data.py``). Batches are dicts of fixed-shape
-numpy arrays. The readers import pandas inside the functions that need it,
-so the module imports without it. Unlike the JAX package's, they take the
+``tests/test_torch_criteo_data.py``, ``tests/test_torch_classics.py``).
+Batches are dicts of fixed-shape numpy arrays. The readers import pandas
+inside the functions that need it, so the module imports without it. Unlike the JAX package's, they take the
 data's path from the caller: they have no default data directory.
 """
 from __future__ import annotations
@@ -256,6 +257,13 @@ def stream_criteo(
                 q.get_nowait()
             except queue.Empty:
                 break
+
+
+def load_logireg(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The logistic-regression toy set (``LogiReg_data.txt``: two scores and
+    a 0/1 label a line, comma-separated) -> ``(X [n, 2], y [n])`` float32."""
+    arr = np.loadtxt(path, delimiter=",")
+    return arr[:, :2].astype(np.float32), arr[:, 2].astype(np.float32)
 
 
 def synthetic_criteo(

@@ -3,7 +3,8 @@
 
 On a mesh only rank 0 speaks: ``get_logger`` logs at INFO there and only
 errors elsewhere. ``seed_everything`` seeds numpy's global generator and
-returns a ``torch.Generator`` from the same seed.
+returns a ``torch.Generator`` from the same seed, on the card unless
+another device is named.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..ops.dispatch import resolve_device
 
 
 def is_host_zero() -> bool:
@@ -34,9 +37,14 @@ def get_logger(name: str = "recommender_system_tpu_torch") -> logging.Logger:
     return logger
 
 
-def seed_everything(seed: int, device="cpu") -> torch.Generator:
+def seed_everything(seed: int, device="cuda") -> torch.Generator:
     """Seed numpy's global generator; returns a ``torch.Generator`` on
-    ``device`` seeded with ``seed`` (the port's models and ``Trainer`` take
-    generators, not a global seed)."""
+    ``device`` (the card unless another device is named; raises without
+    one, as ``Trainer`` does) seeded with ``seed``. The port's models and
+    ``Trainer`` take generators, not a global seed, and a generator draws
+    only for tensors on its own device."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        resolve_device(None)  # raises where there is no card
     np.random.seed(seed)
     return torch.Generator(device=device).manual_seed(seed)

@@ -106,3 +106,34 @@ def test_restored_trainer_continues_bitwise(tmp_path, kind):
     save_checkpoint(str(tmp_path / "b"), restored)
     _assert_bitwise(_checkpoint(str(tmp_path / "a")), _checkpoint(str(tmp_path / "b")))
     assert original.model.bn.running_mean.abs().sum() > 0
+
+
+def test_a_generator_of_another_device_is_seeded_anew(tmp_path):
+    """A checkpoint whose generator is of another device type (a CPU run
+    restored on the card, or the reverse: their states differ in size)
+    restores everything else and seeds the generator from ``seed + step``;
+    one of the same type comes back as it was."""
+    cols, X, y = datasets.synthetic_criteo(n_rows=2 * BATCH, vocab=BUCKETS,
+                                           embedding_dim=DIM, seed=4)
+
+    def fresh():
+        model = NFM(tuple(cols), hidden_units=HIDDEN, dropout_rate=0.3, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+        return Trainer(model, Adagrad(LR), device="cpu", seed=5,
+                       generator=torch.Generator().manual_seed(9))
+
+    original = fresh()
+    xb, yb = next(datasets.iter_batches(X, y, BATCH, shuffle=False))
+    original.train_step(original._to_device(xb), torch.as_tensor(yb))
+    directory = save_checkpoint(str(tmp_path), original)
+    restored = restore_checkpoint(str(tmp_path), fresh())
+    assert torch.equal(restored.generator.get_state(), original.generator.get_state())
+    saved = torch.load(f"{directory}/{FILE}", weights_only=True)
+    saved["generator"] = torch.zeros(16, dtype=torch.uint8)  # a CUDA generator's size
+    torch.save(saved, f"{directory}/{FILE}")
+    restored = restore_checkpoint(str(tmp_path), fresh())
+    assert restored.step == 1
+    assert torch.equal(restored.generator.get_state(),
+                       torch.Generator().manual_seed(5 + 1).get_state())
+    _assert_bitwise({n: p.detach() for n, p in restored.model.named_parameters()},
+                    {n: p.detach() for n, p in original.model.named_parameters()})

@@ -3,7 +3,7 @@ a mesh of four CPU devices there, four gloo ranks here): the mod-sharded
 lookup and its gradient, the overflow policy, the full-capacity exchange
 that stands for GSPMD's gather, ``Trainer(mesh=...)`` against one device,
 the row rule for every table width, checkpoints, logging by rank, the model
-axis that raises, and ``--mesh-data`` under torchrun."""
+axis's set-up, and ``--mesh-data`` under torchrun."""
 import json
 import os
 import subprocess
@@ -163,7 +163,9 @@ def test_trainer_with_mesh_matches_single_device(ranks, jmesh):
 
 def test_mmoe_on_a_data_mesh_and_the_model_axis_raises(ranks):
     """MMOE's experts stay replicated on a data mesh and train as on one
-    device; the model axis that would shard them raises."""
+    device. The model axis that shards them works now
+    (``tests/test_torch_model_axis.py``): the same ranks make a 2 x 2 mesh,
+    and ``build_mesh`` asks torchrun for data x model ranks."""
     rng = np.random.default_rng(4)
     X = rng.random((256, 16)).astype(np.float32)
     y = np.stack([(X.sum(1) > 8).astype(np.float32), (X[:, 0] > 0.5).astype(np.float32)], 1)
@@ -175,9 +177,10 @@ def test_mmoe_on_a_data_mesh_and_the_model_axis_raises(ranks):
                                **F32)
     for key, value in ranks_lib.view(single).items():
         np.testing.assert_allclose(results[0]["view"][key], value, err_msg=key, **F32)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        make_mesh(data=2, model=2)
-    with pytest.raises(NotImplementedError, match="model axis"):
+    assert results[0]["shard_rows"] == {}  # nothing of MMOE's is split without a model axis
+    grid = ranks.run(ranks_lib.on_grid, (2, 2), ranks_lib.axes_on_mesh)
+    assert [r[0][2:] for r in grid] == [(2, 2, 0, 0), (2, 2, 0, 1), (2, 2, 1, 0), (2, 2, 1, 1)]
+    with pytest.raises(RuntimeError, match="nproc-per-node 4"):
         ExperimentConfig(mesh_data=2, mesh_model=2, device="cpu").build_mesh()
 
 
@@ -253,7 +256,7 @@ def test_logging_speaks_on_rank_zero_only(ranks):
     assert all(r[:2] == (False, 40) for r in results[1:])  # ERROR
     # with no process group (this process) every logger speaks
     assert is_host_zero() and get_logger().level == 20
-    gen = seed_everything(7)
+    gen = seed_everything(7, device="cpu")
     assert np.random.random() == np.random.RandomState(7).random_sample()
     assert torch.equal(torch.rand(3, generator=gen),
                        torch.rand(3, generator=torch.Generator().manual_seed(7)))
@@ -308,10 +311,13 @@ def test_cli_mesh_data_under_torchrun(tmp_path):
 
 
 def test_cli_mesh_needs_torchrun_and_one_model_axis():
+    """Outside torchrun ``--mesh-data`` raises, and with ``--mesh-model``
+    the message asks for data x model ranks (the model axis itself runs
+    in ``tests/test_torch_model_axis.py``)."""
     with pytest.raises(RuntimeError, match="torchrun"):
         train.main(["--model", "deepfm", "--dataset", "synthetic", "--max-rows", "256",
                     "--epochs", "1", "--mesh-data", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="model axis"):
+    with pytest.raises(RuntimeError, match="nproc-per-node 4"):
         train.main(["--model", "deepfm", "--dataset", "synthetic", "--max-rows", "256",
                     "--epochs", "1", "--mesh-data", "2", "--mesh-model", "2",
                     "--device", "cpu"])

@@ -147,3 +147,20 @@ def test_hash_strings_np_bit_exact(mask_zero, salt):
     np.testing.assert_array_equal(
         thashing.hash_strings_np(values, 1000, mask_zero, salt),
         jhashing.hash_strings_np(values, 1000, mask_zero, salt))
+
+
+def test_seed_everything_defaults_to_the_card():
+    """``seed_everything`` returns a generator on the card unless another
+    device is named, and raises without one, as ``Trainer`` does; the
+    generator it returns draws on its device from the seed, and numpy's
+    global generator is seeded too."""
+    from recommender_system_tpu_torch.utils.logging import seed_everything
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            seed_everything(7)
+    gen = seed_everything(7, device="cpu")
+    assert gen.device == torch.device("cpu")
+    assert np.random.random() == np.random.RandomState(7).random_sample()
+    assert torch.equal(torch.rand(3, generator=gen),
+                       torch.rand(3, generator=torch.Generator().manual_seed(7)))

@@ -4,7 +4,9 @@
 gloo group through a file in ``directory`` (``init_method="file://..."``,
 so parallel test workers never share a port), each with one torch thread.
 ``pool.run(fn, *args)`` runs ``fn(mesh, *args)`` on every rank, with the
-mesh of the whole group, and returns the ranks' results in rank order; a
+mesh of the whole group, and returns the ranks' results in rank order
+(``pool.run(on_grid, (data, model), fn, *args)`` runs ``fn`` on a
+``make_mesh(data, model)`` of the same ranks, made once a process); a
 rank that raises fails the call with its traceback, and a call that does
 not end within its timeout fails instead of hanging. After a failure the
 ranks are started anew for the next call.
@@ -28,15 +30,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from recommender_system_tpu_torch import (DIEN, DIN, DSSM, MMOE, DeepFM, FusedAdagrad,
+from recommender_system_tpu_torch import (DIEN, DIN, DSSM, FFM, MMOE, DeepFM, FusedAdagrad,
                                           FusedAdam, FusedSGD, Trainer)
 from recommender_system_tpu_torch.convert import load_jax_opt_state, load_jax_params
 from recommender_system_tpu_torch.parallel import (alltoall_lookup, alltoall_take, gspmd_lookup,
                                                    make_mesh, sharded_fused_update,
                                                    sharded_lookup)
-from recommender_system_tpu_torch.parallel.fused import stream_slice
+from recommender_system_tpu_torch.parallel.fused import column_take, stream_slice
+from recommender_system_tpu_torch.parallel.mesh import Placement
 from recommender_system_tpu_torch.parallel.launch import host_batch_slice, make_pod_mesh
-from recommender_system_tpu_torch.parallel.mesh import unshard_table
 from recommender_system_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
 from recommender_system_tpu_torch.utils import logging as tlogging
 from recommender_system_tpu_torch.training import SGD, Adagrad, Adam, default_loss
@@ -161,6 +163,11 @@ def build_model(kind: str, spec: dict, params: Optional[dict] = None,
         cols = schema("dssm", tfeatures)
         model = DSSM((cols[0], cols[2]), (cols[1],), user_hidden_units=spec["hidden"],
                      item_hidden_units=spec["hidden"], **kw)
+    elif kind == "ffm":
+        model = FFM(spec["columns"], factor_dim=spec.get("k", 4), **kw)
+    elif kind == "mmoe" and "columns" in spec:
+        model = MMOE(feature_columns=spec["columns"], num_tasks=2, num_experts=4,
+                     expert_units=16, tower_hidden_units=(8,), **kw)
     elif kind == "mmoe":
         model = MMOE(in_features=spec["in_features"], num_tasks=2, num_experts=4,
                      expert_units=16, tower_hidden_units=(8,), **kw)
@@ -195,8 +202,8 @@ def view(trainer) -> Dict[str, np.ndarray]:
 
     def whole(name, t):
         t = t.detach()
-        if mesh is not None and name in trainer.sharded:
-            t = unshard_table(t, trainer.sharded[name], mesh)
+        if mesh is not None:
+            t = trainer.whole(name, t)
         return t.numpy().copy()
 
     out = {n: whole(n, p) for n, p in trainer.model.named_parameters()}
@@ -210,6 +217,8 @@ def view(trainer) -> Dict[str, np.ndarray]:
 
 
 def to_tensors(X):
+    if not isinstance(X, dict):
+        return torch.from_numpy(np.ascontiguousarray(X))
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in X.items()}
 
 
@@ -240,10 +249,11 @@ def train_on_mesh(mesh, kind, spec, params, stats, batches, mesh_kw):
                   and not any(n.endswith(f":{t}") for t in trainer.sharded)}
     shard_rows = {n: tuple(p.shape) for n, p in trainer.model.named_parameters()
                   if n in trainer.sharded}
+    placements = {n: p.kind for n, p in trainer.sharded.items()}
     if mesh.rank == 0:
         return {"losses": losses, "overflow": overflow, "view": whole,
-                "replicated": replicated, "shard_rows": shard_rows}
-    return {"replicated": replicated, "shard_rows": shard_rows}
+                "replicated": replicated, "shard_rows": shard_rows, "placements": placements}
+    return {"replicated": replicated, "shard_rows": shard_rows, "placements": placements}
 
 
 def fit_on_mesh(mesh, kind, spec, params, stats, X, y, mesh_kw, fit_kw):
@@ -334,11 +344,47 @@ def logging_on_mesh(mesh):
     return tlogging.is_host_zero(), logger.level, mesh.rank
 
 
-def launch_on_mesh(mesh, global_batch):
+def launch_on_mesh(mesh, global_batch, model_per_host=1):
     """``make_pod_mesh`` over the default group and this rank's
     ``host_batch_slice``."""
-    pod = make_pod_mesh()
+    pod = make_pod_mesh(model_per_host)
     return (pod.n, pod.rank, pod.data, pod.model), host_batch_slice(global_batch)
+
+
+# ---------------------------------------------------------------------------
+# the model axis
+
+_GRIDS: Dict[tuple, object] = {}
+
+
+def on_grid(mesh, shape, fn, *args):
+    """``fn(grid, *args)`` on the ``make_mesh(*shape)`` of the ranks' group
+    (``shape = (data, model)``), made once a process: ``make_mesh`` makes
+    the axis groups with ``dist.new_group``, which every rank calls."""
+    if shape not in _GRIDS:
+        _GRIDS[shape] = make_mesh(*shape, group=mesh.group)
+    return fn(_GRIDS[shape], *args)
+
+
+def axes_on_mesh(mesh):
+    """This rank's place on the grid and the global ranks of its two axis
+    groups."""
+    return ((mesh.n, mesh.rank, mesh.data, mesh.model, mesh.data_index, mesh.model_index),
+            dist.get_process_group_ranks(mesh.data_axis.group),
+            dist.get_process_group_ranks(mesh.model_axis.group))
+
+
+def column_take_on_mesh(mesh, table, ids):
+    """``column_take`` of this rank's rows of ``ids`` from a column-sharded
+    ``table``: every rank's rows gathered, the table's gradient for
+    ``sum(out ** 2)`` gathered whole, and this rank's shard's shape."""
+    placement = Placement("columns", table.shape)
+    shard = placement.shard(torch.from_numpy(table), mesh).requires_grad_(True)
+    out = column_take(shard, torch.from_numpy(mesh.shard_batch(ids)), mesh)
+    out = out[:, :table.shape[1]]
+    (out * out).sum().backward()
+    return (mesh.all_gather(out.detach()).numpy(),
+            placement.unshard(shard.grad, mesh).numpy(), tuple(shard.shape))
 
 
 class OptState:
