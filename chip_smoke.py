@@ -214,15 +214,33 @@ Phases, each of which raises on failure (exit code not 0):
    UserCF and MF at MovieLens-100k's shape (943 users, 1,682 items,
    100,000 ratings drawn from a seed), each on the card against its CPU
    run, with no kernel launch;
+3q. a call of K steps as one CUDA graph: for every single-card training
+   path above (DeepFM fused and plain at ``bench.py``'s width; WideDeep,
+   NFM, DCN, FFM, PNN, AFM, DeepCrossing and MMOE at ``model_step.py``'s
+   Criteo width; DIN fused and plain, DIEN and DSSM at its width; and two
+   paths that draw: DeepFM with dropout 0.1, its masks from the Trainer's
+   generator, and DSSM with a sampled softmax whose negatives come from a
+   step generator of the loss), two copies of one state: three
+   ``multi_step`` calls (steps one by one, then
+   capture and replay, then a replay under ``set_sync_debug_mode("error")``)
+   against three ``make_multi_step(graphed=False)`` calls; losses,
+   parameters, buffers, optimizer states, the step and the generators'
+   states bitwise equal (else within PARITY, the largest difference and its
+   cause printed: a second looped copy tells atomics from the graph), the
+   launch counts equal; and the north-star stream CLI to step 32 with its
+   packed calls looped, whose checkpoint must equal the graphed run's
+   bitwise. Every training call of the phases before it goes through the
+   graphs too, the sync check on the first replay (a capture synchronises);
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
    host overhead included), and the library call where there is one (the
    DIN attention against two bounds: the tensor cores' at three TF32
    passes, its ``bound_ms``, and f32 outside them, ``f32_bound_ms``); each
    Scorer's latency and throughput (host clock), its device busy time per
-   batch and its top kernels; the training throughput of a fused K=8 call
-   (CUDA events), its device idle share, the top device work of a step and
-   the count of host ops a step issues, for DeepFM, DIN, WideDeep, NFM,
+   batch and its top kernels; the training throughput of a fused K=8 call,
+   graphed and looped (CUDA events), its device idle share, the top device
+   work of a step and the count of host ops a call issues, for DeepFM, DIN,
+   WideDeep, NFM,
    DeepCrossing, PNN, AFM, FFM, DIEN, DSSM and MMOE; the device and host
    time of DIEN's GRU, AUGRU, attention and auxiliary net (forward and
    backward); the share of DIN's, DIEN's and DSSM's steps that their padding
@@ -242,7 +260,8 @@ Every launch check compares all seven wrappers' launch counts and the
 be 0 on every path but 3k's.
 
 The line before the last lists every kernel with its launches on its main
-path (the three global kernels: on phase 3k's path; kernels 3-7 also on
+path (the graphed calls of phase 3q's paths as ``graph_launches``; the
+three global kernels: on phase 3k's path; kernels 3-7 also on
 phase 3o's and 3p's runs, summed over ranks, as ``mesh_launches``, and
 kernels 4 and 5 on phase 3p's grid rank by rank as
 ``grid_launches_per_rank``), its error against the plain version, its times and its bound; the line
@@ -943,9 +962,10 @@ def touched_rows(batches, rows: int) -> torch.Tensor:
 
 def train_checked(name, model, batches, labels, optimizer, fused, calls, want, card,
                   touched=None, loss_fn=None):
-    """``calls`` K-step calls of ``model`` through ``Trainer`` (the second
-    under ``set_sync_debug_mode("error")``: no step may wait for the
-    device); the launches must equal ``want``, the losses be finite and,
+    """``calls`` K-step calls of ``model`` through ``Trainer`` (the third,
+    the first replay of the graph that the second captured, under
+    ``set_sync_debug_mode("error")``: no step may wait for the device; a
+    capture synchronises); the launches must equal ``want``, the losses be finite and,
     over several calls, fall; table rows that ``touched`` (default: the
     Criteo rows the batches look up) leaves out keep their values and slots
     bitwise, in every ``table_d*`` of the model; a BatchNorm's statistics
@@ -968,7 +988,7 @@ def train_checked(name, model, batches, labels, optimizer, fused, calls, want, c
     zero_counts()
     calls_out = []
     for call in range(calls):
-        if call == 1:
+        if call == 2:
             torch.cuda.set_sync_debug_mode("error")
         try:
             calls_out.append(trainer.multi_step(batches, labels))
@@ -1002,7 +1022,8 @@ def train_checked(name, model, batches, labels, optimizer, fused, calls, want, c
         if moved == 0.0:
             raise RuntimeError(f"{name} training left the BatchNorm statistics as they were")
         note = f"; BatchNorm running mean moved by up to {moved:.4g}"
-    sync = " (call 2 under set_sync_debug_mode('error'))" if calls > 1 else ""
+    sync = (" (call 3, a graph replay, under set_sync_debug_mode('error'))"
+            if calls > 2 else "")
     print(f"{name} training: mean loss per call {[float(x) for x in losses.mean(axis=1)]}"
           f"{sync}; untouched rows bitwise unchanged: {'; '.join(untouched)}{note}; "
           f"on {card}", flush=True)
@@ -1098,7 +1119,7 @@ def time_sparse_rows(card) -> dict:
         scatter_add_dense_ref, scatter_add_sorted)
     from recommender_system_tpu_torch.ops.fused_adagrad import (
         fused_adagrad_apply, fused_adagrad_ref, fused_adam_apply, fused_adam_ref,
-        fused_sgd_apply, fused_sgd_ref)
+        adam_scalars, fused_sgd_apply, fused_sgd_ref)
     from recommender_system_tpu_torch.ops.stream_sort import blocked_sort, sort_ids
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1123,6 +1144,8 @@ def time_sparse_rows(card) -> dict:
     din_state = [torch.full_like(din_table, 0.1), torch.zeros_like(din_table),
                  torch.zeros_like(din_table)]
     din_sorted = sort_ids(din_lids)
+    lr, sgd_lr = on_card(LR), on_card(SGD_LR)
+    adam = on_card(*adam_scalars(ADAM_LR, 0, 0.9, 0.999))
     # zeroing a buffer past the 50 MB L2 before a call leaves the call's
     # stream and cotangents in device memory, as a training step leaves them
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -1138,31 +1161,32 @@ def time_sparse_rows(card) -> dict:
     # rule, kernel name)
     fns = {
         "fused_adagrad_apply": (
-            lambda: fused_adagrad_apply(table, acc, lids, ct, lr=LR, eps=EPS,
+            lambda: fused_adagrad_apply(table, acc, lids, ct, eps=EPS, scalars=lr,
                                         presorted=(slid, order)),
-            lambda: fused_adagrad_ref(table, acc, lids, ct, LR, EPS),
-            lambda: fused_adagrad_apply(table, acc, hot, ct, lr=LR, eps=EPS,
+            lambda: fused_adagrad_ref(table, acc, lids, ct, eps=EPS, scalars=lr),
+            lambda: fused_adagrad_apply(table, acc, hot, ct, eps=EPS, scalars=lr,
                                         presorted=(hot_slid, hot_order)),
-            lambda: fused_adagrad_apply(din_table, din_state[0], din_lids, din_ct, lr=LR,
-                                        eps=EPS, presorted=din_sorted),
+            lambda: fused_adagrad_apply(din_table, din_state[0], din_lids, din_ct, eps=EPS,
+                                        scalars=lr, presorted=din_sorted),
             None, "adagrad", "sparse_rows_kernel"),
         "fused_sgd_apply": (
-            lambda: fused_sgd_apply(table, lids, ct, lr=SGD_LR, presorted=(slid, order)),
-            lambda: fused_sgd_ref(table, lids, ct, SGD_LR),
-            lambda: fused_sgd_apply(table, hot, ct, lr=SGD_LR, presorted=(hot_slid, hot_order)),
-            lambda: fused_sgd_apply(din_table, din_lids, din_ct, lr=SGD_LR,
+            lambda: fused_sgd_apply(table, lids, ct, scalars=sgd_lr, presorted=(slid, order)),
+            lambda: fused_sgd_ref(table, lids, ct, scalars=sgd_lr),
+            lambda: fused_sgd_apply(table, hot, ct, scalars=sgd_lr,
+                                    presorted=(hot_slid, hot_order)),
+            lambda: fused_sgd_apply(din_table, din_lids, din_ct, scalars=sgd_lr,
                                     presorted=din_sorted),
             # one PyTorch call for the same update; it rounds per position
             lambda: table.index_add_(0, lids, ct, alpha=-SGD_LR),
             "sgd", "sparse_rows_kernel"),
         "fused_adam_apply": (
-            lambda: fused_adam_apply(table, m, v, lids, ct, lr=ADAM_LR, step=0,
+            lambda: fused_adam_apply(table, m, v, lids, ct, scalars=adam,
                                      presorted=(slid, order)),
-            lambda: fused_adam_ref(table, m, v, lids, ct, ADAM_LR, 0),
-            lambda: fused_adam_apply(table, m, v, hot, ct, lr=ADAM_LR, step=0,
+            lambda: fused_adam_ref(table, m, v, lids, ct, scalars=adam),
+            lambda: fused_adam_apply(table, m, v, hot, ct, scalars=adam,
                                      presorted=(hot_slid, hot_order)),
-            lambda: fused_adam_apply(din_table, *din_state[1:], din_lids, din_ct, lr=ADAM_LR,
-                                     step=0, presorted=din_sorted),
+            lambda: fused_adam_apply(din_table, *din_state[1:], din_lids, din_ct,
+                                     scalars=adam, presorted=din_sorted),
             None, "adam", "sparse_rows_kernel"),
         "scatter_add_sorted": (
             lambda: scatter_add_sorted(slid, order, ct, rows),
@@ -1207,47 +1231,75 @@ def time_sparse_rows(card) -> dict:
 
 
 def time_training(trainer, batches, labels, card, name) -> dict:
-    """Phase 4 for a training path: throughput of a fused K-step call, its
-    idle share and the top device work of a step (over 3 traced calls);
-    returns the step's device time by kernel name and the step time."""
-    calls = 5
-    k, batch = labels.shape[:2]
-    trainer.multi_step(batches, labels)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        trainer.multi_step(batches, labels)
-    end.record()
-    end.synchronize()
-    call = start.elapsed_time(end) / calls
-    print(f"timing {name}: {k * batch / (call / 1e3):.1f} examples/s "
-          f"({call:.3f} ms per K={k} call of {batch} examples a step, "
-          f"{call / k:.3f} ms a step, CUDA events over {calls} calls); on {card}",
-          flush=True)
-
-    wall = host_ms(lambda: (trainer.multi_step(batches, labels), torch.cuda.synchronize()),
-                   iters=3, warmup=1)
-    per_name = device_ms(lambda: (trainer.multi_step(batches, labels),
-                                  torch.cuda.synchronize()), iters=3)
-    busy = sum(per_name.values())
-    wall_ms = statistics.median(wall)
-    print(f"{name} K={k} call: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
-          f"wall, idle share {1 - busy / wall_ms:.3f}; top device work of a step:",
-          flush=True)
-    for kernel, ms in per_name.most_common(12):
-        print(f"  {ms / k:.4f} ms  {100 * ms / busy:5.1f}%  {kernel[:90]}")
-
+    """Phase 4 for a training path, for both forms of a K-step call: graphed
+    (``multi_step``, one CUDA graph replay a call) and looped
+    (``make_multi_step(graphed=False)``, the steps issued op by op): ms a
+    step by CUDA events over 5 calls, the device's busy time and idle share
+    over 3 traced calls, the top device work of a step and the host ops a
+    call issues. Returns the graphed form's ``step_ms``, ``busy_ms`` and
+    ``per_step`` (device ms by kernel name; the looped form's where the
+    profiler sees no kernel of a graph) and the looped form's as
+    ``looped_step_ms`` and ``looped_busy_ms``. A Trainer of a tree without
+    graphs (``chip_turns.py``'s parent) is timed looped alone, through its
+    ``multi_step``."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        trainer.train_step({key: v[0] for key, v in batches.items()}, labels[0])
-    top = collections.Counter(e.name for e in prof.events() if e.cpu_parent is None)
-    print(f"{name}: {sum(top.values())} top-level host ops in one step; most "
-          f"frequent {top.most_common(6)}", flush=True)
-    return {"step_ms": call / k, "busy_ms": busy / k,
-            "per_step": collections.Counter({n: ms / k for n, ms in per_name.items()})}
+    calls = 5
+    k, batch = labels.shape[:2]
+    out = {}
+    forms = ((("graphed", trainer.multi_step),
+              ("looped", trainer.make_multi_step(graphed=False)))
+             if hasattr(trainer, "make_multi_step") else (("looped", trainer.multi_step),))
+    for form, run in forms:
+        # a signature's first call runs step by step, its second captures
+        for _ in range(2):
+            run(batches, labels)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            run(batches, labels)
+        end.record()
+        end.synchronize()
+        call = start.elapsed_time(end) / calls
+        wall = statistics.median(host_ms(lambda: (run(batches, labels),
+                                                  torch.cuda.synchronize()), iters=3, warmup=1))
+        try:
+            per_name = device_ms(lambda: (run(batches, labels), torch.cuda.synchronize()),
+                                 iters=3)
+        except RuntimeError:  # the profiler saw no kernel of the graph
+            per_name = None
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            run(batches, labels)
+        host_ops = collections.Counter(e.name for e in prof.events() if e.cpu_parent is None)
+        busy = sum(per_name.values()) if per_name else None
+        idle = f"{1 - busy / wall:.3f}" if busy else "not measured (no device events traced)"
+        busy_text = f"{busy:.3f}" if busy else "not measured"
+        print(f"timing {name} {form}: {k * batch / (call / 1e3):.1f} examples/s "
+              f"({call:.3f} ms per K={k} call of {batch} examples a step, "
+              f"{call / k:.3f} ms a step, CUDA events over {calls} calls); device busy "
+              f"{busy_text} ms of {wall:.3f} ms wall a call, idle share {idle}; "
+              f"{sum(host_ops.values())} top-level host ops a call, most frequent "
+              f"{host_ops.most_common(4)}; on {card}", flush=True)
+        if per_name:
+            print(f"{name} {form}: top device work of a step:", flush=True)
+            for kernel, ms in per_name.most_common(8):
+                print(f"  {ms / k:.4f} ms  {100 * ms / busy:5.1f}%  {kernel[:90]}")
+        out[form] = {"step_ms": call / k, "busy_ms": busy / k if busy else None,
+                     "idle": 1 - busy / wall if busy else None,
+                     "host_ops": sum(host_ops.values()),
+                     "per_step": collections.Counter(
+                         {n: ms / k for n, ms in (per_name or {}).items()})}
+    lp = out["looped"]
+    g = out.get("graphed", lp)
+    if "graphed" in out:
+        print(f"timing {name}: graphed {g['step_ms']:.4f} ms a step against looped "
+              f"{lp['step_ms']:.4f} ({lp['step_ms'] / g['step_ms']:.2f}x); host ops a call "
+              f"{g['host_ops']} against {lp['host_ops']}; on {card}", flush=True)
+    return {"step_ms": g["step_ms"], "busy_ms": g["busy_ms"],
+            "per_step": g["per_step"] or lp["per_step"],
+            "looped_step_ms": lp["step_ms"], "looped_busy_ms": lp["busy_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1320,6 +1372,13 @@ def launches_want(**launches) -> dict:
 def global_key(name: str) -> str:
     """The key of ``name``'s global kernel launches in ``read_counts``."""
     return f"{name}.global_launches"
+
+
+def on_card(*values: float) -> torch.Tensor:
+    """A sparse row rule's step scalars (``[lr]`` or ``[lr, bc1, bc2]``) in
+    device memory, where its kernel reads them: made once, so that a timed
+    call copies nothing from the host."""
+    return torch.tensor(values, dtype=torch.float32, device="cuda")
 
 
 def train_din_fused(batches, labels, card):
@@ -1464,14 +1523,16 @@ def time_din(trainer, scorer, requests, batches, labels, card) -> dict:
     ct = torch.randn(lids.numel(), DIN_DIM, generator=gen, device="cuda") * 1e-3
     table = torch.randn(DIN_USERS + DIN_ITEMS, DIN_DIM, generator=gen, device="cuda")
     acc = torch.full_like(table, 0.1)
+    lr = on_card(LR)
     pad = lids == DIN_USERS
     kernel = "sparse_rows_kernel"
     hot = {}
     for what, (ids, c) in {"with": (lids, ct), "without": (lids[~pad], ct[~pad])}.items():
-        dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, lr=LR,
-                                                                  eps=EPS), iters=5)
+        dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, eps=EPS,
+                                                                  scalars=lr), iters=5)
         hot[what] = sum(ms for name, ms in dev.items() if kernel in name)
-    clocks = clocks_during(lambda: fused_adagrad_apply(table, acc, lids, ct, lr=LR, eps=EPS))
+    clocks = clocks_during(lambda: fused_adagrad_apply(table, acc, lids, ct, eps=EPS,
+                                                       scalars=lr))
     in_step = sum(ms for name, ms in step["per_step"].items() if kernel in name)
     print(f"DIN padding row: {int(pad.sum())} of {lids.numel()} positions of a step's stream; "
           f"fused_adagrad_rows takes {hot['with']:.4f} ms on the stream (clocks, SM and "
@@ -1719,12 +1780,13 @@ def time_dien(trainer, batches, labels, card) -> None:
     ct = torch.randn(lids.numel(), DIN_DIM, generator=gen, device="cuda") * 1e-3
     table = torch.randn(DIN_USERS + DIN_ITEMS, DIN_DIM, generator=gen, device="cuda")
     acc = torch.full_like(table, 0.1)
+    lr = on_card(LR)
     pad = lids == DIN_USERS
     kernel = "sparse_rows_kernel"
     hot = {}
     for what, (ids, c) in {"with": (lids, ct), "without": (lids[~pad], ct[~pad])}.items():
-        dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, lr=LR,
-                                                                  eps=EPS), iters=3)
+        dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, eps=EPS,
+                                                                  scalars=lr), iters=3)
         hot[what] = sum(ms for name, ms in dev.items() if kernel in name)
     in_step = sum(ms for name, ms in step["per_step"].items() if kernel in name)
     print(f"DIEN padding row: {int(pad.sum())} of {lids.numel()} positions of a step's "
@@ -2143,12 +2205,13 @@ def time_dssm(trainer, index, requests, batches, labels, card) -> None:
     ct = torch.randn(lids.numel(), DIN_DIM, generator=gen, device="cuda") * 1e-3
     table = torch.randn(DIN_USERS + DIN_ITEMS, DIN_DIM, generator=gen, device="cuda")
     acc = torch.full_like(table, 0.1)
+    lr = on_card(LR)
     pad = lids == DIN_USERS
     kernel = "sparse_rows_kernel"
     hot = {}
     for what, (ids, c) in {"with": (lids, ct), "without": (lids[~pad], ct[~pad])}.items():
-        dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, lr=LR,
-                                                                  eps=EPS), iters=3)
+        dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, eps=EPS,
+                                                                  scalars=lr), iters=3)
         hot[what] = sum(ms for name, ms in dev.items() if kernel in name)
     in_step = sum(ms for name, ms in step["per_step"].items() if kernel in name)
     print(f"DSSM padding row: {int(pad.sum())} of {lids.numel()} positions of a step's "
@@ -2345,6 +2408,38 @@ def _tensors(tree, prefix=""):
             yield from _tensors(v, f"{prefix}/{i}")
 
 
+def cli_graph_against_loop(train_path: str, held_out: str, tmp: str, graphed: dict,
+                           card) -> None:
+    """Phase 3q for the CLI: the north-star command to CLI_TOTAL steps with
+    every packed group's call looped (``make_multi_step_packed(spec,
+    graphed=False)``); its final checkpoint must equal ``graphed``, the
+    uninterrupted run's, whose groups ran as graph replays from the second
+    on, bitwise."""
+    from recommender_system_tpu_torch.training import Trainer
+
+    looped = f"{tmp}/looped"
+    packed = Trainer.make_multi_step_packed
+    Trainer.make_multi_step_packed = lambda self, spec, graphed=True: packed(
+        self, spec, graphed=False)
+    try:
+        cli_run(north_star(train_path, held_out, "--stream-max-steps", str(CLI_TOTAL),
+                           "--checkpoint-dir", looped),
+                launches_want(fused_adagrad_apply=CLI_TOTAL), "stream to step 32 looped",
+                card)
+    finally:
+        Trainer.make_multi_step_packed = packed
+    ta, tb = dict(_tensors(graphed)), dict(_tensors(_checkpoint(looped)))
+    unequal = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    if ta.keys() != tb.keys() or unequal:
+        raise RuntimeError(f"graph CLI north-star stream: {len(unequal)} tensors of the "
+                           f"looped run's checkpoint differ from the graphed run's, e.g. "
+                           f"{unequal[:4]}")
+    print(f"graph CLI north-star stream: {CLI_TOTAL} steps in packed groups of {CLI_K}, "
+          f"graphed and looped, end in bitwise equal checkpoints "
+          f"({len(ta)} tensors); on {card}", flush=True)
+    shutil.rmtree(looped)
+
+
 def cli_resume(train_path: str, held_out: str, tmp: str, card) -> dict:
     """Phase 3n (c): the north-star command run to CLI_TOTAL steps at once,
     and stopped at CLI_STOP (checkpoints every CLI_EVERY), then resumed to
@@ -2371,6 +2466,7 @@ def cli_resume(train_path: str, held_out: str, tmp: str, card) -> dict:
     a, b = _checkpoint(whole), _checkpoint(part)
     if not a["step"] == b["step"] == CLI_TOTAL:
         raise RuntimeError(f"CLI resume: steps {a['step']} and {b['step']}")
+    cli_graph_against_loop(train_path, held_out, tmp, a, card)
     ta, tb = dict(_tensors(a)), dict(_tensors(b))
     if ta.keys() != tb.keys():
         raise RuntimeError("CLI resume: the checkpoints hold different tensors")
@@ -3278,6 +3374,178 @@ def classics_path(card) -> dict:
     return times
 
 
+# ---------------------------------------------------------------------------
+# Phase 3q: each single-card training path's K-step call as a CUDA graph
+# against the same steps one by one
+# ---------------------------------------------------------------------------
+
+GRAPH_CALLS = 3
+
+
+def trainer_state(trainer) -> dict:
+    """Everything a step changes, by name, as it lies: parameters and
+    buffers (BatchNorm's statistics), the dense optimizer's state, the
+    fused slots, the step count and the dropout generator's state."""
+    out = {f"model:{n}": t for n, t in trainer.model.state_dict().items()}
+    out.update({f"opt:{key}:{n}": t for n, slots in trainer.opt_state.items()
+                for key, t in slots.items()})
+    out.update({f"slot{i}:{n}": t for n, slots in trainer.fused_slots.items()
+                for i, t in enumerate(slots)})
+    out["step"] = torch.tensor(trainer.step)
+    out["generator"] = trainer.generator.get_state()
+    out.update({f"step_generator{i}": g.get_state()
+                for i, g in enumerate(trainer.step_generators)})
+    return out
+
+
+class DssmSampledLoss:
+    """DSSM's sampled softmax over the batch's item vectors: 255 negatives a
+    step drawn uniformly from the loss's own CUDA generator, which the
+    Trainer takes as a step generator. An object, so that a copy of the
+    Trainer copies the generator it registers and the one the loss draws
+    from as one."""
+
+    def __init__(self, seed: int = 7):
+        from recommender_system_tpu_torch.training.losses import NegativeSampler
+
+        self.generator = torch.Generator(device="cuda").manual_seed(seed)
+        self.sampler = NegativeSampler("uniform", num_sampled=255)
+
+    def __call__(self, outputs, labels, batch):
+        from recommender_system_tpu_torch.training.losses import sampled_softmax_loss
+
+        user, item = outputs
+        rows = torch.arange(user.shape[0], device=user.device)
+        return sampled_softmax_loss(user, item, rows, self.sampler, self.generator,
+                                    temperature=0.05)
+
+
+def graph_against_loop(name, trainer, batches, labels, card) -> dict:
+    """Phase 3q for one path: two copies of ``trainer``'s state; one trains
+    GRAPH_CALLS calls of ``multi_step`` (the steps one by one, then a
+    capture and its replay, then replays, the last under
+    ``set_sync_debug_mode("error")``), the other as many calls of
+    ``make_multi_step(graphed=False)``. Their losses and every tensor of
+    ``trainer_state`` must be equal bitwise, or, where not, within
+    PARITY_RTOL and PARITY_ATOL with the largest difference printed (the
+    step and the generators exactly); their launches must be equal. Where
+    they differ, a second looped copy tells whether the steps one by one
+    differ from themselves as well (atomics in a backward), which is then
+    the cause. Returns the graphed copy's launches and the largest
+    difference."""
+    trainer.drop_graphs()
+    runs = {}
+    t0 = time.perf_counter()
+    for form in ("graphed", "looped", "looped again"):
+        if form == "looped again" and all(
+                torch.equal(a, b) for a, b in zip(runs["graphed"][1].values(),
+                                                  runs["looped"][1].values())):
+            break
+        t = copy.deepcopy(trainer)
+        run = t.multi_step if form == "graphed" else t.make_multi_step(graphed=False)
+        zero_counts()
+        losses = []
+        for call in range(GRAPH_CALLS):
+            if call == GRAPH_CALLS - 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                losses.append(run(batches, labels))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        runs[form] = (read_counts(), {"losses": torch.stack(losses), **trainer_state(t)})
+    (launches, got), (looped_launches, want) = runs["graphed"], runs["looped"]
+    if launches != looped_launches:
+        raise RuntimeError(f"graph {name}: the graphed calls launched {launches}, the "
+                           f"looped ones {looped_launches}")
+    unequal = {key: (got[key].double() - want[key].double()).abs().max().item()
+               for key in want if not torch.equal(got[key], want[key])}
+    for key in unequal:
+        if key == "step" or "generator" in key:
+            raise RuntimeError(f"graph {name}: {key} differs: {got[key]} against {want[key]}")
+        torch.testing.assert_close(got[key], want[key], rtol=PARITY_RTOL, atol=PARITY_ATOL,
+                                   msg=lambda m, key=key: f"graph {name}, {key}: {m}")
+    worst = max(unequal.values(), default=0.0)
+    verdict = "bitwise equal"
+    if unequal:
+        again = runs["looped again"][1]
+        itself = sorted(key for key in want if not torch.equal(again[key], want[key]))
+        cause = (f"the steps one by one differ from themselves too, in {itself[:6]}: "
+                 "the order of a backward's atomic adds" if itself else
+                 "two looped runs agree bitwise, so the graph itself")
+        verdict = (f"{len(unequal)} of {len(want)} differ, within rtol={PARITY_RTOL}, "
+                   f"atol={PARITY_ATOL}; largest difference {worst:.3e} in "
+                   f"{max(unequal, key=unequal.get)}; differing: {sorted(unequal)[:6]}; "
+                   f"cause: {cause}")
+    print(f"graph {name}: {GRAPH_CALLS} graphed calls against {GRAPH_CALLS} looped calls "
+          f"of K={labels.shape[0]} from one state: losses, {len(want) - 1} tensors (parameters, "
+          f"buffers, optimizer states, step, generator) {verdict}; launches {launches} "
+          f"both; the last graph replay under set_sync_debug_mode('error'); "
+          f"{time.perf_counter() - t0:.1f} s; on {card}", flush=True)
+    return {"launches": launches, "worst": worst, "unequal": len(unequal)}
+
+
+def graph_path(card, trained: dict) -> dict:
+    """Phase 3q: ``graph_against_loop`` on every single-card training path
+    that the earlier phases drive, at their widths and on their batches:
+    ``trained``'s trainers (name -> Trainer) where it has them, new ones
+    built as those phases build them for the rest. Returns each path's
+    result."""
+    from recommender_system_tpu_torch import FusedAdagrad, FusedAdam, FusedSGD, Trainer
+    from recommender_system_tpu_torch.training import SGD, Adagrad, Adam
+
+    t0 = time.perf_counter()
+    cols, batches, labels = staged_batches(range(K))
+    ctr_cols, ctr_batches, ctr_labels = staged_batches(range(K), batch=CTR_BATCH)
+    din = din_staged(range(K))
+    dien = din_staged(range(K), negatives=True)
+
+    def fused(model, loss_fn=None, **kw):
+        return Trainer(model, Adagrad(LR), fused_embedding=FusedAdagrad(LR),
+                       **({"loss_fn": loss_fn} if loss_fn else {}), **kw)
+
+    def dropout_deepfm():
+        from recommender_system_tpu_torch import DeepFM
+
+        return fused(DeepFM(tuple(cols), hidden_units=(256, 128, 64),
+                            dnn_dtype=torch.bfloat16, dropout_rate=0.1, device="cuda",
+                            generator=torch.Generator().manual_seed(0)))
+
+    def sampled_dssm():
+        loss = DssmSampledLoss()
+        return fused(dssm_model(), loss, step_generators=(loss.generator,))
+
+    paths = {
+        "DeepFM fused": (lambda: fused(deepfm(cols, torch.bfloat16)), batches, labels),
+        "DeepFM plain": (lambda: Trainer(deepfm(cols, torch.bfloat16), Adagrad(LR)),
+                         batches, labels),
+        "WideDeep": (lambda: Trainer(ctr_model("wide_deep", ctr_cols), SGD(SGD_LR),
+                                     fused_embedding=FusedSGD(SGD_LR)), ctr_batches, ctr_labels),
+        "NFM": (lambda: Trainer(ctr_model("nfm", ctr_cols), Adam(ADAM_LR),
+                                fused_embedding=FusedAdam(ADAM_LR)), ctr_batches, ctr_labels),
+        **{label: (lambda name=name: fused(ctr_model(name, ctr_cols)), ctr_batches, ctr_labels)
+           for name, label in (("dcn", "DCN"), ("ffm", "FFM"), ("pnn", "PNN"), ("afm", "AFM"),
+                               ("deep_crossing", "DeepCrossing"))},
+        "MMOE": (lambda: fused(mmoe_model(ctr_cols)), ctr_batches, _two_tasks(ctr_labels)),
+        "DIN fused": (lambda: fused(din_model()), *din),
+        "DIN plain": (lambda: Trainer(din_model(), Adagrad(LR)), *din),
+        "DIEN": (lambda: fused(dien_model()), *dien),
+        "DSSM": (lambda: fused(dssm_model(), dssm_loss), *dssm_staged(range(K))),
+        # the generators: dropout masks from the Trainer's, negatives from a
+        # step generator
+        "DeepFM fused, dropout 0.1": (dropout_deepfm, batches, labels),
+        "DSSM, sampled softmax": (sampled_dssm, *dssm_staged(range(K))),
+    }
+    out = {}
+    for name, (build, path_batches, path_labels) in paths.items():
+        trainer = trained[name] if name in trained else build()
+        out[name] = graph_against_loop(name, trainer, path_batches, path_labels, card)
+        del trainer
+    print(f"phase 3q took {time.perf_counter() - t0:.1f} s; {len(out)} paths, "
+          f"{sum(r['unequal'] == 0 for r in out.values())} bitwise equal", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -3425,6 +3693,15 @@ def main() -> int:
     # torchrun, the classics at MovieLens-100k's shape
     grid = grid_path(card)
 
+    # --- phase 3q: every single-card training path's K-step call as one
+    # CUDA graph replay, against the same steps one by one
+    graphs = graph_path(card, {
+        "DeepFM fused": trainer, "WideDeep": ctr["wide_deep"], "NFM": ctr["nfm"],
+        **{label: family[name] for name, label in (
+            ("deep_crossing", "DeepCrossing"), ("pnn", "PNN"), ("afm", "AFM"), ("ffm", "FFM"))},
+        "MMOE": mmoe_trainer, "DIN fused": din_trainer, "DIEN": dien_trainer,
+        "DSSM": dssm_trainer})
+
     # --- phase 4: timings --------------------------------------------------
     with torch.inference_mode():
         batch = {k: torch.as_tensor(v, device="cuda")
@@ -3496,6 +3773,12 @@ def main() -> int:
         return {run: sum(r[kernel] for r in ranks) for run, ranks in runs.items()
                 if sum(r[kernel] for r in ranks)}
 
+    def on_graphs(kernel):
+        """Each phase-3q path's launches of ``kernel`` over its graphed
+        calls (equal to its looped calls')."""
+        return {path: r["launches"][kernel] for path, r in graphs.items()
+                if r["launches"][kernel]}
+
     def on_grid(kernel):
         """Each phase-3p run's launches of ``kernel``, rank by rank."""
         return {run: [r[kernel] for r in ranks] for run, ranks in grid["launches"].items()
@@ -3540,6 +3823,7 @@ def main() -> int:
         "call_ms": kernel_call, "plain_call_ms": plain_call,
         "dcn_training_launches": ctr_launches["dcn"]["cross_fused"],
         "cli_dcn_launches": cli["models"]["dcn"]["cross_fused"],
+        "graph_launches": on_graphs("cross_fused"),
     }, {
         "name": "fm_fused", "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/fm.cu",
@@ -3561,12 +3845,14 @@ def main() -> int:
         "cli_din_dien_launches": (cli["models"]["din"]["din_attention_fused"]
                                   + cli["models"]["dien"]["din_attention_fused"]),
         "mesh_launches": on_mesh("din_attention_fused"),
+        "graph_launches": on_graphs("din_attention_fused"),
     }] + global_entries + [{
         "name": name, "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/sparse_rows.cu",
         "replaces": replaces, "launches": count, "max_abs_err": sparse_errs[name],
         **sparse_times[name], "other_paths_launches": others,
         "mesh_launches": on_mesh(name), "grid_launches_per_rank": on_grid(name),
+        "graph_launches": on_graphs(name),
     } for name, replaces, count, others in sparse_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,10 +32,16 @@ TF32 off:
   timed the same way on the same warm inputs.
 
 - the fused K=8 steps of DeepCrossing, PNN, AFM and FFM at
-  ``model_step.py``'s Criteo width (``family``).
+  ``model_step.py``'s Criteo width (``family``);
+- DeepFM's fused K=8 call at ``bench.py``'s width, and WideDeep's and
+  DIN's at ``model_step.py``'s, issued step by step (a tree's
+  ``make_multi_step(graphed=False)``, or its ``multi_step`` where it has
+  no graphs) and, where the tree has them, as one CUDA graph replay
+  (``multi_step``): ms a step by CUDA events over 5 calls, three times
+  (``loops``).
 
-``--what fm,cross`` keeps only the parts named (default: all seven,
-``adam,rows,attention,steps,fm,cross,family``).
+``--what fm,cross`` keeps only the parts named (default: all eight,
+``adam,rows,attention,steps,fm,cross,family,loops``).
 
 Each turn prints ``TURN <label> {json}``; the run ends with one line per
 metric listing every turn's value, and the card's name and power limit.
@@ -194,6 +200,56 @@ def time_family(cs, torch, card) -> dict:
     return out
 
 
+def time_loops(cs, torch) -> dict:
+    """DeepFM fused, WideDeep (``FusedSGD``) and DIN fused: a K=8 call
+    looped and, in a tree with graphs, graphed; each form's ms a step over
+    5 calls by CUDA events, three times, after two calls (a signature's
+    first runs step by step, its second captures): the median, least and
+    most of the three."""
+    from recommender_system_tpu_torch import FusedAdagrad, FusedSGD, Trainer
+    from recommender_system_tpu_torch.training import SGD, Adagrad
+
+    def per_step(run, batches, labels, reps=3, calls=5):
+        for _ in range(2):
+            run(batches, labels)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                run(batches, labels)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / calls / labels.shape[0])
+        return sorted(times)
+
+    cols, batches, labels = cs.staged_batches(range(cs.K))
+    ctr_cols, ctr_batches, ctr_labels = cs.staged_batches(range(cs.K), batch=cs.CTR_BATCH)
+    cells = {
+        "deepfm": (lambda: Trainer(cs.deepfm(cols, torch.bfloat16), Adagrad(cs.LR),
+                                   fused_embedding=FusedAdagrad(cs.LR)), batches, labels),
+        "wide_deep": (lambda: Trainer(cs.ctr_model("wide_deep", ctr_cols), SGD(cs.SGD_LR),
+                                      fused_embedding=FusedSGD(cs.SGD_LR)),
+                      ctr_batches, ctr_labels),
+        "din": (lambda: Trainer(cs.din_model(), Adagrad(cs.LR),
+                                fused_embedding=FusedAdagrad(cs.LR)), *cs.din_staged(range(cs.K))),
+    }
+    out = {}
+    for name, (build, cell_batches, cell_labels) in cells.items():
+        trainer = build()
+        graphs = hasattr(trainer, "make_multi_step")
+        looped = trainer.make_multi_step(graphed=False) if graphs else trainer.multi_step
+        forms = {"looped": looped, **({"graphed": trainer.multi_step} if graphs else {})}
+        for form, run in forms.items():
+            least, median, most = per_step(run, cell_batches, cell_labels)
+            out.update({f"{name}_{form}_ms": median, f"{name}_{form}_min_ms": least,
+                        f"{name}_{form}_max_ms": most})
+        del trainer
+    return out
+
+
 def kernel_and_floor(cs, name, kernel, plain, floor) -> dict:
     """Device time (profiler) and time per call of ``kernel`` and of the
     ``floor`` copy, and the kernel's largest difference from ``plain``."""
@@ -231,7 +287,7 @@ def time_cross(cs, torch) -> dict:
     return out
 
 
-PARTS = ("adam", "rows", "attention", "steps", "fm", "cross", "family")
+PARTS = ("adam", "rows", "attention", "steps", "fm", "cross", "family", "loops")
 
 
 def turn(label: str, tree: Path, what) -> None:
@@ -264,6 +320,8 @@ def turn(label: str, tree: Path, what) -> None:
         rec.update(time_cross(cs, torch))
     if "family" in what:
         rec.update(time_family(cs, torch, card))
+    if "loops" in what:
+        rec.update(time_loops(cs, torch))
     print(f"TURN {label} {json.dumps(rec)}", flush=True)
 
 
@@ -301,9 +359,11 @@ def main() -> int:
             raise RuntimeError(f"turn {label} in {tree} failed with {proc.returncode}")
         line, = [x for x in proc.stdout.splitlines() if x.startswith(f"TURN {label} ")]
         results.append((label, json.loads(line.split(" ", 2)[2])))
-    for key in [k for k in results[0][1] if k != "tree"]:
+    keys = [k for _, rec in results for k in rec if k != "tree"]
+    for key in dict.fromkeys(keys):  # in order, once each
         form = ".3e" if key.endswith("_err") else ".5f"
-        print(f"{key}: " + ", ".join(f"{label} {rec[key]:{form}}" for label, rec in results))
+        print(f"{key}: " + ", ".join(f"{label} {rec[key]:{form}}" for label, rec in results
+                                     if key in rec))
     print(harness().card_line())
     return 0
 

@@ -19,6 +19,17 @@
 //
 // Rows that the stream does not touch are not read or written.
 //
+// The scalars that change from step to step (lr, and Adam's bc1 and bc2)
+// are read from device memory, `hyper` = {lr} or {lr, bc1, bc2} in f32: a
+// captured CUDA graph of training steps replays the launch with the pointer
+// it was captured with, and the host writes each step's values there before
+// the replay. The constants (eps, b1, b2, 1 - b1, 1 - b2) go by value. SGD
+// and Adam load theirs once a thread at the kernel's start, Adagrad where
+// it updates an element: nvcc schedules a hot row's serial sum differently
+// with each placement, and on the card these are the faster ones (Adagrad
+// loading at the start took 23.1 ms on DIN's step stream against 19.0, SGD
+// loading late 28.2 against 19.1; chip_lab_rows.py, PERF.md).
+//
 // Replaces four TPU kernels of recommender_system_tpu/ops: embedding_grad.py
 // _queue_kernel, and fused_adagrad.py _fused_adagrad_kernel,
 // _fused_sgd_kernel and _fused_adam_kernel (their single-stream path; the
@@ -109,8 +120,10 @@ enum class Rule { kScatterAdd, kAdagrad, kSgd, kAdam };
 
 // The rules' scalars. Adam's bc1, bc2 are the reciprocal bias corrections,
 // and 1 - b1, 1 - b2 are rounded once from double, as in the plain version.
+// lr, bc1 and bc2 come from `step` (device memory): see the note at the top.
 struct Hyper {
   float lr, eps, b1, b2, bc1, bc2, one_minus_b1, one_minus_b2;
+  const float* step;
 };
 
 // First position after i whose id differs from row = slid[i] (n if none).
@@ -279,6 +292,11 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
                    float* __restrict__ s1, float* __restrict__ s2, int64_t n, int dim,
                    Hyper h) {
   constexpr bool kAdam = kRule == Rule::kAdam;
+  if constexpr (kRule == Rule::kSgd || kAdam) h.lr = h.step[0];
+  if constexpr (kAdam) {
+    h.bc1 = h.step[1];
+    h.bc2 = h.step[2];
+  }
   __shared__ int64_t s_order[kThreads];
   __shared__ int64_t s_row[kThreads];
   __shared__ int64_t s_first[kThreads];
@@ -373,7 +391,7 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
           const float a = __fadd_rn(ak[k], __fmul_rn(gk, gk));
           s1[o[k]] = a;
           const float inv = a > 0.f ? rsqrtf(__fadd_rn(a, h.eps)) : 0.f;
-          param[o[k]] = __fsub_rn(pk[k], __fmul_rn(__fmul_rn(h.lr, gk), inv));
+          param[o[k]] = __fsub_rn(pk[k], __fmul_rn(__fmul_rn(h.step[0], gk), inv));
         } else if constexpr (kRule == Rule::kSgd) {
           param[o[k]] = __fsub_rn(pk[k], __fmul_rn(h.lr, gk));
         } else {
@@ -401,29 +419,33 @@ cudaError_t launch(const void* slid, const void* order, const void* ct, void* pa
 
 }  // namespace
 
+// hyper: {lr} for Adagrad and SGD, {lr, bc1, bc2} for Adam, f32 in device
+// memory.
 extern "C" int fused_adagrad_rows(const void* slid, const void* order, const void* ct,
                                   void* param, void* acc, long long n, int dim,
-                                  float lr, float eps, void* stream) {
-  const Hyper h{lr, eps, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+                                  const void* hyper, float eps, void* stream) {
+  const Hyper h{0.f, eps, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, static_cast<const float*>(hyper)};
   return launch<Rule::kAdagrad>(slid, order, ct, param, acc, nullptr, n, dim, h, stream);
 }
 
 extern "C" int fused_sgd_rows(const void* slid, const void* order, const void* ct,
-                              void* param, long long n, int dim, float lr, void* stream) {
-  const Hyper h{lr, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+                              void* param, long long n, int dim, const void* hyper,
+                              void* stream) {
+  const Hyper h{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, static_cast<const float*>(hyper)};
   return launch<Rule::kSgd>(slid, order, ct, param, nullptr, nullptr, n, dim, h, stream);
 }
 
 extern "C" int scatter_add_rows(const void* slid, const void* order, const void* ct,
                                 void* out, long long n, int dim, void* stream) {
-  const Hyper h{};
+  const Hyper h{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, nullptr};
   return launch<Rule::kScatterAdd>(slid, order, ct, out, nullptr, nullptr, n, dim, h, stream);
 }
 
 extern "C" int fused_adam_rows(const void* slid, const void* order, const void* ct,
                                void* param, void* m, void* v, long long n, int dim,
-                               float lr, float b1, float b2, float eps, float bc1, float bc2,
+                               const void* hyper, float b1, float b2, float eps,
                                float one_minus_b1, float one_minus_b2, void* stream) {
-  const Hyper h{lr, eps, b1, b2, bc1, bc2, one_minus_b1, one_minus_b2};
+  const Hyper h{0.f, eps, b1, b2, 0.f, 0.f, one_minus_b1, one_minus_b2,
+                static_cast<const float*>(hyper)};
   return launch<Rule::kAdam>(slid, order, ct, param, m, v, n, dim, h, stream);
 }

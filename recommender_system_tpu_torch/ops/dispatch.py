@@ -10,10 +10,15 @@
   wrappers of the cross stack, the FM logit and the DIN attention pick
   between two kernels of their source by the shape (``ops/kernels.py``),
   never the plain version on the card.
+- Each wrapper counts its launches (``<wrapper>.launches``, and
+  ``<wrapper>.global_launches`` for a global kernel). ``launch_counts`` and
+  ``add_launches`` read and raise them all: a captured CUDA graph
+  (``Trainer.make_multi_step``) counts nothing while it is captured and adds
+  the launches it holds each time it is replayed.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, Mapping, Union
 
 import torch
 
@@ -45,3 +50,29 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if device.type == "cpu":
         return False
     raise ValueError(f"no kernel and no plain version for device {device}")
+
+
+def _counted():
+    """Every kernel wrapper (imported here: their modules import this one)."""
+    from .embedding_grad import scatter_add_sorted
+    from .fused_adagrad import fused_adagrad_apply, fused_adam_apply, fused_sgd_apply
+    from .kernels import cross_fused, din_attention_fused, fm_fused
+
+    return (cross_fused, fm_fused, din_attention_fused, fused_adagrad_apply,
+            fused_sgd_apply, fused_adam_apply, scatter_add_sorted)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every wrapper's counts, keyed ``<wrapper>.launches`` and
+    ``<wrapper>.global_launches``."""
+    return {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn in _counted()
+            for attr in ("launches", "global_launches") if hasattr(fn, attr)}
+
+
+def add_launches(counts: Mapping[str, int]) -> None:
+    """Raise each count named in ``counts`` by its value (a negative value
+    lowers it)."""
+    wrappers = {fn.__name__: fn for fn in _counted()}
+    for key, n in counts.items():
+        name, attr = key.split(".")
+        setattr(wrappers[name], attr, getattr(wrappers[name], attr) + n)

@@ -64,9 +64,9 @@ SOURCES = {
         "din_attention_global_forward": ([_PTR] * 10 + [_INT] * 8 + [_PTR], _INT),
     },
     "sparse_rows": {
-        "fused_adagrad_rows": ([_PTR] * 5 + [_INT64, _INT, _FLOAT, _FLOAT, _PTR], _INT),
-        "fused_sgd_rows": ([_PTR] * 4 + [_INT64, _INT, _FLOAT, _PTR], _INT),
-        "fused_adam_rows": ([_PTR] * 6 + [_INT64, _INT] + [_FLOAT] * 8 + [_PTR], _INT),
+        "fused_adagrad_rows": ([_PTR] * 5 + [_INT64, _INT, _PTR, _FLOAT, _PTR], _INT),
+        "fused_sgd_rows": ([_PTR] * 4 + [_INT64, _INT, _PTR, _PTR], _INT),
+        "fused_adam_rows": ([_PTR] * 6 + [_INT64, _INT, _PTR] + [_FLOAT] * 5 + [_PTR], _INT),
         "scatter_add_rows": ([_PTR] * 4 + [_INT64, _INT, _PTR], _INT),
     },
 }
@@ -666,17 +666,30 @@ def check_sparse_rows_args(slid: torch.Tensor, order: torch.Tensor,
                          f"got ct {tuple(ct.shape)}")
 
 
+def check_hyper(hyper: torch.Tensor, param: torch.Tensor, n: int) -> None:
+    """Raise unless ``hyper`` is a contiguous float32 tensor of ``n``
+    values on ``param``'s device: the step's scalars that a sparse row
+    kernel reads from device memory."""
+    if (hyper.dtype != torch.float32 or hyper.numel() != n or not hyper.is_contiguous()
+            or hyper.device != param.device):
+        raise ValueError(f"sparse row kernels read the step's scalars from a contiguous "
+                         f"float32 tensor of {n} on {param.device}, got {hyper.dtype} "
+                         f"{tuple(hyper.shape)} on {hyper.device}")
+
+
 def launch_fused_adagrad(param: torch.Tensor, acc: torch.Tensor,
                          slid: torch.Tensor, order: torch.Tensor,
-                         ct: torch.Tensor, lr: float, eps: float) -> None:
+                         ct: torch.Tensor, hyper: torch.Tensor, eps: float) -> None:
     """``fused_adagrad_rows`` on CUDA tensors, in place on ``param`` and
-    ``acc``; raises if the launch fails."""
+    ``acc``; the kernel reads ``lr`` from ``hyper`` (``[lr]``, float32 on
+    the card). Raises if the launch fails."""
     check_sparse_rows_args(slid, order, ct, param, acc)
+    check_hyper(hyper, param, 1)
     lib = _library("sparse_rows")
     with torch.cuda.device(param.device):
         err = lib.fused_adagrad_rows(slid.data_ptr(), order.data_ptr(), ct.data_ptr(),
                                      param.data_ptr(), acc.data_ptr(), slid.shape[0],
-                                     ct.shape[1], lr, eps, _stream(param))
+                                     ct.shape[1], hyper.data_ptr(), eps, _stream(param))
     if err != 0:
         raise RuntimeError(f"fused_adagrad_rows launch failed with CUDA error {err}")
 
@@ -696,33 +709,35 @@ def launch_scatter_add(out: torch.Tensor, slid: torch.Tensor,
 
 
 def launch_fused_sgd(param: torch.Tensor, slid: torch.Tensor, order: torch.Tensor,
-                     ct: torch.Tensor, lr: float) -> None:
-    """``fused_sgd_rows`` on CUDA tensors, in place on ``param``; raises if the
-    launch fails."""
+                     ct: torch.Tensor, hyper: torch.Tensor) -> None:
+    """``fused_sgd_rows`` on CUDA tensors, in place on ``param``; the kernel
+    reads ``lr`` from ``hyper`` (``[lr]``). Raises if the launch fails."""
     check_sparse_rows_args(slid, order, ct, param)
+    check_hyper(hyper, param, 1)
     lib = _library("sparse_rows")
     with torch.cuda.device(param.device):
         err = lib.fused_sgd_rows(slid.data_ptr(), order.data_ptr(), ct.data_ptr(),
-                                 param.data_ptr(), slid.shape[0], ct.shape[1], lr,
-                                 _stream(param))
+                                 param.data_ptr(), slid.shape[0], ct.shape[1],
+                                 hyper.data_ptr(), _stream(param))
     if err != 0:
         raise RuntimeError(f"fused_sgd_rows launch failed with CUDA error {err}")
 
 
 def launch_fused_adam(param: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                      slid: torch.Tensor, order: torch.Tensor, ct: torch.Tensor, *,
-                      lr: float, b1: float, b2: float, eps: float, bc1: float,
-                      bc2: float) -> None:
+                      slid: torch.Tensor, order: torch.Tensor, ct: torch.Tensor,
+                      hyper: torch.Tensor, *, b1: float, b2: float, eps: float) -> None:
     """``fused_adam_rows`` on CUDA tensors, in place on ``param``, ``m`` and
-    ``v``; ``bc1``, ``bc2`` are the reciprocal bias corrections. ``1 - b1``
-    and ``1 - b2`` are rounded to float32 once from the double, as the plain
-    version's scalar products round them. Raises if the launch fails."""
+    ``v``; the kernel reads ``lr`` and the reciprocal bias corrections from
+    ``hyper`` (``[lr, bc1, bc2]``). ``1 - b1`` and ``1 - b2`` are rounded to
+    float32 once from the double, as the plain version's scalar products
+    round them. Raises if the launch fails."""
     check_sparse_rows_args(slid, order, ct, param, m, v)
+    check_hyper(hyper, param, 3)
     lib = _library("sparse_rows")
     with torch.cuda.device(param.device):
         err = lib.fused_adam_rows(slid.data_ptr(), order.data_ptr(), ct.data_ptr(),
                                   param.data_ptr(), m.data_ptr(), v.data_ptr(),
-                                  slid.shape[0], ct.shape[1], lr, b1, b2, eps, bc1, bc2,
+                                  slid.shape[0], ct.shape[1], hyper.data_ptr(), b1, b2, eps,
                                   1.0 - b1, 1.0 - b2, _stream(param))
     if err != 0:
         raise RuntimeError(f"fused_adam_rows launch failed with CUDA error {err}")

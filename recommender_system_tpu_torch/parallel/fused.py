@@ -203,7 +203,8 @@ def column_take(shard: torch.Tensor, rows: torch.Tensor, mesh: Mesh) -> torch.Te
 
 
 def sharded_fused_update(cfg, shard: torch.Tensor, slots, lids: torch.Tensor,
-                         ct: torch.Tensor, mesh: Mesh, *, step: int,
+                         ct: torch.Tensor, mesh: Mesh, *, step: Optional[int] = None,
+                         scalars: Optional[torch.Tensor] = None,
                          capacity_factor: Optional[float] = 2.0) -> torch.Tensor:
     """One fused sparse step on a block-sharded table (a collective).
 
@@ -212,7 +213,9 @@ def sharded_fused_update(cfg, shard: torch.Tensor, slots, lids: torch.Tensor,
     rank's, updated in place; ``lids [S]`` and ``ct [S, d]`` are this rank's
     slice of the update stream. Each owner applies ``cfg.apply`` to its
     shard over the entries it received, ids rebased; entries past the
-    capacity are dropped and counted. Returns the overflow (a 0-d int64
+    capacity are dropped and counted; ``step`` and ``scalars`` go to
+    ``cfg.apply`` (the step's scalars read from ``scalars`` where given).
+    Returns the overflow (a 0-d int64
     tensor on the device). Every entry under capacity gets the single-card
     update: a row's cotangents from all ranks are summed before the rule."""
     K = shard.shape[0]
@@ -222,5 +225,6 @@ def sharded_fused_update(cfg, shard: torch.Tensor, slots, lids: torch.Tensor,
     plan = plan_exchange(lids, lids // K, lambda r: r - lo, K, mesh, cap)
     sent = _bucket(ct.index_select(0, plan.order), plan.sowner, plan.slot, mesh.n,
                    plan.cap, 0.0)
-    cfg.apply(shard, slots, plan.local, _exchange(sent, mesh).contiguous(), step=step)
+    cfg.apply(shard, slots, plan.local, _exchange(sent, mesh).contiguous(), step=step,
+              scalars=scalars)
     return plan.overflow

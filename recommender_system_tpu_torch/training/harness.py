@@ -22,11 +22,20 @@ threshold. The train step runs the model in train mode, so BatchNorm and
 Dice normalise with the batch and move their running statistics;
 ``predict`` and ``evaluate`` run it in eval mode.
 
-Neither step reads a device value on the host, so a ``multi_step`` call of
-K steps over batches already on the device runs without a synchronisation.
-Unlike the JAX package's pure ``TrainState``, the parameters live in the
-model and the optimizer state in the Trainer, both updated in place
-(``training/checkpoint.py`` saves and restores them).
+Neither step reads a device value on the host. A step's scalars (the
+learning rates, Adam's bias corrections) are computed on the host for the
+steps of a call, as a ``[K, n]`` float32 table sent to the device with one
+asynchronous copy, and each step reads its row there. So on a card the K
+steps of a ``multi_step`` call are one dispatch, as the JAX package's
+``lax.scan`` is: ``make_multi_step()`` returns a callable that runs the
+steps one by one on the first call with a batch signature (K, each leaf's
+shape and dtype), captures them into a CUDA graph on the second, and from
+then on copies each call's inputs into the graph's and replays it, one
+launch a call (``make_multi_step_packed(spec)`` does the same over packed
+groups). Unlike the JAX package's pure ``TrainState``, the parameters live
+in the model and the optimizer state in the Trainer, both updated in place
+(``training/checkpoint.py`` saves and restores them), which is what a
+graph reads and writes.
 
 Under a mesh (``Trainer(mesh=make_mesh(...))``, ``parallel/``) each rank
 holds its part of every ``table_d*`` (its rows; on a mesh with a model axis
@@ -57,15 +66,18 @@ from __future__ import annotations
 import dataclasses
 import re
 import time
-from typing import Callable, Dict, Mapping, Optional, Tuple, Union
+import traceback
+from pathlib import Path
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..layers.embedding import EmbeddingCollection
 from ..layers.interaction import MMoELayer
-from ..ops.dispatch import DeviceLike, resolve_device
-from ..ops.fused_adagrad import fused_adagrad_apply, fused_adam_apply, fused_sgd_apply
+from ..ops.dispatch import DeviceLike, add_launches, launch_counts, resolve_device
+from ..ops.fused_adagrad import (adam_scalars, fused_adagrad_apply, fused_adam_apply,
+                                 fused_sgd_apply, step_scalars)
 from ..parallel.fused import sharded_fused_update
 from ..parallel.mesh import Mesh, Placement, gather_rows, rank_seed
 from ..utils import metrics as metrics_lib
@@ -74,6 +86,7 @@ from .losses import default_loss, logits_of
 from .optim import Adam, DecayedWeights, LearningRate, learning_rate_at
 
 _STACK_KEY_RE = re.compile(r"^table_d(\d+)$")
+_PACKAGE = Path(__file__).resolve().parent.parent
 
 # a model's input: a dict of tensors, or one tensor (the sequence classifiers)
 Batch = Union[Mapping[str, torch.Tensor], torch.Tensor]
@@ -93,6 +106,55 @@ def _gather_outputs(outputs, mesh: Mesh):
     if isinstance(outputs, (tuple, list)):
         return type(outputs)(_gather_outputs(o, mesh) for o in outputs)
     return outputs if outputs.dim() == 0 else gather_rows(outputs, mesh)
+
+
+def _leaves(batch) -> list:
+    """A dict batch's tensors in order, or a tensor batch as one."""
+    return list(batch.values()) if isinstance(batch, Mapping) else [batch]
+
+
+def _signature(*batches) -> tuple:
+    """Each leaf's name, shape and dtype: what a captured graph is for."""
+    out = []
+    for batch in batches:
+        items = batch.items() if isinstance(batch, Mapping) else [(None, batch)]
+        out.extend((k, tuple(v.shape), v.dtype) for k, v in items)
+    return tuple(out)
+
+
+def _spec_key(spec) -> Optional[tuple]:
+    """A packing layout (``Trainer._pack_spec``) as a dict key."""
+    if spec is None:
+        return None
+    return tuple((kind, tuple(feats)) for kind, feats in spec.items())
+
+
+def _issuing_line(err: BaseException) -> str:
+    """Where the first error of a chain was raised: the innermost frame in
+    this package (the line that issued the op), else the innermost one."""
+    while err.__context__ is not None:
+        err = err.__context__
+    frames = traceback.extract_tb(err.__traceback__)
+    ours = [f for f in frames if f.filename.startswith(str(_PACKAGE))]
+    if not (ours or frames):
+        return f"an op ({type(err).__name__}: {err})"
+    f = (ours or frames)[-1]
+    return f"{f.filename}:{f.lineno} ({f.line}): {type(err).__name__}: {err}"
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    """A captured call of K steps: its CUDA graph, the static tensors the
+    graph reads (the inputs, the labels, the steps' scalars) and writes
+    (the losses), and the kernel launches it holds (``launch_counts``
+    keys)."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Batch
+    labels: torch.Tensor
+    scalars: torch.Tensor
+    losses: torch.Tensor
+    launches: Dict[str, int]
 
 
 class _GlobalBatch(Mapping):
@@ -129,12 +191,27 @@ class FusedAdagrad:
         return (torch.full_like(table, self.initial_accumulator_value,
                                 requires_grad=False),)
 
+    def scalars(self, step: int) -> Tuple[float, ...]:
+        """The values its kernel reads from device memory at ``step``."""
+        return (learning_rate_at(self.learning_rate, step),)
+
     def apply(self, table: torch.Tensor, slots: Tuple[torch.Tensor, ...],
-              lids: torch.Tensor, ct: torch.Tensor, *, step: int,
+              lids: torch.Tensor, ct: torch.Tensor, *, step: Optional[int] = None,
+              scalars: Optional[torch.Tensor] = None,
               presorted: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
-        fused_adagrad_apply(table, slots[0], lids, ct,
-                            lr=learning_rate_at(self.learning_rate, step),
-                            eps=self.eps, presorted=presorted)
+        """Update ``table`` and its ``slots`` in place at ``step``; the
+        step's ``scalars(step)``, where given as a float32 tensor on the
+        table's device (the ``Trainer`` gives them), are read from there."""
+        fused_adagrad_apply(table, slots[0], lids, ct, eps=self.eps,
+                            scalars=_on_device(self, table, step, scalars),
+                            presorted=presorted)
+
+
+def _on_device(cfg, table: torch.Tensor, step: Optional[int],
+               scalars: Optional[torch.Tensor]) -> torch.Tensor:
+    """A fused optimizer's scalars at ``step`` on the table's device: as
+    given, or computed and copied there."""
+    return scalars if scalars is not None else step_scalars(cfg.scalars(step), table.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,10 +226,14 @@ class FusedSGD:
     def init_slots(self, table: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return ()
 
+    def scalars(self, step: int) -> Tuple[float, ...]:
+        return (learning_rate_at(self.learning_rate, step),)
+
     def apply(self, table: torch.Tensor, slots: Tuple[torch.Tensor, ...],
-              lids: torch.Tensor, ct: torch.Tensor, *, step: int,
+              lids: torch.Tensor, ct: torch.Tensor, *, step: Optional[int] = None,
+              scalars: Optional[torch.Tensor] = None,
               presorted: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
-        fused_sgd_apply(table, lids, ct, lr=learning_rate_at(self.learning_rate, step),
+        fused_sgd_apply(table, lids, ct, scalars=_on_device(self, table, step, scalars),
                         presorted=presorted)
 
 
@@ -173,12 +254,18 @@ class FusedAdam:
         return (torch.zeros_like(table, requires_grad=False),
                 torch.zeros_like(table, requires_grad=False))
 
+    def scalars(self, step: int) -> Tuple[float, ...]:
+        """``(lr, bc1, bc2)``, the bias corrections reciprocal."""
+        return adam_scalars(learning_rate_at(self.learning_rate, step), step, self.b1,
+                            self.b2)
+
     def apply(self, table: torch.Tensor, slots: Tuple[torch.Tensor, ...],
-              lids: torch.Tensor, ct: torch.Tensor, *, step: int,
+              lids: torch.Tensor, ct: torch.Tensor, *, step: Optional[int] = None,
+              scalars: Optional[torch.Tensor] = None,
               presorted: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
-        fused_adam_apply(table, slots[0], slots[1], lids, ct,
-                         lr=learning_rate_at(self.learning_rate, step), step=step,
-                         b1=self.b1, b2=self.b2, eps=self.eps, presorted=presorted)
+        fused_adam_apply(table, slots[0], slots[1], lids, ct, b1=self.b1, b2=self.b2,
+                         eps=self.eps, scalars=_on_device(self, table, step, scalars),
+                         presorted=presorted)
 
 
 FusedOptimizer = Union[FusedAdagrad, FusedSGD, FusedAdam]
@@ -189,7 +276,7 @@ class Trainer:
 
     >>> trainer = Trainer(model, Adagrad(0.05), fused_embedding=FusedAdagrad(0.05))
     >>> trainer = Trainer(model, SGD(0.01), fused_embedding=FusedSGD(0.01))
-    >>> losses = trainer.multi_step(batches, labels)   # K steps, on the device
+    >>> losses = trainer.multi_step(batches, labels)   # K steps, one graph replay
     >>> history = trainer.fit(X, y, batch_size=16384, steps_per_call=8)
     >>> history = trainer.fit_stream(stream_criteo(path, 16384), steps_per_call=8)
     >>> trainer.evaluate(X_test, y_test)               # {"auc", "logloss", "accuracy"}
@@ -206,7 +293,20 @@ class Trainer:
     (``DecayedWeights``, the JAX package's ``optax.add_decayed_weights``
     chained in front). ``generator`` (default: seeded with ``seed`` on the
     device, or with ``rank_seed(seed, rank)`` under a mesh) draws dropout
-    masks; ``seed`` also seeds ``fit``'s shuffling.
+    masks; ``seed`` also seeds ``fit``'s shuffling. ``step_generators``
+    are the other CUDA generators a step draws from (a loss that samples
+    negatives from its own): a captured graph registers them with
+    ``generator``, so that each replay draws as the steps one by one would.
+
+    On a card ``multi_step``, ``fit`` and the packed stream loop train
+    through ``make_multi_step()`` and ``make_multi_step_packed(spec)``: a
+    call of K steps is one CUDA graph replay from the second call with a
+    batch signature on. A graph reads the tensors the Trainer held when it
+    was captured: ``init()`` drops every graph (``drop_graphs``), and
+    whatever replaces a parameter, a buffer or an optimizer state other
+    than in place (``load_state_dict``, ``restore_checkpoint`` and
+    ``convert``'s loaders copy in place) must call ``drop_graphs()``. Under
+    a mesh the steps run one by one.
 
     ``mesh`` (``parallel.make_mesh``) trains over its ranks (see the module
     docstring): the Trainer shards the model's tables and must be built on
@@ -227,7 +327,8 @@ class Trainer:
                  generator: Optional[torch.Generator] = None, *,
                  loss_fn: Callable = default_loss, weight_decay: float = 0.0,
                  mesh: Optional[Mesh] = None, capacity_factor: float = 2.0,
-                 explicit_lookup: bool = False):
+                 explicit_lookup: bool = False,
+                 step_generators: Sequence[torch.Generator] = ()):
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.Mesh (make_mesh), not "
                             f"{type(mesh).__name__}")
@@ -252,6 +353,7 @@ class Trainer:
         self.generator = (generator if generator is not None
                           else torch.Generator(device=self.device).manual_seed(
                               seed if mesh is None else rank_seed(seed, mesh.rank)))
+        self.step_generators = tuple(step_generators)
         self._collections = [(prefix, m) for prefix, m in model.named_modules()
                              if isinstance(m, EmbeddingCollection)]
         # under a mesh: each sharded parameter's name -> its placement
@@ -309,7 +411,29 @@ class Trainer:
                             for n, p in tables.items()}
         self.step = 0
         self._overflow = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.drop_graphs()
         return self
+
+    def drop_graphs(self) -> None:
+        """Forget every captured graph and every signature's first call, so
+        that the next call of a signature runs step by step and the one
+        after captures anew. ``init()`` calls it; so must whatever replaces
+        a tensor the steps read other than in place."""
+        # the captured calls (by packing layout and batch signature), the
+        # signatures whose first call has run, the graphs' memory pool and
+        # capture stream, and the cached K-step callables
+        self._graphs: Dict[tuple, _StepGraph] = {}
+        self._warmed = set()
+        self._pool = None
+        self._capture_stream = None
+        self._multi = None
+        self._packed_multi: Dict[tuple, Callable] = {}
+
+    @property
+    def captures(self) -> bool:
+        """True where a K-step call is captured as a CUDA graph: on a card,
+        without a mesh (its collectives are not captured)."""
+        return self.device.type == "cuda" and self.mesh is None
 
     @property
     def tracks_overflow(self) -> bool:
@@ -330,8 +454,34 @@ class Trainer:
     def train_step(self, batch: Mapping[str, torch.Tensor],
                    labels: torch.Tensor) -> torch.Tensor:
         """One step on a batch on the model's device (under a mesh, this
-        rank's rows of the batch); returns the loss (the global batch's) as
-        a 0-d tensor on the device."""
+        rank's rows of the batch), issued op by op; returns the loss (the
+        global batch's) as a 0-d tensor on the device."""
+        return self._train_step(batch, labels, self._stage_scalars(1)[0])
+
+    def _stage_scalars(self, k: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The scalars of steps ``self.step .. self.step + k - 1`` as a
+        ``[k, n]`` float32 table on the device (into ``out`` where given):
+        each row the dense optimizer's ``scalars(step)``, then the fused
+        optimizer's. On a card one asynchronous copy from a pinned buffer
+        that torch's pinned allocator hands out anew and reuses only after
+        the copies that read it have finished."""
+        rows = []
+        for step in range(self.step, self.step + k):
+            dense = tuple(self.optimizer.scalars(step))
+            fused = () if self.fused_embedding is None else self.fused_embedding.scalars(step)
+            rows.append(dense + tuple(fused))
+        self._n_dense = len(dense)
+        host = torch.tensor(rows, dtype=torch.float32)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        if out is None:
+            return host.to(self.device, non_blocking=True)
+        return out.copy_(host, non_blocking=True)
+
+    def _train_step(self, batch: Mapping[str, torch.Tensor], labels: torch.Tensor,
+                    scalars: torch.Tensor) -> torch.Tensor:
+        """``train_step`` reading the step's scalars from ``scalars``, a row
+        of ``_stage_scalars``' table."""
         fused = self.fused_embedding is not None
         self.model.train()
         for p in self.model.parameters():
@@ -356,9 +506,10 @@ class Trainer:
                  for n, p in self.dense_params.items()}
         if self.mesh is not None:
             self._sum_replicated(grads)
-        self.optimizer.update(self.dense_params, grads, self.opt_state, self.step)
+        self.optimizer.update(self.dense_params, grads, self.opt_state, self.step,
+                              scalars[:self._n_dense])
         if fused:
-            self._fused_update(captured)
+            self._fused_update(captured, scalars[self._n_dense:])
         self.step += 1
         return loss.detach()
 
@@ -382,7 +533,7 @@ class Trainer:
             for name, part in zip(names, flat.split([grads[n].numel() for n in names])):
                 grads[name] = part.view_as(grads[name])
 
-    def _fused_update(self, captured) -> None:
+    def _fused_update(self, captured, scalars: torch.Tensor) -> None:
         """One stream per table: its captured sites concatenated, presorted
         when there is one site; under a mesh, sent to the owners
         (``sharded_fused_update``), every rank taking part in each table's
@@ -409,20 +560,137 @@ class Trainer:
             if self.mesh is not None:
                 self._overflow += sharded_fused_update(
                     self.fused_embedding, table.detach(), self.fused_slots[name], lids, ct,
-                    self.mesh, step=self.step, capacity_factor=self.capacity_factor)
+                    self.mesh, step=self.step, scalars=scalars,
+                    capacity_factor=self.capacity_factor)
                 continue
             presorted = recs[0].presorted() if len(recs) == 1 else None
             self.fused_embedding.apply(table.detach(), self.fused_slots[name], lids, ct,
-                                       step=self.step, presorted=presorted)
+                                       step=self.step, scalars=scalars, presorted=presorted)
 
     def multi_step(self, batches: Batch, labels: torch.Tensor) -> torch.Tensor:
         """K steps over batches already on the device, stacked on a leading
         axis (``[K, B, ...]`` leaves, or one ``[K, B, ...]`` tensor for a
         model that takes a tensor; labels ``[K, B]``); returns the K losses
-        as a ``[K]`` tensor on the device."""
-        losses = [self.train_step(_map(lambda v, i=i: v[i], batches), labels[i])
+        as a ``[K]`` tensor on the device. The call goes through the cached
+        ``make_multi_step()`` callable: on a card, one graph replay."""
+        if self._multi is None:
+            self._multi = self.make_multi_step()
+        return self._multi(batches, labels)
+
+    def make_multi_step(self, graphed: bool = True) -> Callable[[Batch, torch.Tensor],
+                                                                 torch.Tensor]:
+        """The K-step call, counterpart of the JAX package's jitted
+        ``lax.scan``: ``run(batches, labels) -> losses [K]``, its arguments
+        as ``multi_step``'s. The state is the Trainer's, updated in place.
+
+        On a card without a mesh the K steps are one dispatch. The first
+        call with a batch signature (K, each leaf's shape and dtype) runs
+        them one by one on the capture stream: it builds the kernels, makes
+        the libraries' workspaces and whatever a step makes at first use,
+        and its steps are real steps. The second call captures them into a
+        CUDA graph (the dropout generator and ``step_generators``
+        registered, every signature's graph in one memory pool) and replays
+        it; every later call copies its inputs and the steps' scalars into
+        the graph's tensors and replays it. The losses returned are a copy,
+        since the next replay overwrites the graph's. A failed capture
+        raises, naming the line that issued the op. ``graphed=False``, a CPU
+        device or a mesh (its collectives are not captured) give the steps
+        one by one, the plain version of the call."""
+        return lambda batches, labels: self._steps(None, batches, labels, graphed)
+
+    def make_multi_step_packed(self, spec, graphed: bool = True) -> Callable:
+        """``make_multi_step`` over packed groups: ``run(packed, labels) ->
+        losses [K]`` with ``packed`` ``{kind: [K, B, W]}`` (int32 for 'i',
+        float32 for 'f'; ``_pack_group``'s arrays on the device) and labels
+        ``[K, B]``, ``spec`` the layout (``_pack_spec``). The columns are
+        cut from the packed arrays inside the steps (inside the graph)."""
+        return lambda packed, labels: self._steps(spec, packed, labels, graphed)
+
+    def _packed_call(self, spec) -> Callable:
+        """The cached ``make_multi_step_packed(spec)`` callable, one a
+        layout, as the JAX package caches its packed scan."""
+        key = _spec_key(spec)
+        if key not in self._packed_multi:
+            self._packed_multi[key] = self.make_multi_step_packed(spec)
+        return self._packed_multi[key]
+
+    def _loop(self, spec, inputs: Batch, labels: torch.Tensor,
+              scalars: torch.Tensor) -> torch.Tensor:
+        """The K steps one by one; step i reads row i of ``scalars``."""
+        batches = inputs if spec is None else self._unpack(spec, inputs)
+        losses = [self._train_step(_map(lambda v, i=i: v[i], batches), labels[i], scalars[i])
                   for i in range(labels.shape[0])]
         return torch.stack(losses)
+
+    def _steps(self, spec, inputs: Batch, labels: torch.Tensor,
+               graphed: bool) -> torch.Tensor:
+        k = labels.shape[0]
+        if not (graphed and self.captures):
+            return self._loop(spec, inputs, labels, self._stage_scalars(k))
+        key = (_spec_key(spec), _signature(inputs, labels))
+        entry = self._graphs.get(key)
+        with torch.cuda.device(self.device):
+            if entry is None and key not in self._warmed:
+                self._warmed.add(key)
+                return self._warm_up(spec, inputs, labels)
+            if entry is None:
+                entry = self._graphs[key] = self._capture(spec, inputs, labels)
+            return self._replay(entry, inputs, labels)
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        return self._capture_stream
+
+    def _warm_up(self, spec, inputs: Batch, labels: torch.Tensor) -> torch.Tensor:
+        """A signature's first call: the steps one by one on the capture
+        stream, ordered after and before the caller's stream."""
+        main, side = torch.cuda.current_stream(self.device), self._side_stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            losses = self._loop(spec, inputs, labels, self._stage_scalars(labels.shape[0]))
+        main.wait_stream(side)
+        losses.record_stream(main)
+        return losses
+
+    def _capture(self, spec, inputs: Batch, labels: torch.Tensor) -> _StepGraph:
+        """Capture the K steps over new static tensors of the inputs'
+        shapes. Capturing runs nothing: the step count and the launch counts
+        are put back as they were, and the launches the graph holds are
+        kept for its replays."""
+        k = labels.shape[0]
+        inputs_ = _map(torch.empty_like, inputs)
+        labels_ = torch.empty_like(labels)
+        scalars = torch.zeros_like(self._stage_scalars(k))
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        for g in dict.fromkeys((self.generator, *self.step_generators)):
+            if g.device.type == "cuda":
+                graph.register_generator_state(g)
+        step, counts = self.step, launch_counts()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._side_stream()):
+                losses = self._loop(spec, inputs_, labels_, scalars)
+        except Exception as err:
+            raise RuntimeError(f"capturing {k} training steps into a CUDA graph failed at "
+                               f"{_issuing_line(err)}") from err
+        finally:
+            self.step = step
+            held = {key: n - counts[key] for key, n in launch_counts().items()}
+            add_launches({key: -n for key, n in held.items()})
+        return _StepGraph(graph, inputs_, labels_, scalars, losses,
+                          {key: n for key, n in held.items() if n})
+
+    def _replay(self, entry: _StepGraph, inputs: Batch, labels: torch.Tensor) -> torch.Tensor:
+        for static, value in zip(_leaves(entry.inputs), _leaves(inputs)):
+            static.copy_(value, non_blocking=True)
+        entry.labels.copy_(labels, non_blocking=True)
+        self._stage_scalars(labels.shape[0], out=entry.scalars)
+        entry.graph.replay()
+        self.step += labels.shape[0]
+        add_launches(entry.launches)
+        return entry.losses.clone()
 
     def _to_device(self, xb) -> Batch:
         return _map(lambda v: torch.as_tensor(v, device=self.device), xb)
@@ -433,8 +701,9 @@ class Trainer:
         ``X`` is a dict of arrays, or one array for a model that takes a
         tensor. Each epoch draws its order from ``seed + epoch``, as the JAX
         package's ``fit``. Batches go to the device in groups of
-        ``steps_per_call``, each group one ``multi_step`` call (the last
-        group may be shorter). ``log_every`` prints the last loss whenever
+        ``steps_per_call``, each group one ``multi_step`` call; a shorter
+        last group trains step by step (``train_step``), so that no graph
+        is captured for it. ``log_every`` prints the last loss whenever
         the steps done are a multiple of it, which waits for the device.
         Under a mesh every rank passes the whole data and trains on its rows
         of each batch; with a fused optimizer the history counts each
@@ -458,8 +727,8 @@ class Trainer:
                     group = []
                 if log_every and steps and steps % log_every == 0:
                     print(f"epoch {epoch} step {steps} loss {float(losses[-1][-1]):.4f}")
-            if group:
-                losses.append(self._run_group(group))
+            if group:  # a short last group: single steps, as the JAX package's fit
+                losses.append(torch.stack([self.train_step(xb, yb) for xb, yb in group]))
             # reading the mean waits for the last step
             epoch_loss = float(torch.cat(losses).mean()) if losses else 0.0
             history["loss"].append(epoch_loss)
@@ -499,10 +768,12 @@ class Trainer:
         from pinned memory, asynchronously) before the step of the one
         before it is issued. ``steps_per_call > 1``: K batches are packed
         into one int32 and one float32 array and one labels array (one
-        copy each from pinned memory) and trained in one ``multi_step``
-        call, pipelined one group deep as the JAX package's
+        copy each from pinned memory) and trained in one call of the cached
+        ``make_multi_step_packed(spec)`` callable (on a card, one graph
+        replay), pipelined one group deep as the JAX package's
         ``_fit_stream_packed`` is; a batch of another size (a short last
-        one) drains the pipeline and trains on its own, in order.
+        one), and a tail of fewer than K batches, train step by step, in
+        order.
 
         ``checkpoint_every`` calls ``checkpoint_fn(trainer, steps_done)``
         every that many steps; ``max_steps`` stops after that many steps (0:
@@ -513,8 +784,8 @@ class Trainer:
         ``timings``, where given, accumulates the host's seconds in
         ``input_s`` (waiting for the next batch), ``pack_s`` (packing into
         pinned memory), ``copy_s`` (issuing the copies) and ``step_s``
-        (issuing the steps), and a pair of CUDA events around each
-        ``multi_step`` call in ``events`` (on a card).
+        (issuing the steps), and a pair of CUDA events around each call
+        in ``events`` (on a card).
 
         Under a mesh every rank reads the whole stream and trains on its
         rows of each batch (examples/s counts the global batches); with a
@@ -568,7 +839,8 @@ class Trainer:
         while nxt is not None:
             xb, yb = nxt
             nxt = pull()  # stage the next batch before this step is issued
-            losses.append(self._timed_call(clock, _map(lambda v: v[None], xb), yb[None]))
+            losses.append(self._timed_call(clock, self.multi_step, _map(lambda v: v[None], xb),
+                                           yb[None]))
             n_examples += int(yb.shape[0])
             if log_every and len(losses) % log_every == 0:
                 print(f"stream step {len(losses)} loss {float(losses[-1][-1]):.4f}")
@@ -584,15 +856,16 @@ class Trainer:
             n_examples / max(time.perf_counter() - t_start, 1e-9))
         return history
 
-    def _timed_call(self, clock: dict, batches: Batch, labels: torch.Tensor) -> torch.Tensor:
-        """``multi_step``, its host time counted in ``step_s`` and, where
-        ``clock`` keeps ``events``, CUDA events recorded around it."""
+    def _timed_call(self, clock: dict, fn: Callable, *args) -> torch.Tensor:
+        """``fn(*args)`` (a K-step call, or ``train_step``), its host time
+        counted in ``step_s`` and, where ``clock`` keeps ``events``, CUDA
+        events recorded around it; returns its losses as a ``[K]`` tensor."""
         events = None
         if "events" in clock:
             events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             events[0].record()
         t0 = time.perf_counter()
-        losses = self.multi_step(batches, labels)
+        losses = fn(*args).reshape(-1)
         clock["step_s"] += time.perf_counter() - t0
         if events is not None:
             events[1].record()
@@ -663,8 +936,9 @@ class Trainer:
                            checkpoint_fn, max_steps, clock):
         """Packed groups of ``steps_per_call`` batches, pipelined one group
         deep: group n + 1 is packed and its copies issued before group n's
-        call is issued."""
-        spec = None
+        call is issued (the call then copies the group from the device into
+        its graph's tensors, about 40 MB for a DeepFM group)."""
+        spec = multi = None
         expected_b = None
         loss_chunks = []
         n_examples = steps = 0
@@ -683,8 +957,7 @@ class Trainer:
 
         def dispatch(staged_group):
             nonlocal steps
-            packed, labels = staged_group
-            losses = self._timed_call(clock, self._unpack(spec, packed), labels)
+            losses = self._timed_call(clock, multi, *staged_group)
             loss_chunks.append(losses)
             steps += steps_per_call
             if log_every and steps % log_every < steps_per_call:
@@ -700,8 +973,7 @@ class Trainer:
                 xd = {k: self._stage(np.asarray(v)) for k, v in xb.items()}
                 yd = self._stage(np.asarray(yb, np.float32))
                 clock["copy_s"] += time.perf_counter() - t0
-                loss_chunks.append(self._timed_call(
-                    clock, {k: v[None] for k, v in xd.items()}, yd[None]))
+                loss_chunks.append(self._timed_call(clock, self.train_step, xd, yd))
                 steps += 1
 
         t_start = time.perf_counter()
@@ -721,6 +993,7 @@ class Trainer:
             n_examples += B
             if spec is None:
                 spec = self._pack_spec(xb)
+                multi = self._packed_call(spec)
                 expected_b = B
             if B != expected_b:
                 # a batch of another size: run everything pending in order

@@ -144,10 +144,9 @@ def _log_q(p: Optional[torch.Tensor], n_items: int, ids: torch.Tensor) -> torch.
     """The log-Q correction of ``ids`` under the proposal ``p``: ``log p``
     (clipped at 1e-12), or ``-log(n_items - 1)`` for uniform draws."""
     ids = ids.reshape(-1).to(torch.int64)
-    if p is None:
-        value = torch.tensor(-math.log(float(n_items - 1)), dtype=torch.float32,
-                             device=ids.device)
-        return value.expand(ids.shape[0])
+    if p is None:  # a fill, not a copy from the host: a captured step may run it
+        return torch.full((ids.shape[0],), -math.log(float(n_items - 1)),
+                          dtype=torch.float32, device=ids.device)
     return torch.log(torch.clamp(p[ids], min=1e-12))
 
 

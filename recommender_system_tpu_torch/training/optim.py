@@ -11,10 +11,19 @@ the parameters and the state in place. ``learning_rate`` is a float or a
 callable of the step (0 for the first update), as an optax schedule.
 ``DecayedWeights(optimizer, weight_decay)`` is ``optax.chain(
 optax.add_decayed_weights(weight_decay), optimizer)``.
+
+The values that change from step to step (the learning rate, Adam's bias
+corrections) are ``scalars(step)``, computed on the host. ``update`` reads
+them from ``scalars``, a float32 ``[n]`` tensor of those values on the
+parameters' device, where the caller gives one (the ``Trainer`` does, so
+that a captured CUDA graph of its steps reads each step's values from
+device memory), else from ``scalars(step)``. On the CPU a float and a
+float32 tensor of the same value give bitwise the same products and
+quotients.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Union
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,6 +36,12 @@ def learning_rate_at(learning_rate: LearningRate, step: int) -> float:
     return float(learning_rate(step)) if callable(learning_rate) else learning_rate
 
 
+def _read(optimizer, step: int, scalars: Optional[torch.Tensor]) -> Sequence:
+    """The step's scalars: ``scalars``' entries as 0-d tensors where given,
+    else ``optimizer.scalars(step)``."""
+    return optimizer.scalars(step) if scalars is None else scalars.unbind(0)
+
+
 class SGD:
     """``optax.sgd`` without momentum: ``p += -lr * g``. It keeps no state
     (optax's is two ``EmptyState``s)."""
@@ -37,12 +52,17 @@ class SGD:
     def init(self, params: Mapping[str, torch.Tensor]) -> State:
         return {n: {} for n in params}
 
+    def scalars(self, step: int) -> Tuple[float]:
+        return (learning_rate_at(self.learning_rate, step),)
+
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
-               grads: Mapping[str, torch.Tensor], state: State, step: int) -> None:
-        lr = learning_rate_at(self.learning_rate, step)
+               grads: Mapping[str, torch.Tensor], state: State, step: int,
+               scalars: Optional[torch.Tensor] = None) -> None:
+        (lr,) = _read(self, step, scalars)
+        neg_lr = -lr
         for name, p in params.items():
-            p.add_(grads[name] * -lr)
+            p.add_(grads[name] * neg_lr)
 
 
 class Adagrad:
@@ -61,16 +81,21 @@ class Adagrad:
             p, self.initial_accumulator_value, requires_grad=False)}
             for n, p in params.items()}
 
+    def scalars(self, step: int) -> Tuple[float]:
+        return (learning_rate_at(self.learning_rate, step),)
+
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
-               grads: Mapping[str, torch.Tensor], state: State, step: int) -> None:
-        lr = learning_rate_at(self.learning_rate, step)
+               grads: Mapping[str, torch.Tensor], state: State, step: int,
+               scalars: Optional[torch.Tensor] = None) -> None:
+        (lr,) = _read(self, step, scalars)
+        neg_lr = -lr
         for name, p in params.items():
             g = grads[name]
             acc = state[name]["sum_of_squares"]
             acc.add_(g * g)
             inv = torch.where(acc > 0, torch.rsqrt(acc + self.eps), 0.0)
-            p.add_((inv * g) * -lr)
+            p.add_((inv * g) * neg_lr)
 
 
 class Adam:
@@ -87,20 +112,26 @@ class Adam:
                     "nu": torch.zeros_like(p, requires_grad=False)}
                 for n, p in params.items()}
 
+    def scalars(self, step: int) -> Tuple[float, float, float]:
+        """``(lr, 1 - b1**t, 1 - b2**t)`` at ``t = step + 1``, the bias
+        corrections in float32, as optax computes them."""
+        count = np.float32(step + 1)
+        return (learning_rate_at(self.learning_rate, step),
+                float(np.float32(1) - np.float32(self.b1) ** count),
+                float(np.float32(1) - np.float32(self.b2) ** count))
+
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
-               grads: Mapping[str, torch.Tensor], state: State, step: int) -> None:
-        lr = learning_rate_at(self.learning_rate, step)
-        count = np.float32(step + 1)
-        # 1 - decay**count in float32, as optax computes it
-        bc1 = float(np.float32(1) - np.float32(self.b1) ** count)
-        bc2 = float(np.float32(1) - np.float32(self.b2) ** count)
+               grads: Mapping[str, torch.Tensor], state: State, step: int,
+               scalars: Optional[torch.Tensor] = None) -> None:
+        lr, bc1, bc2 = _read(self, step, scalars)
+        neg_lr = -lr
         for name, p in params.items():
             g = grads[name]
             mu, nu = state[name]["mu"], state[name]["nu"]
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-            p.add_((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) * -lr)
+            p.add_((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) * neg_lr)
 
 
 class DecayedWeights:
@@ -116,8 +147,12 @@ class DecayedWeights:
     def init(self, params: Mapping[str, torch.Tensor]) -> State:
         return self.optimizer.init(params)
 
+    def scalars(self, step: int) -> Tuple[float, ...]:
+        return self.optimizer.scalars(step)
+
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
-               grads: Mapping[str, torch.Tensor], state: State, step: int) -> None:
+               grads: Mapping[str, torch.Tensor], state: State, step: int,
+               scalars: Optional[torch.Tensor] = None) -> None:
         decayed = {name: g + self.weight_decay * params[name] for name, g in grads.items()}
-        self.optimizer.update(params, decayed, state, step)
+        self.optimizer.update(params, decayed, state, step, scalars)

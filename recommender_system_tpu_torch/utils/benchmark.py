@@ -10,7 +10,8 @@ The protocol is the JAX module's:
    share (the launch of the first iteration, the tail of the last) cancels.
 
 On a card each window lies between a pair of CUDA events recorded on the
-current stream, and the host waits for the second event after each window
+current stream of ``device`` (which need not be the current device), and
+the host waits for the second event after each window
 (``Event.synchronize``), so no window's work runs into the next one's. The
 host clock (``time.perf_counter``) is used only where the caller passes
 ``device="cpu"``, whose work is done when the call returns.
@@ -26,12 +27,14 @@ from ..ops.dispatch import DeviceLike, resolve_device
 
 
 def _window_s(run_n: Callable[[int], object], n: int, device: torch.device) -> float:
-    """Seconds that ``run_n(n)`` takes, on the card between CUDA events."""
+    """Seconds that ``run_n(n)`` takes, on the card between CUDA events on
+    ``device``'s current stream."""
     if device.type == "cuda":
+        stream = torch.cuda.current_stream(device)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
+        start.record(stream)
         run_n(n)
-        end.record()
+        end.record(stream)
         end.synchronize()
         return start.elapsed_time(end) / 1e3
     t0 = time.perf_counter()

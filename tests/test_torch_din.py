@@ -430,9 +430,9 @@ def test_din_training_matches_jax(case):
 
 
 class _RecordingAdagrad(FusedAdagrad):
-    def apply(self, table, slots, lids, ct, *, step, presorted=None):
+    def apply(self, table, slots, lids, ct, *, presorted=None, **kw):
         self.calls.append((lids.shape[0], presorted is None))
-        super().apply(table, slots, lids, ct, step=step, presorted=presorted)
+        super().apply(table, slots, lids, ct, presorted=presorted, **kw)
 
 
 def test_din_fused_step_feeds_one_stream():

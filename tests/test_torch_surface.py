@@ -8,7 +8,8 @@ top-level functions, classes and assignments, and, in a package's
 ``__init__.py``, what it imports from its own package. A port module offers
 those too and every name it imports (an attribute of the module all the
 same); ``from . import x`` names a submodule, whose counterpart is the
-port's file of that name.
+port's file of that name. A class of the same name in both modules offers
+the JAX class's public methods, or a stated reason in ``ALLOWED_METHODS``.
 """
 import ast
 import pathlib
@@ -74,6 +75,13 @@ ALLOWED.update({("ops/dispatch.py", name): _DISPATCH for name in (
     "fast_scatter", "fused_opt_mode", "interpret_mode", "lookup_capacity", "lookup_mesh",
     "mesh_mode", "on_tpu", "set_fused_opt_mode", "set_lookup_mesh", "set_mesh_mode",
     "use_pallas")})
+_FLAX_SETUP = "Flax's setup(): a torch module builds its submodules in __init__"
+# (module, class, method) -> why the port's class of that name lacks it
+ALLOWED_METHODS = {
+    ("layers/embedding.py", "EmbeddingCollection", "setup"): _FLAX_SETUP,
+    ("models/dssm.py", "DSSM", "setup"): _FLAX_SETUP,
+    ("models/transformer.py", "Transformer", "setup"): _FLAX_SETUP,
+}
 # JAX modules with no port file of the same path
 ALLOWED_MODULES = {
     "ops/din_vjp.py": ALLOWED[("ops/din_vjp.py", "din_attention_remat")],
@@ -99,6 +107,14 @@ def _names(path: pathlib.Path, port: bool):
                 port or (getattr(node, "level", 0) and path.name == "__init__.py")):
             names.update((a.asname or a.name).split(".")[0] for a in node.names)
     return {n for n in names if not n.startswith("_")}, submodules
+
+
+def _methods(path: pathlib.Path):
+    """{class: its public methods} of a module's top-level classes."""
+    return {node.name: {m.name for m in node.body
+                        if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))
+                        and not m.name.startswith("_")}
+            for node in ast.parse(path.read_text()).body if isinstance(node, ast.ClassDef)}
 
 
 def _jax_modules():
@@ -152,3 +168,33 @@ def test_surface_covers_this_slice():
                          ("parallel/mesh.py", "param_shardings")]:
         assert (module, name) not in ALLOWED
         assert name in _names(PORT / module, port=True)[0], (module, name)
+
+
+def _shared_class_modules():
+    return [m for m in _jax_modules() if (PORT / m).exists()
+            and set(_methods(JAX / m)) & set(_methods(PORT / m))]
+
+
+@pytest.mark.parametrize("module", _shared_class_modules())
+def test_every_public_jax_method_has_a_counterpart(module):
+    """A class the port keeps under the JAX name offers each public method
+    of the JAX class (``Trainer.make_multi_step`` among them)."""
+    jax_classes, port_classes = _methods(JAX / module), _methods(PORT / module)
+    missing = sorted((cls, name) for cls in set(jax_classes) & set(port_classes)
+                     for name in jax_classes[cls] - port_classes[cls]
+                     if (module, cls, name) not in ALLOWED_METHODS)
+    assert not missing, f"{module}: {missing} have no counterpart in the port"
+
+
+def test_every_method_allowance_names_a_jax_method_the_port_lacks():
+    for (module, cls, name), reason in ALLOWED_METHODS.items():
+        assert reason.strip(), (module, cls, name)
+        assert name in _methods(JAX / module)[cls], (module, cls, name)
+        assert name not in _methods(PORT / module)[cls], (module, cls, name)
+
+
+def test_surface_covers_the_k_step_calls():
+    """The methods this slice ports are the port's own, not allowances."""
+    for name in ("make_multi_step", "make_multi_step_packed"):
+        assert ("training/harness.py", "Trainer", name) not in ALLOWED_METHODS
+        assert name in _methods(PORT / "training/harness.py")["Trainer"]

@@ -162,14 +162,16 @@ class _Event:
     them; ``synchronize`` is logged."""
 
     log = []
+    streams = []
     work_ms = {}
 
     def __init__(self, enable_timing=False):
         assert enable_timing
         self.at = None
 
-    def record(self):
+    def record(self, stream=None):
         _Event.log.append("record")
+        _Event.streams.append(stream)
         self.at = len(_Event.log)
 
     def synchronize(self):
@@ -180,13 +182,22 @@ class _Event:
         return sum(_Event.work_ms[n] for n in between)
 
 
+def _fake_streams(monkeypatch):
+    """``torch.cuda.current_stream(device)`` stand-in: a name per device."""
+    monkeypatch.setattr(benchmark.torch.cuda, "current_stream",
+                        lambda device=None: f"stream of {device}")
+
+
 def test_time_iterations_on_the_card_uses_event_pairs(monkeypatch):
-    """On a card each window lies between two CUDA events and the host
-    waits for the second after each window; no host clock is read."""
+    """On a card each window lies between two CUDA events, recorded on the
+    card's current stream, and the host waits for the second after each
+    window; no host clock is read."""
     monkeypatch.setattr(benchmark.torch.cuda, "Event", _Event)
+    _fake_streams(monkeypatch)
     monkeypatch.setattr(benchmark.time, "perf_counter",
                         lambda: pytest.fail("the host clock timed a card's window"))
     _Event.log.clear()
+    _Event.streams.clear()
     _Event.work_ms.update({5: 10.0, 10: 12.0, 40: 24.0})
 
     def run_n(n):
@@ -196,6 +207,21 @@ def test_time_iterations_on_the_card_uses_event_pairs(monkeypatch):
     assert seconds == pytest.approx((24.0 - 12.0) / 1e3 / 30)
     assert _Event.log == ["record", 5, "record", "sync", "record", 10, "record", "sync",
                           "record", 40, "record", "sync"]
+    assert _Event.streams == ["stream of cuda"] * 6
+
+
+def test_time_iterations_records_on_the_named_cards_stream(monkeypatch):
+    """``device="cuda:1"`` records every event on card 1's current stream,
+    whichever card is current."""
+    monkeypatch.setattr(benchmark.torch.cuda, "Event", _Event)
+    _fake_streams(monkeypatch)
+    _Event.log.clear()
+    _Event.streams.clear()
+    _Event.work_ms.update({1: 3.0, 2: 4.0, 4: 6.0})
+    seconds = benchmark.time_iterations(lambda n: _Event.log.append(n), 2, 4,
+                                        device="cuda:1")
+    assert seconds == pytest.approx((6.0 - 4.0) / 1e3 / 2)
+    assert _Event.streams == ["stream of cuda:1"] * 6
 
 
 def test_bench_fn_and_bench_train_step_chain_calls(monkeypatch):

@@ -434,3 +434,23 @@ def collection_on_mesh(mesh, batch):
             worst = max(worst, float((got.varlen_raw[name] - want.varlen_raw[name]).abs().max()))
             worst = max(worst, float((got.pooled[name] - want.pooled[name]).abs().max()))
     return worst, tuple(sharded.table_d8.shape)
+
+
+def multi_step_on_mesh(mesh, kind, spec, params, batches, labels, mesh_kw):
+    """``make_multi_step()`` under the mesh on this rank's rows of stacked
+    ``[K, B, ...]`` batches, and ``make_multi_step(graphed=False)`` from the
+    same start: a mesh's call is the loop, so the two agree bitwise and no
+    signature is recorded for a graph, whatever the device. Rank 0 returns
+    both losses, the whole view and what the Trainer says of capture."""
+    runs = {}
+    for graphed in (True, False):
+        trainer = build_trainer(kind, spec, params, mesh=mesh, **mesh_kw)
+        mine = {k: mesh.shard_batch(v.swapaxes(0, 1)).swapaxes(0, 1) for k, v in batches.items()}
+        ys = mesh.shard_batch(labels.swapaxes(0, 1)).swapaxes(0, 1)
+        losses = trainer.make_multi_step(graphed=graphed)(to_tensors(mine), to_tensors(ys))
+        recorded = len(trainer._graphs) + len(trainer._warmed)
+        device, trainer.device = trainer.device, torch.device("cuda")
+        captures = trainer.captures  # the rule itself, on a card as on this CPU
+        trainer.device = device
+        runs[graphed] = (losses.numpy(), view(trainer), recorded, captures)
+    return runs if mesh.rank == 0 else None
