@@ -22,9 +22,12 @@ Phases, each of which raises on failure (exit code not 0):
    80-40) in all eight combinations of activation, softmax and scores, at
    T=13, T=1, B=1, at K=6 (not a multiple of 4) and with a scorer of
    128-64 on the tiled kernel, and on the global kernel at K=128 (T=50 and
-   T=1), at K=32, T=515 and with a scorer of 300-260, each with a row that
-   has no valid position, forward and gradient through the autograd
-   Function (rtol=1e-4, atol=1e-5), and which of the two kernels ran;
+   T=1), at K=32, T=515 and with a scorer of 300-260, and at B=8,192 at its
+   three timed shapes, (K=128, T=50), (K=64, T=200) and (K=32, T=1,000),
+   pooled and returning the weights, each with a row that has no valid
+   position, forward and gradient through the autograd Function (rtol=1e-4,
+   atol=1e-5; the three timed shapes forward only), and which of the two
+   kernels ran;
    ``fm_fused`` vs ``fm_ref`` at B=16,384, D=221, k=8, at
    B=16,385 and B=31 (a partial last group of 4 rows) and at B=1, D=1,
    k=1, at D=13, k=64, and at Ds that are not multiples of 32, forward and
@@ -220,7 +223,8 @@ Phases, each of which raises on failure (exit code not 0):
    Criteo width; DIN fused and plain, DIEN and DSSM at its width; and two
    paths that draw: DeepFM with dropout 0.1, its masks from the Trainer's
    generator, and DSSM with a sampled softmax whose negatives come from a
-   step generator of the loss), two copies of one state: three
+   step generator of the loss, uniform and, with a numpy ``item_probs``,
+   by frequency), two copies of one state: three
    ``multi_step`` calls (steps one by one, then
    capture and replay, then a replay under ``set_sync_debug_mode("error")``)
    against three ``make_multi_step(graphed=False)`` calls; losses,
@@ -231,6 +235,15 @@ Phases, each of which raises on failure (exit code not 0):
    packed calls looped, whose checkpoint must equal the graphed run's
    bitwise. Every training call of the phases before it goes through the
    graphs too, the sync check on the first replay (a capture synchronises);
+3r. DIN at ``model_step.py``'s width with 128-wide embeddings (table_d128
+   of 300,000 x 128), whose attention only the global kernel takes:
+   three fused K=8 calls (``Adagrad(0.05)`` + ``FusedAdagrad(0.05)``; the
+   second captures the graph, the third replays it under
+   ``set_sync_debug_mode("error")``), losses falling, untouched rows and
+   slots bitwise unchanged, 24 attention launches, all of the global
+   kernel; then ``Scorer(batch_size=8192)`` serves it (one global launch a
+   padded batch), its answers equal to the plain attention's forward on
+   the card and to the CPU path;
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
    host overhead included), and the library call where there is one (the
@@ -249,19 +262,21 @@ Phases, each of which raises on failure (exit code not 0):
    query's top device work; each sparse row kernel's time on a stream
    with a hot row and on DIN's step stream, back to back and with the L2
    cache flushed before each call; each global kernel at a shape of
-   its path; and the stream CLI: the CLI's own examples/s, CUDA events
-   around each packed group's call, the host's seconds by part (waiting for
+   its path, the DIN attention's at its three timed shapes; and the stream
+   CLI: the CLI's own examples/s, CUDA events around each packed group's
+   call, the host's seconds by part (waiting for
    the parser, bucketing, packing into pinned memory, issuing the copies
    and the steps) and the device's idle share from a ``--profile-dir``
    trace.
 
 Every launch check compares all seven wrappers' launch counts and the
 ``global_launches`` of the cross, FM and DIN attention wrappers, which must
-be 0 on every path but 3k's.
+be 0 on every path but 3k's and, for the attention, 3r's.
 
 The line before the last lists every kernel with its launches on its main
 path (the graphed calls of phase 3q's paths as ``graph_launches``; the
-three global kernels: on phase 3k's path; kernels 3-7 also on
+cross and FM global kernels: on phase 3k's path, the attention's on phase
+3r's, with its times at three shapes as ``shapes``; kernels 3-7 also on
 phase 3o's and 3p's runs, summed over ranks, as ``mesh_launches``, and
 kernels 4 and 5 on phase 3p's grid rank by rank as
 ``grid_launches_per_rank``), its error against the plain version, its times and its bound; the line
@@ -273,6 +288,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import gc
 import json
 import math
 import os
@@ -327,6 +343,11 @@ DIEN_SMALL_BATCH = 1024
 # cut, the width is what counts), an FM input past the wide kernel's shared
 # memory, the DIN attention at K=128
 WIDE_DIM, WIDE_VOCAB, WIDE_FM_D = 40, 10_000, 4000
+# the DIN attention's global kernel: (K, T) of its three timed shapes, at
+# B=8,192 and 80-40, which the tiled kernel's shared memory refuses; and
+# phase 3r's DIN, model_step.py's with its embedding dim 128
+DIN_GLOBAL_SHAPES = ((128, 50), (64, 200), (32, 1000))
+DIN_WIDE_DIM = 128
 
 
 def card_line() -> str:
@@ -568,14 +589,6 @@ def din_work(B: int, T: int, K: int, H1: int, H2: int):
     return nbytes / PEAK_BYTES_PER_S * 1e3, flops
 
 
-def din_f32_bound(B: int, T: int, K: int, H1: int, H2: int):
-    """Least time for the DIN attention in f32 outside the tensor cores, as
-    the global kernel computes it: (bound, what bounds it)."""
-    byte_ms, flops = din_work(B, T, K, H1, H2)
-    flop_ms = flops / PEAK_F32_FLOPS * 1e3
-    return max(byte_ms, flop_ms), "bytes" if byte_ms >= flop_ms else "operations"
-
-
 def din_inputs(gen, B, T, K, H1, H2):
     """Random DIN attention inputs on the card: lengths uniform on 1..T, the
     first row with no valid position; weights at glorot scale."""
@@ -619,6 +632,9 @@ def check_din_kernel() -> dict:
              (64, 515, DIN_DIM, 80, 40, flags[:4], True),
              (100, 13, 8, 300, 260, flags[:4], True),
              (64, 20, 128, 256, 64, flags[:4], True)]
+    # the global kernel at its three timed shapes, pooled and returning the
+    # weights
+    cases += [(DIN_BATCH, T, K_, 80, 40, flags[:2], False) for K_, T in DIN_GLOBAL_SHAPES]
     max_err = collections.Counter()
     for B, T, K, H1, H2, combos, grad in cases:
         q, keys, mask, weights = din_inputs(gen, B, T, K, H1, H2)
@@ -726,21 +742,21 @@ def din_batch(seed: int, batch: int = DIN_BATCH, negatives: bool = False):
     return X, y
 
 
-def din_columns(negatives: bool = False):
+def din_columns(negatives: bool = False, dim: int = DIN_DIM):
     """``benchmarks/model_step.py:79-85``'s DIN schema: table_d32 holds
     user_id's 100,000 rows, then item_id's 200,000, which the history
     shares; with ``negatives``, DIEN's (``:102-104``), whose sampled
-    history shares them too."""
+    history shares them too. ``dim`` replaces the embedding dim."""
     from recommender_system_tpu_torch.utils.features import (DenseFeat, SparseFeat,
                                                              VarLenSparseFeat)
 
-    cols = (SparseFeat("user_id", DIN_USERS, DIN_DIM),
-            SparseFeat("item_id", DIN_ITEMS, DIN_DIM, embedding_name="item_id"),
-            VarLenSparseFeat(SparseFeat("hist_item_id", DIN_ITEMS, DIN_DIM,
+    cols = (SparseFeat("user_id", DIN_USERS, dim),
+            SparseFeat("item_id", DIN_ITEMS, dim, embedding_name="item_id"),
+            VarLenSparseFeat(SparseFeat("hist_item_id", DIN_ITEMS, dim,
                                         embedding_name="item_id"), maxlen=DIN_T),
             DenseFeat("price", 1))
     if negatives:
-        cols += (VarLenSparseFeat(SparseFeat("neg_hist_item_id", DIN_ITEMS, DIN_DIM,
+        cols += (VarLenSparseFeat(SparseFeat("neg_hist_item_id", DIN_ITEMS, dim,
                                              embedding_name="item_id"), maxlen=DIN_T),)
     return cols
 
@@ -1319,18 +1335,18 @@ def din_staged(seeds, negatives: bool = False, batch: int = DIN_BATCH):
     return batches, labels
 
 
-def din_model():
+def din_model(dim: int = DIN_DIM):
     """DIN at model_step.py's width (attention 80-40 sigmoid, BatchNorm on
-    the 97-wide concat, Dice tower 256-128-64, f32) on the card, weights
-    from seed 0."""
+    the 97-wide concat at dim 32, Dice tower 256-128-64, f32) on the card,
+    weights from seed 0; ``dim`` replaces the embedding dim."""
     from recommender_system_tpu_torch import DIN
 
-    model = DIN(din_columns(), behavior_feature_list=("item_id",), device="cuda",
+    model = DIN(din_columns(dim=dim), behavior_feature_list=("item_id",), device="cuda",
                 generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         # the default init std of 1e-4 would leave the embeddings, and so
         # the attention, no say in the output
-        model.embeddings.table_d32.normal_(
+        getattr(model.embeddings, f"table_d{dim}").normal_(
             0.0, 0.1, generator=torch.Generator(device="cuda").manual_seed(1))
     return model
 
@@ -1416,9 +1432,10 @@ def train_din_plain(batches, labels):
     return launches
 
 
-def serve_din(model):
-    """Phase 3e: the trained DIN through Scorer; returns (scorer, requests,
-    launches)."""
+def serve_din(model, name: str = "DIN", on_global: bool = False):
+    """Phase 3e (and 3r): the trained DIN through Scorer; returns (scorer,
+    requests, launches). ``on_global``: every attention launch is one of
+    the global kernel."""
     from recommender_system_tpu_torch import Scorer
     from recommender_system_tpu_torch.ops.kernels import din_attention_ref
 
@@ -1430,9 +1447,11 @@ def serve_din(model):
     torch.cuda.synchronize()
     launches = read_counts()
     padded = sum(-(-n // DIN_BATCH) for n in DIN_REQUESTS)
-    print(f"DIN serving launches: {launches} for {padded} padded batches", flush=True)
-    if launches != launches_want(din_attention_fused=padded):
-        raise RuntimeError(f"DIN serving launched {launches} for {padded} padded batches")
+    print(f"{name} serving launches: {launches} for {padded} padded batches", flush=True)
+    want = launches_want(din_attention_fused=padded, **(
+        {global_key("din_attention_fused"): padded} if on_global else {}))
+    if launches != want:
+        raise RuntimeError(f"{name} serving launched {launches} for {padded} padded batches")
 
     a = model.attention
 
@@ -1449,16 +1468,39 @@ def serve_din(model):
 
     for n, got in answers.items():
         if got.shape != (n, 1) or got.dtype != np.float32 or not np.isfinite(got).all():
-            raise RuntimeError(f"DIN request of {n} rows answered {got.shape} {got.dtype}")
+            raise RuntimeError(f"{name} request of {n} rows answered {got.shape} {got.dtype}")
         np.testing.assert_allclose(got, plain_forward(requests[n]), rtol=0, atol=ATOL)
     spread = float(np.std(answers[max(DIN_REQUESTS)]))
     if spread < 1e-3:
-        raise RuntimeError(f"DIN scores barely vary (std {spread}): inputs have no say")
+        raise RuntimeError(f"{name} scores barely vary (std {spread}): inputs have no say")
     cpu_scorer = Scorer(copy.deepcopy(model).to("cpu"), batch_size=DIN_BATCH, device="cpu")
     np.testing.assert_allclose(answers[1000], cpu_scorer(requests[1000]), rtol=0, atol=ATOL)
-    print(f"DIN serving check: {len(DIN_REQUESTS)} requests equal the plain forward on the "
+    print(f"{name} serving check: {len(DIN_REQUESTS)} requests equal the plain forward on the "
           f"card and the CPU path (atol={ATOL}); score std {spread:.4f}", flush=True)
     return scorer, requests, launches
+
+
+def din_wide_path(card) -> dict:
+    """Phase 3r: DIN at model_step.py's width with its embedding dim 128
+    (table_d128 of 300,000 x 128), whose attention's keys only the global
+    kernel takes: three fused K=8 calls through ``Trainer.multi_step`` (the
+    second captures the graph, the third replays it), then served through
+    ``Scorer(batch_size=8192)``. Every attention launch must be one of the
+    global kernel. Returns the launches of each."""
+    from recommender_system_tpu_torch import FusedAdagrad
+    from recommender_system_tpu_torch.training import Adagrad
+
+    t0 = time.perf_counter()
+    batches, labels = din_staged(range(K))
+    name = f"DIN at dim {DIN_WIDE_DIM}"
+    trainer, train_launches = train_checked(
+        name, din_model(DIN_WIDE_DIM), batches, labels, Adagrad(LR), FusedAdagrad(LR), 3,
+        launches_want(din_attention_fused=3 * K, fused_adagrad_apply=3 * K,
+                      **{global_key("din_attention_fused"): 3 * K}), card,
+        touched=table_d32_touched(batches))
+    _, _, serve_launches = serve_din(trainer.model, name, on_global=True)
+    print(f"phase 3r took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"train": train_launches, "serve": serve_launches}
 
 
 def time_din(trainer, scorer, requests, batches, labels, card) -> dict:
@@ -1965,13 +2007,14 @@ def time_fm(layer, x, card) -> dict:
     return rec
 
 
-def time_global_kernels(card, errors: dict, counts: dict) -> list:
+def time_global_kernels(card, errors: dict, counts: dict, wide: dict) -> list:
     """Phase 4 for the global kernels, each at a shape of its path: the
     cross stack at DCN's x0 1,053 wide and the Scorer's batch, the FM logit
-    at x [16,384, 4,000], k=8, the DIN attention at K=128 (the states of
-    DIEN(gru_hidden=128)), B=8,192, T=50, 80-40. Returns their entries of
-    the ``kernels`` line: ``errors`` gives each one's largest error in phase
-    2, ``counts`` phase 3k's counts."""
+    at x [16,384, 4,000], k=8, the DIN attention at B=8,192, 80-40 at its
+    three timed shapes (K=128, T=50, the first, phase 3r's; K=64, T=200;
+    K=32, T=1,000). Returns their entries of the ``kernels`` line:
+    ``errors`` gives each one's largest error in phase 2, ``counts`` phase
+    3k's counts, ``wide`` phase 3r's."""
     from recommender_system_tpu_torch.ops.interactions import cross_network
     from recommender_system_tpu_torch.ops.kernels import (cross_fused, din_attention_fused,
                                                           din_attention_ref, fm_fused, fm_ref)
@@ -1982,8 +2025,6 @@ def time_global_kernels(card, errors: dict, counts: dict) -> list:
     w = torch.randn(6, D, generator=gen, device="cuda") * (0.2 / math.sqrt(D))
     b = torch.randn(6, D, generator=gen, device="cuda") * 0.1
     x, w1, v = fm_inputs(gen, FM_B, WIDE_FM_D, 8)
-    q, keys, mask, weights = din_inputs(gen, DIN_BATCH, DIN_T, 128, 80, 40)
-    mask = mask.float()  # as the wrapper takes it, so that the kernel runs alone
     cases = [
         ("cross_fused", "cross.cu", "pallas_kernels.py:124", "cross_global_kernel",
          lambda: cross_fused(x0, w, b), lambda: cross_network(x0, w, b),
@@ -1993,13 +2034,6 @@ def time_global_kernels(card, errors: dict, counts: dict) -> list:
          lambda: fm_fused(x, w1, v), lambda: fm_ref(x, w1, v),
          fm_bound(FM_B, WIDE_FM_D, 8), f"fm_fused at D={WIDE_FM_D}, k=8",
          f"B={FM_B} D={WIDE_FM_D} k=8"),
-        ("din_attention_fused", "din_attention.cu", "pallas_kernels.py:190",
-         "din_attention_global_kernel",
-         lambda: din_attention_fused(q, keys, mask, *weights),
-         lambda: din_attention_ref(q, keys, mask, *weights),
-         din_f32_bound(DIN_BATCH, DIN_T, 128, 80, 40),
-         "one fused step of DIEN(gru_hidden=128) at batch 1,024",
-         f"B={DIN_BATCH} T={DIN_T} K=128 H1=80 H2=40"),
     ]
     entries = []
     for name, source, replaces, kernel, fn, plain_fn, bound, path, shape in cases:
@@ -2023,6 +2057,53 @@ def time_global_kernels(card, errors: dict, counts: dict) -> list:
             "replaces": f"recommender_system_tpu/ops/{replaces}",
             "launches": counts[path][global_key(name)], "max_abs_err": errors[kernel],
             **rec, "path": path, "timed_at": shape})
+
+    # the attention's global kernel at its three shapes, against the
+    # tensor cores' bound (three TF32 passes), the bytes' and f32's
+    kernel = "din_attention_global_kernel"
+    shapes = []
+    for K_, T in DIN_GLOBAL_SHAPES:
+        q, keys, mask, weights = din_inputs(gen, DIN_BATCH, T, K_, 80, 40)
+        mask = mask.float()  # as the wrapper takes it, so that the kernel runs alone
+        with torch.inference_mode():
+            kernel_dev = device_ms(lambda: din_attention_fused(q, keys, mask, *weights))
+            plain_dev = device_ms(lambda: din_attention_ref(q, keys, mask, *weights), iters=10)
+            rec = {"K": K_, "T": T,
+                   "call_ms": call_ms(lambda: din_attention_fused(q, keys, mask, *weights),
+                                      iters=50),
+                   "plain_call_ms": call_ms(lambda: din_attention_ref(q, keys, mask, *weights),
+                                            iters=10, warmup=3)}
+        if not all(kernel in k for k in kernel_dev):
+            raise RuntimeError(f"din_attention_fused at K={K_}, T={T} ran other device work: "
+                               f"{dict(kernel_dev)}")
+        rec.update(ms=sum(kernel_dev.values()), plain_ms=sum(plain_dev.values()),
+                   library_ms=None)
+        rec["bound_ms"], rec["bound_by"], rec["f32_bound_ms"] = din_bound(
+            DIN_BATCH, T, K_, 80, 40)
+        rec["byte_bound_ms"] = din_work(DIN_BATCH, T, K_, 80, 40)[0]
+        print(f"timing din_attention_fused ({kernel}) B={DIN_BATCH} T={T} K={K_} H1=80 H2=40: "
+              f"device {rec['ms']:.5f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}% of the "
+              f"tensor cores' bound {rec['bound_ms']:.5f} ms, {rec['bound_by']}; bytes "
+              f"{rec['byte_bound_ms']:.5f} ms, f32 {rec['f32_bound_ms']:.5f} ms), "
+              f"{rec['call_ms']:.5f} ms per call; plain: device {rec['plain_ms']:.5f} ms in "
+              f"{len(plain_dev)} kernel kinds, {rec['plain_call_ms']:.5f} ms per call; "
+              f"on {card}", flush=True)
+        shapes.append(rec)
+        del q, keys, mask, weights
+    first = {k: v for k, v in shapes[0].items() if k not in ("K", "T")}
+    entries.append({
+        "name": f"din_attention_fused ({kernel})", "route": "cuda",
+        "source": "recommender_system_tpu_torch/csrc/din_attention.cu",
+        "replaces": "recommender_system_tpu/ops/pallas_kernels.py:190",
+        "launches": wide["train"][global_key("din_attention_fused")],
+        "max_abs_err": errors[kernel], **first,
+        "path": f"DIN at dim {DIN_WIDE_DIM} trained, three K=8 calls (phase 3r)",
+        "timed_at": f"B={DIN_BATCH} T={DIN_T} K={DIN_WIDE_DIM} H1=80 H2=40",
+        "serving_launches": wide["serve"][global_key("din_attention_fused")],
+        "dien_gru_hidden_128_launches": counts[
+            "one fused step of DIEN(gru_hidden=128) at batch 1,024"][
+            global_key("din_attention_fused")],
+        "shapes": shapes})
     return entries
 
 
@@ -3400,16 +3481,19 @@ def trainer_state(trainer) -> dict:
 
 class DssmSampledLoss:
     """DSSM's sampled softmax over the batch's item vectors: 255 negatives a
-    step drawn uniformly from the loss's own CUDA generator, which the
-    Trainer takes as a step generator. An object, so that a copy of the
-    Trainer copies the generator it registers and the one the loss draws
-    from as one."""
+    step drawn from the loss's own CUDA generator, which the Trainer takes
+    as a step generator: uniformly, or by frequency where ``item_probs``
+    (numpy, one a row of the batch, as a JAX user passes them) is given. An
+    object, so that a copy of the Trainer copies the generator it registers
+    and the one the loss draws from as one."""
 
-    def __init__(self, seed: int = 7):
+    def __init__(self, seed: int = 7, item_probs=None):
         from recommender_system_tpu_torch.training.losses import NegativeSampler
 
         self.generator = torch.Generator(device="cuda").manual_seed(seed)
-        self.sampler = NegativeSampler("uniform", num_sampled=255)
+        self.sampler = (NegativeSampler("uniform", num_sampled=255) if item_probs is None
+                        else NegativeSampler("frequency", num_sampled=255,
+                                             item_probs=item_probs))
 
     def __call__(self, outputs, labels, batch):
         from recommender_system_tpu_torch.training.losses import sampled_softmax_loss
@@ -3485,12 +3569,54 @@ def graph_against_loop(name, trainer, batches, labels, card) -> dict:
     return {"launches": launches, "worst": worst, "unequal": len(unequal)}
 
 
+class _CollectInCapture:
+    """A loss that, once a capture has begun, makes the collector run at
+    nearly every allocation (restored by ``graph_beside_garbage``)."""
+
+    def __init__(self, loss_fn):
+        self.loss_fn = loss_fn
+
+    def __call__(self, outputs, labels, batch):
+        if torch.cuda.is_current_stream_capturing():
+            gc.set_threshold(1, 1, 1)
+        return self.loss_fn(outputs, labels, batch)
+
+
+def graph_beside_garbage(name, trainer, batches, labels, card) -> None:
+    """Phase 3q: a capture while an earlier copy's graph is garbage in a
+    reference cycle (its cached K-step callable closes over the Trainer),
+    the collector made to run at nearly every allocation once the capture
+    has begun. Destroying a graph during a capture invalidates it, so this
+    passes only where ``Trainer`` collects before and holds the collector
+    through the capture."""
+    old = copy.deepcopy(trainer)
+    old.drop_graphs()
+    for _ in range(2):  # the steps one by one, then a capture
+        old.multi_step(batches, labels)
+    new = copy.deepcopy(trainer)
+    new.drop_graphs()
+    new.loss_fn = _CollectInCapture(new.loss_fn)
+    new.multi_step(batches, labels)
+    del old
+    thresholds = gc.get_threshold()
+    try:
+        new.multi_step(batches, labels)  # the capture, then its replay
+        losses = new.multi_step(batches, labels)
+    finally:
+        gc.set_threshold(*thresholds)
+    if not torch.isfinite(losses).all():
+        raise RuntimeError(f"graph {name} beside a garbage graph: losses {losses}")
+    print(f"graph {name}: captured and replayed while another copy's graph was garbage "
+          f"in a reference cycle, the collector at every allocation during the capture; "
+          f"on {card}", flush=True)
+
+
 def graph_path(card, trained: dict) -> dict:
     """Phase 3q: ``graph_against_loop`` on every single-card training path
     that the earlier phases drive, at their widths and on their batches:
     ``trained``'s trainers (name -> Trainer) where it has them, new ones
-    built as those phases build them for the rest. Returns each path's
-    result."""
+    built as those phases build them for the rest; on DeepFM fused also
+    ``graph_beside_garbage``. Returns each path's result."""
     from recommender_system_tpu_torch import FusedAdagrad, FusedAdam, FusedSGD, Trainer
     from recommender_system_tpu_torch.training import SGD, Adagrad, Adam
 
@@ -3511,9 +3637,11 @@ def graph_path(card, trained: dict) -> dict:
                             dnn_dtype=torch.bfloat16, dropout_rate=0.1, device="cuda",
                             generator=torch.Generator().manual_seed(0)))
 
-    def sampled_dssm():
-        loss = DssmSampledLoss()
+    def sampled_dssm(item_probs=None):
+        loss = DssmSampledLoss(item_probs=item_probs)
         return fused(dssm_model(), loss, step_generators=(loss.generator,))
+
+    zipf = np.random.default_rng(3).zipf(1.5, DIN_BATCH).astype(np.float64)
 
     paths = {
         "DeepFM fused": (lambda: fused(deepfm(cols, torch.bfloat16)), batches, labels),
@@ -3535,11 +3663,14 @@ def graph_path(card, trained: dict) -> dict:
         # step generator
         "DeepFM fused, dropout 0.1": (dropout_deepfm, batches, labels),
         "DSSM, sampled softmax": (sampled_dssm, *dssm_staged(range(K))),
+        "DSSM, frequency sampler": (lambda: sampled_dssm(zipf), *dssm_staged(range(K))),
     }
     out = {}
     for name, (build, path_batches, path_labels) in paths.items():
         trainer = trained[name] if name in trained else build()
         out[name] = graph_against_loop(name, trainer, path_batches, path_labels, card)
+        if name == "DeepFM fused":
+            graph_beside_garbage(name, trainer, path_batches, path_labels, card)
         del trainer
     print(f"phase 3q took {time.perf_counter() - t0:.1f} s; {len(out)} paths, "
           f"{sum(r['unequal'] == 0 for r in out.values())} bitwise equal", flush=True)
@@ -3702,6 +3833,11 @@ def main() -> int:
         "MMOE": mmoe_trainer, "DIN fused": din_trainer, "DIEN": dien_trainer,
         "DSSM": dssm_trainer})
 
+    # --- phase 3r: DIN with 128-wide embeddings, whose attention only the
+    # global kernel takes, trained (one graph captured and replayed) and
+    # served
+    wide = din_wide_path(card)
+
     # --- phase 4: timings --------------------------------------------------
     with torch.inference_mode():
         batch = {k: torch.as_tensor(v, device="cuda")
@@ -3760,7 +3896,7 @@ def main() -> int:
     time_dssm(dssm_trainer, dssm_index, dssm_requests, dssm_batches, dssm_labels, card)
     time_training(mmoe_trainer, ctr["batches"][0], mmoe_labels, card, "MMOE fused training")
     global_entries = time_global_kernels(
-        card, {**cross_errs, **fm_errs, **din_errs}, global_counts)
+        card, {**cross_errs, **fm_errs, **din_errs}, global_counts, wide)
     time_cli(cli, card)
 
     # launches on each kernel's main path, and on the other paths beside them

@@ -66,21 +66,58 @@
 //
 // din_attention_global_kernel takes the shapes the tiled kernel does not
 // (hidden widths past 256, or more than 227 KB of shared memory at one row
-// a group: K=128 at T=50, K=32 past T=514, K=64 past T=185). A block takes
-// one batch row at a time; each warp scores kGlobalPos = 8 positions at
-// once in f32 on the CUDA cores, lane j taking columns j, j+32, ... of each
-// layer with the weights read from global memory through L1 and L2 (a
-// weight load serves the 8 positions), [k | q*k] and the first layer's
-// output held in the warp's slice of shared memory, position-minor, so
-// that two 16-byte loads give a column's 8 positions. The first layer is
-// folded as in the tiled kernel, Wk - Wm and Wq + Wm formed as the weights
-// are read; the mask, the softmax and the pooling are the tiled kernel's.
-// Its shared memory grows with K, H1 and T, not with the weights: 4*(K +
-// H1 + T) bytes a block and 4*8*(2K + H1) a warp, each part rounded up to
-// 4 floats; it takes every shape where one warp's fits in 227 KB. Staging
-// the folded first layer in shared memory once a block, where it fits,
-// gained no more than the spread between runs (PERF.md), so it is not
-// kept.
+// a group: K=128 at T=50, K=64 past T=185, K=32 past T=514), on the tensor
+// cores through wgmma, with the tiled kernel's 3xTF32 products and f32
+// adds a k-step. Its shared memory does not grow with T, and holds the
+// weights in chunks:
+// - a warpgroup (4 warps) takes 64 positions, each warp its 16 as an A
+//   fragment in registers, laid out as mma.sync's m16n8k8 one; a lane
+//   loads it straight from global memory, 16 bytes a row, one 16-column
+//   block ahead of the products: keys never pass through shared memory.
+//   The k dimension is taken in a permuted order (k-step 2j of block j
+//   reads the block's columns 4*i4 and 4*i4 + 1, k-step 2j + 1 columns
+//   4*i4 + 2 and + 3; the weights are staged in the same order), so that
+//   one float4 gives a lane both k-steps' values; the same float4 times
+//   the row's query, staged in shared memory, gives the two [q*k] k-steps.
+//   Past K the columns are zero on both sides;
+// - B comes from shared memory as K-major core matrices of 8 rows x 16
+//   bytes without swizzle (the descriptor's leading offset 128 bytes
+//   along k, its stride 256 bytes along n), big and small parts apart. A
+//   k-step is three m64nNk8 products (a_small b_big, a_big b_small, a_big
+//   b_big) into a fresh accumulator, waited for, then added into the
+//   running sums with rounded f32 adds, as mma3 does: the tensor cores'
+//   own adds over a long chain drift past the f32 tolerance;
+// - layer 1 [Wk-Wm ; Wp] goes in chunks of 16-column blocks of K times
+//   h-chunks of N = 8 * NH columns of H1 (NH a template parameter, one of
+//   4, 8, 10, 16, so N is one wgmma width), layer 2 in blocks of the
+//   h-chunk's rows times z-chunks of 40 columns of H2 (zero past H2), each
+//   split into big and small parts as they are staged. Layer 1's
+//   accumulators are layer 2's A fragments without a shuffle (a lane holds
+//   columns 2i, 2i+1 of an 8-column tile, read as its k-columns i, i+4).
+//   Where every chunk fits in shared memory with a group (80-40 at K up to
+//   128), they are staged once a block and stay; elsewhere each pass of
+//   the warpgroups stages them in turn between two barriers. A z-chunk
+//   past the first recomputes layer 1;
+// - 3 warpgroups a block (2 for NH=16) and a persistent grid over groups
+//   of up to 16 batch rows, the group's size picked for the fewest rounds
+//   of 64-position tiles over the grid's waves. The per-row term
+//   q (Wq + Wm) + b1 comes from a small f32 kernel launched first
+//   (din_attention_global_kernel_row_terms, every row of the batch into a
+//   scratch buffer the wrapper gives), which a group stages in shared
+//   memory; the group's raw scores go to device memory (the output when
+//   the weights are returned, else the same scratch buffer), so T is not
+//   bounded;
+// - the softmax takes a warp a row, or the block's warps split over fewer
+//   rows (their maxima and sums added in order); the pooling spreads the
+//   group's (row, column) pairs, 4 columns a thread where K % 4 == 0, over
+//   every thread, with T split in slices where the pairs are too few, and
+//   reads the keys a second time, from L2, where the group's just went.
+// Its bound is the tiled kernel's, operations: three TF32 passes over the
+// least work take 0.0696 ms at B=8,192, T=50, K=128, 80-40 (the keys'
+// 210 MB take 0.0626 ms). It does more than the least work: [k | q*k] is
+// 2K wide where the least form folds q into a per-row K x H1 matrix.
+// The sums round differently from the plain version's (the per-row term's
+// bias first, sliced and tiled sums), well inside the tolerance.
 //
 // C interface, loaded with ctypes: din_attention_forward (the tiled kernel)
 // and din_attention_global_forward (the global kernel) return
@@ -92,6 +129,8 @@
 #include <math.h>
 
 #include <cstdint>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -505,183 +544,758 @@ din_attention_kernel(const float* __restrict__ query, const float* __restrict__ 
 }
 
 // --- din_attention_global_kernel: the shapes the tiled kernel does not take
-constexpr int kGlobalPos = 8;    // positions a warp scores at once
-constexpr int kGlobalWarps = 8;  // the most warps a block
+constexpr int kZTiles = 5;  // layer-2 n-tiles of a z-chunk: 40 columns, one wgmma width
+constexpr int kTermRows = 16;   // rows a block of the row-term kernel
+constexpr int kTermCols = 128;  // columns (threads) a block of it
+constexpr int kTermK = 64;      // columns of the query it stages at once
 
-// Shared memory of the global kernel, offsets in floats, 16-byte aligned:
-// per block q [K], a = q (Wq + Wm) [H1] and the scores [T]; per warp
-// [k | q*k] as [2K][kGlobalPos] and the first layer's output as
-// [H1][kGlobalPos].
-struct GlobalLayout {
-  int q, a, score, warp0, h1, per_warp, total;
+// warps a block, in warpgroups of 4: 12 where a thread may keep 168
+// registers (an h-chunk's 4 * NH accumulators, a step's fresh ones, a
+// z-chunk's 20), 8 for the widest h-chunk
+__host__ __device__ constexpr int global_warps(int nh) { return nh <= 10 ? 12 : 8; }
+
+// The global kernel's chunks and shared memory, offsets in floats, each
+// 16-byte aligned. A W1 chunk is [jb blocks][4 k-steps][big, small][8 nh
+// x 8] (stage_w1), a W2 block [nh k-steps][big, small][40 x 8] (stage_w2).
+struct GlobalPlan {
+  int hchunks;   // h-chunks of H1
+  int zchunks;   // z-chunks of H2
+  int nb;        // 16-column blocks of K
+  int jb;        // blocks of a W1 chunk
+  int jchunks;   // W1 chunks of an h-chunk
+  int resident;  // every chunk staged once a block
+  int rows;      // batch rows a group
+  int Kp, H1p;   // 16 * nb; 8 * nh * hchunks
+  int w1, w2, q, a, red;
+  long long total;
 };
 
-GlobalLayout make_global_layout(int T, int K, int H1, int warps) {
-  GlobalLayout G;
-  G.q = 0;
-  G.a = G.q + round_up(K, 4);
-  G.score = G.a + round_up(H1, 4);
-  G.warp0 = G.score + round_up(T, 4);
-  G.h1 = 2 * K * kGlobalPos;  // within a warp's slice
-  G.per_warp = G.h1 + H1 * kGlobalPos;
-  G.total = G.warp0 + warps * G.per_warp;
-  return G;
+GlobalPlan make_global_plan(int K, int H1, int H2, int nh, int rows, int jb, bool resident) {
+  GlobalPlan P;
+  P.hchunks = ((H1 + 7) / 8 + nh - 1) / nh;
+  P.zchunks = ((H2 + 7) / 8 + kZTiles - 1) / kZTiles;
+  P.nb = (K + 15) / 16;
+  P.jb = resident ? P.nb : jb;
+  P.jchunks = (P.nb + P.jb - 1) / P.jb;
+  P.resident = resident;
+  P.rows = rows;
+  P.Kp = 16 * P.nb;
+  P.H1p = 8 * nh * P.hchunks;
+  const long long c1 = 64LL * P.jb * 8 * nh;    // floats of a W1 chunk
+  const long long c2 = 16LL * nh * 8 * kZTiles;  // floats of a W2 block
+  long long at = 0;
+  auto take = [&at](long long floats) {
+    const long long here = at;
+    at += (floats + 3) / 4 * 4;
+    return static_cast<int>(here < INT32_MAX ? here : 0);
+  };
+  P.w1 = take(resident ? c1 * P.hchunks * P.jchunks : c1);
+  P.w2 = take(resident ? c2 * P.hchunks * P.zchunks : c2);
+  P.q = take(static_cast<long long>(rows) * P.Kp);
+  P.a = take(static_cast<long long>(rows) * P.H1p);
+  P.red = take(4 * 32 * global_warps(nh));
+  P.total = at;
+  return P;
 }
 
-__global__ void __launch_bounds__(kGlobalWarps * 32)
+// --- wgmma: m64nNk8 TF32 products of a warpgroup, A from registers (each
+// warp its 16 rows, in mma.sync's m16n8k8 fragment layout), B from shared
+// memory as K-major core matrices of 8 rows x 16 bytes: element (n, k) of
+// an N x 8 matrix at byte (n / 8) * kSbo + (k / 4) * kLbo + (n % 8) * 16 +
+// (k % 4) * 4, no swizzle. The accumulators take mma.sync's layout too:
+// d[4 j + e] holds rows g, g + 8 and columns 8 j + 2 i4, + 1 of n-tile j.
+constexpr int kLbo = 128;  // bytes from the first 4 k-columns to the next 4
+constexpr int kSbo = 256;  // bytes from 8 rows to the next 8
+
+__device__ __forceinline__ int core_offset(int n, int k) {  // in floats
+  return (n >> 3) * (kSbo / 4) + (k >> 2) * (kLbo / 4) + (n & 7) * 4 + (k & 3);
+}
+
+__device__ __forceinline__ uint64_t smem_desc(const float* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>(kLbo >> 4) << 16) | (static_cast<uint64_t>(kSbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+template <int M>
+__device__ __forceinline__ void fence_regs(float (&d)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (N / 2 floats a thread) += a b (= a b where accumulate is 0)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<40>(float (&d)[20], const uint32_t (&a)[4],
+                                              uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<80>(float (&d)[40], const uint32_t (&a)[4],
+                                              uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// d (N / 2 floats a thread) = a b: the first product of a fresh accumulator
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_first(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                 uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_first<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                    uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_first<40>(float (&d)[20], const uint32_t (&a)[4],
+                                                    uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+        "=f"(d[18]), "=f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_first<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+        "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_first<80>(float (&d)[40], const uint32_t (&a)[4],
+                                                    uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+        "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_first<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+        "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]),
+        "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]),
+        "=f"(d[54]), "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0));
+}
+
+
+// acc += the three products of 3xTF32 of one k-step, the small ones first,
+// into a fresh accumulator that one rounded f32 add a value takes into acc
+// (as mma3); A's values a warp's rows g (lo) and g + 8 (hi), columns i4 (0)
+// and i4 + 4 (1); b the step's big part, its small part N x 8 floats on
+template <int N>
+__device__ __forceinline__ void wg_step(float (&acc)[N / 2], float lo0, float hi0, float lo1,
+                                        float hi1, const float* b) {
+  uint32_t ab[4], as[4];
+  split(lo0, ab[0], as[0]);
+  split(hi0, ab[1], as[1]);
+  split(lo1, ab[2], as[2]);
+  split(hi1, ab[3], as[3]);
+  const uint64_t big = smem_desc(b), small = smem_desc(b + N * 8);
+  float t[N / 2];
+  wg_fence();
+  wgmma_tf32_first<N>(t, as, big);
+  wgmma_tf32<N>(t, ab, small, 1);
+  wgmma_tf32<N>(t, ab, big, 1);
+  wg_commit();
+  wg_wait_all();
+  fence_regs(t);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = __fadd_rn(acc[i], t[i]);
+}
+
+// Stage W1 chunk (hc, jc) into dst, split: [jb blocks][4 k-steps][big,
+// small][8 NH x 8 K-major]; k-step 2j + s of block j takes [Wk - Wm] rows
+// 16 j + 4 (k % 4) + 2 s + k / 4 as its columns k (a lane's float4 of keys
+// gives its columns i4 and i4 + 4 of both), k-steps 2j + 2, 2j + 3 [Wp]'s
+template <int NH>
+__device__ __forceinline__ void stage_w1(float* dst, const float* __restrict__ w1, int K, int H1,
+                                         const GlobalPlan& P, int hc, int jc, int tid) {
+  constexpr int N = 8 * NH;
+  const int n_el = P.jb * 4 * N * 8;
+  for (int f = tid; f < n_el; f += 32 * global_warps(NH)) {
+    const int k = f & 7;
+    const int n = (f >> 3) % N;
+    const int step = (f >> 3) / N;
+    const int sub = step & 3;
+    const int c = 16 * (jc * P.jb + (step >> 2)) + 4 * (k & 3) + 2 * (sub & 1) + (k >> 2);
+    const int col = hc * N + n;
+    float v = 0.f;
+    if (col < H1 && c < K) {
+      v = sub < 2 ? __fsub_rn(w1[(K + c) * H1 + col], w1[(2 * K + c) * H1 + col])
+                  : w1[(3 * K + c) * H1 + col];
+    }
+    uint32_t big, small;
+    split(v, big, small);
+    float* m = dst + step * 2 * N * 8 + core_offset(n, k);
+    m[0] = __uint_as_float(big);
+    m[N * 8] = __uint_as_float(small);
+  }
+}
+
+// Stage the W2 block of h-chunk hc and z-chunk zc into dst: [NH k-steps]
+// [big, small][40 x 8 K-major]; layer 2 reads its k-columns i and i + 4
+// from h1 columns 2i and 2i + 1 (a lane's pair of an accumulator tile)
+template <int NH>
+__device__ __forceinline__ void stage_w2(float* dst, const float* __restrict__ w2, int H1, int H2,
+                                         int hc, int zc, int tid) {
+  constexpr int N = 8 * kZTiles;
+  const int n_el = NH * N * 8;
+  for (int f = tid; f < n_el; f += 32 * global_warps(NH)) {
+    const int k = f & 7;
+    const int n = (f >> 3) % N;
+    const int kt = (f >> 3) / N;
+    const int r = (hc * NH + kt) * 8 + 2 * (k & 3) + (k >> 2);
+    const int col = zc * N + n;
+    const float v = col < H2 && r < H1 ? w2[r * H2 + col] : 0.f;
+    uint32_t big, small;
+    split(v, big, small);
+    float* m = dst + kt * 2 * N * 8 + core_offset(n, k);
+    m[0] = __uint_as_float(big);
+    m[N * 8] = __uint_as_float(small);
+  }
+}
+
+// A lane's 4 columns of a 16-column block of one position's key, zero past
+// K or for a position past the group
+__device__ __forceinline__ float4 load_key4(const float* __restrict__ kr, bool valid, int c, int K,
+                                            bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (!valid || c >= K) return v;
+  if (vec) return __ldg(reinterpret_cast<const float4*>(kr + c));
+  v.x = __ldg(kr + c);
+  if (c + 1 < K) v.y = __ldg(kr + c + 1);
+  if (c + 2 < K) v.z = __ldg(kr + c + 2);
+  if (c + 3 < K) v.w = __ldg(kr + c + 3);
+  return v;
+}
+
+// The per-row term a = b1 + q (Wq + Wm) of every row, [batch][H1], in f32
+// (k in order, b1 first): a block takes kTermRows rows by kTermCols
+// columns, a thread one column of every row, the rows' queries staged in
+// shared memory kTermK columns at a time. Run before the global kernel,
+// which reads each group's rows.
+__global__ void __launch_bounds__(kTermCols)
+din_attention_global_kernel_row_terms(const float* __restrict__ query,
+                                      const float* __restrict__ w1,
+                                      const float* __restrict__ b1, float* __restrict__ terms,
+                                      int batch, int K, int H1) {
+  __shared__ float q_s[kTermRows][kTermK];
+  const int tid = threadIdx.x;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kTermRows;
+  const int nr = static_cast<int>(min(static_cast<long long>(kTermRows), batch - row0));
+  const int j = blockIdx.y * kTermCols + tid;
+  float acc[kTermRows];
+#pragma unroll
+  for (int r = 0; r < kTermRows; ++r) acc[r] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += kTermK) {
+    const int kn = min(kTermK, K - k0);
+    __syncthreads();  // the last columns are read
+    for (int i = tid; i < kTermRows * kTermK; i += kTermCols) {
+      const int r = i / kTermK;
+      const int c = i - r * kTermK;
+      q_s[r][c] = r < nr && c < kn ? query[(row0 + r) * K + k0 + c] : 0.f;
+    }
+    __syncthreads();
+    if (j < H1) {
+#pragma unroll 4
+      for (int k = 0; k < kn; ++k) {
+        const float w = __fadd_rn(__ldg(w1 + static_cast<long long>(k0 + k) * H1 + j),
+                                  __ldg(w1 + static_cast<long long>(2 * K + k0 + k) * H1 + j));
+#pragma unroll
+        for (int r = 0; r < kTermRows; ++r) acc[r] = fmaf(q_s[r][k], w, acc[r]);
+      }
+    }
+  }
+  if (j < H1) {
+    const float bj = __ldg(b1 + j);
+    for (int r = 0; r < nr; ++r) terms[(row0 + r) * H1 + j] = bj + acc[r];
+  }
+}
+
+template <int NH>
+__global__ void __launch_bounds__(32 * global_warps(NH), 1)
 din_attention_global_kernel(const float* __restrict__ query, const float* __restrict__ keys,
                             const float* __restrict__ mask, const float* __restrict__ w1,
                             const float* __restrict__ b1, const float* __restrict__ w2,
                             const float* __restrict__ b2, const float* __restrict__ w3,
                             const float* __restrict__ b3, float* __restrict__ out,
-                            int batch, int T, int K, int H1, int H2, GlobalLayout G,
-                            bool relu, bool softmax, bool scores) {
-  constexpr int P = kGlobalPos;
-  extern __shared__ float4 smem4[];
+                            const float* __restrict__ terms, float* __restrict__ scores,
+                            int batch, int T, int K, int H1, int H2, GlobalPlan P, bool relu,
+                            bool softmax, bool pool, bool vec) {
+  constexpr int kGlobalWarps = global_warps(NH);
+  constexpr int kGlobalThreads = 32 * kGlobalWarps;
+  constexpr int kGroups = kGlobalWarps / 4;  // warpgroups
+  constexpr int N1 = 8 * NH;
+  constexpr int N2 = 8 * kZTiles;
+  extern __shared__ __align__(1024) float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* q_s = smem + G.q;
-  float* a_s = smem + G.a;
-  float* score_s = smem + G.score;
+  float* w1f = smem + P.w1;
+  float* w2f = smem + P.w2;
+  float* q_s = smem + P.q;
+  float* a_s = smem + P.a;
+  float* red = smem + P.red;
   const int tid = threadIdx.x;
-  const int threads = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int warps = threads >> 5;
-  float* ck = smem + G.warp0 + warp * G.per_warp;  // [2K][P]
-  float* h1 = ck + G.h1;                           // [H1][P]
+  const int g = lane >> 2;  // a fragment's row (and row + 8)
+  const int i4 = lane & 3;  // a fragment's column pair
+  const int rows = P.rows, Kp = P.Kp, H1p = P.H1p;
+  const int c1 = P.jb * 4 * 2 * N1 * 8;  // floats of a W1 chunk
+  constexpr int c2 = NH * 2 * N2 * 8;    // floats of a W2 block
   const float bias3 = b3[0];
-  const int groups = (T + P - 1) / P;
+  const long long groups = (static_cast<long long>(batch) + rows - 1) / rows;
 
-  for (long long row = blockIdx.x; row < batch; row += gridDim.x) {
-    for (int i = tid; i < K; i += threads) q_s[i] = query[row * K + i];
-    __syncthreads();
-    for (int j = tid; j < H1; j += threads) {
-      float s = 0.f;
-      for (int k = 0; k < K; ++k)
-        s = fmaf(q_s[k], __fadd_rn(w1[k * H1 + j], w1[(2 * K + k) * H1 + j]), s);
-      a_s[j] = s;
+  if (P.resident) {
+    for (int hc = 0; hc < P.hchunks; ++hc) {
+      for (int jc = 0; jc < P.jchunks; ++jc)
+        stage_w1<NH>(w1f + (hc * P.jchunks + jc) * c1, w1, K, H1, P, hc, jc, tid);
+      for (int zc = 0; zc < P.zchunks; ++zc)
+        stage_w2<NH>(w2f + (hc * P.zchunks + zc) * c2, w2, H1, H2, hc, zc, tid);
     }
-    __syncthreads();
+  }
 
-    const float* krow = keys + row * T * K;
-    // a group of P positions a warp; the whole warp shares a group
-    for (int g = warp; g < groups; g += warps) {
-      const int t0 = g * P;
-      for (int i = lane; i < P * K; i += 32) {
-        const int p = i / K;
-        const int c = i - p * K;
-        const float kv = t0 + p < T ? krow[static_cast<long long>(t0 + p) * K + c] : 0.f;
-        ck[c * P + p] = kv;
-        ck[(K + c) * P + p] = __fmul_rn(q_s[c], kv);
-      }
-      __syncwarp();
-      // layer 1: lane j takes columns j, j + 32, ... for the P positions
-      for (int j = lane; j < H1; j += 32) {
-        float acc[P];
-#pragma unroll
-        for (int p = 0; p < P; ++p) acc[p] = 0.f;
-#pragma unroll 4
-        for (int c = 0; c < 2 * K; ++c) {
-          const float w = c < K ? __fsub_rn(__ldg(w1 + (K + c) * H1 + j),
-                                            __ldg(w1 + (2 * K + c) * H1 + j))
-                                : __ldg(w1 + (2 * K + c) * H1 + j);
-          const float4 lo = *reinterpret_cast<const float4*>(ck + c * P);
-          const float4 hi = *reinterpret_cast<const float4*>(ck + c * P + 4);
-          acc[0] = fmaf(lo.x, w, acc[0]);
-          acc[1] = fmaf(lo.y, w, acc[1]);
-          acc[2] = fmaf(lo.z, w, acc[2]);
-          acc[3] = fmaf(lo.w, w, acc[3]);
-          acc[4] = fmaf(hi.x, w, acc[4]);
-          acc[5] = fmaf(hi.y, w, acc[5]);
-          acc[6] = fmaf(hi.z, w, acc[6]);
-          acc[7] = fmaf(hi.w, w, acc[7]);
-        }
-        const float aj = a_s[j];
-        const float bj = __ldg(b1 + j);
-#pragma unroll
-        for (int p = 0; p < P; ++p) h1[j * P + p] = act((aj + acc[p]) + bj, relu);
-      }
-      __syncwarp();
-      // layer 2, its activation and the dot with w3: lane n takes columns
-      // n, n + 32, ...
-      float part[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) part[p] = 0.f;
-      for (int n = lane; n < H2; n += 32) {
-        float z[P];
-#pragma unroll
-        for (int p = 0; p < P; ++p) z[p] = 0.f;
-#pragma unroll 4
-        for (int j = 0; j < H1; ++j) {
-          const float w = __ldg(w2 + j * H2 + n);
-          const float4 lo = *reinterpret_cast<const float4*>(h1 + j * P);
-          const float4 hi = *reinterpret_cast<const float4*>(h1 + j * P + 4);
-          z[0] = fmaf(lo.x, w, z[0]);
-          z[1] = fmaf(lo.y, w, z[1]);
-          z[2] = fmaf(lo.z, w, z[2]);
-          z[3] = fmaf(lo.w, w, z[3]);
-          z[4] = fmaf(hi.x, w, z[4]);
-          z[5] = fmaf(hi.y, w, z[5]);
-          z[6] = fmaf(hi.z, w, z[6]);
-          z[7] = fmaf(hi.w, w, z[7]);
-        }
-        const float bn = __ldg(b2 + n);
-        const float wn = __ldg(w3 + n);
-#pragma unroll
-        for (int p = 0; p < P; ++p) part[p] = fmaf(act(z[p] + bn, relu), wn, part[p]);
-      }
-#pragma unroll
-      for (int p = 0; p < P; ++p) part[p] = warp_sum(part[p]);
-      if (lane == 0) {
-#pragma unroll
-        for (int p = 0; p < P; ++p)
-          if (t0 + p < T) score_s[t0 + p] = part[p] + bias3;
-      }
-      __syncwarp();  // ck and h1 are rewritten by the warp's next group
+  for (long long group = blockIdx.x; group < groups; group += gridDim.x) {
+    const long long row0 = group * rows;
+    const int nr = static_cast<int>(min(static_cast<long long>(rows), batch - row0));
+    for (int i = tid; i < nr * Kp; i += kGlobalThreads) {
+      const int r = i / Kp;
+      const int c = i - r * Kp;
+      q_s[i] = c < K ? query[(row0 + r) * K + c] : 0.f;
     }
-    __syncthreads();
+    // the group's per-row terms, 0 past H1
+    for (int i = tid; i < nr * H1p; i += kGlobalThreads) {
+      const int r = i / H1p;
+      const int j = i - r * H1p;
+      a_s[i] = j < H1 ? terms[(row0 + r) * H1 + j] : 0.f;
+    }
+    __syncthreads();  // q and a; and the weights, where resident
 
-    // mask and softmax: one warp, as the tiled kernel does
-    if (warp == 0) {
-      const float* m = mask + row * T;
+    // scores: a warpgroup a tile of 64 positions at a time, each warp its
+    // 16; where the chunks are staged in turn, the warpgroups go in passes
+    const int M = nr * T;
+    const int tiles = (M + 63) / 64;
+    const int wg = warp >> 2;
+    for (int base = 0; base < tiles; base += kGroups) {
+      const int tile = base + wg;
+      const bool active = tile < tiles;
+      if (!active && P.resident) break;
+      const int p_lo = tile * 64 + 16 * (warp & 3) + g;
+      const int p_hi = p_lo + 8;
+      const bool v_lo = active && p_lo < M;
+      const bool v_hi = active && p_hi < M;
+      const int r_lo = v_lo ? p_lo / T : 0;
+      const int r_hi = v_hi ? p_hi / T : 0;
+      const float* k_lo = keys + (row0 * T + (v_lo ? p_lo : 0)) * K;
+      const float* k_hi = keys + (row0 * T + (v_hi ? p_hi : 0)) * K;
+      const float* qs_lo = q_s + r_lo * Kp + 4 * i4;
+      const float* qs_hi = q_s + r_hi * Kp + 4 * i4;
+      float part_lo = 0.f, part_hi = 0.f;
+      for (int zc = 0; zc < P.zchunks; ++zc) {
+        float z[N2 / 2];
+#pragma unroll
+        for (int i = 0; i < N2 / 2; ++i) z[i] = 0.f;
+        for (int hc = 0; hc < P.hchunks; ++hc) {
+          float h[N1 / 2];
+#pragma unroll
+          for (int i = 0; i < N1 / 2; ++i) h[i] = 0.f;
+          for (int jc = 0; jc < P.jchunks; ++jc) {
+            const float* w1c = w1f;
+            if (P.resident) {
+              w1c += (hc * P.jchunks + jc) * c1;
+            } else {
+              __syncthreads();  // every warp is done with the last chunk
+              stage_w1<NH>(w1f, w1, K, H1, P, hc, jc, tid);
+              if (jc == 0) stage_w2<NH>(w2f, w2, H1, H2, hc, zc, tid);
+              __syncthreads();
+            }
+            if (!active) continue;
+            // layer 1 over the chunk's blocks, the next block's keys in
+            // flight while a block's products run
+            const int j0 = jc * P.jb;
+            const int j1 = min(P.nb, j0 + P.jb);
+            float4 kl = load_key4(k_lo, v_lo, 16 * j0 + 4 * i4, K, vec);
+            float4 kh = load_key4(k_hi, v_hi, 16 * j0 + 4 * i4, K, vec);
+            for (int j = j0; j < j1; ++j) {
+              const float4 cl = kl, ch = kh;
+              if (j + 1 < j1) {
+                kl = load_key4(k_lo, v_lo, 16 * (j + 1) + 4 * i4, K, vec);
+                kh = load_key4(k_hi, v_hi, 16 * (j + 1) + 4 * i4, K, vec);
+              }
+              const float4 ql = *reinterpret_cast<const float4*>(qs_lo + 16 * j);
+              const float4 qh = *reinterpret_cast<const float4*>(qs_hi + 16 * j);
+              const float* bp = w1c + (j - j0) * 4 * 2 * N1 * 8;
+              wg_step<N1>(h, cl.x, ch.x, cl.y, ch.y, bp);
+              wg_step<N1>(h, cl.z, ch.z, cl.w, ch.w, bp + 2 * N1 * 8);
+              wg_step<N1>(h, __fmul_rn(ql.x, cl.x), __fmul_rn(qh.x, ch.x),
+                          __fmul_rn(ql.y, cl.y), __fmul_rn(qh.y, ch.y), bp + 4 * N1 * 8);
+              wg_step<N1>(h, __fmul_rn(ql.z, cl.z), __fmul_rn(qh.z, ch.z),
+                          __fmul_rn(ql.w, cl.w), __fmul_rn(qh.w, ch.w), bp + 6 * N1 * 8);
+            }
+          }
+          if (!active) continue;
+          // + the per-row term, the activation; this lane holds columns
+          // 8j + 2*i4 and 8j + 2*i4 + 1 of the h-chunk, rows g and g + 8
+          const float* a_lo = a_s + r_lo * H1p + hc * N1 + 2 * i4;
+          const float* a_hi = a_s + r_hi * H1p + hc * N1 + 2 * i4;
+#pragma unroll
+          for (int j = 0; j < NH; ++j) {
+            const float2 al = *reinterpret_cast<const float2*>(a_lo + 8 * j);
+            const float2 ah = *reinterpret_cast<const float2*>(a_hi + 8 * j);
+            h[4 * j] = act(al.x + h[4 * j], relu);
+            h[4 * j + 1] = act(al.y + h[4 * j + 1], relu);
+            h[4 * j + 2] = act(ah.x + h[4 * j + 2], relu);
+            h[4 * j + 3] = act(ah.y + h[4 * j + 3], relu);
+          }
+          // layer 2: the h-chunk's accumulator tiles as A fragments
+          const float* w2c = w2f + (P.resident ? (hc * P.zchunks + zc) * c2 : 0);
+#pragma unroll
+          for (int kt = 0; kt < NH; ++kt) {
+            wg_step<N2>(z, h[4 * kt], h[4 * kt + 2], h[4 * kt + 1], h[4 * kt + 3],
+                        w2c + kt * 2 * N2 * 8);
+          }
+        }
+        if (!active) continue;
+#pragma unroll
+        for (int j = 0; j < kZTiles; ++j) {
+          const int col = zc * N2 + 8 * j + 2 * i4;
+          const float bx = col < H2 ? __ldg(b2 + col) : 0.f;
+          const float by = col + 1 < H2 ? __ldg(b2 + col + 1) : 0.f;
+          const float wx = col < H2 ? __ldg(w3 + col) : 0.f;
+          const float wy = col + 1 < H2 ? __ldg(w3 + col + 1) : 0.f;
+          part_lo = fmaf(act(z[4 * j] + bx, relu), wx, part_lo);
+          part_lo = fmaf(act(z[4 * j + 1] + by, relu), wy, part_lo);
+          part_hi = fmaf(act(z[4 * j + 2] + bx, relu), wx, part_hi);
+          part_hi = fmaf(act(z[4 * j + 3] + by, relu), wy, part_hi);
+        }
+      }
+      if (!active) continue;
+      // the four lanes of a row hold its columns
+      part_lo += __shfl_xor_sync(kFull, part_lo, 1);
+      part_lo += __shfl_xor_sync(kFull, part_lo, 2);
+      part_hi += __shfl_xor_sync(kFull, part_hi, 1);
+      part_hi += __shfl_xor_sync(kFull, part_hi, 2);
+      if (i4 == 0) {
+        if (v_lo) scores[row0 * T + p_lo] = part_lo + bias3;
+        if (v_hi) scores[row0 * T + p_hi] = part_hi + bias3;
+      }
+    }
+    __syncthreads();  // the group's scores are written
+
+    // mask and softmax: a warp a row, or the warps split over fewer rows
+    float* sc = scores + row0 * T;
+    const float* mk = mask + row0 * T;
+    if (nr >= kGlobalWarps) {
+      for (int r = warp; r < nr; r += kGlobalWarps) {
+        float* s = sc + static_cast<long long>(r) * T;
+        const float* m = mk + static_cast<long long>(r) * T;
+        if (softmax) {
+          float mx = -INFINITY;
+          for (int t = lane; t < T; t += 32) {
+            const float v = m[t] > 0.5f ? s[t] : kNegInf;
+            s[t] = v;
+            mx = fmaxf(mx, v);
+          }
+          mx = warp_max(mx);
+          float sum = 0.f;
+          for (int t = lane; t < T; t += 32) {
+            const float e = expf(s[t] - mx);
+            s[t] = e;
+            sum += e;
+          }
+          sum = warp_sum(sum);
+          for (int t = lane; t < T; t += 32) s[t] = s[t] / sum;
+        } else {
+          for (int t = lane; t < T; t += 32) s[t] = m[t] > 0.5f ? s[t] : 0.f;
+        }
+      }
+    } else {
+      const int per = kGlobalWarps / nr;  // warps a row
+      const int r = warp / per;
+      const bool mine = r < nr;
+      float* s = sc + static_cast<long long>(mine ? r : 0) * T;
+      const float* m = mk + static_cast<long long>(mine ? r : 0) * T;
+      const int first = (warp - r * per) * 32 + lane;
+      const int stride = per * 32;
       if (softmax) {
         float mx = -INFINITY;
-        for (int t = lane; t < T; t += 32) {
-          const float v = m[t] > 0.5f ? score_s[t] : kNegInf;
-          score_s[t] = v;
-          mx = fmaxf(mx, v);
+        if (mine) {
+          for (int t = first; t < T; t += stride) {
+            const float v = m[t] > 0.5f ? s[t] : kNegInf;
+            s[t] = v;
+            mx = fmaxf(mx, v);
+          }
         }
         mx = warp_max(mx);
+        if (lane == 0) red[warp] = mx;
+        __syncthreads();
         float sum = 0.f;
-        for (int t = lane; t < T; t += 32) {
-          const float e = expf(score_s[t] - mx);
-          score_s[t] = e;
-          sum += e;
+        if (mine) {
+          mx = red[r * per];
+          for (int i = 1; i < per; ++i) mx = fmaxf(mx, red[r * per + i]);
+          for (int t = first; t < T; t += stride) {
+            const float e = expf(s[t] - mx);
+            s[t] = e;
+            sum += e;
+          }
         }
         sum = warp_sum(sum);
-        for (int t = lane; t < T; t += 32) score_s[t] = score_s[t] / sum;
-      } else {
-        for (int t = lane; t < T; t += 32) score_s[t] = m[t] > 0.5f ? score_s[t] : 0.f;
-      }
-    }
-    __syncthreads();
-    if (scores) {
-      for (int t = tid; t < T; t += threads) out[row * T + t] = score_s[t];
-    } else {
-      for (int k = tid; k < K; k += threads) {
-        // four sums in flight, added at the end
-        float p[4] = {0.f, 0.f, 0.f, 0.f};
-        int t = 0;
-        for (; t + 4 <= T; t += 4) {
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            p[u] = fmaf(score_s[t + u], krow[static_cast<long long>(t + u) * K + k], p[u]);
+        if (lane == 0) red[kGlobalWarps + warp] = sum;
+        __syncthreads();
+        if (mine) {
+          sum = red[kGlobalWarps + r * per];
+          for (int i = 1; i < per; ++i) sum += red[kGlobalWarps + r * per + i];
+          for (int t = first; t < T; t += stride) s[t] = s[t] / sum;
         }
-        for (; t < T; ++t) p[0] = fmaf(score_s[t], krow[static_cast<long long>(t) * K + k], p[0]);
-        out[row * K + k] = (p[0] + p[1]) + (p[2] + p[3]);
+      } else if (mine) {
+        for (int t = first; t < T; t += stride) s[t] = m[t] > 0.5f ? s[t] : 0.f;
       }
     }
-    __syncthreads();  // q, a and the scores are rewritten for the next row
+    __syncthreads();  // the weights are final
+
+    if (pool) {
+      // out[r][c..] = sum_t w[r][t] keys[r][t][c..], cw columns a pair
+      const int cw = vec ? 4 : 1;
+      const int cols = K / cw;
+      const int pairs = nr * cols;
+      const float* kg = keys + row0 * T * K;
+      auto pool_sum = [&](int pr, int t0, int t1, float (&sum)[4]) {
+        const int r = pr / cols;
+        const int c = (pr - r * cols) * cw;
+        const float* w = sc + static_cast<long long>(r) * T;
+        const float* kr = kg + static_cast<long long>(r) * T * K + c;
+        float4 p0 = make_float4(0.f, 0.f, 0.f, 0.f), p1 = p0;
+        int t = t0;
+        if (vec) {
+          for (; t + 2 <= t1; t += 2) {
+            const float4 x0 = __ldg(reinterpret_cast<const float4*>(kr + static_cast<long long>(t) * K));
+            const float4 x1 = __ldg(reinterpret_cast<const float4*>(kr + static_cast<long long>(t + 1) * K));
+            const float u0 = w[t], u1 = w[t + 1];
+            p0.x = fmaf(u0, x0.x, p0.x); p0.y = fmaf(u0, x0.y, p0.y);
+            p0.z = fmaf(u0, x0.z, p0.z); p0.w = fmaf(u0, x0.w, p0.w);
+            p1.x = fmaf(u1, x1.x, p1.x); p1.y = fmaf(u1, x1.y, p1.y);
+            p1.z = fmaf(u1, x1.z, p1.z); p1.w = fmaf(u1, x1.w, p1.w);
+          }
+          if (t < t1) {
+            const float4 x0 = __ldg(reinterpret_cast<const float4*>(kr + static_cast<long long>(t) * K));
+            const float u0 = w[t];
+            p0.x = fmaf(u0, x0.x, p0.x); p0.y = fmaf(u0, x0.y, p0.y);
+            p0.z = fmaf(u0, x0.z, p0.z); p0.w = fmaf(u0, x0.w, p0.w);
+          }
+        } else {
+          for (; t + 4 <= t1; t += 4) {
+            p0.x = fmaf(w[t], __ldg(kr + static_cast<long long>(t) * K), p0.x);
+            p0.y = fmaf(w[t + 1], __ldg(kr + static_cast<long long>(t + 1) * K), p0.y);
+            p0.z = fmaf(w[t + 2], __ldg(kr + static_cast<long long>(t + 2) * K), p0.z);
+            p0.w = fmaf(w[t + 3], __ldg(kr + static_cast<long long>(t + 3) * K), p0.w);
+          }
+          for (; t < t1; ++t) p0.x = fmaf(w[t], __ldg(kr + static_cast<long long>(t) * K), p0.x);
+          p0 = make_float4((p0.x + p0.y) + (p0.z + p0.w), 0.f, 0.f, 0.f);
+        }
+        sum[0] = p0.x + p1.x;
+        sum[1] = p0.y + p1.y;
+        sum[2] = p0.z + p1.z;
+        sum[3] = p0.w + p1.w;
+      };
+      auto store = [&](int pr, const float (&sum)[4]) {
+        const int r = pr / cols;
+        float* o = out + (row0 + r) * K + (pr - r * cols) * cw;
+        if (vec) {
+          *reinterpret_cast<float4*>(o) = make_float4(sum[0], sum[1], sum[2], sum[3]);
+        } else {
+          o[0] = sum[0];
+        }
+      };
+      if (pairs >= kGlobalThreads) {
+        for (int pr = tid; pr < pairs; pr += kGlobalThreads) {
+          float sum[4];
+          pool_sum(pr, 0, T, sum);
+          store(pr, sum);
+        }
+      } else {
+        // T in S slices, their sums added in order
+        const int S = min(T, kGlobalThreads / pairs);
+        const int pr = tid % pairs;
+        const int s = tid / pairs;
+        if (s < S) {
+          float sum[4];
+          pool_sum(pr, static_cast<int>(static_cast<long long>(s) * T / S),
+                   static_cast<int>((static_cast<long long>(s) + 1) * T / S), sum);
+          for (int e = 0; e < cw; ++e) red[(s * pairs + pr) * cw + e] = sum[e];
+        }
+        __syncthreads();
+        if (tid < pairs) {
+          float sum[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int i = 0; i < S; ++i)
+            for (int e = 0; e < cw; ++e) sum[e] += red[(i * pairs + tid) * cw + e];
+          store(tid, sum);
+        }
+      }
+    }
+    __syncthreads();  // q, a, red and the scores are rewritten by the next groups
   }
 }
 
@@ -703,6 +1317,103 @@ int tiles_slot(int H1) {
   for (int s = 0; s < kNumTiles1; ++s)
     if (kTiles1[s] >= need) return s;
   return -1;
+}
+
+
+using GlobalKernel = void (*)(const float*, const float*, const float*, const float*,
+                              const float*, const float*, const float*, const float*,
+                              const float*, float*, const float*, float*, int, int, int, int, int,
+                              GlobalPlan, bool, bool, bool, bool);
+
+// h-chunk widths, in n-tiles, that have an instantiation: the one that pads
+// H1 the least (the widest on a tie)
+constexpr int kHTiles[] = {4, 8, 10, 16};
+constexpr int kNumHTiles = 4;
+const GlobalKernel kGlobalKernels[kNumHTiles] = {
+    din_attention_global_kernel<4>, din_attention_global_kernel<8>,
+    din_attention_global_kernel<10>, din_attention_global_kernel<16>};
+
+int h_tiles_slot(int H1) {
+  const int need = (H1 + 7) / 8;
+  int best = 0;
+  for (int s = 1; s < kNumHTiles; ++s) {
+    const int pad = (need + kHTiles[s] - 1) / kHTiles[s] * kHTiles[s];
+    const int pad_best = (need + kHTiles[best] - 1) / kHTiles[best] * kHTiles[best];
+    if (pad <= pad_best) best = s;
+  }
+  return best;
+}
+// The global kernel's plan for a shape, searched once a shape and device
+// and kept: the search asks the occupancy of every group size, which costs
+// more host time than a launch
+struct GlobalLaunch {
+  int device, batch, T, K, H1, H2;
+  GlobalPlan plan;
+  long long blocks;
+};
+
+cudaError_t global_launch(int device, int batch, int T, int K, int H1, int H2,
+                          GlobalLaunch& out) {
+  static std::mutex lock;
+  static std::vector<GlobalLaunch> known;
+  std::lock_guard<std::mutex> hold(lock);
+  for (const GlobalLaunch& g : known) {
+    if (g.device == device && g.batch == batch && g.T == T && g.K == K && g.H1 == H1 &&
+        g.H2 == H2) {
+      out = g;
+      return cudaSuccess;
+    }
+  }
+  const int slot = h_tiles_slot(H1);
+  const int nh = kHTiles[slot];
+  const GlobalKernel kernel = kGlobalKernels[slot];
+  const int warps = global_warps(nh);
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kMaxSharedBytes));
+  }
+  if (err != cudaSuccess) return err;
+  // the chunks stay where they all fit; the group size with the fewest
+  // rounds of 64-position tiles over the grid's waves, counting half a
+  // round for a group's fixed work (the smaller group on a tie)
+  const bool resident =
+      sizeof(float) * make_global_plan(K, H1, H2, nh, 1, 1, true).total <= kMaxSharedBytes;
+  GlobalLaunch best{device, batch, T, K, H1, H2, {}, 0};
+  double best_cost = -1.0;
+  const int most = batch < kMaxRows ? batch : kMaxRows;
+  for (int rows = 1; rows <= most; ++rows) {
+    GlobalPlan P = make_global_plan(K, H1, H2, nh, rows, 1, resident);
+    if (sizeof(float) * P.total > kMaxSharedBytes) break;
+    if (!resident) {
+      // as many blocks of K a W1 chunk as the rest leaves room for
+      const long long per_block = 4LL * 4 * nh * 128;
+      const long long room = kMaxSharedBytes - sizeof(float) * P.total;
+      const long long more = room / per_block;
+      P = make_global_plan(K, H1, H2, nh, rows,
+                           static_cast<int>(1 + more < P.nb ? 1 + more : P.nb), false);
+    }
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * warps,
+                                                        sizeof(float) * P.total);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) break;
+    const long long blocks = static_cast<long long>(sms) * per_sm;
+    const long long groups = (static_cast<long long>(batch) + rows - 1) / rows;
+    const long long tiles = (static_cast<long long>(rows) * T + 63) / 64;
+    const long long rounds = (tiles + warps / 4 - 1) / (warps / 4);
+    const double cost = static_cast<double>((groups + blocks - 1) / blocks) * (rounds + 0.5);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best.plan = P;
+      best.blocks = blocks < groups ? blocks : groups;
+    }
+  }
+  if (best_cost < 0) return cudaErrorInvalidValue;
+  known.push_back(best);
+  out = best;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -771,41 +1482,32 @@ extern "C" int din_attention_global_forward(const float* query, const float* key
                                             const float* mask, const float* w1,
                                             const float* b1, const float* w2,
                                             const float* b2, const float* w3,
-                                            const float* b3, float* out, int batch, int T,
-                                            int K, int H1, int H2, int relu, int softmax,
-                                            int scores, void* stream) {
+                                            const float* b3, float* out, float* scratch,
+                                            int batch, int T, int K, int H1, int H2, int relu,
+                                            int softmax, int return_scores, void* stream) {
   if (batch <= 0 || T <= 0 || K <= 0 || H1 <= 0 || H2 <= 0) return cudaErrorInvalidValue;
-  // as many warps as the shared memory holds, up to one a group of positions
-  const int groups = (T + kGlobalPos - 1) / kGlobalPos;
-  int warps = groups < kGlobalWarps ? groups : kGlobalWarps;
-  while (warps > 0 &&
-         sizeof(float) * static_cast<size_t>(make_global_layout(T, K, H1, warps).total) >
-             kMaxSharedBytes) {
-    --warps;
-  }
-  if (warps == 0) return cudaErrorInvalidValue;
-  const GlobalLayout G = make_global_layout(T, K, H1, warps);
-  const size_t smem = sizeof(float) * G.total;
-  if (smem > kDefaultSharedBytes) {
-    const cudaError_t err = cudaFuncSetAttribute(din_attention_global_kernel,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  int device = 0, sms = 0, per_sm = 0;
+  const int slot = h_tiles_slot(H1);
+  const GlobalKernel kernel = kGlobalKernels[slot];
+  const int warps = global_warps(kHTiles[slot]);
+  int device = 0;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, din_attention_global_kernel,
-                                                        warps * 32, smem);
-  }
+  GlobalLaunch g;
+  if (err == cudaSuccess) err = global_launch(device, batch, T, K, H1, H2, g);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  long long blocks = static_cast<long long>(sms) * per_sm;
-  if (blocks > batch) blocks = batch;
-  din_attention_global_kernel<<<static_cast<int>(blocks), warps * 32, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      query, keys, mask, w1, b1, w2, b2, w3, b3, out, batch, T, K, H1, H2, G, relu != 0,
-      softmax != 0, scores != 0);
+  // scratch: the per-row terms [batch][H1], then (where the keys are
+  // pooled) the raw scores [batch][T]; returned weights are scored in out
+  float* terms = scratch;
+  float* scores = return_scores ? out : scratch + static_cast<long long>(batch) * H1;
+  const dim3 term_grid((batch + kTermRows - 1) / kTermRows, (H1 + kTermCols - 1) / kTermCols);
+  din_attention_global_kernel_row_terms<<<term_grid, kTermCols, 0,
+                                          static_cast<cudaStream_t>(stream)>>>(
+      query, w1, b1, terms, batch, K, H1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0;
+  kernel<<<static_cast<int>(g.blocks), 32 * warps, sizeof(float) * g.plan.total,
+           static_cast<cudaStream_t>(stream)>>>(query, keys, mask, w1, b1, w2, b2, w3, b3, out,
+                                                terms, scores, batch, T, K, H1, H2, g.plan,
+                                                relu != 0, softmax != 0, return_scores == 0, vec);
   return cudaGetLastError();
 }

@@ -13,13 +13,14 @@ an integer attribute, ``<wrapper>.launches``, which only a launch raises.
 ``cross_fused``, ``fm_fused`` and ``din_attention_fused`` take every input the
 JAX package computes: each makes its inputs contiguous float32, and each
 source has, beside its fast kernels with their shared-memory and width
-limits, a global kernel that reads the weights from global memory and takes
-the other shapes. Before the launch, each wrapper asks its predicate
-(``cross_kernel_takes``, ``fm_kernel_takes``, ``din_kernel_takes``: True
-exactly where ``check_*_args`` would not raise) which of the two entry
-points to call, and counts a launch of the global kernel also in
-``<wrapper>.global_launches``. A CUDA tensor never runs the plain version;
-a build failure or a launch error raises.
+limits, a global kernel that takes the other shapes (the cross and FM ones
+read the weights from global memory; the attention's stages them in shared
+memory in chunks, on the tensor cores). Before the launch, each wrapper
+asks its predicate (``cross_kernel_takes``, ``fm_kernel_takes``,
+``din_kernel_takes``: True exactly where ``check_*_args`` would not raise)
+which of the two entry points to call, and counts a launch of the global
+kernel also in ``<wrapper>.global_launches``. A CUDA tensor never runs the
+plain version; a build failure or a launch error raises.
 
 - ``cross_fused`` (``csrc/cross.cu``), plain version ``cross_network``;
 - ``fm_fused`` (``csrc/fm.cu``), plain version ``fm_ref``;
@@ -61,7 +62,7 @@ SOURCES = {
            "fm_global_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT)},
     "din_attention": {
         "din_attention_forward": ([_PTR] * 10 + [_INT] * 8 + [_PTR], _INT),
-        "din_attention_global_forward": ([_PTR] * 10 + [_INT] * 8 + [_PTR], _INT),
+        "din_attention_global_forward": ([_PTR] * 11 + [_INT] * 8 + [_PTR], _INT),
     },
     "sparse_rows": {
         "fused_adagrad_rows": ([_PTR] * 5 + [_INT64, _INT, _PTR, _FLOAT, _PTR], _INT),
@@ -458,15 +459,52 @@ def din_shared_bytes(T: int, K: int, H1: int, H2: int, rows: int = 1) -> int:
     return 4 * (weights + 2 * buffer + up(rows * H1p) + up(rows * T))
 
 
-def din_global_shared_bytes(T: int, K: int, H1: int, warps: int = 1) -> int:
+# h-chunk widths, in n-tiles, of the global kernel's instantiations; its
+# z-chunks hold 5 n-tiles (40 columns) of H2
+DIN_GLOBAL_TILES = (4, 8, 10, 16)
+DIN_GLOBAL_ZTILES = 5
+
+
+def din_global_threads(nh: int) -> int:
+    """Threads of a block of the global kernel whose h-chunks hold ``nh``
+    n-tiles: three warpgroups of 4 warps, or two for the widest h-chunk."""
+    return 32 * (12 if nh <= 10 else 8)
+
+
+def din_global_tiles(H1: int) -> int:
+    """The global kernel's h-chunk width in n-tiles for ``H1``: the one that
+    pads ``ceil(H1 / 8)`` the least, the widest on a tie."""
+    need = -(-H1 // 8)
+    return min(DIN_GLOBAL_TILES, key=lambda nh: (-(-need // nh) * nh, -nh))
+
+
+def din_global_shared_bytes(K: int, H1: int, H2: int, rows: int = 1, jb: int = 1,
+                            resident: bool = False) -> int:
     """Shared memory of a block of ``csrc/din_attention.cu``'s global kernel
-    with ``warps`` warps (``make_global_layout`` there): the row's query,
-    its ``q (Wq + Wm)`` and its scores, each rounded up to 4 floats, and a
-    warp's ``[k | q*k]`` and first-layer output for 8 positions."""
+    (``make_global_plan`` there) whose groups hold ``rows`` batch rows: the
+    weights split into TF32 big and small parts as wgmma's K-major core
+    matrices, either
+    every chunk (``resident``) or one chunk of layer 1 (``jb`` 16-column
+    blocks of K by one h-chunk of H1) and one block of layer 2 (the
+    h-chunk's rows by a z-chunk of H2); the group's queries (K rounded up to
+    16) and per-row terms (H1 rounded up to whole h-chunks); 4 floats a
+    thread for the softmax's and the pooling's sums. Each part is rounded up
+    to 4 floats. T takes none: the scores go to device memory."""
     def up(x: int) -> int:
         return -(-x // 4) * 4
 
-    return 4 * (up(K) + up(H1) + up(T) + warps * 8 * (2 * K + H1))
+    nh = din_global_tiles(H1)
+    hchunks = -(-(-(-H1 // 8)) // nh)
+    zt = DIN_GLOBAL_ZTILES
+    zchunks = -(-(-(-H2 // 8)) // zt)
+    nb = -(-K // 16)
+    jb = nb if resident else jb
+    jchunks = -(-nb // jb)
+    c1, c2 = 128 * jb * 4 * nh, 128 * nh * zt
+    weights = (up(c1 * hchunks * jchunks) + up(c2 * hchunks * zchunks) if resident
+               else up(c1) + up(c2))
+    return 4 * (weights + up(rows * 16 * nb) + up(rows * 8 * nh * hchunks)
+                + up(4 * din_global_threads(nh)))
 
 
 def _din_form_fault(query, keys, mask, w1, b1, w2, b2, w3, b3,
@@ -530,12 +568,12 @@ def _din_global_fault(query, keys, mask, w1, b1, w2, b2, w3, b3,
     fault = _din_form_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, activation)
     if fault is not None:
         return fault
-    T, K = keys.shape[1:]
-    need = din_global_shared_bytes(T, K, w1.shape[1])
+    K, H1, H2 = keys.shape[2], w1.shape[1], w2.shape[1]
+    need = din_global_shared_bytes(K, H1, H2)
     if need > MAX_SHARED_BYTES:
-        return ValueError(f"din_attention_fused global kernel: T={T}, K={K}, "
-                          f"H1={w1.shape[1]} needs {need} bytes of shared memory at one "
-                          f"warp, more than {MAX_SHARED_BYTES}")
+        return ValueError(f"din_attention_fused global kernel: K={K}, H1={H1}, H2={H2} "
+                          f"needs {need} bytes of shared memory at one row a group and "
+                          f"one chunk, more than {MAX_SHARED_BYTES}")
     return None
 
 
@@ -547,9 +585,10 @@ def check_din_args(query, keys, mask, w1, b1, w2, b2, w3, b3, activation) -> Non
 
 
 def check_din_global_args(query, keys, mask, w1, b1, w2, b2, w3, b3, activation) -> None:
-    """Raise on anything the global kernel does not take: no hidden-width
-    limit; its shared memory grows with T, K and H1 (at one warp, 227 KB
-    holds T + 18 K + 9 H1 up to about 58,000 floats)."""
+    """Raise on anything the global kernel does not take: no limit on T or
+    the hidden widths; its least shared memory grows only with K and H1 (the
+    query and the per-row term of one row, 4 (K + H1) bytes beside one
+    chunk of each layer's weights, so K + H1 up to about 40,000)."""
     fault = _din_global_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, activation)
     if fault is not None:
         raise fault
@@ -573,10 +612,15 @@ def _din_launch(query, keys, mask, w1, b1, w2, b2, w3, b3, activation: str,
     if B == 0:
         return out
     entry = "din_attention_forward" if fast else "din_attention_global_forward"
+    # the global kernel's scratch: the per-row terms [B, H1], then, where
+    # it pools, the raw scores [B, T] (else it scores into the output)
+    scratch = () if fast else (torch.empty(
+        B * (w1.shape[1] + (0 if return_scores else T)), dtype=torch.float32,
+        device=keys.device),)
     lib = _library("din_attention")
     with torch.cuda.device(keys.device):
         err = getattr(lib, entry)(
-            *(t.data_ptr() for t in (*tensors, out)),
+            *(t.data_ptr() for t in (*tensors, out, *scratch)),
             B, T, K, w1.shape[1], w2.shape[1], int(activation == "relu"),
             int(weight_normalization), int(return_scores), _stream(keys))
     if err != 0:

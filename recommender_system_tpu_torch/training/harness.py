@@ -64,6 +64,7 @@ a dict of columns (``LSTMClassifier``, ``TransformerClassifier``).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import re
 import time
 import traceback
@@ -669,6 +670,13 @@ class Trainer:
             if g.device.type == "cuda":
                 graph.register_generator_state(g)
         step, counts = self.step, launch_counts()
+        # a collection during the capture could destroy a graph that is
+        # garbage (an earlier Trainer's, in a reference cycle), and
+        # destroying a graph while a stream captures invalidates the
+        # capture: collect first, and hold the collector until it ends
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._pool, stream=self._side_stream()):
                 losses = self._loop(spec, inputs_, labels_, scalars)
@@ -676,6 +684,8 @@ class Trainer:
             raise RuntimeError(f"capturing {k} training steps into a CUDA graph failed at "
                                f"{_issuing_line(err)}") from err
         finally:
+            if collecting:
+                gc.enable()
             self.step = step
             held = {key: n - counts[key] for key, n in launch_counts().items()}
             add_launches({key: -n for key, n in held.items()})
@@ -788,7 +798,10 @@ class Trainer:
         in ``events`` (on a card).
 
         Under a mesh every rank reads the whole stream and trains on its
-        rows of each batch (examples/s counts the global batches); with a
+        rows of each batch (examples/s counts the global batches), a batch
+        at a time whatever ``steps_per_call`` is, as the JAX package's
+        does: there the K-step call is a loop of steps anyway, and
+        ``checkpoint_every`` and ``max_steps`` act a step at a time. With a
         fused optimizer the history has the stream's
         ``embedding_overflow``, summed over ranks."""
         clock = timings if timings is not None else {}
@@ -801,7 +814,7 @@ class Trainer:
             mesh = self.mesh
             batches = ((mesh.shard_batch(xb), mesh.shard_batch(np.asarray(yb)))
                        for xb, yb in batches)
-        if steps_per_call > 1:
+        if steps_per_call > 1 and self.mesh is None:
             history = self._fit_stream_packed(batches, log_every, steps_per_call,
                                               checkpoint_every, checkpoint_fn, max_steps, clock)
         else:

@@ -79,12 +79,18 @@ class NegativeSampler:
     learned online: start them with ``init_adaptive_counts``, fold each
     batch's positives in with ``update_adaptive_counts`` and pass them to
     ``sampled_softmax_loss``. Any other ``sampler`` (or ``'frequency'``
-    without ``item_probs``) draws uniformly."""
+    without ``item_probs``) draws uniformly.
+
+    The frequency proposal is made from ``item_probs`` once a device, at
+    its first use, and kept: later steps copy nothing from the host, so a
+    captured step (``Trainer.multi_step`` on a card) can draw from it."""
 
     sampler: str = "inbatch"
     num_sampled: int = 255
     item_probs: Optional[np.ndarray] = None
     distortion: float = 1.0
+    _proposals: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                         compare=False)
 
 
 def init_adaptive_counts(n_items: int, device=None) -> torch.Tensor:
@@ -133,8 +139,12 @@ def _proposal(sampler: NegativeSampler, adaptive_counts: Optional[torch.Tensor] 
                              "(init_adaptive_counts / update_adaptive_counts)")
         p = adaptive_counts ** sampler.distortion
     elif sampler.sampler == "frequency" and sampler.item_probs is not None:
-        p = torch.as_tensor(sampler.item_probs, dtype=torch.float32,
-                            device=device) ** sampler.distortion
+        key = torch.device(device if device is not None else "cpu")
+        if key not in sampler._proposals:
+            p = torch.as_tensor(sampler.item_probs, dtype=torch.float32,
+                                device=key) ** sampler.distortion
+            sampler._proposals[key] = p / torch.sum(p)
+        return sampler._proposals[key]
     else:
         return None
     return p / torch.sum(p)

@@ -19,11 +19,13 @@ from recommender_system_tpu.ops.pallas_kernels import din_attention_ref as j_din
 from recommender_system_tpu_torch.convert import load_jax_params
 from recommender_system_tpu_torch.layers.sequence import DinAttention
 from recommender_system_tpu_torch.ops.attention import din_attention
-from recommender_system_tpu_torch.ops.kernels import (MAX_SHARED_BYTES, check_din_args,
+from recommender_system_tpu_torch.ops.kernels import (MAX_SHARED_BYTES, _din_global_fault,
+                                                      check_din_args,
                                                       check_din_global_args,
                                                       din_attention_fused,
                                                       din_attention_ref,
                                                       din_global_shared_bytes,
+                                                      din_global_tiles,
                                                       din_kernel_takes, din_shared_bytes)
 from recommender_system_tpu_torch.ops.seqpool import NEG_INF
 
@@ -361,6 +363,8 @@ DIN_EDGES = {
     "k64_t186": ((186, 64), False),
     "k128_t1": ((1, 128), False),
     "k128_t50": ((50, 128), False),
+    "k64_t200": ((200, 64), False),
+    "k32_t1000": ((1000, 32), False),
 }
 
 
@@ -394,15 +398,75 @@ def test_din_kernel_takes_no_other_activation_width_or_layout():
 
 
 def test_din_global_kernel_limits():
-    """The global kernel takes any hidden width; its shared memory grows with
-    T, K and H1, and it refuses where one warp's does not fit."""
+    """The global kernel takes any T and hidden width: its least shared
+    memory (one row a group, one chunk of each layer's weights) grows only
+    with K and H1, and it refuses where that does not fit."""
     check_din_global_args(*_din_meta(4, 50, 32, H1=1024, H2=512), "relu")
-    check_din_global_args(*_din_meta(4, 8000, 8), "sigmoid")
-    assert din_global_shared_bytes(50, 128, 80) == 4 * (128 + 80 + 52 + 8 * 336)
-    assert din_global_shared_bytes(50, 128, 80, warps=7) <= MAX_SHARED_BYTES
-    far = _din_meta(4, 60_000, 8)
-    assert din_global_shared_bytes(60_000, 8, 80) > MAX_SHARED_BYTES
+    check_din_global_args(*_din_meta(4, 60_000, 8), "sigmoid")
+    # K=128, 80-40, chunks of 10 n-tiles, every chunk staged: W1 [8 blocks
+    # x 4 k-tiles x 10 n-tiles] and W2 [10 x 5 n-tiles] of 32 lanes' uint4,
+    # 16 rows' queries and per-row terms, 4 floats a thread (12 warps) for
+    # the sums
+    assert din_global_tiles(80) == 10
+    assert din_global_shared_bytes(128, 80, 40, rows=16, resident=True) == 4 * (
+        8 * 4 * 10 * 128 + 10 * 5 * 128 + 16 * 128 + 16 * 80 + 4 * 384)
+    assert din_global_shared_bytes(128, 80, 40, rows=16, resident=True) <= MAX_SHARED_BYTES
+    assert din_global_shared_bytes(128, 80, 40) == 4 * (
+        4 * 10 * 128 + 10 * 5 * 128 + 128 + 80 + 4 * 384)
+    assert din_global_shared_bytes(128, 80, 40, jb=3) == 4 * (
+        3 * 4 * 10 * 128 + 10 * 5 * 128 + 128 + 80 + 4 * 384)
+    # the widest h-chunk takes 8 warps; H2 past 40 takes z-chunks of 5 n-tiles
+    assert din_global_tiles(128) == 16
+    assert din_global_shared_bytes(32, 128, 64) == 4 * (
+        4 * 16 * 128 + 16 * 5 * 128 + 32 + 128 + 4 * 256)
+    far = _din_meta(4, 50, 60_000)
+    assert din_global_shared_bytes(60_000, 80, 40) > MAX_SHARED_BYTES
     with pytest.raises(ValueError, match="shared memory"):
         check_din_global_args(*far, "sigmoid")
     with pytest.raises(ValueError, match="activation"):
         check_din_global_args(*_din_meta(4, 50, 32), "dice")
+
+
+def _old_global_bytes(T, K, H1):
+    """Shared memory of the global kernel before its tensor-core design,
+    at one warp: the row's query, per-row term and scores, and a warp's [k
+    | q*k] and first-layer output for 8 positions."""
+    def up(x):
+        return -(-x // 4) * 4
+
+    return 4 * (up(K) + up(H1) + up(T) + 8 * (2 * K + H1))
+
+
+def _old_edge(**fixed):
+    """The largest value of the one size not in ``fixed`` (T, K or H1) that
+    the old global kernel took."""
+    free = ({"T", "K", "H1"} - fixed.keys()).pop()
+    n = 1
+    while _old_global_bytes(**{**fixed, free: 2 * n}) <= MAX_SHARED_BYTES:
+        n *= 2
+    lo, hi = n, 2 * n
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if _old_global_bytes(**{**fixed, free: mid}) <= MAX_SHARED_BYTES \
+            else (lo, mid)
+    return {**fixed, free: lo}
+
+
+# shapes the old global kernel took, at the edges of its shared memory
+OLD_GLOBAL_SHAPES = {
+    "longest_history": lambda: _old_edge(K=1, H1=1),
+    "widest_keys": lambda: _old_edge(T=1, H1=1),
+    "widest_layer1": lambda: _old_edge(T=1, K=1),
+    "k128_t50": lambda: _old_edge(T=50, K=128),
+    "mixed": lambda: _old_edge(T=20_000, H1=2_000),
+}
+
+
+@pytest.mark.parametrize("H2", [1, 40, 4096])
+@pytest.mark.parametrize("case", sorted(OLD_GLOBAL_SHAPES))
+def test_din_global_kernel_takes_what_the_old_one_took(case, H2):
+    shape = OLD_GLOBAL_SHAPES[case]()
+    assert _old_global_bytes(**shape) <= MAX_SHARED_BYTES
+    args = _din_meta(3, shape["T"], shape["K"], H1=shape["H1"], H2=H2)
+    assert _din_global_fault(*args, "sigmoid") is None
+    assert _din_global_fault(*args, "relu") is None

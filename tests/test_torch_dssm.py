@@ -262,6 +262,36 @@ def test_port_draws_follow_the_proposal(kind):
     assert torch.isfinite(loss) and float(loss) > 0
 
 
+def test_frequency_proposal_is_made_once_a_device(monkeypatch):
+    """The frequency proposal is copied from the host at its first use and
+    kept: the second call returns the same storage and copies nothing (a
+    captured step on a card draws from it), and the loss on it still
+    matches JAX's on its draws."""
+    jsampler = _samplers()["frequency"]
+    sampler = _port_sampler(jsampler)
+    first = losses._proposal(sampler, device="cpu")
+
+    def copy_from_host(*args, **kwargs):
+        raise AssertionError("item_probs copied from the host again")
+
+    monkeypatch.setattr(losses.torch, "as_tensor", copy_from_host)
+    p = losses._proposal(sampler, device=torch.device("cpu"))
+    assert p is first and p.data_ptr() == first.data_ptr()
+    assert losses._proposal(sampler) is first
+    u, _ = _embeddings(4)
+    table = _table(5)
+    pos = np.random.default_rng(6).integers(1, ITEMS, B).astype(np.int32)
+    key = jax.random.PRNGKey(7)
+    want = jlosses.sampled_softmax_loss(u, table, jnp.asarray(pos), jsampler, key,
+                                        temperature=TEMPERATURE)
+    neg = torch.from_numpy(np.array(_jax_draws(jsampler, key, None)))
+    tpos = torch.from_numpy(pos)
+    got = losses._sampled_softmax_given(torch.from_numpy(u), torch.from_numpy(table), tpos, neg,
+                                        losses._log_q(p, ITEMS, tpos),
+                                        losses._log_q(p, ITEMS, neg), temperature=TEMPERATURE)
+    np.testing.assert_allclose(float(got), float(want), rtol=LOSS_RTOL)
+
+
 def test_adaptive_sampling_needs_counts():
     jsampler = _samplers()["adaptive"]
     u, _ = _embeddings(16)

@@ -68,7 +68,8 @@ def _din(B=4, T=6, K=8, H1=10, H2=5, seed=0):
 # past the shared memory, FM past the wide kernel's shared memory (D=3,419
 # and 4,000 at k=8, k=19 at D=1,500), the attention at K=128, past T=514 at
 # K=32 and at a hidden width past 256; a transposed bf16 x0 and a transposed
-# x go as contiguous float32 copies
+# x go as contiguous float32 copies; the global kernel's three timed shapes
+# (K=128, T=50; K=64, T=200; K=32, T=1,000) are among them
 ROUTES = {
     "cross": (cross_fused, lambda: [
         (_cross(3, 16, 2), "cross_forward"),
@@ -87,6 +88,8 @@ ROUTES = {
         (_din(), "din_attention_forward"),
         (_din(T=50, K=128, H1=80, H2=40), "din_attention_global_forward"),
         (_din(B=2, T=515, K=32, H1=80, H2=40), "din_attention_global_forward"),
+        (_din(B=2, T=200, K=64, H1=80, H2=40), "din_attention_global_forward"),
+        (_din(B=2, T=1000, K=32, H1=80, H2=40), "din_attention_global_forward"),
         (_din(H1=257), "din_attention_global_forward")]),
 }
 

@@ -267,6 +267,17 @@ def fit_on_mesh(mesh, kind, spec, params, stats, X, y, mesh_kw, fit_kw):
                            if n in trainer.sharded}}
 
 
+def fit_stream_on_mesh(mesh, kind, spec, params, batches, mesh_kw, stream_kw):
+    """``Trainer.fit_stream`` on the mesh over the stream of ``batches``
+    (every rank reads all of it): the history, the step, and rank 0's whole
+    view."""
+    trainer = build_trainer(kind, spec, params, mesh=mesh, **mesh_kw)
+    history = trainer.fit_stream(iter(batches), **stream_kw)
+    whole = view(trainer)
+    return {"history": history, "step": trainer.step,
+            "view": whole if mesh.rank == 0 else None}
+
+
 def checkpoint_on_mesh(mesh, kind, spec, params, batches, directory, mesh_kw):
     """Steps, a checkpoint, one more step. Every rank returns whether a
     trainer restored from the checkpoint on the mesh equals the saved one
