@@ -14,10 +14,14 @@ Phases, each of which raises on failure (exit code not 0):
    ``cross_fused`` vs ``cross_network`` at B=4,096 and 8,192 (D=221, L=6),
    at 4,097 and 8,193 (a partial last tile of 32 rows) and at D=100 on
    the tile kernel, and with x0 off 16-byte alignment, at D=1000 and L=16
-   on the register kernel, and at x0 widths 1,053 and 3,000 and 29 layers
-   of 1,024 on the global kernel (one with x0 off alignment), forward and
-   gradient (rtol=1e-4, atol=1e-5), two launches bitwise equal, and which of
-   the three kernels ran; ``din_attention_fused`` vs
+   on the register kernel, and on the global kernel at x0 widths 1,025,
+   1,053 (B=4,096 and 8,192) and 1,677, each at L=0, 1 and 6 and off
+   16-byte alignment, at 29 layers of 1,024 and 12 of 3,000 (weights past
+   the shared memory) and at D=4,900 (past the registers: its rows
+   kernel), forward and gradient (rtol=1e-4, atol=1e-5), two launches
+   bitwise equal, and which of the kernels ran; the global entry point
+   against the stack kernel at D=1,000 and 1,024 (x0 aligned and not),
+   bitwise; ``din_attention_fused`` vs
    ``din_attention_ref`` at DIN's bench shape (B=8,192, T=50, K=32, scorer
    80-40) in all eight combinations of activation, softmax and scores, at
    T=13, T=1, B=1, at K=6 (not a multiple of 4) and with a scorer of
@@ -28,14 +32,16 @@ Phases, each of which raises on failure (exit code not 0):
    position, forward and gradient through the autograd Function (rtol=1e-4,
    atol=1e-5; the three timed shapes forward only), and which of the two
    kernels ran;
-   ``fm_fused`` vs ``fm_ref`` at B=16,384, D=221, k=8, at
-   B=16,385 and B=31 (a partial last group of 4 rows) and at B=1, D=1,
-   k=1, at D=13, k=64, and at Ds that are not multiples of 32, forward and
-   gradient through the Function (rtol=1e-4, atol=1e-5), two launches
-   bitwise equal, and which of the three kernels of ``csrc/fm.cu`` ran (the
-   register kernel for D <= 256, k <= 8, the wide kernel past them while
-   its shared memory fits, the global kernel past that: D=3,419 and 4,000
-   at k=8, k=19 at D=1,500, D=20,000);
+   ``fm_fused`` vs ``fm_ref`` (evaluated in float64: in float32 on the
+   card its own sums miss the tolerance at D >= 3,419, B=16,384) at
+   B=16,384, D=221, k=8, at B=16,385 and B=31 (a partial last group of 4
+   rows) and at B=1, D=1, k=1, at D=13, k=64, and at Ds that are not
+   multiples of 32, forward and gradient through the Function (rtol=1e-4,
+   atol=1e-5), two launches bitwise equal, and which of the three kernels
+   of ``csrc/fm.cu`` ran (the register kernel for D <= 256, k <= 8, the
+   wide kernel past them while its shared memory fits, the global kernel
+   past that: D=3,419, 4,000 and 4,001 at k=8, each at B=1, 1,000 and
+   16,384, k=19 at D=1,500, D=20,000);
    ``fused_adagrad_apply``, ``fused_sgd_apply`` and ``fused_adam_apply``
    (lazy Adam at step 0, and at step 3 from non-zero moments) vs
    ``fused_adagrad_ref``, ``fused_sgd_ref`` and ``fused_adam_ref``, and
@@ -131,7 +137,12 @@ Phases, each of which raises on failure (exit code not 0):
    1,024, which agree; the trained DIEN through ``Scorer(batch_size=8192)``,
    one attention launch per padded batch, its answers equal to the plain
    attention's on the card and to the CPU path's on 1000 rows;
-3k. the global kernels on the paths that reach them: DCN served at x0
+3k. the global kernels on the paths that reach them: DCN at
+   ``model_step.py``'s Criteo width and batch 8,192 but embedding dim 40
+   (x0 1,053 wide) trained with ``Adagrad(0.05)`` + ``FusedAdagrad(0.05)``
+   (three K=8 calls, 8 global cross launches a call, losses falling,
+   untouched rows bitwise unchanged), then three graphed calls against
+   three looped ones, bitwise equal; DCN served at x0
    width 1,053 (26 fields at dim 40, 13 dense), ``fm_fused`` at D=4,000,
    ``din_attention_fused`` at K=128, T=50, and one fused step of
    ``DIEN(gru_hidden=128)`` at batch 1,024; each launch counted in
@@ -262,7 +273,9 @@ Phases, each of which raises on failure (exit code not 0):
    query's top device work; each sparse row kernel's time on a stream
    with a hot row and on DIN's step stream, back to back and with the L2
    cache flushed before each call; each global kernel at a shape of
-   its path, the DIN attention's at its three timed shapes; and the stream
+   its path (also by CUDA events around a graph of 100 calls, beside the
+   same read of its bytes), the DIN attention's at its three timed shapes;
+   and the stream
    CLI: the CLI's own examples/s, CUDA events around each packed group's
    call, the host's seconds by part (waiting for
    the parser, bucketing, packing into pinned memory, issuing the copies
@@ -275,8 +288,9 @@ be 0 on every path but 3k's and, for the attention, 3r's.
 
 The line before the last lists every kernel with its launches on its main
 path (the graphed calls of phase 3q's paths as ``graph_launches``; the
-cross and FM global kernels: on phase 3k's path, the attention's on phase
-3r's, with its times at three shapes as ``shapes``; kernels 3-7 also on
+cross global kernel: on phase 3k's DCN training, the FM's on phase 3k's
+path, the attention's on phase 3r's, with its times at three shapes as
+``shapes``; the global kernels' ``events_ms`` beside ``ms``; kernels 3-7 also on
 phase 3o's and 3p's runs, summed over ranks, as ``mesh_launches``, and
 kernels 4 and 5 on phase 3p's grid rank by rank as
 ``grid_launches_per_rank``), its error against the plain version, its times and its bound; the line
@@ -348,6 +362,9 @@ WIDE_DIM, WIDE_VOCAB, WIDE_FM_D = 40, 10_000, 4000
 # phase 3r's DIN, model_step.py's with its embedding dim 128
 DIN_GLOBAL_SHAPES = ((128, 50), (64, 200), (32, 1000))
 DIN_WIDE_DIM = 128
+# the widest x0 whose rows csrc/cross.cu's global kernel holds in registers;
+# past it, its rows kernel
+CROSS_GLOBAL_REGISTER_DIM = 3072
 
 
 def card_line() -> str:
@@ -386,28 +403,74 @@ def call_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def events_ms(fn, iters: int = 100) -> float:
+    """Device time per call of ``fn``: CUDA events around one replay of a
+    CUDA graph of ``iters`` back-to-back calls, so that no host time falls
+    between them (a wrapper's own host time can exceed a short kernel's).
+    The wrappers count the captured calls as launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
+
+
+# device_ms's lead-in: torch.cuda._sleep kernels of ~10 us (their kernel's
+# name holds "spin") before a trace's calls
+LEAD_IN, LEAD_IN_CYCLES, LEAD_IN_KERNEL = 64, 20_000, "spin"
+TRACES = 8
+
+
 def device_ms(fn, iters: int = 50) -> collections.Counter:
     """Device time per call of ``fn``, by kernel name, from the profiler's
-    trace (kernels and copies; the gaps between them do not count)."""
+    trace (kernels and copies; the gaps between them do not count).
+
+    The profiler now and then loses device records, most often the first
+    ones after a window or a burst of launches begins (``chip_lab_profiler.py``),
+    which read low where the sum is divided by the calls. So a trace begins
+    with a lead-in of sleep kernels and a synchronise, not counted, and each
+    kernel's records are counted: each call launches each of its kernels
+    the same number of times, so a whole trace holds a positive multiple of
+    ``iters`` records of every name. A trace that does not is traced again,
+    up to ``TRACES`` traces; then this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # a trace now and then comes back without device events; trace again
-    for _ in range(3):
+    for _ in range(TRACES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(LEAD_IN_CYCLES)
+            torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        per_name = collections.Counter()
+        total = collections.Counter()
+        records = collections.Counter()
         for event in prof.events():
-            if event.device_type == DeviceType.CUDA:
-                per_name[event.name] += event.time_range.elapsed_us() / 1e3 / iters
-        if per_name:
-            return per_name
-        print("device_ms: the profiler traced no device time; tracing again", flush=True)
-    raise RuntimeError("the profiler traced no device time in 3 traces")
+            if event.device_type == DeviceType.CUDA and LEAD_IN_KERNEL not in event.name:
+                total[event.name] += event.time_range.elapsed_us() / 1e3
+                records[event.name] += 1
+        short = {name: count for name, count in records.items() if count % iters}
+        if records and not short:
+            return collections.Counter({name: ms / iters for name, ms in total.items()})
+        print(f"device_ms: a trace of {iters} calls held "
+              f"{short if records else 'no device records'}, not a multiple of {iters} "
+              f"records a kernel; tracing again", flush=True)
+    raise RuntimeError(f"the profiler lost device records in {TRACES} traces")
 
 
 def host_ms(fn, iters: int, warmup: int = 3) -> list:
@@ -442,14 +505,21 @@ def check_cross_kernel(cross_fused, cross_network) -> dict:
     # at sizes that leave a partial last tile of the tile kernel's 32 rows,
     # a D that is not a multiple of 32 (all on the tile kernel); x0 one float
     # off 16-byte alignment, a D up to 1,024, and weights beyond 48 KB of
-    # shared memory (on the register kernel); DCN's x0 at dim 40 (1,053
-    # wide), off alignment too, 29 layers of 1,024 (past the shared memory)
-    # and D=3,000 (on the global kernel)
+    # shared memory (on the register kernel); on the global kernel: DCN's x0
+    # at dim 40 (1,053 wide) at the Scorer's and training's batches, x0
+    # 1,025 and 1,677 wide (dim 64), each at L = 0, 1 and 6 and off
+    # alignment, 29 layers of 1,024 and 12 of 3,000 (weights past the
+    # shared memory: staged a chunk of layers at a time), D=3,000 and 4,900
+    # (past the registers: the rows kernel)
     for B, D, L, shift in [(1, 221, 6, 0), (1000, 221, 6, 0), (4096, 221, 6, 0),
                            (4097, 221, 6, 0), (8192, 221, 6, 0), (8193, 221, 6, 0),
                            (1000, 100, 6, 0), (4096, 221, 6, 1), (1000, 1000, 6, 0),
                            (1000, 1000, 16, 0), (4096, 1053, 6, 0), (4097, 1053, 6, 1),
-                           (1000, 1024, 29, 0), (300, 3000, 3, 0)]:
+                           (8192, 1053, 6, 0), (1000, 1053, 0, 1), (1000, 1053, 1, 0),
+                           (1000, 1025, 0, 0), (1000, 1025, 1, 1), (1000, 1025, 6, 1),
+                           (1000, 1677, 0, 1), (1000, 1677, 1, 0), (1000, 1677, 6, 0),
+                           (1001, 1677, 6, 1), (1000, 1024, 29, 0), (257, 3000, 12, 1),
+                           (300, 3000, 3, 0), (257, 4900, 12, 0), (100, 4900, 12, 1)]:
         x0 = torch.randn(B * D + shift, generator=gen, device="cuda")[shift:].view(B, D)
         w = torch.randn(L, D, generator=gen, device="cuda") * (0.2 / math.sqrt(D))
         b = torch.randn(L, D, generator=gen, device="cuda") * 0.1
@@ -464,7 +534,8 @@ def check_cross_kernel(cross_fused, cross_network) -> dict:
             raise RuntimeError(f"cross_fused B={B} D={D} L={L}: two launches on identical "
                                "inputs differ")
         if not cross_kernel_takes(x0, w, b):
-            want = "cross_global_kernel"
+            want = ("cross_global_kernel" if D <= CROSS_GLOBAL_REGISTER_DIM
+                    else "cross_global_rows_kernel")
         else:
             want = "cross_tile_kernel" if D <= 256 and shift == 0 else "cross_stack_kernel"
         if not all(want in name for name in ran):
@@ -479,17 +550,56 @@ def check_cross_kernel(cross_fused, cross_network) -> dict:
             (fn(*args) ** 2).sum().backward()
             torch.cuda.synchronize()
             grads.append([a.grad for a in args])
-        for g_kernel, g_plain in zip(*grads):
+        for g_kernel, g_plain, t in zip(*grads, (x0, w, b)):
+            # with no layers the plain stack leaves the weights out of the
+            # graph (no gradient), the wrapper gives them zeros
+            g_plain = torch.zeros_like(t) if g_plain is None else g_plain
             # the cotangent 2*out carries the forward's rounding into sums
             # that cancel, so the absolute tolerance scales with the
             # gradient's largest entry
-            torch.testing.assert_close(g_kernel, g_plain, rtol=RTOL,
-                                       atol=ATOL * max(1.0, g_plain.abs().max().item()))
+            scale = g_plain.abs().max().item() if g_plain.numel() else 0.0
+            torch.testing.assert_close(g_kernel, g_plain, rtol=RTOL, atol=ATOL * max(1.0, scale))
         print(f"kernel check cross_fused B={B} D={D} L={L}"
               f"{' x0 off 16-byte alignment' if shift else ''}: ran {', '.join(ran)}; "
               f"max_abs_err={err:.3e}, two launches bitwise equal, gradients match",
               flush=True)
+
+    # the global kernel keeps the fast kernels' arithmetic: where the stack
+    # kernel takes a shape, the global entry point's answer is bitwise its
+    from recommender_system_tpu_torch.ops import kernels
+    for B, D, shift in [(4096, 1000, 0), (4097, 1000, 1), (4096, 1024, 0), (1000, 1024, 1)]:
+        x0 = torch.randn(B * D + shift, generator=gen, device="cuda")[shift:].view(B, D)
+        w = torch.randn(6, D, generator=gen, device="cuda") * (0.2 / math.sqrt(D))
+        b = torch.randn(6, D, generator=gen, device="cuda") * 0.1
+        with torch.inference_mode():
+            fast = cross_fused(x0, w, b)
+            ran = sorted(device_ms(lambda: cross_global_entry(x0, w, b), iters=1))
+            on_global = cross_global_entry(x0, w, b)
+            torch.cuda.synchronize()
+        if not all("cross_global_kernel" in name for name in ran):
+            raise RuntimeError(f"cross_global_forward B={B} D={D} ran {ran}")
+        if not torch.equal(on_global, fast):
+            raise RuntimeError(f"cross_global_forward B={B} D={D} L=6 differs from "
+                               f"cross_forward by {(on_global - fast).abs().max().item():.3e}")
+        print(f"kernel check cross_global_forward B={B} D={D} L=6"
+              f"{' x0 off 16-byte alignment' if shift else ''}: ran {', '.join(ran)}; "
+              f"bitwise equal to cross_forward's stack kernel", flush=True)
     return max_err
+
+
+def cross_global_entry(x0, w, b):
+    """The global kernel at any shape, through ``csrc/cross.cu``'s entry
+    point (the wrapper takes it only where the fast kernels do not); for
+    checks, uncounted."""
+    from recommender_system_tpu_torch.ops import kernels
+
+    out = torch.empty_like(x0)
+    err = kernels._library("cross").cross_global_forward(
+        x0.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), *x0.shape, w.shape[0],
+        kernels._stream(x0))
+    if err != 0:
+        raise RuntimeError(f"cross_global_forward failed with CUDA error {err}")
+    return out
 
 
 def fm_bound(B: int, D: int, k: int):
@@ -510,9 +620,10 @@ def fm_inputs(gen, B, D, k):
 
 
 def check_fm_kernel() -> dict:
-    """Phase 2 for csrc/fm.cu: ``fm_fused`` against ``fm_ref`` on the card,
-    forward and gradient through the autograd Function; returns the largest
-    absolute error of the forward, by kernel."""
+    """Phase 2 for csrc/fm.cu: ``fm_fused`` against ``fm_ref`` on the card
+    (the forward against ``fm_ref`` in float64), forward and gradient
+    through the autograd Function; returns the largest absolute error of
+    the forward, by kernel."""
     from recommender_system_tpu_torch.ops.kernels import (FM_ROWS_FACTORS, FM_ROWS_MAX_DIM,
                                                           fm_fused, fm_kernel_takes, fm_ref)
 
@@ -523,18 +634,25 @@ def check_fm_kernel() -> dict:
     # dense-column width with a wide factor count (8 chunks), Ds that are
     # not multiples of 32, a factor count that is not a multiple of the wide
     # kernel's chunk of 8, and v past 48 KB of shared memory (the last three
-    # on the wide kernel); past the wide kernel's shared memory at k=8, at
-    # k=19 and at a D of 20,000 (on the global kernel)
+    # on the wide kernel); on the global kernel: past the wide kernel's
+    # shared memory at k=8 (D=3,419 and 4,001: rows off 16-byte alignment,
+    # its 4-byte copies; 4,000) at batches 1, 1,000 and 16,384, at k=19 (three
+    # factor groups) and at a D of 20,000
+    global_shapes = [(B, D, 8) for D in (3419, 4000, 4001) for B in (1, 1000, FM_B)]
     for B, D, k in [(16_384, 221, 8), (16_385, 221, 8), (31, 221, 8), (1, 1, 1),
                     (4096, 13, 64), (1000, 100, 8), (333, 45, 3), (257, 221, 20),
-                    (64, 1500, 8), (1000, 4000, 8), (333, 3419, 8), (64, 1500, 19),
-                    (7, 20_000, 2)]:
+                    (64, 1500, 8), *global_shapes, (64, 1500, 19), (7, 20_000, 2)]:
         x, w1, v = fm_inputs(gen, B, D, k)
         with torch.inference_mode():
             out = fm_fused(x, w1, v)
             again = fm_fused(x, w1, v)
             torch.cuda.synchronize()
-            ref = fm_ref(x, w1, v)
+            # the plain version in float64: in float32 on the card its own
+            # sums are up to 4.3e-5 off the exact value at D >= 3,419 and
+            # B=16,384, outside the tolerance on ~1 row in 1,600, where the
+            # kernels stay within 4e-6 (PERF.md)
+            ref = fm_ref(x.double(), w1.double(), v.double()).float()
+            plain_err = (fm_ref(x, w1, v) - ref).abs().max().item()
             torch.cuda.synchronize()
             ran = sorted(device_ms(lambda: fm_fused(x, w1, v), iters=1))
         if not torch.equal(out, again):
@@ -561,8 +679,9 @@ def check_fm_kernel() -> dict:
             # both are the plain VJP, on the same inputs
             torch.testing.assert_close(g_kernel, g_plain, rtol=RTOL, atol=ATOL)
         print(f"kernel check fm_fused B={B} D={D} k={k}: ran {', '.join(ran)}; "
-              f"max_abs_err={err:.3e}, two launches bitwise equal, gradients match",
-              flush=True)
+              f"max_abs_err={err:.3e} against the plain version in float64 (the plain "
+              f"version in float32: {plain_err:.3e}), two launches bitwise equal, gradients "
+              f"match", flush=True)
     return max_err
 
 
@@ -946,13 +1065,14 @@ def check_sparse_rows() -> dict:
     return errs
 
 
-def staged_batches(seeds, device="cuda", batch=TRAIN_BATCH):
-    """bench.py's pre-staged batches: synthetic Criteo of the bench width,
-    one seed per batch, stacked on a leading K axis on ``device``."""
+def staged_batches(seeds, device="cuda", batch=TRAIN_BATCH, dim=FACTOR_DIM):
+    """bench.py's pre-staged batches: synthetic Criteo of the bench width
+    (columns at embedding dim ``dim``), one seed per batch, stacked on a
+    leading K axis on ``device``."""
     from recommender_system_tpu_torch.utils.datasets import synthetic_criteo
 
     data = [synthetic_criteo(n_rows=batch, vocab=VOCAB,
-                             embedding_dim=FACTOR_DIM, seed=s) for s in seeds]
+                             embedding_dim=dim, seed=s) for s in seeds]
     cols = data[0][0]
     batches = {k: torch.as_tensor(np.stack([X[k] for _, X, _ in data]), device=device)
                for k in data[0][1]}
@@ -1698,8 +1818,9 @@ def serve_dien(model, card):
 def check_global_shapes(card) -> dict:
     """Phase 3k: at shapes that their fast kernels do not take, the cross,
     FM and DIN attention wrappers launch their global kernels, each launch
-    counted in ``launches`` and ``global_launches``; the answers agree with
-    the CPU's. Returns each shape's counts."""
+    counted in ``launches`` and ``global_launches``: DCN at embedding dim 40
+    trained (graphed calls equal to looped ones) and served; the answers
+    agree with the CPU's. Returns each path's counts."""
     from recommender_system_tpu_torch import DCN, Scorer
     from recommender_system_tpu_torch.ops.kernels import (din_attention_fused,
                                                           din_attention_ref, fm_fused, fm_ref)
@@ -1717,6 +1838,33 @@ def check_global_shapes(card) -> dict:
             raise RuntimeError(f"{what} counted {got}, want {want}")
         out[what] = got
         return result
+
+    # DCN trained at model_step.py's width and batch with embedding dim 40
+    # (x0 1,053 wide): every cross forward on the global kernel, three K=8
+    # calls (the third a graph replay), then graphed calls against looped
+    from recommender_system_tpu_torch import FusedAdagrad
+    from recommender_system_tpu_torch.training import Adagrad
+
+    t0 = time.perf_counter()
+    dcn_cols, dcn_batches, dcn_labels = staged_batches(range(K), batch=CTR_BATCH, dim=WIDE_DIM)
+    per_call = dict(cross_fused=K, fused_adagrad_apply=K, **{global_key("cross_fused"): K})
+    trainer, launches = train_checked(
+        f"DCN at embedding dim {WIDE_DIM}", ctr_model("dcn", dcn_cols), dcn_batches,
+        dcn_labels, Adagrad(LR), FusedAdagrad(LR), 3,
+        launches_want(**{k: 3 * n for k, n in per_call.items()}), card)
+    width = trainer.model.cross.weights.shape[1]
+    if width != FIELDS * WIDE_DIM + 13:
+        raise RuntimeError(f"DCN at embedding dim {WIDE_DIM}: x0 {width} wide")
+    out[f"DCN trained at x0 width {width}"] = launches
+    graphed = graph_against_loop(f"DCN at embedding dim {WIDE_DIM}", trainer, dcn_batches,
+                                 dcn_labels, card)
+    if graphed["unequal"] or graphed["launches"] != launches:
+        raise RuntimeError(f"DCN at x0 width {width}: graphed calls {graphed}, want bitwise "
+                           f"equal to the looped ones and {launches}")
+    out[f"DCN graphed at x0 width {width}"] = graphed["launches"]
+    print(f"phase 3k: DCN at x0 width {width} trained, {K} global cross launches a call, "
+          f"graphed equal to looped; {time.perf_counter() - t0:.1f} s", flush=True)
+    del trainer, dcn_batches, dcn_labels
 
     # DCN's x0 of 26 fields at dim 40 and 13 dense: 1,053 wide
     cols, X, _ = synthetic_criteo(n_rows=1000, vocab=WIDE_VOCAB, embedding_dim=WIDE_DIM,
@@ -2024,39 +2172,58 @@ def time_global_kernels(card, errors: dict, counts: dict, wide: dict) -> list:
     x0 = torch.randn(SERVE_BATCH, D, generator=gen, device="cuda")
     w = torch.randn(6, D, generator=gen, device="cuda") * (0.2 / math.sqrt(D))
     b = torch.randn(6, D, generator=gen, device="cuda") * 0.1
+    x0_train = torch.randn(CTR_BATCH, D, generator=gen, device="cuda")
     x, w1, v = fm_inputs(gen, FM_B, WIDE_FM_D, 8)
+    trained = f"DCN trained at x0 width {D}"
     cases = [
         ("cross_fused", "cross.cu", "pallas_kernels.py:124", "cross_global_kernel",
          lambda: cross_fused(x0, w, b), lambda: cross_network(x0, w, b),
-         cross_bound(SERVE_BATCH, D, 6), f"DCN served at x0 width {D}",
-         f"B={SERVE_BATCH} D={D} L=6"),
+         lambda: x0.clone(), cross_bound(SERVE_BATCH, D, 6),
+         trained, f"B={SERVE_BATCH} D={D} L=6"),
         ("fm_fused", "fm.cu", "pallas_kernels.py:61", "fm_global_kernel",
          lambda: fm_fused(x, w1, v), lambda: fm_ref(x, w1, v),
-         fm_bound(FM_B, WIDE_FM_D, 8), f"fm_fused at D={WIDE_FM_D}, k=8",
-         f"B={FM_B} D={WIDE_FM_D} k=8"),
+         lambda: torch.sum(x, 1), fm_bound(FM_B, WIDE_FM_D, 8),
+         f"fm_fused at D={WIDE_FM_D}, k=8", f"B={FM_B} D={WIDE_FM_D} k=8"),
     ]
     entries = []
-    for name, source, replaces, kernel, fn, plain_fn, bound, path, shape in cases:
+    for name, source, replaces, kernel, fn, plain_fn, floor_fn, bound, path, shape in cases:
         with torch.inference_mode():
             kernel_dev = device_ms(fn)
             plain_dev = device_ms(plain_fn)
-            rec = {"call_ms": call_ms(fn, iters=50), "plain_call_ms": call_ms(plain_fn, iters=50)}
+            rec = {"events_ms": events_ms(fn), "call_ms": call_ms(fn, iters=50),
+                   "plain_call_ms": call_ms(plain_fn, iters=50),
+                   "floor_events_ms": events_ms(floor_fn)}
         if not all(kernel in k for k in kernel_dev):
             raise RuntimeError(f"{name} at {shape} ran other device work: {dict(kernel_dev)}")
         rec.update(ms=sum(kernel_dev.values()), plain_ms=sum(plain_dev.values()),
                    library_ms=None)
         rec["bound_ms"], rec["bound_by"] = bound
-        print(f"timing {name} ({kernel}) {shape}: device {rec['ms']:.5f} ms "
-              f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound {rec['bound_ms']:.5f} "
-              f"ms, {rec['bound_by']}), {rec['call_ms']:.5f} ms per call; plain: device "
+        print(f"timing {name} ({kernel}) {shape}: device {rec['ms']:.5f} ms by the profiler, "
+              f"{rec['events_ms']:.5f} ms by events over a graph of 100 calls "
+              f"({100 * rec['bound_ms'] / rec['events_ms']:.1f}% of the bound "
+              f"{rec['bound_ms']:.5f} ms, {rec['bound_by']}), {rec['call_ms']:.5f} ms per "
+              f"call; a read of the same bytes {rec['floor_events_ms']:.5f} ms; plain: device "
               f"{rec['plain_ms']:.5f} ms in {len(plain_dev)} kernel kinds, "
               f"{rec['plain_call_ms']:.5f} ms per call; on {card}", flush=True)
-        entries.append({
+        entry = {
             "name": f"{name} ({kernel})", "route": "cuda",
             "source": f"recommender_system_tpu_torch/csrc/{source}",
             "replaces": f"recommender_system_tpu/ops/{replaces}",
             "launches": counts[path][global_key(name)], "max_abs_err": errors[kernel],
-            **rec, "path": path, "timed_at": shape})
+            **rec, "path": path, "timed_at": shape}
+        if name == "cross_fused":
+            # DCN training's own batch, and the other paths' launches
+            with torch.inference_mode():
+                entry["events_ms_b8192"] = events_ms(lambda: cross_fused(x0_train, w, b))
+            entry["bound_ms_b8192"] = cross_bound(CTR_BATCH, D, 6)[0]
+            entry["graph_launches"] = counts[f"DCN graphed at x0 width {D}"][global_key(name)]
+            # x0 past the registers: the global entry point's rows kernel
+            entry["rows_kernel_max_abs_err"] = errors["cross_global_rows_kernel"]
+            entry["serving_launches"] = counts[f"DCN served at x0 width {D}"][global_key(name)]
+            print(f"timing {name} ({kernel}) B={CTR_BATCH} D={D} L=6: "
+                  f"{entry['events_ms_b8192']:.5f} ms by events (bound "
+                  f"{entry['bound_ms_b8192']:.5f} ms); on {card}", flush=True)
+        entries.append(entry)
 
     # the attention's global kernel at its three shapes, against the
     # tensor cores' bound (three TF32 passes), the bytes' and f32's
@@ -2069,6 +2236,7 @@ def time_global_kernels(card, errors: dict, counts: dict, wide: dict) -> list:
             kernel_dev = device_ms(lambda: din_attention_fused(q, keys, mask, *weights))
             plain_dev = device_ms(lambda: din_attention_ref(q, keys, mask, *weights), iters=10)
             rec = {"K": K_, "T": T,
+                   "events_ms": events_ms(lambda: din_attention_fused(q, keys, mask, *weights)),
                    "call_ms": call_ms(lambda: din_attention_fused(q, keys, mask, *weights),
                                       iters=50),
                    "plain_call_ms": call_ms(lambda: din_attention_ref(q, keys, mask, *weights),
@@ -2082,7 +2250,8 @@ def time_global_kernels(card, errors: dict, counts: dict, wide: dict) -> list:
             DIN_BATCH, T, K_, 80, 40)
         rec["byte_bound_ms"] = din_work(DIN_BATCH, T, K_, 80, 40)[0]
         print(f"timing din_attention_fused ({kernel}) B={DIN_BATCH} T={T} K={K_} H1=80 H2=40: "
-              f"device {rec['ms']:.5f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}% of the "
+              f"device {rec['ms']:.5f} ms by the profiler, {rec['events_ms']:.5f} ms by "
+              f"events ({100 * rec['bound_ms'] / rec['events_ms']:.1f}% of the "
               f"tensor cores' bound {rec['bound_ms']:.5f} ms, {rec['bound_by']}; bytes "
               f"{rec['byte_bound_ms']:.5f} ms, f32 {rec['f32_bound_ms']:.5f} ms), "
               f"{rec['call_ms']:.5f} ms per call; plain: device {rec['plain_ms']:.5f} ms in "

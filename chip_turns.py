@@ -40,8 +40,14 @@ TF32 off:
   (``multi_step``): ms a step by CUDA events over 5 calls, three times
   (``loops``).
 
-``--what fm,cross`` keeps only the parts named (default: all eight,
-``adam,rows,attention,steps,fm,cross,family,loops``).
+- the global kernels: ``fm_fused`` at x [16,384, 4,000] and [16,384,
+  3,419], k=8, and ``cross_fused`` at x0 1,053 wide, L=6, B=4,096 and
+  8,192, each by CUDA events around a graph of 100 calls and by the
+  profiler, beside the same read of its bytes (``fm_global``,
+  ``cross_global``).
+
+``--what fm,cross`` keeps only the parts named (default: all ten,
+``adam,rows,attention,steps,fm,cross,family,loops,fm_global,cross_global``).
 
 Each turn prints ``TURN <label> {json}``; the run ends with one line per
 metric listing every turn's value, and the card's name and power limit.
@@ -287,7 +293,56 @@ def time_cross(cs, torch) -> dict:
     return out
 
 
-PARTS = ("adam", "rows", "attention", "steps", "fm", "cross", "family", "loops")
+def global_and_floor(cs, name, kernel, plain, floor) -> dict:
+    """A global kernel's time by CUDA events over a graph of 100 calls and
+    by the profiler (50 calls), the same for the ``floor`` read of its
+    bytes, and the kernel's largest difference from ``plain``."""
+    err = (kernel() - plain()).abs().max().item()
+    return {f"{name}_events_ms": cs.events_ms(kernel),
+            f"{name}_ms": sum(cs.device_ms(kernel).values()), f"{name}_max_abs_err": err,
+            f"{name}_floor_events_ms": cs.events_ms(floor),
+            f"{name}_floor_ms": sum(cs.device_ms(floor).values())}
+
+
+def time_fm_global(cs, torch) -> dict:
+    """``fm_fused`` on the global kernel at x [16,384, D], k=8: D=4,000, and
+    D=3,419 (rows off 16-byte alignment); beside ``torch.sum(x, 1)``."""
+    from recommender_system_tpu_torch.ops.kernels import fm_fused, fm_kernel_takes, fm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for D in (cs.WIDE_FM_D, 3419):
+        x, w1, v = cs.fm_inputs(gen, cs.FM_B, D, 8)
+        assert not fm_kernel_takes(x, w1, v)
+        with torch.inference_mode():
+            out.update(global_and_floor(cs, f"fm_global_{D}", lambda: fm_fused(x, w1, v),
+                                        lambda: fm_ref(x, w1, v), lambda: torch.sum(x, 1)))
+        del x, w1, v
+    return out
+
+
+def time_cross_global(cs, torch) -> dict:
+    """``cross_fused`` on the global kernel at DCN's x0 1,053 wide (dim 40),
+    L=6, B=4,096 and 8,192; beside ``x0.clone()``."""
+    from recommender_system_tpu_torch.ops.interactions import cross_network
+    from recommender_system_tpu_torch.ops.kernels import cross_fused, cross_kernel_takes
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    D, L = cs.FIELDS * cs.WIDE_DIM + 13, 6
+    w = torch.randn(L, D, generator=gen, device="cuda") * (0.2 / D ** 0.5)
+    b = torch.randn(L, D, generator=gen, device="cuda") * 0.1
+    out = {}
+    for B in (cs.SERVE_BATCH, cs.CTR_BATCH):
+        x0 = torch.randn(B, D, generator=gen, device="cuda")
+        assert not cross_kernel_takes(x0, w, b)
+        with torch.inference_mode():
+            out.update(global_and_floor(cs, f"cross_global_{B}", lambda: cross_fused(x0, w, b),
+                                        lambda: cross_network(x0, w, b), lambda: x0.clone()))
+    return out
+
+
+PARTS = ("adam", "rows", "attention", "steps", "fm", "cross", "family", "loops",
+         "fm_global", "cross_global")
 
 
 def turn(label: str, tree: Path, what) -> None:
@@ -322,6 +377,10 @@ def turn(label: str, tree: Path, what) -> None:
         rec.update(time_family(cs, torch, card))
     if "loops" in what:
         rec.update(time_loops(cs, torch))
+    if "fm_global" in what:
+        rec.update(time_fm_global(cs, torch))
+    if "cross_global" in what:
+        rec.update(time_cross_global(cs, torch))
     print(f"TURN {label} {json.dumps(rec)}", flush=True)
 
 

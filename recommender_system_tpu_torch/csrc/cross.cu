@@ -45,10 +45,41 @@
 // warp's next rows' loads issued before its layers.
 // cross_global_kernel takes every other shape (D past 1024, as DCN's x0 of
 // 26 fields at dim 40 and 13 dense, 1,053 wide; or more layers than shared
-// memory holds): one warp a row, x_l kept in the row of out, the weights
-// read from global memory through L1 and L2. Its arithmetic is the other
-// kernels': the lane's columns j, j+32, ... in order, the same butterfly,
-// the same update.
+// memory holds). Its first design gave a warp a row, kept x_l in the row of
+// out and read w and b again for every row through L1 (2*L*D floats a row,
+// 50 KB at D=1,053, L=6, against the row's own 8.4 KB), each warp's six
+// dependent layers with no other row's loads in flight: 38 % of the bound
+// at B=4,096, D=1,053, L=6. Now it is the tile kernel's design at larger
+// widths: a persistent grid of one block of 8 warps an SM takes tiles of 8
+// rows by cp.async into two buffers (16 bytes a copy, x0 off 16-byte
+// alignment too: the buffers start as far off as x0); a warp loads its row
+// into registers (x0 and x_l, kPerLane = 36, 64 or 96 columns a lane up to
+// D = 1,152, 2,048 and 3,072), the block then refills the buffer with the
+// tile after next, so that two tiles are in flight while it computes this
+// one; each layer's update and the next layer's dot go in one pass over
+// the lane's columns (apply_layers_fused); w and b are staged once a block
+// (50.5 KB at D=1,053, L=6) where they fit beside the buffers, else
+// chunk_layers layers at a time, every tile; each row is stored once, from
+// registers. Past D = 3,072 (more than registers hold)
+// cross_global_rows_kernel keeps the first design. The arithmetic is the
+// other kernels': the lane's columns j, j+32, ... in order, the butterfly
+// 16, 8, 4, 2, 1 and x0 * s + b + x, so cross_global_kernel equals
+// cross_stack_kernel bitwise where both take a shape (chip_smoke.py phase
+// 2 checks it at D=1,000 and 1,024).
+//
+// What set its design (chip_lab_fm_cross.py, CUDA events around a graph of
+// 100 launches, an NVIDIA H100 80GB HBM3 at 700 W, B=4,096 / 8,192, D=1,053,
+// L=6): the copies in and out alone take ~0.0115 / 0.029 ms, the layers
+// without the stores ~0.016 / 0.029: the six dependent rounds of dot,
+// butterfly and update of a block's rows, not the bytes, set the pace.
+// Kept: 8 warps of 1 row, 0.0186 / 0.0367 ms. Slower, in the same call:
+// 16 warps of 1 row (0.0195 / 0.040), 8 warps of 2 rows with their layers
+// interleaved, the tile kernel's layout (181 registers, 0.0252 / 0.050),
+// the update and the next dot in two passes (0.0244 / 0.048); in other
+// calls: one tile in flight, 16 warps of 1 row, two passes (0.0252 /
+// 0.049), 20 warps of 1 row (0.023 / 0.049), and this kernel with its ring
+// written for any number of buffers (134 registers, 0.035 / 0.068; 3 or 4
+// buffers no faster).
 //
 // What holds the tile kernel back (chip_lab_fm_cross.py on an NVIDIA H100
 // 80GB HBM3 at 700 W): at B=4,096 it is one round of copy in, six layers
@@ -63,7 +94,9 @@
 // ptxas (sm_90a, CUDA 12.8): cross_tile_kernel<7> 63 registers, no spills,
 // dynamic shared memory 2*32*D*4 + 2*L*D*4 bytes (67,184 at D=221, L=6);
 // <1..8> 32-66 registers, no spills; cross_stack_kernel<8, 1> 64 registers,
-// <16, 1> 88, <32, 1> 128 with 48 bytes of spills.
+// <16, 1> 88, <32, 1> 128 with 48 bytes of spills; cross_global_kernel<36,
+// 1, 8> 111 registers, no spills, 2*8*D*4 + 2*L*D*4 bytes (117,968 at
+// D=1,053, L=6).
 //
 // C interface, loaded with ctypes: cross_forward (the tile and stack
 // kernels) and cross_global_forward (the global kernel) return
@@ -156,6 +189,54 @@ __device__ __forceinline__ void run_layers(const float (&a)[kRows][kPerLane],
         for (int r = 0; r < kRows; ++r) x[r][k] = a[r][k] * s[r] + bj + x[r][k];
       }
     }
+  }
+}
+
+// Layers 0..layers-1 of w_s and b_s as run_layers runs them, continuing
+// from x, with each layer's update and the next layer's dot in one pass
+// over the lane's columns: the same operations in the same order, so the
+// same results bitwise. The pass of the last layer forms a dot with
+// the row of w_s after it (b_s's first, or a stale one) and drops it.
+template <int kPerLane, int kRows>
+__device__ __forceinline__ void apply_layers_fused(const float (&a)[kRows][kPerLane],
+                                                   float (&x)[kRows][kPerLane],
+                                                   const float* w_s, const float* b_s, int dim,
+                                                   int layers, int lane) {
+  if (layers == 0) return;
+  float s[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) s[r] = 0.f;
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    const int j = lane + 32 * k;
+    if (j < dim) {
+      const float wj = w_s[j];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) s[r] = fmaf(x[r][k], wj, s[r]);
+    }
+  }
+  for (int l = 0; l < layers; ++l) {
+    const float* b = b_s + l * dim;
+    const float* w_next = w_s + (l + 1) * dim;
+    row_sums<kRows>(s, lane);
+    float s_next[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s_next[r] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int j = lane + 32 * k;
+      if (j < dim) {
+        const float bj = b[j];
+        const float wj = w_next[j];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          x[r][k] = a[r][k] * s[r] + bj + x[r][k];
+          s_next[r] = fmaf(x[r][k], wj, s_next[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = s_next[r];
   }
 }
 
@@ -328,15 +409,144 @@ cross_stack_kernel(const float* __restrict__ x0, const float* __restrict__ weigh
 }
 
 // --- cross_global_kernel: every other shape ---------------------------------
-// One warp a row, a grid of blocks of kGlobalWarps warps striding over the
-// rows. x_l lives in the row of out: each lane reads back only the elements
-// it wrote, so the warp needs no barrier between layers.
+// A persistent grid of kWarps warps a block takes tiles of kWarps * kRows
+// consecutive rows, copied by cp.async into one of two shared-memory
+// buffers (16 bytes a copy, x0 off 16-byte alignment included: a buffer
+// starts as far off as x0 is); each warp loads its rows from the tile into
+// registers (x0 and x_l, kPerLane columns a lane, zero past D), the buffer
+// is refilled with the tile after next, and the warp runs the layers in
+// registers and stores each row once. The weights are staged once a block
+// where they fit beside the two buffers; where they do not, the block
+// stages them chunk_layers at a time, every tile.
+// widest x0 that registers hold, one row a warp
+constexpr int kGlobalMaxPerLane = 96;
+// the rows kernel's warps a block
 constexpr int kGlobalWarps = 8;
 
-__global__ void __launch_bounds__(kGlobalWarps * 32)
+// Starts the copy of n floats from src to dst in shared memory (dst as far
+// off 16-byte alignment as src) and commits it as this thread's next group.
+__device__ __forceinline__ void fetch_any(float* dst, const float* src, int n) {
+  const int off = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  const int head = min(n, (4 - off) & 3);
+  for (int i = threadIdx.x; i < head; i += blockDim.x)
+    __pipeline_memcpy_async(dst + i, src + i, 4);
+  const int n4 = (n - head) >> 2;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    __pipeline_memcpy_async(dst + head + 4 * i, src + head + 4 * i, 16);
+  for (int i = head + 4 * n4 + threadIdx.x; i < n; i += blockDim.x)
+    __pipeline_memcpy_async(dst + i, src + i, 4);
+  __pipeline_commit();
+}
+
+// Floats of one tile buffer: its rows, and room for x0's offset, rounded
+// to 16 bytes.
+__host__ __device__ int global_tile_floats(int dim, int rows) {
+  return (rows * dim + 3 + 3) / 4 * 4;
+}
+
+template <int kPerLane, int kRows, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32, 1)
 cross_global_kernel(const float* __restrict__ x0, const float* __restrict__ weights,
                     const float* __restrict__ biases, float* __restrict__ out,
-                    int batch, int dim, int layers) {
+                    int batch, int dim, int layers, int chunk_layers) {
+  constexpr int kTile = kWarps * kRows;  // a multiple of 4: every tile is
+                                         // as far off as x0
+  static_assert(kTile % 4 == 0, "tiles of a multiple of 4 rows");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tile_floats = global_tile_floats(dim, kTile);
+  float* w_s = smem + 2 * tile_floats;
+  float* b_s = w_s + chunk_layers * dim;
+  const int off = static_cast<int>((reinterpret_cast<uintptr_t>(x0) >> 2) & 3);
+  const bool once = chunk_layers >= layers;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t tiles = (static_cast<int64_t>(batch) + kTile - 1) / kTile;
+  auto rows_of = [batch](int64_t t) {
+    const int64_t left = batch - t * kTile;
+    return static_cast<int>(left < kTile ? left : kTile);
+  };
+
+  // the first tile's copy goes out before the weights', the second's after
+  // them
+  int64_t t = blockIdx.x;
+  fetch_any(smem + off, x0 + t * kTile * dim, rows_of(t) * dim);
+  if (once) {
+    for (int i = threadIdx.x; i < layers * dim; i += blockDim.x) {
+      __pipeline_memcpy_async(w_s + i, weights + i, 4);
+      __pipeline_memcpy_async(b_s + i, biases + i, 4);
+    }
+  }
+  __pipeline_commit();
+  if (t + gridDim.x < tiles) {
+    fetch_any(smem + tile_floats + off, x0 + (t + gridDim.x) * kTile * dim,
+              rows_of(t + gridDim.x) * dim);
+  } else {
+    __pipeline_commit();  // an empty group keeps the count
+  }
+
+  for (int buf = 0; t < tiles; t += gridDim.x, buf ^= 1) {
+    float* tile = smem + buf * tile_floats;
+    __pipeline_wait_prior(1);  // this tile (and the weights) have landed
+    __syncthreads();
+
+    // every warp runs the layers, rows past the tile's on zeros, so that
+    // the whole block meets the barriers of the staged chunks
+    const int rows = rows_of(t);
+    const int r0 = warp * kRows;
+    float a[kRows][kPerLane], x[kRows][kPerLane];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const int j = lane + 32 * k;
+        a[r][k] = (r0 + r < rows && j < dim) ? tile[off + (r0 + r) * dim + j] : 0.f;
+        x[r][k] = a[r][k];
+      }
+    }
+    // every warp holds its rows: the buffer takes the tile after next, two
+    // tiles in flight while the block computes this one
+    __syncthreads();
+    const int64_t after = t + 2 * static_cast<int64_t>(gridDim.x);
+    if (after < tiles) {
+      fetch_any(tile + off, x0 + after * kTile * dim, rows_of(after) * dim);
+    } else {
+      __pipeline_commit();
+    }
+    for (int l0 = 0; l0 < layers; l0 += chunk_layers) {
+      const int n = min(chunk_layers, layers - l0);
+      if (!once) {
+        __syncthreads();  // every warp is done with the last chunk
+        for (int i = threadIdx.x; i < n * dim; i += blockDim.x) {
+          w_s[i] = __ldg(weights + static_cast<int64_t>(l0) * dim + i);
+          b_s[i] = __ldg(biases + static_cast<int64_t>(l0) * dim + i);
+        }
+        __syncthreads();
+      }
+      apply_layers_fused<kPerLane, kRows>(a, x, w_s, b_s, dim, n, lane);
+    }
+    float* dst = out + t * kTile * dim;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const int j = lane + 32 * k;
+        if (r0 + r < rows && j < dim) dst[(r0 + r) * dim + j] = x[r][k];
+      }
+    }
+  }
+}
+
+// --- cross_global_rows_kernel: x0 wider than registers hold ----------------
+// One warp a row, a grid of blocks of kGlobalWarps warps striding over the
+// rows. x_l lives in the row of out: each lane reads back only the elements
+// it wrote, so the warp needs no barrier between layers; the weights are
+// read through L1 and L2. The same arithmetic as the other kernels.
+__global__ void __launch_bounds__(kGlobalWarps * 32)
+cross_global_rows_kernel(const float* __restrict__ x0, const float* __restrict__ weights,
+                         const float* __restrict__ biases, float* __restrict__ out,
+                         int batch, int dim, int layers) {
   const int lane = threadIdx.x & 31;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kGlobalWarps;
   // the whole warp shares a row, so the loop test never splits a warp
@@ -404,6 +614,36 @@ cudaError_t launch_stack(const float* x0, const float* weights, const float* bia
   return cudaGetLastError();
 }
 
+template <int kPerLane, int kRows, int kWarps>
+cudaError_t launch_global(const float* x0, const float* weights, const float* biases,
+                          float* out, int batch, int dim, int layers, cudaStream_t stream) {
+  // two tile buffers, then as many layers of w and b as fit (all, or a
+  // chunk staged a tile at a time)
+  constexpr int kTile = kWarps * kRows;
+  const size_t tiles_bytes = 2 * static_cast<size_t>(global_tile_floats(dim, kTile)) *
+                             sizeof(float);
+  const size_t layer_bytes = 2 * static_cast<size_t>(dim) * sizeof(float);
+  if (tiles_bytes + layer_bytes > kMaxSharedBytes) return cudaErrorInvalidValue;
+  const int64_t fit = static_cast<int64_t>((kMaxSharedBytes - tiles_bytes) / layer_bytes);
+  const int chunk_layers = static_cast<int>(layers < fit ? (layers > 0 ? layers : 1) : fit);
+  const size_t bytes = tiles_bytes + chunk_layers * layer_bytes;
+  const auto kernel = cross_global_kernel<kPerLane, kRows, kWarps>;
+  cudaError_t err = allow_shared(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const int sms = sm_count(&err);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarps * 32, bytes);
+  if (err != cudaSuccess) return err;
+  // a persistent grid: the blocks resident at once
+  const int64_t tiles = (static_cast<int64_t>(batch) + kTile - 1) / kTile;
+  const int64_t most = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int blocks = static_cast<int>(tiles < most ? tiles : most);
+  kernel<<<blocks, kWarps * 32, bytes, stream>>>(x0, weights, biases, out, batch, dim, layers,
+                                                 chunk_layers);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
@@ -440,13 +680,24 @@ extern "C" int cross_global_forward(const float* x0, const float* weights,
                                     int dim, int layers, void* stream) {
   if (batch <= 0) return cudaSuccess;
   if (dim <= 0 || layers < 0) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dim <= 32 * 36) {
+    return launch_global<36, 1, 8>(x0, weights, biases, out, batch, dim, layers, s);
+  }
+  if (dim <= 32 * 64) {
+    return launch_global<64, 1, 8>(x0, weights, biases, out, batch, dim, layers, s);
+  }
+  if (dim <= 32 * kGlobalMaxPerLane) {
+    return launch_global<kGlobalMaxPerLane, 1, 8>(x0, weights, biases, out, batch, dim, layers,
+                                                  s);
+  }
   cudaError_t err = cudaSuccess;
   const int sms = sm_count(&err);
   if (err != cudaSuccess) return err;
   const int64_t blocks_needed = (static_cast<int64_t>(batch) + kGlobalWarps - 1) / kGlobalWarps;
   const int64_t most = static_cast<int64_t>(sms) * 8;
   const int blocks = static_cast<int>(blocks_needed < most ? blocks_needed : most);
-  cross_global_kernel<<<blocks, kGlobalWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      x0, weights, biases, out, batch, dim, layers);
+  cross_global_rows_kernel<<<blocks, kGlobalWarps * 32, 0, s>>>(x0, weights, biases, out, batch,
+                                                                dim, layers);
   return cudaGetLastError();
 }

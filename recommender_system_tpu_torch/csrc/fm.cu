@@ -52,21 +52,63 @@
 //
 // fm_global_kernel takes the shapes whose v, v*v and w1 do not fit in a
 // block's shared memory (4*D*(2k + 1) bytes past 227 KB: D past 3,418 at
-// k=8): fm_wide_kernel's warp a row and its order of sums, with v, v*v and
-// w1 read from global memory through L1 and L2 instead of staged, so its
-// results are those the wide kernel would give.
+// k=8, past 1,499 at k=19). Its first design was the wide kernel with v,
+// v*v and w1 read through L1 and L2: k loads of v, k products v*v and 2k + 1
+// FMAs an element of x, and 2k + 1 butterflies a row, at 23 % of the bound
+// at x [16,384, 4,000], k=8. Now:
+// - a small first kernel (fm_global_kernel_coefficients) folds w1 and v
+//   once a call into a scratch buffer the wrapper allocates:
+//   [groups of 8 factors][a, c, v_0..v_7][D rounded up to 128], so an
+//   element costs k + 2 FMAs and a row keeps k + 1 running sums, as in the
+//   rows kernel;
+// - a persistent grid (the blocks resident at once, 2 an SM) walks tiles of
+//   32 rows, a warp 4 of them, and each tile's columns in chunks of 128: a
+//   lane owns columns 4l..4l+3 of a chunk and reads them, and the chunk's
+//   coefficients, 16 bytes at a time from shared memory, each coefficient
+//   serving the warp's 4 rows;
+// - the x tile [32][128] and the chunk's coefficients arrive by cp.async
+//   in a ring of 4 stages, 3 chunks ahead, across the tiles' boundaries (16
+//   bytes a copy where D % 4 == 0 and x is 16-byte aligned, else 4: a row
+//   of D % 4 != 0 floats starts off 16-byte alignment); a thread copies
+//   the same column of every 8th (every 2nd) row, its addresses a step
+//   apart; columns past D and rows past the batch are zero-filled;
+// - each row's sums stay in registers across the chunks, and one
+//   reduce-scatter butterfly per tile and factor group (the rows kernel's)
+//   ends them. Factors past 8 take one more pass over the tile per group
+//   of 8 (its a and c zero).
+// A lane sums its columns in order (chunk by chunk, 4l..4l+3 in each),
+// then the lanes in the order 16, 8, 4, 2, 1, the factors' s_j^2 in the
+// order 4, 2, 1, the groups in order; out = fma(0.5, sq, t)
+// (tests/test_torch_fm.py emulates it). Against the exact value (the plain
+// version in float64) it is within 3.9e-6 at x [16,384, 3,419-4,001], the
+// plain version in float32 on the card within 4.3e-5.
+//
+// What set its design (chip_lab_fm_cross.py, CUDA events around a graph of
+// 100 launches, an NVIDIA H100 80GB HBM3 at 700 W, x [16,384, D], k=8):
+// 0.111 ms at D=4,000 and 0.156 at D=3,419 with each copy's address formed
+// from its row and column; 0.098 and 0.113 with a thread's addresses a
+// step apart (kept; torch.sum(x, 1) 0.089 and 0.078). 3 stages: 0.101 and
+// 0.117; 6 (one block an SM): 0.155 and 0.227. Rows of D % 4 != 0 shifted
+// in shared memory to their own alignment, for 16-byte copies, and read a
+// float at a time: 0.172 at D=3,419, against 0.156 for 4-byte copies in an
+// earlier call.
 //
 // ptxas (sm_90a, CUDA 12.8): fm_rows_kernel<7> (D=221) 168 registers, no
 // spills, 8,960 bytes of shared memory; <8> 168 registers, 4 bytes of
 // spills; <1..6> 75-157 registers, no spills; fm_wide_kernel 48 registers,
-// no spills, (2k + 1)*D*4 bytes of dynamic shared memory.
+// no spills, (2k + 1)*D*4 bytes of dynamic shared memory; fm_global_kernel
+// 93 registers, no spills, 86,016 bytes of dynamic shared memory (two
+// blocks an SM).
 //
 // C interface, loaded with ctypes: fm_forward (the rows and wide kernels)
-// and fm_global_forward (the global kernel) return cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a shape their kernels do not
+// and fm_global_forward (the global kernel and its coefficients, into a
+// scratch of ceil(k / 8) * 10 * D rounded up to 128
+// floats) return cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a shape their kernels do not
 // take; the Python wrapper checks shapes, types, devices and the shared
 // memory the shape needs, and picks the entry point (ops/kernels.py
 // fm_kernel_takes).
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -110,6 +152,33 @@ __device__ __forceinline__ void split_sum(const float* in, float* out, int offse
     const float send = bit ? in[i] : in[i + kHalf];
     out[i] = keep + __shfl_xor_sync(kFull, send, offset);
   }
+}
+
+// Sums a warp's kRows rows' partial sums (acc[r * kVals + j]: s_j of row r
+// for j < kFactors, t for j = kFactors) over the 32 lanes, each in the
+// order 16, 8, 4, 2, 1: afterwards lane l holds row (l >> 3) & 3's t and
+// sq = sum_j s_j^2 (summed over the factors in the order 4, 2, 1).
+constexpr int kVals = kFactors + 1;
+
+__device__ __forceinline__ void reduce_rows(const float* acc, int lane, float& t, float& sq) {
+  // rows: offset 16 keeps rows {0, 1} or {2, 3}, offset 8 one of them, so
+  // that lane l holds row (l >> 3) & 3 of the group
+  float half[2 * kVals], row[kVals];
+  split_sum<2 * kVals>(acc, half, 16, lane);
+  split_sum<kVals>(half, row, 8, lane);
+  // factors: offsets 4, 2, 1 leave lane l with s_{l & 7}; t in full
+  t = row[kFactors];
+  t += __shfl_xor_sync(kFull, t, 4);
+  t += __shfl_xor_sync(kFull, t, 2);
+  t += __shfl_xor_sync(kFull, t, 1);
+  float s4[4], s2[2], s1[1];
+  split_sum<4>(row, s4, 4, lane);
+  split_sum<2>(s4, s2, 2, lane);
+  split_sum<1>(s2, s1, 1, lane);
+  sq = __fmul_rn(s1[0], s1[0]);
+  sq += __shfl_xor_sync(kFull, sq, 4);
+  sq += __shfl_xor_sync(kFull, sq, 2);
+  sq += __shfl_xor_sync(kFull, sq, 1);
 }
 
 template <int kPerLane>
@@ -158,7 +227,6 @@ fm_rows_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   // warp and the full-mask shuffles below are safe.
   for (; group < groups; group += stride) {
     // acc[r * kVals + j] = s_j of row r for j < kFactors, t for j = kFactors
-    constexpr int kVals = kFactors + 1;
     float acc[kRows * kVals];
 #pragma unroll
     for (int i = 0; i < kRows * kVals; ++i) acc[i] = 0.f;
@@ -176,24 +244,8 @@ fm_rows_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     // the next rows' loads go out before this group's shuffles
     load_rows<kPerLane>(xr, x, group + stride, batch, dim, lane);
 
-    // rows: offset 16 keeps rows {0, 1} or {2, 3}, offset 8 one of them, so
-    // that lane l holds row (l >> 3) & 3 of the group
-    float half[2 * kVals], row[kVals];
-    split_sum<2 * kVals>(acc, half, 16, lane);
-    split_sum<kVals>(half, row, 8, lane);
-    // factors: offsets 4, 2, 1 leave lane l with s_{l & 7}; t in full
-    float t = row[kFactors];
-    t += __shfl_xor_sync(kFull, t, 4);
-    t += __shfl_xor_sync(kFull, t, 2);
-    t += __shfl_xor_sync(kFull, t, 1);
-    float s4[4], s2[2], s1[1];
-    split_sum<4>(row, s4, 4, lane);
-    split_sum<2>(s4, s2, 2, lane);
-    split_sum<1>(s2, s1, 1, lane);
-    float sq = __fmul_rn(s1[0], s1[0]);
-    sq += __shfl_xor_sync(kFull, sq, 4);
-    sq += __shfl_xor_sync(kFull, sq, 2);
-    sq += __shfl_xor_sync(kFull, sq, 1);
+    float t, sq;
+    reduce_rows(acc, lane, t, sq);
     const int64_t r = group * kRows + ((lane >> 3) & 3);
     if ((lane & 7) == 0 && r < batch) out[r] = fmaf(0.5f, sq, t);
   }
@@ -216,38 +268,24 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-// The wide kernel's body. kStaged: v, v*v and w1 staged in shared memory
-// (fm_wide_kernel); else read from global memory (fm_global_kernel), v*v
-// rounded as the staged copy rounds it.
-template <bool kStaged>
-__device__ __forceinline__ void fm_wide_rows(const float* __restrict__ x,
-                                             const float* __restrict__ w1,
-                                             const float* __restrict__ v,
-                                             float* __restrict__ out, int batch, int dim,
-                                             int factors, float* smem) {
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+fm_wide_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+               const float* __restrict__ v, float* __restrict__ out, int batch, int dim,
+               int factors) {
+  extern __shared__ float smem[];
   float* vt = smem;                           // [factors][dim]
   float* v2t = smem + factors * dim;          // [factors][dim], v*v
   float* w_s = smem + 2 * factors * dim;      // [dim]
-  if constexpr (kStaged) {
-    const int n = factors * dim;
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      const int d = e / factors;  // v is [dim][factors]: coalesced reads
-      const int j = e - d * factors;
-      const float ve = v[e];
-      vt[j * dim + d] = ve;
-      v2t[j * dim + d] = __fmul_rn(ve, ve);
-    }
-    for (int d = threadIdx.x; d < dim; d += blockDim.x) w_s[d] = w1[d];
-    __syncthreads();
+  const int n = factors * dim;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int d = e / factors;  // v is [dim][factors]: coalesced reads
+    const int j = e - d * factors;
+    const float ve = v[e];
+    vt[j * dim + d] = ve;
+    v2t[j * dim + d] = __fmul_rn(ve, ve);
   }
-  auto w_at = [&](int d) { return kStaged ? w_s[d] : __ldg(w1 + d); };
-  auto v_at = [&](int j, int d) {
-    return kStaged ? vt[j * dim + d] : __ldg(v + static_cast<int64_t>(d) * factors + j);
-  };
-  // v*v as the staged copy holds it: ve is v_at(j, d)
-  auto v2_at = [&](int j, int d, float ve) {
-    return kStaged ? v2t[j * dim + d] : __fmul_rn(ve, ve);
-  };
+  for (int d = threadIdx.x; d < dim; d += blockDim.x) w_s[d] = w1[d];
+  __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -257,7 +295,7 @@ __device__ __forceinline__ void fm_wide_rows(const float* __restrict__ x,
        row += static_cast<int64_t>(gridDim.x) * kWarpsPerBlock) {
     const float* xr = x + row * dim;
     float linear = 0.f;
-    for (int d = lane; d < dim; d += 32) linear = fmaf(xr[d], w_at(d), linear);
+    for (int d = lane; d < dim; d += 32) linear = fmaf(xr[d], w_s[d], linear);
     float pair = 0.f;  // sum over the factors of (x.v_j)^2 - x^2.v_j^2
     for (int c0 = 0; c0 < factors; c0 += kChunk) {
       float s[kChunk], q[kChunk];
@@ -269,9 +307,8 @@ __device__ __forceinline__ void fm_wide_rows(const float* __restrict__ x,
 #pragma unroll
         for (int j = 0; j < kChunk; ++j) {
           if (c0 + j < factors) {
-            const float ve = v_at(c0 + j, d);
-            s[j] = fmaf(xd, ve, s[j]);
-            q[j] = fmaf(x2, v2_at(c0 + j, d, ve), q[j]);
+            s[j] = fmaf(xd, vt[(c0 + j) * dim + d], s[j]);
+            q[j] = fmaf(x2, v2t[(c0 + j) * dim + d], q[j]);
           }
         }
       }
@@ -289,19 +326,163 @@ __device__ __forceinline__ void fm_wide_rows(const float* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-fm_wide_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-               const float* __restrict__ v, float* __restrict__ out, int batch, int dim,
-               int factors) {
-  extern __shared__ float smem[];
-  fm_wide_rows<true>(x, w1, v, out, batch, dim, factors, smem);
+// --- fm_global_kernel: every shape, x walked in chunks of columns ----------
+// A block of kGlobalWarps warps takes tiles of kTileRows = 32 rows (4 a
+// warp, as fm_rows_kernel) and walks each tile's columns in chunks of
+// kChunkCols = 128, a lane owning columns 4l..4l+3 of a chunk. For every
+// chunk the block stages the x tile [32][128] and the chunk's coefficients
+// [a, c, v_0..v_7][128] in a ring of kStages buffers by cp.async (16 bytes
+// where every row of x starts 16-byte aligned, else 4), kStages - 1 chunks
+// ahead, across the tiles' boundaries. Factors past 8 take further passes
+// over the tile (a group of 8 a pass; the coefficients' a and c rows are
+// zero past the first group).
+constexpr int kGlobalWarps = 8;
+constexpr int kTileRows = kGlobalWarps * kRows;
+constexpr int kChunkCols = 128;
+constexpr int kCoefRows = 2 + kFactors;
+constexpr int kStages = 4;
+constexpr int kStageFloats = (kTileRows + kCoefRows) * kChunkCols;
+constexpr size_t kGlobalSharedBytes = kStages * kStageFloats * sizeof(float);
+constexpr int kCoefThreads = 256;
+
+// The coefficients of every factor group g, [groups][kCoefRows][padded]:
+// row 0 a_d = w1_d and row 1 c_d = -vv_d / 2 (vv_d = sum_j v_dj^2 by fma in
+// factor order, over all the factors) in group 0, zero in the others; rows
+// 2..9 v_{d, 8g..8g+7}; zero past k and past D. Run before the global
+// kernel, which stages them a chunk at a time.
+__global__ void __launch_bounds__(kCoefThreads)
+fm_global_kernel_coefficients(const float* __restrict__ w1, const float* __restrict__ v,
+                              float* __restrict__ coef, int dim, int factors, int padded,
+                              int groups) {
+  const int d = blockIdx.x * kCoefThreads + threadIdx.x;
+  if (d >= padded) return;
+  const bool in = d < dim;
+  const float* vd = v + static_cast<int64_t>(d) * factors;
+  float vv = 0.f;
+  if (in) {
+    for (int j = 0; j < factors; ++j) vv = fmaf(vd[j], vd[j], vv);
+  }
+  for (int g = 0; g < groups; ++g) {
+    float* base = coef + static_cast<int64_t>(g) * kCoefRows * padded + d;
+    base[0] = in && g == 0 ? w1[d] : 0.f;
+    base[padded] = in && g == 0 ? -0.5f * vv : 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kFactors; ++jj) {
+      const int j = g * kFactors + jj;
+      base[static_cast<int64_t>(2 + jj) * padded] = in && j < factors ? vd[j] : 0.f;
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-fm_global_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                 const float* __restrict__ v, float* __restrict__ out, int batch, int dim,
-                 int factors) {
-  fm_wide_rows<false>(x, w1, v, out, batch, dim, factors, nullptr);
+template <bool kVec>
+__global__ void __launch_bounds__(kGlobalWarps * 32, 2)
+fm_global_kernel(const float* __restrict__ x, const float* __restrict__ coef,
+                 float* __restrict__ out, int batch, int dim, int padded, int groups) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int chunks = padded / kChunkCols;
+  const int64_t tiles = (static_cast<int64_t>(batch) + kTileRows - 1) / kTileRows;
+  const int64_t my_tiles =
+      tiles > blockIdx.x ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int64_t tile_steps = static_cast<int64_t>(groups) * chunks;
+  const int64_t steps = my_tiles * tile_steps;
+
+  // Starts the copies of step i (tile, factor group, chunk) into its stage
+  // and commits them as one group (an empty one past the last step), so
+  // that every thread's count of groups stays the step's.
+  auto stage_step = [&](int64_t i) {
+    if (i < steps) {
+      const int64_t row0 = (blockIdx.x + (i / tile_steps) * gridDim.x) * kTileRows;
+      const int rem = static_cast<int>(i % tile_steps);
+      const int g = rem / chunks;
+      const int col0 = (rem - g * chunks) * kChunkCols;
+      float* st = smem + (i % kStages) * kStageFloats;
+      // a thread copies one column (or 16-byte group) of every
+      // kGlobalWarps * 32 / kChunkCols-th (or ... / 32-th) row of the tile
+      constexpr int kCopies = kVec ? kChunkCols / 4 : kChunkCols;
+      constexpr int kRowStep = kGlobalWarps * 32 / kCopies;
+      const int c = (kVec ? 4 : 1) * (threadIdx.x % kCopies);
+      const int r1 = threadIdx.x / kCopies;
+      const bool col_in = col0 + c < dim;  // D % 4 == 0 where kVec
+      const float* src = x + (row0 + r1) * dim + col0 + c;
+      float* dst = st + r1 * kChunkCols + c;
+#pragma unroll
+      for (int r = r1; r < kTileRows; r += kRowStep) {
+        const bool in = col_in && row0 + r < batch;
+        __pipeline_memcpy_async(dst, in ? src : x, kVec ? 16 : 4, in ? 0 : (kVec ? 16 : 4));
+        src += kRowStep * static_cast<int64_t>(dim);
+        dst += kRowStep * kChunkCols;
+      }
+      const float* cg = coef + static_cast<int64_t>(g) * kCoefRows * padded + col0;
+      float* cs = st + kTileRows * kChunkCols;
+      for (int e = threadIdx.x; e < kCoefRows * kChunkCols / 4; e += blockDim.x) {
+        const int r = e / (kChunkCols / 4);
+        const int q = 4 * (e - r * (kChunkCols / 4));
+        __pipeline_memcpy_async(cs + r * kChunkCols + q, cg + static_cast<int64_t>(r) * padded + q,
+                                16);
+      }
+    }
+    __pipeline_commit();
+  };
+
+  for (int i = 0; i < kStages - 1; ++i) stage_step(i);
+  float acc[kRows * kVals];
+  float t_row = 0.f, sq_row = 0.f;  // lane l's row (l >> 3) & 3, over the groups
+  for (int64_t i = 0; i < steps; ++i) {
+    __pipeline_wait_prior(kStages - 2);  // step i has landed (this thread's copies)
+    // every thread's copies have landed, and every warp is done with step
+    // i - 1, whose stage the next copies fill
+    __syncthreads();
+    stage_step(i + kStages - 1);
+    const int rem = static_cast<int>(i % tile_steps);
+    const int g = rem / chunks;
+    const int c = rem - g * chunks;
+    if (c == 0) {
+#pragma unroll
+      for (int e = 0; e < kRows * kVals; ++e) acc[e] = 0.f;
+    }
+    const float* st = smem + (i % kStages) * kStageFloats;
+    const float4* xs = reinterpret_cast<const float4*>(st + warp * kRows * kChunkCols);
+    const float4* cs = reinterpret_cast<const float4*>(st + kTileRows * kChunkCols);
+    constexpr int kRow4 = kChunkCols / 4;
+    const float4 a4 = cs[lane];
+    const float4 c4 = cs[kRow4 + lane];
+    float4 v4[kFactors];
+#pragma unroll
+    for (int j = 0; j < kFactors; ++j) v4[j] = cs[(2 + j) * kRow4 + lane];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 x4 = xs[r * kRow4 + lane];
+      float* a = acc + r * kVals;
+      const float xq[4] = {x4.x, x4.y, x4.z, x4.w};
+      const float aq[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float cq[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float xd = xq[q];
+        a[kFactors] = fmaf(xd, fmaf(cq[q], xd, aq[q]), a[kFactors]);
+#pragma unroll
+        for (int j = 0; j < kFactors; ++j) {
+          const float vq = q == 0 ? v4[j].x : q == 1 ? v4[j].y : q == 2 ? v4[j].z : v4[j].w;
+          a[j] = fmaf(xd, vq, a[j]);
+        }
+      }
+    }
+    if (c == chunks - 1) {  // the tile's group is summed: one butterfly
+      float t, sq;
+      reduce_rows(acc, lane, t, sq);
+      t_row += t;
+      sq_row += sq;
+      if (g == groups - 1) {
+        const int64_t r = (blockIdx.x + (i / tile_steps) * gridDim.x) * kTileRows +
+                          warp * kRows + ((lane >> 3) & 3);
+        if ((lane & 7) == 0 && r < batch) out[r] = fmaf(0.5f, sq_row, t_row);
+        t_row = sq_row = 0.f;
+      }
+    }
+  }
 }
 
 template <int kPerLane>
@@ -336,6 +517,8 @@ cudaError_t launch_wide(const float* x, const float* w1, const float* v, float* 
   return cudaGetLastError();
 }
 
+int fm_global_padded_dim(int dim) { return (dim + kChunkCols - 1) / kChunkCols * kChunkCols; }
+
 }  // namespace
 
 extern "C" int fm_forward(const void* x_, const void* w1_, const void* v_, void* out_,
@@ -362,13 +545,38 @@ extern "C" int fm_forward(const void* x_, const void* w1_, const void* v_, void*
 }
 
 extern "C" int fm_global_forward(const void* x_, const void* w1_, const void* v_, void* out_,
-                                 int batch, int dim, int factors, void* stream_) {
+                                 void* coef_, int batch, int dim, int factors, void* stream_) {
   if (batch <= 0) return cudaSuccess;
   if (dim <= 0 || factors <= 0) return cudaErrorInvalidValue;
-  int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  fm_global_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream_)>>>(
-      static_cast<const float*>(x_), static_cast<const float*>(w1_),
-      static_cast<const float*>(v_), static_cast<float*>(out_), batch, dim, factors);
+  const auto* x = static_cast<const float*>(x_);
+  auto* coef = static_cast<float*>(coef_);
+  const auto stream = static_cast<cudaStream_t>(stream_);
+  const int padded = fm_global_padded_dim(dim);
+  const int groups = (factors + kFactors - 1) / kFactors;
+  fm_global_kernel_coefficients<<<(padded + kCoefThreads - 1) / kCoefThreads, kCoefThreads, 0,
+                                  stream>>>(static_cast<const float*>(w1_),
+                                            static_cast<const float*>(v_), coef, dim, factors,
+                                            padded, groups);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const bool vec = dim % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const auto kernel = vec ? fm_global_kernel<true> : fm_global_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kGlobalSharedBytes));
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGlobalWarps * 32,
+                                                        kGlobalSharedBytes);
+  if (err != cudaSuccess) return err;
+  // a persistent grid: at most the blocks that are resident at once
+  const int64_t tiles = (static_cast<int64_t>(batch) + kTileRows - 1) / kTileRows;
+  const int64_t most = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int blocks = static_cast<int>(tiles < most ? tiles : most);
+  kernel<<<blocks, kGlobalWarps * 32, kGlobalSharedBytes, stream>>>(x, coef,
+                                                                    static_cast<float*>(out_),
+                                                                    batch, dim, padded, groups);
   return cudaGetLastError();
 }

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.dispatch import resolve_device
 from ..ops.seqpool import NEG_INF
 from .core import dense, dropout
 
@@ -66,19 +67,21 @@ class ScaledEmbedding(nn.Module):
 
 def sinusoidal_pe(max_len: int, dim: int, device=None) -> torch.Tensor:
     """The sinusoidal position encoding ``[max_len, dim]``, computed in
-    float64 numpy and cast to float32."""
+    float64 numpy and cast to float32, on the card unless ``device`` names
+    another (raises without one)."""
     pos = np.arange(max_len)[:, None].astype(np.float64)
     i = np.arange(dim)[None, :]
     angle = pos / np.power(10000.0, (2 * (i // 2)) / dim)
     pe = np.zeros((max_len, dim))
     pe[:, 0::2] = np.sin(angle[:, 0::2])
     pe[:, 1::2] = np.cos(angle[:, 1::2])
-    return torch.as_tensor(pe, dtype=torch.float32, device=device)
+    return torch.as_tensor(pe, dtype=torch.float32, device=resolve_device(device))
 
 
 def causal_mask(T: int, device=None) -> torch.Tensor:
-    """``[T, T]`` bool, True on and below the diagonal."""
-    return torch.tril(torch.ones(T, T, dtype=torch.bool, device=device))
+    """``[T, T]`` bool, True on and below the diagonal, on the card unless
+    ``device`` names another (raises without one)."""
+    return torch.tril(torch.ones(T, T, dtype=torch.bool, device=resolve_device(device)))
 
 
 class MultiHeadAttention(nn.Module):

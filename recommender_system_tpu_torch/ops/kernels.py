@@ -59,7 +59,7 @@ SOURCES = {
     "cross": {"cross_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
               "cross_global_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT)},
     "fm": {"fm_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
-           "fm_global_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT)},
+           "fm_global_forward": ([_PTR] * 5 + [_INT] * 3 + [_PTR], _INT)},
     "din_attention": {
         "din_attention_forward": ([_PTR] * 10 + [_INT] * 8 + [_PTR], _INT),
         "din_attention_global_forward": ([_PTR] * 11 + [_INT] * 8 + [_PTR], _INT),
@@ -243,7 +243,9 @@ class _CrossFused(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
         with torch.enable_grad():
             out = cross_network(*inputs)
-        return torch.autograd.grad(out, inputs, grad)
+        # with no layers the weights and biases take no part: zero gradients
+        grads = torch.autograd.grad(out, inputs, grad, allow_unused=True)
+        return tuple(torch.zeros_like(t) if g is None else g for g, t in zip(grads, inputs))
 
 
 def cross_fused(x0: torch.Tensor, weights: torch.Tensor,
@@ -284,6 +286,13 @@ def fm_shared_bytes(D: int, k: int) -> int:
     if D <= FM_ROWS_MAX_DIM and k <= FM_ROWS_FACTORS:
         return 4 * 32 * -(-D // 32) * (FM_ROWS_FACTORS + 2)
     return 4 * D * (2 * k + 1)
+
+
+def fm_global_coef_floats(D: int, k: int) -> int:
+    """Floats of the scratch that ``csrc/fm.cu``'s global kernel folds w1
+    and v into: per group of 8 factors, rows a, c and v_0..v_7 over D
+    rounded up to its chunk of 128 columns."""
+    return -(-k // 8) * 10 * (-(-D // 128) * 128)
 
 
 def _fm_form_fault(x: torch.Tensor, w1: torch.Tensor,
@@ -351,10 +360,14 @@ def _fm_launch(x: torch.Tensor, w1: torch.Tensor, v: torch.Tensor) -> torch.Tens
     if B == 0:
         return out
     entry = "fm_forward" if fast else "fm_global_forward"
+    k = v.shape[1]
+    # the global kernel's folded coefficients
+    scratch = () if fast else (torch.empty(fm_global_coef_floats(D, k), dtype=torch.float32,
+                                           device=x.device),)
     lib = _library("fm")
     with torch.cuda.device(x.device):
-        err = getattr(lib, entry)(x.data_ptr(), w1.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                  B, D, v.shape[1], _stream(x))
+        err = getattr(lib, entry)(*(t.data_ptr() for t in (x, w1, v, out, *scratch)),
+                                  B, D, k, _stream(x))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
     fm_fused.launches += 1

@@ -20,6 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.dispatch import resolve_device
+
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
                     weights: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -94,8 +96,9 @@ class NegativeSampler:
 
 
 def init_adaptive_counts(n_items: int, device=None) -> torch.Tensor:
-    """Learned-unigram state: one per item (a uniform proposal)."""
-    return torch.ones(n_items, dtype=torch.float32, device=device)
+    """Learned-unigram state: one per item (a uniform proposal), on the
+    card unless ``device`` names another (raises without one)."""
+    return torch.ones(n_items, dtype=torch.float32, device=resolve_device(device))
 
 
 def update_adaptive_counts(counts: torch.Tensor, pos_ids: torch.Tensor) -> torch.Tensor:

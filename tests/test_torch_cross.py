@@ -58,6 +58,23 @@ def test_cross_matches_jax(port_fn, jax_fn, B, D, L):
         np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
 
 
+
+def test_cross_fused_with_no_layers_matches_jax():
+    """L=0 (which the global kernel takes on the card; the JAX Pallas kernel
+    takes no L=0): the stack returns x0, and the weights' and biases'
+    gradients are empty, as JAX's ``cross_network`` gives them (the plain
+    VJP leaves them out of the graph; the wrapper's backward fills in
+    zeros)."""
+    args = _inputs(6, 1053, 0)
+    want, want_grads = _jax_value_and_grad(j_cross_network, args)
+    ts = [torch.tensor(a, requires_grad=True) for a in args]
+    out = cross_fused(*ts)
+    (out ** 2).sum().backward()
+    np.testing.assert_array_equal(out.detach().numpy(), want)
+    for t, w in zip(ts, want_grads):
+        assert t.grad is not None and t.grad.shape == w.shape
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=RTOL, atol=ATOL)
+
 def test_cross_fused_cpu_launches_no_kernel():
     before = cross_fused.launches
     x0, w, b = map(torch.from_numpy, _inputs(37, 43, 2))

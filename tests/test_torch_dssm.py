@@ -203,7 +203,7 @@ def test_sampled_softmax_matches_jax_on_its_draws(kind):
     jcounts = tcounts = None
     if kind == "adaptive":
         jcounts = jlosses.init_adaptive_counts(ITEMS)
-        tcounts = losses.init_adaptive_counts(ITEMS)
+        tcounts = losses.init_adaptive_counts(ITEMS, device="cpu")
         for seed in (8, 9):
             seen = np.random.default_rng(seed).integers(0, 10, (B, 2)).astype(np.int32)
             jcounts = jlosses.update_adaptive_counts(jcounts, jnp.asarray(seen))
@@ -240,7 +240,8 @@ def test_port_draws_follow_the_proposal(kind):
     counts = None
     if kind == "adaptive":
         seen = torch.from_numpy(np.random.default_rng(10).integers(0, 12, 400))
-        counts = losses.update_adaptive_counts(losses.init_adaptive_counts(ITEMS), seen)
+        counts = losses.update_adaptive_counts(losses.init_adaptive_counts(ITEMS, device="cpu"),
+                                               seen)
     p = losses._proposal(sampler, counts)
     n = 200_000
     draws = losses._draw_negatives(p, ITEMS, n, _gen(11))

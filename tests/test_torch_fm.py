@@ -223,6 +223,73 @@ def _fm_wide_emulated(x, w1, v):
     return _fma(torch.full_like(pair, 0.5), pair, linear)[:, None]
 
 
+
+def _fm_global_emulated(x, w1, v):
+    """csrc/fm.cu's global kernel in f32 torch: the folded coefficients of
+    the coefficient kernel (a = w1, c = -vv/2, vv by fma over all k factors
+    in order), D zero-padded to chunks of 128 and k to groups of 8 (a and c
+    zero past the first group); lane l's partial sums over columns
+    128 c + 4 l + q, chunk by chunk and q = 0..3 within each, summed over the
+    32 lanes in the order 16, 8, 4, 2, 1 once a group; s_j^2 over the
+    factors in the order 4, 2, 1; t and sq summed over the groups in order;
+    out = fma(0.5, sq, t)."""
+    B, D = x.shape
+    k = v.shape[1]
+    cols, groups = 128 * -(-D // 128), -(-k // 8)
+    vv = torch.zeros(D)
+    for j in range(k):
+        vv = _fma(v[:, j], v[:, j], vv)
+    a, c = torch.zeros(cols), torch.zeros(cols)
+    a[:D], c[:D] = w1[:, 0], -0.5 * vv
+    vp = torch.zeros(cols, 8 * groups)
+    vp[:D, :k] = v
+    xp = torch.zeros(B, cols)
+    xp[:, :D] = x
+    # [B, chunk, lane, q] and [chunk, lane, q]: column 128 c + 4 l + q
+    xq = xp.view(B, cols // 128, 32, 4)
+    t_row, sq_row = torch.zeros(B), torch.zeros(B)
+    for g in range(groups):
+        ag = (a if g == 0 else torch.zeros(cols)).view(-1, 32, 4)
+        cg = (c if g == 0 else torch.zeros(cols)).view(-1, 32, 4)
+        vg = vp[:, 8 * g:8 * g + 8].t().reshape(8, -1, 32, 4)
+        t = torch.zeros(B, 32)
+        s = torch.zeros(B, 8, 32)
+        for ch in range(cols // 128):
+            for q in range(4):
+                xd = xq[:, ch, :, q]
+                t = _fma(xd, _fma(cg[ch, :, q], xd, ag[ch, :, q]), t)
+                s = _fma(xd[:, None, :], vg[None, :, ch, :, q], s)
+        t, s = _lane_sum(t), _lane_sum(s)
+        t_row = t_row + t
+        sq_row = sq_row + _lane_sum(s * s)
+    return _fma(torch.full_like(sq_row, 0.5), sq_row, t_row)[:, None]
+
+
+# (B, D, k) that only the global kernel takes: D % 4 != 0 (its 4-byte
+# copies), x [16,384, 4,000]'s width, and k=19 (three factor groups)
+GLOBAL_SHAPES = [(16, 3419, 8), (16, 4000, 8), (16, 1500, 19)]
+
+
+@pytest.mark.parametrize("B,D,k", GLOBAL_SHAPES, ids=[f"D{d}_k{k}" for _, d, k in GLOBAL_SHAPES])
+def test_global_kernel_arithmetic_holds_the_tolerance(B, D, k):
+    """The global kernel's order of sums, emulated in f32, against the
+    port's ``fm_ref`` and the JAX package's ``_fm_ref`` and ``fm_fused``
+    at the tolerance ``chip_smoke.py`` holds the kernel to, on inputs at
+    ``chip_smoke.fm_inputs``' scales; and not bitwise the plain order."""
+    rng = np.random.default_rng(D + k)
+    x = rng.normal(size=(B, D)).astype(np.float32)
+    w1 = (rng.normal(size=(D, 1)) / np.sqrt(D)).astype(np.float32)
+    v = (rng.normal(size=(D, k)) / np.sqrt(D)).astype(np.float32)
+    tx, tw1, tv = map(torch.from_numpy, (x, w1, v))
+    assert not fm_kernel_takes(tx, tw1, tv)
+    got = _fm_global_emulated(tx, tw1, tv)
+    plain = fm_ref(tx, tw1, tv)
+    torch.testing.assert_close(got, plain, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    assert not torch.equal(got, plain)
+    for want in (_j_fm_ref(x, w1, v), _j_fm_fused(x, w1, v)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=KERNEL_RTOL,
+                                   atol=KERNEL_ATOL)
+
 # chip_smoke.py's check_fm_kernel shapes, at a small batch: (B, D, k) and the
 # batch the card checks
 KERNEL_SHAPES = [(64, 221, 8, 16_384), (5, 221, 8, 16_385), (31, 221, 8, 31),

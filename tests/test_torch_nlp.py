@@ -24,7 +24,7 @@ from recommender_system_tpu.models.transformer import \
 from recommender_system_tpu_torch import LSTMClassifier, Trainer, Transformer, TransformerClassifier
 from recommender_system_tpu_torch.convert import load_jax_params
 from recommender_system_tpu_torch.layers import nlp
-from recommender_system_tpu_torch.training import SGD
+from recommender_system_tpu_torch.training import SGD, losses
 
 CPU = torch.device("cpu")
 # f32 on both sides; products and reductions summed in another order
@@ -108,11 +108,29 @@ def _check(flax_module, port_module, inputs, call=None, port_call=None, init_inp
 
 def test_sinusoidal_pe_and_causal_mask_match_jax():
     for max_len, dim in ((8, 16), (50, 32), (3, 7)):
-        np.testing.assert_array_equal(nlp.sinusoidal_pe(max_len, dim).numpy(),
+        np.testing.assert_array_equal(nlp.sinusoidal_pe(max_len, dim, "cpu").numpy(),
                                       np.asarray(jnlp.sinusoidal_pe(max_len, dim)))
-    assert nlp.sinusoidal_pe(4, 8).dtype == torch.float32
-    np.testing.assert_array_equal(nlp.causal_mask(6).numpy(), np.asarray(jnlp.causal_mask(6)))
+    assert nlp.sinusoidal_pe(4, 8, "cpu").dtype == torch.float32
+    np.testing.assert_array_equal(nlp.causal_mask(6, "cpu").numpy(),
+                                  np.asarray(jnlp.causal_mask(6)))
 
+
+
+# public functions that make a tensor: each on the card unless told, as the
+# JAX package's land on its default device
+CARD_DEFAULTS = {
+    "sinusoidal_pe": lambda **kw: nlp.sinusoidal_pe(8, 16, **kw),
+    "causal_mask": lambda **kw: nlp.causal_mask(6, **kw),
+    "init_adaptive_counts": lambda **kw: losses.init_adaptive_counts(10, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CARD_DEFAULTS))
+def test_tensor_makers_need_a_card_unless_told(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        CARD_DEFAULTS[name]()
+    assert CARD_DEFAULTS[name](device="cpu").device == CPU
 
 def test_scaled_embedding_and_attend_match_flax():
     ids = _ids(0, (B, T))
