@@ -3,26 +3,34 @@ sparse_rows.cu``), timed in turns on one card.
 
 Run from the repository root, on a machine with one H100:
 
-    python3 chip_lab_rows.py [--variants base,late,...] [--parent DIR]
+    python3 chip_lab_rows.py [--variants chunk128,...] [--parent DIR] [--equal]
 
 Each variant is the source with the text replacements listed in VARIANTS
 (each must match as often as stated), compiled with the port's nvcc flags
 into ``recommender_system_tpu_torch/build/lab/`` (all compiles started
 together) and called through ctypes; ``--parent DIR`` adds the source of
-another tree (``DIR/recommender_system_tpu_torch/csrc/sparse_rows.cu``,
-whose rules take ``lr`` and Adam's corrections by value) as the variant
-``parent``. Adagrad, SGD and lazy Adam run on ``bench.py``'s stream
-(N=425,984 into 2,600,000 rows of dim 9), on the same stream with every
-other id on one hot row, and on DIN's step stream (two sites of table_d32,
-~184,850 positions on the padding row, whose cotangents are zero). Each
-prints the device time from the profiler, in the order base, the
-variants, base, whether the variant's tables equal the base's bitwise on
-the bench stream, and ptxas' registers and spills.
+another tree (``DIR/recommender_system_tpu_torch/csrc/sparse_rows.cu``) as
+the variant ``parent``: a source whose Adagrad and scatter-add take no
+long-path scratch is called without it. The scatter-add, Adagrad, SGD and
+lazy Adam run on ``bench.py``'s stream (N=425,984 into 2,600,000 rows of
+dim 9), on the same stream with every other id on one hot row, and on
+DIN's step stream (two sites of table_d32, ~184,850 positions on the
+padding row, whose cotangents are zero). Each prints the device time from
+the profiler, in the order base, the variants, base, whether the variant's
+tables equal the base's bitwise, and ptxas' registers and spills.
+``--equal`` instead runs every rule of every variant once on each stream
+of ``chip_smoke.py``'s phase 2 (``sparse_cases``) and prints whether its
+tables equal the base's bitwise.
+
+(The earlier variants of where the rules load their step scalars are gone
+with the long path, whose pass 2 reads them too; their times are in
+PERF.md.)
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -33,31 +41,30 @@ import chip_smoke as cs
 
 CSRC = Path(__file__).resolve().parent / "recommender_system_tpu_torch" / "csrc"
 
-_START = """  if constexpr (kRule == Rule::kSgd || kAdam) h.lr = h.step[0];
-  if constexpr (kAdam) {
-    h.bc1 = h.step[1];
-    h.bc2 = h.step[2];
-  }
-"""
-_ADAGRAD = "__fmul_rn(__fmul_rn(h.step[0], gk), inv)"
-# name -> [(old, new, times it must match)]; base is the source: SGD and
-# Adam load their scalars at the kernel's start, Adagrad where it updates
+_CHUNK = "constexpr int64_t kChunk = 256;"
+_NO_PASS2 = ("  if constexpr (kChunked<kRule>) {\n    const cudaError_t err",
+             "  if constexpr (false) {\n    const cudaError_t err", 1)
+# name -> [(old, new, times it must match)]; base is the source
 VARIANTS = {
     "base": [],
-    # every rule's scalars loaded at the kernel's start
-    "start": [(_START, _START.replace("kRule == Rule::kSgd || kAdam",
-                                      "kRule != Rule::kScatterAdd"), 1),
-              (_ADAGRAD, _ADAGRAD.replace("h.step[0]", "h.lr"), 1)],
-    # every rule's scalars loaded where it uses them, the parameter struct
-    # left as the launch gave it
-    "late": [(_START, "", 1), ("h.lr", "h.step[0]", 2), ("h.bc1", "h.step[1]", 1),
-             ("h.bc2", "h.step[2]", 1)],
-    # as late, the loads through the read-only cache
-    "late_ldg": [(_START, "", 1), ("h.step[0]", "__ldg(h.step)", 1),
-                 ("h.lr", "__ldg(h.step)", 2), ("h.bc1", "__ldg(h.step + 1)", 1),
-                 ("h.bc2", "__ldg(h.step + 2)", 1)],
+    # the long path's chunk (and the length from which a segment is long)
+    "chunk128": [(_CHUNK, _CHUNK.replace("256", "128"), 1)],
+    "chunk512": [(_CHUNK, _CHUNK.replace("256", "512"), 1)],
+    # timing probes on streams with no long segment (wrong where one is):
+    # no pass 2; neither pass; no long check in the walk
+    "nopass2": [_NO_PASS2],
+    "nopasses": [_NO_PASS2,
+                 ("<<<static_cast<unsigned>(blocks + lng.blocks)",
+                  "<<<static_cast<unsigned>(blocks)", 1),
+                 ("static_cast<float*>(s2), n, dim, h, lng);",
+                  "static_cast<float*>(s2), n, dim, h, Long{nullptr, nullptr, 0});", 1)],
+    "nocheck": [("is_long = p + kLong <= n && slid[p + kLong - 1] == row;", "is_long = false;",
+                 1)],
 }
-RULES = ("adagrad", "sgd", "adam")
+RULES = ("scatter", "adagrad", "sgd", "adam")
+# the long-path scratch is sized for chunks of this many positions, the
+# least any variant takes
+SCRATCH_CHUNK = 64
 
 
 def build(names, parent):
@@ -65,7 +72,7 @@ def build(names, parent):
 
     out_dir = kernels.BUILD_DIR / "lab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
+    jobs, scratch = {}, {}
     for name in names:
         if name == "parent":
             text = (Path(parent) / "recommender_system_tpu_torch" / "csrc" /
@@ -79,6 +86,7 @@ def build(names, parent):
                 text = text.replace(old, new)
         cu = out_dir / f"sparse_rows_{name}.cu"
         cu.write_text(text)
+        scratch[name] = "void* partial" in text
         lib = out_dir / f"libsparse_rows_{name}.so"
         jobs[name] = (lib, subprocess.Popen(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib), str(cu)],
@@ -91,13 +99,14 @@ def build(names, parent):
         figures = [line.strip() for line in log.splitlines()
                    if "registers" in line or "spill" in line]
         print(f"built {name}: {' | '.join(figures)}", flush=True)
-        libs[name] = ctypes.CDLL(str(lib))
+        libs[name] = (ctypes.CDLL(str(lib)), scratch[name])
     return libs
 
 
-def launcher(lib, by_value: bool):
+def launcher(lib, scratch: bool):
     """rule -> fn(state, slid, order, ct): one launch of the variant's rule
-    on ``state`` (the table and its slots) at step 0."""
+    on ``state`` (the table and its slots) at step 0; ``scratch``: the
+    source's Adagrad and scatter-add take the long path's scratch."""
     from recommender_system_tpu_torch.ops.fused_adagrad import adam_scalars
 
     P, I, I64, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -105,33 +114,32 @@ def launcher(lib, by_value: bool):
     adam = adam_scalars(cs.ADAM_LR, 0, 0.9, 0.999)
     hyper = {"adagrad": cs.on_card(lr), "sgd": cs.on_card(sgd_lr), "adam": cs.on_card(*adam)}
     stream = torch.cuda.current_stream().cuda_stream
-    if by_value:
-        lib.fused_adagrad_rows.argtypes = [P] * 5 + [I64, I, F, F, P]
-        lib.fused_sgd_rows.argtypes = [P] * 4 + [I64, I, F, P]
-        lib.fused_adam_rows.argtypes = [P] * 6 + [I64, I] + [F] * 8 + [P]
-    else:
-        lib.fused_adagrad_rows.argtypes = [P] * 5 + [I64, I, P, F, P]
-        lib.fused_sgd_rows.argtypes = [P] * 4 + [I64, I, P, P]
-        lib.fused_adam_rows.argtypes = [P] * 6 + [I64, I, P] + [F] * 5 + [P]
+    extra = [P, P] if scratch else []
+    lib.scatter_add_rows.argtypes = [P] * 4 + extra + [I64, I, P]
+    lib.fused_adagrad_rows.argtypes = [P] * 5 + extra + [I64, I, P, F, P]
+    lib.fused_sgd_rows.argtypes = [P] * 4 + [I64, I, P, P]
+    lib.fused_adam_rows.argtypes = [P] * 6 + [I64, I, P] + [F] * 5 + [P]
 
     def run(rule, state, slid, order, ct):
         n, dim = slid.shape[0], ct.shape[1]
         ptrs = [slid.data_ptr(), order.data_ptr(), ct.data_ptr()]
-        if rule == "adagrad":
-            step = [lr] if by_value else [hyper[rule].data_ptr()]
-            err = lib.fused_adagrad_rows(*ptrs, state[0].data_ptr(), state[1].data_ptr(), n,
-                                         dim, *step, cs.EPS, stream)
+        chunks = -(-n // SCRATCH_CHUNK)
+        partial = torch.empty(chunks, 2, dim, device="cuda")
+        starts = torch.empty(chunks, dtype=torch.int64, device="cuda")
+        long_path = [partial.data_ptr(), starts.data_ptr()] if scratch else []
+        if rule == "scatter":
+            err = lib.scatter_add_rows(*ptrs, state[0].data_ptr(), *long_path, n, dim, stream)
+        elif rule == "adagrad":
+            err = lib.fused_adagrad_rows(*ptrs, state[0].data_ptr(), state[1].data_ptr(),
+                                         *long_path, n, dim, hyper[rule].data_ptr(), cs.EPS,
+                                         stream)
         elif rule == "sgd":
-            step = [sgd_lr] if by_value else [hyper[rule].data_ptr()]
-            err = lib.fused_sgd_rows(*ptrs, state[0].data_ptr(), n, dim, *step, stream)
+            err = lib.fused_sgd_rows(*ptrs, state[0].data_ptr(), n, dim,
+                                     hyper[rule].data_ptr(), stream)
         else:
             tables = [t.data_ptr() for t in state[:3]]
-            if by_value:
-                err = lib.fused_adam_rows(*ptrs, *tables, n, dim, adam[0], 0.9, 0.999, 1e-8,
-                                          adam[1], adam[2], 1.0 - 0.9, 1.0 - 0.999, stream)
-            else:
-                err = lib.fused_adam_rows(*ptrs, *tables, n, dim, hyper[rule].data_ptr(),
-                                          0.9, 0.999, 1e-8, 1.0 - 0.9, 1.0 - 0.999, stream)
+            err = lib.fused_adam_rows(*ptrs, *tables, n, dim, hyper[rule].data_ptr(),
+                                      0.9, 0.999, 1e-8, 1.0 - 0.9, 1.0 - 0.999, stream)
         if err != 0:
             raise RuntimeError(f"{rule} launch failed with CUDA error {err}")
 
@@ -159,45 +167,77 @@ def streams():
                            cs.DIN_DIM)}
 
 
-def fresh(rows, dim):
+def fresh(rule, rows, dim):
+    """The tables ``rule`` updates, made the same way for every variant."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     table = torch.randn(rows, dim, generator=gen, device="cuda") * 1e-2
-    return [table, torch.full_like(table, 0.1), torch.zeros_like(table)]
+    if rule == "scatter":
+        return [torch.zeros_like(table)]
+    if rule == "adam":
+        return [table, torch.zeros_like(table), torch.zeros_like(table)]
+    return [table, torch.full_like(table, 0.1)]
+
+
+def equal_on_phase2(runs, names) -> None:
+    """Every rule of every variant once on each of phase 2's streams: its
+    tables against the base's, bitwise."""
+    from recommender_system_tpu_torch.ops.stream_sort import sort_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for case, lids, ct, rows in cs.sparse_cases(gen):
+        if lids.numel() == 0:
+            continue
+        slid, order = sort_ids(lids)
+        for rule in RULES:
+            results = {}
+            for name in ["base", *names]:
+                state = fresh(rule, rows, ct.shape[1])
+                runs[name](rule, state, slid, order, ct)
+                results[name] = state
+            torch.cuda.synchronize()
+            same = {name: all(map(torch.equal, results[name], results["base"]))
+                    for name in names}
+            print(f"{rule} on phase 2's {case} (N={lids.numel()}, dim={ct.shape[1]}): "
+                  f"bitwise equal to base: {same}", flush=True)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--variants", default=",".join(VARIANTS))
+    parser.add_argument("--variants", default="chunk128,chunk512")
     parser.add_argument("--parent", help="a tree whose sparse_rows.cu is the variant parent")
+    parser.add_argument("--equal", action="store_true",
+                        help="compare the variants with base on phase 2's streams, no timing")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_lab_rows: no CUDA device", file=sys.stderr)
         return 2
-    names = [n for n in args.variants.split(",") if n != "base"]
+    names = [n for n in args.variants.split(",") if n and n != "base"]
     if args.parent:
         names.append("parent")
     libs = build(["base", *names], args.parent)
-    runs = {name: launcher(lib, by_value=name == "parent") for name, lib in libs.items()}
+    runs = {name: launcher(lib, scratch) for name, (lib, scratch) in libs.items()}
+    if args.equal:
+        equal_on_phase2(runs, names)
+        print(cs.card_line())
+        return 0
     order = ["base", *names, "base"]
     for label, (slid, order_, ct, rows, dim) in streams().items():
         for rule in RULES:
             want = None
             for name in order:
-                state = fresh(rows, dim)
-                if rule == "adam":
-                    state = [state[0], torch.zeros_like(state[0]), torch.zeros_like(state[0])]
+                state = fresh(rule, rows, dim)
                 runs[name](rule, state, slid, order_, ct)
                 torch.cuda.synchronize()
-                same = ""
-                if label == "bench":
-                    if want is None:
-                        want = [t.clone() for t in state]
-                    same = (", bitwise equal to base" if all(torch.equal(a, b) for a, b in
-                                                           zip(state, want)) else
-                            ", DIFFERS from base")
-                ms = sum(cs.device_ms(lambda: runs[name](rule, state, slid, order_, ct),
-                                      iters=5 if label != "bench" else 50).values())
-                print(f"{rule} on {label} variant {name}: device {ms:.5f} ms{same}", flush=True)
+                if want is None:
+                    want = [t.clone() for t in state]
+                same = (", bitwise equal to base" if all(map(torch.equal, state, want))
+                        else ", DIFFERS from base")
+                dev = cs.device_ms(lambda: runs[name](rule, state, slid, order_, ct),
+                                   iters=5 if label != "bench" else 50)
+                split = ", ".join(f"{re.search(r'sparse_rows\w*', k).group(0)} {v:.5f}"
+                                  for k, v in dev.most_common())
+                print(f"{rule} on {label} variant {name}: device {sum(dev.values()):.5f} ms "
+                      f"({split}){same}", flush=True)
                 del state
     print(cs.card_line())
     return 0

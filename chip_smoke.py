@@ -50,14 +50,25 @@ Phases, each of which raises on failure (exit code not 0):
    and FFM's 1 and 156, among them), at N=1 and N=0, with ids on the table's last row, with half
    the ids on one row, with rows named only by all-zero cotangents or by
    cotangents that cancel, on DIN's two-site stream of table_d32 (425,984
-   positions, ~184,000 on the padding row), and on segments whose lengths
+   positions, ~184,000 on the padding row), on segments whose lengths
    cycle through 1..70, so that segments start and end at every lane of the
-   kernels' 32-position tiles and cross up to three of them (rtol=1e-5,
-   atol=1e-6 x the largest |value|: the plain versions' ``index_add_`` sums
-   in another order; rows no id touches, and for Adam the rows whose summed
-   gradient is zero, must come back bitwise equal; on the bench,
-   half-on-one-row and cycled streams the scatter-add, Adagrad, SGD and
-   lazy Adam launch twice on identical inputs and must agree bitwise);
+   kernels' 32-position tiles and cross up to three of them, and on the
+   long path's streams at dims 1, 9, 32 and 156: one row holding 60,000
+   positions, and segments of 255, 256, 257, 511, 513, 767 and 769
+   positions (the long path takes 256 and more, in chunks of 256) at
+   several offsets, three long ones back to back and one at each end of
+   the stream (rtol=1e-5, atol=1e-6 x the largest |value|: the plain
+   versions' ``index_add_`` sums in another order; rows no id touches, and
+   for Adam the rows whose summed gradient is zero, must come back bitwise
+   equal; on the bench, half-on-one-row, cycled and long streams the
+   scatter-add, Adagrad, SGD and lazy Adam launch twice on identical inputs
+   and must agree bitwise; on every stream the scatter-add is bitwise
+   ``scatter_add_chunked_ref``, its own order, and Adagrad's accumulator
+   ``acc + G * G`` of that sum); the long streams again with normal
+   cotangents, where the order shows: the scatter-add and Adagrad twice
+   bitwise equal, bitwise equal to ``scatter_add_chunked_ref``'s sums, and
+   the one row's sum within the recursive-summation bound of its float64
+   sum;
 3. serving at full width: DCN on 26 sparse fields of 100,000 ids (dim 8)
    and 13 dense fields, 6 cross layers, deep tower 256-128-64, f32, random
    weights from a seed; ``Scorer(batch_size=4096)`` answers requests of 1,
@@ -272,7 +283,8 @@ Phases, each of which raises on failure (exit code not 0):
    and 1,024 users (host clock), its catalog build and the 1,024-user
    query's top device work; each sparse row kernel's time on a stream
    with a hot row and on DIN's step stream, back to back and with the L2
-   cache flushed before each call; each global kernel at a shape of
+   cache flushed before each call, beside each stream's bound and, for the
+   scatter-add and SGD, ``index_add_`` on it; each global kernel at a shape of
    its path (also by CUDA events around a graph of 100 calls, beside the
    same read of its bytes), the DIN attention's at its three timed shapes;
    and the stream
@@ -282,9 +294,12 @@ Phases, each of which raises on failure (exit code not 0):
    and the steps) and the device's idle share from a ``--profile-dir``
    trace.
 
-Every launch check compares all seven wrappers' launch counts and the
+Every launch check compares all seven wrappers' launch counts, the
 ``global_launches`` of the cross, FM and DIN attention wrappers, which must
-be 0 on every path but 3k's and, for the attention, 3r's.
+be 0 on every path but 3k's and, for the attention, 3r's, and the
+``long_launches`` of ``fused_adagrad_apply`` and ``scatter_add_sorted``,
+which every launch of theirs counts (the long path's pass 2 runs on every
+stream; DIN's, DSSM's and DIEN's padding rows take it).
 
 The line before the last lists every kernel with its launches on its main
 path (the graphed calls of phase 3q's paths as ``graph_launches``; the
@@ -293,7 +308,10 @@ path, the attention's on phase 3r's, with its times at three shapes as
 ``shapes``; the global kernels' ``events_ms`` beside ``ms``; kernels 3-7 also on
 phase 3o's and 3p's runs, summed over ranks, as ``mesh_launches``, and
 kernels 4 and 5 on phase 3p's grid rank by rank as
-``grid_launches_per_rank``), its error against the plain version, its times and its bound; the line
+``grid_launches_per_rank`` and their long path's launches on DeepFM's,
+DIN's, DIEN's and DSSM's calls as ``long_launches``), its error against
+the plain version (kernel 4's one long row also against its float64 sum,
+``long_row_f64_err``), its times and its bound; the line
 before that names the card and its power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
@@ -892,6 +910,36 @@ def din_stream(X) -> np.ndarray:
     return np.concatenate(sites)
 
 
+def long_lengths() -> list:
+    """Segment lengths for the long path's streams (C = ``SPARSE_CHUNK``,
+    from which a segment is long): a long segment first; C - 1, C, C + 1,
+    2C - 1, 2C + 1, 3C - 1 and 3C + 1 three times, each behind a short
+    segment of another length, so that each meets the chunks at several
+    offsets; three long segments back to back; a long segment last."""
+    from recommender_system_tpu_torch.ops.kernels import SPARSE_CHUNK as C
+
+    lengths = [3 * C + 1]
+    for i, n in enumerate([C - 1, C, C + 1, 2 * C - 1, 2 * C + 1, 3 * C - 1, 3 * C + 1] * 3):
+        lengths += [1 + 17 * i % 50, n]
+    return lengths + [C, 5 * C + 7, C + 3, 2, 4 * C + 5]
+
+
+def long_streams(gen: torch.Generator):
+    """(name, lids, rows) for the long path: one row holding a stream of
+    60,000 positions, and the segments of ``long_lengths`` on rows 3 apart,
+    the ids in random order."""
+    yield "one_row", torch.full((60_000,), 7, device="cuda"), 100
+    lengths = torch.tensor(long_lengths(), device="cuda")
+    segment_rows = 3 * torch.arange(lengths.numel(), device="cuda")
+    lids = torch.repeat_interleave(segment_rows, lengths)
+    yield ("long_edges", lids[torch.randperm(lids.numel(), generator=gen, device="cuda")],
+           int(segment_rows[-1]) + 1)
+
+
+# the long path's streams run at these dims (FFM's 1 and 156 among them)
+LONG_DIMS = (1, 9, 32, 156)
+
+
 def sparse_cases(gen: torch.Generator):
     """(name, lids, ct, rows) on the card for phase 2."""
     dev = "cuda"
@@ -943,20 +991,30 @@ def sparse_cases(gen: torch.Generator):
     cycled = cycled[torch.randperm(cycled.numel(), generator=gen, device=dev)]
     yield ("cycled_lengths", cycled, torch.randn(cycled.numel(), 9, generator=gen, device=dev),
            int(segment_rows[-1]) + 1)
+    # the long path's streams, cotangents on the 1/8 grid (every sum exact,
+    # so every rule's plain version is exact too); check_long_order takes
+    # them with normal cotangents
+    for dim in LONG_DIMS:
+        for name, lids, rows in long_streams(gen):
+            ct = torch.randint(-8, 9, (lids.numel(), dim), generator=gen, device=dev).float() / 8
+            yield f"{name}_d{dim}", lids, ct, rows
 
 
 SPARSE_KERNELS = ("fused_adagrad_apply", "fused_sgd_apply", "fused_adam_apply",
                   "scatter_add_sorted")
-# streams on which the four tile-walk kernels launch twice on identical
+# streams on which the four sparse row kernels launch twice on identical
 # inputs and must give bitwise-equal results
-TWICE_CASES = ("bench", "skewed", "cycled_lengths")
+TWICE_CASES = ("bench", "skewed", "cycled_lengths",
+               *(f"{name}_d{dim}" for name in ("one_row", "long_edges") for dim in LONG_DIMS))
 
 
 def check_sparse_rows() -> dict:
     """Phase 2 for csrc/sparse_rows.cu: the four kernels against their plain
-    versions; returns the largest absolute error of each."""
+    versions; the scatter-add bitwise equal to ``scatter_add_chunked_ref``
+    (its own order), and Adagrad's accumulator to ``acc + G * G`` of that
+    sum; returns the largest absolute error of each."""
     from recommender_system_tpu_torch.ops.embedding_grad import (
-        scatter_add_dense_ref, scatter_add_sorted)
+        scatter_add_chunked_ref, scatter_add_dense_ref, scatter_add_sorted)
     from recommender_system_tpu_torch.ops.fused_adagrad import (
         fused_adagrad_apply, fused_adagrad_ref, fused_adam_apply, fused_adam_ref,
         fused_sgd_apply, fused_sgd_ref)
@@ -1002,6 +1060,10 @@ def check_sparse_rows() -> dict:
         e_scatter = close("scatter_add_sorted", out, want)
         if out[~touched].count_nonzero().item():
             raise RuntimeError(f"scatter_add_sorted {case}: an untouched row is not 0")
+        chunked = scatter_add_chunked_ref(slid, order, ct, rows)
+        if not torch.equal(out, chunked):
+            raise RuntimeError(f"scatter_add_sorted {case}: differs from its order's sum by "
+                               f"{(out - chunked).abs().max().item():.3e}")
         same_again("scatter_add_sorted", (out,),
                    lambda: (scatter_add_sorted(slid, order, ct, rows),))
         # Adam's rows: touched with a summed gradient that is not zero
@@ -1016,6 +1078,9 @@ def check_sparse_rows() -> dict:
         e_adagrad = max(close("fused_adagrad_apply", t1, want_t),
                         close("fused_adagrad_apply", a1, want_a))
         unchanged("fused_adagrad_apply", ~touched, [(t1, table), (a1, acc)])
+        if not torch.equal(a1, acc + chunked * chunked):
+            raise RuntimeError(f"fused_adagrad_apply {case}: acc is not acc + G * G of "
+                               f"scatter_add_chunked_ref's G")
         same_again("fused_adagrad_apply", (t1, a1),
                    lambda: fused_adagrad_apply(table.clone(), acc.clone(), lids, ct, lr=LR,
                                                eps=EPS, presorted=presorted))
@@ -1055,6 +1120,8 @@ def check_sparse_rows() -> dict:
         zero_rows = int((touched & ~nonzero).sum())
         twice = (" scatter-add, Adagrad, SGD and Adam bitwise equal over two launches;"
                  if case in TWICE_CASES else "")
+        twice += (" the scatter-add and Adagrad's acc bitwise equal to scatter_add_chunked_ref's"
+                  " sums;")
         print(f"kernel check sparse rows {case}: N={lids.numel()} rows={rows} dim={dim} "
               f"touched={int(touched.sum())} (summed gradient zero: {zero_rows}): "
               f"max_abs_err scatter_add_sorted {e_scatter:.3e}, fused_adagrad_apply "
@@ -1062,6 +1129,79 @@ def check_sparse_rows() -> dict:
               f"{e_adam:.3e} (steps 0 and 3);{twice} untouched rows equal", flush=True)
         if case == "zero_rows" and zero_rows != 2:
             raise RuntimeError(f"zero_rows: {zero_rows} rows with a zero sum, want 2")
+    return errs
+
+
+def check_long_order() -> dict:
+    """Phase 2 for the long path of ``scatter_add_rows`` and
+    ``fused_adagrad_rows``, on ``long_streams`` at ``LONG_DIMS`` with normal
+    cotangents (so that the order of the sums shows): each rule twice,
+    bitwise equal; the scatter-add bitwise equal to
+    ``scatter_add_chunked_ref``, Adagrad's accumulator to ``acc + G * G`` of
+    that sum and its table to the update from it within SPARSE_RTOL /
+    SPARSE_ATOL_SCALE (rsqrtf is not correctly rounded); the one row's sum
+    against its float64 sum. Returns the one row's error in each dim."""
+    from recommender_system_tpu_torch.ops.embedding_grad import (scatter_add_chunked_ref,
+                                                                 scatter_add_sorted)
+    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
+    from recommender_system_tpu_torch.ops.kernels import SPARSE_CHUNK, SPARSE_SHARES
+    from recommender_system_tpu_torch.ops.stream_sort import sort_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    errs = {}
+    for dim in LONG_DIMS:
+        for name, lids, rows in long_streams(gen):
+            case = f"{name}_d{dim} (normal cotangents)"
+            ct = torch.randn(lids.numel(), dim, generator=gen, device="cuda")
+            slid, order = sort_ids(lids)
+            out = scatter_add_sorted(slid, order, ct, rows)
+            again = scatter_add_sorted(slid, order, ct, rows)
+            want = scatter_add_chunked_ref(slid, order, ct, rows)
+            table = torch.randn(rows, dim, generator=gen, device="cuda")
+            acc = 0.1 + torch.rand(rows, dim, generator=gen, device="cuda")
+            states = [(table.clone(), acc.clone()) for _ in range(2)]
+            for t, a in states:
+                fused_adagrad_apply(t, a, lids, ct, lr=LR, eps=EPS, presorted=(slid, order))
+            torch.cuda.synchronize()
+            if not (torch.equal(out, again) and all(map(torch.equal, *states))):
+                raise RuntimeError(f"long path {case}: two launches on identical inputs differ")
+            if not torch.equal(out, want):
+                raise RuntimeError(f"scatter_add_sorted {case}: differs from "
+                                   f"scatter_add_chunked_ref by "
+                                   f"{(out - want).abs().max().item():.3e}")
+            want_a = acc + want * want
+            if not torch.equal(states[0][1], want_a):
+                raise RuntimeError(f"fused_adagrad_apply {case}: acc is not acc + G * G")
+            want_t = table - LR * want * torch.where(want_a > 0, torch.rsqrt(want_a + EPS), 0.0)
+            torch.testing.assert_close(
+                states[0][0], want_t, rtol=SPARSE_RTOL,
+                atol=SPARSE_ATOL_SCALE * want_t.abs().max().item(),
+                msg=lambda m: f"fused_adagrad_apply {case}: {m}")
+            note = ""
+            if name == "one_row":
+                # the recursive-summation bound: each term passes through at
+                # most depth = (a piece's positions) + (a share's pieces) +
+                # 3 (the tree) additions in f32, so |G - exact| <= depth * u
+                # / (1 - depth * u) * sum|x|, u = 2**-24
+                pieces = -(-lids.numel() // SPARSE_CHUNK)
+                depth = SPARSE_CHUNK + -(-pieces // SPARSE_SHARES) + 3
+                u = 2.0 ** -24
+                exact = ct.double().sum(0)
+                bound = depth * u / (1 - depth * u) * ct.double().abs().sum(0)
+                err = (out[7].double() - exact).abs()
+                library = (ct.sum(0).double() - exact).abs()
+                if not bool((err <= bound).all()):
+                    raise RuntimeError(f"scatter_add_sorted {case}: the row's sum is "
+                                       f"{err.max().item():.3e} off its float64 sum, past "
+                                       f"the bound {bound.min().item():.3e}")
+                errs[dim] = err.max().item()
+                note = (f"; the row's sum {err.max().item():.3e} off its float64 sum (bound "
+                        f"{bound.min().item():.3e}; torch.sum in f32 "
+                        f"{library.max().item():.3e})")
+            print(f"kernel check long path {case}: N={lids.numel()} rows={rows}: the "
+                  f"scatter-add and Adagrad bitwise equal over two launches, the scatter-add "
+                  f"and Adagrad's acc bitwise equal to scatter_add_chunked_ref's sums, "
+                  f"Adagrad's table within rtol {SPARSE_RTOL}{note}", flush=True)
     return errs
 
 
@@ -1248,9 +1388,10 @@ def card_against_cpu(model, batches, labels, name, optimizer=None, fused=None,
 def time_sparse_rows(card) -> dict:
     """Phase 4 for the sparse row kernels at the bench shape: device time,
     time per call, plain version, library call, bound; each kernel's device
-    time on the bench stream with every other id on one hot row; and the
-    update rules' on DIN's step stream (two sites of table_d32, the padding
-    row's cotangents zero as in training)."""
+    time on the bench stream with every other id on one hot row and on DIN's
+    step stream (two sites of table_d32, the padding row's cotangents zero
+    as in training), with each stream's bound and, for the scatter-add and
+    SGD, ``index_add_`` on it."""
     from recommender_system_tpu_torch.ops.embedding_grad import (
         scatter_add_dense_ref, scatter_add_sorted)
     from recommender_system_tpu_torch.ops.fused_adagrad import (
@@ -1272,6 +1413,7 @@ def time_sparse_rows(card) -> dict:
     hot = lids.clone()
     hot[::2] = 12_345
     hot_slid, hot_order = sort_ids(hot)
+    hot_touched = int(torch.unique(hot).numel())
 
     din_lids = torch.as_tensor(din_stream(din_batch(0)[0]), device="cuda")
     din_ct = torch.randn(din_lids.numel(), DIN_DIM, generator=gen, device="cuda") * 1e-3
@@ -1280,6 +1422,8 @@ def time_sparse_rows(card) -> dict:
     din_state = [torch.full_like(din_table, 0.1), torch.zeros_like(din_table),
                  torch.zeros_like(din_table)]
     din_sorted = sort_ids(din_lids)
+    din_rows = DIN_USERS + DIN_ITEMS
+    din_touched = int(torch.unique(din_lids).numel())
     lr, sgd_lr = on_card(LR), on_card(SGD_LR)
     adam = on_card(*adam_scalars(ADAM_LR, 0, 0.9, 0.999))
     # zeroing a buffer past the 50 MB L2 before a call leaves the call's
@@ -1290,11 +1434,11 @@ def time_sparse_rows(card) -> dict:
         """Device time of the sparse row kernel alone, the L2 flushed
         before each call."""
         dev = device_ms(lambda: (flush.zero_(), fn()), iters=5)
-        return sum(ms for name, ms in dev.items() if "sparse_rows_kernel" in name)
+        return sum(ms for name, ms in dev.items() if "sparse_rows" in name)
 
     out = {}
-    # name: (kernel, plain version, hot row, DIN's stream, library call,
-    # rule, kernel name)
+    # name: (kernel, plain version, hot row, DIN's stream, library call on
+    # the three streams, rule, kernel name)
     fns = {
         "fused_adagrad_apply": (
             lambda: fused_adagrad_apply(table, acc, lids, ct, eps=EPS, scalars=lr,
@@ -1304,7 +1448,7 @@ def time_sparse_rows(card) -> dict:
                                         presorted=(hot_slid, hot_order)),
             lambda: fused_adagrad_apply(din_table, din_state[0], din_lids, din_ct, eps=EPS,
                                         scalars=lr, presorted=din_sorted),
-            None, "adagrad", "sparse_rows_kernel"),
+            None, "adagrad", "sparse_rows"),
         "fused_sgd_apply": (
             lambda: fused_sgd_apply(table, lids, ct, scalars=sgd_lr, presorted=(slid, order)),
             lambda: fused_sgd_ref(table, lids, ct, scalars=sgd_lr),
@@ -1313,8 +1457,10 @@ def time_sparse_rows(card) -> dict:
             lambda: fused_sgd_apply(din_table, din_lids, din_ct, scalars=sgd_lr,
                                     presorted=din_sorted),
             # one PyTorch call for the same update; it rounds per position
-            lambda: table.index_add_(0, lids, ct, alpha=-SGD_LR),
-            "sgd", "sparse_rows_kernel"),
+            (lambda: table.index_add_(0, lids, ct, alpha=-SGD_LR),
+             lambda: table.index_add_(0, hot, ct, alpha=-SGD_LR),
+             lambda: din_table.index_add_(0, din_lids, din_ct, alpha=-SGD_LR)),
+            "sgd", "sparse_rows"),
         "fused_adam_apply": (
             lambda: fused_adam_apply(table, m, v, lids, ct, scalars=adam,
                                      presorted=(slid, order)),
@@ -1323,46 +1469,63 @@ def time_sparse_rows(card) -> dict:
                                      presorted=(hot_slid, hot_order)),
             lambda: fused_adam_apply(din_table, *din_state[1:], din_lids, din_ct,
                                      scalars=adam, presorted=din_sorted),
-            None, "adam", "sparse_rows_kernel"),
+            None, "adam", "sparse_rows"),
         "scatter_add_sorted": (
             lambda: scatter_add_sorted(slid, order, ct, rows),
             lambda: scatter_add_dense_ref(lids, ct, rows),
             lambda: scatter_add_sorted(hot_slid, hot_order, ct, rows),
-            None,
-            lambda: torch.zeros(rows, dim, device="cuda").index_add_(0, lids, ct),
+            lambda: scatter_add_sorted(*din_sorted, din_ct, din_rows),
+            # the zero fill and index_add_, as the kernel's zero fill and walk
+            (lambda: torch.zeros(rows, dim, device="cuda").index_add_(0, lids, ct),
+             lambda: torch.zeros(rows, dim, device="cuda").index_add_(0, hot, ct),
+             lambda: torch.zeros(din_rows, DIN_DIM, device="cuda").index_add_(
+                 0, din_lids, din_ct)),
             "scatter", None),
     }
-    for name, (kernel_fn, plain_fn, hot_fn, din_fn, library_fn, rule, only) in fns.items():
+    for name, (kernel_fn, plain_fn, hot_fn, din_fn, library, rule, only) in fns.items():
+        library_fn, hot_library_fn, din_library_fn = library or (None, None, None)
         kernel_dev = device_ms(kernel_fn)
         if only and not all(only in k for k in kernel_dev):
             raise RuntimeError(f"{name} ran other device work: {dict(kernel_dev)}")
         plain_dev = device_ms(plain_fn)
         rec = {"ms": sum(kernel_dev.values()), "plain_ms": sum(plain_dev.values()),
                "call_ms": call_ms(kernel_fn), "plain_call_ms": call_ms(plain_fn),
-               "library_ms": (sum(device_ms(library_fn).values())
-                              if library_fn else None),
+               "library_ms": sum(device_ms(library_fn).values()) if library_fn else None,
                "hot_row_ms": sum(device_ms(hot_fn, iters=5).values()),
-               "hot_row_cold_ms": walk_ms(hot_fn), "hot_row_clocks": clocks_during(hot_fn)}
+               "hot_row_cold_ms": walk_ms(hot_fn), "hot_row_clocks": clocks_during(hot_fn),
+               "hot_row_library_ms": (sum(device_ms(hot_library_fn, iters=5).values())
+                                      if hot_library_fn else None)}
+        rec["hot_row_bound_ms"], _ = sparse_rows_bound(n, hot_touched, rows, dim, rule)
         if din_fn:
             rec["din_stream_ms"] = sum(device_ms(din_fn, iters=5).values())
             rec["din_stream_cold_ms"] = walk_ms(din_fn)
+            rec["din_stream_library_ms"] = (sum(device_ms(din_library_fn, iters=5).values())
+                                            if din_library_fn else None)
+            rec["din_stream_bound_ms"], _ = sparse_rows_bound(
+                din_lids.numel(), din_touched, din_rows, DIN_DIM, rule)
         rec["bound_ms"], rec["bound_by"] = sparse_rows_bound(n, touched, rows, dim, rule)
         out[name] = rec
-        split = ", ".join(f"{k[:40]} {v:.5f}" for k, v in kernel_dev.most_common())
-        library = rec["library_ms"] if rec["library_ms"] is None else round(rec["library_ms"], 5)
+        split = ", ".join(f"{(re.search(r'sparse_rows\w*', k) or re.search(r'.*', k)).group(0)[:40]} "
+                          f"{v:.5f}" for k, v in kernel_dev.most_common())
+
+        def ms(key):
+            return "none" if rec.get(key) is None else f"{rec[key]:.5f} ms"
+
         din = (f"; on DIN's step stream ({din_lids.numel()} positions, "
-               f"{int((din_lids == DIN_USERS).sum())} on the padding row): device "
-               f"{rec['din_stream_ms']:.5f} ms, the kernel {rec['din_stream_cold_ms']:.5f} "
-               f"ms with the L2 flushed before each call" if din_fn else "")
+               f"{int((din_lids == DIN_USERS).sum())} on the padding row; bound "
+               f"{rec['din_stream_bound_ms']:.5f} ms): device {rec['din_stream_ms']:.5f} ms, "
+               f"the kernels {rec['din_stream_cold_ms']:.5f} ms with the L2 flushed before "
+               f"each call, library {ms('din_stream_library_ms')}" if din_fn else "")
         print(f"timing {name} N={n} U={touched} rows={rows} dim={dim}: device "
               f"{rec['ms']:.5f} ms ({split}; {100 * rec['bound_ms'] / rec['ms']:.1f}% "
               f"of the bound {rec['bound_ms']:.5f} ms, {rec['bound_by']}), "
               f"{rec['call_ms']:.5f} ms per call; plain: device {rec['plain_ms']:.5f} ms, "
-              f"{rec['plain_call_ms']:.5f} ms per call; library {library} ms; with "
-              f"{n // 2} positions on one row: device {rec['hot_row_ms']:.5f} ms, the kernel "
-              f"{rec['hot_row_cold_ms']:.5f} ms with the L2 flushed before each call, the "
-              f"clocks (SM, memory) {rec['hot_row_clocks']} during its walks{din}; "
-              f"on {card}", flush=True)
+              f"{rec['plain_call_ms']:.5f} ms per call; library {ms('library_ms')}; with "
+              f"{n // 2} positions on one row (bound {rec['hot_row_bound_ms']:.5f} ms): "
+              f"device {rec['hot_row_ms']:.5f} ms, the kernels {rec['hot_row_cold_ms']:.5f} "
+              f"ms with the L2 flushed before each call, library "
+              f"{ms('hot_row_library_ms')}, the clocks (SM, memory) {rec['hot_row_clocks']} "
+              f"during its walks{din}; on {card}", flush=True)
     return out
 
 
@@ -1486,28 +1649,40 @@ def counted():
 def read_counts() -> dict:
     """Every wrapper's launches, and of them the launches of the global
     kernels of the three wrappers that have one
-    (``<wrapper>.global_launches``)."""
+    (``<wrapper>.global_launches``) and of the long path of the two sparse
+    rules that have one (``<wrapper>.long_launches``)."""
     counts = {fn.__name__: fn.launches for fn in counted()}
-    counts.update({global_key(fn.__name__): fn.global_launches
-                   for fn in counted() if hasattr(fn, "global_launches")})
+    counts.update({f"{fn.__name__}.{attr}": getattr(fn, attr) for fn in counted()
+                   for attr in ("global_launches", "long_launches") if hasattr(fn, attr)})
     return counts
 
 
 def zero_counts() -> None:
     for fn in counted():
-        fn.launches = 0
-        if hasattr(fn, "global_launches"):
-            fn.global_launches = 0
+        for attr in ("launches", "global_launches", "long_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def launches_want(**launches) -> dict:
-    """Every count: the ones named, and 0 for the rest."""
-    return {**dict.fromkeys(read_counts(), 0), **launches}
+    """Every count: the ones named, and 0 for the rest, but the long path's:
+    every launch of ``fused_adagrad_apply`` and ``scatter_add_sorted`` runs
+    it, so its count is the wrapper's unless named."""
+    want = {**dict.fromkeys(read_counts(), 0), **launches}
+    for key in want:
+        if key.endswith(".long_launches") and key not in launches:
+            want[key] = want[key.split(".")[0]]
+    return want
 
 
 def global_key(name: str) -> str:
     """The key of ``name``'s global kernel launches in ``read_counts``."""
     return f"{name}.global_launches"
+
+
+def long_key(name: str) -> str:
+    """The key of ``name``'s long-path launches in ``read_counts``."""
+    return f"{name}.long_launches"
 
 
 def on_card(*values: float) -> torch.Tensor:
@@ -1687,7 +1862,7 @@ def time_din(trainer, scorer, requests, batches, labels, card) -> dict:
     acc = torch.full_like(table, 0.1)
     lr = on_card(LR)
     pad = lids == DIN_USERS
-    kernel = "sparse_rows_kernel"
+    kernel = "sparse_rows"
     hot = {}
     for what, (ids, c) in {"with": (lids, ct), "without": (lids[~pad], ct[~pad])}.items():
         dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, eps=EPS,
@@ -1972,7 +2147,7 @@ def time_dien(trainer, batches, labels, card) -> None:
     acc = torch.full_like(table, 0.1)
     lr = on_card(LR)
     pad = lids == DIN_USERS
-    kernel = "sparse_rows_kernel"
+    kernel = "sparse_rows"
     hot = {}
     for what, (ids, c) in {"with": (lids, ct), "without": (lids[~pad], ct[~pad])}.items():
         dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, eps=EPS,
@@ -2457,7 +2632,7 @@ def time_dssm(trainer, index, requests, batches, labels, card) -> None:
     acc = torch.full_like(table, 0.1)
     lr = on_card(LR)
     pad = lids == DIN_USERS
-    kernel = "sparse_rows_kernel"
+    kernel = "sparse_rows"
     hot = {}
     for what, (ids, c) in {"with": (lids, ct), "without": (lids[~pad], ct[~pad])}.items():
         dev = device_ms(lambda ids=ids, c=c: fused_adagrad_apply(table, acc, ids, c, eps=EPS,
@@ -3880,6 +4055,7 @@ def main() -> int:
     fm_errs = check_fm_kernel()
     din_errs = check_din_kernel()
     sparse_errs = check_sparse_rows()
+    long_errs = check_long_order()
 
     # --- phase 3: serving at full width ------------------------------------
     cols, X, _ = synthetic_criteo(n_rows=max(REQUESTS), vocab=100_000,
@@ -4116,6 +4292,27 @@ def main() -> int:
           "cli_quick_start": cli["quick"]["scatter_add_sorted"],
           "cli_models": sum(c["scatter_add_sorted"] for c in cli["models"].values())}),
     ]
+    # the long path of kernels 4 and 5 on the steps whose streams hold a
+    # long segment (the padding row: DIN's two sites, DSSM's three, DIEN's
+    # three) and on bench.py's, which holds none
+    from recommender_system_tpu_torch.ops.kernels import SPARSE_CHUNK
+    padding = int((din_stream(din_batch(0)[0]) == DIN_USERS).sum())
+    long_launches = {
+        "fused_adagrad_apply": {
+            name: counts[long_key("fused_adagrad_apply")] for name, counts in (
+                ("deepfm", fused_launches), ("din", din_fused_launches),
+                ("dien", dien_fused_launches), ("dssm", dssm_fused_launches))},
+        "scatter_add_sorted": {
+            name: counts[long_key("scatter_add_sorted")] for name, counts in (
+                ("deepfm", plain_launches), ("din", din_plain_launches),
+                ("dien", dien_plain_launches), ("dssm", dssm_plain_launches))},
+    }
+    if (padding < SPARSE_CHUNK or not all(long_launches["fused_adagrad_apply"].values())
+            or not long_launches["scatter_add_sorted"]["din"]):
+        raise RuntimeError(f"the long path: {padding} padding positions in DIN's step "
+                           f"stream, launches {long_launches}")
+    print(f"long path: DIN's step stream holds {padding} positions on its padding row "
+          f"(long from {SPARSE_CHUNK}); launches {long_launches}", flush=True)
     print(card)
     print(json.dumps({"kernels": [{
         "name": "cross_fused", "route": "cuda",
@@ -4156,6 +4353,8 @@ def main() -> int:
         "source": "recommender_system_tpu_torch/csrc/sparse_rows.cu",
         "replaces": replaces, "launches": count, "max_abs_err": sparse_errs[name],
         **sparse_times[name], "other_paths_launches": others,
+        **({"long_launches": long_launches[name]} if name in long_launches else {}),
+        **({"long_row_f64_err": long_errs} if name == "scatter_add_sorted" else {}),
         "mesh_launches": on_mesh(name), "grid_launches_per_rank": on_grid(name),
         "graph_launches": on_graphs(name),
     } for name, replaces, count, others in sparse_rows]}))

@@ -53,7 +53,8 @@
 // keep nvcc from contracting a multiply and an add into one fused
 // multiply-add.
 //
-// All four rules take the tile walk. A first version gave each thread one
+// All four rules take the tile walk (Adagrad and the scatter-add for their
+// segments shorter than kLong). A first version gave each thread one
 // (position, column) pair: every one of a position's dim threads loaded
 // slid[i] and slid[i-1] (about 4*dim metadata loads a position), took a
 // 64-bit division t / dim, and a
@@ -93,10 +94,47 @@
 // pass 1 ORs the flag over the chunks and keeps no sums, and pass 2 sums a
 // touched segment's chunk again (the same sum in the same order).
 //
-// Every rule sums a row's column from 0.f in stream order with __fadd_rn,
+// The walk sums a segment's column from 0.f in stream order with __fadd_rn,
 // so its results do not depend on the launch. A hot row is one long serial
 // sum for the dim lanes that own its (start, column) elements: right, but
-// slow (see PERF.md).
+// one warp's chain of loads. The TPU kernels cut the sorted stream into
+// fixed chunks, each one work item, so that a hot row costs what any other
+// row of as many positions costs. Adagrad and the scatter-add carry that
+// over as the long path. A segment is long when it holds at least kLong
+// positions (kLong == kChunk: a long segment then covers every chunk it
+// starts or ends in up to that chunk's edge, and holds the whole of any
+// chunk it crosses, so each chunk has at most two long pieces, one at each
+// edge, and "long" is one load away from any end of a piece: slid sorted,
+// slid[s + kLong - 1] == slid[s] for a segment that starts at s, slid[e -
+// kLong] == slid[e - 1] for one that ends at e). In the launch that runs
+// the walk, the first blocks run pass 1: one warp a chunk of kChunk
+// positions finds the long pieces at its chunk's edges (a 32-ary search
+// over slid, two rounds), sums each piece's columns in stream order (lane
+// l column l + 32i, the orders of 32 positions one coalesced load, then
+// shuffled, 32 cotangent loads in flight before the adds) into an f32
+// scratch [chunks, 2, dim] (slot 0 the piece that holds the chunk's first
+// position, slot 1 the one that holds its last), and writes the start of
+// the long segment that begins in the chunk, or -1, to starts[chunk]. The
+// walk skips long segments (it neither sums nor writes them); they are
+// disjoint from its rows, so both run in one grid. Pass 2, a second
+// kernel, gives a block 32 chunks' starts[] (one load and a ballot; a block
+// with no segment leaves) and, for each segment there, warp 0 finds its
+// end, then 8 shares of 32 threads add the segment's pieces
+// (its first chunk's slot, then slot 0 of every later chunk it reaches):
+// share q the pieces q, q + 8, ..., in order from 0.f, and a fixed tree
+// ((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6 + s7)) joins the shares. Then
+// the rule is applied to the row once, with the walk's operations. Every
+// order is fixed, so two launches agree bitwise; no atomics, no host read,
+// grids from N alone, two kernels every call (blocks with nothing long
+// leave after a load or two). SGD and lazy Adam keep the walk alone, as it
+// was. The bound is the walk's: the long path reads each long position's
+// order and cotangent once and writes 2 * dim floats a chunk, a small
+// fraction of the stream's bytes. A stream with no long segment pays pass
+// 2's kernel, 1.7 us on the H100; a hot row of 185,000 positions at dim 32
+// now takes what the walk takes for as many positions of short rows
+// (0.081 ms for DIN's step stream against 18.9; PERF.md, chip_lab_rows.py).
+// scatter_add_chunked_ref (ops/embedding_grad.py) is the same sum in the
+// same order in PyTorch.
 //
 // C interface, loaded with ctypes: each function returns cudaGetLastError()
 // after the launch; the Python wrapper checks shapes, types and devices.
@@ -115,8 +153,29 @@ constexpr unsigned kFull = 0xffffffffu;
 // (start, column) elements whose loads a lane starts before its first store
 // (lazy Adam: in each of its two passes)
 constexpr int kBatch = 4;
+// the long path (see the note at the top): positions a chunk, the length
+// from which a segment is long, and the shares of pass 2's sum. The port's
+// plain version of the order (ops/embedding_grad.py) reads the same values.
+constexpr int64_t kChunk = 256;
+constexpr int64_t kLong = kChunk;
+constexpr int kShares = 8;
+static_assert(kLong == kChunk, "a chunk's long pieces are found at its edges only");
+static_assert(kShares * 32 == kThreads, "pass 2: a warp a share");
 
 enum class Rule { kScatterAdd, kAdagrad, kSgd, kAdam };
+
+// Adagrad and the scatter-add take the long path
+template <Rule kRule>
+constexpr bool kChunked = kRule == Rule::kAdagrad || kRule == Rule::kScatterAdd;
+
+// The long path's scratch: pass 1 writes, pass 2 reads. partial is [chunks,
+// 2, dim] f32, starts [chunks]; blocks is the number of pass-1 blocks at
+// the head of the walk's grid.
+struct Long {
+  float* partial;
+  int64_t* starts;
+  int64_t blocks;
+};
 
 // The rules' scalars. Adam's bc1, bc2 are the reciprocal bias corrections,
 // and 1 - b1, 1 - b2 are rounded once from double, as in the plain version.
@@ -145,6 +204,103 @@ __device__ __forceinline__ int64_t segment_end(const int64_t* __restrict__ slid,
     }
   }
   return hi;
+}
+
+// The first position p of [lo, hi) with (slid[p] == row) == equal, or hi if
+// none, where that holds from some position on and not before it (slid is
+// sorted): a 32-ary search, the warp's lanes probing at once. Every lane
+// returns the same value.
+__device__ __forceinline__ int64_t warp_first(const int64_t* __restrict__ slid, int64_t lo,
+                                              int64_t hi, int64_t row, bool equal, int lane) {
+  while (lo < hi) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t q = lo + lane * step;
+    const unsigned hit = __ballot_sync(kFull, q < hi && (slid[q] == row) == equal);
+    if (hit == 0) {
+      // past the last probe below hi
+      const int64_t last = (hi - 1 - lo) / step < 31 ? (hi - 1 - lo) / step : 31;
+      lo += last * step + 1;
+    } else {
+      const int f = __ffs(hit) - 1;
+      if (f == 0) return lo;
+      // after probe f - 1, at probe f at the latest
+      hi = lo + f * step;
+      lo += (f - 1) * step + 1;
+    }
+  }
+  return hi;
+}
+
+// Pass 1 on a piece [a, b) of a long segment (b - a <= kChunk): its column
+// sums in stream order from 0.f to out[0, dim). Lane l takes the columns l,
+// l + 32, ...; the orders of 32 positions are one coalesced load, shuffled
+// to the lanes, and the 32 cotangent loads go out before the adds.
+__device__ __forceinline__ void piece_sum(const int64_t* __restrict__ order,
+                                          const float* __restrict__ ct, int64_t a, int64_t b,
+                                          int dim, int lane, float* __restrict__ out) {
+  for (int c0 = 0; c0 < dim; c0 += 32) {
+    const int c = c0 + lane;
+    float g = 0.f;
+    for (int64_t j0 = a; j0 < b; j0 += 32) {
+      const int count = b - j0 < 32 ? static_cast<int>(b - j0) : 32;
+      const int64_t ord = lane < count ? order[j0 + lane] : 0;
+      float v[32];
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        const int64_t o = __shfl_sync(kFull, ord, q);
+        v[q] = q < count && c < dim ? ct[o * dim + c] : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        if (q < count) g = __fadd_rn(g, v[q]);
+      }
+    }
+    if (c < dim) out[c] = g;
+  }
+}
+
+// Pass 1 on chunk k, by one warp (see the note at the top): the long pieces
+// at the chunk's two edges summed into partial[k], and starts[k].
+__device__ __forceinline__ void chunk_pass(const int64_t* __restrict__ slid,
+                                           const int64_t* __restrict__ order,
+                                           const float* __restrict__ ct, int64_t n, int dim,
+                                           int64_t k, int lane, const Long& lng) {
+  const int64_t c0 = k * kChunk;
+  const int64_t c1 = c0 + kChunk < n ? c0 + kChunk : n;
+  // one round trip: the chunk's first and last ids and their neighbours
+  // outside it (-1 past the stream: ids are rows, never negative)
+  int64_t v = -1;
+  if (lane == 0) v = slid[c0];
+  if (lane == 1) v = slid[c1 - 1];
+  if (lane == 2 && c0 > 0) v = slid[c0 - 1];
+  if (lane == 3 && c1 < n) v = slid[c1];
+  const int64_t r0 = __shfl_sync(kFull, v, 0);
+  const int64_t r1 = __shfl_sync(kFull, v, 1);
+  const int64_t prev = __shfl_sync(kFull, v, 2);
+  const int64_t next = __shfl_sync(kFull, v, 3);
+  int64_t e0 = c1, s1 = c1, start = -1;
+  bool long0 = false, long1 = false;
+  if (r0 == r1) {
+    // one row over the chunk: long if the chunk is whole, else the row's
+    // segment ends the stream
+    long0 = c1 - c0 == kChunk || (n >= kLong && slid[n - kLong] == r0);
+    if (long0 && prev != r0) start = c0;
+  } else {
+    // a segment that ends inside the chunk is long only if it began before
+    // it; one that starts inside only if it runs past it
+    if (prev == r0) {
+      e0 = warp_first(slid, c0 + 1, c1, r0, false, lane);
+      long0 = e0 >= kLong && slid[e0 - kLong] == r0;
+    }
+    if (next == r1) {
+      s1 = warp_first(slid, c0 + 1, c1, r1, true, lane);
+      long1 = s1 + kLong <= n && slid[s1 + kLong - 1] == r1;
+      if (long1) start = s1;
+    }
+  }
+  if (lane == 0) lng.starts[k] = start;
+  if (long0) piece_sum(order, ct, c0, e0, dim, lane, lng.partial + 2 * k * dim);
+  if (long1) piece_sum(order, ct, s1, c1, dim, lane, lng.partial + (2 * k + 1) * dim);
 }
 
 // g plus column col of the cotangents at positions [i, end), added in
@@ -284,13 +440,28 @@ __device__ __forceinline__ void adam_tile(const Tile& t, const int64_t* __restri
 
 // The tile walk (see the note at the top): one warp a tile of 32 stream
 // positions, grid-stride over tiles. s1 is Adagrad's acc or Adam's m, s2
-// Adam's v.
+// Adam's v. Adagrad and the scatter-add: the first lng.blocks blocks run
+// pass 1 of the long path, one warp a chunk, and the walk skips long
+// segments.
 template <Rule kRule>
 __global__ void __launch_bounds__(kThreads)
 sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__ order,
                    const float* __restrict__ ct, float* __restrict__ param,
                    float* __restrict__ s1, float* __restrict__ s2, int64_t n, int dim,
-                   Hyper h) {
+                   Hyper h, Long lng) {
+  int64_t block = blockIdx.x, grid = gridDim.x;
+  if constexpr (kChunked<kRule>) {
+    if (block < lng.blocks) {
+      const int64_t chunks = (n + kChunk - 1) / kChunk;
+      for (int64_t k = block * kWarps + (threadIdx.x >> 5); k < chunks;
+           k += lng.blocks * kWarps) {
+        chunk_pass(slid, order, ct, n, dim, k, threadIdx.x & 31, lng);
+      }
+      return;
+    }
+    block -= lng.blocks;
+    grid -= lng.blocks;
+  }
   constexpr bool kAdam = kRule == Rule::kAdam;
   if constexpr (kRule == Rule::kSgd || kAdam) h.lr = h.step[0];
   if constexpr (kAdam) {
@@ -317,8 +488,8 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
   const Walk first{32 / dim, 32 - 32 / dim * dim, lane / dim, lane - lane / dim * dim};
 
   const int64_t tiles = (n + 31) / 32;
-  for (int64_t tile = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-       tile < tiles; tile += static_cast<int64_t>(gridDim.x) * kWarps) {
+  for (int64_t tile = block * kWarps + (threadIdx.x >> 5); tile < tiles;
+       tile += grid * kWarps) {
     const int64_t p0 = tile * 32;
     const int count = n - p0 < 32 ? static_cast<int>(n - p0) : 32;
     const int64_t p = p0 + lane;
@@ -342,17 +513,27 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
 
     __syncwarp();  // the previous tile's reads of shared memory are done
     w_order[lane] = ord;
+    bool is_long = false;  // the tile's last segment, on the long path
     if (start) {
       const int rank = __popc(starts & ((1u << lane) - 1u));
       const unsigned later = lane == 31 ? 0u : starts >> (lane + 1);
       int64_t end = p + __ffs(later);  // the next start
-      if (later == 0) end = runs_on ? segment_end(slid, p0 + 32, n, row) : p0 + count;
+      if constexpr (kChunked<kRule>) {
+        if (later == 0 && runs_on) is_long = p + kLong <= n && slid[p + kLong - 1] == row;
+        if (later == 0) end = is_long ? n : runs_on ? segment_end(slid, p0 + 32, n, row)
+                                                    : p0 + count;
+      } else {
+        if (later == 0) end = runs_on ? segment_end(slid, p0 + 32, n, row) : p0 + count;
+      }
       r_row[rank] = row;
       r_first[rank] = ord;
       r_end[rank] = end;
       r_begin[rank] = lane;
       if constexpr (kAdam) s_touched[base + rank] = 0;
     }
+    // the segments the walk sums: all but a long last one
+    int walked = segments;
+    if constexpr (kChunked<kRule>) walked -= __ballot_sync(kFull, is_long) != 0;
     __syncwarp();
     Tile t = view;
     t.p0 = p0;
@@ -364,7 +545,7 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
     }
 
     Walk w = first;
-    while (w.j < segments) {
+    while (w.j < walked) {
       // every load of kBatch elements first: ct at each segment's first
       // position, and the table entries the rule reads
       int jk[kBatch], ck[kBatch];
@@ -374,7 +555,7 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
       for (int k = 0; k < kBatch; ++k) {
         jk[k] = w.j;
         ck[k] = w.c;
-        if (w.j < segments) {
+        if (w.j < walked) {
           o[k] = r_row[w.j] * dim + w.c;
           g[k] = ct[r_first[w.j] * dim + w.c];
           if constexpr (kRule != Rule::kScatterAdd) pk[k] = param[o[k]];
@@ -384,7 +565,7 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
       }
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
-        if (jk[k] >= segments) break;
+        if (jk[k] >= walked) break;
         const float gk = segment_sum(t, order, ct, dim, jk[k], ck[k], g[k]);
         if constexpr (kRule == Rule::kAdagrad) {
           // the plain version's order of operations, with no fused multiply-add
@@ -402,30 +583,127 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
   }
 }
 
+// Pass 2 of the long path (see the note at the top): block b looks at the
+// chunks 32b .. 32b + 31 (one coalesced load and a ballot, after which a
+// block with none leaves), and for each whose starts[] holds a long segment
+// it sums the segment's pieces in shares and applies the rule to its row.
+template <Rule kRule>
+__global__ void __launch_bounds__(kThreads)
+sparse_rows_long_kernel(const int64_t* __restrict__ slid, float* __restrict__ param,
+                        float* __restrict__ s1, int64_t n, int dim, Hyper h,
+                        const float* __restrict__ partial, const int64_t* __restrict__ starts) {
+  __shared__ int64_t s_start[32];
+  __shared__ unsigned s_mask;
+  __shared__ int64_t s_end;
+  __shared__ float s_share[kShares][32];
+  const int lane = threadIdx.x & 31;
+  const int share = threadIdx.x >> 5;
+  const int64_t chunks = (n + kChunk - 1) / kChunk;
+  for (int64_t k0 = static_cast<int64_t>(blockIdx.x) * 32; k0 < chunks;
+       k0 += static_cast<int64_t>(gridDim.x) * 32) {
+    __syncthreads();  // the previous round's reads of s_start and s_mask are done
+    if (share == 0) {
+      const int64_t s = k0 + lane < chunks ? starts[k0 + lane] : -1;
+      const unsigned mask = __ballot_sync(kFull, s >= 0);
+      s_start[lane] = s;
+      if (lane == 0) s_mask = mask;
+    }
+    __syncthreads();
+    for (unsigned mask = s_mask; mask != 0; mask &= mask - 1) {
+      const int64_t s = s_start[__ffs(mask) - 1];
+      const int64_t row = slid[s];
+      if (share == 0) {
+        const int64_t e = warp_first(slid, s + kLong, n, row, false, lane);
+        if (lane == 0) s_end = e;
+      }
+      __syncthreads();
+      const int64_t ks = s / kChunk;
+      const int64_t pieces = (s_end - 1) / kChunk - ks + 1;
+      // piece 0 is the first chunk's slot 0 or 1, piece i > 0 slot 0 of chunk ks + i
+      const float* const first = partial + (2 * ks + (s == ks * kChunk ? 0 : 1)) * dim;
+      const float* const later = partial + 2 * ks * dim;
+      for (int c0 = 0; c0 < dim; c0 += 32) {
+        const int c = c0 + lane;
+        float g = 0.f;
+        if (c < dim) {
+          int64_t q = share;
+          if (share == 0) {
+            g = __fadd_rn(g, first[c]);
+            q = kShares;
+          }
+#pragma unroll 8
+          for (; q < pieces; q += kShares) g = __fadd_rn(g, later[2 * q * dim + c]);
+        }
+        s_share[share][lane] = g;
+        __syncthreads();
+        if (share == 0 && c < dim) {
+          const float* const x = &s_share[0][lane];
+          const float gk = __fadd_rn(__fadd_rn(__fadd_rn(x[0], x[32]), __fadd_rn(x[64], x[96])),
+                                     __fadd_rn(__fadd_rn(x[128], x[160]),
+                                               __fadd_rn(x[192], x[224])));
+          const int64_t o = row * dim + c;
+          if constexpr (kRule == Rule::kAdagrad) {
+            // the walk's operations
+            const float a = __fadd_rn(s1[o], __fmul_rn(gk, gk));
+            s1[o] = a;
+            const float inv = a > 0.f ? rsqrtf(__fadd_rn(a, h.eps)) : 0.f;
+            param[o] = __fsub_rn(param[o], __fmul_rn(__fmul_rn(h.step[0], gk), inv));
+          } else {
+            param[o] = gk;
+          }
+        }
+        __syncthreads();  // s_share and s_end are read
+      }
+    }
+  }
+}
+
 template <Rule kRule>
 cudaError_t launch(const void* slid, const void* order, const void* ct, void* param,
-                   void* s1, void* s2, int64_t n, int dim, const Hyper& h, void* stream) {
+                   void* s1, void* s2, int64_t n, int dim, const Hyper& h, void* stream,
+                   void* partial = nullptr, void* starts = nullptr) {
   if (n <= 0 || dim <= 0) return cudaSuccess;
   // one warp a tile of 32 positions
   int64_t blocks = ((n + 31) / 32 + kWarps - 1) / kWarps;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  sparse_rows_kernel<kRule><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  // the long path: one warp a chunk in pass 1, a block 32 chunks in pass 2
+  const int64_t chunks = (n + kChunk - 1) / kChunk;
+  Long lng{static_cast<float*>(partial), static_cast<int64_t*>(starts), 0};
+  int64_t long_blocks = 0;
+  if constexpr (kChunked<kRule>) {
+    lng.blocks = (chunks + kWarps - 1) / kWarps;
+    if (lng.blocks > kMaxBlocks) lng.blocks = kMaxBlocks;
+    long_blocks = (chunks + 31) / 32;
+    if (long_blocks > kMaxBlocks) long_blocks = kMaxBlocks;
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  sparse_rows_kernel<kRule><<<static_cast<unsigned>(blocks + lng.blocks), kThreads, 0, s>>>(
       static_cast<const int64_t*>(slid), static_cast<const int64_t*>(order),
       static_cast<const float*>(ct), static_cast<float*>(param), static_cast<float*>(s1),
-      static_cast<float*>(s2), n, dim, h);
+      static_cast<float*>(s2), n, dim, h, lng);
+  if constexpr (kChunked<kRule>) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    sparse_rows_long_kernel<kRule><<<static_cast<unsigned>(long_blocks), kThreads, 0, s>>>(
+        static_cast<const int64_t*>(slid), static_cast<float*>(param), static_cast<float*>(s1),
+        n, dim, h, lng.partial, lng.starts);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // hyper: {lr} for Adagrad and SGD, {lr, bc1, bc2} for Adam, f32 in device
-// memory.
+// memory. partial and starts: the long path's scratch, f32 [chunks, 2, dim]
+// and int64 [chunks], chunks = ceil(n / 256), which the caller allocates
+// and need not fill.
 extern "C" int fused_adagrad_rows(const void* slid, const void* order, const void* ct,
-                                  void* param, void* acc, long long n, int dim,
-                                  const void* hyper, float eps, void* stream) {
+                                  void* param, void* acc, void* partial, void* starts,
+                                  long long n, int dim, const void* hyper, float eps,
+                                  void* stream) {
   const Hyper h{0.f, eps, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, static_cast<const float*>(hyper)};
-  return launch<Rule::kAdagrad>(slid, order, ct, param, acc, nullptr, n, dim, h, stream);
+  return launch<Rule::kAdagrad>(slid, order, ct, param, acc, nullptr, n, dim, h, stream,
+                                partial, starts);
 }
 
 extern "C" int fused_sgd_rows(const void* slid, const void* order, const void* ct,
@@ -436,9 +714,11 @@ extern "C" int fused_sgd_rows(const void* slid, const void* order, const void* c
 }
 
 extern "C" int scatter_add_rows(const void* slid, const void* order, const void* ct,
-                                void* out, long long n, int dim, void* stream) {
+                                void* out, void* partial, void* starts, long long n, int dim,
+                                void* stream) {
   const Hyper h{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, nullptr};
-  return launch<Rule::kScatterAdd>(slid, order, ct, out, nullptr, nullptr, n, dim, h, stream);
+  return launch<Rule::kScatterAdd>(slid, order, ct, out, nullptr, nullptr, n, dim, h, stream,
+                                   partial, starts);
 }
 
 extern "C" int fused_adam_rows(const void* slid, const void* order, const void* ct,

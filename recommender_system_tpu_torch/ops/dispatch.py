@@ -10,9 +10,10 @@
   wrappers of the cross stack, the FM logit and the DIN attention pick
   between two kernels of their source by the shape (``ops/kernels.py``),
   never the plain version on the card.
-- Each wrapper counts its launches (``<wrapper>.launches``, and
-  ``<wrapper>.global_launches`` for a global kernel). ``launch_counts`` and
-  ``add_launches`` read and raise them all: a captured CUDA graph
+- Each wrapper counts its launches (``<wrapper>.launches``,
+  ``<wrapper>.global_launches`` for a global kernel, and
+  ``<wrapper>.long_launches`` for the sparse rules' long path).
+  ``launch_counts`` and ``add_launches`` read and raise them all: a captured CUDA graph
   (``Trainer.make_multi_step``) counts nothing while it is captured and adds
   the launches it holds each time it is replayed.
 """
@@ -52,6 +53,11 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel and no plain version for device {device}")
 
 
+# a wrapper's counts: every launch, and of them the global kernel's and the
+# long path's
+COUNTS = ("launches", "global_launches", "long_launches")
+
+
 def _counted():
     """Every kernel wrapper (imported here: their modules import this one)."""
     from .embedding_grad import scatter_add_sorted
@@ -63,10 +69,10 @@ def _counted():
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every wrapper's counts, keyed ``<wrapper>.launches`` and
-    ``<wrapper>.global_launches``."""
+    """Every wrapper's counts, keyed ``<wrapper>.launches``,
+    ``<wrapper>.global_launches`` and ``<wrapper>.long_launches``."""
     return {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn in _counted()
-            for attr in ("launches", "global_launches") if hasattr(fn, attr)}
+            for attr in COUNTS if hasattr(fn, attr)}
 
 
 def add_launches(counts: Mapping[str, int]) -> None:

@@ -93,7 +93,9 @@ def fused_adagrad_apply(table: torch.Tensor, acc: torch.Tensor,
     ``(slid, order)`` from ``blocked_sort``, else they are sorted here. The
     learning rate is ``lr`` or ``scalars`` (``[lr]`` on the table's
     device). On CUDA tensors the kernel runs (``fused_adagrad_apply.launches``
-    counts it); on CPU tensors, ``fused_adagrad_ref``.
+    counts it, and ``.long_launches`` the long path's pass 2, which every
+    launch runs: a row of at least ``kernels.SPARSE_CHUNK`` positions is
+    summed in chunks); on CPU tensors, ``fused_adagrad_ref``.
     """
     with torch.no_grad():
         hyper = _hyper(table, scalars, None if lr is None else (lr,))
@@ -106,12 +108,15 @@ def fused_adagrad_apply(table: torch.Tensor, acc: torch.Tensor,
         if ct.shape[0] == 0:
             return table, acc
         slid, order = presorted if presorted is not None else sort_ids(lids)
-        kernels.launch_fused_adagrad(table, acc, slid, order, ct, hyper, float(eps))
+        scratch = kernels.sparse_rows_scratch(ct.shape[0], ct.shape[1], ct.device)
+        kernels.launch_fused_adagrad(table, acc, slid, order, ct, hyper, float(eps), *scratch)
     fused_adagrad_apply.launches += 1
+    fused_adagrad_apply.long_launches += 1
     return table, acc
 
 
 fused_adagrad_apply.launches = 0
+fused_adagrad_apply.long_launches = 0
 
 
 def fused_sgd_ref(table: torch.Tensor, lids: torch.Tensor, ct: torch.Tensor,

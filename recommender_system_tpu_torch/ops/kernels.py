@@ -29,7 +29,10 @@ plain version; a build failure or a launch error raises.
 - ``fused_adagrad_apply``, ``fused_sgd_apply`` and ``fused_adam_apply``
   (``ops/fused_adagrad.py``) and ``scatter_add_sorted``
   (``ops/embedding_grad.py``), whose kernels are in ``csrc/sparse_rows.cu``;
-  this module launches them.
+  this module launches them. Adagrad and the scatter-add sum rows of
+  ``SPARSE_CHUNK`` positions or more in chunks (the long path, a second
+  kernel every launch, on scratch from ``sparse_rows_scratch``), and count
+  it in ``<wrapper>.long_launches``.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,10 +68,10 @@ SOURCES = {
         "din_attention_global_forward": ([_PTR] * 11 + [_INT] * 8 + [_PTR], _INT),
     },
     "sparse_rows": {
-        "fused_adagrad_rows": ([_PTR] * 5 + [_INT64, _INT, _PTR, _FLOAT, _PTR], _INT),
+        "fused_adagrad_rows": ([_PTR] * 7 + [_INT64, _INT, _PTR, _FLOAT, _PTR], _INT),
         "fused_sgd_rows": ([_PTR] * 4 + [_INT64, _INT, _PTR, _PTR], _INT),
         "fused_adam_rows": ([_PTR] * 6 + [_INT64, _INT, _PTR] + [_FLOAT] * 5 + [_PTR], _INT),
-        "scatter_add_rows": ([_PTR] * 4 + [_INT64, _INT, _PTR], _INT),
+        "scatter_add_rows": ([_PTR] * 6 + [_INT64, _INT, _PTR], _INT),
     },
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -723,6 +726,37 @@ def check_sparse_rows_args(slid: torch.Tensor, order: torch.Tensor,
                          f"got ct {tuple(ct.shape)}")
 
 
+# the long path of fused_adagrad_rows and scatter_add_rows: a segment of at
+# least SPARSE_CHUNK positions is summed in chunks of SPARSE_CHUNK, whose
+# sums SPARSE_SHARES shares add (kChunk, kLong and kShares of
+# csrc/sparse_rows.cu; ``scatter_add_chunked_ref`` is the same order)
+SPARSE_CHUNK = 256
+SPARSE_SHARES = 8
+
+
+def sparse_rows_scratch(n: int, dim: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The long path's scratch for a stream of ``n`` positions of width
+    ``dim``: the chunks' partial sums, float32 ``[chunks, 2, dim]``, and
+    the long segment that starts in each chunk, int64 ``[chunks]``, with
+    ``chunks = ceil(n / SPARSE_CHUNK)``. The kernel fills what it reads."""
+    chunks = -(-n // SPARSE_CHUNK)
+    return (torch.empty(chunks, 2, dim, dtype=torch.float32, device=device),
+            torch.empty(chunks, dtype=torch.int64, device=device))
+
+
+def check_long_scratch(partial: torch.Tensor, starts: torch.Tensor,
+                       slid: torch.Tensor, ct: torch.Tensor) -> None:
+    """Raise unless ``(partial, starts)`` is ``sparse_rows_scratch``'s
+    scratch for ``ct``'s stream, contiguous and on ``ct``'s device."""
+    want = sparse_rows_scratch(slid.shape[0], ct.shape[1], "meta")
+    for t, w, what in ((partial, want[0], "partial"), (starts, want[1], "starts")):
+        if (t.dtype != w.dtype or t.shape != w.shape or not t.is_contiguous()
+                or t.device != ct.device):
+            raise ValueError(f"the long path's {what} scratch must be contiguous {w.dtype} "
+                             f"{tuple(w.shape)} on {ct.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
 def check_hyper(hyper: torch.Tensor, param: torch.Tensor, n: int) -> None:
     """Raise unless ``hyper`` is a contiguous float32 tensor of ``n``
     values on ``param``'s device: the step's scalars that a sparse row
@@ -736,31 +770,38 @@ def check_hyper(hyper: torch.Tensor, param: torch.Tensor, n: int) -> None:
 
 def launch_fused_adagrad(param: torch.Tensor, acc: torch.Tensor,
                          slid: torch.Tensor, order: torch.Tensor,
-                         ct: torch.Tensor, hyper: torch.Tensor, eps: float) -> None:
+                         ct: torch.Tensor, hyper: torch.Tensor, eps: float,
+                         partial: torch.Tensor, starts: torch.Tensor) -> None:
     """``fused_adagrad_rows`` on CUDA tensors, in place on ``param`` and
     ``acc``; the kernel reads ``lr`` from ``hyper`` (``[lr]``, float32 on
-    the card). Raises if the launch fails."""
+    the card), and the long path uses ``sparse_rows_scratch``'s ``partial``
+    and ``starts``. Raises if the launch fails."""
     check_sparse_rows_args(slid, order, ct, param, acc)
     check_hyper(hyper, param, 1)
+    check_long_scratch(partial, starts, slid, ct)
     lib = _library("sparse_rows")
     with torch.cuda.device(param.device):
         err = lib.fused_adagrad_rows(slid.data_ptr(), order.data_ptr(), ct.data_ptr(),
-                                     param.data_ptr(), acc.data_ptr(), slid.shape[0],
-                                     ct.shape[1], hyper.data_ptr(), eps, _stream(param))
+                                     param.data_ptr(), acc.data_ptr(), partial.data_ptr(),
+                                     starts.data_ptr(), slid.shape[0], ct.shape[1],
+                                     hyper.data_ptr(), eps, _stream(param))
     if err != 0:
         raise RuntimeError(f"fused_adagrad_rows launch failed with CUDA error {err}")
 
 
 def launch_scatter_add(out: torch.Tensor, slid: torch.Tensor,
-                       order: torch.Tensor, ct: torch.Tensor) -> None:
-    """``scatter_add_rows`` on CUDA tensors into the zero-filled ``out``;
+                       order: torch.Tensor, ct: torch.Tensor,
+                       partial: torch.Tensor, starts: torch.Tensor) -> None:
+    """``scatter_add_rows`` on CUDA tensors into the zero-filled ``out``,
+    the long path on ``sparse_rows_scratch``'s ``partial`` and ``starts``;
     raises if the launch fails."""
     check_sparse_rows_args(slid, order, ct, out)
+    check_long_scratch(partial, starts, slid, ct)
     lib = _library("sparse_rows")
     with torch.cuda.device(out.device):
         err = lib.scatter_add_rows(slid.data_ptr(), order.data_ptr(), ct.data_ptr(),
-                                   out.data_ptr(), slid.shape[0], ct.shape[1],
-                                   _stream(out))
+                                   out.data_ptr(), partial.data_ptr(), starts.data_ptr(),
+                                   slid.shape[0], ct.shape[1], _stream(out))
     if err != 0:
         raise RuntimeError(f"scatter_add_rows launch failed with CUDA error {err}")
 

@@ -454,8 +454,9 @@ def test_launch_counts_read_and_raise_every_counter():
         "cross_fused.launches", "cross_fused.global_launches", "fm_fused.launches",
         "fm_fused.global_launches", "din_attention_fused.launches",
         "din_attention_fused.global_launches", "fused_adagrad_apply.launches",
-        "fused_sgd_apply.launches", "fused_adam_apply.launches",
-        "scatter_add_sorted.launches"}
+        "fused_adagrad_apply.long_launches", "fused_sgd_apply.launches",
+        "fused_adam_apply.launches", "scatter_add_sorted.launches",
+        "scatter_add_sorted.long_launches"}
     add_launches({"fused_adam_apply.launches": 8, "cross_fused.global_launches": 2})
     after = launch_counts()
     assert after["fused_adam_apply.launches"] == counts["fused_adam_apply.launches"] + 8

@@ -3,6 +3,7 @@
 package's: ``blocked_sort``, the plain references, and the Pallas kernels in
 interpret mode. On the CPU the wrappers run their plain versions."""
 import functools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,11 +19,12 @@ from recommender_system_tpu.ops.fused_adagrad import fused_adagrad_apply as j_fu
 from recommender_system_tpu.ops.fused_adagrad import fused_adagrad_ref as j_fused_adagrad_ref
 from recommender_system_tpu.ops.stream_sort import blocked_sort as j_blocked_sort
 from recommender_system_tpu_torch.convert import unpack_stack
+from recommender_system_tpu_torch.ops import kernels
 from recommender_system_tpu_torch.ops.embedding_grad import (
-    scatter_add_dense_ref, scatter_add_sorted, take_fast)
+    scatter_add_chunked_ref, scatter_add_dense_ref, scatter_add_sorted, take_fast)
 from recommender_system_tpu_torch.ops.fused_adagrad import (
     fused_adagrad_apply, fused_adagrad_ref)
-from recommender_system_tpu_torch.ops.kernels import check_sparse_rows_args
+from recommender_system_tpu_torch.ops.kernels import SPARSE_CHUNK, check_sparse_rows_args
 from recommender_system_tpu_torch.ops.stream_sort import blocked_sort, sort_ids
 
 LR, EPS = 0.05, 1e-7
@@ -335,3 +337,184 @@ def test_wrappers_neither_launch_nor_fall_back_off_the_cpu():
         fused_adagrad_apply(meta["table"], meta["table"], meta["slid"], meta["ct"], lr=LR)
     with pytest.raises(ValueError, match="different devices"):
         scatter_add_sorted(meta["slid"], torch.arange(4), torch.zeros(4, 9), 10)
+
+
+# ------------------------------------ the long path's order (chunks, shares)
+
+def _long_lids(rows, seed, chunk=SPARSE_CHUNK):
+    """Ids whose sorted stream holds long segments (at least ``chunk``
+    positions) at the stream's start and end, back to back and of lengths
+    chunk - 1, chunk, chunk + 1 and 2 * chunk +- 1, among short ones, in
+    random order."""
+    lengths = [3 * chunk + 1, 5, chunk - 1, chunk, 2, chunk + 1, 2 * chunk - 1, 7,
+               2 * chunk + 1, chunk, 3 * chunk + 7, 1, 40, 2 * chunk + 5]
+    segment_rows = np.random.default_rng(seed).choice(rows, len(lengths), replace=False)
+    lids = np.repeat(np.sort(segment_rows), lengths)
+    np.random.default_rng(seed + 1).shuffle(lids)
+    return lids
+
+
+def _chunk_order_numpy(slid, order, ct, rows, chunk, shares):
+    """The order the card's scatter-add sums in, written out with numpy
+    float32 adds: a segment shorter than ``chunk`` in stream order from 0; a
+    longer one cut at the multiples of ``chunk``, each piece so, share q the
+    pieces q, q + shares, ... from 0, then ((s0+s1)+(s2+s3))+((s4+s5)+(s6+s7))."""
+    out = np.zeros((rows, ct.shape[1]), np.float32)
+    bounds = np.flatnonzero(np.diff(slid)) + 1
+    for a, b in zip(np.r_[0, bounds], np.r_[bounds, slid.size]):
+        cuts = [a] + ([m for m in range(a + 1, b) if m % chunk == 0] if b - a >= chunk
+                      else []) + [b]
+        pieces = []
+        for p, q in zip(cuts[:-1], cuts[1:]):
+            g = np.zeros(ct.shape[1], np.float32)
+            for j in range(p, q):
+                g = g + ct[order[j]]
+            pieces.append(g)
+        if b - a < chunk:
+            out[slid[a]] = pieces[0]
+            continue
+        acc = [np.zeros(ct.shape[1], np.float32) for _ in range(shares)]
+        for i, piece in enumerate(pieces):
+            acc[i % shares] = acc[i % shares] + piece
+        out[slid[a]] = ((acc[0] + acc[1]) + (acc[2] + acc[3])) + ((acc[4] + acc[5])
+                                                                  + (acc[6] + acc[7]))
+    return out
+
+
+def test_sparse_chunk_constants_are_the_kernels():
+    source = (Path(kernels.__file__).parent.parent / "csrc" / "sparse_rows.cu").read_text()
+    assert f"constexpr int64_t kChunk = {SPARSE_CHUNK};" in source
+    assert "constexpr int64_t kLong = kChunk;" in source
+    assert f"constexpr int kShares = {kernels.SPARSE_SHARES};" in source
+    assert kernels.SPARSE_SHARES == 8  # the fixed tree joins eight shares
+
+
+@pytest.mark.parametrize("dim", [1, 3, 9, 33])
+@pytest.mark.parametrize("chunk", [SPARSE_CHUNK, 8])
+def test_scatter_add_chunked_ref_sums_in_the_kernels_order(dim, chunk, monkeypatch):
+    """Bitwise the numpy float32 sums in the documented order; at chunk 8 a
+    segment spans many pieces, so every share and the tree take part."""
+    monkeypatch.setattr(kernels, "SPARSE_CHUNK", chunk)
+    rows = 60
+    lids = _long_lids(rows, seed=dim, chunk=chunk)
+    if chunk == 8:
+        lids = np.concatenate([lids, np.full(150, lids[0])])  # 19 pieces on one row
+    ct = np.random.default_rng(dim).normal(size=(lids.size, dim)).astype(np.float32)
+    slid, order = sort_ids(torch.from_numpy(lids))
+    got = scatter_add_chunked_ref(slid, order, torch.from_numpy(ct), rows)
+    want = _chunk_order_numpy(slid.numpy(), order.numpy(), ct, rows, chunk,
+                              kernels.SPARSE_SHARES)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_scatter_add_chunked_ref_is_exact_on_the_eighth_grid():
+    """Cotangents on the 1/8 grid: every partial sum is exact in f32, so
+    every order gives index_add_'s sums bitwise, untouched rows 0."""
+    rows = 3000
+    lids = _long_lids(rows, seed=4)
+    rng = np.random.default_rng(5)
+    ct = torch.from_numpy((rng.integers(-8, 9, (lids.size, 9)) / 8).astype(np.float32))
+    t_lids = torch.from_numpy(lids)
+    got = scatter_add_chunked_ref(*sort_ids(t_lids), ct, rows)
+    assert torch.equal(got, scatter_add_dense_ref(t_lids, ct, rows))
+    assert scatter_add_chunked_ref(*sort_ids(t_lids[:0]), ct[:0], rows).count_nonzero() == 0
+
+
+def test_scatter_add_chunked_ref_long_row_within_the_float64_bound():
+    """One row of 20,000 normal cotangents: each term passes through at most
+    depth = chunk + ceil(pieces / 8) + 3 f32 additions, so the sum is within
+    depth * u / (1 - depth * u) * sum|x| (u = 2**-24) of the exact one."""
+    n, dim = 20_000, 9
+    ct = np.random.default_rng(6).normal(size=(n, dim)).astype(np.float32)
+    lids = torch.full((n,), 3, dtype=torch.int64)
+    got = scatter_add_chunked_ref(*sort_ids(lids), torch.from_numpy(ct), 8).numpy()[3]
+    exact = ct.astype(np.float64).sum(0)
+    pieces = -(-n // SPARSE_CHUNK)
+    depth = SPARSE_CHUNK + -(-pieces // kernels.SPARSE_SHARES) + 3
+    u = 2.0 ** -24
+    bound = depth * u / (1 - depth * u) * np.abs(ct.astype(np.float64)).sum(0)
+    assert np.all(np.abs(got - exact) <= bound)
+
+
+def test_scatter_add_chunked_ref_matches_pallas_on_long_segments():
+    rows = 512
+    lids = _long_lids(rows, seed=7).astype(np.int32)
+    ct = _bf16(np.random.default_rng(8).normal(size=(lids.size, 8)).astype(np.float32))
+    want = _j_scatter_add_dense(jnp.asarray(lids), jnp.asarray(ct), rows)
+    got = scatter_add_chunked_ref(*sort_ids(torch.from_numpy(lids)), torch.from_numpy(ct), rows)
+    # rows of up to 775 bf16-rounded unit normals summed in f32 in two
+    # orders (one-hot matrix products against chunks and shares): the f32
+    # rounding of sums of magnitude up to ~60
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["packed_d9", "unpacked_d128"])
+def test_adagrad_on_chunked_sums_matches_pallas_on_long_segments(case):
+    """Adagrad applied to ``scatter_add_chunked_ref``'s sums, as the card's
+    long path applies it, against the JAX Pallas kernel (interpret mode)."""
+    pack, dim, rows_phys, _, _ = REF_CASES[case]
+    rows = rows_phys * pack
+    stack, acc = _jax_table(pack, dim, rows_phys, seed=9)
+    lids = _long_lids(rows, seed=10).astype(np.int32)
+    ct = _bf16(np.random.default_rng(11).normal(size=(lids.size, dim)).astype(np.float32))
+    want_s, want_a = jax.jit(lambda s, a, i, c: j_fused_adagrad_apply(
+        s, a, i, c, pack=pack, dim=dim, lr=LR, eps=EPS, tile_rows=64, chunk=128))(
+            jnp.asarray(stack), jnp.asarray(acc), jnp.asarray(lids), jnp.asarray(ct))
+    table = torch.from_numpy(unpack_stack(stack, rows, dim).copy())
+    table_acc = torch.from_numpy(unpack_stack(acc, rows, dim).copy())
+    g = scatter_add_chunked_ref(*sort_ids(torch.from_numpy(lids)), torch.from_numpy(ct), rows)
+    new_acc = table_acc + g * g
+    new_table = table - LR * g * torch.where(new_acc > 0, torch.rsqrt(new_acc + EPS), 0.0)
+    # as test_scatter_add_chunked_ref_matches_pallas_on_long_segments: sums
+    # of up to 775 bf16-rounded normals in two orders
+    np.testing.assert_allclose(new_table.numpy(), j_unpack_stack(np.asarray(want_s), rows, dim),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(new_acc.numpy(), j_unpack_stack(np.asarray(want_a), rows, dim),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _scratch_faults(n, dim):
+    partial, starts = kernels.sparse_rows_scratch(n, dim, "cpu")
+    return {
+        "partial_chunks": ((partial[:-1], starts), ValueError),
+        "partial_width": ((torch.empty(partial.shape[0], 2, dim + 1), starts), ValueError),
+        "partial_f64": ((partial.double(), starts), ValueError),
+        "starts_int32": ((partial, starts.int()), ValueError),
+        "starts_chunks": ((partial, torch.empty(starts.numel() + 1, dtype=torch.int64)),
+                          ValueError),
+        "partial_device": ((partial.to("meta"), starts), ValueError),
+        "starts_device": ((partial, starts.to("meta")), ValueError),
+        "non_contiguous": ((partial.transpose(0, 1).contiguous().transpose(0, 1), starts),
+                           ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_scratch_faults(1000, 9)))
+def test_long_path_launchers_check_the_scratch(case):
+    n, dim = 1000, 9
+    (partial, starts), error = _scratch_faults(n, dim)[case]
+    slid = torch.arange(n)
+    ct = torch.zeros(n, dim)
+    table = torch.zeros(n, dim)
+    with pytest.raises(error, match="long path"):
+        kernels.launch_scatter_add(table, slid, slid, ct, partial, starts)
+    with pytest.raises(error, match="long path"):
+        kernels.launch_fused_adagrad(table, table.clone(), slid, slid, ct,
+                                     torch.full((1,), LR), EPS, partial, starts)
+
+
+@pytest.mark.parametrize("n", [0, 1, SPARSE_CHUNK, SPARSE_CHUNK + 1, 425_984])
+def test_sparse_rows_scratch_is_what_the_launchers_take(n):
+    partial, starts = kernels.sparse_rows_scratch(n, 9, "cpu")
+    assert partial.shape == (-(-n // SPARSE_CHUNK), 2, 9) and starts.dtype == torch.int64
+    kernels.check_long_scratch(partial, starts, torch.empty(n, dtype=torch.int64),
+                               torch.empty(n, 9))
+
+
+def test_cpu_wrappers_count_no_long_launch():
+    before = (fused_adagrad_apply.long_launches, scatter_add_sorted.long_launches)
+    lids = torch.from_numpy(_long_lids(100, seed=12))
+    ct = torch.ones(lids.numel(), 4)
+    fused_adagrad_apply(torch.zeros(100, 4), torch.zeros(100, 4), lids, ct, lr=LR)
+    scatter_add_sorted(*sort_ids(lids), ct, 100)
+    assert (fused_adagrad_apply.long_launches, scatter_add_sorted.long_launches) == before
