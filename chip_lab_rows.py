@@ -10,7 +10,7 @@ Each variant is the source with the text replacements listed in VARIANTS
 into ``recommender_system_tpu_torch/build/lab/`` (all compiles started
 together) and called through ctypes; ``--parent DIR`` adds the source of
 another tree (``DIR/recommender_system_tpu_torch/csrc/sparse_rows.cu``) as
-the variant ``parent``: a source whose Adagrad and scatter-add take no
+the variant ``parent``: a rule whose C function in that source takes no
 long-path scratch is called without it. The scatter-add, Adagrad, SGD and
 lazy Adam run on ``bench.py``'s stream (N=425,984 into 2,600,000 rows of
 dim 9), on the same stream with every other id on one hot row, and on
@@ -42,8 +42,12 @@ import chip_smoke as cs
 CSRC = Path(__file__).resolve().parent / "recommender_system_tpu_torch" / "csrc"
 
 _CHUNK = "constexpr int64_t kChunk = 256;"
-_NO_PASS2 = ("  if constexpr (kChunked<kRule>) {\n    const cudaError_t err",
-             "  if constexpr (false) {\n    const cudaError_t err", 1)
+_WALK = "__launch_bounds__(kThreads)\nsparse_rows_kernel("
+_ADAM_BATCH = "constexpr int kAdamBatch = 2;"
+_NO_PASS2 = ("  sparse_rows_long_kernel<kRule><<<", "  if (false) sparse_rows_long_kernel<kRule><<<",
+             1)
+
+
 # name -> [(old, new, times it must match)]; base is the source
 VARIANTS = {
     "base": [],
@@ -60,8 +64,22 @@ VARIANTS = {
                   "static_cast<float*>(s2), n, dim, h, Long{nullptr, nullptr, 0});", 1)],
     "nocheck": [("is_long = p + kLong <= n && slid[p + kLong - 1] == row;", "is_long = false;",
                  1)],
+    # the walk kernel's registers (lazy Adam's spills once pass 1 shares
+    # its kernel): pass 1 compiled as a call; a floor of one block an SM;
+    # a cap of 168 registers in place of the launch bounds
+    "noinline": [("__device__ __forceinline__ void chunk_pass(",
+                  "__device__ __noinline__ void chunk_pass(", 1)],
+    "lb1": [(_WALK, _WALK.replace("(kThreads)", "(kThreads, 1)"), 1)],
+    "maxreg168": [(_WALK, _WALK.replace("__launch_bounds__(kThreads)", "__maxnreg__(168)"), 1)],
+    # lazy Adam's loads in flight in its walk (2 in the source; 4, the other
+    # rules' kBatch, spills)
+    "adam_batch3": [(_ADAM_BATCH, _ADAM_BATCH.replace("2", "3"), 1)],
+    "adam_batch4": [(_ADAM_BATCH, _ADAM_BATCH.replace("2", "4"), 1)],
 }
 RULES = ("scatter", "adagrad", "sgd", "adam")
+# each rule's C function in the source
+FUNCTIONS = {"scatter": "scatter_add_rows", "adagrad": "fused_adagrad_rows",
+             "sgd": "fused_sgd_rows", "adam": "fused_adam_rows"}
 # the long-path scratch is sized for chunks of this many positions, the
 # least any variant takes
 SCRATCH_CHUNK = 64
@@ -86,7 +104,9 @@ def build(names, parent):
                 text = text.replace(old, new)
         cu = out_dir / f"sparse_rows_{name}.cu"
         cu.write_text(text)
-        scratch[name] = "void* partial" in text
+        scratch[name] = {
+            rule: "void* partial" in re.search(rf'extern "C" int {fn}\(([^)]*)\)', text).group(1)
+            for rule, fn in FUNCTIONS.items()}
         lib = out_dir / f"libsparse_rows_{name}.so"
         jobs[name] = (lib, subprocess.Popen(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib), str(cu)],
@@ -103,10 +123,10 @@ def build(names, parent):
     return libs
 
 
-def launcher(lib, scratch: bool):
+def launcher(lib, scratch: dict):
     """rule -> fn(state, slid, order, ct): one launch of the variant's rule
-    on ``state`` (the table and its slots) at step 0; ``scratch``: the
-    source's Adagrad and scatter-add take the long path's scratch."""
+    on ``state`` (the table and its slots) at step 0; ``scratch[rule]``: the
+    source's function for the rule takes the long path's scratch."""
     from recommender_system_tpu_torch.ops.fused_adagrad import adam_scalars
 
     P, I, I64, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -114,11 +134,11 @@ def launcher(lib, scratch: bool):
     adam = adam_scalars(cs.ADAM_LR, 0, 0.9, 0.999)
     hyper = {"adagrad": cs.on_card(lr), "sgd": cs.on_card(sgd_lr), "adam": cs.on_card(*adam)}
     stream = torch.cuda.current_stream().cuda_stream
-    extra = [P, P] if scratch else []
-    lib.scatter_add_rows.argtypes = [P] * 4 + extra + [I64, I, P]
-    lib.fused_adagrad_rows.argtypes = [P] * 5 + extra + [I64, I, P, F, P]
-    lib.fused_sgd_rows.argtypes = [P] * 4 + [I64, I, P, P]
-    lib.fused_adam_rows.argtypes = [P] * 6 + [I64, I, P] + [F] * 5 + [P]
+    extra = {rule: [P, P] if takes else [] for rule, takes in scratch.items()}
+    lib.scatter_add_rows.argtypes = [P] * 4 + extra["scatter"] + [I64, I, P]
+    lib.fused_adagrad_rows.argtypes = [P] * 5 + extra["adagrad"] + [I64, I, P, F, P]
+    lib.fused_sgd_rows.argtypes = [P] * 4 + extra["sgd"] + [I64, I, P, P]
+    lib.fused_adam_rows.argtypes = [P] * 6 + extra["adam"] + [I64, I, P] + [F] * 5 + [P]
 
     def run(rule, state, slid, order, ct):
         n, dim = slid.shape[0], ct.shape[1]
@@ -126,7 +146,7 @@ def launcher(lib, scratch: bool):
         chunks = -(-n // SCRATCH_CHUNK)
         partial = torch.empty(chunks, 2, dim, device="cuda")
         starts = torch.empty(chunks, dtype=torch.int64, device="cuda")
-        long_path = [partial.data_ptr(), starts.data_ptr()] if scratch else []
+        long_path = [partial.data_ptr(), starts.data_ptr()] if scratch[rule] else []
         if rule == "scatter":
             err = lib.scatter_add_rows(*ptrs, state[0].data_ptr(), *long_path, n, dim, stream)
         elif rule == "adagrad":
@@ -134,12 +154,13 @@ def launcher(lib, scratch: bool):
                                          *long_path, n, dim, hyper[rule].data_ptr(), cs.EPS,
                                          stream)
         elif rule == "sgd":
-            err = lib.fused_sgd_rows(*ptrs, state[0].data_ptr(), n, dim,
+            err = lib.fused_sgd_rows(*ptrs, state[0].data_ptr(), *long_path, n, dim,
                                      hyper[rule].data_ptr(), stream)
         else:
             tables = [t.data_ptr() for t in state[:3]]
-            err = lib.fused_adam_rows(*ptrs, *tables, n, dim, hyper[rule].data_ptr(),
-                                      0.9, 0.999, 1e-8, 1.0 - 0.9, 1.0 - 0.999, stream)
+            err = lib.fused_adam_rows(*ptrs, *tables, *long_path, n, dim,
+                                      hyper[rule].data_ptr(), 0.9, 0.999, 1e-8, 1.0 - 0.9,
+                                      1.0 - 0.999, stream)
         if err != 0:
             raise RuntimeError(f"{rule} launch failed with CUDA error {err}")
 
@@ -180,7 +201,9 @@ def fresh(rule, rows, dim):
 
 def equal_on_phase2(runs, names) -> None:
     """Every rule of every variant once on each of phase 2's streams: its
-    tables against the base's, bitwise."""
+    tables against the base's, bitwise; with the stream's count of long
+    rows (a variant that sums them in another order may differ there)."""
+    from recommender_system_tpu_torch.ops.kernels import SPARSE_CHUNK
     from recommender_system_tpu_torch.ops.stream_sort import sort_ids
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -188,6 +211,8 @@ def equal_on_phase2(runs, names) -> None:
         if lids.numel() == 0:
             continue
         slid, order = sort_ids(lids)
+        long_rows = int((torch.unique_consecutive(slid, return_counts=True)[1]
+                         >= SPARSE_CHUNK).sum())
         for rule in RULES:
             results = {}
             for name in ["base", *names]:
@@ -197,8 +222,8 @@ def equal_on_phase2(runs, names) -> None:
             torch.cuda.synchronize()
             same = {name: all(map(torch.equal, results[name], results["base"]))
                     for name in names}
-            print(f"{rule} on phase 2's {case} (N={lids.numel()}, dim={ct.shape[1]}): "
-                  f"bitwise equal to base: {same}", flush=True)
+            print(f"{rule} on phase 2's {case} (N={lids.numel()}, dim={ct.shape[1]}, "
+                  f"{long_rows} long rows): bitwise equal to base: {same}", flush=True)
 
 
 def main() -> int:

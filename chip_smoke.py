@@ -50,7 +50,8 @@ Phases, each of which raises on failure (exit code not 0):
    and FFM's 1 and 156, among them), at N=1 and N=0, with ids on the table's last row, with half
    the ids on one row, with rows named only by all-zero cotangents or by
    cotangents that cancel, on DIN's two-site stream of table_d32 (425,984
-   positions, ~184,000 on the padding row), on segments whose lengths
+   positions, ~184,000 on the padding row; once more with the padding
+   row's cotangents zero, as in training), on segments whose lengths
    cycle through 1..70, so that segments start and end at every lane of the
    kernels' 32-position tiles and cross up to three of them, and on the
    long path's streams at dims 1, 9, 32 and 156: one row holding 60,000
@@ -60,15 +61,17 @@ Phases, each of which raises on failure (exit code not 0):
    the stream (rtol=1e-5, atol=1e-6 x the largest |value|: the plain
    versions' ``index_add_`` sums in another order; rows no id touches, and
    for Adam the rows whose summed gradient is zero, must come back bitwise
-   equal; on the bench, half-on-one-row, cycled and long streams the
-   scatter-add, Adagrad, SGD and lazy Adam launch twice on identical inputs
-   and must agree bitwise; on every stream the scatter-add is bitwise
-   ``scatter_add_chunked_ref``, its own order, and Adagrad's accumulator
-   ``acc + G * G`` of that sum); the long streams again with normal
-   cotangents, where the order shows: the scatter-add and Adagrad twice
-   bitwise equal, bitwise equal to ``scatter_add_chunked_ref``'s sums, and
-   the one row's sum within the recursive-summation bound of its float64
-   sum;
+   equal; on the bench, half-on-one-row, cycled, zero-padding DIN and long
+   streams the scatter-add, Adagrad, SGD and lazy Adam launch twice on
+   identical inputs and must agree bitwise; on every stream the scatter-add
+   is bitwise ``scatter_add_chunked_ref``, its own order, Adagrad's
+   accumulator ``acc + G * G`` of that sum G, SGD's table ``table - lr *
+   G`` and lazy Adam's table and moments ``fused_adam_ref``'s formula on
+   G); the long streams again with normal cotangents, where the order
+   shows: the four rules twice bitwise equal, the scatter-add, Adagrad's
+   accumulator, SGD and lazy Adam (steps 0 and 3) bitwise equal to their
+   formulas on ``scatter_add_chunked_ref``'s sums, and the one row's sum
+   within the recursive-summation bound of its float64 sum;
 3. serving at full width: DCN on 26 sparse fields of 100,000 ids (dim 8)
    and 13 dense fields, 6 cross layers, deep tower 256-128-64, f32, random
    weights from a seed; ``Scorer(batch_size=4096)`` answers requests of 1,
@@ -266,6 +269,16 @@ Phases, each of which raises on failure (exit code not 0):
    kernel; then ``Scorer(batch_size=8192)`` serves it (one global launch a
    padded batch), its answers equal to the plain attention's forward on
    the card and to the CPU path;
+3s. the long path of the fused SGD and lazy Adam on the main path: DIN at
+   ``model_step.py``'s width with ``SGD(0.01)`` + ``FusedSGD(0.01)`` and
+   with ``Adam(1e-3)`` + ``FusedAdam(1e-3)``, three K=8 calls each (the
+   third a graph replay under ``set_sync_debug_mode("error")``), 24
+   launches of the rule's wrapper and of its long path, the padding row
+   (zero cotangents, a long segment of every step) and its slots bitwise
+   unchanged; WideDeep (``FusedSGD``) and NFM (``FusedAdam``) at
+   ``model_step.py``'s Criteo width, one K=8 call each, on batches with 5 %
+   of the fields missing (id 0, as ``write_criteo_tsv`` drops them and the
+   CLI buckets them: ~410 positions a step on each column's id-0 row);
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
    host overhead included), and the library call where there is one (the
@@ -274,8 +287,9 @@ Phases, each of which raises on failure (exit code not 0):
    Scorer's latency and throughput (host clock), its device busy time per
    batch and its top kernels; the training throughput of a fused K=8 call,
    graphed and looped (CUDA events), its device idle share, the top device
-   work of a step and the count of host ops a call issues, for DeepFM, DIN,
-   WideDeep, NFM,
+   work of a step and the count of host ops a call issues, for DeepFM, DIN
+   (and DIN with ``FusedSGD`` and with ``FusedAdam`` beside it), WideDeep
+   and NFM (also on phase 3s's batches with missing fields),
    DeepCrossing, PNN, AFM, FFM, DIEN, DSSM and MMOE; the device and host
    time of DIEN's GRU, AUGRU, attention and auxiliary net (forward and
    backward); the share of DIN's, DIEN's and DSSM's steps that their padding
@@ -297,9 +311,10 @@ Phases, each of which raises on failure (exit code not 0):
 Every launch check compares all seven wrappers' launch counts, the
 ``global_launches`` of the cross, FM and DIN attention wrappers, which must
 be 0 on every path but 3k's and, for the attention, 3r's, and the
-``long_launches`` of ``fused_adagrad_apply`` and ``scatter_add_sorted``,
-which every launch of theirs counts (the long path's pass 2 runs on every
-stream; DIN's, DSSM's and DIEN's padding rows take it).
+``long_launches`` of the four sparse row wrappers, which every launch of
+theirs counts (the long path's pass 2 runs on every stream; DIN's, DSSM's
+and DIEN's padding rows and the id-0 rows of Criteo batches with missing
+fields take it).
 
 The line before the last lists every kernel with its launches on its main
 path (the graphed calls of phase 3q's paths as ``graph_launches``; the
@@ -308,8 +323,10 @@ path, the attention's on phase 3r's, with its times at three shapes as
 ``shapes``; the global kernels' ``events_ms`` beside ``ms``; kernels 3-7 also on
 phase 3o's and 3p's runs, summed over ranks, as ``mesh_launches``, and
 kernels 4 and 5 on phase 3p's grid rank by rank as
-``grid_launches_per_rank`` and their long path's launches on DeepFM's,
-DIN's, DIEN's and DSSM's calls as ``long_launches``), its error against
+``grid_launches_per_rank``; kernels 4-7's long path's launches as
+``long_launches``: 4 and 5 on DeepFM's, DIN's, DIEN's and DSSM's calls, 6
+and 7 on WideDeep's or NFM's, DIN's and phase 3s's missing-field calls),
+its error against
 the plain version (kernel 4's one long row also against its float64 sum,
 ``long_row_f64_err``), its times and its bound; the line
 before that names the card and its power limit; the last line is
@@ -980,6 +997,11 @@ def sparse_cases(gen: torch.Generator):
     din = torch.as_tensor(din_stream(din_batch(0)[0]), device=dev)
     ct = torch.randint(-8, 9, (din.numel(), DIN_DIM), generator=gen, device=dev).float() / 8
     yield "din_two_sites", din, ct, DIN_USERS + DIN_ITEMS
+    # the same stream with the padding row's cotangents zero, as in
+    # training: a long row that lazy Adam must leave as it is
+    ct = ct.clone()
+    ct[din == DIN_USERS] = 0.0
+    yield "din_padding_zero", din, ct, DIN_USERS + DIN_ITEMS
     # segments whose lengths cycle through 1..70, 32 times (79,520
     # positions; a cycle is 2,485 = 21 mod 32): a segment starts and ends at
     # every lane of the kernels' 32-position tiles and crosses one, two and
@@ -1004,15 +1026,33 @@ SPARSE_KERNELS = ("fused_adagrad_apply", "fused_sgd_apply", "fused_adam_apply",
                   "scatter_add_sorted")
 # streams on which the four sparse row kernels launch twice on identical
 # inputs and must give bitwise-equal results
-TWICE_CASES = ("bench", "skewed", "cycled_lengths",
+TWICE_CASES = ("bench", "skewed", "cycled_lengths", "din_padding_zero",
                *(f"{name}_d{dim}" for name in ("one_row", "long_edges") for dim in LONG_DIMS))
+
+
+def sgd_on_sums(table, g):
+    """SGD's update from the summed gradient ``g`` (``scatter_add_chunked_ref``'s,
+    the kernels' order), in PyTorch: ``table - lr * g``."""
+    return table - SGD_LR * g
+
+
+def adam_on_sums(table, m, v, g, step):
+    """Lazy Adam's update from the summed gradient ``g`` (one row each), in
+    ``fused_adam_ref``'s operations: the plain version on a stream that
+    names every row once with its sum as the cotangent."""
+    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adam_ref
+
+    rows = torch.arange(g.shape[0], device=g.device)
+    return fused_adam_ref(table, m, v, rows, g, ADAM_LR, step)
 
 
 def check_sparse_rows() -> dict:
     """Phase 2 for csrc/sparse_rows.cu: the four kernels against their plain
     versions; the scatter-add bitwise equal to ``scatter_add_chunked_ref``
-    (its own order), and Adagrad's accumulator to ``acc + G * G`` of that
-    sum; returns the largest absolute error of each."""
+    (its own order), Adagrad's accumulator to ``acc + G * G`` of that sum,
+    SGD's table to ``table - lr * G`` and lazy Adam's table and moments to
+    ``fused_adam_ref``'s formula on G; returns the largest absolute error of
+    each against its plain version."""
     from recommender_system_tpu_torch.ops.embedding_grad import (
         scatter_add_chunked_ref, scatter_add_dense_ref, scatter_add_sorted)
     from recommender_system_tpu_torch.ops.fused_adagrad import (
@@ -1091,6 +1131,9 @@ def check_sparse_rows() -> dict:
         torch.cuda.synchronize()
         e_sgd = close("fused_sgd_apply", t1, want_t)
         unchanged("fused_sgd_apply", ~touched, [(t1, table)])
+        if not torch.equal(t1, sgd_on_sums(table, chunked)):
+            raise RuntimeError(f"fused_sgd_apply {case}: the table is not table - lr * G of "
+                               f"scatter_add_chunked_ref's G")
         same_again("fused_sgd_apply", (t1,),
                    lambda: (fused_sgd_apply(table.clone(), lids, ct, lr=SGD_LR,
                                             presorted=presorted),))
@@ -1110,6 +1153,12 @@ def check_sparse_rows() -> dict:
             for got, w in zip(state, wants):
                 e_adam = max(e_adam, close("fused_adam_apply", got, w))
             unchanged("fused_adam_apply", ~nonzero, zip(state, (table, m, v)))
+            on_sums = adam_on_sums(table, m, v, chunked, step)
+            if not all(map(torch.equal, state, on_sums)):
+                diff = max((a - b).abs().max().item() for a, b in zip(state, on_sums))
+                raise RuntimeError(f"fused_adam_apply {case} step {step}: param, m and v are "
+                                   f"not fused_adam_ref's formula on scatter_add_chunked_ref's "
+                                   f"G (largest difference {diff:.3e})")
 
             def adam_again(step=step, m=m, v=v):
                 again = [t.clone() for t in (table, m, v)]
@@ -1120,8 +1169,8 @@ def check_sparse_rows() -> dict:
         zero_rows = int((touched & ~nonzero).sum())
         twice = (" scatter-add, Adagrad, SGD and Adam bitwise equal over two launches;"
                  if case in TWICE_CASES else "")
-        twice += (" the scatter-add and Adagrad's acc bitwise equal to scatter_add_chunked_ref's"
-                  " sums;")
+        twice += (" the scatter-add, Adagrad's acc, SGD's table and Adam's table and moments"
+                  " bitwise equal to their formulas on scatter_add_chunked_ref's sums;")
         print(f"kernel check sparse rows {case}: N={lids.numel()} rows={rows} dim={dim} "
               f"touched={int(touched.sum())} (summed gradient zero: {zero_rows}): "
               f"max_abs_err scatter_add_sorted {e_scatter:.3e}, fused_adagrad_apply "
@@ -1129,21 +1178,28 @@ def check_sparse_rows() -> dict:
               f"{e_adam:.3e} (steps 0 and 3);{twice} untouched rows equal", flush=True)
         if case == "zero_rows" and zero_rows != 2:
             raise RuntimeError(f"zero_rows: {zero_rows} rows with a zero sum, want 2")
+        if case == "din_padding_zero" and (nonzero[DIN_USERS] or not touched[DIN_USERS]):
+            raise RuntimeError("din_padding_zero: the padding row is not a touched row "
+                               "with a zero sum")
     return errs
 
 
 def check_long_order() -> dict:
-    """Phase 2 for the long path of ``scatter_add_rows`` and
-    ``fused_adagrad_rows``, on ``long_streams`` at ``LONG_DIMS`` with normal
-    cotangents (so that the order of the sums shows): each rule twice,
-    bitwise equal; the scatter-add bitwise equal to
-    ``scatter_add_chunked_ref``, Adagrad's accumulator to ``acc + G * G`` of
-    that sum and its table to the update from it within SPARSE_RTOL /
-    SPARSE_ATOL_SCALE (rsqrtf is not correctly rounded); the one row's sum
-    against its float64 sum. Returns the one row's error in each dim."""
+    """Phase 2 for the long path of the four sparse row rules, on
+    ``long_streams`` at ``LONG_DIMS`` with normal cotangents (so that the
+    order of the sums shows): each rule twice, bitwise equal; the
+    scatter-add bitwise equal to ``scatter_add_chunked_ref``, Adagrad's
+    accumulator to ``acc + G * G`` of that sum and its table to the update
+    from it within SPARSE_RTOL / SPARSE_ATOL_SCALE (rsqrtf is not correctly
+    rounded), SGD's table to ``table - lr * G`` and lazy Adam's table and
+    moments (steps 0 and 3) to ``fused_adam_ref``'s formula on G, both
+    bitwise; the one row's sum against its float64 sum. Returns the one
+    row's error in each dim."""
     from recommender_system_tpu_torch.ops.embedding_grad import (scatter_add_chunked_ref,
                                                                  scatter_add_sorted)
-    from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
+    from recommender_system_tpu_torch.ops.fused_adagrad import (fused_adagrad_apply,
+                                                                fused_adam_apply,
+                                                                fused_sgd_apply)
     from recommender_system_tpu_torch.ops.kernels import SPARSE_CHUNK, SPARSE_SHARES
     from recommender_system_tpu_torch.ops.stream_sort import sort_ids
 
@@ -1177,6 +1233,27 @@ def check_long_order() -> dict:
                 states[0][0], want_t, rtol=SPARSE_RTOL,
                 atol=SPARSE_ATOL_SCALE * want_t.abs().max().item(),
                 msg=lambda m: f"fused_adagrad_apply {case}: {m}")
+            sgd = [table.clone() for _ in range(2)]
+            for t in sgd:
+                fused_sgd_apply(t, lids, ct, lr=SGD_LR, presorted=(slid, order))
+            if not (torch.equal(*sgd) and torch.equal(sgd[0], sgd_on_sums(table, want))):
+                raise RuntimeError(f"fused_sgd_apply {case}: two launches differ, or the "
+                                   f"table is not table - lr * G")
+            for step in (0, 3):
+                m, v = torch.zeros_like(table), torch.zeros_like(table)
+                if step > 0:
+                    m = 0.1 * torch.randn(rows, dim, generator=gen, device="cuda")
+                    v = 0.01 * torch.rand(rows, dim, generator=gen, device="cuda")
+                adam = [[t.clone() for t in (table, m, v)] for _ in range(2)]
+                for state in adam:
+                    fused_adam_apply(*state, lids, ct, lr=ADAM_LR, step=step,
+                                     presorted=(slid, order))
+                on_sums = adam_on_sums(table, m, v, want, step)
+                if not (all(map(torch.equal, *adam))
+                        and all(map(torch.equal, adam[0], on_sums))):
+                    raise RuntimeError(f"fused_adam_apply {case} step {step}: two launches "
+                                       f"differ, or param, m and v are not fused_adam_ref's "
+                                       f"formula on G")
             note = ""
             if name == "one_row":
                 # the recursive-summation bound: each term passes through at
@@ -1199,9 +1276,10 @@ def check_long_order() -> dict:
                         f"{bound.min().item():.3e}; torch.sum in f32 "
                         f"{library.max().item():.3e})")
             print(f"kernel check long path {case}: N={lids.numel()} rows={rows}: the "
-                  f"scatter-add and Adagrad bitwise equal over two launches, the scatter-add "
-                  f"and Adagrad's acc bitwise equal to scatter_add_chunked_ref's sums, "
-                  f"Adagrad's table within rtol {SPARSE_RTOL}{note}", flush=True)
+                  f"four rules bitwise equal over two launches, the scatter-add, Adagrad's "
+                  f"acc, SGD's table and Adam's table and moments (steps 0 and 3) bitwise "
+                  f"equal to their formulas on scatter_add_chunked_ref's sums, Adagrad's "
+                  f"table within rtol {SPARSE_RTOL}{note}", flush=True)
     return errs
 
 
@@ -1649,8 +1727,8 @@ def counted():
 def read_counts() -> dict:
     """Every wrapper's launches, and of them the launches of the global
     kernels of the three wrappers that have one
-    (``<wrapper>.global_launches``) and of the long path of the two sparse
-    rules that have one (``<wrapper>.long_launches``)."""
+    (``<wrapper>.global_launches``) and of the long path of the four sparse
+    row rules (``<wrapper>.long_launches``)."""
     counts = {fn.__name__: fn.launches for fn in counted()}
     counts.update({f"{fn.__name__}.{attr}": getattr(fn, attr) for fn in counted()
                    for attr in ("global_launches", "long_launches") if hasattr(fn, attr)})
@@ -1666,8 +1744,8 @@ def zero_counts() -> None:
 
 def launches_want(**launches) -> dict:
     """Every count: the ones named, and 0 for the rest, but the long path's:
-    every launch of ``fused_adagrad_apply`` and ``scatter_add_sorted`` runs
-    it, so its count is the wrapper's unless named."""
+    every launch of a sparse row wrapper runs it, so its count is the
+    wrapper's unless named."""
     want = {**dict.fromkeys(read_counts(), 0), **launches}
     for key in want:
         if key.endswith(".long_launches") and key not in launches:
@@ -1798,10 +1876,87 @@ def din_wide_path(card) -> dict:
     return {"train": train_launches, "serve": serve_launches}
 
 
-def time_din(trainer, scorer, requests, batches, labels, card) -> dict:
+# the share of the fields that write_criteo_tsv leaves missing; the CLI
+# buckets a missing field to id 0, each column's padding row
+MISSING_SHARE = 0.05
+
+
+def missing_fields(batches, seed: int = 7) -> dict:
+    """The staged Criteo ``batches`` with each sparse field missing in
+    MISSING_SHARE of the rows, drawn field by field as ``write_criteo_tsv``
+    drops them, and id 0 in its place, as the CLI's bucketing gives it
+    (``utils/datasets.py``)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = dict(batches)
+    for f in range(FIELDS):
+        ids = batches[f"C{f + 1}"]
+        drop = torch.rand(ids.shape, generator=gen, device="cuda") < MISSING_SHARE
+        out[f"C{f + 1}"] = torch.where(drop, torch.zeros_like(ids), ids)
+    return out
+
+
+def long_rules_path(card) -> dict:
+    """Phase 3s: the long path of FusedSGD and FusedAdam on the main path.
+    DIN at model_step.py's width with SGD + FusedSGD and with Adam +
+    FusedAdam, three K=8 calls each (the third a graph replay): every
+    step's stream holds the padding row as a long segment whose cotangents
+    are zero, so the row keeps its values and its slots bitwise. WideDeep
+    (FusedSGD) and NFM (FusedAdam) at model_step.py's Criteo width, one K=8
+    call each, on ``missing_fields`` batches: each column's id-0 row a long
+    segment of every step. Returns the trainers, the Criteo batches and
+    each path's launches."""
+    from recommender_system_tpu_torch import FusedAdam, FusedSGD
+    from recommender_system_tpu_torch.ops.kernels import SPARSE_CHUNK
+    from recommender_system_tpu_torch.training import SGD, Adam
+
+    t0 = time.perf_counter()
+    out = {"trainers": {}, "launches": {}}
+    batches, labels = din_staged(range(K))
+    for name, optimizer, fused, wrapper in (
+            ("din_sgd", SGD(SGD_LR), FusedSGD(SGD_LR), "fused_sgd_apply"),
+            ("din_adam", Adam(ADAM_LR), FusedAdam(ADAM_LR), "fused_adam_apply")):
+        model = din_model()
+        key = next(n for n, _ in model.named_parameters() if n.endswith("table_d32"))
+        pad = model.embeddings.table_d32[DIN_USERS].detach().clone()
+        label = f"DIN with {type(fused).__name__}"
+        trainer, launches = train_checked(
+            label, model, batches, labels, optimizer, fused, 3,
+            launches_want(din_attention_fused=3 * K, **{wrapper: 3 * K}), card,
+            touched=table_d32_touched(batches))
+        slots = [s[DIN_USERS] for s in trainer.fused_slots[key]]
+        if not (torch.equal(model.embeddings.table_d32[DIN_USERS], pad)
+                and all(s.count_nonzero().item() == 0 for s in slots)):
+            raise RuntimeError(f"{label}: the padding row (zero cotangents) or its slots moved")
+        print(f"{label}: the padding row and its {len(slots)} slot(s) bitwise unchanged",
+              flush=True)
+        out["trainers"][name], out["launches"][name] = trainer, launches
+
+    cols, ctr_batches, ctr_labels = staged_batches(range(K), batch=CTR_BATCH)
+    missing = missing_fields(ctr_batches)
+    least = min(int((missing[f"C{f + 1}"] == 0).sum(dim=1).min()) for f in range(FIELDS))
+    if least < SPARSE_CHUNK:
+        raise RuntimeError(f"missing fields: {least} positions on a column's id 0 in a step, "
+                           f"fewer than the long path's {SPARSE_CHUNK}")
+    out["batches"] = (missing, ctr_labels)
+    for name, model_name, optimizer, fused, wrapper in (
+            ("wide_deep_missing", "wide_deep", SGD(SGD_LR), FusedSGD(SGD_LR), "fused_sgd_apply"),
+            ("nfm_missing", "nfm", Adam(ADAM_LR), FusedAdam(ADAM_LR), "fused_adam_apply")):
+        out["trainers"][name], out["launches"][name] = train_checked(
+            f"{model_name} with {100 * MISSING_SHARE:.0f}% of the fields missing",
+            ctr_model(model_name, cols), missing, ctr_labels, optimizer, fused, 1,
+            launches_want(**{wrapper: K}), card)
+    print(f"missing fields: at least {least} positions on each column's id 0 in every step "
+          f"(long from {SPARSE_CHUNK}); phase 3s took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
+def time_din(trainer, scorer, requests, batches, labels, card, rules=None) -> dict:
     """Phase 4 for DIN: the attention kernel at the main path's inputs, the
     Scorer's latency, throughput and idle share, the fused step's
-    throughput and idle share, and the padding row's share of the step."""
+    throughput and idle share, and the padding row's share of the step;
+    then the step of each trainer in ``rules`` (label -> DIN trainer with
+    another fused rule) beside it, with its sparse row kernels' share."""
     from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
     from recommender_system_tpu_torch.ops.kernels import din_attention_fused, din_attention_ref
 
@@ -1878,6 +2033,12 @@ def time_din(trainer, scorer, requests, batches, labels, card) -> dict:
           f"{in_step:.4f} ms of {step['busy_ms']:.4f} ms device busy and of "
           f"{step['step_ms']:.4f} ms a step ({100 * in_step / step['step_ms']:.1f}%); "
           f"on {card}", flush=True)
+    for label, other in (rules or {}).items():
+        got = time_training(other, batches, labels, card, f"DIN {label} training")
+        rows_ms = sum(ms for name, ms in got["per_step"].items() if kernel in name)
+        print(f"DIN with {label}: {got['step_ms']:.4f} ms a graphed step against "
+              f"{step['step_ms']:.4f} with FusedAdagrad; its sparse row kernels {rows_ms:.4f} "
+              f"ms of the step against {in_step:.4f}; on {card}", flush=True)
     return rec
 
 
@@ -4183,6 +4344,10 @@ def main() -> int:
     # served
     wide = din_wide_path(card)
 
+    # --- phase 3s: the long path of FusedSGD and FusedAdam: DIN's padding
+    # row, and Criteo batches with missing fields
+    rules = long_rules_path(card)
+
     # --- phase 4: timings --------------------------------------------------
     with torch.inference_mode():
         batch = {k: torch.as_tensor(v, device="cuda")
@@ -4231,10 +4396,14 @@ def main() -> int:
 
     sparse_times = time_sparse_rows(card)
     time_training(trainer, batches, labels, card, "fused training")
-    din_times = time_din(din_trainer, din_scorer, din_requests, din_batches, din_labels, card)
+    din_times = time_din(din_trainer, din_scorer, din_requests, din_batches, din_labels, card,
+                         {"FusedSGD": rules["trainers"]["din_sgd"],
+                          "FusedAdam": rules["trainers"]["din_adam"]})
     fm_times = time_fm(fm_layer, fm_x, card)
     for name in ("wide_deep", "nfm"):
         time_training(ctr[name], *ctr["batches"], card, f"{name} fused training")
+        time_training(rules["trainers"][f"{name}_missing"], *rules["batches"], card,
+                      f"{name} fused training, {100 * MISSING_SHARE:.0f}% of the fields missing")
     for name in ("deep_crossing", "pnn", "afm", "ffm"):
         time_training(family[name], *ctr["batches"], card, f"{name} fused training")
     time_dien(dien_trainer, dien_batches, dien_labels, card)
@@ -4279,10 +4448,14 @@ def main() -> int:
              for name in ("deep_crossing", "pnn", "afm", "ffm", "pnn_both_fgcnn")}}),
         ("fused_sgd_apply", "recommender_system_tpu/ops/fused_adagrad.py:594",
          ctr_launches["wide_deep"]["fused_sgd_apply"],
-         {"fnn": ctr_launches["fnn"]["fused_sgd_apply"]}),
+         {"fnn": ctr_launches["fnn"]["fused_sgd_apply"],
+          **{name: rules["launches"][name]["fused_sgd_apply"]
+             for name in ("din_sgd", "wide_deep_missing")}}),
         ("fused_adam_apply", "recommender_system_tpu/ops/fused_adagrad.py:649",
          ctr_launches["nfm"]["fused_adam_apply"],
-         {"fm": ctr_launches["fm"]["fused_adam_apply"]}),
+         {"fm": ctr_launches["fm"]["fused_adam_apply"],
+          **{name: rules["launches"][name]["fused_adam_apply"]
+             for name in ("din_adam", "nfm_missing")}}),
         ("scatter_add_sorted", "recommender_system_tpu/ops/embedding_grad.py:51",
          plain_launches["scatter_add_sorted"],
          {"din": din_plain_launches["scatter_add_sorted"],
@@ -4292,9 +4465,10 @@ def main() -> int:
           "cli_quick_start": cli["quick"]["scatter_add_sorted"],
           "cli_models": sum(c["scatter_add_sorted"] for c in cli["models"].values())}),
     ]
-    # the long path of kernels 4 and 5 on the steps whose streams hold a
-    # long segment (the padding row: DIN's two sites, DSSM's three, DIEN's
-    # three) and on bench.py's, which holds none
+    # the long path of kernels 4-7 on the steps whose streams hold a long
+    # segment (the padding row: DIN's two sites, DSSM's three, DIEN's
+    # three; the id-0 rows of Criteo batches with missing fields) and on
+    # bench.py's and model_step.py's uniform Criteo batches, which hold none
     from recommender_system_tpu_torch.ops.kernels import SPARSE_CHUNK
     padding = int((din_stream(din_batch(0)[0]) == DIN_USERS).sum())
     long_launches = {
@@ -4306,9 +4480,19 @@ def main() -> int:
             name: counts[long_key("scatter_add_sorted")] for name, counts in (
                 ("deepfm", plain_launches), ("din", din_plain_launches),
                 ("dien", dien_plain_launches), ("dssm", dssm_plain_launches))},
+        "fused_sgd_apply": {
+            name: counts[long_key("fused_sgd_apply")] for name, counts in (
+                ("wide_deep", ctr_launches["wide_deep"]), ("din", rules["launches"]["din_sgd"]),
+                ("wide_deep_missing_fields", rules["launches"]["wide_deep_missing"]))},
+        "fused_adam_apply": {
+            name: counts[long_key("fused_adam_apply")] for name, counts in (
+                ("nfm", ctr_launches["nfm"]), ("din", rules["launches"]["din_adam"]),
+                ("nfm_missing_fields", rules["launches"]["nfm_missing"]))},
     }
     if (padding < SPARSE_CHUNK or not all(long_launches["fused_adagrad_apply"].values())
-            or not long_launches["scatter_add_sorted"]["din"]):
+            or not long_launches["scatter_add_sorted"]["din"]
+            or not all(long_launches["fused_sgd_apply"].values())
+            or not all(long_launches["fused_adam_apply"].values())):
         raise RuntimeError(f"the long path: {padding} padding positions in DIN's step "
                            f"stream, launches {long_launches}")
     print(f"long path: DIN's step stream holds {padding} positions on its padding row "

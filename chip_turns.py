@@ -46,8 +46,13 @@ TF32 off:
   profiler, beside the same read of its bytes (``fm_global``,
   ``cross_global``).
 
-``--what fm,cross`` keeps only the parts named (default: all ten,
-``adam,rows,attention,steps,fm,cross,family,loops,fm_global,cross_global``).
+- DIN's graphed K=8 call with each fused sparse rule (``FusedAdagrad``,
+  ``FusedSGD``, ``FusedAdam``), and WideDeep's (``FusedSGD``) and NFM's
+  (``FusedAdam``) on Criteo batches with 5 % of the fields missing
+  (``rules``).
+
+``--what fm,cross`` keeps only the parts named (default: all eleven,
+``adam,rows,attention,steps,fm,cross,family,loops,fm_global,cross_global,rules``).
 
 Each turn prints ``TURN <label> {json}``; the run ends with one line per
 metric listing every turn's value, and the card's name and power limit.
@@ -206,30 +211,33 @@ def time_family(cs, torch, card) -> dict:
     return out
 
 
+def per_step(torch, run, batches, labels, reps=3, calls=5):
+    """ms a step of the K-step call ``run`` over ``calls`` calls by CUDA
+    events, ``reps`` times, after two calls (a signature's first runs step
+    by step, its second captures): sorted."""
+    for _ in range(2):
+        run(batches, labels)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            run(batches, labels)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls / labels.shape[0])
+    return sorted(times)
+
+
 def time_loops(cs, torch) -> dict:
     """DeepFM fused, WideDeep (``FusedSGD``) and DIN fused: a K=8 call
     looped and, in a tree with graphs, graphed; each form's ms a step over
-    5 calls by CUDA events, three times, after two calls (a signature's
-    first runs step by step, its second captures): the median, least and
-    most of the three."""
+    5 calls by CUDA events, three times (``per_step``): the median, least
+    and most of the three."""
     from recommender_system_tpu_torch import FusedAdagrad, FusedSGD, Trainer
     from recommender_system_tpu_torch.training import SGD, Adagrad
-
-    def per_step(run, batches, labels, reps=3, calls=5):
-        for _ in range(2):
-            run(batches, labels)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(calls):
-                run(batches, labels)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / calls / labels.shape[0])
-        return sorted(times)
 
     cols, batches, labels = cs.staged_batches(range(cs.K))
     ctr_cols, ctr_batches, ctr_labels = cs.staged_batches(range(cs.K), batch=cs.CTR_BATCH)
@@ -249,7 +257,7 @@ def time_loops(cs, torch) -> dict:
         looped = trainer.make_multi_step(graphed=False) if graphs else trainer.multi_step
         forms = {"looped": looped, **({"graphed": trainer.multi_step} if graphs else {})}
         for form, run in forms.items():
-            least, median, most = per_step(run, cell_batches, cell_labels)
+            least, median, most = per_step(torch, run, cell_batches, cell_labels)
             out.update({f"{name}_{form}_ms": median, f"{name}_{form}_min_ms": least,
                         f"{name}_{form}_max_ms": most})
         del trainer
@@ -341,8 +349,43 @@ def time_cross_global(cs, torch) -> dict:
     return out
 
 
+def time_rules(cs, torch) -> dict:
+    """The graphed K=8 call (``multi_step``) of DIN at model_step.py's width
+    with each fused sparse rule (Adagrad, SGD, Adam, with the dense
+    optimizer of the same kind), and of WideDeep (``FusedSGD``) and NFM
+    (``FusedAdam``) at its Criteo width on ``chip_smoke.missing_fields``
+    batches: ms a step (``per_step``), the median, least and most of
+    three."""
+    from recommender_system_tpu_torch import FusedAdagrad, FusedAdam, FusedSGD, Trainer
+    from recommender_system_tpu_torch.training import SGD, Adagrad, Adam
+
+    din = cs.din_staged(range(cs.K))
+    cols, batches, labels = cs.staged_batches(range(cs.K), batch=cs.CTR_BATCH)
+    missing = (cs.missing_fields(batches), labels)
+    cells = {
+        "din_adagrad": (lambda: Trainer(cs.din_model(), Adagrad(cs.LR),
+                                        fused_embedding=FusedAdagrad(cs.LR)), din),
+        "din_sgd": (lambda: Trainer(cs.din_model(), SGD(cs.SGD_LR),
+                                    fused_embedding=FusedSGD(cs.SGD_LR)), din),
+        "din_adam": (lambda: Trainer(cs.din_model(), Adam(cs.ADAM_LR),
+                                     fused_embedding=FusedAdam(cs.ADAM_LR)), din),
+        "wide_deep_missing": (lambda: Trainer(cs.ctr_model("wide_deep", cols), SGD(cs.SGD_LR),
+                                              fused_embedding=FusedSGD(cs.SGD_LR)), missing),
+        "nfm_missing": (lambda: Trainer(cs.ctr_model("nfm", cols), Adam(cs.ADAM_LR),
+                                        fused_embedding=FusedAdam(cs.ADAM_LR)), missing),
+    }
+    out = {}
+    for name, (build, data) in cells.items():
+        trainer = build()
+        least, median, most = per_step(torch, trainer.multi_step, *data)
+        out.update({f"{name}_graphed_ms": median, f"{name}_graphed_min_ms": least,
+                    f"{name}_graphed_max_ms": most})
+        del trainer
+    return out
+
+
 PARTS = ("adam", "rows", "attention", "steps", "fm", "cross", "family", "loops",
-         "fm_global", "cross_global")
+         "fm_global", "cross_global", "rules")
 
 
 def turn(label: str, tree: Path, what) -> None:
@@ -381,6 +424,8 @@ def turn(label: str, tree: Path, what) -> None:
         rec.update(time_fm_global(cs, torch))
     if "cross_global" in what:
         rec.update(time_cross_global(cs, torch))
+    if "rules" in what:
+        rec.update(time_rules(cs, torch))
     print(f"TURN {label} {json.dumps(rec)}", flush=True)
 
 

@@ -23,12 +23,11 @@
 // are read from device memory, `hyper` = {lr} or {lr, bc1, bc2} in f32: a
 // captured CUDA graph of training steps replays the launch with the pointer
 // it was captured with, and the host writes each step's values there before
-// the replay. The constants (eps, b1, b2, 1 - b1, 1 - b2) go by value. SGD
-// and Adam load theirs once a thread at the kernel's start, Adagrad where
-// it updates an element: nvcc schedules a hot row's serial sum differently
-// with each placement, and on the card these are the faster ones (Adagrad
-// loading at the start took 23.1 ms on DIN's step stream against 19.0, SGD
-// loading late 28.2 against 19.1; chip_lab_rows.py, PERF.md).
+// the replay. The constants (eps, b1, b2, 1 - b1, 1 - b2) go by value. In
+// the walk SGD and Adam load theirs once a thread at the kernel's start,
+// Adagrad where it updates an element (the faster placements when a hot
+// row was still one warp's serial sum; chip_lab_rows.py, PERF.md); the
+// long path's pass 2 loads them where it updates an element.
 //
 // Replaces four TPU kernels of recommender_system_tpu/ops: embedding_grad.py
 // _queue_kernel, and fused_adagrad.py _fused_adagrad_kernel,
@@ -53,11 +52,10 @@
 // keep nvcc from contracting a multiply and an add into one fused
 // multiply-add.
 //
-// All four rules take the tile walk (Adagrad and the scatter-add for their
-// segments shorter than kLong). A first version gave each thread one
-// (position, column) pair: every one of a position's dim threads loaded
-// slid[i] and slid[i-1] (about 4*dim metadata loads a position), took a
-// 64-bit division t / dim, and a
+// All four rules take the tile walk for their segments shorter than kLong.
+// A first version gave each thread one (position, column) pair: every one
+// of a position's dim threads loaded slid[i] and slid[i-1] (about 4*dim
+// metadata loads a position), took a 64-bit division t / dim, and a
 // segment's start thread ran a chain of 4-5 dependent round trips to memory
 // (slid[i], slid[i+1] in the segment search, order[i], ct, param) behind
 // branches that kept the compiler from hoisting any of them; it lost to one
@@ -99,8 +97,8 @@
 // sum for the dim lanes that own its (start, column) elements: right, but
 // one warp's chain of loads. The TPU kernels cut the sorted stream into
 // fixed chunks, each one work item, so that a hot row costs what any other
-// row of as many positions costs. Adagrad and the scatter-add carry that
-// over as the long path. A segment is long when it holds at least kLong
+// row of as many positions costs. All four rules carry that over as the
+// long path. A segment is long when it holds at least kLong
 // positions (kLong == kChunk: a long segment then covers every chunk it
 // starts or ends in up to that chunk's edge, and holds the whole of any
 // chunk it crosses, so each chunk has at most two long pieces, one at each
@@ -123,18 +121,23 @@
 // (its first chunk's slot, then slot 0 of every later chunk it reaches):
 // share q the pieces q, q + 8, ..., in order from 0.f, and a fixed tree
 // ((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6 + s7)) joins the shares. Then
-// the rule is applied to the row once, with the walk's operations. Every
-// order is fixed, so two launches agree bitwise; no atomics, no host read,
-// grids from N alone, two kernels every call (blocks with nothing long
-// leave after a load or two). SGD and lazy Adam keep the walk alone, as it
-// was. The bound is the walk's: the long path reads each long position's
-// order and cotangent once and writes 2 * dim floats a chunk, a small
-// fraction of the stream's bytes. A stream with no long segment pays pass
-// 2's kernel, 1.7 us on the H100; a hot row of 185,000 positions at dim 32
-// now takes what the walk takes for as many positions of short rows
-// (0.081 ms for DIN's step stream against 18.9; PERF.md, chip_lab_rows.py).
+// the rule is applied to the row once, with the walk's operations. Lazy
+// Adam first sums every 32-column chunk of the row and takes a block-wide
+// vote on whether any sum is non-zero (DIN's padding row, whose cotangents
+// are all zero, must keep param, m and v bitwise); only a touched row sums
+// its chunks again, in the same order, and updates them, so that no limit
+// on dim is added to the walk's. Every order is fixed, so two launches
+// agree bitwise; no atomics, no host read, grids from N alone, two kernels
+// every call (blocks with nothing long leave after a load or two). The
+// bound is the walk's: the long path reads each long position's order and
+// cotangent once and writes 2 * dim floats a chunk, a small fraction of
+// the stream's bytes. A stream with no long segment pays pass 2's kernel,
+// 1.7 us on the H100; a hot row of 185,000 positions at dim 32 now takes
+// what the walk takes for as many positions of short rows (Adagrad 0.081
+// ms for DIN's step stream against 18.9; PERF.md, chip_lab_rows.py).
 // scatter_add_chunked_ref (ops/embedding_grad.py) is the same sum in the
-// same order in PyTorch.
+// same order in PyTorch, and each rule's formula applied to it is what
+// the kernels compute.
 //
 // C interface, loaded with ctypes: each function returns cudaGetLastError()
 // after the launch; the Python wrapper checks shapes, types and devices.
@@ -150,9 +153,12 @@ constexpr int kWarps = kThreads / 32;
 // H100's 132 SMs, a few waves
 constexpr int64_t kMaxBlocks = 132 * 16 * 8;
 constexpr unsigned kFull = 0xffffffffu;
-// (start, column) elements whose loads a lane starts before its first store
-// (lazy Adam: in each of its two passes)
+// (start, column) elements whose loads a lane starts before its first store;
+// lazy Adam's walk, in each of its two passes, starts fewer: at 4 its kernel
+// (pass 1 of the long path beside it) spills at ptxas' 128 registers, and 2
+// was the fastest on the card (chip_lab_rows.py, PERF.md)
 constexpr int kBatch = 4;
+constexpr int kAdamBatch = 2;
 // the long path (see the note at the top): positions a chunk, the length
 // from which a segment is long, and the shares of pass 2's sum. The port's
 // plain version of the order (ops/embedding_grad.py) reads the same values.
@@ -163,10 +169,6 @@ static_assert(kLong == kChunk, "a chunk's long pieces are found at its edges onl
 static_assert(kShares * 32 == kThreads, "pass 2: a warp a share");
 
 enum class Rule { kScatterAdd, kAdagrad, kSgd, kAdam };
-
-// Adagrad and the scatter-add take the long path
-template <Rule kRule>
-constexpr bool kChunked = kRule == Rule::kAdagrad || kRule == Rule::kScatterAdd;
 
 // The long path's scratch: pass 1 writes, pass 2 reads. partial is [chunks,
 // 2, dim] f32, starts [chunks]; blocks is the number of pass-1 blocks at
@@ -375,17 +377,17 @@ __device__ __forceinline__ void adam_tile(const Tile& t, const int64_t* __restri
     Walk w = first;
     if (cd != dim) w = Walk{32 / cd, 32 - 32 / cd * cd, lane / cd, lane - lane / cd * cd};
     while (w.j < segments) {
-      int jk[kBatch], ck[kBatch];
-      float g[kBatch];
+      int jk[kAdamBatch], ck[kAdamBatch];
+      float g[kAdamBatch];
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
+      for (int k = 0; k < kAdamBatch; ++k) {
         jk[k] = w.j;
         ck[k] = w.c;
         if (w.j < segments) g[k] = ct[t.first[w.j] * dim + c0 + w.c];
         w.next(cd);
       }
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
+      for (int k = 0; k < kAdamBatch; ++k) {
         if (jk[k] >= segments) break;
         const float sum = segment_sum(t, order, ct, dim, jk[k], c0 + ck[k], g[k]);
         if (dim <= 32) scratch[jk[k] * cd + ck[k]] = sum;
@@ -400,12 +402,12 @@ __device__ __forceinline__ void adam_tile(const Tile& t, const int64_t* __restri
     Walk w = first;
     if (cd != dim) w = Walk{32 / cd, 32 - 32 / cd * cd, lane / cd, lane - lane / cd * cd};
     while (w.j < segments) {
-      int jk[kBatch], ck[kBatch];
-      int64_t o[kBatch];
-      float g[kBatch], pk[kBatch], mk[kBatch], vk[kBatch];
-      bool live[kBatch];
+      int jk[kAdamBatch], ck[kAdamBatch];
+      int64_t o[kAdamBatch];
+      float g[kAdamBatch], pk[kAdamBatch], mk[kAdamBatch], vk[kAdamBatch];
+      bool live[kAdamBatch];
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
+      for (int k = 0; k < kAdamBatch; ++k) {
         jk[k] = w.j;
         ck[k] = w.c;
         live[k] = w.j < segments && touched[w.j] != 0;
@@ -420,7 +422,7 @@ __device__ __forceinline__ void adam_tile(const Tile& t, const int64_t* __restri
         w.next(cd);
       }
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
+      for (int k = 0; k < kAdamBatch; ++k) {
         if (!live[k]) continue;
         const float gk =
             dim <= 32 ? g[k] : segment_sum(t, order, ct, dim, jk[k], c0 + ck[k], g[k]);
@@ -440,9 +442,8 @@ __device__ __forceinline__ void adam_tile(const Tile& t, const int64_t* __restri
 
 // The tile walk (see the note at the top): one warp a tile of 32 stream
 // positions, grid-stride over tiles. s1 is Adagrad's acc or Adam's m, s2
-// Adam's v. Adagrad and the scatter-add: the first lng.blocks blocks run
-// pass 1 of the long path, one warp a chunk, and the walk skips long
-// segments.
+// Adam's v. The first lng.blocks blocks run pass 1 of the long path, one
+// warp a chunk, and the walk skips long segments.
 template <Rule kRule>
 __global__ void __launch_bounds__(kThreads)
 sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__ order,
@@ -450,18 +451,16 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
                    float* __restrict__ s1, float* __restrict__ s2, int64_t n, int dim,
                    Hyper h, Long lng) {
   int64_t block = blockIdx.x, grid = gridDim.x;
-  if constexpr (kChunked<kRule>) {
-    if (block < lng.blocks) {
-      const int64_t chunks = (n + kChunk - 1) / kChunk;
-      for (int64_t k = block * kWarps + (threadIdx.x >> 5); k < chunks;
-           k += lng.blocks * kWarps) {
-        chunk_pass(slid, order, ct, n, dim, k, threadIdx.x & 31, lng);
-      }
-      return;
+  if (block < lng.blocks) {
+    const int64_t chunks = (n + kChunk - 1) / kChunk;
+    for (int64_t k = block * kWarps + (threadIdx.x >> 5); k < chunks;
+         k += lng.blocks * kWarps) {
+      chunk_pass(slid, order, ct, n, dim, k, threadIdx.x & 31, lng);
     }
-    block -= lng.blocks;
-    grid -= lng.blocks;
+    return;
   }
+  block -= lng.blocks;
+  grid -= lng.blocks;
   constexpr bool kAdam = kRule == Rule::kAdam;
   if constexpr (kRule == Rule::kSgd || kAdam) h.lr = h.step[0];
   if constexpr (kAdam) {
@@ -518,13 +517,9 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
       const int rank = __popc(starts & ((1u << lane) - 1u));
       const unsigned later = lane == 31 ? 0u : starts >> (lane + 1);
       int64_t end = p + __ffs(later);  // the next start
-      if constexpr (kChunked<kRule>) {
-        if (later == 0 && runs_on) is_long = p + kLong <= n && slid[p + kLong - 1] == row;
-        if (later == 0) end = is_long ? n : runs_on ? segment_end(slid, p0 + 32, n, row)
-                                                    : p0 + count;
-      } else {
-        if (later == 0) end = runs_on ? segment_end(slid, p0 + 32, n, row) : p0 + count;
-      }
+      if (later == 0 && runs_on) is_long = p + kLong <= n && slid[p + kLong - 1] == row;
+      if (later == 0) end = is_long ? n : runs_on ? segment_end(slid, p0 + 32, n, row)
+                                                  : p0 + count;
       r_row[rank] = row;
       r_first[rank] = ord;
       r_end[rank] = end;
@@ -532,14 +527,13 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
       if constexpr (kAdam) s_touched[base + rank] = 0;
     }
     // the segments the walk sums: all but a long last one
-    int walked = segments;
-    if constexpr (kChunked<kRule>) walked -= __ballot_sync(kFull, is_long) != 0;
+    const int walked = segments - (__ballot_sync(kFull, is_long) != 0);
     __syncwarp();
     Tile t = view;
     t.p0 = p0;
 
     if constexpr (kAdam) {
-      adam_tile(t, order, ct, param, s1, s2, dim, segments, lane, first, h,
+      adam_tile(t, order, ct, param, s1, s2, dim, walked, lane, first, h,
                 s_sum + base * 32, s_touched + base);
       continue;
     }
@@ -583,15 +577,48 @@ sparse_rows_kernel(const int64_t* __restrict__ slid, const int64_t* __restrict__
   }
 }
 
+// The sum of a long segment in the columns c0 + lane (see the note at the
+// top): each share adds its pieces from 0.f, then share 0's lanes join the
+// shares with the fixed tree. Every thread of the block calls it; the sum
+// is on share 0's lanes whose column is below dim, 0.f elsewhere.
+__device__ __forceinline__ float long_row_sum(const float* __restrict__ first,
+                                              const float* __restrict__ later, int64_t pieces,
+                                              int dim, int c0, int share, int lane,
+                                              float (*s_share)[32]) {
+  const int c = c0 + lane;
+  float g = 0.f;
+  if (c < dim) {
+    int64_t q = share;
+    if (share == 0) {
+      g = __fadd_rn(g, first[c]);
+      q = kShares;
+    }
+#pragma unroll 8
+    for (; q < pieces; q += kShares) g = __fadd_rn(g, later[2 * q * dim + c]);
+  }
+  s_share[share][lane] = g;
+  __syncthreads();
+  float gk = 0.f;
+  if (share == 0 && c < dim) {
+    const float* const x = &s_share[0][lane];
+    gk = __fadd_rn(__fadd_rn(__fadd_rn(x[0], x[32]), __fadd_rn(x[64], x[96])),
+                   __fadd_rn(__fadd_rn(x[128], x[160]), __fadd_rn(x[192], x[224])));
+  }
+  __syncthreads();  // s_share is read
+  return gk;
+}
+
 // Pass 2 of the long path (see the note at the top): block b looks at the
 // chunks 32b .. 32b + 31 (one coalesced load and a ballot, after which a
 // block with none leaves), and for each whose starts[] holds a long segment
-// it sums the segment's pieces in shares and applies the rule to its row.
+// it sums the segment's pieces in shares and applies the rule to its row,
+// with the walk's operations. s1 is Adagrad's acc or Adam's m, s2 Adam's v.
 template <Rule kRule>
 __global__ void __launch_bounds__(kThreads)
 sparse_rows_long_kernel(const int64_t* __restrict__ slid, float* __restrict__ param,
-                        float* __restrict__ s1, int64_t n, int dim, Hyper h,
-                        const float* __restrict__ partial, const int64_t* __restrict__ starts) {
+                        float* __restrict__ s1, float* __restrict__ s2, int64_t n, int dim,
+                        Hyper h, const float* __restrict__ partial,
+                        const int64_t* __restrict__ starts) {
   __shared__ int64_t s_start[32];
   __shared__ unsigned s_mask;
   __shared__ int64_t s_end;
@@ -622,37 +649,38 @@ sparse_rows_long_kernel(const int64_t* __restrict__ slid, float* __restrict__ pa
       // piece 0 is the first chunk's slot 0 or 1, piece i > 0 slot 0 of chunk ks + i
       const float* const first = partial + (2 * ks + (s == ks * kChunk ? 0 : 1)) * dim;
       const float* const later = partial + 2 * ks * dim;
+      if constexpr (kRule == Rule::kAdam) {
+        // lazy Adam: the row is touched when a column's sum is not zero,
+        // which every column must know before any is written
+        int nonzero = 0;
+        for (int c0 = 0; c0 < dim; c0 += 32) {
+          nonzero |= long_row_sum(first, later, pieces, dim, c0, share, lane, s_share) != 0.f;
+        }
+        if (!__syncthreads_or(nonzero)) continue;
+      }
       for (int c0 = 0; c0 < dim; c0 += 32) {
-        const int c = c0 + lane;
-        float g = 0.f;
-        if (c < dim) {
-          int64_t q = share;
-          if (share == 0) {
-            g = __fadd_rn(g, first[c]);
-            q = kShares;
-          }
-#pragma unroll 8
-          for (; q < pieces; q += kShares) g = __fadd_rn(g, later[2 * q * dim + c]);
+        const float gk = long_row_sum(first, later, pieces, dim, c0, share, lane, s_share);
+        if (share != 0 || c0 + lane >= dim) continue;
+        const int64_t o = row * dim + c0 + lane;
+        if constexpr (kRule == Rule::kAdagrad) {
+          const float a = __fadd_rn(s1[o], __fmul_rn(gk, gk));
+          s1[o] = a;
+          const float inv = a > 0.f ? rsqrtf(__fadd_rn(a, h.eps)) : 0.f;
+          param[o] = __fsub_rn(param[o], __fmul_rn(__fmul_rn(h.step[0], gk), inv));
+        } else if constexpr (kRule == Rule::kSgd) {
+          param[o] = __fsub_rn(param[o], __fmul_rn(h.step[0], gk));
+        } else if constexpr (kRule == Rule::kAdam) {
+          const float m_new = __fadd_rn(__fmul_rn(h.b1, s1[o]), __fmul_rn(h.one_minus_b1, gk));
+          const float v_new = __fadd_rn(__fmul_rn(h.b2, s2[o]),
+                                        __fmul_rn(__fmul_rn(h.one_minus_b2, gk), gk));
+          const float num = __fmul_rn(h.step[0], __fmul_rn(m_new, h.step[1]));
+          const float den = __fadd_rn(__fsqrt_rn(__fmul_rn(v_new, h.step[2])), h.eps);
+          param[o] = __fsub_rn(param[o], __fdiv_rn(num, den));
+          s1[o] = m_new;
+          s2[o] = v_new;
+        } else {
+          param[o] = gk;
         }
-        s_share[share][lane] = g;
-        __syncthreads();
-        if (share == 0 && c < dim) {
-          const float* const x = &s_share[0][lane];
-          const float gk = __fadd_rn(__fadd_rn(__fadd_rn(x[0], x[32]), __fadd_rn(x[64], x[96])),
-                                     __fadd_rn(__fadd_rn(x[128], x[160]),
-                                               __fadd_rn(x[192], x[224])));
-          const int64_t o = row * dim + c;
-          if constexpr (kRule == Rule::kAdagrad) {
-            // the walk's operations
-            const float a = __fadd_rn(s1[o], __fmul_rn(gk, gk));
-            s1[o] = a;
-            const float inv = a > 0.f ? rsqrtf(__fadd_rn(a, h.eps)) : 0.f;
-            param[o] = __fsub_rn(param[o], __fmul_rn(__fmul_rn(h.step[0], gk), inv));
-          } else {
-            param[o] = gk;
-          }
-        }
-        __syncthreads();  // s_share and s_end are read
       }
     }
   }
@@ -661,33 +689,28 @@ sparse_rows_long_kernel(const int64_t* __restrict__ slid, float* __restrict__ pa
 template <Rule kRule>
 cudaError_t launch(const void* slid, const void* order, const void* ct, void* param,
                    void* s1, void* s2, int64_t n, int dim, const Hyper& h, void* stream,
-                   void* partial = nullptr, void* starts = nullptr) {
+                   void* partial, void* starts) {
   if (n <= 0 || dim <= 0) return cudaSuccess;
   // one warp a tile of 32 positions
   int64_t blocks = ((n + 31) / 32 + kWarps - 1) / kWarps;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   // the long path: one warp a chunk in pass 1, a block 32 chunks in pass 2
   const int64_t chunks = (n + kChunk - 1) / kChunk;
-  Long lng{static_cast<float*>(partial), static_cast<int64_t*>(starts), 0};
-  int64_t long_blocks = 0;
-  if constexpr (kChunked<kRule>) {
-    lng.blocks = (chunks + kWarps - 1) / kWarps;
-    if (lng.blocks > kMaxBlocks) lng.blocks = kMaxBlocks;
-    long_blocks = (chunks + 31) / 32;
-    if (long_blocks > kMaxBlocks) long_blocks = kMaxBlocks;
-  }
+  Long lng{static_cast<float*>(partial), static_cast<int64_t*>(starts),
+           (chunks + kWarps - 1) / kWarps};
+  if (lng.blocks > kMaxBlocks) lng.blocks = kMaxBlocks;
+  int64_t long_blocks = (chunks + 31) / 32;
+  if (long_blocks > kMaxBlocks) long_blocks = kMaxBlocks;
   const auto s = static_cast<cudaStream_t>(stream);
   sparse_rows_kernel<kRule><<<static_cast<unsigned>(blocks + lng.blocks), kThreads, 0, s>>>(
       static_cast<const int64_t*>(slid), static_cast<const int64_t*>(order),
       static_cast<const float*>(ct), static_cast<float*>(param), static_cast<float*>(s1),
       static_cast<float*>(s2), n, dim, h, lng);
-  if constexpr (kChunked<kRule>) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    sparse_rows_long_kernel<kRule><<<static_cast<unsigned>(long_blocks), kThreads, 0, s>>>(
-        static_cast<const int64_t*>(slid), static_cast<float*>(param), static_cast<float*>(s1),
-        n, dim, h, lng.partial, lng.starts);
-  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sparse_rows_long_kernel<kRule><<<static_cast<unsigned>(long_blocks), kThreads, 0, s>>>(
+      static_cast<const int64_t*>(slid), static_cast<float*>(param), static_cast<float*>(s1),
+      static_cast<float*>(s2), n, dim, h, lng.partial, lng.starts);
   return cudaGetLastError();
 }
 
@@ -707,10 +730,11 @@ extern "C" int fused_adagrad_rows(const void* slid, const void* order, const voi
 }
 
 extern "C" int fused_sgd_rows(const void* slid, const void* order, const void* ct,
-                              void* param, long long n, int dim, const void* hyper,
-                              void* stream) {
+                              void* param, void* partial, void* starts, long long n, int dim,
+                              const void* hyper, void* stream) {
   const Hyper h{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, static_cast<const float*>(hyper)};
-  return launch<Rule::kSgd>(slid, order, ct, param, nullptr, nullptr, n, dim, h, stream);
+  return launch<Rule::kSgd>(slid, order, ct, param, nullptr, nullptr, n, dim, h, stream,
+                            partial, starts);
 }
 
 extern "C" int scatter_add_rows(const void* slid, const void* order, const void* ct,
@@ -722,10 +746,12 @@ extern "C" int scatter_add_rows(const void* slid, const void* order, const void*
 }
 
 extern "C" int fused_adam_rows(const void* slid, const void* order, const void* ct,
-                               void* param, void* m, void* v, long long n, int dim,
-                               const void* hyper, float b1, float b2, float eps,
-                               float one_minus_b1, float one_minus_b2, void* stream) {
+                               void* param, void* m, void* v, void* partial, void* starts,
+                               long long n, int dim, const void* hyper, float b1, float b2,
+                               float eps, float one_minus_b1, float one_minus_b2,
+                               void* stream) {
   const Hyper h{0.f, eps, b1, b2, 0.f, 0.f, one_minus_b1, one_minus_b2,
                 static_cast<const float*>(hyper)};
-  return launch<Rule::kAdam>(slid, order, ct, param, m, v, n, dim, h, stream);
+  return launch<Rule::kAdam>(slid, order, ct, param, m, v, n, dim, h, stream, partial,
+                             starts);
 }

@@ -137,7 +137,8 @@ def fused_sgd_apply(table: torch.Tensor, lids: torch.Tensor, ct: torch.Tensor, *
     """In-place sparse SGD, ``table[row] -= lr * sum(ct of that row)``, on a
     float32 ``[rows, dim]`` table; returns it. Arguments as
     ``fused_adagrad_apply``'s. On CUDA tensors the kernel runs
-    (``fused_sgd_apply.launches`` counts it); on CPU tensors,
+    (``fused_sgd_apply.launches`` counts it, and ``.long_launches`` the
+    long path's pass 2, as ``fused_adagrad_apply``'s); on CPU tensors,
     ``fused_sgd_ref``."""
     with torch.no_grad():
         hyper = _hyper(table, scalars, None if lr is None else (lr,))
@@ -147,12 +148,15 @@ def fused_sgd_apply(table: torch.Tensor, lids: torch.Tensor, ct: torch.Tensor, *
         if ct.shape[0] == 0:
             return table
         slid, order = presorted if presorted is not None else sort_ids(lids)
-        kernels.launch_fused_sgd(table, slid, order, ct, hyper)
+        scratch = kernels.sparse_rows_scratch(ct.shape[0], ct.shape[1], ct.device)
+        kernels.launch_fused_sgd(table, slid, order, ct, hyper, *scratch)
     fused_sgd_apply.launches += 1
+    fused_sgd_apply.long_launches += 1
     return table
 
 
 fused_sgd_apply.launches = 0
+fused_sgd_apply.long_launches = 0
 
 
 def adam_bias_corrections(step: int, b1: float, b2: float) -> Tuple[float, float]:
@@ -208,8 +212,10 @@ def fused_adam_apply(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     from 0 (bias corrections at ``step + 1``); ``scalars`` (``[lr, bc1,
     bc2]`` on the table's device, ``adam_scalars``) replaces ``lr`` and
     ``step``. Other arguments as ``fused_adagrad_apply``'s. On CUDA tensors
-    the kernel runs (``fused_adam_apply.launches`` counts it); on CPU
-    tensors, ``fused_adam_ref``."""
+    the kernel runs (``fused_adam_apply.launches`` counts it, and
+    ``.long_launches`` the long path's pass 2, as ``fused_adagrad_apply``'s;
+    a long row whose summed gradient is zero in every column keeps its
+    param, m and v there too); on CPU tensors, ``fused_adam_ref``."""
     with torch.no_grad():
         hyper = _hyper(table, scalars, None if lr is None or step is None
                        else adam_scalars(lr, step, b1, b2))
@@ -221,9 +227,13 @@ def fused_adam_apply(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         if ct.shape[0] == 0:
             return table, m, v
         slid, order = presorted if presorted is not None else sort_ids(lids)
-        kernels.launch_fused_adam(table, m, v, slid, order, ct, hyper, b1=b1, b2=b2, eps=eps)
+        scratch = kernels.sparse_rows_scratch(ct.shape[0], ct.shape[1], ct.device)
+        kernels.launch_fused_adam(table, m, v, slid, order, ct, hyper, *scratch, b1=b1, b2=b2,
+                                  eps=eps)
     fused_adam_apply.launches += 1
+    fused_adam_apply.long_launches += 1
     return table, m, v
 
 
 fused_adam_apply.launches = 0
+fused_adam_apply.long_launches = 0

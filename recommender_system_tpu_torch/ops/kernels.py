@@ -29,10 +29,10 @@ plain version; a build failure or a launch error raises.
 - ``fused_adagrad_apply``, ``fused_sgd_apply`` and ``fused_adam_apply``
   (``ops/fused_adagrad.py``) and ``scatter_add_sorted``
   (``ops/embedding_grad.py``), whose kernels are in ``csrc/sparse_rows.cu``;
-  this module launches them. Adagrad and the scatter-add sum rows of
-  ``SPARSE_CHUNK`` positions or more in chunks (the long path, a second
-  kernel every launch, on scratch from ``sparse_rows_scratch``), and count
-  it in ``<wrapper>.long_launches``.
+  this module launches them. All four sum rows of ``SPARSE_CHUNK``
+  positions or more in chunks (the long path, a second kernel every
+  launch, on scratch from ``sparse_rows_scratch``), and count it in
+  ``<wrapper>.long_launches``.
 """
 from __future__ import annotations
 
@@ -69,8 +69,8 @@ SOURCES = {
     },
     "sparse_rows": {
         "fused_adagrad_rows": ([_PTR] * 7 + [_INT64, _INT, _PTR, _FLOAT, _PTR], _INT),
-        "fused_sgd_rows": ([_PTR] * 4 + [_INT64, _INT, _PTR, _PTR], _INT),
-        "fused_adam_rows": ([_PTR] * 6 + [_INT64, _INT, _PTR] + [_FLOAT] * 5 + [_PTR], _INT),
+        "fused_sgd_rows": ([_PTR] * 6 + [_INT64, _INT, _PTR, _PTR], _INT),
+        "fused_adam_rows": ([_PTR] * 8 + [_INT64, _INT, _PTR] + [_FLOAT] * 5 + [_PTR], _INT),
         "scatter_add_rows": ([_PTR] * 6 + [_INT64, _INT, _PTR], _INT),
     },
 }
@@ -726,8 +726,8 @@ def check_sparse_rows_args(slid: torch.Tensor, order: torch.Tensor,
                          f"got ct {tuple(ct.shape)}")
 
 
-# the long path of fused_adagrad_rows and scatter_add_rows: a segment of at
-# least SPARSE_CHUNK positions is summed in chunks of SPARSE_CHUNK, whose
+# the long path of the four sparse row rules: a segment of at least
+# SPARSE_CHUNK positions is summed in chunks of SPARSE_CHUNK, whose
 # sums SPARSE_SHARES shares add (kChunk, kLong and kShares of
 # csrc/sparse_rows.cu; ``scatter_add_chunked_ref`` is the same order)
 SPARSE_CHUNK = 256
@@ -807,35 +807,43 @@ def launch_scatter_add(out: torch.Tensor, slid: torch.Tensor,
 
 
 def launch_fused_sgd(param: torch.Tensor, slid: torch.Tensor, order: torch.Tensor,
-                     ct: torch.Tensor, hyper: torch.Tensor) -> None:
+                     ct: torch.Tensor, hyper: torch.Tensor,
+                     partial: torch.Tensor, starts: torch.Tensor) -> None:
     """``fused_sgd_rows`` on CUDA tensors, in place on ``param``; the kernel
-    reads ``lr`` from ``hyper`` (``[lr]``). Raises if the launch fails."""
+    reads ``lr`` from ``hyper`` (``[lr]``), and the long path uses
+    ``sparse_rows_scratch``'s ``partial`` and ``starts``. Raises if the
+    launch fails."""
     check_sparse_rows_args(slid, order, ct, param)
     check_hyper(hyper, param, 1)
+    check_long_scratch(partial, starts, slid, ct)
     lib = _library("sparse_rows")
     with torch.cuda.device(param.device):
         err = lib.fused_sgd_rows(slid.data_ptr(), order.data_ptr(), ct.data_ptr(),
-                                 param.data_ptr(), slid.shape[0], ct.shape[1],
-                                 hyper.data_ptr(), _stream(param))
+                                 param.data_ptr(), partial.data_ptr(), starts.data_ptr(),
+                                 slid.shape[0], ct.shape[1], hyper.data_ptr(), _stream(param))
     if err != 0:
         raise RuntimeError(f"fused_sgd_rows launch failed with CUDA error {err}")
 
 
 def launch_fused_adam(param: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                       slid: torch.Tensor, order: torch.Tensor, ct: torch.Tensor,
-                      hyper: torch.Tensor, *, b1: float, b2: float, eps: float) -> None:
+                      hyper: torch.Tensor, partial: torch.Tensor, starts: torch.Tensor, *,
+                      b1: float, b2: float, eps: float) -> None:
     """``fused_adam_rows`` on CUDA tensors, in place on ``param``, ``m`` and
     ``v``; the kernel reads ``lr`` and the reciprocal bias corrections from
-    ``hyper`` (``[lr, bc1, bc2]``). ``1 - b1`` and ``1 - b2`` are rounded to
-    float32 once from the double, as the plain version's scalar products
-    round them. Raises if the launch fails."""
+    ``hyper`` (``[lr, bc1, bc2]``), and the long path uses
+    ``sparse_rows_scratch``'s ``partial`` and ``starts``. ``1 - b1`` and
+    ``1 - b2`` are rounded to float32 once from the double, as the plain
+    version's scalar products round them. Raises if the launch fails."""
     check_sparse_rows_args(slid, order, ct, param, m, v)
     check_hyper(hyper, param, 3)
+    check_long_scratch(partial, starts, slid, ct)
     lib = _library("sparse_rows")
     with torch.cuda.device(param.device):
         err = lib.fused_adam_rows(slid.data_ptr(), order.data_ptr(), ct.data_ptr(),
                                   param.data_ptr(), m.data_ptr(), v.data_ptr(),
-                                  slid.shape[0], ct.shape[1], hyper.data_ptr(), b1, b2, eps,
-                                  1.0 - b1, 1.0 - b2, _stream(param))
+                                  partial.data_ptr(), starts.data_ptr(), slid.shape[0],
+                                  ct.shape[1], hyper.data_ptr(), b1, b2, eps, 1.0 - b1,
+                                  1.0 - b2, _stream(param))
     if err != 0:
         raise RuntimeError(f"fused_adam_rows launch failed with CUDA error {err}")

@@ -455,7 +455,8 @@ def test_launch_counts_read_and_raise_every_counter():
         "fm_fused.global_launches", "din_attention_fused.launches",
         "din_attention_fused.global_launches", "fused_adagrad_apply.launches",
         "fused_adagrad_apply.long_launches", "fused_sgd_apply.launches",
-        "fused_adam_apply.launches", "scatter_add_sorted.launches",
+        "fused_sgd_apply.long_launches", "fused_adam_apply.launches",
+        "fused_adam_apply.long_launches", "scatter_add_sorted.launches",
         "scatter_add_sorted.long_launches"}
     add_launches({"fused_adam_apply.launches": 8, "cross_fused.global_launches": 2})
     after = launch_counts()

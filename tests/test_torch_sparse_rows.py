@@ -17,17 +17,20 @@ from recommender_system_tpu.ops.embedding_grad import scatter_add_dense as j_sca
 from recommender_system_tpu.ops.embedding_grad import scatter_add_dense_ref as j_scatter_ref
 from recommender_system_tpu.ops.fused_adagrad import fused_adagrad_apply as j_fused_adagrad_apply
 from recommender_system_tpu.ops.fused_adagrad import fused_adagrad_ref as j_fused_adagrad_ref
+from recommender_system_tpu.ops.fused_adagrad import fused_adam_apply as j_fused_adam_apply
+from recommender_system_tpu.ops.fused_adagrad import fused_sgd_apply as j_fused_sgd_apply
 from recommender_system_tpu.ops.stream_sort import blocked_sort as j_blocked_sort
 from recommender_system_tpu_torch.convert import unpack_stack
 from recommender_system_tpu_torch.ops import kernels
 from recommender_system_tpu_torch.ops.embedding_grad import (
     scatter_add_chunked_ref, scatter_add_dense_ref, scatter_add_sorted, take_fast)
 from recommender_system_tpu_torch.ops.fused_adagrad import (
-    fused_adagrad_apply, fused_adagrad_ref)
+    fused_adagrad_apply, fused_adagrad_ref, fused_adam_apply, fused_adam_ref, fused_sgd_apply)
 from recommender_system_tpu_torch.ops.kernels import SPARSE_CHUNK, check_sparse_rows_args
 from recommender_system_tpu_torch.ops.stream_sort import blocked_sort, sort_ids
 
 LR, EPS = 0.05, 1e-7
+ADAM_LR = 1e-2
 # the same f32 operations in the same order on both sides: only XLA's and
 # PyTorch's rsqrt may differ, by an ulp
 REF_RTOL, REF_ATOL = 1e-6, 1e-7
@@ -473,6 +476,104 @@ def test_adagrad_on_chunked_sums_matches_pallas_on_long_segments(case):
                                rtol=1e-4, atol=1e-4)
 
 
+def _adam_moments(pack, dim, rows_phys, step, seed):
+    """Lazy Adam's moments, lane-packed as the JAX package keeps them: zero
+    at step 0, else non-zero (v > 0)."""
+    lanes = 128 if pack > 1 else dim
+    if step == 0:
+        return np.zeros((rows_phys, lanes), np.float32), np.zeros((rows_phys, lanes), np.float32)
+    rng = np.random.default_rng(seed)
+    return ((rng.normal(size=(rows_phys, lanes)) * 0.1).astype(np.float32),
+            (rng.uniform(size=(rows_phys, lanes)) * 0.01).astype(np.float32))
+
+
+def _long_stream_with_zero_row(rows, dim, seed):
+    """``_long_lids``' ids with one more long row (300 positions, a row no
+    other segment takes) whose cotangents are all zero, as DIN's padding
+    row's are; the cotangents bf16-rounded normals elsewhere. Returns (lids
+    int32, ct, the zero row)."""
+    lids = _long_lids(rows, seed=seed)
+    zero_row = int(np.setdiff1d(np.arange(rows), lids)[0])
+    lids = np.concatenate([lids, np.full(300, zero_row)])
+    np.random.default_rng(seed + 2).shuffle(lids)
+    ct = _bf16(np.random.default_rng(seed + 3).normal(size=(lids.size, dim)).astype(np.float32))
+    ct[lids == zero_row] = 0.0
+    return lids.astype(np.int32), ct, zero_row
+
+
+def _adam_on_sums(table, m, v, g, step):
+    """Lazy Adam from the summed gradient ``g``, one row each, in the plain
+    version's operations: ``fused_adam_ref`` on a stream that names every
+    row once with its sum as the cotangent (what the card's long path
+    computes from ``scatter_add_chunked_ref``'s sums)."""
+    return fused_adam_ref(table, m, v, torch.arange(g.shape[0]), g, ADAM_LR, step)
+
+
+@pytest.mark.parametrize("case", ["packed_d9", "unpacked_d128"])
+def test_sgd_on_chunked_sums_matches_pallas_on_long_segments(case):
+    """SGD applied to ``scatter_add_chunked_ref``'s sums, as the card's long
+    path applies it, against the JAX Pallas kernel (interpret mode)."""
+    pack, dim, rows_phys, _, _ = REF_CASES[case]
+    rows = rows_phys * pack
+    stack, _ = _jax_table(pack, dim, rows_phys, seed=13)
+    lids, ct, zero_row = _long_stream_with_zero_row(rows, dim, seed=14)
+    (want,) = jax.jit(lambda s, i, c: j_fused_sgd_apply(
+        s, i, c, pack=pack, dim=dim, lr=LR, tile_rows=64, chunk=128))(
+            jnp.asarray(stack), jnp.asarray(lids), jnp.asarray(ct))
+    table = torch.from_numpy(unpack_stack(stack, rows, dim).copy())
+    g = scatter_add_chunked_ref(*sort_ids(torch.from_numpy(lids)), torch.from_numpy(ct), rows)
+    got = table - LR * g
+    # as test_adagrad_on_chunked_sums_matches_pallas_on_long_segments: sums
+    # of up to 775 bf16-rounded normals in two orders
+    np.testing.assert_allclose(got.numpy(), j_unpack_stack(np.asarray(want), rows, dim),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[zero_row], table[zero_row])
+
+
+@pytest.mark.parametrize("step", [0, 3])
+@pytest.mark.parametrize("case", ["packed_d9", "unpacked_d128"])
+def test_adam_on_chunked_sums_matches_pallas_on_long_segments(case, step):
+    """Lazy Adam applied to ``scatter_add_chunked_ref``'s sums, as the card's
+    long path applies it, against the JAX Pallas kernel (interpret mode);
+    the long row whose cotangents are all zero keeps param, m and v bitwise
+    on both sides."""
+    pack, dim, rows_phys, _, _ = REF_CASES[case]
+    rows = rows_phys * pack
+    stack, _ = _jax_table(pack, dim, rows_phys, seed=15)
+    m, v = _adam_moments(pack, dim, rows_phys, step, seed=16)
+    lids, ct, zero_row = _long_stream_with_zero_row(rows, dim, seed=17)
+    # the step goes in traced, as the Trainer passes it
+    want = jax.jit(lambda s, mm, vv, i, c, st: j_fused_adam_apply(
+        s, mm, vv, i, c, pack=pack, dim=dim, lr=ADAM_LR, step=st, tile_rows=64, chunk=128))(
+            *map(jnp.asarray, (stack, m, v, lids, ct)), jnp.int32(step))
+    state = [torch.from_numpy(unpack_stack(a, rows, dim).copy()) for a in (stack, m, v)]
+    g = scatter_add_chunked_ref(*sort_ids(torch.from_numpy(lids)), torch.from_numpy(ct), rows)
+    got = _adam_on_sums(*state, g, step)
+    for name, a, w, before in zip(("param", "m", "v"), got, want, state):
+        w = j_unpack_stack(np.asarray(w), rows, dim)
+        # sums of up to 775 bf16-rounded normals in two orders, as for
+        # Adagrad; the update divides m by sqrt(v), both from the same sums
+        np.testing.assert_allclose(a.numpy(), w, rtol=1e-4, atol=1e-4, err_msg=name)
+        assert torch.equal(a[zero_row], before[zero_row]), name
+        np.testing.assert_array_equal(w[zero_row], before[zero_row].numpy(), err_msg=name)
+
+
+def test_adam_wrapper_keeps_a_long_zero_row_bitwise():
+    """On the CPU the wrapper's plain version, like the card's long path,
+    leaves a long row whose cotangents are all zero as it was."""
+    rows, dim = 300, 9
+    lids, ct, zero_row = _long_stream_with_zero_row(rows, dim, seed=18)
+    gen = torch.Generator().manual_seed(19)
+    state = [torch.randn(rows, dim, generator=gen), 0.1 * torch.randn(rows, dim, generator=gen),
+             0.01 * torch.rand(rows, dim, generator=gen)]
+    before = [t.clone() for t in state]
+    fused_adam_apply(*state, torch.from_numpy(lids).long(), torch.from_numpy(ct), lr=ADAM_LR,
+                     step=3)
+    for name, t, b in zip(("param", "m", "v"), state, before):
+        assert torch.equal(t[zero_row], b[zero_row]), name
+        assert not torch.equal(t, b), name
+
+
 def _scratch_faults(n, dim):
     partial, starts = kernels.sparse_rows_scratch(n, dim, "cpu")
     return {
@@ -489,18 +590,28 @@ def _scratch_faults(n, dim):
     }
 
 
+# each launcher of csrc/sparse_rows.cu, called on a stream, its tables and
+# the long path's scratch
+LAUNCHERS = {
+    "scatter_add": lambda t, slid, ct, sc: kernels.launch_scatter_add(t, slid, slid, ct, *sc),
+    "adagrad": lambda t, slid, ct, sc: kernels.launch_fused_adagrad(
+        t, t.clone(), slid, slid, ct, torch.full((1,), LR), EPS, *sc),
+    "sgd": lambda t, slid, ct, sc: kernels.launch_fused_sgd(
+        t, slid, slid, ct, torch.full((1,), LR), *sc),
+    "adam": lambda t, slid, ct, sc: kernels.launch_fused_adam(
+        t, t.clone(), t.clone(), slid, slid, ct, torch.ones(3), *sc, b1=0.9, b2=0.999,
+        eps=1e-8),
+}
+
+
 @pytest.mark.parametrize("case", sorted(_scratch_faults(1000, 9)))
-def test_long_path_launchers_check_the_scratch(case):
+@pytest.mark.parametrize("launcher", sorted(LAUNCHERS))
+def test_long_path_launchers_check_the_scratch(launcher, case):
     n, dim = 1000, 9
-    (partial, starts), error = _scratch_faults(n, dim)[case]
+    scratch, error = _scratch_faults(n, dim)[case]
     slid = torch.arange(n)
-    ct = torch.zeros(n, dim)
-    table = torch.zeros(n, dim)
     with pytest.raises(error, match="long path"):
-        kernels.launch_scatter_add(table, slid, slid, ct, partial, starts)
-    with pytest.raises(error, match="long path"):
-        kernels.launch_fused_adagrad(table, table.clone(), slid, slid, ct,
-                                     torch.full((1,), LR), EPS, partial, starts)
+        LAUNCHERS[launcher](torch.zeros(n, dim), slid, torch.zeros(n, dim), scratch)
 
 
 @pytest.mark.parametrize("n", [0, 1, SPARSE_CHUNK, SPARSE_CHUNK + 1, 425_984])
@@ -512,9 +623,13 @@ def test_sparse_rows_scratch_is_what_the_launchers_take(n):
 
 
 def test_cpu_wrappers_count_no_long_launch():
-    before = (fused_adagrad_apply.long_launches, scatter_add_sorted.long_launches)
+    wrappers = (fused_adagrad_apply, fused_sgd_apply, fused_adam_apply, scatter_add_sorted)
+    before = [fn.long_launches for fn in wrappers]
     lids = torch.from_numpy(_long_lids(100, seed=12))
     ct = torch.ones(lids.numel(), 4)
     fused_adagrad_apply(torch.zeros(100, 4), torch.zeros(100, 4), lids, ct, lr=LR)
+    fused_sgd_apply(torch.zeros(100, 4), lids, ct, lr=LR)
+    fused_adam_apply(torch.zeros(100, 4), torch.zeros(100, 4), torch.zeros(100, 4), lids, ct,
+                     lr=ADAM_LR, step=0)
     scatter_add_sorted(*sort_ids(lids), ct, 100)
-    assert (fused_adagrad_apply.long_launches, scatter_add_sorted.long_launches) == before
+    assert [fn.long_launches for fn in wrappers] == before
