@@ -122,8 +122,9 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(lib):
+        # no weights output: the serving launch
         err = lib.din_attention_forward(*(t.data_ptr() for t in (q, keys, mask, *weights, out)),
-                                        B, T, K, H1, H2, 0, 1, 0, stream)
+                                        None, B, T, K, H1, H2, 0, 1, 0, stream)
         if err != 0:
             raise RuntimeError(f"launch failed with CUDA error {err}")
 

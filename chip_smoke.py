@@ -29,9 +29,15 @@ Phases, each of which raises on failure (exit code not 0):
    T=1), at K=32, T=515 and with a scorer of 300-260, and at B=8,192 at its
    three timed shapes, (K=128, T=50), (K=64, T=200) and (K=32, T=1,000),
    pooled and returning the weights, each with a row that has no valid
-   position, forward and gradient through the autograd Function (rtol=1e-4,
-   atol=1e-5; the three timed shapes forward only), and which of the two
-   kernels ran;
+   position, forward (rtol=1e-4, atol=1e-5), and which of the two kernels
+   ran; at each of these cases the backward: the forward's saved weights
+   bitwise its returned ones, the gradient through the autograd Function
+   bitwise one launch of ``din_attention_backward`` on them, that kernel
+   twice bitwise and against ``din_attention_backward_ref`` in f32 (rtol
+   1e-4, atol 1e-5 of each gradient's scale; rows at relu's kink left out,
+   ``din_kink_rows``) and, on up to 1,024 rows, no farther from the plain
+   version in float64 than ``DIN_F64_FACTOR`` times the f32 plain
+   version's distance (``din_backward_close``);
    ``fm_fused`` vs ``fm_ref`` (evaluated in float64: in float32 on the
    card its own sums miss the tolerance at D >= 3,419, B=16,384) at
    B=16,384, D=221, k=8, at B=16,385 and B=31 (a partial last group of 4
@@ -94,7 +100,8 @@ Phases, each of which raises on failure (exit code not 0):
    ids, item_id 200,000 ids and a T=50 history on the same table_d32 of
    300,000 x 32, attention 80-40, BatchNorm, Dice tower 256-128-64, f32,
    batch 8,192), K=8 batches built as model_step.py builds them (seeds
-   0-7): fused, three calls, each step one attention launch and one
+   0-7): fused, three calls, each step one attention launch, one of the
+   attention's backward kernel and one
    ``fused_adagrad_apply`` (the two lookup sites of table_d32 go as one
    stream) and no scatter-add, one call under
    ``set_sync_debug_mode("error")``, losses falling, untouched rows
@@ -144,7 +151,8 @@ Phases, each of which raises on failure (exit code not 0):
    H=32, attention 80-40 over the GRU states, auxiliary tower 100-50, relu
    tower 256-128-64, f32, batch 8,192) with ``Adagrad(0.05)`` and
    ``FusedAdagrad(0.05)``: three fused calls, each step one attention
-   launch and one ``fused_adagrad_apply`` (the three sites one stream), one
+   launch, one of its backward kernel and one ``fused_adagrad_apply`` (the
+   three sites one stream), one
    call under ``set_sync_debug_mode("error")``, losses falling, untouched
    rows bitwise unchanged; one plain call, three ``scatter_add_sorted``
    launches a step; two fused steps on the card and on the CPU at batch
@@ -282,8 +290,9 @@ Phases, each of which raises on failure (exit code not 0):
 4. timings: each kernel's and its plain version's device time (from the
    profiler's trace) and time per call (CUDA events over back-to-back calls,
    host overhead included), and the library call where there is one (the
-   DIN attention against two bounds: the tensor cores' at three TF32
-   passes, its ``bound_ms``, and f32 outside them, ``f32_bound_ms``); each
+   DIN attention and its backward against two bounds: the tensor cores' at
+   three TF32 passes, its ``bound_ms``, and f32 outside them,
+   ``f32_bound_ms``); each
    Scorer's latency and throughput (host clock), its device busy time per
    batch and its top kernels; the training throughput of a fused K=8 call,
    graphed and looped (CUDA events), its device idle share, the top device
@@ -308,7 +317,9 @@ Phases, each of which raises on failure (exit code not 0):
    and the steps) and the device's idle share from a ``--profile-dir``
    trace.
 
-Every launch check compares all seven wrappers' launch counts, the
+Every launch check compares all eight wrappers' launch counts (the DIN
+attention's backward, ``din_attention_backward``, launches once a training
+step of DIN and DIEN, and never when serving), the
 ``global_launches`` of the cross, FM and DIN attention wrappers, which must
 be 0 on every path but 3k's and, for the attention, 3r's, and the
 ``long_launches`` of the four sparse row wrappers, which every launch of
@@ -743,6 +754,155 @@ def din_work(B: int, T: int, K: int, H1: int, H2: int):
     return nbytes / PEAK_BYTES_PER_S * 1e3, flops
 
 
+def din_backward_work(B: int, T: int, K: int, H1: int, H2: int, pooled: bool = True):
+    """The DIN attention backward's least bytes (as ms at the memory rate)
+    and flops: query, keys, mask, the saved weights, the cotangent and the
+    parameters read once, dq, dkeys and the parameters' gradients written
+    once; the flops in their least form, as ``din_work`` counts the
+    forward's (the first layer folded per row): the scorer recomputed,
+    2*B*T*(K*H1 + H1*H2 + H2), then du.W2^T and h1^T.du, 2*B*T*H1*H2
+    each, dkeys through the row's folded K x H1 matrix and the per-row
+    keys^T.dh_pre that gives dBw and dP, 2*B*T*K*H1 each, plus the
+    per-row q (Wq + Wm), dq and dA, 2*B*K*H1 each."""
+    params = 4 * K * H1 + H1 + H1 * H2 + 2 * H2 + 1
+    nbytes = 4 * (2 * B * K + 2 * B * T * K + 2 * B * T + (B * K if pooled else B * T)
+                  + 2 * params)
+    flops = (2 * B * T * (K * H1 + H1 * H2 + H2) + 2 * 2 * B * T * H1 * H2
+             + 2 * 2 * B * T * K * H1 + 3 * 2 * B * K * H1)
+    return nbytes / PEAK_BYTES_PER_S * 1e3, flops
+
+
+def din_backward_bound(B: int, T: int, K: int, H1: int, H2: int):
+    """Least time for the DIN attention's backward, as ``din_bound``:
+    (bound, what bounds it, the bound in f32 outside the tensor cores), the
+    tensor cores' time in 3xTF32."""
+    byte_ms, flops = din_backward_work(B, T, K, H1, H2)
+    tc_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    f32_ms = max(byte_ms, flops / PEAK_F32_FLOPS * 1e3)
+    return max(byte_ms, tc_ms), "bytes" if byte_ms >= tc_ms else "operations", f32_ms
+
+
+# phase 2's shapes of the DIN attention's backward: (B, T, K, H1, H2, the
+# number of FLAG combinations, or "all"): DIN's and DIEN's width, T not a
+# multiple of 4, K=6, T=1, B=1, the tiled kernel's opt-in shared memory,
+# and the global kernel's: K=128 at T=50 and T=1, T=515, hidden widths
+# past 256, K=128 by 256-64, and its three timed shapes
+DIN_BACKWARD_CASES = [(DIN_BATCH, DIN_T, DIN_DIM, 80, 40, "all"),
+                      (64, 13, 8, 10, 5, "all"),
+                      (100, 7, 6, 12, 3, 4),
+                      (300, 1, DIN_DIM, 80, 40, "all"),
+                      (1, DIN_T, DIN_DIM, 80, 40, "all"),
+                      (257, DIN_T, DIN_DIM, 128, 64, 4),
+                      (1024, DIN_T, 128, 80, 40, "all"),
+                      (33, 1, 128, 80, 40, 4),
+                      (64, 515, DIN_DIM, 80, 40, 4),
+                      (100, 13, 8, 300, 260, 4),
+                      (64, 20, 128, 256, 64, 4)]
+DIN_BACKWARD_CASES += [(DIN_BATCH, T, K_, 80, 40, 2) for K_, T in DIN_GLOBAL_SHAPES]
+# the batch at which the backward is also held to float64: its rows are the
+# first this many of a case's
+DIN_F64_ROWS = 1024
+# how much farther from float64 the kernel's gradients may be than the
+# plain version's f32 ones, each gradient's largest error over its scale
+# (``din_grad_scale``; plus 1e-6 of it, for a plain error that rounds to
+# 0): the kernel sums in other orders and its products are 3xTF32
+DIN_F64_FACTOR = 4.0
+# the kernel's gradients against the plain version's f32 ones on the card:
+# an element may differ by RTOL of itself plus DIN_GRAD_ATOL of its
+# gradient's scale (``din_grad_scale``), since both sum up to B*T products
+# in different orders
+DIN_GRAD_ATOL = 1e-5
+
+
+def din_grad_scale(name: str, ref, keys, maskf, saved, cot, flags) -> float:
+    """A gradient's scale for its tolerance: its largest magnitude, but for
+    db3, the sum of the dlogits, the sum of their magnitudes (under the
+    softmax db3 is 0 up to rounding: each row's dlogits sum to 0)."""
+    if name != "db3":
+        return ref.abs().max().item() or 1.0
+    dscore = cot if flags[2] else torch.einsum("bk,btk->bt", cot, keys)
+    dl = saved * (dscore - (saved * dscore).sum(-1, keepdim=True)) if flags[1] else dscore
+    return torch.where(maskf > 0.5, dl, 0.0).abs().sum().item() or 1.0
+
+
+# relu's kink: a first- or second-layer pre-activation this close to 0 (in
+# float64) may round to either side in the kernel's 3xTF32 sums and in
+# cuBLAS's f32 ones, and relu's derivative (JAX's a > 0) flips there
+DIN_KINK = 1e-6
+
+
+def din_kink_rows(q, keys, maskf, weights) -> torch.Tensor:
+    """The rows (bool [B]) holding a valid position whose scorer has a
+    pre-activation within ``DIN_KINK`` of 0, in float64."""
+    w1, b1, w2, b2 = (t.double() for t in weights[:4])
+    q64, k64 = q.double(), keys.double()
+    K = keys.shape[-1]
+    wq, wk, wm, wp = w1[:K], w1[K:2 * K], w1[2 * K:3 * K], w1[3 * K:]
+    ck = torch.cat([k64, q64[:, None, :] * k64], dim=-1)
+    h_pre = (q64 @ (wq + wm))[:, None, :] + ck @ torch.cat([wk - wm, wp]) + b1
+    z = torch.relu(h_pre) @ w2 + b2
+    near = (h_pre.abs() < DIN_KINK).any(-1) | (z.abs() < DIN_KINK).any(-1)
+    return (near & (maskf > 0.5)).any(-1)
+
+
+def din_backward_close(q, keys, maskf, weights, saved, cot, flags):
+    """Hold ``din_attention_backward`` on the card to its plain version in
+    f32 and, on the first ``DIN_F64_ROWS`` rows, both to the plain version
+    in float64; two kernel calls must agree bitwise. Returns (a note of the
+    errors, the largest absolute error against the plain version)."""
+    from recommender_system_tpu_torch.ops.din_vjp import din_attention_backward_ref
+    from recommender_system_tpu_torch.ops.kernels import din_attention_backward
+
+    names = ("dq", "dkeys", "dw1", "db1", "dw2", "db2", "dw3", "db3")
+    kink = ""
+    if flags[0] == "relu":
+        # rows at relu's kink are left out of both sides: there the kernel
+        # and the plain version may each take either side of it
+        near = din_kink_rows(q, keys, maskf, weights)
+        kink = f"; {int(near.sum())} row(s) at relu's kink left out"
+        if int(near.sum()) > 2 + q.shape[0] // 50:
+            raise RuntimeError(f"din_attention_backward {flags}: {int(near.sum())} rows of "
+                               f"{q.shape[0]} at relu's kink")
+        q, keys, maskf, saved, cot = (t[~near] for t in (q, keys, maskf, saved, cot))
+    got = din_attention_backward(q, keys, maskf, *weights, saved, cot, *flags)
+    again = din_attention_backward(q, keys, maskf, *weights, saved, cot, *flags)
+    torch.cuda.synchronize()
+    for name, a, b in zip(names, got, again):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"din_attention_backward {flags}: two calls differ in {name}")
+    plain = din_attention_backward_ref(q, keys, maskf, *weights, saved, cot, *flags)
+    worst = 0.0
+    for name, k, p in zip(names, got, plain):
+        scale = din_grad_scale(name, p, keys, maskf, saved, cot, flags)
+        if not torch.isfinite(k).all():
+            raise RuntimeError(f"din_attention_backward {flags}: {name} not finite")
+        torch.testing.assert_close(k, p, rtol=RTOL, atol=DIN_GRAD_ATOL * scale,
+                                   msg=lambda m, name=name: f"{name} {flags}: {m}")
+        worst = max(worst, (k - p).abs().max().item() / scale)
+    abs_err = max((k - p).abs().max().item() for k, p in zip(got, plain))
+    note = f"bitwise twice; largest error over the gradient's scale {worst:.3e}{kink}"
+    B = min(q.shape[0], DIN_F64_ROWS)
+    rows = [t[:B] for t in (q, keys, maskf, saved, cot)]
+    got_b = din_attention_backward(rows[0], rows[1], rows[2], *weights, rows[3], rows[4],
+                                   *flags)
+    plain_b = din_attention_backward_ref(rows[0], rows[1], rows[2], *weights, rows[3], rows[4],
+                                         *flags)
+    d64 = [t.double() for t in rows]
+    w64 = [t.double() for t in weights]
+    want = din_attention_backward_ref(d64[0], d64[1], d64[2], *w64, d64[3], d64[4], *flags)
+    ratios = []
+    for name, k, p, w in zip(names, got_b, plain_b, want):
+        scale = din_grad_scale(name, w, d64[1], d64[2], d64[3], d64[4], flags)
+        dk = (k.double() - w).abs().max().item() / scale
+        dp = (p.double() - w).abs().max().item() / scale
+        if dk > DIN_F64_FACTOR * dp + 1e-6:
+            raise RuntimeError(f"din_attention_backward {flags}: {name} is {dk:.3e} from "
+                               f"float64, more than {DIN_F64_FACTOR} x the plain f32 "
+                               f"version's {dp:.3e}")
+        ratios.append(f"{name} {dk:.2e}/{dp:.2e}")
+    return note + f"; from float64 at B={B}, kernel/plain: {', '.join(ratios)}", abs_err
+
+
 def din_inputs(gen, B, T, K, H1, H2):
     """Random DIN attention inputs on the card: lengths uniform on 1..T, the
     first row with no valid position; weights at glorot scale."""
@@ -762,38 +922,27 @@ def din_inputs(gen, B, T, K, H1, H2):
 
 def check_din_kernel() -> dict:
     """Phase 2 for csrc/din_attention.cu: ``din_attention_fused`` against
-    ``din_attention_ref`` on the card, forward and gradient through the
-    autograd Function; returns the largest absolute error of the forward,
-    by kernel."""
+    ``din_attention_ref`` on the card at every case of
+    ``DIN_BACKWARD_CASES``; its backward, through the autograd Function,
+    bitwise ``din_attention_backward`` on the forward's saved weights (the
+    saved weights bitwise the returned ones), and that kernel held to
+    ``din_attention_backward_ref`` in f32 and float64
+    (``din_backward_close``). Returns the largest absolute error of the
+    forward by kernel, and of the backward's gradients
+    (``din_attention_backward``)."""
     from recommender_system_tpu_torch.ops import kernels
-    from recommender_system_tpu_torch.ops.kernels import din_attention_fused, din_attention_ref
+    from recommender_system_tpu_torch.ops.kernels import (din_attention_backward,
+                                                          din_attention_fused, din_attention_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     flags = [(a, wn, rs) for a in ("sigmoid", "relu") for wn in (True, False)
              for rs in (False, True)]
-    # (B, T, K, H1, H2, flag combinations, gradient checked)
-    cases = [(DIN_BATCH, DIN_T, DIN_DIM, 80, 40, flags, False),
-             (DIN_BATCH, DIN_T, DIN_DIM, 80, 40, flags[:1], True),
-             (64, 13, 8, 10, 5, flags, True),     # T not a multiple of 4
-             (100, 7, 6, 12, 3, flags[:4], True),  # K not a multiple of 4: 4-byte copies
-             (300, 1, DIN_DIM, 80, 40, flags, True),   # T = 1
-             (1, DIN_T, DIN_DIM, 80, 40, flags, True),  # B = 1
-             (257, DIN_T, DIN_DIM, 128, 64, flags[:4], True),  # opt-in shared memory
-             # the global kernel: K=128 (DIEN(gru_hidden=128)), at T=1 too,
-             # T past 514 at K=32, hidden widths past 256
-             (1024, DIN_T, 128, 80, 40, flags, True),
-             (33, 1, 128, 80, 40, flags[:4], True),
-             (64, 515, DIN_DIM, 80, 40, flags[:4], True),
-             (100, 13, 8, 300, 260, flags[:4], True),
-             (64, 20, 128, 256, 64, flags[:4], True)]
-    # the global kernel at its three timed shapes, pooled and returning the
-    # weights
-    cases += [(DIN_BATCH, T, K_, 80, 40, flags[:2], False) for K_, T in DIN_GLOBAL_SHAPES]
     max_err = collections.Counter()
-    for B, T, K, H1, H2, combos, grad in cases:
+    for B, T, K, H1, H2, combos in DIN_BACKWARD_CASES:
         q, keys, mask, weights = din_inputs(gen, B, T, K, H1, H2)
+        maskf = mask.float()
         smem = kernels.din_shared_bytes(T, K, H1, H2)
-        fast = kernels.din_kernel_takes(q, keys, mask.float(), *weights, "sigmoid")
+        fast = kernels.din_kernel_takes(q, keys, maskf, *weights, "sigmoid")
         kernel = "din_attention_kernel" if fast else "din_attention_global_kernel"
         with torch.inference_mode():
             # the bool mask's conversion to float runs beside the kernel
@@ -803,7 +952,7 @@ def check_din_kernel() -> dict:
         if not ran or not all(kernel in name for name in ran):
             raise RuntimeError(f"din_attention_fused B={B} T={T} K={K} H1={H1} H2={H2} "
                                f"ran {ran}, not {kernel}")
-        for activation, wn, rs in combos:
+        for activation, wn, rs in (flags if combos == "all" else flags[:combos]):
             with torch.inference_mode():
                 out = din_attention_fused(q, keys, mask, *weights, activation, wn, rs)
                 torch.cuda.synchronize()
@@ -817,26 +966,37 @@ def check_din_kernel() -> dict:
                 want = (torch.full((T,), 1.0 / T, device="cuda") if rs
                         else keys[0].mean(dim=0))
                 torch.testing.assert_close(out[0], want, rtol=RTOL, atol=ATOL)
-            grad_note = ""
-            if grad:
-                # one fixed cotangent for both: under the softmax b3's
-                # gradient is zero up to rounding, and a cotangent made from
-                # each forward's own output would carry its rounding there
-                cot = torch.randn(out.shape, generator=gen, device="cuda")
-                grads = []
-                for fn in (din_attention_fused, din_attention_ref):
-                    args = [t.clone().requires_grad_(True) for t in (q, keys, *weights)]
-                    out_g = fn(args[0], args[1], mask, *args[2:], activation, wn, rs)
-                    grads.append(torch.autograd.grad(out_g, args, cot))
-                    torch.cuda.synchronize()
-                for g_kernel, g_plain in zip(*grads):
-                    torch.testing.assert_close(g_kernel, g_plain, rtol=RTOL, atol=ATOL)
-                grad_note = ", gradients match"
+            # the backward: through autograd, one launch of the backward
+            # kernel on the forward's saved weights
+            with torch.inference_mode():
+                _, saved = kernels._din_launch(q, keys, maskf, *weights, activation, wn, rs, True)
+                scores, _ = kernels._din_launch(q, keys, maskf, *weights, activation, wn, True)
+            if not torch.equal(saved, scores):
+                raise RuntimeError(f"din_attention_fused B={B} T={T} K={K} {activation} "
+                                   f"{wn} {rs}: the saved weights differ from the returned")
+            cot = torch.randn(out.shape, generator=gen, device="cuda")
+            args = [t.clone().requires_grad_(True) for t in (q, keys, *weights)]
+            before = din_attention_backward.launches
+            got = torch.autograd.grad(din_attention_fused(args[0], args[1], mask, *args[2:],
+                                                          activation, wn, rs), args, cot)
+            direct = din_attention_backward(q, keys, maskf, *weights, saved, cot, activation,
+                                            wn, rs)
+            torch.cuda.synchronize()
+            if din_attention_backward.launches != before + 2:
+                raise RuntimeError("din_attention_fused's backward did not launch the "
+                                   "backward kernel once")
+            if not all(torch.equal(a, b) for a, b in zip(got, direct)):
+                raise RuntimeError(f"din_attention_fused B={B} T={T} K={K} {activation} {wn} "
+                                   f"{rs}: its backward differs from din_attention_backward")
+            note, grad_err = din_backward_close(q, keys, maskf, weights, saved, cot,
+                                                (activation, wn, rs))
+            max_err["din_attention_backward"] = max(max_err["din_attention_backward"], grad_err)
             print(f"kernel check din_attention_fused B={B} T={T} K={K} H1={H1} H2={H2} "
                   f"{activation} weight_normalization={wn} return_scores={rs} "
                   f"(tiled kernel's shared memory {smem} B at one row a group): ran "
                   f"{', '.join(re.search(r'din_attention\w*(<\w+>)?', n).group(0) for n in ran)}; "
-                  f"max_abs_err={err:.3e}{grad_note}", flush=True)
+                  f"max_abs_err={err:.3e}; backward: autograd's bitwise the kernel's, {note}",
+                  flush=True)
     return max_err
 
 
@@ -1717,11 +1877,11 @@ def counted():
     from recommender_system_tpu_torch.ops.embedding_grad import scatter_add_sorted
     from recommender_system_tpu_torch.ops.fused_adagrad import (
         fused_adagrad_apply, fused_adam_apply, fused_sgd_apply)
-    from recommender_system_tpu_torch.ops.kernels import (cross_fused, din_attention_fused,
-                                                          fm_fused)
+    from recommender_system_tpu_torch.ops.kernels import (cross_fused, din_attention_backward,
+                                                          din_attention_fused, fm_fused)
 
-    return (cross_fused, fm_fused, din_attention_fused, fused_adagrad_apply, fused_sgd_apply,
-            fused_adam_apply, scatter_add_sorted)
+    return (cross_fused, fm_fused, din_attention_fused, din_attention_backward,
+            fused_adagrad_apply, fused_sgd_apply, fused_adam_apply, scatter_add_sorted)
 
 
 def read_counts() -> dict:
@@ -1772,7 +1932,7 @@ def on_card(*values: float) -> torch.Tensor:
 
 def train_din_fused(batches, labels, card):
     """Phase 3f, fused: three K=8 calls; returns (trainer, launches). A
-    step: one attention forward (its backward is the plain VJP); one
+    step: one attention forward and one of its backward kernel; one
     fused_adagrad_apply, since the [B, 2] group and the [B, T] history of
     table_d32 go as one stream; no scatter-add."""
     from recommender_system_tpu_torch import FusedAdagrad
@@ -1780,7 +1940,8 @@ def train_din_fused(batches, labels, card):
 
     return train_checked(
         "DIN", din_model(), batches, labels, Adagrad(LR), FusedAdagrad(LR), 3,
-        launches_want(din_attention_fused=3 * K, fused_adagrad_apply=3 * K), card,
+        launches_want(din_attention_fused=3 * K, din_attention_backward=3 * K,
+                      fused_adagrad_apply=3 * K), card,
         touched=table_d32_touched(batches))
 
 
@@ -1795,7 +1956,8 @@ def train_din_plain(batches, labels):
     launches = read_counts()
     # a step: two take_fast lookups of table_d32 (the [B, 2] group and the
     # [B, T] history), each with one scatter-add in its backward
-    want = launches_want(din_attention_fused=K, scatter_add_sorted=2 * K)
+    want = launches_want(din_attention_fused=K, din_attention_backward=K,
+                         scatter_add_sorted=2 * K)
     print(f"DIN plain training launches: {launches} over 1 call of K={K}; losses {losses}",
           flush=True)
     if launches != want:
@@ -1868,7 +2030,8 @@ def din_wide_path(card) -> dict:
     name = f"DIN at dim {DIN_WIDE_DIM}"
     trainer, train_launches = train_checked(
         name, din_model(DIN_WIDE_DIM), batches, labels, Adagrad(LR), FusedAdagrad(LR), 3,
-        launches_want(din_attention_fused=3 * K, fused_adagrad_apply=3 * K,
+        launches_want(din_attention_fused=3 * K, din_attention_backward=3 * K,
+                      fused_adagrad_apply=3 * K,
                       **{global_key("din_attention_fused"): 3 * K}), card,
         touched=table_d32_touched(batches))
     _, _, serve_launches = serve_din(trainer.model, name, on_global=True)
@@ -1921,7 +2084,8 @@ def long_rules_path(card) -> dict:
         label = f"DIN with {type(fused).__name__}"
         trainer, launches = train_checked(
             label, model, batches, labels, optimizer, fused, 3,
-            launches_want(din_attention_fused=3 * K, **{wrapper: 3 * K}), card,
+            launches_want(din_attention_fused=3 * K, din_attention_backward=3 * K,
+                          **{wrapper: 3 * K}), card,
             touched=table_d32_touched(batches))
         slots = [s[DIN_USERS] for s in trainer.fused_slots[key]]
         if not (torch.equal(model.embeddings.table_d32[DIN_USERS], pad)
@@ -1952,13 +2116,17 @@ def long_rules_path(card) -> dict:
 
 
 def time_din(trainer, scorer, requests, batches, labels, card, rules=None) -> dict:
-    """Phase 4 for DIN: the attention kernel at the main path's inputs, the
+    """Phase 4 for DIN: the attention kernel and its backward kernel at the
+    main path's inputs (the backward's figures under ``"backward"``), the
     Scorer's latency, throughput and idle share, the fused step's
     throughput and idle share, and the padding row's share of the step;
     then the step of each trainer in ``rules`` (label -> DIN trainer with
     another fused rule) beside it, with its sparse row kernels' share."""
+    from recommender_system_tpu_torch.ops import kernels
+    from recommender_system_tpu_torch.ops.din_vjp import din_attention_backward_ref
     from recommender_system_tpu_torch.ops.fused_adagrad import fused_adagrad_apply
-    from recommender_system_tpu_torch.ops.kernels import din_attention_fused, din_attention_ref
+    from recommender_system_tpu_torch.ops.kernels import (din_attention_backward,
+                                                          din_attention_fused, din_attention_ref)
 
     model = trainer.model.eval()
     a = model.attention
@@ -1987,6 +2155,31 @@ def time_din(trainer, scorer, requests, batches, labels, card, rules=None) -> di
           f"{rec['f32_bound_ms']:.5f} ms), {rec['call_ms']:.5f} ms per call; "
           f"plain din_attention_ref: device {rec['plain_ms']:.5f} ms in {len(plain_dev)} "
           f"kernel kinds, {rec['plain_call_ms']:.5f} ms per call; on {card}", flush=True)
+
+    # the backward kernel on the forward's saved weights and a cotangent
+    with torch.inference_mode():
+        _, saved = kernels._din_launch(q, keys, mask, *weights, "sigmoid", True, False, True)
+        cot = torch.randn(B, Kd, generator=torch.Generator(device="cuda").manual_seed(6),
+                          device="cuda")
+        args = (q, keys, mask, *weights, saved, cot)
+        bwd_dev = device_ms(lambda: din_attention_backward(*args), iters=20)
+        plain_bwd_dev = device_ms(lambda: din_attention_backward_ref(*args), iters=20)
+        bwd = {"call_ms": call_ms(lambda: din_attention_backward(*args), iters=50),
+               "plain_call_ms": call_ms(lambda: din_attention_backward_ref(*args), iters=50)}
+    if not all("din_" in name for name in bwd_dev):
+        raise RuntimeError(f"din_attention_backward ran other device work: {dict(bwd_dev)}")
+    bwd.update(ms=sum(bwd_dev.values()), plain_ms=sum(plain_bwd_dev.values()), library_ms=None,
+               by_kernel={name[:60]: ms for name, ms in bwd_dev.items()})
+    bwd["bound_ms"], bwd["bound_by"], bwd["f32_bound_ms"] = din_backward_bound(B, T, Kd, H1, H2)
+    bwd["share_of_bound"] = bwd["bound_ms"] / bwd["ms"]
+    rec["backward"] = bwd
+    print(f"timing din_attention_backward B={B} T={T} K={Kd} H1={H1} H2={H2}: device "
+          f"{bwd['ms']:.5f} ms in {len(bwd_dev)} kernels ({100 * bwd['share_of_bound']:.1f}% "
+          f"of the tensor-core bound {bwd['bound_ms']:.5f} ms, {bwd['bound_by']}, 3xTF32; "
+          f"f32 bound {bwd['f32_bound_ms']:.5f} ms), {bwd['call_ms']:.5f} ms per call; "
+          f"plain din_attention_backward_ref: device {bwd['plain_ms']:.5f} ms in "
+          f"{len(plain_bwd_dev)} kernel kinds, {bwd['plain_call_ms']:.5f} ms per call; "
+          f"by kernel {bwd['by_kernel']}; on {card}", flush=True)
 
     lat = {n: host_ms(lambda n=n: scorer(requests[n]), iters=30) for n in (1, DIN_BATCH)}
     for n, times in lat.items():
@@ -2077,7 +2270,7 @@ def table_d32_touched(batches) -> torch.Tensor:
 def train_dien(batches, labels, card):
     """Phase 3j: DIEN fused (three K=8 calls) and plain (one call); returns
     (trainer, fused launches, plain launches). A fused step: one attention
-    launch (its backward is the plain VJP); one fused_adagrad_apply, since
+    launch and one of its backward kernel; one fused_adagrad_apply, since
     the [B, 2] group, the [B, T] history and the [B, T] sampled history of
     table_d32 go as one stream. A plain step: one scatter-add for each of
     the three lookups."""
@@ -2086,14 +2279,16 @@ def train_dien(batches, labels, card):
 
     trainer, fused_launches = train_checked(
         "DIEN", dien_model(), batches, labels, Adagrad(LR), FusedAdagrad(LR), 3,
-        launches_want(din_attention_fused=3 * K, fused_adagrad_apply=3 * K), card,
+        launches_want(din_attention_fused=3 * K, din_attention_backward=3 * K,
+                      fused_adagrad_apply=3 * K), card,
         touched=table_d32_touched(batches))
 
     plain_trainer = Trainer(dien_model(), Adagrad(LR))
     zero_counts()
     losses = plain_trainer.multi_step(batches, labels).cpu().numpy()
     plain_launches = read_counts()
-    want = launches_want(din_attention_fused=K, scatter_add_sorted=3 * K)
+    want = launches_want(din_attention_fused=K, din_attention_backward=K,
+                         scatter_add_sorted=3 * K)
     print(f"DIEN plain training launches: {plain_launches} over 1 call of K={K}; "
           f"losses {losses}", flush=True)
     if plain_launches != want:
@@ -2243,6 +2438,7 @@ def check_global_shapes(card) -> dict:
     batches, labels = din_staged([0], negatives=True, batch=DIEN_SMALL_BATCH)
     counted_run("one fused step of DIEN(gru_hidden=128) at batch 1,024",
                 launches_want(fused_adagrad_apply=1, din_attention_fused=1,
+                              din_attention_backward=1,
                               **{global_key("din_attention_fused"): 1}),
                 lambda: card_against_cpu(dien_model(gru_hidden=128), batches, labels,
                                          "DIEN(gru_hidden=128)"))
@@ -2287,7 +2483,7 @@ def time_dien(trainer, batches, labels, card) -> None:
         "AUGRU (augru)": lambda: grads(
             model.augru(leaves["states"], leaves["scores"], mask=mask)[1], cot_h,
             leaves["states"], leaves["scores"], *model.augru.parameters()),
-        "attention (kernel forward, plain VJP)": lambda: grads(
+        "attention (forward kernel, backward kernel)": lambda: grads(
             model.attention(leaves["query"], leaves["states"], mask), cot_scores,
             leaves["query"], leaves["states"], *model.attention.parameters()),
         "auxiliary net (positive and sampled)": lambda: grads(
@@ -3091,9 +3287,10 @@ CLI_MODEL_LAUNCHES = {
     "dcn": ({"scatter_add_sorted": 1, "cross_fused": 1}, {"cross_fused": 1}),
     "deep_crossing": ({"scatter_add_sorted": 1}, {}),
     "deepfm": ({"scatter_add_sorted": 1}, {}),
-    "dien": ({"scatter_add_sorted": 3, "din_attention_fused": 1},
+    "dien": ({"scatter_add_sorted": 3, "din_attention_fused": 1, "din_attention_backward": 1},
              {"din_attention_fused": 1}),
-    "din": ({"scatter_add_sorted": 2, "din_attention_fused": 1}, {"din_attention_fused": 1}),
+    "din": ({"scatter_add_sorted": 2, "din_attention_fused": 1, "din_attention_backward": 1},
+            {"din_attention_fused": 1}),
     "dssm": ({"scatter_add_sorted": 3}, {}),
     "ffm": ({"scatter_add_sorted": 2}, {}),
     "fm": ({"scatter_add_sorted": 1}, {}),
@@ -3283,7 +3480,8 @@ def mesh_configs() -> dict:
         "din_fused": (din_model, lambda: Adagrad(LR), lambda: FusedAdagrad(LR),
                       lambda: din_staged(range(GLOO_STEPS)), dict(
                           capacity_factor=float(GLOO_RANKS), explicit_lookup=True),
-                      {"din_attention_fused": 1, "fused_adagrad_apply": 1}),
+                      {"din_attention_fused": 1, "din_attention_backward": 1,
+                       "fused_adagrad_apply": 1}),
     }
 
 
@@ -4522,7 +4720,7 @@ def main() -> int:
         "replaces": "recommender_system_tpu/ops/pallas_kernels.py:190",
         "launches": din_fused_launches["din_attention_fused"],
         "max_abs_err": din_errs["din_attention_kernel"],
-        **din_times,
+        **{k: v for k, v in din_times.items() if k != "backward"},
         "serving_launches": din_serve_launches["din_attention_fused"],
         "plain_training_launches": din_plain_launches["din_attention_fused"],
         "dien_launches": dien_fused_launches["din_attention_fused"],
@@ -4532,6 +4730,22 @@ def main() -> int:
                                   + cli["models"]["dien"]["din_attention_fused"]),
         "mesh_launches": on_mesh("din_attention_fused"),
         "graph_launches": on_graphs("din_attention_fused"),
+    }, {
+        "name": "din_attention_backward", "route": "cuda",
+        "source": "recommender_system_tpu_torch/csrc/din_attention.cu",
+        "replaces": "recommender_system_tpu/ops/din_vjp.py:120",
+        "launches": din_fused_launches["din_attention_backward"],
+        "max_abs_err": din_errs["din_attention_backward"],
+        **din_times["backward"],
+        "serving_launches": din_serve_launches["din_attention_backward"],
+        "plain_training_launches": din_plain_launches["din_attention_backward"],
+        "dien_launches": dien_fused_launches["din_attention_backward"],
+        "dien_serving_launches": dien_serve_launches["din_attention_backward"],
+        "dien_plain_training_launches": dien_plain_launches["din_attention_backward"],
+        "cli_din_dien_launches": (cli["models"]["din"]["din_attention_backward"]
+                                  + cli["models"]["dien"]["din_attention_backward"]),
+        "mesh_launches": on_mesh("din_attention_backward"),
+        "graph_launches": on_graphs("din_attention_backward"),
     }] + global_entries + [{
         "name": name, "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/sparse_rows.cu",

@@ -20,7 +20,9 @@ TF32 off:
   ``fused_sgd_apply``, ``scatter_add_sorted``) on the same three streams;
 - ``din_attention_fused`` at DIN's bench shape (B=8,192, T=50, K=32, 80-40)
   on a DIN batch's embeddings: device time, time per call, and its largest
-  difference from ``din_attention_ref``;
+  difference from ``din_attention_ref``; and its forward where a gradient
+  is needed (the weights requiring grad, grad mode on: a tree whose
+  backward kernel reads the forward's weights saves them), device time;
 - DIN's and NFM's fused K=8 training step (``chip_smoke.time_training``:
   CUDA events over 5 calls, device busy time and idle share);
 - ``fm_fused`` at the ``FMLayer`` path's x [16,384, 221], k=8, and
@@ -51,8 +53,11 @@ TF32 off:
   (``FusedAdam``) on Criteo batches with 5 % of the fields missing
   (``rules``).
 
-``--what fm,cross`` keeps only the parts named (default: all eleven,
-``adam,rows,attention,steps,fm,cross,family,loops,fm_global,cross_global,rules``).
+- DIEN's graphed K=8 call at ``model_step.py``'s width with ``Adagrad`` and
+  ``FusedAdagrad`` (``dien``).
+
+``--what fm,cross`` keeps only the parts named (default: all twelve,
+``adam,rows,attention,steps,fm,cross,family,loops,fm_global,cross_global,rules,dien``).
 
 Each turn prints ``TURN <label> {json}``; the run ends with one line per
 metric listing every turn's value, and the card's name and power limit.
@@ -173,8 +178,15 @@ def time_attention(cs, torch) -> dict:
             return din_attention_fused(q, keys, mask, *weights)
 
         err = (fused() - din_attention_ref(q, keys, mask, *weights)).abs().max().item()
-        return {"din_attention_ms": sum(cs.device_ms(fused).values()),
-                "din_attention_call_ms": cs.call_ms(fused), "din_attention_max_abs_err": err}
+        out = {"din_attention_ms": sum(cs.device_ms(fused).values()),
+               "din_attention_call_ms": cs.call_ms(fused), "din_attention_max_abs_err": err}
+    # where a gradient is needed (the weights are parameters): the forward
+    # only, its autograd graph dropped after each call; the inputs copied
+    # out of inference mode, which autograd may not save
+    q, keys, mask = (t.clone() for t in (q, keys, mask))
+    out["din_attention_train_ms"] = sum(cs.device_ms(
+        lambda: din_attention_fused(q, keys, mask, *weights)).values())
+    return out
 
 
 def time_steps(cs, torch, card) -> dict:
@@ -384,8 +396,22 @@ def time_rules(cs, torch) -> dict:
     return out
 
 
+def time_dien(cs, torch) -> dict:
+    """DIEN's graphed K=8 call (``multi_step``) at model_step.py's width with
+    ``Adagrad`` and ``FusedAdagrad``, as phase 3j trains it: ms a step
+    (``per_step``), the median, least and most of three."""
+    from recommender_system_tpu_torch import FusedAdagrad, Trainer
+    from recommender_system_tpu_torch.training import Adagrad
+
+    trainer = Trainer(cs.dien_model(), Adagrad(cs.LR), fused_embedding=FusedAdagrad(cs.LR))
+    least, median, most = per_step(torch, trainer.multi_step,
+                                   *cs.din_staged(range(cs.K), negatives=True))
+    return {"dien_graphed_ms": median, "dien_graphed_min_ms": least,
+            "dien_graphed_max_ms": most}
+
+
 PARTS = ("adam", "rows", "attention", "steps", "fm", "cross", "family", "loops",
-         "fm_global", "cross_global", "rules")
+         "fm_global", "cross_global", "rules", "dien")
 
 
 def turn(label: str, tree: Path, what) -> None:
@@ -426,6 +452,8 @@ def turn(label: str, tree: Path, what) -> None:
         rec.update(time_cross_global(cs, torch))
     if "rules" in what:
         rec.update(time_rules(cs, torch))
+    if "dien" in what:
+        rec.update(time_dien(cs, torch))
     print(f"TURN {label} {json.dumps(rec)}", flush=True)
 
 

@@ -119,12 +119,48 @@
 // The sums round differently from the plain version's (the per-row term's
 // bias first, sliced and tiled sums), well inside the tolerance.
 //
+// din_attention_backward is the backward, at every shape the forward takes
+// (the counterpart of _din_remat_bwd in recommender_system_tpu/ops/din_vjp.py,
+// which XLA compiles: the TPU has no backward kernel). From the inputs, the
+// forward's weights [B, T] (the tiled kernel writes them through a pointer
+// that is null when serving; the global kernel's scratch holds them) and
+// the output's cotangent g, it writes dq, dkeys and every weight's
+// gradient, in six launches:
+// - the packed weights WX = [Wk - Wm ; Wp ; Wq + Wm] and W2, zero-padded;
+//   the per-row terms b1 + q (Wq + Wm) (the global kernel's row-term
+//   kernel); dlogit a row: dscore = g . k (or g), with the softmax the row
+//   term c = sum_t s dscore and dlogit = s (dscore - c), 0 where masked.
+//   Positions are then independent, so T is not bounded;
+// - din_backward_kernel, a persistent grid over passes of 16 * warps
+//   consecutive positions of the flattened batch: a warp takes 16 through
+//   layers 1 and 2 again (3xTF32 mma.sync, as the tiled kernel), du =
+//   dlogit w3 act'(h2), dh = du W2^T act'(h1) and dX = dh [Wk - Wm ; Wp]^T,
+//   the first layer's cotangent per part (dkeys = s g + dX_k + dX_qk q, and
+//   the dq terms e = dX_qk k, written a position); A fragments come from
+//   shared memory, B ones are split as they are loaded. Then the block
+//   sums dh over each row's positions of the pass: q^T (the sums) is dA's
+//   part and (the sums) A^T the row's other dq term, added to e at the
+//   row's first position of the pass. Its warps add the pass's h1^T du and
+//   X^T dh (X = [k | q*k]) to the block's running sums, in tasks of 16 x 40
+//   whose k-tiles go in order, and the biases' sums a warp in warp order.
+//   A pass's activations, the weights and the running sums each live in
+//   shared memory where they fit (back_launch), else in device memory;
+// - din_backward_reduce adds the blocks' sums in block order, and
+//   din_backward_dq each row's e over t in order.
+// No atomics: two calls agree bitwise. Its bound is operations: 14.3 GFLOP
+// at B=8,192, T=50, K=32, 80-40 in the least form (the first layer folded
+// per row), 0.087 ms in 3xTF32; the design does ~20.5 GFLOP (the first
+// layer and its cotangents 2K wide) and its passes wait on shared-memory
+// loads, splits and barriers (chip_lab_din_backward.py).
+//
 // C interface, loaded with ctypes: din_attention_forward (the tiled kernel)
 // and din_attention_global_forward (the global kernel) return
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for sizes
 // their kernels do not take; the Python wrapper checks shapes, types and
 // devices first and picks the entry point (ops/kernels.py
-// din_kernel_takes).
+// din_kernel_takes). din_attention_backward_scratch gives the floats of
+// scratch a backward takes (-1 where it has no plan), and
+// din_attention_backward launches the six kernels on it.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -303,9 +339,9 @@ din_attention_kernel(const float* __restrict__ query, const float* __restrict__ 
                      const float* __restrict__ mask, const float* __restrict__ w1,
                      const float* __restrict__ b1, const float* __restrict__ w2,
                      const float* __restrict__ b2, const float* __restrict__ w3,
-                     const float* __restrict__ b3, float* __restrict__ out, int batch, int T,
-                     int K, int H1, int H2, Layout L, bool relu, bool softmax, bool scores,
-                     bool vec) {
+                     const float* __restrict__ b3, float* __restrict__ out,
+                     float* __restrict__ weights_out, int batch, int T, int K, int H1, int H2,
+                     Layout L, bool relu, bool softmax, bool scores, bool vec) {
   constexpr int kWarps = warps_for(NT1);
   constexpr int kThreads = kWarps * 32;
   extern __shared__ float4 smem4[];
@@ -525,6 +561,10 @@ din_attention_kernel(const float* __restrict__ query, const float* __restrict__ 
       if (scores) {
         for (int t = lane; t < T; t += 32) out[row * T + t] = s[t];
       } else {
+        // the weights, for the backward, where a gradient is needed
+        if (weights_out != nullptr) {
+          for (int t = lane; t < T; t += 32) weights_out[row * T + t] = s[t];
+        }
         const float* kr = keys_s + r * T * S;
         for (int k = lane; k < K; k += 32) {
           // four sums in flight, added at the end
@@ -1301,8 +1341,8 @@ din_attention_global_kernel(const float* __restrict__ query, const float* __rest
 
 using Kernel = void (*)(const float*, const float*, const float*, const float*,
                         const float*, const float*, const float*, const float*,
-                        const float*, float*, int, int, int, int, int, Layout, bool, bool,
-                        bool, bool);
+                        const float*, float*, float*, int, int, int, int, int, Layout, bool,
+                        bool, bool, bool);
 
 // layer-1 n-tiles that have an instantiation; a width rounds up
 constexpr int kTiles1[] = {2, 4, 6, 8, 10, 12, 16, 24, 32};
@@ -1416,15 +1456,686 @@ cudaError_t global_launch(int device, int batch, int T, int K, int H1, int H2,
   return cudaSuccess;
 }
 
+// --- din_attention_backward: the hand-written backward (the counterpart of
+// _din_remat_bwd in recommender_system_tpu/ops/din_vjp.py, which is XLA)
+constexpr int kBackWarps = 16;  // most warps a block: each takes one m-tile of a pass
+constexpr int kGroup = 40;      // columns of an h-, z- or n-group: 5 n-tiles
+constexpr int kGroupTiles = 5;
+constexpr int kPrepThreads = 256;
+// the fewest warps a block takes with the weights in shared memory, before
+// it takes the most with them in device memory
+constexpr int kLeastSmemWarps = 8;
+
+// The backward's plan: the padded widths, the warps a block (a pass holds
+// MT = 16 * warps positions), the row strides, and three regions, each in
+// shared memory where it fits or else in device memory: a pass's
+// activations (per block), the packed weights (one copy, which the pack
+// kernel writes), and the weight gradients' running sums (per block).
+// Offsets in floats within their region, each 16-byte aligned.
+struct BackPlan {
+  int Kp;   // K rounded up to 16: each part of [k | q*k | q]
+  int H1p;  // H1 rounded up to whole groups
+  int H1m;  // H1p rounded up to 16: the m-tiles of dW2
+  int H2p;  // H2 rounded up to whole groups
+  int warps, MT, R;  // warps a block, positions a pass, rows a pass spans at most
+  int Sk, Sh, Su, Sw, Sw2;  // strides: keys, h1 / dh, du, WX, W2
+  long long act, wts, acc;  // region sizes
+  long long o_keys, o_q, o_dl, o_s, o_rr, o_h, o_u, o_red, o_rs;  // in act
+  long long o_wx, o_w2, o_b2, o_w3;                          // in wts
+  long long o_ax, o_a2, o_ab1, o_ab2, o_aw3, o_ab3;          // in acc
+  int act_smem, acc_smem;
+  long long staged;  // floats of the weights' head in shared memory: all, WX's [Wk - Wm ; Wp], or 0
+  long long smem;    // bytes
+  long long blocks;  // the grid, and the number of partial sums
+};
+
+// which of the weights a plan stages in shared memory
+enum Staged { kAllWeights, kLayer1, kNoWeights };
+
+BackPlan make_back_plan(int T, int K, int H1, int H2, int warps, bool act_smem, Staged staged,
+                        bool acc_smem) {
+  BackPlan L;
+  L.Kp = round_up(K, 16);
+  L.H1p = round_up(H1, kGroup);
+  L.H1m = round_up(L.H1p, 16);
+  L.H2p = round_up(H2, kGroup);
+  L.warps = warps;
+  L.MT = 16 * warps;
+  L.R = (L.MT + T - 2) / T + 1;
+  if (L.R > L.MT) L.R = L.MT;
+  L.Sk = L.Kp + 4;
+  L.Sh = L.H1m + 4;
+  L.Su = L.H2p + 4;
+  L.Sw = L.H1p + 4;
+  L.Sw2 = L.H2p + 4;
+  long long at = 0;
+  auto take = [&at](long long floats) {
+    const long long here = at;
+    at += (floats + 3) / 4 * 4;
+    return here;
+  };
+  L.o_keys = take(static_cast<long long>(L.MT) * L.Sk);
+  L.o_q = take(static_cast<long long>(L.R) * L.Kp);
+  L.o_dl = take(L.MT);
+  L.o_s = take(L.MT);
+  L.o_rr = take(L.MT);
+  L.o_h = take(static_cast<long long>(L.MT) * L.Sh);
+  L.o_u = take(static_cast<long long>(L.MT) * L.Su);
+  L.o_red = take(static_cast<long long>(warps) * (L.H1p + 2 * L.H2p));
+  L.o_rs = take(static_cast<long long>(L.R) * L.H1p);
+  L.act = at;
+  at = 0;
+  L.o_wx = take(3LL * L.Kp * L.Sw);
+  L.o_w2 = take(static_cast<long long>(L.H1p) * L.Sw2);
+  L.o_b2 = take(L.H2p);
+  L.o_w3 = take(L.H2p);
+  L.wts = at;
+  at = 0;
+  L.o_ax = take(3LL * L.Kp * L.H1p);
+  L.o_a2 = take(static_cast<long long>(L.H1m) * L.H2p);
+  L.o_ab1 = take(L.H1p);
+  L.o_ab2 = take(L.H2p);
+  L.o_aw3 = take(L.H2p);
+  L.o_ab3 = take(1);
+  L.acc = at;
+  L.act_smem = act_smem;
+  L.acc_smem = acc_smem;
+  L.staged = staged == kAllWeights ? L.wts : staged == kLayer1 ? 2LL * L.Kp * L.Sw : 0;
+  L.smem = 4 * ((act_smem ? L.act : 0) + L.staged + (acc_smem ? L.acc : 0));
+  L.blocks = 0;
+  return L;
+}
+
+// acc[j] += A B over k_tiles k-tiles of 8, 3xTF32 (mma3), for a warp's
+// 16 x (8 NT) tile: a(r, k) is A's row r (0..15), column k; b(k, j) is B's
+// row k, column g of n-tile j (g = lane / 4, which b captures)
+template <int NT, typename FA, typename FB>
+__device__ __forceinline__ void tile_mma(float (&acc)[NT][4], int k_tiles, int g, int i4, FA a,
+                                         FB b) {
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int k = kt * 8 + i4;
+    uint32_t ab[4], as[4];
+    split(a(g, k), ab[0], as[0]);
+    split(a(g + 8, k), ab[1], as[1]);
+    split(a(g, k + 4), ab[2], as[2]);
+    split(a(g + 8, k + 4), ab[3], as[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma3(acc[j], ab, as, b_fragment(b(k, j), b(k + 4, j)));
+  }
+}
+
+// out's tile (rows m0 + 0..15, columns n0 + 0..39, row stride ld) += the
+// product over k_tiles k-tiles: the k-tiles' fresh products are added in
+// order to the tile's running sum, read and written back
+template <typename FA, typename FB>
+__device__ __forceinline__ void task_mma(float* out, long long ld, int m0, int n0, int k_tiles,
+                                         int g, int i4, FA a, FB b) {
+  float acc[kGroupTiles][4];
+  float* lo = out + (m0 + g) * ld + n0 + 2 * i4;
+  float* hi = lo + 8 * ld;
+#pragma unroll
+  for (int j = 0; j < kGroupTiles; ++j) {
+    acc[j][0] = lo[8 * j];
+    acc[j][1] = lo[8 * j + 1];
+    acc[j][2] = hi[8 * j];
+    acc[j][3] = hi[8 * j + 1];
+  }
+  tile_mma<kGroupTiles>(acc, k_tiles, g, i4, a, b);
+#pragma unroll
+  for (int j = 0; j < kGroupTiles; ++j) {
+    lo[8 * j] = acc[j][0];
+    lo[8 * j + 1] = acc[j][1];
+    hi[8 * j] = acc[j][2];
+    hi[8 * j + 1] = acc[j][3];
+  }
+}
+
+// sum over the 8 lanes of a fragment's rows (g), in a fixed tree
+__device__ __forceinline__ float rows_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 4);
+  v += __shfl_xor_sync(kFull, v, 8);
+  v += __shfl_xor_sync(kFull, v, 16);
+  return v;
+}
+
+// the activation's derivative from its output, as the JAX package's
+// _act_fns: relu (a > 0), sigmoid a (1 - a)
+__device__ __forceinline__ float dact(float a, bool relu) {
+  return relu ? (a > 0.f ? 1.f : 0.f) : a * (1.f - a);
+}
+
+// The packed weights, padded with zeros: WX = [Wk - Wm ; Wp ; Wq + Wm]
+// (each part Kp rows of Sw), W2 (H1p rows of Sw2), b2 and w3 (H2p each)
+__global__ void din_backward_pack(const float* __restrict__ w1, const float* __restrict__ w2,
+                                  const float* __restrict__ b2, const float* __restrict__ w3,
+                                  float* __restrict__ packed, int K, int H1, int H2,
+                                  BackPlan L) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < L.wts;
+       i += stride) {
+    float v = 0.f;
+    if (i < L.o_w2) {
+      const long long r = i / L.Sw;
+      const int c = static_cast<int>(i - r * L.Sw);
+      const int part = static_cast<int>(r / L.Kp);
+      const long long rc = r - static_cast<long long>(part) * L.Kp;
+      if (rc < K && c < H1 && part < 3) {
+        const float* wq = w1 + rc * H1 + c;
+        const long long kh = static_cast<long long>(K) * H1;
+        v = part == 0 ? __fsub_rn(wq[kh], wq[2 * kh])
+                      : part == 1 ? wq[3 * kh] : __fadd_rn(wq[0], wq[2 * kh]);
+      }
+    } else if (i < L.o_b2) {
+      const long long r = (i - L.o_w2) / L.Sw2;
+      const int c = static_cast<int>(i - L.o_w2 - r * L.Sw2);
+      if (r < H1 && c < H2) v = w2[r * H2 + c];
+    } else if (i < L.o_w3) {
+      const long long c = i - L.o_b2;
+      if (c < H2) v = b2[c];
+    } else {
+      const long long c = i - L.o_w3;
+      if (c < H2) v = w3[c];
+    }
+    packed[i] = v;
+  }
+}
+
+// dlogit of every position, a warp a row: dscore = g . k (pooled, a lane a
+// position) or g; with the softmax, the row term c = sum_t s dscore (a
+// lane's positions in order, then a fixed tree) and dlogit = s (dscore -
+// c); 0 where the mask is not set
+__global__ void din_backward_dlogits(const float* __restrict__ keys,
+                                     const float* __restrict__ mask,
+                                     const float* __restrict__ weights,
+                                     const float* __restrict__ grad, float* __restrict__ dl,
+                                     int batch, int T, int K, bool softmax, bool pool) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x / 32);
+  for (long long row = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
+       row < batch; row += warps) {
+    const float* s = weights + row * T;
+    const float* m = mask + row * T;
+    float* d = dl + row * T;
+    float c = 0.f;
+    for (int t = lane; t < T; t += 32) {
+      float v;
+      if (pool) {
+        const float* gr = grad + row * K;
+        const float* kr = keys + (row * T + t) * K;
+        v = 0.f;
+        for (int k = 0; k < K; ++k) v = fmaf(gr[k], kr[k], v);
+        d[t] = v;
+      } else {
+        v = grad[row * T + t];
+      }
+      c = fmaf(s[t], v, c);
+    }
+    c = __shfl_sync(kFull, warp_sum(c), 0);
+    for (int t = lane; t < T; t += 32) {
+      const float ds = pool ? d[t] : grad[row * T + t];
+      d[t] = m[t] > 0.5f ? (softmax ? s[t] * (ds - c) : ds) : 0.f;
+    }
+  }
+}
+
+// The backward over all positions: a block walks passes of MT consecutive
+// positions (of the flattened [batch * T]), a persistent grid; a warp
+// takes 16 of a pass's positions through the scorer and back, then the
+// block adds the pass's weight gradients to its running sums.
+__global__ void __launch_bounds__(32 * kBackWarps, 1)
+din_backward_kernel(const float* __restrict__ query, const float* __restrict__ keys,
+                    const float* __restrict__ weights, const float* __restrict__ grad,
+                    const float* __restrict__ terms, const float* __restrict__ dlg,
+                    const float* __restrict__ packed, float* __restrict__ dkeys,
+                    float* __restrict__ e, float* __restrict__ partials,
+                    float* __restrict__ act_global, int batch, int T, int K, int H1,
+                    BackPlan L, bool relu, bool pool) {
+  extern __shared__ __align__(16) float4 back_smem4[];
+  float* smem = reinterpret_cast<float*>(back_smem4);
+  float* work = L.act_smem ? smem : act_global + blockIdx.x * L.act;
+  float* staged = smem + (L.act_smem ? L.act : 0);
+  float* accs = L.acc_smem ? staged + L.staged : partials + blockIdx.x * L.acc;
+  // a part of the weights from shared memory where the plan staged it
+  auto weights_at = [&](long long off) -> const float* {
+    return off < L.staged ? staged + off : packed + off;
+  };
+
+  float* keys_s = work + L.o_keys;
+  float* q_s = work + L.o_q;
+  float* dl_s = work + L.o_dl;
+  float* s_s = work + L.o_s;
+  int* rr_s = reinterpret_cast<int*>(work + L.o_rr);
+  float* h_s = work + L.o_h;
+  float* u_s = work + L.o_u;
+  float* red_b1 = work + L.o_red;
+  float* red_b2 = red_b1 + L.warps * L.H1p;
+  float* red_w3 = red_b2 + L.warps * L.H2p;
+  float* rs_s = work + L.o_rs;
+  const float* wx = weights_at(L.o_wx);                      // [Wk - Wm ; Wp]
+  const float* wa = weights_at(L.o_wx + 2LL * L.Kp * L.Sw);  // Wq + Wm
+  const float* w2 = weights_at(L.o_w2);
+  const float* b2p = weights_at(L.o_b2);
+  const float* w3p = weights_at(L.o_w3);
+
+  const int tid = threadIdx.x;
+  const int threads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int i4 = lane & 3;
+  const int Kp = L.Kp, H1p = L.H1p, H2p = L.H2p, MT = L.MT;
+  const int Sk = L.Sk, Sh = L.Sh, Su = L.Su, Sw = L.Sw, Sw2 = L.Sw2;
+  const long long P = static_cast<long long>(batch) * T;
+  const long long passes = (P + MT - 1) / MT;
+
+  // the running sums start at 0; the weights are staged; h1's columns
+  // past H1p (read as dW2's padding rows) stay 0
+  for (long long i = tid; i < L.acc; i += threads) accs[i] = 0.f;
+  for (long long i = tid; i < L.staged; i += threads) staged[i] = packed[i];
+  for (int i = tid; i < MT * (L.H1m - H1p); i += threads) {
+    const int p = i / (L.H1m - H1p);
+    h_s[p * Sh + H1p + (i - p * (L.H1m - H1p))] = 0.f;
+  }
+
+  for (long long pass = blockIdx.x; pass < passes; pass += gridDim.x) {
+    const long long pos0 = pass * MT;
+    const int n = static_cast<int>(min(static_cast<long long>(MT), P - pos0));
+    const long long row0 = pos0 / T;
+    __syncthreads();  // the last pass is done with every buffer
+    for (int i = tid; i < MT * Kp; i += threads) {
+      const int p = i / Kp;
+      const int c = i - p * Kp;
+      keys_s[p * Sk + c] = p < n && c < K ? keys[(pos0 + p) * K + c] : 0.f;
+    }
+    for (int i = tid; i < L.R * Kp; i += threads) {
+      const int r = i / Kp;
+      const int c = i - r * Kp;
+      q_s[i] = row0 + r < batch && c < K ? query[(row0 + r) * K + c] : 0.f;
+    }
+    for (int p = tid; p < MT; p += threads) {
+      const bool valid = p < n;
+      dl_s[p] = valid ? dlg[pos0 + p] : 0.f;
+      s_s[p] = valid ? weights[pos0 + p] : 0.f;
+      rr_s[p] = valid ? static_cast<int>((pos0 + p) / T - row0) : 0;
+    }
+    __syncthreads();
+
+    // the warp's positions: rows r of kw, rw, dw, hw and uw
+    const float* kw = keys_s + warp * 16 * Sk;
+    const int* rw = rr_s + warp * 16;
+    const float* dw = dl_s + warp * 16;
+    float* hw = h_s + warp * 16 * Sh;
+    float* uw = u_s + warp * 16 * Su;
+    // layer 1: h1 = act(a + [k | q*k] [Wk - Wm ; Wp]), a = b1 + q (Wq + Wm)
+    auto x_kq = [&](int r, int k) {
+      const float* kr = kw + r * Sk;
+      return k < Kp ? kr[k] : __fmul_rn(q_s[rw[r] * Kp + k - Kp], kr[k - Kp]);
+    };
+    for (int hc = 0; hc < H1p / kGroup; ++hc) {
+      float acc[kGroupTiles][4] = {};
+      const float* wc = wx + hc * kGroup + g;
+      tile_mma<kGroupTiles>(acc, 2 * Kp / 8, g, i4, x_kq,
+                            [&](int k, int j) { return wc[k * Sw + 8 * j]; });
+#pragma unroll
+      for (int j = 0; j < kGroupTiles; ++j) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int r = g + 8 * (v >> 1);
+          const int col = hc * kGroup + 8 * j + 2 * i4 + (v & 1);
+          const float a = col < H1 ? __ldg(terms + (row0 + rw[r]) * H1 + col) : 0.f;
+          hw[r * Sh + col] = act(a + acc[j][v], relu);
+        }
+      }
+    }
+    __syncwarp();
+
+    // layer 2 again, and du = dlogit w3 act'(h2); dw3 and db2 of the
+    // warp's positions
+    for (int zc = 0; zc < H2p / kGroup; ++zc) {
+      float acc[kGroupTiles][4] = {};
+      const float* wc = w2 + zc * kGroup + g;
+      tile_mma<kGroupTiles>(acc, H1p / 8, g, i4, [&](int r, int k) { return hw[r * Sh + k]; },
+                            [&](int k, int j) { return wc[k * Sw2 + 8 * j]; });
+#pragma unroll
+      for (int j = 0; j < kGroupTiles; ++j) {
+        float sw3[2] = {0.f, 0.f}, sb2[2] = {0.f, 0.f};
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int r = g + 8 * (v >> 1);
+          const int col = zc * kGroup + 8 * j + 2 * i4 + (v & 1);
+          const float h2 = act(acc[j][v] + b2p[col], relu);
+          const float d = dw[r];
+          const float du = (d * w3p[col]) * dact(h2, relu);
+          uw[r * Su + col] = du;
+          sw3[v & 1] = fmaf(h2, d, sw3[v & 1]);
+          sb2[v & 1] += du;
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float w3sum = rows_sum(sw3[c]);
+          const float b2sum = rows_sum(sb2[c]);
+          const int col = zc * kGroup + 8 * j + 2 * i4 + c;
+          if (g == 0) {
+            red_w3[warp * H2p + col] = w3sum;
+            red_b2[warp * H2p + col] = b2sum;
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp's h1 and du
+
+    // dW2 += h1^T du over the pass: a warp a task of 16 rows by a group
+    const int k_tiles = (n + 7) / 8;
+    {
+      const int ngroups = H2p / kGroup;
+      const int tasks = (L.H1m / 16) * ngroups;
+      for (int task = warp; task < tasks; task += L.warps) {
+        const int m0 = (task / ngroups) * 16;
+        const int n0 = (task - (task / ngroups) * ngroups) * kGroup;
+        task_mma(accs + L.o_a2, H2p, m0, n0, k_tiles, g, i4,
+                 [&](int r, int k) { return h_s[k * Sh + m0 + r]; },
+                 [&](int k, int j) { return u_s[k * Su + n0 + 8 * j + g]; });
+      }
+    }
+    __syncthreads();  // h1 is read: dh takes its place
+
+    // dh = (du W2^T) act'(h1), in place of h1; db1 of the warp's positions
+    for (int hc = 0; hc < H1p / kGroup; ++hc) {
+      float acc[kGroupTiles][4] = {};
+      const float* wc = w2 + (hc * kGroup + g) * Sw2;
+      tile_mma<kGroupTiles>(acc, H2p / 8, g, i4, [&](int r, int k) { return uw[r * Su + k]; },
+                            [&](int k, int j) { return wc[8 * j * Sw2 + k]; });
+#pragma unroll
+      for (int j = 0; j < kGroupTiles; ++j) {
+        float sb1[2] = {0.f, 0.f};
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int r = g + 8 * (v >> 1);
+          const int col = hc * kGroup + 8 * j + 2 * i4 + (v & 1);
+          float* hp = hw + r * Sh + col;
+          const float dh = acc[j][v] * dact(*hp, relu);
+          *hp = dh;
+          sb1[v & 1] += dh;
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float b1sum = rows_sum(sb1[c]);
+          if (g == 0) red_b1[warp * H1p + hc * kGroup + 8 * j + 2 * i4 + c] = b1sum;
+        }
+      }
+    }
+    __syncwarp();
+
+    // dX = dh [Wk - Wm ; Wp]^T, 16 columns of each part at a time: dkeys =
+    // s g + dX_k + dX_qk q, and the dq terms e = dX_qk k
+    for (int cp = 0; cp < Kp / 16; ++cp) {
+      float acc[4][4] = {};
+      tile_mma<4>(acc, H1p / 8, g, i4, [&](int r, int k) { return hw[r * Sh + k]; },
+                  [&](int k, int j) {
+                    return wx[((j >> 1) * Kp + cp * 16 + (j & 1) * 8 + g) * Sw + k];
+                  });
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int r = g + 8 * (v >> 1);
+          const int p = warp * 16 + r;
+          const int c = cp * 16 + 8 * jj + 2 * i4 + (v & 1);
+          if (p < n && c < K) {
+            const long long pos = pos0 + p;
+            const float dqk = acc[2 + jj][v];
+            const float base = pool ? s_s[p] * __ldg(grad + (row0 + rw[r]) * K + c) : 0.f;
+            dkeys[pos * K + c] = (base + acc[jj][v]) + dqk * q_s[rw[r] * Kp + c];
+            e[pos * K + c] = dqk * kw[r * Sk + c];
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp's dh
+
+    // each row's sum of dh over its positions of the pass, in order
+    const int nr = static_cast<int>((pos0 + n - 1) / T - row0) + 1;  // rows of the pass
+    auto first = [&](int r) { return static_cast<int>(max(0LL, (row0 + r) * T - pos0)); };
+    for (int i = tid; i < nr * H1p; i += threads) {
+      const int r = i / H1p;
+      const int col = i - r * H1p;
+      const int p1 = static_cast<int>(min(static_cast<long long>(n), (row0 + r + 1) * T - pos0));
+      float s = 0.f;
+      for (int p = first(r); p < p1; ++p) s += h_s[p * Sh + col];
+      rs_s[i] = s;
+    }
+    __syncthreads();
+
+    // dWX += X^T dh over the pass, X = [k | q*k] a position; dA += q^T (the
+    // rows' sums); each row's dq term (its sum) A^T, added to e at its first
+    // position of the pass; the biases' sums of the warps, in warp order
+    {
+      const int ngroups = H1p / kGroup;
+      const int tasks = (2 * Kp / 16) * ngroups;
+      for (int task = warp; task < tasks; task += L.warps) {
+        const int m0 = (task / ngroups) * 16;
+        const int n0 = (task - (task / ngroups) * ngroups) * kGroup;
+        const int part = m0 / Kp;  // Kp is a multiple of 16: a task is in one part
+        const int c0 = m0 - part * Kp;
+        auto b = [&](int k, int j) { return h_s[k * Sh + n0 + 8 * j + g]; };
+        if (part == 0) {
+          task_mma(accs + L.o_ax, H1p, m0, n0, k_tiles, g, i4,
+                   [&](int r, int k) { return keys_s[k * Sk + c0 + r]; }, b);
+        } else {
+          task_mma(accs + L.o_ax, H1p, m0, n0, k_tiles, g, i4,
+                   [&](int r, int k) {
+                     return __fmul_rn(q_s[rr_s[k] * Kp + c0 + r], keys_s[k * Sk + c0 + r]);
+                   }, b);
+        }
+      }
+      for (int i = tid; i < Kp * H1p; i += threads) {
+        const int c = i / H1p;
+        const int col = i - c * H1p;
+        float s = 0.f;
+        for (int r = 0; r < nr; ++r) s = fmaf(q_s[r * Kp + c], rs_s[r * H1p + col], s);
+        accs[L.o_ax + 2LL * Kp * H1p + i] += s;
+      }
+      for (int i = tid; i < nr * K; i += threads) {
+        const int r = i / K;
+        const int c = i - r * K;
+        const float* a = wa + c * Sw;
+        float s = 0.f;
+#pragma unroll 8
+        for (int col = 0; col < H1p; ++col) s = fmaf(rs_s[r * H1p + col], a[col], s);
+        e[(pos0 + first(r)) * K + c] += s;
+      }
+      for (int c = tid; c < H1p; c += threads) {
+        float s = 0.f;
+        for (int w = 0; w < L.warps; ++w) s += red_b1[w * H1p + c];
+        accs[L.o_ab1 + c] += s;
+      }
+      for (int c = tid; c < H2p; c += threads) {
+        float s2 = 0.f, s3 = 0.f;
+        for (int w = 0; w < L.warps; ++w) {
+          s2 += red_b2[w * H2p + c];
+          s3 += red_w3[w * H2p + c];
+        }
+        accs[L.o_ab2 + c] += s2;
+        accs[L.o_aw3 + c] += s3;
+      }
+      if (warp == 0) {
+        // db3: four positions a lane in order, then a fixed tree
+        float s = 0.f;
+        for (int p = lane; p < n; p += 32) s += dl_s[p];
+        s = warp_sum(s);
+        if (lane == 0) accs[L.o_ab3] += s;
+      }
+    }
+  }
+  if (L.acc_smem) {
+    __syncthreads();
+    float* out = partials + blockIdx.x * L.acc;
+    for (long long i = tid; i < L.acc; i += threads) out[i] = accs[i];
+  }
+}
+
+// The weight gradients, a warp an element: the sum of the blocks' partial
+// sums (lane l adds blocks l, l + 32, ... in order, then a fixed tree; lane
+// 0 writes), dW1 put together as [dA ; dBw ; dA - dBw ; dP] from WX's parts
+__global__ void din_backward_reduce(const float* __restrict__ partials, float* __restrict__ dw1,
+                                    float* __restrict__ db1, float* __restrict__ dw2,
+                                    float* __restrict__ db2, float* __restrict__ dw3,
+                                    float* __restrict__ db3, int K, int H1, int H2,
+                                    BackPlan L) {
+  const long long n1 = 4LL * K * H1, n2 = static_cast<long long>(H1) * H2;
+  const long long total = n1 + H1 + n2 + 2 * H2 + 1;
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * (blockDim.x / 32);
+  auto sum = [&](long long off) {
+    float s = 0.f;
+    for (long long b = lane; b < L.blocks; b += 32) s += partials[b * L.acc + off];
+    return warp_sum(s);
+  };
+  for (long long i = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
+       i < total; i += stride) {
+    float v;
+    if (i < n1) {
+      const long long r = i / H1;
+      const int c = static_cast<int>(i - r * H1);
+      const int part = static_cast<int>(r / K);
+      const long long rc = r - static_cast<long long>(part) * K;
+      const long long a = L.o_ax + (2LL * L.Kp + rc) * L.H1p + c;
+      const long long bw = L.o_ax + rc * L.H1p + c;
+      const long long pp = L.o_ax + (L.Kp + rc) * L.H1p + c;
+      v = part == 0 ? sum(a) : part == 1 ? sum(bw) : part == 2 ? sum(a) - sum(bw) : sum(pp);
+      if (lane == 0) dw1[i] = v;
+    } else if (i < n1 + H1) {
+      v = sum(L.o_ab1 + (i - n1));
+      if (lane == 0) db1[i - n1] = v;
+    } else if (i < n1 + H1 + n2) {
+      const long long j = i - n1 - H1;
+      const long long r = j / H2;
+      v = sum(L.o_a2 + r * L.H2p + (j - r * H2));
+      if (lane == 0) dw2[j] = v;
+    } else if (i < n1 + H1 + n2 + H2) {
+      v = sum(L.o_ab2 + (i - n1 - H1 - n2));
+      if (lane == 0) db2[i - n1 - H1 - n2] = v;
+    } else if (i < n1 + H1 + n2 + 2 * H2) {
+      v = sum(L.o_aw3 + (i - n1 - H1 - n2 - H2));
+      if (lane == 0) dw3[i - n1 - H1 - n2 - H2] = v;
+    } else {
+      v = sum(L.o_ab3);
+      if (lane == 0) db3[0] = v;
+    }
+  }
+}
+
+// dq of a row: the sum over t of its positions' terms, in t order
+__global__ void din_backward_dq(const float* __restrict__ e, float* __restrict__ dq, int batch,
+                                int T, int K) {
+  const long long total = static_cast<long long>(batch) * K;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    const long long b = i / K;
+    const long long c = i - b * K;
+    const float* er = e + b * T * K + c;
+    float s = 0.f;
+    for (int t = 0; t < T; ++t) s += er[static_cast<long long>(t) * K];
+    dq[i] = s;
+  }
+}
+
+// The backward's plan for a shape, chosen once a shape and device and
+// kept: the most warps, kLeastSmemWarps or more, whose pass's activations
+// and the weights fit in shared memory, with the running sums there too
+// where they fit, or else with the first layer's [Wk - Wm ; Wp] alone
+// there (the rest read from device memory); else the most warps whose
+// activations fit, the weights read from device memory; else everything
+// in device memory (chip_lab_din_backward.py: at K=128, 80-40, 8 warps
+// with the weights in device memory took 6.35 ms, 4 with them in shared
+// memory 7.66)
+struct BackLaunch {
+  int device, batch, T, K, H1, H2;
+  BackPlan plan;
+};
+
+cudaError_t back_launch(int device, int batch, int T, int K, int H1, int H2, BackPlan& out) {
+  static std::mutex lock;
+  static std::vector<BackLaunch> known;
+  std::lock_guard<std::mutex> hold(lock);
+  for (const BackLaunch& b : known) {
+    if (b.device == device && b.batch == batch && b.T == T && b.K == K && b.H1 == H1 &&
+        b.H2 == H2) {
+      out = b.plan;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(din_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kMaxSharedBytes));
+  }
+  if (err != cudaSuccess) return err;
+  BackPlan L;
+  bool found = false;
+  auto fits = [&](int warps, bool act, Staged wts, bool acc) {
+    L = make_back_plan(T, K, H1, H2, warps, act, wts, acc);
+    return L.smem <= static_cast<long long>(kMaxSharedBytes);
+  };
+  for (int warps = kBackWarps; warps >= kLeastSmemWarps && !found; warps /= 2) {
+    found = fits(warps, true, kAllWeights, true) || fits(warps, true, kAllWeights, false) ||
+            fits(warps, true, kLayer1, false);
+  }
+  for (int warps = kBackWarps; warps >= 1 && !found; warps /= 2) {
+    found = fits(warps, true, kNoWeights, false);
+  }
+  if (!found) found = fits(kBackWarps, false, kNoWeights, false);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, din_backward_kernel, 32 * L.warps,
+                                                      static_cast<size_t>(L.smem));
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long passes = (static_cast<long long>(batch) * T + L.MT - 1) / L.MT;
+  L.blocks = static_cast<long long>(sms) * per_sm;
+  if (L.blocks > passes) L.blocks = passes;
+  known.push_back({device, batch, T, K, H1, H2, L});
+  out = L;
+  return cudaSuccess;
+}
+
+// The scratch of a backward, in floats: the packed weights, the per-row
+// terms [batch][H1], dlogit [batch * T], the dq terms [batch * T][K], the
+// blocks' partial sums and, where they live in device memory, the blocks'
+// activations
+struct BackScratch {
+  long long packed, terms, dl, e, partials, act, total;
+};
+
+BackScratch back_scratch(const BackPlan& L, int batch, int T, int K, int H1) {
+  BackScratch S;
+  long long at = 0;
+  auto take = [&at](long long floats) {
+    const long long here = at;
+    at += (floats + 3) / 4 * 4;
+    return here;
+  };
+  const long long P = static_cast<long long>(batch) * T;
+  S.packed = take(L.wts);
+  S.terms = take(static_cast<long long>(batch) * H1);
+  S.dl = take(P);
+  S.e = take(P * K);
+  S.partials = take(L.blocks * L.acc);
+  S.act = take(L.act_smem ? 0 : L.blocks * L.act);
+  S.total = at;
+  return S;
+}
+
 }  // namespace
 
 extern "C" int din_attention_forward(const float* query, const float* keys,
                                      const float* mask, const float* w1,
                                      const float* b1, const float* w2,
                                      const float* b2, const float* w3,
-                                     const float* b3, float* out, int batch, int T,
-                                     int K, int H1, int H2, int relu, int softmax,
-                                     int scores, void* stream) {
+                                     const float* b3, float* out, float* weights,
+                                     int batch, int T, int K, int H1, int H2, int relu,
+                                     int softmax, int scores, void* stream) {
   const int slot = tiles_slot(H1);
   if (batch <= 0 || T <= 0 || K <= 0 || H1 <= 0 || H2 <= 0 || H2 > 256 || slot < 0) {
     return cudaErrorInvalidValue;
@@ -1473,8 +2184,8 @@ extern "C" int din_attention_forward(const float* query, const float* keys,
   if (blocks > groups) blocks = groups;
   const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0;
   kernel<<<static_cast<int>(blocks), warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      query, keys, mask, w1, b1, w2, b2, w3, b3, out, batch, T, K, H1, H2, L, relu != 0,
-      softmax != 0, scores != 0, vec);
+      query, keys, mask, w1, b1, w2, b2, w3, b3, out, scores != 0 ? nullptr : weights, batch, T,
+      K, H1, H2, L, relu != 0, softmax != 0, scores != 0, vec);
   return cudaGetLastError();
 }
 
@@ -1509,5 +2220,60 @@ extern "C" int din_attention_global_forward(const float* query, const float* key
            static_cast<cudaStream_t>(stream)>>>(query, keys, mask, w1, b1, w2, b2, w3, b3, out,
                                                 terms, scores, batch, T, K, H1, H2, g.plan,
                                                 relu != 0, softmax != 0, return_scores == 0, vec);
+  return cudaGetLastError();
+}
+
+extern "C" long long din_attention_backward_scratch(int batch, int T, int K, int H1, int H2) {
+  if (batch <= 0 || T <= 0 || K <= 0 || H1 <= 0 || H2 <= 0) return -1;
+  int device = 0;
+  BackPlan L;
+  if (cudaGetDevice(&device) != cudaSuccess) return -1;
+  if (back_launch(device, batch, T, K, H1, H2, L) != cudaSuccess) return -1;
+  return back_scratch(L, batch, T, K, H1).total;
+}
+
+extern "C" int din_attention_backward(const float* query, const float* keys, const float* mask,
+                                      const float* w1, const float* b1, const float* w2,
+                                      const float* b2, const float* w3, const float* b3,
+                                      const float* weights, const float* grad, float* dq,
+                                      float* dkeys, float* dw1, float* db1, float* dw2,
+                                      float* db2, float* dw3, float* db3, float* scratch,
+                                      int batch, int T, int K, int H1, int H2, int relu,
+                                      int softmax, int scores, void* stream) {
+  (void)b3;  // the softmax's shift: no gradient flows through it but db3
+  if (batch <= 0 || T <= 0 || K <= 0 || H1 <= 0 || H2 <= 0) return cudaErrorInvalidValue;
+  int device = 0;
+  BackPlan L;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = back_launch(device, batch, T, K, H1, H2, L);
+  if (err != cudaSuccess) return err;
+  const BackScratch S = back_scratch(L, batch, T, K, H1);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto grid = [](long long work, long long most) {
+    const long long blocks = (work + kPrepThreads - 1) / kPrepThreads;
+    return static_cast<int>(blocks < most ? (blocks > 0 ? blocks : 1) : most);
+  };
+  din_backward_pack<<<grid(L.wts, 4096), kPrepThreads, 0, s>>>(w1, w2, b2, w3,
+                                                                 scratch + S.packed, K, H1, H2, L);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 term_grid((batch + kTermRows - 1) / kTermRows, (H1 + kTermCols - 1) / kTermCols);
+  din_attention_global_kernel_row_terms<<<term_grid, kTermCols, 0, s>>>(query, w1, b1,
+                                                                        scratch + S.terms,
+                                                                        batch, K, H1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  din_backward_dlogits<<<grid(32LL * batch, 65536), kPrepThreads, 0, s>>>(
+      keys, mask, weights, grad, scratch + S.dl, batch, T, K, softmax != 0, scores == 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  din_backward_kernel<<<static_cast<int>(L.blocks), 32 * L.warps, static_cast<size_t>(L.smem),
+                        s>>>(query, keys, weights, grad, scratch + S.terms, scratch + S.dl,
+                             scratch + S.packed, dkeys, scratch + S.e, scratch + S.partials,
+                             scratch + S.act, batch, T, K, H1, L, relu != 0, scores == 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long outs = 4LL * K * H1 + H1 + static_cast<long long>(H1) * H2 + 2LL * H2 + 1;
+  din_backward_reduce<<<grid(32 * outs, 65536), kPrepThreads, 0, s>>>(
+      scratch + S.partials, dw1, db1, dw2, db2, dw3, db3, K, H1, H2, L);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  din_backward_dq<<<grid(static_cast<long long>(batch) * K, 65536), kPrepThreads, 0, s>>>(
+      scratch + S.e, dq, batch, T, K);
   return cudaGetLastError();
 }

@@ -5,7 +5,8 @@
 softmax-normalises, and pools the keys. It is ``din_attention_fused``
 (``ops/kernels.py``): on the card a kernel of ``csrc/din_attention.cu`` at
 every shape (the tiled kernel where ``din_kernel_takes``, else the global
-kernel); on the CPU its plain version.
+kernel), and its backward that source's backward kernel
+(``din_attention_backward``); on the CPU their plain versions.
 """
 from __future__ import annotations
 
@@ -30,9 +31,10 @@ def din_attention(query: torch.Tensor, keys: torch.Tensor, mask: torch.Tensor,
     shape (the global kernel where ``din_kernel_takes`` is False). The
     kernels compute in f32, so ``dtype`` is ignored, as on the JAX package's
     kernel path. ``remat=True`` (the JAX package's hand-written backward,
-    ``ops/din_vjp.py``, which saves only the inputs and recomputes the
-    scorer) takes the same path as ``remat=False``: the backward here always
-    recomputes the plain version from the saved inputs.
+    ``ops/din_vjp.py``, which saves only the inputs and the weights and
+    recomputes the scorer) takes the same path as ``remat=False``: that is
+    the design of ``din_attention_fused``'s backward here in either case, a
+    kernel on the card and ``din_attention_backward_ref`` on the CPU.
     """
     if dtype is not None:
         warnings.warn("din_attention: the kernel computes in f32; "

@@ -9,7 +9,8 @@
   kernel's plain PyTorch version for CPU tensors. Nothing else selects: the
   wrappers of the cross stack, the FM logit and the DIN attention pick
   between two kernels of their source by the shape (``ops/kernels.py``),
-  never the plain version on the card.
+  never the plain version on the card; the DIN attention's backward
+  (``din_attention_backward``) has one entry point at every shape.
 - Each wrapper counts its launches (``<wrapper>.launches``,
   ``<wrapper>.global_launches`` for a global kernel, and
   ``<wrapper>.long_launches`` for the sparse rules' long path).
@@ -62,10 +63,10 @@ def _counted():
     """Every kernel wrapper (imported here: their modules import this one)."""
     from .embedding_grad import scatter_add_sorted
     from .fused_adagrad import fused_adagrad_apply, fused_adam_apply, fused_sgd_apply
-    from .kernels import cross_fused, din_attention_fused, fm_fused
+    from .kernels import cross_fused, din_attention_backward, din_attention_fused, fm_fused
 
-    return (cross_fused, fm_fused, din_attention_fused, fused_adagrad_apply,
-            fused_sgd_apply, fused_adam_apply, scatter_add_sorted)
+    return (cross_fused, fm_fused, din_attention_fused, din_attention_backward,
+            fused_adagrad_apply, fused_sgd_apply, fused_adam_apply, scatter_add_sorted)
 
 
 def launch_counts() -> Dict[str, int]:

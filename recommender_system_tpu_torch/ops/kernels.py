@@ -25,7 +25,9 @@ plain version; a build failure or a launch error raises.
 - ``cross_fused`` (``csrc/cross.cu``), plain version ``cross_network``;
 - ``fm_fused`` (``csrc/fm.cu``), plain version ``fm_ref``;
 - ``din_attention_fused`` (``csrc/din_attention.cu``), plain version
-  ``din_attention_ref``;
+  ``din_attention_ref``; its backward ``din_attention_backward`` (the same
+  source, one entry point at every shape), plain version
+  ``din_attention_backward_ref`` (``ops/din_vjp.py``);
 - ``fused_adagrad_apply``, ``fused_sgd_apply`` and ``fused_adam_apply``
   (``ops/fused_adagrad.py``) and ``scatter_add_sorted``
   (``ops/embedding_grad.py``), whose kernels are in ``csrc/sparse_rows.cu``;
@@ -47,6 +49,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .din_vjp import din_attention_backward_ref
 from .dispatch import use_kernel
 from .interactions import cross_network, fm_interaction
 from .seqpool import NEG_INF
@@ -64,8 +67,10 @@ SOURCES = {
     "fm": {"fm_forward": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
            "fm_global_forward": ([_PTR] * 5 + [_INT] * 3 + [_PTR], _INT)},
     "din_attention": {
-        "din_attention_forward": ([_PTR] * 10 + [_INT] * 8 + [_PTR], _INT),
+        "din_attention_forward": ([_PTR] * 11 + [_INT] * 8 + [_PTR], _INT),
         "din_attention_global_forward": ([_PTR] * 11 + [_INT] * 8 + [_PTR], _INT),
+        "din_attention_backward": ([_PTR] * 20 + [_INT] * 8 + [_PTR], _INT),
+        "din_attention_backward_scratch": ([_INT] * 5, _INT64),
     },
     "sparse_rows": {
         "fused_adagrad_rows": ([_PTR] * 7 + [_INT64, _INT, _PTR, _FLOAT, _PTR], _INT),
@@ -618,58 +623,154 @@ def din_kernel_takes(query, keys, mask, w1, b1, w2, b2, w3, b3, activation) -> b
 
 
 def _din_launch(query, keys, mask, w1, b1, w2, b2, w3, b3, activation: str,
-                weight_normalization: bool, return_scores: bool) -> torch.Tensor:
+                weight_normalization: bool, return_scores: bool,
+                save: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """-> (the output, the weights [B, T] where ``save``, else None)."""
     tensors = (query, keys, mask, w1, b1, w2, b2, w3, b3)
     fast = din_kernel_takes(*tensors, activation)
     (check_din_args if fast else check_din_global_args)(*tensors, activation)
     B, T, K = keys.shape
+    H1 = w1.shape[1]
     out = torch.empty((B, T if return_scores else K), dtype=torch.float32,
                       device=keys.device)
+    # where it pools, the tiled kernel writes the weights through a pointer
+    # that is null when serving; the global kernel scores into its scratch:
+    # the per-row terms [B, H1], then the weights [B, T] (where it returns
+    # the weights, it scores into the output)
+    keep = save and not return_scores
+    weights = (torch.empty((B, T), dtype=torch.float32, device=keys.device)
+               if keep and fast else None)
+    scratch = None if fast else torch.empty(B * (H1 + (0 if return_scores else T)),
+                                            dtype=torch.float32, device=keys.device)
+    if keep and not fast:
+        weights = scratch[B * H1:].view(B, T)
+    if return_scores and save:
+        weights = out
     if B == 0:
-        return out
+        return out, weights
     entry = "din_attention_forward" if fast else "din_attention_global_forward"
-    # the global kernel's scratch: the per-row terms [B, H1], then, where
-    # it pools, the raw scores [B, T] (else it scores into the output)
-    scratch = () if fast else (torch.empty(
-        B * (w1.shape[1] + (0 if return_scores else T)), dtype=torch.float32,
-        device=keys.device),)
+    last = (weights.data_ptr() if keep else None) if fast else scratch.data_ptr()
     lib = _library("din_attention")
     with torch.cuda.device(keys.device):
         err = getattr(lib, entry)(
-            *(t.data_ptr() for t in (*tensors, out, *scratch)),
-            B, T, K, w1.shape[1], w2.shape[1], int(activation == "relu"),
+            *(t.data_ptr() for t in (*tensors, out)), last,
+            B, T, K, H1, w2.shape[1], int(activation == "relu"),
             int(weight_normalization), int(return_scores), _stream(keys))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
     din_attention_fused.launches += 1
     din_attention_fused.global_launches += not fast
-    return out
+    return out, weights
+
+
+def _din_backward_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
+                        activation, return_scores) -> Optional[Exception]:
+    """Why the backward kernel does not take these inputs, or None: it takes
+    every shape of the forward kernels, with the forward's weights and a
+    cotangent of the output's shape, contiguous float32."""
+    fault = _din_form_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, activation)
+    if fault is not None:
+        return fault
+    B, T, K = keys.shape
+    want = dict(weights=(B, T), grad=(B, T) if return_scores else (B, K))
+    for what, t in (("weights", weights), ("grad", grad)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            return TypeError(f"din_attention_backward kernel takes contiguous float32 "
+                             f"{what}, got {t.dtype}, contiguous={t.is_contiguous()}")
+        if tuple(t.shape) != want[what]:
+            return ValueError(f"din_attention_backward: {what} has shape {tuple(t.shape)}, "
+                              f"want {want[what]}")
+    return None
+
+
+def check_din_backward_args(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
+                            activation, return_scores) -> None:
+    """Raise on anything the backward kernel does not take. It has no limit
+    of its own on the shapes: where a pass's activations, the weights or
+    the running sums do not fit in shared memory, they live in device
+    memory (``back_launch`` in ``csrc/din_attention.cu``)."""
+    fault = _din_backward_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
+                                activation, return_scores)
+    if fault is not None:
+        raise fault
+
+
+def _din_backward_launch(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
+                         activation: str, weight_normalization: bool, return_scores: bool):
+    tensors = (query, keys, mask, w1, b1, w2, b2, w3, b3)
+    check_din_backward_args(*tensors, weights, grad, activation, return_scores)
+    B, T, K = keys.shape
+    H1, H2 = w1.shape[1], w2.shape[1]
+    grads = [torch.empty_like(t) for t in (query, keys, w1, b1, w2, b2, w3, b3)]
+    if B == 0:
+        return tuple(g.zero_() for g in grads)
+    lib = _library("din_attention")
+    with torch.cuda.device(keys.device):
+        floats = lib.din_attention_backward_scratch(B, T, K, H1, H2)
+        if floats < 0:
+            raise RuntimeError(f"din_attention_backward has no plan for B={B}, T={T}, "
+                               f"K={K}, H1={H1}, H2={H2}")
+        scratch = torch.empty(floats, dtype=torch.float32, device=keys.device)
+        err = lib.din_attention_backward(
+            *(t.data_ptr() for t in (*tensors, weights, grad, *grads, scratch)),
+            B, T, K, H1, H2, int(activation == "relu"), int(weight_normalization),
+            int(return_scores), _stream(keys))
+    if err != 0:
+        raise RuntimeError(f"din_attention_backward launch failed with CUDA error {err}")
+    din_attention_backward.launches += 1
+    return tuple(grads)
+
+
+def din_attention_backward(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
+                           activation: str = "sigmoid", weight_normalization: bool = True,
+                           return_scores: bool = False):
+    """The DIN attention's backward: the forward's inputs, its weights ``[B,
+    T]`` and the output's cotangent ``grad`` -> ``(dq, dkeys, dw1, db1, dw2,
+    db2, dw3, db3)``, the JAX package's ``_din_remat_bwd``. On CUDA one
+    launch of the backward kernel of ``csrc/din_attention.cu`` at every
+    shape (its weight gradients summed in a fixed order, no atomics: two
+    calls agree bitwise); on the CPU ``din_attention_backward_ref``."""
+    tensors = [t.to(torch.float32).contiguous() for t in (query, keys, mask, w1, b1, w2, b2,
+                                                         w3, b3, weights, grad)]
+    if use_kernel(*tensors):
+        return _din_backward_launch(*tensors, activation, weight_normalization, return_scores)
+    return din_attention_backward_ref(*tensors, activation, weight_normalization,
+                                      return_scores)
+
+
+din_attention_backward.launches = 0
 
 
 class _DinAttentionFused(torch.autograd.Function):
-    """Forward: a kernel on CUDA, ``din_attention_ref`` on the CPU.
-    Backward: the VJP of ``din_attention_ref`` recomputed from the saved
-    inputs, as the JAX package's ``_din_bwd`` does; there is no backward
-    kernel. The mask gets no cotangent."""
+    """Forward: a kernel on CUDA, ``din_attention_ref`` on the CPU; where a
+    gradient is needed (``save``) it keeps its inputs and the ``[B, T]``
+    weights. Backward: ``din_attention_backward``, the JAX package's
+    ``ops/din_vjp.py`` design (the scorer recomputed from the saved inputs,
+    the first layer's cotangents per part): its kernel on CUDA,
+    ``din_attention_backward_ref`` on the CPU. The mask gets no cotangent."""
 
     @staticmethod
     def forward(ctx, query, keys, mask, w1, b1, w2, b2, w3, b3, activation,
-                weight_normalization, return_scores):
-        ctx.save_for_backward(query, keys, mask, w1, b1, w2, b2, w3, b3)
+                weight_normalization, return_scores, save):
         ctx.flags = (activation, weight_normalization, return_scores)
         tensors = (query, keys, mask, w1, b1, w2, b2, w3, b3)
         if use_kernel(*tensors):
-            return _din_launch(*tensors, *ctx.flags)
-        return din_attention_ref(*tensors, *ctx.flags)
+            out, weights = _din_launch(*tensors, *ctx.flags, save)
+        elif save and not return_scores:
+            # the weights, and the pooling of din_attention_ref on them
+            weights = din_attention_ref(*tensors, activation, weight_normalization, True)
+            out = torch.einsum("bt,btk->bk", weights, keys)
+        else:
+            out = weights = din_attention_ref(*tensors, *ctx.flags)
+        if save:
+            ctx.save_for_backward(*tensors, weights)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        query, keys, mask, *weights = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(True) for t in (query, keys, *weights)]
-        with torch.enable_grad():
-            out = din_attention_ref(inputs[0], inputs[1], mask, *inputs[2:], *ctx.flags)
-        dq, dk, *dw = torch.autograd.grad(out, inputs, grad)
-        return (dq, dk, None, *dw, None, None, None)
+        *tensors, weights = ctx.saved_tensors
+        dq, dk, *dw = din_attention_backward(*tensors, weights, grad, *ctx.flags)
+        return (dq, dk, None, *dw, None, None, None, None)
 
 
 def din_attention_fused(query: torch.Tensor, keys: torch.Tensor, mask: torch.Tensor,
@@ -679,11 +780,14 @@ def din_attention_fused(query: torch.Tensor, keys: torch.Tensor, mask: torch.Ten
     """DIN target attention -> pooled ``[B, K]`` (or weights ``[B, T]``), in
     one kernel launch on CUDA: the tiled kernel where ``din_kernel_takes``,
     else the global kernel. ``mask`` is bool or float (valid where > 0.5, as
-    the TPU kernel reads it); the inputs are made contiguous float32."""
+    the TPU kernel reads it); the inputs are made contiguous float32. Where
+    a gradient is needed the forward also keeps the weights, and the
+    backward is one launch of ``din_attention_backward``."""
     args = [t.to(torch.float32).contiguous() for t in (query, keys, mask,
                                                         w1, b1, w2, b2, w3, b3)]
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in args)
     return _DinAttentionFused.apply(*args, activation, weight_normalization,
-                                    return_scores)
+                                    return_scores, save)
 
 
 din_attention_fused.launches = 0

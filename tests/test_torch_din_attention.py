@@ -143,7 +143,8 @@ def test_din_attention_dispatch():
     with pytest.warns(UserWarning, match="ignored"):
         din_attention(args[0], args[1], torch.from_numpy(mask), *args[2:],
                       dtype=torch.bfloat16)
-    # remat=True takes the same path: the backward recomputes from the inputs
+    # remat=True takes the same path: the backward kernel's design, the
+    # scorer recomputed from the inputs and the saved weights
     got = din_attention(args[0], args[1], torch.from_numpy(mask), *args[2:], "relu",
                         remat=True)
     np.testing.assert_array_equal(got.numpy(), want)

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from recommender_system_tpu_torch.ops import kernels
-from recommender_system_tpu_torch.ops.kernels import cross_fused, din_attention_fused, fm_fused
+from recommender_system_tpu_torch.ops.kernels import (cross_fused, din_attention_backward,
+                                                      din_attention_fused, fm_fused)
 
 
 class _FakeLibrary:
@@ -35,6 +36,7 @@ def fake_card(monkeypatch):
     for fn in (cross_fused, fm_fused, din_attention_fused):
         monkeypatch.setattr(fn, "launches", 0)
         monkeypatch.setattr(fn, "global_launches", 0)
+    monkeypatch.setattr(din_attention_backward, "launches", 0)
     return lib
 
 
@@ -94,6 +96,11 @@ ROUTES = {
 }
 
 
+# the backward kernel's entry points, after each forward of the attention:
+# its scratch's size, then the launch, at every shape
+DIN_BACKWARD = ["din_attention_backward_scratch", "din_attention_backward"]
+
+
 @pytest.mark.parametrize("name", sorted(ROUTES))
 def test_wrapper_launches_a_kernel_at_every_shape(fake_card, name):
     fn, cases = ROUTES[name]
@@ -103,11 +110,13 @@ def test_wrapper_launches_a_kernel_at_every_shape(fake_card, name):
         assert out.dtype == torch.float32
         assert fake_card.calls[-1] == entry
         if name == "din_attention":
-            out.sum().backward()  # the backward is the plain VJP either way
+            out.sum().backward()  # the backward kernel at either forward kernel's shapes
             assert all(a.grad is not None for a in args if a.dtype == torch.float32)
-    assert fake_card.calls == [entry for _, entry in cases]
+    backward = DIN_BACKWARD if name == "din_attention" else []
+    assert fake_card.calls == [call for _, entry in cases for call in [entry, *backward]]
     assert fn.launches == len(cases)
     assert fn.global_launches == sum("global" in entry for _, entry in cases)
+    assert din_attention_backward.launches == (len(cases) if backward else 0)
 
 
 @pytest.mark.parametrize("name,case", [(name, i) for name in sorted(ROUTES) for i in (0, 1)])

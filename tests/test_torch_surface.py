@@ -45,8 +45,6 @@ ALLOWED = {
         "a v5e gather cliff of the Pallas kernel: the CUDA kernels take a stream whole"),
     ("ops/fused_adagrad.py", "stream_split_rows"): (
         "a v5e gather cliff of the Pallas kernel: the CUDA kernels take a stream whole"),
-    ("ops/din_vjp.py", "din_attention_remat"): (
-        "din_attention(remat=True) takes the plain path, whose backward recomputes"),
     ("ops/pallas_kernels.py", "cross_fused"): "in ops/kernels.py (csrc/cross.cu)",
     ("ops/pallas_kernels.py", "fm_fused"): "in ops/kernels.py (csrc/fm.cu)",
     ("ops/pallas_kernels.py", "din_attention_fused"): "in ops/kernels.py (csrc/din_attention.cu)",
@@ -84,7 +82,6 @@ ALLOWED_METHODS = {
 }
 # JAX modules with no port file of the same path
 ALLOWED_MODULES = {
-    "ops/din_vjp.py": ALLOWED[("ops/din_vjp.py", "din_attention_remat")],
     "ops/pallas_kernels.py": "the Pallas kernels' CUDA counterparts are csrc/*.cu, "
                              "bound in ops/kernels.py",
 }
