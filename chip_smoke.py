@@ -32,12 +32,15 @@ Phases, each of which raises on failure (exit code not 0):
    position, forward (rtol=1e-4, atol=1e-5), and which of the two kernels
    ran; at each of these cases the backward: the forward's saved weights
    bitwise its returned ones, the gradient through the autograd Function
-   bitwise one launch of ``din_attention_backward`` on them, that kernel
-   twice bitwise and against ``din_attention_backward_ref`` in f32 (rtol
-   1e-4, atol 1e-5 of each gradient's scale; rows at relu's kink left out,
-   ``din_kink_rows``) and, on up to 1,024 rows, no farther from the plain
-   version in float64 than ``DIN_F64_FACTOR`` times the f32 plain
-   version's distance (``din_backward_close``);
+   bitwise one launch of ``din_attention_backward`` on them (its tile
+   kernel where ``din_backward_kernel_takes``, else its global kernel,
+   counted in ``global_launches``), that kernel twice bitwise and against
+   ``din_attention_backward_ref`` in f32 (rtol 1e-4, atol 1e-5 of each
+   gradient's scale; rows at relu's kink left out, ``din_kink_rows``) and,
+   on up to 1,024 rows, no farther from the plain version in float64 than
+   ``DIN_F64_FACTOR`` times the f32 plain version's distance
+   (``din_backward_close``); where the tile kernel takes the case, the
+   global kernel too (the launcher's ``global_kernel``), held the same way;
    ``fm_fused`` vs ``fm_ref`` (evaluated in float64: in float32 on the
    card its own sums miss the tolerance at D >= 3,419, B=16,384) at
    B=16,384, D=221, k=8, at B=16,385 and B=31 (a partial last group of 4
@@ -292,7 +295,8 @@ Phases, each of which raises on failure (exit code not 0):
    host overhead included), and the library call where there is one (the
    DIN attention and its backward against two bounds: the tensor cores' at
    three TF32 passes, its ``bound_ms``, and f32 outside them,
-   ``f32_bound_ms``); each
+   ``f32_bound_ms``; the backward's tile kernel at DIN's shape, its global
+   kernel at the global forward kernel's three shapes); each
    Scorer's latency and throughput (host clock), its device busy time per
    batch and its top kernels; the training throughput of a fused K=8 call,
    graphed and looped (CUDA events), its device idle share, the top device
@@ -320,8 +324,9 @@ Phases, each of which raises on failure (exit code not 0):
 Every launch check compares all eight wrappers' launch counts (the DIN
 attention's backward, ``din_attention_backward``, launches once a training
 step of DIN and DIEN, and never when serving), the
-``global_launches`` of the cross, FM and DIN attention wrappers, which must
-be 0 on every path but 3k's and, for the attention, 3r's, and the
+``global_launches`` of the cross, FM and DIN attention wrappers and of
+the attention's backward, which must be 0 on every path but 3k's and, for
+the attention and its backward, 3r's, and the
 ``long_launches`` of the four sparse row wrappers, which every launch of
 theirs counts (the long path's pass 2 runs on every stream; DIN's, DSSM's
 and DIEN's padding rows and the id-0 rows of Criteo batches with missing
@@ -754,7 +759,8 @@ def din_work(B: int, T: int, K: int, H1: int, H2: int):
     return nbytes / PEAK_BYTES_PER_S * 1e3, flops
 
 
-def din_backward_work(B: int, T: int, K: int, H1: int, H2: int, pooled: bool = True):
+def din_backward_work(B: int, T: int, K: int, H1: int, H2: int, pooled: bool = True,
+                      positions: int = None):
     """The DIN attention backward's least bytes (as ms at the memory rate)
     and flops: query, keys, mask, the saved weights, the cotangent and the
     parameters read once, dq, dkeys and the parameters' gradients written
@@ -763,20 +769,24 @@ def din_backward_work(B: int, T: int, K: int, H1: int, H2: int, pooled: bool = T
     2*B*T*(K*H1 + H1*H2 + H2), then du.W2^T and h1^T.du, 2*B*T*H1*H2
     each, dkeys through the row's folded K x H1 matrix and the per-row
     keys^T.dh_pre that gives dBw and dP, 2*B*T*K*H1 each, plus the
-    per-row q (Wq + Wm), dq and dA, 2*B*K*H1 each."""
+    per-row q (Wq + Wm), dq and dA, 2*B*K*H1 each. ``positions`` (B*T
+    unless given) counts the positions whose dlogit can be non-zero, the
+    unmasked ones: a masked one adds nothing to any product."""
+    P = B * T if positions is None else positions
     params = 4 * K * H1 + H1 + H1 * H2 + 2 * H2 + 1
     nbytes = 4 * (2 * B * K + 2 * B * T * K + 2 * B * T + (B * K if pooled else B * T)
                   + 2 * params)
-    flops = (2 * B * T * (K * H1 + H1 * H2 + H2) + 2 * 2 * B * T * H1 * H2
-             + 2 * 2 * B * T * K * H1 + 3 * 2 * B * K * H1)
+    flops = (2 * P * (K * H1 + H1 * H2 + H2) + 2 * 2 * P * H1 * H2
+             + 2 * 2 * P * K * H1 + 3 * 2 * B * K * H1)
     return nbytes / PEAK_BYTES_PER_S * 1e3, flops
 
 
-def din_backward_bound(B: int, T: int, K: int, H1: int, H2: int):
+def din_backward_bound(B: int, T: int, K: int, H1: int, H2: int, positions: int = None):
     """Least time for the DIN attention's backward, as ``din_bound``:
     (bound, what bounds it, the bound in f32 outside the tensor cores), the
-    tensor cores' time in 3xTF32."""
-    byte_ms, flops = din_backward_work(B, T, K, H1, H2)
+    tensor cores' time in 3xTF32, over all B*T positions or the
+    ``positions`` unmasked ones."""
+    byte_ms, flops = din_backward_work(B, T, K, H1, H2, positions=positions)
     tc_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
     f32_ms = max(byte_ms, flops / PEAK_F32_FLOPS * 1e3)
     return max(byte_ms, tc_ms), "bytes" if byte_ms >= tc_ms else "operations", f32_ms
@@ -845,13 +855,18 @@ def din_kink_rows(q, keys, maskf, weights) -> torch.Tensor:
     return (near & (maskf > 0.5)).any(-1)
 
 
-def din_backward_close(q, keys, maskf, weights, saved, cot, flags):
+def din_backward_close(q, keys, maskf, weights, saved, cot, flags, global_kernel=False):
     """Hold ``din_attention_backward`` on the card to its plain version in
     f32 and, on the first ``DIN_F64_ROWS`` rows, both to the plain version
-    in float64; two kernel calls must agree bitwise. Returns (a note of the
-    errors, the largest absolute error against the plain version)."""
+    in float64; two kernel calls must agree bitwise. ``global_kernel``
+    holds the global kernel instead, where the tile kernel would run.
+    Returns (a note of the errors, the largest absolute error against the
+    plain version)."""
+    from recommender_system_tpu_torch.ops import kernels
     from recommender_system_tpu_torch.ops.din_vjp import din_attention_backward_ref
-    from recommender_system_tpu_torch.ops.kernels import din_attention_backward
+
+    def din_attention_backward(*args):
+        return kernels._din_backward_launch(*args, global_kernel=global_kernel)
 
     names = ("dq", "dkeys", "dw1", "db1", "dw2", "db2", "dw3", "db3")
     kink = ""
@@ -927,9 +942,12 @@ def check_din_kernel() -> dict:
     bitwise ``din_attention_backward`` on the forward's saved weights (the
     saved weights bitwise the returned ones), and that kernel held to
     ``din_attention_backward_ref`` in f32 and float64
-    (``din_backward_close``). Returns the largest absolute error of the
-    forward by kernel, and of the backward's gradients
-    (``din_attention_backward``)."""
+    (``din_backward_close``): the tile kernel where
+    ``din_backward_kernel_takes`` (and there the global kernel as well,
+    through the launcher's ``global_kernel``), else the global kernel.
+    Returns the largest absolute error of the forward by kernel, and of
+    the backward's gradients by kernel (``din_attention_backward``, the
+    tile kernel; ``din_attention_global_backward``)."""
     from recommender_system_tpu_torch.ops import kernels
     from recommender_system_tpu_torch.ops.kernels import (din_attention_backward,
                                                           din_attention_fused, din_attention_ref)
@@ -975,22 +993,33 @@ def check_din_kernel() -> dict:
                 raise RuntimeError(f"din_attention_fused B={B} T={T} K={K} {activation} "
                                    f"{wn} {rs}: the saved weights differ from the returned")
             cot = torch.randn(out.shape, generator=gen, device="cuda")
+            tile = kernels.din_backward_kernel_takes(q, keys, maskf, *weights, saved, cot,
+                                                     activation, rs)
             args = [t.clone().requires_grad_(True) for t in (q, keys, *weights)]
-            before = din_attention_backward.launches
+            before = (din_attention_backward.launches, din_attention_backward.global_launches)
             got = torch.autograd.grad(din_attention_fused(args[0], args[1], mask, *args[2:],
                                                           activation, wn, rs), args, cot)
             direct = din_attention_backward(q, keys, maskf, *weights, saved, cot, activation,
                                             wn, rs)
             torch.cuda.synchronize()
-            if din_attention_backward.launches != before + 2:
-                raise RuntimeError("din_attention_fused's backward did not launch the "
-                                   "backward kernel once")
+            want = (before[0] + 2, before[1] + (0 if tile else 2))
+            if (din_attention_backward.launches, din_attention_backward.global_launches) != want:
+                raise RuntimeError(f"din_attention_fused's backward did not launch the "
+                                   f"{'tile' if tile else 'global'} backward kernel once")
             if not all(torch.equal(a, b) for a, b in zip(got, direct)):
                 raise RuntimeError(f"din_attention_fused B={B} T={T} K={K} {activation} {wn} "
                                    f"{rs}: its backward differs from din_attention_backward")
+            name = "din_attention_backward" if tile else "din_attention_global_backward"
             note, grad_err = din_backward_close(q, keys, maskf, weights, saved, cot,
                                                 (activation, wn, rs))
-            max_err["din_attention_backward"] = max(max_err["din_attention_backward"], grad_err)
+            note = f"{'tile' if tile else 'global'} kernel: {note}"
+            max_err[name] = max(max_err[name], grad_err)
+            if tile:
+                g_note, grad_err = din_backward_close(q, keys, maskf, weights, saved, cot,
+                                                      (activation, wn, rs), global_kernel=True)
+                note += f"; global kernel: {g_note}"
+                max_err["din_attention_global_backward"] = max(
+                    max_err["din_attention_global_backward"], grad_err)
             print(f"kernel check din_attention_fused B={B} T={T} K={K} H1={H1} H2={H2} "
                   f"{activation} weight_normalization={wn} return_scores={rs} "
                   f"(tiled kernel's shared memory {smem} B at one row a group): ran "
@@ -2032,7 +2061,8 @@ def din_wide_path(card) -> dict:
         name, din_model(DIN_WIDE_DIM), batches, labels, Adagrad(LR), FusedAdagrad(LR), 3,
         launches_want(din_attention_fused=3 * K, din_attention_backward=3 * K,
                       fused_adagrad_apply=3 * K,
-                      **{global_key("din_attention_fused"): 3 * K}), card,
+                      **{global_key("din_attention_fused"): 3 * K,
+                         global_key("din_attention_backward"): 3 * K}), card,
         touched=table_d32_touched(batches))
     _, _, serve_launches = serve_din(trainer.model, name, on_global=True)
     print(f"phase 3r took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2166,17 +2196,26 @@ def time_din(trainer, scorer, requests, batches, labels, card, rules=None) -> di
         plain_bwd_dev = device_ms(lambda: din_attention_backward_ref(*args), iters=20)
         bwd = {"call_ms": call_ms(lambda: din_attention_backward(*args), iters=50),
                "plain_call_ms": call_ms(lambda: din_attention_backward_ref(*args), iters=50)}
-    if not all("din_" in name for name in bwd_dev):
-        raise RuntimeError(f"din_attention_backward ran other device work: {dict(bwd_dev)}")
+    if not any("din_backward_tile_kernel" in name for name in bwd_dev) or not all(
+            "din_backward_tile_kernel" in name or "din_backward_reduce" in name
+            for name in bwd_dev):
+        raise RuntimeError(f"din_attention_backward ran other device work than its tile "
+                           f"kernel and the reduction: {dict(bwd_dev)}")
     bwd.update(ms=sum(bwd_dev.values()), plain_ms=sum(plain_bwd_dev.values()), library_ms=None,
                by_kernel={name[:60]: ms for name, ms in bwd_dev.items()})
     bwd["bound_ms"], bwd["bound_by"], bwd["f32_bound_ms"] = din_backward_bound(B, T, Kd, H1, H2)
     bwd["share_of_bound"] = bwd["bound_ms"] / bwd["ms"]
+    # the tile kernel skips masked positions: the bound over the unmasked ones
+    valid = int((mask > 0.5).sum().item())
+    bwd["valid_positions"] = valid
+    bwd["valid_bound_ms"] = din_backward_bound(B, T, Kd, H1, H2, positions=valid)[0]
     rec["backward"] = bwd
-    print(f"timing din_attention_backward B={B} T={T} K={Kd} H1={H1} H2={H2}: device "
-          f"{bwd['ms']:.5f} ms in {len(bwd_dev)} kernels ({100 * bwd['share_of_bound']:.1f}% "
+    print(f"timing din_attention_backward (tile kernel) B={B} T={T} K={Kd} H1={H1} H2={H2}: "
+          f"device {bwd['ms']:.5f} ms in {len(bwd_dev)} kernels "
+          f"({100 * bwd['share_of_bound']:.1f}% "
           f"of the tensor-core bound {bwd['bound_ms']:.5f} ms, {bwd['bound_by']}, 3xTF32; "
-          f"f32 bound {bwd['f32_bound_ms']:.5f} ms), {bwd['call_ms']:.5f} ms per call; "
+          f"f32 bound {bwd['f32_bound_ms']:.5f} ms; over its {valid} unmasked positions of "
+          f"{B * T}: {bwd['valid_bound_ms']:.5f} ms), {bwd['call_ms']:.5f} ms per call; "
           f"plain din_attention_backward_ref: device {bwd['plain_ms']:.5f} ms in "
           f"{len(plain_bwd_dev)} kernel kinds, {bwd['plain_call_ms']:.5f} ms per call; "
           f"by kernel {bwd['by_kernel']}; on {card}", flush=True)
@@ -2439,7 +2478,8 @@ def check_global_shapes(card) -> dict:
     counted_run("one fused step of DIEN(gru_hidden=128) at batch 1,024",
                 launches_want(fused_adagrad_apply=1, din_attention_fused=1,
                               din_attention_backward=1,
-                              **{global_key("din_attention_fused"): 1}),
+                              **{global_key("din_attention_fused"): 1,
+                                 global_key("din_attention_backward"): 1}),
                 lambda: card_against_cpu(dien_model(gru_hidden=128), batches, labels,
                                          "DIEN(gru_hidden=128)"))
     print(f"global kernels: each shape launched its wrapper's global kernel and agreed "
@@ -2805,7 +2845,65 @@ def time_global_kernels(card, errors: dict, counts: dict, wide: dict) -> list:
             "one fused step of DIEN(gru_hidden=128) at batch 1,024"][
             global_key("din_attention_fused")],
         "shapes": shapes})
+    entries.append(time_global_backward(card, errors, counts, wide, gen))
     return entries
+
+
+def time_global_backward(card, errors: dict, counts: dict, wide: dict, gen) -> dict:
+    """Phase 4 for the attention backward's global kernel (the shapes the
+    tile kernel does not take) at B=8,192, 80-40 at the global forward
+    kernel's three timed shapes, on the forward's saved weights and a
+    cotangent: its device time and per call, its plain version's, and the
+    bound (``din_backward_bound``). Returns its ``kernels`` entry, timed at
+    the first shape (phase 3r's)."""
+    from recommender_system_tpu_torch.ops import kernels
+    from recommender_system_tpu_torch.ops.din_vjp import din_attention_backward_ref
+    from recommender_system_tpu_torch.ops.kernels import din_attention_backward
+
+    shapes = []
+    for K_, T in DIN_GLOBAL_SHAPES:
+        q, keys, mask, weights = din_inputs(gen, DIN_BATCH, T, K_, 80, 40)
+        mask = mask.float()
+        with torch.inference_mode():
+            _, saved = kernels._din_launch(q, keys, mask, *weights, "sigmoid", True, False, True)
+            cot = torch.randn(DIN_BATCH, K_, generator=gen, device="cuda")
+            args = (q, keys, mask, *weights, saved, cot)
+            if kernels.din_backward_kernel_takes(*args, "sigmoid", False):
+                raise RuntimeError(f"the backward's tile kernel takes K={K_}, T={T}")
+            kernel_dev = device_ms(lambda: din_attention_backward(*args), iters=5)
+            plain_dev = device_ms(lambda: din_attention_backward_ref(*args), iters=3)
+            rec = {"K": K_, "T": T,
+                   "call_ms": call_ms(lambda: din_attention_backward(*args), iters=10, warmup=2),
+                   "plain_call_ms": call_ms(lambda: din_attention_backward_ref(*args), iters=5,
+                                            warmup=1)}
+        if not any("din_backward_kernel" in k for k in kernel_dev):
+            raise RuntimeError(f"din_attention_backward at K={K_}, T={T} ran "
+                               f"{dict(kernel_dev)}, not its global kernel")
+        rec.update(ms=sum(kernel_dev.values()), plain_ms=sum(plain_dev.values()),
+                   library_ms=None)
+        rec["bound_ms"], rec["bound_by"], rec["f32_bound_ms"] = din_backward_bound(
+            DIN_BATCH, T, K_, 80, 40)
+        print(f"timing din_attention_backward (global kernel) B={DIN_BATCH} T={T} K={K_} "
+              f"H1=80 H2=40: device {rec['ms']:.5f} ms in {len(kernel_dev)} kernels "
+              f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the tensor cores' bound "
+              f"{rec['bound_ms']:.5f} ms, {rec['bound_by']}), {rec['call_ms']:.5f} ms per "
+              f"call; plain: device {rec['plain_ms']:.5f} ms, {rec['plain_call_ms']:.5f} ms "
+              f"per call; on {card}", flush=True)
+        shapes.append(rec)
+        del q, keys, mask, weights, saved, cot, args
+    first = {k: v for k, v in shapes[0].items() if k not in ("K", "T")}
+    key = global_key("din_attention_backward")
+    return {
+        "name": "din_attention_backward (din_backward_kernel)", "route": "cuda",
+        "source": "recommender_system_tpu_torch/csrc/din_attention.cu",
+        "replaces": "recommender_system_tpu/ops/din_vjp.py:120",
+        "launches": wide["train"][key], "max_abs_err": errors["din_attention_global_backward"],
+        **first,
+        "path": f"DIN at dim {DIN_WIDE_DIM} trained, three K=8 calls (phase 3r)",
+        "timed_at": f"B={DIN_BATCH} T={DIN_T} K={DIN_WIDE_DIM} H1=80 H2=40",
+        "dien_gru_hidden_128_launches": counts[
+            "one fused step of DIEN(gru_hidden=128) at batch 1,024"][key],
+        "shapes": shapes}
 
 
 # ---------------------------------------------------------------------------
@@ -4731,10 +4829,11 @@ def main() -> int:
         "mesh_launches": on_mesh("din_attention_fused"),
         "graph_launches": on_graphs("din_attention_fused"),
     }, {
-        "name": "din_attention_backward", "route": "cuda",
+        "name": "din_attention_backward (din_backward_tile_kernel)", "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/din_attention.cu",
         "replaces": "recommender_system_tpu/ops/din_vjp.py:120",
         "launches": din_fused_launches["din_attention_backward"],
+        "global_launches": din_fused_launches[global_key("din_attention_backward")],
         "max_abs_err": din_errs["din_attention_backward"],
         **din_times["backward"],
         "serving_launches": din_serve_launches["din_attention_backward"],

@@ -23,6 +23,8 @@ TF32 off:
   difference from ``din_attention_ref``; and its forward where a gradient
   is needed (the weights requiring grad, grad mode on: a tree whose
   backward kernel reads the forward's weights saves them), device time;
+  and ``din_attention_backward`` on the forward's saved weights and a
+  cotangent, device time and time per call;
 - DIN's and NFM's fused K=8 training step (``chip_smoke.time_training``:
   CUDA events over 5 calls, device busy time and idle share);
 - ``fm_fused`` at the ``FMLayer`` path's x [16,384, 221], k=8, and
@@ -186,6 +188,19 @@ def time_attention(cs, torch) -> dict:
     q, keys, mask = (t.clone() for t in (q, keys, mask))
     out["din_attention_train_ms"] = sum(cs.device_ms(
         lambda: din_attention_fused(q, keys, mask, *weights)).values())
+    # the backward on the forward's saved weights and a cotangent
+    from recommender_system_tpu_torch.ops import kernels
+    from recommender_system_tpu_torch.ops.kernels import din_attention_backward
+
+    with torch.inference_mode():
+        _, saved = kernels._din_launch(q, keys, mask, *weights, "sigmoid", True, False, True)
+        cot = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(6),
+                          device="cuda")
+        args = (q, keys, mask, *weights, saved, cot)
+        out["din_backward_ms"] = sum(cs.device_ms(lambda: din_attention_backward(*args),
+                                                  iters=20).values())
+        out["din_backward_call_ms"] = cs.call_ms(lambda: din_attention_backward(*args),
+                                                 iters=50)
     return out
 
 

@@ -119,13 +119,16 @@
 // The sums round differently from the plain version's (the per-row term's
 // bias first, sliced and tiled sums), well inside the tolerance.
 //
-// din_attention_backward is the backward, at every shape the forward takes
-// (the counterpart of _din_remat_bwd in recommender_system_tpu/ops/din_vjp.py,
-// which XLA compiles: the TPU has no backward kernel). From the inputs, the
-// forward's weights [B, T] (the tiled kernel writes them through a pointer
-// that is null when serving; the global kernel's scratch holds them) and
-// the output's cotangent g, it writes dq, dkeys and every weight's
-// gradient, in six launches:
+// The backward (the counterpart of _din_remat_bwd in
+// recommender_system_tpu/ops/din_vjp.py, which XLA compiles: the TPU has no
+// backward kernel) has two kernels. From the inputs, the forward's weights
+// [B, T] (the tiled kernel writes them through a pointer that is null when
+// serving; the global kernel's scratch holds them) and the output's
+// cotangent g, each writes dq, dkeys and every weight's gradient.
+// din_backward_tile_kernel (below, with its design) takes DIN's and
+// DIEN's shapes, K <= 32, H1 <= 80, H2 <= 40, T <= 64, in two launches
+// with the block-order reduction. The global kernel takes every shape the
+// forward takes, in six launches:
 // - the packed weights WX = [Wk - Wm ; Wp ; Wq + Wm] and W2, zero-padded;
 //   the per-row terms b1 + q (Wq + Wm) (the global kernel's row-term
 //   kernel); dlogit a row: dscore = g . k (or g), with the softmax the row
@@ -159,8 +162,11 @@
 // their kernels do not take; the Python wrapper checks shapes, types and
 // devices first and picks the entry point (ops/kernels.py
 // din_kernel_takes). din_attention_backward_scratch gives the floats of
-// scratch a backward takes (-1 where it has no plan), and
-// din_attention_backward launches the six kernels on it.
+// scratch the tile kernel's backward takes (-1 where it does not take the
+// shape), and din_attention_backward launches it and the reduction on it;
+// din_attention_global_backward_scratch and din_attention_global_backward
+// do the same for the global kernel's six launches (ops/kernels.py
+// din_backward_kernel_takes picks).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -251,6 +257,22 @@ __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
   const float rest = __fsub_rn(x, __uint_as_float(big));
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(rest));
+}
+
+// x rounded to TF32, to nearest with ties away from zero: cvt.rna.tf32.f32's
+// value for a finite x in two integer operations, where the hardware
+// conversion takes four (it also checks for infinities). The backward's
+// kernels split with it (chip_lab_din_backward.py on an H100 80GB HBM3:
+// the tile kernel splits ~290 values a thread and tile, and took 0.92 ms
+// with split, 0.70 with this); the forward's keep split.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, as split, for a finite x
+__device__ __forceinline__ void split_fast(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
 }
 
 // d += a b on one 16x8x8 tile, TF32 operands, f32 accumulators (no side
@@ -1492,6 +1514,26 @@ struct BackPlan {
 // which of the weights a plan stages in shared memory
 enum Staged { kAllWeights, kLayer1, kNoWeights };
 
+// The running sums' layout from Kp, H1p, H1m and H2p, offsets in floats:
+// [Wk - Wm ; Wp ; Wq + Wm]'s gradient (3 Kp rows of H1p), W2's (H1m rows of
+// H2p), db1, db2, dw3 and db3; din_backward_reduce reads a block's partial
+// sums in this layout
+void sums_layout(BackPlan& L) {
+  long long at = 0;
+  auto take = [&at](long long floats) {
+    const long long here = at;
+    at += (floats + 3) / 4 * 4;
+    return here;
+  };
+  L.o_ax = take(3LL * L.Kp * L.H1p);
+  L.o_a2 = take(static_cast<long long>(L.H1m) * L.H2p);
+  L.o_ab1 = take(L.H1p);
+  L.o_ab2 = take(L.H2p);
+  L.o_aw3 = take(L.H2p);
+  L.o_ab3 = take(1);
+  L.acc = at;
+}
+
 BackPlan make_back_plan(int T, int K, int H1, int H2, int warps, bool act_smem, Staged staged,
                         bool acc_smem) {
   BackPlan L;
@@ -1530,14 +1572,7 @@ BackPlan make_back_plan(int T, int K, int H1, int H2, int warps, bool act_smem, 
   L.o_b2 = take(L.H2p);
   L.o_w3 = take(L.H2p);
   L.wts = at;
-  at = 0;
-  L.o_ax = take(3LL * L.Kp * L.H1p);
-  L.o_a2 = take(static_cast<long long>(L.H1m) * L.H2p);
-  L.o_ab1 = take(L.H1p);
-  L.o_ab2 = take(L.H2p);
-  L.o_aw3 = take(L.H2p);
-  L.o_ab3 = take(1);
-  L.acc = at;
+  sums_layout(L);
   L.act_smem = act_smem;
   L.acc_smem = acc_smem;
   L.staged = staged == kAllWeights ? L.wts : staged == kLayer1 ? 2LL * L.Kp * L.Sw : 0;
@@ -1555,12 +1590,17 @@ __device__ __forceinline__ void tile_mma(float (&acc)[NT][4], int k_tiles, int g
   for (int kt = 0; kt < k_tiles; ++kt) {
     const int k = kt * 8 + i4;
     uint32_t ab[4], as[4];
-    split(a(g, k), ab[0], as[0]);
-    split(a(g + 8, k), ab[1], as[1]);
-    split(a(g, k + 4), ab[2], as[2]);
-    split(a(g + 8, k + 4), ab[3], as[3]);
+    split_fast(a(g, k), ab[0], as[0]);
+    split_fast(a(g + 8, k), ab[1], as[1]);
+    split_fast(a(g, k + 4), ab[2], as[2]);
+    split_fast(a(g + 8, k + 4), ab[3], as[3]);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma3(acc[j], ab, as, b_fragment(b(k, j), b(k + 4, j)));
+    for (int j = 0; j < NT; ++j) {
+      uint4 f;
+      split_fast(b(k, j), f.x, f.y);
+      split_fast(b(k + 4, j), f.z, f.w);
+      mma3(acc[j], ab, as, f);
+    }
   }
 }
 
@@ -1640,15 +1680,18 @@ __global__ void din_backward_pack(const float* __restrict__ w1, const float* __r
   }
 }
 
-// dlogit of every position, a warp a row: dscore = g . k (pooled, a lane a
-// position) or g; with the softmax, the row term c = sum_t s dscore (a
-// lane's positions in order, then a fixed tree) and dlogit = s (dscore -
-// c); 0 where the mask is not set
+// dlogit of every position, a warp a row: dscore = g . k (pooled) or g;
+// with the softmax, the row term c = sum_t s dscore (each lane's positions
+// in order, then a fixed tree) and dlogit = s (dscore - c); 0 where the
+// mask is not set. Pooled with vec (K % 4 == 0, keys 16-byte aligned),
+// 8 lanes take a position, each a float4 of every 8, so that a load
+// instruction reads 4 positions' consecutive keys, and a fixed tree over
+// the 8 lanes gives dscore; else a lane takes a position.
 __global__ void din_backward_dlogits(const float* __restrict__ keys,
                                      const float* __restrict__ mask,
                                      const float* __restrict__ weights,
                                      const float* __restrict__ grad, float* __restrict__ dl,
-                                     int batch, int T, int K, bool softmax, bool pool) {
+                                     int batch, int T, int K, bool softmax, bool pool, bool vec) {
   const int lane = threadIdx.x & 31;
   const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x / 32);
   for (long long row = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
@@ -1657,24 +1700,52 @@ __global__ void din_backward_dlogits(const float* __restrict__ keys,
     const float* m = mask + row * T;
     float* d = dl + row * T;
     float c = 0.f;
-    for (int t = lane; t < T; t += 32) {
-      float v;
-      if (pool) {
-        const float* gr = grad + row * K;
-        const float* kr = keys + (row * T + t) * K;
-        v = 0.f;
-        for (int k = 0; k < K; ++k) v = fmaf(gr[k], kr[k], v);
-        d[t] = v;
-      } else {
-        v = grad[row * T + t];
+    if (pool && vec) {
+      const float4* gr = reinterpret_cast<const float4*>(grad + row * K);
+      const int sub = lane >> 3, l8 = lane & 7, k4 = K / 4;
+      for (int t0 = 0; t0 < T; t0 += 4) {
+        const int t = t0 + sub;
+        float v = 0.f;
+        if (t < T) {
+          const float4* kr = reinterpret_cast<const float4*>(keys + (row * T + t) * K);
+          for (int i = l8; i < k4; i += 8) {
+            const float4 kv = __ldg(kr + i), gv = __ldg(gr + i);
+            v = fmaf(gv.x, kv.x, v);
+            v = fmaf(gv.y, kv.y, v);
+            v = fmaf(gv.z, kv.z, v);
+            v = fmaf(gv.w, kv.w, v);
+          }
+        }
+        v += __shfl_xor_sync(kFull, v, 1);
+        v += __shfl_xor_sync(kFull, v, 2);
+        v += __shfl_xor_sync(kFull, v, 4);
+        if (l8 == 0 && t < T) {
+          d[t] = v;
+          c = fmaf(s[t], v, c);
+        }
       }
-      c = fmaf(s[t], v, c);
+      __syncwarp();  // d[t] is read below by another lane than wrote it
+    } else {
+      for (int t = lane; t < T; t += 32) {
+        float v;
+        if (pool) {
+          const float* gr = grad + row * K;
+          const float* kr = keys + (row * T + t) * K;
+          v = 0.f;
+          for (int k = 0; k < K; ++k) v = fmaf(gr[k], kr[k], v);
+          d[t] = v;
+        } else {
+          v = grad[row * T + t];
+        }
+        c = fmaf(s[t], v, c);
+      }
     }
     c = __shfl_sync(kFull, warp_sum(c), 0);
     for (int t = lane; t < T; t += 32) {
       const float ds = pool ? d[t] : grad[row * T + t];
       d[t] = m[t] > 0.5f ? (softmax ? s[t] * (ds - c) : ds) : 0.f;
     }
+    __syncwarp();  // this row's d is final before the next row's writes
   }
 }
 
@@ -2127,6 +2198,866 @@ BackScratch back_scratch(const BackPlan& L, int batch, int T, int K, int H1) {
   return S;
 }
 
+// --- din_backward_tile_kernel: the backward where K <= 32, H1 <= 80,
+// H2 <= 40 and T <= 64 (DIN's and DIEN's scorer), on wgmma. Bound:
+// operations, as din_backward_kernel's; what held that kernel back was
+// latency, and this one is latency-bound too, at 8 warps an SM
+// (chip_lab_din_backward.py), so its design cuts what a tile waits on:
+// - a warpgroup takes a pair of batch rows and puts only their valid
+//   positions through the products: both rows in one tile of up to 64
+//   where their counts fit, else a tile each (at DIN's shape ~1.3 tiles a
+//   pair against 2 of 64 positions holding 50); each row's sums stay in
+//   the warpgroup. A masked position has dlogit 0, so its du, dh and dX
+//   are 0 and its dkeys is s g (pooled) or 0, which the warp that finds
+//   the row's mask bits writes, a column a lane. A persistent grid of
+//   blocks of two warpgroups walks the pairs, each warpgroup on its own
+//   with named barriers;
+// - a tile's keys (a row each position, gathered), queries, cotangents and
+//   weights come into shared memory by cp.async in one batch; the rows'
+//   terms b1 + q (Wq + Wm) come from Wq + Wm staged once a block;
+// - every product is m64nNk8 in 3xTF32 with A in registers, B the block's
+//   weights staged once, split into big and small parts, as K-major core
+//   matrices in both orientations the products need; each value is split
+//   with two integer operations (split_fast);
+// - layer 1 [k | q*k] [Wk - Wm ; Wp] (N = 80), + the row's term, the
+//   activation: h1 (to shared memory, in the order dW2's A fragments read
+//   it); layer 2 (N = 40) from h1's accumulators as A (a k permutation, as
+//   the global forward kernel chains its layers); du = dlogit w3 act'(h2),
+//   db2's and dw3's partial sums;
+// - dW2 += h1^T du: 2 m-tiles of h1's columns (the second holds 16) by
+//   N = 40, the tile's positions as k, in two halves of 32 (du's split
+//   parts of a half in shared memory as B at a time);
+// - dh = (du W2^T) act'(h1) (N = 80, du's accumulators as A), then dX = dh
+//   [Wk - Wm ; Wp]^T (N = 64, dh's as A): dkeys = s g + dX_k + dX_qk q, and
+//   each row's sums of dh and of dX_qk k over its positions (shuffles over
+//   a warp's rows, then the 4 warps in order): dq = those sums plus (the
+//   row's sum of dh) (Wq + Wm)^T, written once a row, and dA += q^T (the
+//   sum), db1 += the sum;
+// - dWX += X^T dh, X = [k | q*k]: M = 64 (X's columns), N = 80, over the
+//   positions as k in two halves (dh's split parts of a half as B), X's
+//   from the staged keys and query.
+// Each warpgroup keeps its running dWX, dW2 and dA (in registers) and its
+// bias sums (in shared memory) across all its pairs and writes them once
+// as its partial, in din_backward_reduce's layout (sums_layout), which adds
+// the partials in order: no atomics, and the pairs' order, the packing and
+// every sum's order are fixed, so two calls agree bitwise. A weight
+// gradient's k-steps go kTSumSteps at a time into a fresh accumulator,
+// waited for, then one rounded f32 add a value into the running sums (as
+// the global forward kernel's wg_step); a per-position product starts from
+// zero each tile and takes its k-steps' products straight into its
+// accumulators (tile_step), which leaves the registers that a fresh
+// accumulator would take. Positions past a tile's count have dlogit 0.
+constexpr int kTK = 32;       // K padded: X = [k | q*k] is 64 wide, dWX's one m-tile
+constexpr int kTH1 = 80;      // H1 padded
+constexpr int kTH2 = 40;      // H2 padded
+constexpr int kTM = 64;       // positions a warpgroup's tile
+constexpr int kTRows = 2;     // most batch rows a tile
+constexpr int kTGroups = 2;   // warpgroups a block
+constexpr int kTThreads = 128 * kTGroups;
+constexpr int kTSK = kTK + 4;  // a staged key row's stride (dWX's A reads, 4 rows x 8 columns, 2 ways a bank)
+constexpr int kTSumSteps = 4;  // k-steps a weight gradient's fresh accumulator takes
+// floats of a k-step of B, big and small parts, at N = 80, 64 and 40
+constexpr int kTStep1 = 2 * kTH1 * 8;
+constexpr int kTStepX = 2 * 2 * kTK * 8;
+constexpr int kTStep2 = 2 * kTH2 * 8;
+// the block's part of shared memory, offsets in floats: layer 1's B (8
+// k-steps), dX's (10), layer 2's (10), dh's (5), then b2 and w3 (zero
+// past H2), b1 and Wq + Wm (zero past H1 and K), for the rows' terms and
+// dq
+constexpr int kTW1 = 0;
+constexpr int kTWX = kTW1 + (2 * kTK / 8) * kTStep1;
+constexpr int kTW2 = kTWX + (kTH1 / 8) * kTStepX;
+constexpr int kTW2T = kTW2 + (kTH1 / 8) * kTStep2;
+constexpr int kTB2 = kTW2T + (kTH2 / 8) * kTStep1;
+constexpr int kTW3 = kTB2 + kTH2;
+constexpr int kTB1 = kTW3 + kTH2;
+constexpr int kTWa = kTB1 + kTH1;
+constexpr int kTBlock = kTWa + kTK * kTH1;
+// a warpgroup's part, offsets from its start: the region (h1, then a
+// half's split parts of du from kTDu; then the row sums' scratch; then a
+// half's split parts of dh, dWX's B), the staged keys, [4 warps][db2 |
+// dw3] partial sums (whose space the rows' sums of dh and dq terms take
+// once they are added), queries, cotangents and terms, the tile's
+// dlogits, weights and positions (t), the rows' softmax terms and masks
+// (a bit a position), and the running db1, db2, dw3, db3
+constexpr int kTDu = kTM * kTH1;
+constexpr int kTKeys = kTDu + (kTM / 16) * kTStep2;
+constexpr int kTRed = kTKeys + kTM * kTSK;
+constexpr int kTRs = kTRed;
+constexpr int kTEq = kTRs + kTRows * kTH1;
+constexpr int kTQ = kTRed + 4 * 2 * kTH2;
+constexpr int kTG = kTQ + kTRows * kTK;
+constexpr int kTA = kTG + kTRows * kTK;
+constexpr int kTDl = kTA + kTRows * kTH1;
+constexpr int kTS = kTDl + kTM;
+constexpr int kTIdx = kTS + kTM;
+constexpr int kTC = kTIdx + kTM;
+constexpr int kTBal = kTC + 4;
+constexpr int kTSums = kTBal + 4;
+constexpr int kTGroupFloats = kTSums + kTH1 + 2 * kTH2 + 4;
+constexpr int kTSmemBytes = 4 * (kTBlock + kTGroups * kTGroupFloats);
+static_assert(kTSmemBytes <= static_cast<int>(kMaxSharedBytes), "tile kernel's shared memory");
+static_assert(kTBlock % 4 == 0 && kTGroupFloats % 4 == 0 && kTKeys % 4 == 0 && kTQ % 4 == 0 &&
+                  kTSums % 4 == 0, "16-byte aligned parts");
+static_assert((kTM / 16) * kTStep1 <= kTKeys && 4 * kTRows * (kTH1 + kTK) <= kTKeys,
+              "a half of dh's split parts, and the row sums' scratch, fit in the region");
+static_assert(kTRows * (kTH1 + kTK) <= kTQ - kTRed, "the rows' sums fit where db2's and dw3's were");
+
+__device__ __forceinline__ void wg_bar(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// generic-proxy stores to shared memory, made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// x's big and small TF32 parts at b and b + small
+__device__ __forceinline__ void put_split(float* b, int small, float x) {
+  uint32_t big, sm;
+  split_fast(x, big, sm);
+  b[0] = __uint_as_float(big);
+  b[small] = __uint_as_float(sm);
+}
+
+// A tile's h1 in its region, in the order dW2's A fragments read it: a
+// float4 a thread and k-step, m-tile 0 (columns 0..63) for every thread of
+// the warpgroup, then m-tile 1 (64..79) for its first warp. Position p,
+// column h is at 4 (ks 128 + 32 (h / 16) + l) + e, or past 64 columns at
+// 4096 + 4 (ks 32 + l) + e, with ks = p / 8, l = 4 (h % 8) + p % 4 and e =
+// 2 ((p / 4) % 2) + (h / 8) % 2. For the accumulator element (hi, j, e1)
+// of the thread (w, g, i4) (position 16 w + g + 8 hi, column 8 j + 2 i4 +
+// e1) that is h1_slot's base plus immediates.
+__device__ __forceinline__ int h1_slot(int base, int w, int hi, int j, int e1) {
+  return j < 8 ? base + 1024 * w + 512 * hi + 128 * (j >> 1) + 16 * e1 + (j & 1)
+               : base + kTM * 64 + 256 * w + 128 * hi + 16 * e1 + (j & 1);
+}
+
+// t = the 3 S TF32 products of S k-steps of a weight gradient's product,
+// chained into the fresh accumulator t (not waited for); a[s] the s-th
+// k-step's A values (as wg_step's), all 0 where zero (a warp-uniform
+// flag: no splits), its B big part at b + s bstride, the small part N x 8 on
+template <int N, int S>
+__device__ __forceinline__ void tile_sum_issue(float (&t)[N / 2], const float (&a)[S][4],
+                                               const float* b, int bstride,
+                                               bool zero = false) {
+  uint32_t ab[S][4], as[S][4];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ab[s][i] = as[s][i] = 0u;
+      if (!zero) split_fast(a[s][i], ab[s][i], as[s][i]);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float* bs = b + s * bstride;
+    if (s == 0) {
+      wgmma_tf32_first<N>(t, as[0], smem_desc(bs));
+    } else {
+      wgmma_tf32<N>(t, as[s], smem_desc(bs), 1);
+    }
+    wgmma_tf32<N>(t, ab[s], smem_desc(bs + N * 8), 1);
+    wgmma_tf32<N>(t, ab[s], smem_desc(bs), 1);
+  }
+}
+
+// acc += t, one rounded f32 add a value, once t's products are waited for
+template <int M>
+__device__ __forceinline__ void tile_sum_add(float (&acc)[M], float (&t)[M]) {
+  fence_regs(t);
+#pragma unroll
+  for (int i = 0; i < M; ++i) acc[i] = __fadd_rn(acc[i], t[i]);
+}
+
+// acc += S k-steps of a weight gradient's product (tile_sum_issue), waited for
+template <int N, int S>
+__device__ __forceinline__ void tile_sum_steps(float (&acc)[N / 2], const float (&a)[S][4],
+                                               const float* b, int bstride) {
+  float t[N / 2];
+  wg_fence();
+  tile_sum_issue<N, S>(t, a, b, bstride);
+  wg_commit();
+  wg_wait_all();
+  tile_sum_add(acc, t);
+}
+
+// acc += one k-step of a per-position product: its three TF32 products
+// (a_small b_big, a_big b_small, a_big b_big) straight into acc, waited for
+template <int N>
+__device__ __forceinline__ void tile_step(float (&acc)[N / 2], float lo0, float hi0, float lo1,
+                                          float hi1, const float* b) {
+  uint32_t ab[4], as[4];
+  split_fast(lo0, ab[0], as[0]);
+  split_fast(hi0, ab[1], as[1]);
+  split_fast(lo1, ab[2], as[2]);
+  split_fast(hi1, ab[3], as[3]);
+  wg_fence();
+  wgmma_tf32<N>(acc, as, smem_desc(b), 1);
+  wgmma_tf32<N>(acc, ab, smem_desc(b + N * 8), 1);
+  wgmma_tf32<N>(acc, ab, smem_desc(b), 1);
+  wg_commit();
+  wg_wait_all();
+}
+
+// after a per-position product's last k-step, before its accumulators are read
+template <int M>
+__device__ __forceinline__ void tile_end(float (&acc)[M]) {
+  fence_regs(acc);
+}
+
+__global__ void __launch_bounds__(kTThreads, 1)
+din_backward_tile_kernel(const float* __restrict__ query, const float* __restrict__ keys,
+                         const float* __restrict__ mask, const float* __restrict__ w1,
+                         const float* __restrict__ b1, const float* __restrict__ w2,
+                         const float* __restrict__ b2, const float* __restrict__ w3,
+                         const float* __restrict__ weights, const float* __restrict__ grad,
+                         float* __restrict__ dq, float* __restrict__ dkeys,
+                         float* __restrict__ partials, BackPlan L, int batch, int T, int K,
+                         int H1, int H2, bool relu, bool softmax, bool pool, bool vec) {
+  extern __shared__ __align__(1024) float4 tile_smem4[];
+  float* smem = reinterpret_cast<float*>(tile_smem4);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int wt = tid & 127;  // thread of the warpgroup
+  const int w = wt >> 5;     // warp of the warpgroup
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int i4 = lane & 3;
+  float* grp = smem + kTBlock + wg * kTGroupFloats;
+  float* region = grp;
+  float* du_s = grp + kTDu;
+  float* keys_s = grp + kTKeys;
+  float* red = grp + kTRed;
+  float* rs_s = grp + kTRs;
+  float* eq_s = grp + kTEq;
+  float* q_s = grp + kTQ;
+  float* g_s = grp + kTG;
+  float* a_s = grp + kTA;
+  float* dl_s = grp + kTDl;
+  float* s_s = grp + kTS;
+  int* idx_s = reinterpret_cast<int*>(grp + kTIdx);
+  float* c_s = grp + kTC;
+  unsigned* bal_s = reinterpret_cast<unsigned*>(grp + kTBal);
+  float* sums = grp + kTSums;  // db1 [80], db2 [40], dw3 [40], db3
+  const float* b2_s = smem + kTB2;
+  const float* w3_s = smem + kTW3;
+  const float* b1_s = smem + kTB1;
+  const float* wa_s = smem + kTWa;  // [32][80] Wq + Wm
+
+  // the weights, split: layer 1's k-step 4j + sub reads [Wk - Wm] (sub 0,
+  // 1) or [Wp] (2, 3) rows 16 j + 4 (k % 4) + 2 (sub % 2) + k / 4 as its k
+  // columns (a lane's float4 of keys gives its columns i4 and i4 + 4 of two
+  // k-steps); dX's, layer 2's and dh's k-step kt rows 8 kt + 2 (k % 4) +
+  // k / 4 (a lane's accumulator pair read as its columns i4, i4 + 4)
+  for (int f = tid; f < (2 * kTK / 8) * kTH1 * 8; f += kTThreads) {
+    const int kk = f & 7, n = (f >> 3) % kTH1, st = (f >> 3) / kTH1;
+    const int sub = st & 3;
+    const int c = 16 * (st >> 2) + 4 * (kk & 3) + 2 * (sub & 1) + (kk >> 2);
+    float v = 0.f;
+    if (n < H1 && c < K) {
+      v = sub < 2 ? __fsub_rn(w1[(K + c) * H1 + n], w1[(2 * K + c) * H1 + n])
+                  : w1[(3 * K + c) * H1 + n];
+    }
+    put_split(smem + kTW1 + st * kTStep1 + core_offset(n, kk), kTH1 * 8, v);
+  }
+  for (int f = tid; f < (kTH1 / 8) * 2 * kTK * 8; f += kTThreads) {
+    const int kk = f & 7, n = (f >> 3) % (2 * kTK), kt = (f >> 3) / (2 * kTK);
+    const int h = 8 * kt + 2 * (kk & 3) + (kk >> 2);
+    const int c = n & (kTK - 1);
+    float v = 0.f;
+    if (h < H1 && c < K) {
+      v = n < kTK ? __fsub_rn(w1[(K + c) * H1 + h], w1[(2 * K + c) * H1 + h])
+                  : w1[(3 * K + c) * H1 + h];
+    }
+    put_split(smem + kTWX + kt * kTStepX + core_offset(n, kk), 2 * kTK * 8, v);
+  }
+  for (int f = tid; f < (kTH1 / 8) * kTH2 * 8; f += kTThreads) {
+    const int kk = f & 7, n = (f >> 3) % kTH2, kt = (f >> 3) / kTH2;
+    const int h = 8 * kt + 2 * (kk & 3) + (kk >> 2);
+    const float v = h < H1 && n < H2 ? w2[h * H2 + n] : 0.f;
+    put_split(smem + kTW2 + kt * kTStep2 + core_offset(n, kk), kTH2 * 8, v);
+  }
+  for (int f = tid; f < (kTH2 / 8) * kTH1 * 8; f += kTThreads) {
+    const int kk = f & 7, n = (f >> 3) % kTH1, kt = (f >> 3) / kTH1;
+    const int z = 8 * kt + 2 * (kk & 3) + (kk >> 2);
+    const float v = n < H1 && z < H2 ? w2[n * H2 + z] : 0.f;
+    put_split(smem + kTW2T + kt * kTStep1 + core_offset(n, kk), kTH1 * 8, v);
+  }
+  for (int i = tid; i < kTH2; i += kTThreads) {
+    smem[kTB2 + i] = i < H2 ? b2[i] : 0.f;
+    smem[kTW3 + i] = i < H2 ? w3[i] : 0.f;
+  }
+  for (int i = tid; i < kTH1; i += kTThreads) smem[kTB1 + i] = i < H1 ? b1[i] : 0.f;
+  for (int i = tid; i < kTK * kTH1; i += kTThreads) {
+    const int c = i / kTH1, h = i - c * kTH1;
+    smem[kTWa + i] = c < K && h < H1 ? __fadd_rn(w1[c * H1 + h], w1[(2 * K + c) * H1 + h]) : 0.f;
+  }
+  // the warpgroup's part starts at 0: the staged parts past K, H1, a tile's
+  // rows or positions are never copied to and read as 0
+  for (int i = wt; i < kTGroupFloats; i += 128) grp[i] = 0.f;
+  fence_async_smem();
+  __syncthreads();
+
+  float dwx[kTH1 / 2], dw2a[kTH2 / 2], dw2b[kTH2 / 2], da[kTH1 / 4];
+#pragma unroll
+  for (int i = 0; i < kTH1 / 2; ++i) dwx[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTH2 / 2; ++i) dw2a[i] = dw2b[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTH1 / 4; ++i) da[i] = 0.f;
+  const int p_lo = 16 * w + g;  // this thread's accumulator rows: positions p_lo, p_hi
+  const int p_hi = p_lo + 8;
+  const int ca = wt >> 2;       // dA's and dq's column of K for this thread
+  const int hq = wt & 3;        // and its quarter of H1
+  // tile-invariant bases, so that a tile's many shared-memory slots of this
+  // thread are these plus immediates: h1's (h1_slot), and a k-step's split
+  // B slot of its accumulator element (hi, j, e1) at (2 (w % 2) + hi) steps
+  // + 64 j + 4 e1 from cb (core_offset's, the position's k being g)
+  const int h1b = 4 * (g & 3) + 2 * (g >> 2) + 32 * i4;
+  const int cb = 32 * (g >> 2) + 8 * i4 + (g & 3);
+  const long long items = (static_cast<long long>(batch) + 1) / 2;  // pairs of rows
+  const long long stride = static_cast<long long>(gridDim.x) * kTGroups;
+
+  for (long long item = static_cast<long long>(blockIdx.x) * kTGroups + wg; item < items;
+       item += stride) {
+    const long long b0 = 2 * item;
+    const int nrows = static_cast<int>(min(2LL, batch - b0));
+
+    // each row's valid positions, a warp a row: a bit a position. Its
+    // masked ones have dlogit 0, so their dkeys are s g (pooled) or 0: the
+    // warp writes them a position at a time, a column a lane (K <= 32).
+    wg_bar(wg);  // the last pair is done with every buffer
+    if (w < nrows) {
+      const long long b = b0 + w;
+      const bool in0 = lane < T, in1 = lane + 32 < T;
+      const float* mr = mask + b * T;
+      const float* sr = weights + b * T;
+      const float s0 = pool && in0 ? sr[lane] : 0.f, s1 = pool && in1 ? sr[lane + 32] : 0.f;
+      const float gv = pool && lane < K ? grad[b * K + lane] : 0.f;
+      const unsigned lo = __ballot_sync(kFull, in0 && mr[lane] > 0.5f);
+      const unsigned hi = __ballot_sync(kFull, in1 && mr[lane + 32] > 0.5f);
+      if (lane == 0) {
+        bal_s[2 * w] = lo;
+        bal_s[2 * w + 1] = hi;
+      }
+      unsigned m0 = ~lo & (T >= 32 ? kFull : (1u << T) - 1u);
+      unsigned m1 = ~hi & (T >= 64 ? kFull : T > 32 ? (1u << (T - 32)) - 1u : 0u);
+      float* dk = dkeys + b * T * K + lane;
+      while (m0) {
+        const int t = __ffs(m0) - 1;
+        m0 &= m0 - 1;
+        const float st = __shfl_sync(kFull, s0, t);
+        if (lane < K) dk[t * K] = st * gv;
+      }
+      while (m1) {
+        const int t = __ffs(m1) - 1;
+        m1 &= m1 - 1;
+        const float st = __shfl_sync(kFull, s1, t);
+        if (lane < K) dk[(t + 32) * K] = st * gv;
+      }
+    }
+    wg_bar(wg);
+    // row r's mask bits: positions 0..31 in lo(r), 32..63 in hi(r)
+    const unsigned lo0 = bal_s[0], hi0 = bal_s[1];
+    const unsigned lo1 = nrows == 2 ? bal_s[2] : 0u, hi1 = nrows == 2 ? bal_s[3] : 0u;
+    const int cnt0 = __popc(lo0) + __popc(hi0), cnt1 = __popc(lo1) + __popc(hi1);
+    // dq = 0 for a pair with no valid position, which no tile takes
+    if (cnt0 + cnt1 == 0) {
+      for (int i = wt; i < nrows * K; i += 128) dq[b0 * K + i] = 0.f;
+    }
+    // the pair's valid positions in tiles of up to 64: both rows in one
+    // where they fit, else a tile each
+    const int ntiles = cnt0 + cnt1 == 0 ? 0 : cnt0 + cnt1 <= kTM ? 1 : 2;
+    for (int tt = 0; tt < ntiles; ++tt) {
+    const int r0 = ntiles == 1 ? 0 : tt;  // the tile's first row of the pair
+    const int nr = ntiles == 1 ? nrows : 1;
+    const long long row0 = b0 + r0;
+    const int c0 = r0 ? cnt1 : cnt0;       // the first row's positions: 0 .. c0 - 1
+    const int np = c0 + (nr == 2 ? cnt1 : 0);
+    // a position's row of the tile, and its place in the flattened batch
+    auto row_of = [&](int p) { return p >= c0 ? 1 : 0; };
+    auto pos_of = [&](int p) { return (row0 + row_of(p)) * T + idx_s[p]; };
+    const bool v_lo = p_lo < np, v_hi = p_hi < np;
+    const int r_lo = v_lo ? row_of(p_lo) : 0;
+    const int r_hi = v_hi ? row_of(p_hi) : 0;
+
+    // the tile's positions (a warp a row, in t order), then its inputs by
+    // cp.async
+    if (tt > 0) wg_bar(wg);  // the last tile is done with every buffer
+    if (w < nr) {
+      const unsigned lo = r0 + w ? lo1 : lo0, hi = r0 + w ? hi1 : hi0;
+      const unsigned below = (1u << lane) - 1u;
+      const int base = w == 0 ? 0 : c0;
+      if ((lo >> lane) & 1u) idx_s[base + __popc(lo & below)] = lane;
+      if ((hi >> lane) & 1u) idx_s[base + __popc(lo) + __popc(hi & below)] = lane + 32;
+    }
+    wg_bar(wg);
+    {
+      if (vec) {
+        const int per = K / 4;
+        for (int i = wt; i < np * per; i += 128) {
+          const int p = i / per;
+          const int c = 4 * (i - p * per);
+          cp_async16(keys_s + p * kTSK + c, keys + pos_of(p) * K + c);
+        }
+      } else {
+        for (int i = wt; i < np * K; i += 128) {
+          const int p = i / K;
+          const int c = i - p * K;
+          cp_async4(keys_s + p * kTSK + c, keys + pos_of(p) * K + c);
+        }
+      }
+      for (int i = wt; i < nr * K; i += 128) {
+        const int r = i / K, c = i - r * K;
+        cp_async4(q_s + r * kTK + c, query + row0 * K + i);
+        if (pool) cp_async4(g_s + r * kTK + c, grad + row0 * K + i);
+      }
+      if (wt < np) {
+        const long long pos = pos_of(wt);
+        cp_async4(s_s + wt, weights + pos);
+        if (!pool) cp_async4(dl_s + wt, grad + pos);
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+    }
+    wg_bar(wg);
+
+    // dscore = g . k (or g, copied): two threads a position, 16 columns
+    // each; the rows' terms b1 + q (Wq + Wm) (k in order, b1 last)
+    if (pool) {
+      const int p = wt >> 1, half = wt & 1;
+      const float* kr = keys_s + p * kTSK + 16 * half;
+      const float* gr = g_s + (p < np ? row_of(p) : 0) * kTK + 16 * half;
+      float v = 0.f;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) v = fmaf(gr[c], kr[c], v);
+      v += __shfl_xor_sync(kFull, v, 1);
+      if (half == 0) dl_s[p] = v;
+    }
+    for (int i = wt; i < nr * kTH1; i += 128) {
+      const int r = i / kTH1, h = i - r * kTH1;
+      float v = 0.f;
+      for (int c = 0; c < K; ++c) v = fmaf(q_s[r * kTK + c], wa_s[c * kTH1 + h], v);
+      a_s[i] = b1_s[h] + v;
+    }
+    wg_bar(wg);
+    // the rows' softmax terms c = sum_t s dscore, a warp a row; dlogit
+    if (softmax) {
+      if (w < nr) {
+        float c = 0.f;
+        for (int p = (w == 0 ? 0 : c0) + lane; p < (w == 0 ? c0 : np); p += 32) {
+          c = fmaf(s_s[p], dl_s[p], c);
+        }
+        c = warp_sum(c);
+        if (lane == 0) c_s[w] = c;
+      }
+      wg_bar(wg);
+    }
+    if (wt < kTM) {
+      float d = 0.f;
+      if (wt < np) {
+        const float ds = dl_s[wt];
+        d = softmax ? s_s[wt] * (ds - c_s[row_of(wt)]) : ds;
+      }
+      dl_s[wt] = d;
+    }
+    wg_bar(wg);
+
+    // layer 1 again: h1 = act(a + [k | q*k] [Wk - Wm ; Wp])
+    float hacc[kTH1 / 2];
+#pragma unroll
+    for (int i = 0; i < kTH1 / 2; ++i) hacc[i] = 0.f;
+    {
+      const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float* kl = keys_s + p_lo * kTSK + 4 * i4;
+      const float* kh = keys_s + p_hi * kTSK + 4 * i4;
+      const float* ql = q_s + r_lo * kTK + 4 * i4;
+      const float* qh = q_s + r_hi * kTK + 4 * i4;
+#pragma unroll
+      for (int j = 0; j < kTK / 16; ++j) {
+        const float4 cl = v_lo ? *reinterpret_cast<const float4*>(kl + 16 * j) : zero4;
+        const float4 ch = v_hi ? *reinterpret_cast<const float4*>(kh + 16 * j) : zero4;
+        const float4 qa = *reinterpret_cast<const float4*>(ql + 16 * j);
+        const float4 qb = *reinterpret_cast<const float4*>(qh + 16 * j);
+        const float* bp = smem + kTW1 + 4 * j * kTStep1;
+        tile_step<kTH1>(hacc, cl.x, ch.x, cl.y, ch.y, bp);
+        tile_step<kTH1>(hacc, cl.z, ch.z, cl.w, ch.w, bp + kTStep1);
+        tile_step<kTH1>(hacc, __fmul_rn(qa.x, cl.x), __fmul_rn(qb.x, ch.x), __fmul_rn(qa.y, cl.y),
+                        __fmul_rn(qb.y, ch.y), bp + 2 * kTStep1);
+        tile_step<kTH1>(hacc, __fmul_rn(qa.z, cl.z), __fmul_rn(qb.z, ch.z), __fmul_rn(qa.w, cl.w),
+                        __fmul_rn(qb.w, ch.w), bp + 3 * kTStep1);
+      }
+    }
+    tile_end(hacc);
+#pragma unroll
+    for (int j = 0; j < kTH1 / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = 8 * j + 2 * i4 + (e & 1);
+        const float v = act(a_s[(e < 2 ? r_lo : r_hi) * kTH1 + h] + hacc[4 * j + e], relu);
+        hacc[4 * j + e] = v;
+        region[h1_slot(h1b, w, e >> 1, j, e & 1)] = v;
+      }
+    }
+
+    // layer 2 again; du = dlogit w3 act'(h2); the warp's sums of du (db2)
+    // and h2 dlogit (dw3)
+    float z[kTH2 / 2];
+#pragma unroll
+    for (int i = 0; i < kTH2 / 2; ++i) z[i] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < kTH1 / 8; ++kt) {
+      tile_step<kTH2>(z, hacc[4 * kt], hacc[4 * kt + 2], hacc[4 * kt + 1], hacc[4 * kt + 3],
+                      smem + kTW2 + kt * kTStep2);
+    }
+    tile_end(z);
+    {
+      const float d_lo = dl_s[p_lo], d_hi = dl_s[p_hi];
+#pragma unroll
+      for (int j = 0; j < kTH2 / 8; ++j) {
+        float sw3[2] = {0.f, 0.f}, sb2[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * i4 + (e & 1);
+          const float d = e < 2 ? d_lo : d_hi;
+          const float h2 = act(z[4 * j + e] + b2_s[col], relu);
+          const float du = (d * w3_s[col]) * dact(h2, relu);
+          z[4 * j + e] = du;
+          sw3[e & 1] = fmaf(h2, d, sw3[e & 1]);
+          sb2[e & 1] += du;
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float b2sum = rows_sum(sb2[c]);
+          const float w3sum = rows_sum(sw3[c]);
+          if (g == 0) {
+            red[w * 2 * kTH2 + 8 * j + 2 * i4 + c] = b2sum;
+            red[w * 2 * kTH2 + kTH2 + 8 * j + 2 * i4 + c] = w3sum;
+          }
+        }
+      }
+    }
+
+    // dW2 += h1^T du over the tile's positions, in two halves of 32: the
+    // half's warps put their du's split parts as B
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if ((w >> 1) == half) {
+        float* d = du_s + (2 * (w & 1)) * kTStep2 + cb;
+#pragma unroll
+        for (int j = 0; j < kTH2 / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            put_split(d + (e >> 1) * kTStep2 + 64 * j + 4 * (e & 1), kTH2 * 8, z[4 * j + e]);
+          }
+        }
+      }
+      fence_async_smem();
+      wg_bar(wg);
+#pragma unroll
+      for (int k0 = 4 * half; k0 < 4 * half + 4; k0 += kTSumSteps) {
+        float a0[kTSumSteps][4], a1[kTSumSteps][4];
+#pragma unroll
+        for (int s = 0; s < kTSumSteps; ++s) {
+          const float4 v0 = *reinterpret_cast<const float4*>(region + 4 * ((k0 + s) * 128 + wt));
+          const float4 v1 = w == 0 ? *reinterpret_cast<const float4*>(
+                                         region + kTM * 64 + 4 * ((k0 + s) * 32 + lane))
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+          a0[s][0] = v0.x; a0[s][1] = v0.y; a0[s][2] = v0.z; a0[s][3] = v0.w;
+          a1[s][0] = v1.x; a1[s][1] = v1.y; a1[s][2] = v1.z; a1[s][3] = v1.w;
+        }
+        // the two m-tiles' products in flight together, one wait
+        float ta[kTH2 / 2], tb[kTH2 / 2];
+        wg_fence();
+        tile_sum_issue<kTH2, kTSumSteps>(ta, a0, du_s + (k0 - 4 * half) * kTStep2, kTStep2);
+        tile_sum_issue<kTH2, kTSumSteps>(tb, a1, du_s + (k0 - 4 * half) * kTStep2, kTStep2,
+                                         w != 0);
+        wg_commit();
+        wg_wait_all();
+        tile_sum_add(dw2a, ta);
+        tile_sum_add(dw2b, tb);
+      }
+      if (half == 0) wg_bar(wg);  // the half's parts are read before the next half's go in
+    }
+
+    // dh = (du W2^T) act'(h1)
+    float dh[kTH1 / 2];
+#pragma unroll
+    for (int i = 0; i < kTH1 / 2; ++i) dh[i] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < kTH2 / 8; ++kt) {
+      tile_step<kTH1>(dh, z[4 * kt], z[4 * kt + 2], z[4 * kt + 1], z[4 * kt + 3],
+                      smem + kTW2T + kt * kTStep1);
+    }
+    tile_end(dh);
+#pragma unroll
+    for (int j = 0; j < kTH1 / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dh[4 * j + e] = dh[4 * j + e] * dact(region[h1_slot(h1b, w, e >> 1, j, e & 1)], relu);
+      }
+    }
+    wg_bar(wg);  // h1 and du's parts are read: the region is scratch
+
+    // dX = dh [Wk - Wm ; Wp]^T: dkeys = s g + dX_k + dX_qk q, and the dq
+    // terms dX_qk k in place of dX_qk
+    float x[kTK];
+#pragma unroll
+    for (int i = 0; i < kTK; ++i) x[i] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < kTH1 / 8; ++kt) {
+      tile_step<2 * kTK>(x, dh[4 * kt], dh[4 * kt + 2], dh[4 * kt + 1], dh[4 * kt + 3],
+                         smem + kTWX + kt * kTStepX);
+    }
+    tile_end(x);
+#pragma unroll
+    for (int j = 0; j < kTK / 8; ++j) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int c = 8 * j + 2 * i4;
+        const int p = hi ? p_hi : p_lo;
+        const int r = hi ? r_hi : r_lo;
+        float dk[2], ev[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int e = 2 * hi + e1;
+          const float dqk = x[4 * (j + kTK / 8) + e];
+          const float base = pool ? s_s[p] * g_s[r * kTK + c + e1] : 0.f;
+          dk[e1] = (base + x[4 * j + e]) + dqk * q_s[r * kTK + c + e1];
+          ev[e1] = dqk * keys_s[p * kTSK + c + e1];
+        }
+        if (hi ? v_hi : v_lo) {
+          float* o = dkeys + pos_of(p) * K + c;
+          if (K % 2 == 0 && c < K) {
+            *reinterpret_cast<float2*>(o) = make_float2(dk[0], dk[1]);
+          } else {
+            if (c < K) o[0] = dk[0];
+            if (c + 1 < K) o[1] = dk[1];
+          }
+        } else {
+          ev[0] = ev[1] = 0.f;
+        }
+        x[4 * (j + kTK / 8) + 2 * hi] = ev[0];
+        x[4 * (j + kTK / 8) + 2 * hi + 1] = ev[1];
+      }
+    }
+
+    // each row's sums of dh and of the dq terms over its positions: over a
+    // warp's rows in a fixed tree, then the 4 warps in order
+    float* red_rs = region;                       // [4 warps][kTRows][80]
+    float* red_e = region + 4 * kTRows * kTH1;    // [4 warps][kTRows][32]
+    for (int r = 0; r < nr; ++r) {
+#pragma unroll
+      for (int j = 0; j < kTH1 / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float v = rows_sum((r_lo == r ? dh[4 * j + c] : 0.f) +
+                                   (r_hi == r ? dh[4 * j + 2 + c] : 0.f));
+          if (g == 0) red_rs[(w * kTRows + r) * kTH1 + 8 * j + 2 * i4 + c] = v;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kTK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float v = rows_sum((r_lo == r ? x[4 * (j + kTK / 8) + c] : 0.f) +
+                                   (r_hi == r ? x[4 * (j + kTK / 8) + 2 + c] : 0.f));
+          if (g == 0) red_e[(w * kTRows + r) * kTK + 8 * j + 2 * i4 + c] = v;
+        }
+      }
+    }
+    if (wt < kTH2) {  // db2's and dw3's sums, before the rows' sums take their space
+      float v2 = red[wt], v3 = red[kTH2 + wt];
+      for (int ww = 1; ww < 4; ++ww) {
+        v2 += red[ww * 2 * kTH2 + wt];
+        v3 += red[ww * 2 * kTH2 + kTH2 + wt];
+      }
+      sums[kTH1 + wt] += v2;
+      sums[kTH1 + kTH2 + wt] += v3;
+    }
+    wg_bar(wg);
+    for (int i = wt; i < nr * kTH1; i += 128) {
+      const int r = i / kTH1, h = i - r * kTH1;
+      float v = red_rs[r * kTH1 + h];
+      for (int ww = 1; ww < 4; ++ww) v += red_rs[(ww * kTRows + r) * kTH1 + h];
+      rs_s[i] = v;
+    }
+    for (int i = wt; i < nr * kTK; i += 128) {
+      const int r = i / kTK, c = i - r * kTK;
+      float v = red_e[r * kTK + c];
+      for (int ww = 1; ww < 4; ++ww) v += red_e[(ww * kTRows + r) * kTK + c];
+      eq_s[i] = v;
+    }
+    if (w == 0) {
+      const float v = warp_sum(dl_s[lane] + dl_s[lane + 32]);
+      if (lane == 0) sums[kTH1 + 2 * kTH2] += v;
+    }
+    wg_bar(wg);
+
+    // dq = (the row's dq terms) + (its sum of dh) (Wq + Wm)^T, a quarter of
+    // H1 a thread, then a fixed tree over the 4; dA += q^T (the sums); the
+    // bias sums
+    {
+      float part[kTRows];
+#pragma unroll
+      for (int r = 0; r < kTRows; ++r) part[r] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kTH1 / 4; ++i) {
+        const int h = hq * (kTH1 / 4) + i;
+        const float wa = wa_s[ca * kTH1 + h];
+#pragma unroll
+        for (int r = 0; r < kTRows; ++r) {
+          if (r < nr) {
+            const float v = rs_s[r * kTH1 + h];
+            part[r] = fmaf(v, wa, part[r]);
+            da[i] = fmaf(q_s[r * kTK + ca], v, da[i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kTRows; ++r) {
+        part[r] += __shfl_xor_sync(kFull, part[r], 1);
+        part[r] += __shfl_xor_sync(kFull, part[r], 2);
+        if (hq == 0 && r < nr && ca < K) dq[(row0 + r) * K + ca] = eq_s[r * kTK + ca] + part[r];
+      }
+    }
+    if (wt < kTH1) {
+      float v = 0.f;
+      for (int r = 0; r < nr; ++r) v += rs_s[r * kTH1 + wt];
+      sums[wt] += v;
+    }
+
+    // dWX += X^T dh over the positions in two halves of 32: the half's
+    // warps put their dh's split parts as B; X's columns 16 w + g and + 8
+    // (keys' column xc, or the q*k part's) from the staged keys
+    const int xc = (16 * w + g) & (kTK - 1);
+    const float* xk = keys_s + i4 * kTSK + xc;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if ((w >> 1) == half) {
+        float* d = region + (2 * (w & 1)) * kTStep1 + cb;
+#pragma unroll
+        for (int j = 0; j < kTH1 / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            put_split(d + (e >> 1) * kTStep1 + 64 * j + 4 * (e & 1), kTH1 * 8, dh[4 * j + e]);
+          }
+        }
+      }
+      fence_async_smem();
+      wg_bar(wg);
+#pragma unroll
+      for (int k0 = 4 * half; k0 < 4 * half + 4; k0 += kTSumSteps) {
+        float xa[kTSumSteps][4];
+#pragma unroll
+        for (int s = 0; s < kTSumSteps; ++s) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = 8 * (k0 + s) + i4 + 4 * (e >> 1);  // the row of p: p >= T, 2 T, 3 T
+            float v = p < np ? xk[(8 * (k0 + s) + 4 * (e >> 1)) * kTSK + 8 * (e & 1)] : 0.f;
+            if (w >= 2) v = __fmul_rn(q_s[(p < np ? row_of(p) : 0) * kTK + xc + 8 * (e & 1)], v);
+            xa[s][e] = v;
+          }
+        }
+        tile_sum_steps<kTH1, kTSumSteps>(dwx, xa, region + (k0 - 4 * half) * kTStep1, kTStep1);
+      }
+      if (half == 0) wg_bar(wg);  // the half's parts are read before the next half's go in
+    }
+    }
+  }
+
+  // this warpgroup's partial sums, in din_backward_reduce's layout
+  wg_bar(wg);
+  float* out = partials + (static_cast<long long>(blockIdx.x) * kTGroups + wg) * L.acc;
+#pragma unroll
+  for (int j = 0; j < kTH1 / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = p_lo + 8 * (e >> 1);
+      out[L.o_ax + m * kTH1 + 8 * j + 2 * i4 + (e & 1)] = dwx[4 * j + e];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kTH1 / 4; ++i) {
+    out[L.o_ax + (2 * kTK + ca) * kTH1 + hq * (kTH1 / 4) + i] = da[i];
+  }
+#pragma unroll
+  for (int j = 0; j < kTH2 / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = p_lo + 8 * (e >> 1);
+      const int col = 8 * j + 2 * i4 + (e & 1);
+      out[L.o_a2 + m * kTH2 + col] = dw2a[4 * j + e];
+      if (m + 64 < kTH1) out[L.o_a2 + (m + 64) * kTH2 + col] = dw2b[4 * j + e];
+    }
+  }
+  for (int i = wt; i < kTH1; i += 128) out[L.o_ab1 + i] = sums[i];
+  for (int i = wt; i < kTH2; i += 128) {
+    out[L.o_ab2 + i] = sums[kTH1 + i];
+    out[L.o_aw3 + i] = sums[kTH1 + kTH2 + i];
+  }
+  if (wt == 0) out[L.o_ab3] = sums[kTH1 + 2 * kTH2];
+}
+
+bool tile_takes(int T, int K, int H1, int H2) {
+  return T <= kTM && K <= kTK && H1 <= kTH1 && H2 <= kTH2;
+}
+
+// the tile kernel's running sums, one partial a warpgroup of `blocks`
+BackPlan tile_sums(long long blocks) {
+  BackPlan L{};
+  L.Kp = kTK;
+  L.H1p = kTH1;
+  L.H1m = kTH1;
+  L.H2p = kTH2;
+  sums_layout(L);
+  L.blocks = blocks * kTGroups;
+  return L;
+}
+
+// The tile kernel's grid for a shape, chosen once a shape and device and
+// kept: a block an SM, no more than the tiles need
+struct TileLaunch {
+  int device, batch, T;
+  long long blocks;
+};
+
+cudaError_t tile_launch(int device, int batch, int T, long long& blocks) {
+  static std::mutex lock;
+  static std::vector<TileLaunch> known;
+  std::lock_guard<std::mutex> hold(lock);
+  for (const TileLaunch& t : known) {
+    if (t.device == device && t.batch == batch && t.T == T) {
+      blocks = t.blocks;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(din_backward_tile_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kTSmemBytes);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, din_backward_tile_kernel,
+                                                        kTThreads, kTSmemBytes);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long items = (static_cast<long long>(batch) + 1) / 2;  // pairs of rows
+  const long long need = (items + kTGroups - 1) / kTGroups;
+  blocks = static_cast<long long>(sms) * per_sm;
+  if (blocks > need) blocks = need;
+  known.push_back({device, batch, T, blocks});
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int din_attention_forward(const float* query, const float* keys,
@@ -2223,7 +3154,7 @@ extern "C" int din_attention_global_forward(const float* query, const float* key
   return cudaGetLastError();
 }
 
-extern "C" long long din_attention_backward_scratch(int batch, int T, int K, int H1, int H2) {
+extern "C" long long din_attention_global_backward_scratch(int batch, int T, int K, int H1, int H2) {
   if (batch <= 0 || T <= 0 || K <= 0 || H1 <= 0 || H2 <= 0) return -1;
   int device = 0;
   BackPlan L;
@@ -2232,7 +3163,7 @@ extern "C" long long din_attention_backward_scratch(int batch, int T, int K, int
   return back_scratch(L, batch, T, K, H1).total;
 }
 
-extern "C" int din_attention_backward(const float* query, const float* keys, const float* mask,
+extern "C" int din_attention_global_backward(const float* query, const float* keys, const float* mask,
                                       const float* w1, const float* b1, const float* w2,
                                       const float* b2, const float* w3, const float* b3,
                                       const float* weights, const float* grad, float* dq,
@@ -2262,7 +3193,9 @@ extern "C" int din_attention_backward(const float* query, const float* keys, con
                                                                         batch, K, H1);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   din_backward_dlogits<<<grid(32LL * batch, 65536), kPrepThreads, 0, s>>>(
-      keys, mask, weights, grad, scratch + S.dl, batch, T, K, softmax != 0, scores == 0);
+      keys, mask, weights, grad, scratch + S.dl, batch, T, K, softmax != 0, scores == 0,
+      K % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(grad) % 16 == 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   din_backward_kernel<<<static_cast<int>(L.blocks), 32 * L.warps, static_cast<size_t>(L.smem),
                         s>>>(query, keys, weights, grad, scratch + S.terms, scratch + S.dl,
@@ -2275,5 +3208,50 @@ extern "C" int din_attention_backward(const float* query, const float* keys, con
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   din_backward_dq<<<grid(static_cast<long long>(batch) * K, 65536), kPrepThreads, 0, s>>>(
       scratch + S.e, dq, batch, T, K);
+  return cudaGetLastError();
+}
+
+extern "C" long long din_attention_backward_scratch(int batch, int T, int K, int H1, int H2) {
+  if (batch <= 0 || T <= 0 || K <= 0 || H1 <= 0 || H2 <= 0 || !tile_takes(T, K, H1, H2)) {
+    return -1;
+  }
+  int device = 0;
+  long long blocks = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return -1;
+  if (tile_launch(device, batch, T, blocks) != cudaSuccess) return -1;
+  const BackPlan L = tile_sums(blocks);
+  return L.blocks * L.acc;
+}
+
+extern "C" int din_attention_backward(const float* query, const float* keys, const float* mask,
+                                      const float* w1, const float* b1, const float* w2,
+                                      const float* b2, const float* w3, const float* b3,
+                                      const float* weights, const float* grad, float* dq,
+                                      float* dkeys, float* dw1, float* db1, float* dw2,
+                                      float* db2, float* dw3, float* db3, float* scratch,
+                                      int batch, int T, int K, int H1, int H2, int relu,
+                                      int softmax, int scores, void* stream) {
+  (void)b3;  // the softmax's shift: no gradient flows through it but db3
+  if (batch <= 0 || T <= 0 || K <= 0 || H1 <= 0 || H2 <= 0 || !tile_takes(T, K, H1, H2)) {
+    return cudaErrorInvalidValue;
+  }
+  int device = 0;
+  long long blocks = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = tile_launch(device, batch, T, blocks);
+  if (err != cudaSuccess) return err;
+  const BackPlan L = tile_sums(blocks);
+  // scratch: the warpgroups' partials
+  float* partials = scratch;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0;
+  din_backward_tile_kernel<<<static_cast<int>(blocks), kTThreads, kTSmemBytes, s>>>(
+      query, keys, mask, w1, b1, w2, b2, w3, weights, grad, dq, dkeys, partials, L, batch, T, K,
+      H1, H2, relu != 0, softmax != 0, scores == 0, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long outs = 4LL * K * H1 + H1 + static_cast<long long>(H1) * H2 + 2LL * H2 + 1;
+  const long long red_blocks = (32 * outs + kPrepThreads - 1) / kPrepThreads;
+  din_backward_reduce<<<static_cast<int>(red_blocks < 65536 ? red_blocks : 65536), kPrepThreads,
+                        0, s>>>(partials, dw1, db1, dw2, db2, dw3, db3, K, H1, H2, L);
   return cudaGetLastError();
 }

@@ -9,8 +9,9 @@
   kernel's plain PyTorch version for CPU tensors. Nothing else selects: the
   wrappers of the cross stack, the FM logit and the DIN attention pick
   between two kernels of their source by the shape (``ops/kernels.py``),
-  never the plain version on the card; the DIN attention's backward
-  (``din_attention_backward``) has one entry point at every shape.
+  never the plain version on the card, and so does the DIN attention's
+  backward (``din_attention_backward``: its tile kernel or its global
+  kernel).
 - Each wrapper counts its launches (``<wrapper>.launches``,
   ``<wrapper>.global_launches`` for a global kernel, and
   ``<wrapper>.long_launches`` for the sparse rules' long path).

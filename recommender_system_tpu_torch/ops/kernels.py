@@ -26,8 +26,9 @@ plain version; a build failure or a launch error raises.
 - ``fm_fused`` (``csrc/fm.cu``), plain version ``fm_ref``;
 - ``din_attention_fused`` (``csrc/din_attention.cu``), plain version
   ``din_attention_ref``; its backward ``din_attention_backward`` (the same
-  source, one entry point at every shape), plain version
-  ``din_attention_backward_ref`` (``ops/din_vjp.py``);
+  source: a tile kernel where ``din_backward_kernel_takes``, DIN's and
+  DIEN's scorer, else a global kernel at every shape the forward takes),
+  plain version ``din_attention_backward_ref`` (``ops/din_vjp.py``);
 - ``fused_adagrad_apply``, ``fused_sgd_apply`` and ``fused_adam_apply``
   (``ops/fused_adagrad.py``) and ``scatter_add_sorted``
   (``ops/embedding_grad.py``), whose kernels are in ``csrc/sparse_rows.cu``;
@@ -71,6 +72,8 @@ SOURCES = {
         "din_attention_global_forward": ([_PTR] * 11 + [_INT] * 8 + [_PTR], _INT),
         "din_attention_backward": ([_PTR] * 20 + [_INT] * 8 + [_PTR], _INT),
         "din_attention_backward_scratch": ([_INT] * 5, _INT64),
+        "din_attention_global_backward": ([_PTR] * 20 + [_INT] * 8 + [_PTR], _INT),
+        "din_attention_global_backward_scratch": ([_INT] * 5, _INT64),
     },
     "sparse_rows": {
         "fused_adagrad_rows": ([_PTR] * 7 + [_INT64, _INT, _PTR, _FLOAT, _PTR], _INT),
@@ -685,20 +688,50 @@ def _din_backward_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad
 
 def check_din_backward_args(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
                             activation, return_scores) -> None:
-    """Raise on anything the backward kernel does not take. It has no limit
-    of its own on the shapes: where a pass's activations, the weights or
-    the running sums do not fit in shared memory, they live in device
-    memory (``back_launch`` in ``csrc/din_attention.cu``)."""
+    """Raise on anything the backward's global kernel does not take. It has
+    no limit of its own on the shapes: where a pass's activations, the
+    weights or the running sums do not fit in shared memory, they live in
+    device memory (``back_launch`` in ``csrc/din_attention.cu``)."""
     fault = _din_backward_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
                                 activation, return_scores)
     if fault is not None:
         raise fault
 
 
+# the widths the backward's tile kernel takes (kTK, kTH1, kTH2 and kTM of
+# csrc/din_attention.cu): K <= 32, a 80-40 scorer or narrower, and rows of
+# at most 64 positions (a warpgroup's tile of 64 takes a pair of rows'
+# unmasked positions, or each row's alone)
+DIN_BACKWARD_TILE = dict(K=32, H1=80, H2=40, T=64)
+
+
+def din_backward_kernel_takes(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
+                              activation, return_scores) -> bool:
+    """True where ``din_attention_backward`` launches the tile kernel: the
+    global kernel takes these inputs (``check_din_backward_args``) and they
+    are within ``DIN_BACKWARD_TILE``. The shapes, dtypes, layouts and the
+    activation alone decide, never the data; where it is False the global
+    kernel runs."""
+    if _din_backward_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
+                           activation, return_scores) is not None:
+        return False
+    T, K = keys.shape[1:]
+    lim = DIN_BACKWARD_TILE
+    return K <= lim["K"] and w1.shape[1] <= lim["H1"] and w2.shape[1] <= lim["H2"] \
+        and T <= lim["T"]
+
+
 def _din_backward_launch(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
-                         activation: str, weight_normalization: bool, return_scores: bool):
+                         activation: str, weight_normalization: bool, return_scores: bool,
+                         global_kernel: bool = False):
+    """One launch of the backward: the tile kernel where
+    ``din_backward_kernel_takes``, else (or where ``global_kernel``, which
+    only a comparison of the two kernels asks for) the global kernel."""
     tensors = (query, keys, mask, w1, b1, w2, b2, w3, b3)
     check_din_backward_args(*tensors, weights, grad, activation, return_scores)
+    tile = not global_kernel and din_backward_kernel_takes(*tensors, weights, grad, activation,
+                                                           return_scores)
+    entry = "din_attention_backward" if tile else "din_attention_global_backward"
     B, T, K = keys.shape
     H1, H2 = w1.shape[1], w2.shape[1]
     grads = [torch.empty_like(t) for t in (query, keys, w1, b1, w2, b2, w3, b3)]
@@ -706,18 +739,19 @@ def _din_backward_launch(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, gra
         return tuple(g.zero_() for g in grads)
     lib = _library("din_attention")
     with torch.cuda.device(keys.device):
-        floats = lib.din_attention_backward_scratch(B, T, K, H1, H2)
+        floats = getattr(lib, entry + "_scratch")(B, T, K, H1, H2)
         if floats < 0:
-            raise RuntimeError(f"din_attention_backward has no plan for B={B}, T={T}, "
-                               f"K={K}, H1={H1}, H2={H2}")
+            raise RuntimeError(f"{entry} has no plan for B={B}, T={T}, K={K}, H1={H1}, "
+                               f"H2={H2}")
         scratch = torch.empty(floats, dtype=torch.float32, device=keys.device)
-        err = lib.din_attention_backward(
+        err = getattr(lib, entry)(
             *(t.data_ptr() for t in (*tensors, weights, grad, *grads, scratch)),
             B, T, K, H1, H2, int(activation == "relu"), int(weight_normalization),
             int(return_scores), _stream(keys))
     if err != 0:
-        raise RuntimeError(f"din_attention_backward launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
     din_attention_backward.launches += 1
+    din_attention_backward.global_launches += not tile
     return tuple(grads)
 
 
@@ -727,9 +761,12 @@ def din_attention_backward(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, g
     """The DIN attention's backward: the forward's inputs, its weights ``[B,
     T]`` and the output's cotangent ``grad`` -> ``(dq, dkeys, dw1, db1, dw2,
     db2, dw3, db3)``, the JAX package's ``_din_remat_bwd``. On CUDA one
-    launch of the backward kernel of ``csrc/din_attention.cu`` at every
-    shape (its weight gradients summed in a fixed order, no atomics: two
-    calls agree bitwise); on the CPU ``din_attention_backward_ref``."""
+    launch of a backward kernel of ``csrc/din_attention.cu`` at every
+    shape: the tile kernel where ``din_backward_kernel_takes`` (DIN's and
+    DIEN's scorer), else the global kernel, counted also in
+    ``global_launches`` (either sums its weight gradients in a fixed
+    order, no atomics: two calls agree bitwise); on the CPU
+    ``din_attention_backward_ref``."""
     tensors = [t.to(torch.float32).contiguous() for t in (query, keys, mask, w1, b1, w2, b2,
                                                          w3, b3, weights, grad)]
     if use_kernel(*tensors):
@@ -739,6 +776,7 @@ def din_attention_backward(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, g
 
 
 din_attention_backward.launches = 0
+din_attention_backward.global_launches = 0
 
 
 class _DinAttentionFused(torch.autograd.Function):

@@ -2,7 +2,8 @@
 package's (forward and ``jax.vjp`` gradients), ``din_attention_backward_ref``
 (the backward kernel's plain version) against autograd through
 ``din_attention_ref`` in float64, the ``din_attention_backward`` wrapper on
-the CPU, and the shapes its kernel's check takes."""
+the CPU, the shapes its global kernel's check takes, and where its tile
+kernel takes over (``din_backward_kernel_takes``)."""
 import numpy as np
 import pytest
 import torch
@@ -13,10 +14,13 @@ import jax.numpy as jnp
 from recommender_system_tpu.ops.din_vjp import din_attention_remat as j_din_attention_remat
 from recommender_system_tpu_torch.ops.din_vjp import (din_attention_backward_ref,
                                                       din_attention_remat)
-from recommender_system_tpu_torch.ops.kernels import (MAX_SHARED_BYTES, check_din_backward_args,
+from recommender_system_tpu_torch.ops import kernels
+from recommender_system_tpu_torch.ops.kernels import (DIN_BACKWARD_TILE, MAX_SHARED_BYTES,
+                                                      check_din_backward_args,
                                                       check_din_global_args,
                                                       din_attention_backward,
                                                       din_attention_fused, din_attention_ref,
+                                                      din_backward_kernel_takes,
                                                       din_global_shared_bytes)
 
 # the same f32 operations on both sides, summed in another order
@@ -235,3 +239,84 @@ def test_backward_check_rejects():
         check_din_backward_args(*args[:10], args[10].double(), "sigmoid", False)
     with pytest.raises(ValueError, match="activation"):
         check_din_backward_args(*args, "dice", False)
+
+
+# the tile kernel's edges: (B, T, K, H1, H2) it takes, and one past each
+TILE_TAKES = {
+    "din": (8192, 50, 32, 80, 40),
+    "small": (16, 13, 8, 10, 5),
+    "widest": (4, 64, 32, 80, 40),
+    "narrowest": (1, 1, 1, 1, 1),
+    "one_row_a_tile": (3, 33, 32, 80, 40),
+    "batch_past_int16": (70_000, 50, 32, 80, 40),
+}
+TILE_REFUSES = {
+    "t65": (4, 65, 32, 80, 40),
+    "k33": (4, 50, 33, 80, 40),
+    "h1_81": (4, 50, 32, 81, 40),
+    "h2_41": (4, 50, 32, 80, 41),
+    "k128_t50": (8192, 50, 128, 80, 40),
+    "k64_t200": (8192, 200, 64, 80, 40),
+    "k32_t1000": (8192, 1000, 32, 80, 40),
+}
+
+
+@pytest.mark.parametrize("return_scores", [False, True], ids=["pooled", "scores"])
+@pytest.mark.parametrize("case", sorted(TILE_TAKES) + sorted(TILE_REFUSES))
+def test_backward_tile_kernel_takes_within_its_limits(case, return_scores):
+    """``din_backward_kernel_takes`` on meta tensors: the tile kernel takes
+    K <= 32, H1 <= 80, H2 <= 40 and T <= 64 and nothing past any of them;
+    where it refuses, the global kernel's check takes the shape."""
+    takes = case in TILE_TAKES
+    B, T, K, H1, H2 = (TILE_TAKES if takes else TILE_REFUSES)[case]
+    args = _meta(B, T, K, H1, H2, return_scores)
+    assert din_backward_kernel_takes(*args, "sigmoid", return_scores) == takes
+    assert din_backward_kernel_takes(*args, "relu", return_scores) == takes
+    check_din_backward_args(*args, "sigmoid", return_scores)
+    lim = DIN_BACKWARD_TILE
+    assert takes == (K <= lim["K"] and H1 <= lim["H1"] and H2 <= lim["H2"] and T <= lim["T"])
+
+
+def test_backward_tile_kernel_refuses_what_no_kernel_takes():
+    """Where the global kernel's check raises, the tile kernel does not take
+    the inputs either: the predicate never raises."""
+    args = _meta(4, 6, 8)
+    bad = [
+        (*args[:10], torch.empty(4, 6, device="meta"), "sigmoid", False),   # grad's shape
+        (*args[:9], torch.empty(4, 7, device="meta"), args[10], "sigmoid", False),
+        (*args[:10], args[10].double(), "sigmoid", False),
+        (*args, "dice", False),
+        (*args[:3], args[3].double(), *args[4:], "sigmoid", False),
+    ]
+    for call in bad:
+        with pytest.raises((TypeError, ValueError)):
+            check_din_backward_args(*call)
+        assert not din_backward_kernel_takes(*call)
+
+
+@pytest.mark.parametrize("flags", FLAGS[:4], ids=FLAG_IDS[:4])
+def test_cpu_router_launches_nothing(flags, monkeypatch):
+    """On the CPU neither backward kernel runs at a shape the tile kernel
+    takes or one it refuses: no count moves and no library is loaded, and
+    the result is the plain version's exactly."""
+    def no_library(name):
+        raise AssertionError(f"the CPU path loaded {name}")
+
+    monkeypatch.setattr(kernels, "_library", no_library)
+    for shape in (dict(T=5, K=8), dict(T=70, K=8)):
+        q, keys, mask, weights = _inputs(B=4, seed=9, **shape)
+        B, T, K = keys.shape
+        tensors = [torch.from_numpy(a) for a in (q, keys, *weights)]
+        maskf = torch.from_numpy(mask.astype(np.float32))
+        cot = torch.from_numpy(_cotangent(B, T, K, flags[2]))
+        score = din_attention_ref(tensors[0], tensors[1], maskf, *tensors[2:], flags[0],
+                                  flags[1], True)
+        counts = (din_attention_backward.launches, din_attention_backward.global_launches)
+        got = din_attention_backward(tensors[0], tensors[1], maskf, *tensors[2:], score, cot,
+                                     *flags)
+        want = din_attention_backward_ref(tensors[0], tensors[1], maskf, *tensors[2:], score,
+                                          cot, *flags)
+        assert (din_attention_backward.launches,
+                din_attention_backward.global_launches) == counts
+        for name, g, w in zip(NAMES, got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)

@@ -1,8 +1,8 @@
-"""Which kernel the cross, FM and DIN attention wrappers launch on the card
-at each shape: the fast kernel of their source where ``*_kernel_takes``,
-else the source's global kernel, and never the plain version. Runs on the
-CPU with every tensor counted as on the card and a recording stand-in for
-the built library."""
+"""Which kernel the cross, FM and DIN attention wrappers (the attention's
+backward too) launch on the card at each shape: the fast kernel of their
+source where ``*_kernel_takes``, else the source's global kernel, and never
+the plain version. Runs on the CPU with every tensor counted as on the card
+and a recording stand-in for the built library."""
 import contextlib
 
 import numpy as np
@@ -37,6 +37,7 @@ def fake_card(monkeypatch):
         monkeypatch.setattr(fn, "launches", 0)
         monkeypatch.setattr(fn, "global_launches", 0)
     monkeypatch.setattr(din_attention_backward, "launches", 0)
+    monkeypatch.setattr(din_attention_backward, "global_launches", 0)
     return lib
 
 
@@ -71,7 +72,8 @@ def _din(B=4, T=6, K=8, H1=10, H2=5, seed=0):
 # and 4,000 at k=8, k=19 at D=1,500), the attention at K=128, past T=514 at
 # K=32 and at a hidden width past 256; a transposed bf16 x0 and a transposed
 # x go as contiguous float32 copies; the global kernel's three timed shapes
-# (K=128, T=50; K=64, T=200; K=32, T=1,000) are among them
+# (K=128, T=50; K=64, T=200; K=32, T=1,000) are among them, and DIN's shape
+# (K=32, T=50, 80-40) and T=100 on the tiled forward kernel
 ROUTES = {
     "cross": (cross_fused, lambda: [
         (_cross(3, 16, 2), "cross_forward"),
@@ -92,13 +94,19 @@ ROUTES = {
         (_din(B=2, T=515, K=32, H1=80, H2=40), "din_attention_global_forward"),
         (_din(B=2, T=200, K=64, H1=80, H2=40), "din_attention_global_forward"),
         (_din(B=2, T=1000, K=32, H1=80, H2=40), "din_attention_global_forward"),
-        (_din(H1=257), "din_attention_global_forward")]),
+        (_din(H1=257), "din_attention_global_forward"),
+        (_din(B=2, T=50, K=32, H1=80, H2=40), "din_attention_forward"),
+        (_din(B=2, T=100, K=32, H1=80, H2=40), "din_attention_forward")]),
 }
 
 
-# the backward kernel's entry points, after each forward of the attention:
-# its scratch's size, then the launch, at every shape
-DIN_BACKWARD = ["din_attention_backward_scratch", "din_attention_backward"]
+# the backward's entry points after each forward of the attention, by the
+# case's index in ROUTES: its scratch's size, then the launch, of the tile
+# kernel (K <= 32, H1 <= 80, H2 <= 40, T <= 64) or else the global kernel
+DIN_TILE_BACKWARD = ["din_attention_backward_scratch", "din_attention_backward"]
+DIN_GLOBAL_BACKWARD = ["din_attention_global_backward_scratch", "din_attention_global_backward"]
+DIN_BACKWARD = [DIN_TILE_BACKWARD, *[DIN_GLOBAL_BACKWARD] * 5, DIN_TILE_BACKWARD,
+                DIN_GLOBAL_BACKWARD]
 
 
 @pytest.mark.parametrize("name", sorted(ROUTES))
@@ -112,11 +120,14 @@ def test_wrapper_launches_a_kernel_at_every_shape(fake_card, name):
         if name == "din_attention":
             out.sum().backward()  # the backward kernel at either forward kernel's shapes
             assert all(a.grad is not None for a in args if a.dtype == torch.float32)
-    backward = DIN_BACKWARD if name == "din_attention" else []
-    assert fake_card.calls == [call for _, entry in cases for call in [entry, *backward]]
+    backward = DIN_BACKWARD if name == "din_attention" else [[]] * len(cases)
+    assert fake_card.calls == [call for (_, entry), back in zip(cases, backward)
+                               for call in [entry, *back]]
     assert fn.launches == len(cases)
     assert fn.global_launches == sum("global" in entry for _, entry in cases)
-    assert din_attention_backward.launches == (len(cases) if backward else 0)
+    assert din_attention_backward.launches == sum(bool(back) for back in backward)
+    assert din_attention_backward.global_launches == sum(back == DIN_GLOBAL_BACKWARD
+                                                         for back in backward)
 
 
 @pytest.mark.parametrize("name,case", [(name, i) for name in sorted(ROUTES) for i in (0, 1)])
@@ -132,3 +143,39 @@ def test_wrapper_raises_where_the_build_fails(fake_card, monkeypatch, name, case
     with pytest.raises(RuntimeError, match=f"build of {name} failed"):
         fn(*args)
     assert (fn.launches, fn.global_launches) == (0, 0)
+
+
+# backward inputs -> (the router's entries, the global kernel's on request)
+BACKWARD_ROUTES = [
+    (dict(), DIN_TILE_BACKWARD),
+    (dict(B=2, T=50, K=32, H1=80, H2=40), DIN_TILE_BACKWARD),
+    (dict(B=2, T=64, K=32, H1=80, H2=40), DIN_TILE_BACKWARD),
+    (dict(B=2, T=65, K=32, H1=80, H2=40), DIN_GLOBAL_BACKWARD),
+    (dict(B=2, T=50, K=33, H1=80, H2=40), DIN_GLOBAL_BACKWARD),
+    (dict(B=2, T=50, K=32, H1=81, H2=40), DIN_GLOBAL_BACKWARD),
+    (dict(B=2, T=50, K=32, H1=80, H2=41), DIN_GLOBAL_BACKWARD),
+    (dict(B=2, T=50, K=128, H1=80, H2=40), DIN_GLOBAL_BACKWARD),
+]
+
+
+@pytest.mark.parametrize("return_scores", [False, True], ids=["pooled", "scores"])
+@pytest.mark.parametrize("case", range(len(BACKWARD_ROUTES)))
+def test_backward_counts_launches_per_route(fake_card, case, return_scores):
+    """``din_attention_backward`` calls the tile kernel's entry points where
+    ``din_backward_kernel_takes`` and the global kernel's elsewhere; both
+    count in ``launches``, the global kernel also in ``global_launches``;
+    the launcher's ``global_kernel`` takes the global kernel at any shape."""
+    shape, entries = BACKWARD_ROUTES[case]
+    q, keys, mask, *weights = [t.detach() for t in _din(**shape)]
+    B, T, K = keys.shape
+    saved = torch.full((B, T), 1.0 / T)
+    grad = torch.ones((B, T) if return_scores else (B, K))
+    args = (q, keys, mask.float(), *weights, saved, grad, "sigmoid", True, return_scores)
+    assert kernels.din_backward_kernel_takes(*args[:11], "sigmoid", return_scores) == (
+        entries == DIN_TILE_BACKWARD)
+    grads = din_attention_backward(*args)
+    assert [g.shape for g in grads] == [t.shape for t in (q, keys, *weights)]
+    kernels._din_backward_launch(*args, global_kernel=True)
+    assert fake_card.calls == [*entries, *DIN_GLOBAL_BACKWARD]
+    assert din_attention_backward.launches == 2
+    assert din_attention_backward.global_launches == 1 + (entries == DIN_GLOBAL_BACKWARD)

@@ -454,7 +454,7 @@ def test_launch_counts_read_and_raise_every_counter():
         "cross_fused.launches", "cross_fused.global_launches", "fm_fused.launches",
         "fm_fused.global_launches", "din_attention_fused.launches",
         "din_attention_fused.global_launches", "din_attention_backward.launches",
-        "fused_adagrad_apply.launches",
+        "din_attention_backward.global_launches", "fused_adagrad_apply.launches",
         "fused_adagrad_apply.long_launches", "fused_sgd_apply.launches",
         "fused_sgd_apply.long_launches", "fused_adam_apply.launches",
         "fused_adam_apply.long_launches", "scatter_add_sorted.launches",
