@@ -3,23 +3,28 @@
     python3 chip_lab_din_backward.py [--skip-check] [--skip-time] [--variants a,b]
 
 Builds ``csrc/din_attention.cu`` and prints the backward kernels' registers
-and spills (``din_backward_tile_kernel``, the tile kernel; the global
-kernel's). The check holds ``din_attention_backward`` to
-``din_attention_backward_ref`` on the card at phase 2's shapes of
-``chip_smoke.py`` (``chip_smoke.din_backward_close``), on the kernel the
-router picks and, where that is the tile kernel, on the global kernel too
-(the launcher's ``global_kernel``); two calls to each other bitwise, and the
-forward's saved weights to its returned weights bitwise. The timing, at
+and spills (``din_backward_tile_kernel``, the tile kernel;
+``din_backward_wide_kernel<KT>``, the wide kernel; the global kernel's).
+The check holds ``din_attention_backward`` to ``din_attention_backward_ref``
+on the card at phase 2's shapes of ``chip_smoke.py``
+(``chip_smoke.din_backward_close``), on the kernel the router picks
+(``din_backward_route``; ``--only tile|wide|global`` keeps the cases routed
+to one) and, where that is the tile or the wide kernel, on the global kernel
+too (the launcher's ``global_kernel``); two calls to each other bitwise, and
+the forward's saved weights to its returned weights bitwise. The timing, at
 B=8,192 and a 80-40 scorer, at DIN's shape (K=32, T=50) and the global
 forward kernel's three (``DIN_GLOBAL_SHAPES``), times by CUDA events in
-turns: the tile kernel (where it takes the shape), the global kernel, the
-plain version, and the route the backward kernels replaced (autograd through
-``din_attention_ref``, the forward run again), each with its peak memory
-beyond the inputs (``torch.cuda.max_memory_allocated``), and the bound
-(``chip_smoke.din_backward_bound``). ``--variants`` builds text-edited
+turns: the kernel the router picks (the tile kernel at DIN's shape, the wide
+kernel at the other three), the global kernel, the plain version, and the
+route the backward kernels replaced (autograd through ``din_attention_ref``,
+the forward run again), each with its peak memory beyond the inputs
+(``torch.cuda.max_memory_allocated``), and the bound over all positions and
+over the valid ones (``chip_smoke.din_backward_bound``). The parent's
+kernels in turns with these: ``chip_turns.py --what backward``. ``--variants`` builds text-edited
 copies of the source (``VARIANTS``) and times each one's tile kernel entry
-point in turns with the unedited source (``base``) at DIN's shape; their
-results are not checked.
+point in turns with the unedited source (``base``) at DIN's shape, and
+``--wide-variants`` each one's wide kernel entry point at the three global
+shapes; their results are not checked.
 """
 from __future__ import annotations
 
@@ -77,8 +82,8 @@ VARIANTS = {
     "no_dqda": [("      for (int i = 0; i < kTH1 / 4; ++i) {\n        const int h = hq * (kTH1 / 4) + i;",
                  "      for (int i = 0; i < 0; ++i) {\n        const int h = hq * (kTH1 / 4) + i;")],
     "no_keys": [("        for (int i = wt; i < np * per; i += 128) {", "        for (int i = wt; i < 0; i += 128) {")],
-    "no_dkeys": [("            *reinterpret_cast<float2*>(o) = make_float2(dk[0], dk[1]);",
-                  "            (void)o;")],
+    "no_dkeys": [("\n            *reinterpret_cast<float2*>(o) = make_float2(dk[0], dk[1]);",
+                  "\n            (void)o;")],
     # the per-position products' k-steps as the weight gradients' (a fresh
     # accumulator each, then rounded f32 adds)
     "fresh": [(TILE_STEP, """  float t[N / 2];
@@ -108,20 +113,57 @@ VARIANTS = {
                    "__device__ __forceinline__ void tile_end(float (&acc)[M]) {\n  wg_wait_all();\n")],
     # no dA (its 20 running sums a thread)
     "no_da": [("            da[i] = fmaf(q_s[r * kTK + ca], v, da[i]);\n", "")],
+    # the wide kernel's dlogit from din_backward_dlogits launched first
+    # instead of its own sweep over the pair and g . k a tile
+    "wide_pre_dlogits": [("constexpr bool kWidePreDlogits = false;",
+                          "constexpr bool kWidePreDlogits = true;")],
+    # the wide kernel's weight ring, 3 or 6 k-steps a warpgroup
+    "wide_slots3": [("constexpr int kWSlots = 4; ", "constexpr int kWSlots = 3; ")],
+    "wide_slots6": [("constexpr int kWSlots = 4; ", "constexpr int kWSlots = 6; ")],
+    # the wide kernel's parts left out, to see what each costs (results
+    # wrong): the sweep's masked dkeys stores; its g . k for c; the
+    # weight-gradient products; dX's products; the keys' copies
+    "wide_no_masked": [("            if (in[u] && !valid[u]) {", "            if (false) {")],
+    "wide_no_c": [("      const bool dots = softmax && dlg == nullptr;",
+                   "      const bool dots = false;")],
+    "wide_no_wgrad": [
+        ("            tile_sum_issue<kTH2, kTSumSteps>(t[mi], a[mi], du_s + (k0 - KS * half) * kTStep2,\n"
+         "                                             kTStep2, mt == 1 && w != 0);",
+         "            (void)mt; t[mi][0] = 0.f;"),
+        ("        tile_sum_steps<kTH1, kTSumSteps>(dwx[mi], xa, b, kTStep1);",
+         "        (void)xa; (void)b;")],
+    "wide_no_dx": [("          tile_step<64>(x, dh[4 * kt], dh[4 * kt + 2], dh[4 * kt + 1], dh[4 * kt + 3], b);",
+                    "          (void)b;")],
+    "wide_no_keys": [("            cp_async16(keys_s + p * S::kSK + c, keys + ((b0 + row_of(p)) * T + idx_s[p]) * K + c);",
+                      "            (void)c;")],
+    # the wide kernel's pair end without dA's updates
+    "wide_no_da": [("      for (int r = 0; r < nrows; ++r) v = fmaf(q_s[r * KT + c], rs_s[r * kTH1 + h], v);\n      dA[i] = v;",
+                    "      (void)v;")],
+    # the wide kernel's cycles a phase (kWideClocks; time_clocks reads them)
+    "wide_clocks": [("constexpr bool kWideClocks = false;", "constexpr bool kWideClocks = true;")],
     # no reduction of the partials after the tile kernel
     "no_reduce": [
-        ("  din_backward_reduce<<<static_cast<int>(red_blocks < 65536 ? red_blocks : 65536), kPrepThreads,",
-         "  if (false) din_backward_reduce<<<static_cast<int>(red_blocks < 65536 ? red_blocks : 65536), kPrepThreads,")],
+        ("      H1, H2, relu != 0, softmax != 0, scores == 0, vec);\n"
+         "  if ((err = cudaGetLastError()) != cudaSuccess) return err;\n"
+         "  const long long outs = 4LL * K * H1 + H1 + static_cast<long long>(H1) * H2 + 2LL * H2 + 1;\n"
+         "  const long long red_blocks = (32 * outs + kPrepThreads - 1) / kPrepThreads;\n"
+         "  din_backward_reduce<<<",
+         "      H1, H2, relu != 0, softmax != 0, scores == 0, vec);\n"
+         "  if ((err = cudaGetLastError()) != cudaSuccess) return err;\n"
+         "  const long long outs = 4LL * K * H1 + H1 + static_cast<long long>(H1) * H2 + 2LL * H2 + 1;\n"
+         "  const long long red_blocks = (32 * outs + kPrepThreads - 1) / kPrepThreads;\n"
+         "  if (false) din_backward_reduce<<<")],
 }
 
 
-def check() -> None:
+def check(only: str = "") -> None:
     from recommender_system_tpu_torch.ops import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     failed = []
     for B, T, K, H1, H2, combos in cs.DIN_BACKWARD_CASES:
-        q, keys, mask, weights = cs.din_inputs(gen, B, T, K, H1, H2)
+        q, keys, mask, weights = cs.din_inputs(gen, B, T, K, H1, H2,
+                                               cs.DIN_BACKWARD_LENGTHS.get((B, T, K, H1, H2)))
         maskf = mask.float()
         for flags in (FLAGS if combos == "all" else FLAGS[:combos]):
             with torch.inference_mode():
@@ -132,10 +174,12 @@ def check() -> None:
                 raise RuntimeError(f"B={B} T={T} K={K} {flags}: the saved weights differ "
                                    "from the returned ones")
             cot = torch.randn(out.shape, generator=gen, device="cuda")
-            tile = kernels.din_backward_kernel_takes(q, keys, maskf, *weights, saved, cot,
-                                                     flags[0], flags[2])
-            for global_kernel in ((False, True) if tile else (True,)):
-                what = "global" if global_kernel else "tile"
+            route = kernels.din_backward_route(q, keys, maskf, *weights, saved, cot, flags[0],
+                                               flags[2])
+            if only and route != only:
+                continue
+            for global_kernel in ((False, True) if route != "global" else (True,)):
+                what = "global" if global_kernel else route
                 try:
                     note, _ = cs.din_backward_close(q, keys, maskf, weights, saved, cot, flags,
                                                     global_kernel)
@@ -175,18 +219,16 @@ def time_shapes() -> None:
         cot = torch.randn(out.shape, generator=gen, device="cuda")
         args = [t.clone().requires_grad_(True) for t in (q, keys, *weights)]
         tensors = (q, keys, maskf, *weights, saved, cot, "sigmoid", True, False)
-        tile = kernels.din_backward_kernel_takes(*tensors[:11], "sigmoid", False)
+        route = kernels.din_backward_route(*tensors[:11], "sigmoid", False)
 
         def old_route():
             res = din_attention_ref(args[0], args[1], maskf, *args[2:])
             return torch.autograd.grad(res, args, cot)
 
-        fns = {"tile": lambda: kernels._din_backward_launch(*tensors),
+        fns = {route: lambda: kernels._din_backward_launch(*tensors),
                "global": lambda: kernels._din_backward_launch(*tensors, global_kernel=True),
                "plain": lambda: din_attention_backward_ref(*tensors),
                "old_route": old_route}
-        if not tile:
-            del fns["tile"]
         order = [*fns, *reversed(fns)]
         rec = {}
         for name in order:
@@ -198,7 +240,7 @@ def time_shapes() -> None:
                              warmup=5)
         by_kernel = {what: {name[:48]: round(ms, 5) for name, ms in
                             cs.device_ms(fns[what], iters=20).items()}
-                     for what in ("tile", "global") if what in fns}
+                     for what in ("tile", "wide", "global") if what in fns}
         bound, by, f32_ms = cs.din_backward_bound(B, T, K, H1, H2)
         valid = int((maskf > 0.5).sum().item())
         valid_bound = cs.din_backward_bound(B, T, K, H1, H2, positions=valid)[0]
@@ -252,7 +294,8 @@ def build_variants(names):
         for line in tile_kernel_notes(log):
             print(f"variant {name}: {line}", flush=True)
         handle = ctypes.CDLL(str(lib))
-        for fn in ("din_attention_backward", "din_attention_backward_scratch"):
+        for fn in ("din_attention_backward", "din_attention_backward_scratch",
+                   "din_attention_wide_backward", "din_attention_wide_backward_scratch"):
             argtypes, restype = kernels.SOURCES["din_attention"][fn]
             getattr(handle, fn).argtypes = argtypes
             getattr(handle, fn).restype = restype
@@ -260,32 +303,86 @@ def build_variants(names):
     return libs
 
 
-def time_variants(names) -> None:
+def time_variants(names, wide: bool = False) -> None:
+    """Each variant's tile kernel entry point at DIN's shape, in turns with
+    ``base``; with ``wide``, its wide kernel entry point at the three global
+    shapes instead."""
     from recommender_system_tpu_torch.ops import kernels
 
     libs = build_variants(names)
     gen = torch.Generator(device="cuda").manual_seed(5)
     stream = torch.cuda.current_stream().cuda_stream
-    B, T, K, H1, H2 = cs.DIN_BATCH, cs.DIN_T, cs.DIN_DIM, 80, 40
-    q, keys, mask, weights = cs.din_inputs(gen, B, T, K, H1, H2)
-    maskf = mask.float()
-    with torch.inference_mode():
-        out, saved = kernels._din_launch(q, keys, maskf, *weights, "sigmoid", True, False, True)
-    cot = torch.randn(out.shape, generator=gen, device="cuda")
-    grads = [torch.empty_like(t) for t in (q, keys, *weights)]
+    shapes = ([(cs.DIN_BATCH, T, K, 80, 40) for K, T in cs.DIN_GLOBAL_SHAPES] if wide
+              else [(cs.DIN_BATCH, cs.DIN_T, cs.DIN_DIM, 80, 40)])
+    entry = "din_attention_wide_backward" if wide else "din_attention_backward"
+    for B, T, K, H1, H2 in shapes:
+        q, keys, mask, weights = cs.din_inputs(gen, B, T, K, H1, H2)
+        maskf = mask.float()
+        with torch.inference_mode():
+            out, saved = kernels._din_launch(q, keys, maskf, *weights, "sigmoid", True, False,
+                                             True)
+        cot = torch.randn(out.shape, generator=gen, device="cuda")
+        grads = [torch.empty_like(t) for t in (q, keys, *weights)]
 
-    def launch(lib):
-        floats = lib.din_attention_backward_scratch(B, T, K, H1, H2)
-        scratch = torch.empty(floats, device="cuda")
-        err = lib.din_attention_backward(
-            *(t.data_ptr() for t in (q, keys, maskf, *weights, saved, cot, *grads, scratch)),
-            B, T, K, H1, H2, 0, 1, 0, stream)
-        if err != 0:
-            raise RuntimeError(f"launch failed with CUDA error {err}")
+        def launch(lib):
+            floats = getattr(lib, entry + "_scratch")(B, T, K, H1, H2)
+            scratch = torch.empty(floats, device="cuda")
+            err = getattr(lib, entry)(
+                *(t.data_ptr() for t in (q, keys, maskf, *weights, saved, cot, *grads, scratch)),
+                B, T, K, H1, H2, 0, 1, 0, stream)
+            if err != 0:
+                raise RuntimeError(f"launch failed with CUDA error {err}")
 
-    for name in ["base", *[n for n in names if n != "base"], "base"]:
-        ms = cs.call_ms(lambda: launch(libs[name]), iters=30, warmup=3)
-        print(f"variant {name} B={B} T={T} K={K}: {ms:.5f} ms a call", flush=True)
+        for name in ["base", *[n for n in names if n != "base"], "base"]:
+            ms = cs.call_ms(lambda: launch(libs[name]), iters=10 if wide else 30, warmup=3)
+            print(f"variant {name} ({entry}) B={B} T={T} K={K}: {ms:.5f} ms a call",
+                  flush=True)
+        del q, keys, mask, weights, saved, cot, grads
+
+
+# the wide kernel's phases under kWideClocks, in its order (tick(i))
+WIDE_PHASES = ["unit: rows, sweep", "collect", "stage keys", "dlogit", "layer 1",
+               "swap, h1", "layer 2, du", "dW2", "dh", "dh parts", "dX", "dWX", "barrier",
+               "row sums", "unit: dq, dA"]
+
+
+def time_clocks() -> None:
+    """The wide kernel's cycles by phase at the three global shapes: a
+    team's first thread's sums over its pairs and tiles, summed over the
+    teams (the ``wide_clocks`` variant)."""
+    from recommender_system_tpu_torch.ops import kernels
+
+    lib = build_variants(["wide_clocks"])["wide_clocks"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for K, T in cs.DIN_GLOBAL_SHAPES:
+        B, H1, H2 = cs.DIN_BATCH, 80, 40
+        q, keys, mask, weights = cs.din_inputs(gen, B, T, K, H1, H2)
+        maskf = mask.float()
+        with torch.inference_mode():
+            out, saved = kernels._din_launch(q, keys, maskf, *weights, "sigmoid", True, False,
+                                             True)
+        cot = torch.randn(out.shape, generator=gen, device="cuda")
+        grads = [torch.empty_like(t) for t in (q, keys, *weights)]
+        scratch = torch.empty(lib.din_attention_wide_backward_scratch(B, T, K, H1, H2),
+                              device="cuda")
+        for _ in range(2):
+            err = lib.din_attention_wide_backward(
+                *(t.data_ptr() for t in (q, keys, maskf, *weights, saved, cot, *grads, scratch)),
+                B, T, K, H1, H2, 0, 1, 0, stream)
+            if err != 0:
+                raise RuntimeError(f"launch failed with CUDA error {err}")
+        torch.cuda.synchronize()
+        per_block = 2 if K <= 32 else 1
+        teams = min(sms, -(-((B + 1) // 2) // per_block)) * per_block
+        clocks = grads[1].reshape(-1)[:16 * teams].reshape(teams, 16)[:, :len(WIDE_PHASES)]
+        total = clocks.sum(0).double()
+        share = ", ".join(f"{name} {100 * float(v / total.sum()):.1f}%"
+                          for name, v in zip(WIDE_PHASES, total))
+        print(f"wide kernel cycles by phase, K={K} T={T} ({teams} teams, "
+              f"{float(total.sum() / teams):.0f} cycles a team): {share}", flush=True)
+        del q, keys, mask, weights, saved, cot, grads, scratch
 
 
 def main() -> int:
@@ -293,6 +390,12 @@ def main() -> int:
     parser.add_argument("--skip-check", action="store_true")
     parser.add_argument("--skip-time", action="store_true")
     parser.add_argument("--variants", default="")
+    parser.add_argument("--wide-variants", default="",
+                        help="variants timed on the wide kernel at the three global shapes")
+    parser.add_argument("--wide-clocks", action="store_true",
+                        help="the wide kernel's cycles by phase (the wide_clocks variant)")
+    parser.add_argument("--only", default="", choices=["", "tile", "wide", "global"],
+                        help="check only the cases the router sends to this kernel")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_lab_din_backward: no CUDA device", file=sys.stderr)
@@ -312,11 +415,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if not args.skip_check:
-        check()
+        check(args.only)
     if not args.skip_time:
         time_shapes()
     if args.variants:
         time_variants(args.variants.split(","))
+    if args.wide_variants:
+        time_variants(args.wide_variants.split(","), wide=True)
+    if args.wide_clocks:
+        time_clocks()
     print("\n".join(ptxas))
     print(cs.card_line())
     return 0

@@ -33,14 +33,18 @@ Phases, each of which raises on failure (exit code not 0):
    ran; at each of these cases the backward: the forward's saved weights
    bitwise its returned ones, the gradient through the autograd Function
    bitwise one launch of ``din_attention_backward`` on them (its tile
-   kernel where ``din_backward_kernel_takes``, else its global kernel,
-   counted in ``global_launches``), that kernel twice bitwise and against
+   kernel where ``din_backward_kernel_takes``, its wide kernel where
+   ``din_backward_wide_takes``, counted in ``wide_launches``, else its
+   global kernel, counted in ``global_launches``; the wide kernel's cases
+   add K=33, 64 and 100, T=65, T=128 with rows of exactly 64, 65 and 128
+   valid positions, 80-40 against 81-40), that kernel twice bitwise and against
    ``din_attention_backward_ref`` in f32 (rtol 1e-4, atol 1e-5 of each
    gradient's scale; rows at relu's kink left out, ``din_kink_rows``) and,
    on up to 1,024 rows, no farther from the plain version in float64 than
    ``DIN_F64_FACTOR`` times the f32 plain version's distance
-   (``din_backward_close``); where the tile kernel takes the case, the
-   global kernel too (the launcher's ``global_kernel``), held the same way;
+   (``din_backward_close``); where the tile or the wide kernel takes the
+   case, the global kernel too (the launcher's ``global_kernel``), held
+   the same way;
    ``fm_fused`` vs ``fm_ref`` (evaluated in float64: in float32 on the
    card its own sums miss the tolerance at D >= 3,419, B=16,384) at
    B=16,384, D=221, k=8, at B=16,385 and B=31 (a partial last group of 4
@@ -169,9 +173,12 @@ Phases, each of which raises on failure (exit code not 0):
    untouched rows bitwise unchanged), then three graphed calls against
    three looped ones, bitwise equal; DCN served at x0
    width 1,053 (26 fields at dim 40, 13 dense), ``fm_fused`` at D=4,000,
-   ``din_attention_fused`` at K=128, T=50, and one fused step of
-   ``DIEN(gru_hidden=128)`` at batch 1,024; each launch counted in
-   ``launches`` and in ``global_launches``, each answer against the CPU;
+   ``din_attention_fused`` at K=128, T=50, one fused step of
+   ``DIEN(gru_hidden=128)`` at batch 1,024 (its backward on the wide
+   kernel, ``wide_launches``) and one of DIN with a 128-64 attention scorer
+   (its backward on the global kernel); each launch counted in
+   ``launches`` and in ``global_launches`` or ``wide_launches``, each
+   answer against the CPU;
 3l. DSSM at ``benchmarks/model_step.py:109-122``'s width (3f's columns and
    batches without the price column, seeds 0-7: the user tower reads
    user_id and the mean-pooled T=50 history, the item tower item_id, all on
@@ -277,7 +284,8 @@ Phases, each of which raises on failure (exit code not 0):
    second captures the graph, the third replays it under
    ``set_sync_debug_mode("error")``), losses falling, untouched rows and
    slots bitwise unchanged, 24 attention launches, all of the global
-   kernel; then ``Scorer(batch_size=8192)`` serves it (one global launch a
+   kernel, and 24 of the backward, all of the wide kernel; then
+   ``Scorer(batch_size=8192)`` serves it (one global launch a
    padded batch), its answers equal to the plain attention's forward on
    the card and to the CPU path;
 3s. the long path of the fused SGD and lazy Adam on the main path: DIN at
@@ -295,8 +303,10 @@ Phases, each of which raises on failure (exit code not 0):
    host overhead included), and the library call where there is one (the
    DIN attention and its backward against two bounds: the tensor cores' at
    three TF32 passes, its ``bound_ms``, and f32 outside them,
-   ``f32_bound_ms``; the backward's tile kernel at DIN's shape, its global
-   kernel at the global forward kernel's three shapes); each
+   ``f32_bound_ms``; the backward's tile kernel at DIN's shape, its wide
+   kernel and its global kernel at the global forward kernel's three
+   shapes, the global kernel also at DIN's shape with a 128-64 scorer);
+   each
    Scorer's latency and throughput (host clock), its device busy time per
    batch and its top kernels; the training throughput of a fused K=8 call,
    graphed and looped (CUDA events), its device idle share, the top device
@@ -326,7 +336,8 @@ attention's backward, ``din_attention_backward``, launches once a training
 step of DIN and DIEN, and never when serving), the
 ``global_launches`` of the cross, FM and DIN attention wrappers and of
 the attention's backward, which must be 0 on every path but 3k's and, for
-the attention and its backward, 3r's, and the
+the attention, 3r's, the backward's ``wide_launches``, 0 on every path
+but 3k's and 3r's, and the
 ``long_launches`` of the four sparse row wrappers, which every launch of
 theirs counts (the long path's pass 2 runs on every stream; DIN's, DSSM's
 and DIEN's padding rows and the id-0 rows of Criteo batches with missing
@@ -336,7 +347,9 @@ The line before the last lists every kernel with its launches on its main
 path (the graphed calls of phase 3q's paths as ``graph_launches``; the
 cross global kernel: on phase 3k's DCN training, the FM's on phase 3k's
 path, the attention's on phase 3r's, with its times at three shapes as
-``shapes``; the global kernels' ``events_ms`` beside ``ms``; kernels 3-7 also on
+``shapes``; the attention backward's wide kernel on phase 3r's, its
+global kernel on phase 3k's 128-64 DIN step, both timed at the three
+shapes as ``shapes``; the global kernels' ``events_ms`` beside ``ms``; kernels 3-7 also on
 phase 3o's and 3p's runs, summed over ranks, as ``mesh_launches``, and
 kernels 4 and 5 on phase 3p's grid rank by rank as
 ``grid_launches_per_rank``; kernels 4-7's long path's launches as
@@ -413,6 +426,9 @@ WIDE_DIM, WIDE_VOCAB, WIDE_FM_D = 40, 10_000, 4000
 # phase 3r's DIN, model_step.py's with its embedding dim 128
 DIN_GLOBAL_SHAPES = ((128, 50), (64, 200), (32, 1000))
 DIN_WIDE_DIM = 128
+# an attention scorer wider than 80-40 (the attention backward's global
+# kernel's path, phase 3k): DIN with att_hidden_units=(128, 64)
+DIN_WIDE_SCORER = (128, 64)
 # the widest x0 whose rows csrc/cross.cu's global kernel holds in registers;
 # past it, its rows kernel
 CROSS_GLOBAL_REGISTER_DIM = 3072
@@ -794,9 +810,12 @@ def din_backward_bound(B: int, T: int, K: int, H1: int, H2: int, positions: int 
 
 # phase 2's shapes of the DIN attention's backward: (B, T, K, H1, H2, the
 # number of FLAG combinations, or "all"): DIN's and DIEN's width, T not a
-# multiple of 4, K=6, T=1, B=1, the tiled kernel's opt-in shared memory,
-# and the global kernel's: K=128 at T=50 and T=1, T=515, hidden widths
-# past 256, K=128 by 256-64, and its three timed shapes
+# multiple of 4, K=6, T=1, B=1, the tiled kernel's opt-in shared memory;
+# the wide kernel's: K=128 at T=50 and T=1, T=515, K=33, 64 and 100 (not a
+# multiple of 4), T=65, T=128 with rows of exactly 64, 65 and 128 valid
+# positions (``DIN_BACKWARD_LENGTHS``), a 80-40 scorer at K=64, T=100 and a
+# narrow one at K=48; the global kernel's: hidden widths past 256, 128-64,
+# K=128 by 256-64, 81-40; and the three timed shapes
 DIN_BACKWARD_CASES = [(DIN_BATCH, DIN_T, DIN_DIM, 80, 40, "all"),
                       (64, 13, 8, 10, 5, "all"),
                       (100, 7, 6, 12, 3, 4),
@@ -807,8 +826,23 @@ DIN_BACKWARD_CASES = [(DIN_BATCH, DIN_T, DIN_DIM, 80, 40, "all"),
                       (33, 1, 128, 80, 40, 4),
                       (64, 515, DIN_DIM, 80, 40, 4),
                       (100, 13, 8, 300, 260, 4),
-                      (64, 20, 128, 256, 64, 4)]
+                      (64, 20, 128, 256, 64, 4),
+                      (257, DIN_T, 33, 80, 40, 4),
+                      (300, DIN_T, 64, 80, 40, "all"),
+                      (257, DIN_T, 100, 80, 40, 4),
+                      (300, 65, DIN_DIM, 80, 40, 4),
+                      (71, 128, DIN_DIM, 80, 40, "all"),
+                      (71, 128, 128, 80, 40, 4),
+                      (257, 100, 64, 80, 40, 2),
+                      (257, 100, 64, 81, 40, 2),
+                      (64, 70, 48, 10, 5, 4)]
 DIN_BACKWARD_CASES += [(DIN_BATCH, T, K_, 80, 40, 2) for K_, T in DIN_GLOBAL_SHAPES]
+# rows' valid positions at a case's shape (B, T, K, H1, H2), cycled over its
+# rows (else uniform on 1..T), the first row none as phase 2 checks: pairs
+# of rows 0 and 64 (one whole tile), 65 and 128 (four tiles, each row
+# across two), 1 and 63 (one tile, two rows), 127 and 64 (three tiles)
+DIN_BACKWARD_LENGTHS = {(71, 128, DIN_DIM, 80, 40): [0, 64, 65, 128, 1, 63, 127, 64],
+                        (71, 128, 128, 80, 40): [0, 64, 65, 128, 1, 63, 127, 64]}
 # the batch at which the backward is also held to float64: its rows are the
 # first this many of a case's
 DIN_F64_ROWS = 1024
@@ -918,13 +952,17 @@ def din_backward_close(q, keys, maskf, weights, saved, cot, flags, global_kernel
     return note + f"; from float64 at B={B}, kernel/plain: {', '.join(ratios)}", abs_err
 
 
-def din_inputs(gen, B, T, K, H1, H2):
+def din_inputs(gen, B, T, K, H1, H2, lengths=None):
     """Random DIN attention inputs on the card: lengths uniform on 1..T, the
-    first row with no valid position; weights at glorot scale."""
+    first row with no valid position (or ``lengths``, cycled over the
+    rows); weights at glorot scale."""
     q = torch.randn(B, K, generator=gen, device="cuda")
     keys = torch.randn(B, T, K, generator=gen, device="cuda")
-    lengths = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
-    lengths[0] = 0
+    if lengths is None:
+        lengths = torch.randint(1, T + 1, (B,), generator=gen, device="cuda")
+        lengths[0] = 0
+    else:
+        lengths = torch.tensor([lengths[i % len(lengths)] for i in range(B)], device="cuda")
     mask = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
     weights = []
     for fan_in, fan_out in ((4 * K, H1), (H1, H2), (H2, 1)):
@@ -935,6 +973,11 @@ def din_inputs(gen, B, T, K, H1, H2):
     return q, keys, mask, weights
 
 
+# the backward's errors in check_din_kernel's result, by route
+DIN_BACKWARD_ERR_KEY = {"tile": "din_attention_backward", "wide": "din_attention_wide_backward",
+                        "global": "din_attention_global_backward"}
+
+
 def check_din_kernel() -> dict:
     """Phase 2 for csrc/din_attention.cu: ``din_attention_fused`` against
     ``din_attention_ref`` on the card at every case of
@@ -943,11 +986,11 @@ def check_din_kernel() -> dict:
     saved weights bitwise the returned ones), and that kernel held to
     ``din_attention_backward_ref`` in f32 and float64
     (``din_backward_close``): the tile kernel where
-    ``din_backward_kernel_takes`` (and there the global kernel as well,
+    ``din_backward_kernel_takes``, the wide kernel where
+    ``din_backward_wide_takes`` (at either, the global kernel as well,
     through the launcher's ``global_kernel``), else the global kernel.
     Returns the largest absolute error of the forward by kernel, and of
-    the backward's gradients by kernel (``din_attention_backward``, the
-    tile kernel; ``din_attention_global_backward``)."""
+    the backward's gradients by kernel (``DIN_BACKWARD_ERR_KEY``)."""
     from recommender_system_tpu_torch.ops import kernels
     from recommender_system_tpu_torch.ops.kernels import (din_attention_backward,
                                                           din_attention_fused, din_attention_ref)
@@ -957,7 +1000,8 @@ def check_din_kernel() -> dict:
              for rs in (False, True)]
     max_err = collections.Counter()
     for B, T, K, H1, H2, combos in DIN_BACKWARD_CASES:
-        q, keys, mask, weights = din_inputs(gen, B, T, K, H1, H2)
+        q, keys, mask, weights = din_inputs(gen, B, T, K, H1, H2,
+                                            DIN_BACKWARD_LENGTHS.get((B, T, K, H1, H2)))
         maskf = mask.float()
         smem = kernels.din_shared_bytes(T, K, H1, H2)
         fast = kernels.din_kernel_takes(q, keys, maskf, *weights, "sigmoid")
@@ -993,28 +1037,34 @@ def check_din_kernel() -> dict:
                 raise RuntimeError(f"din_attention_fused B={B} T={T} K={K} {activation} "
                                    f"{wn} {rs}: the saved weights differ from the returned")
             cot = torch.randn(out.shape, generator=gen, device="cuda")
-            tile = kernels.din_backward_kernel_takes(q, keys, maskf, *weights, saved, cot,
-                                                     activation, rs)
+            route = kernels.din_backward_route(q, keys, maskf, *weights, saved, cot,
+                                               activation, rs)
             args = [t.clone().requires_grad_(True) for t in (q, keys, *weights)]
-            before = (din_attention_backward.launches, din_attention_backward.global_launches)
+
+            def backward_counts():
+                return (din_attention_backward.launches, din_attention_backward.wide_launches,
+                        din_attention_backward.global_launches)
+
+            before = backward_counts()
             got = torch.autograd.grad(din_attention_fused(args[0], args[1], mask, *args[2:],
                                                           activation, wn, rs), args, cot)
             direct = din_attention_backward(q, keys, maskf, *weights, saved, cot, activation,
                                             wn, rs)
             torch.cuda.synchronize()
-            want = (before[0] + 2, before[1] + (0 if tile else 2))
-            if (din_attention_backward.launches, din_attention_backward.global_launches) != want:
+            want = (before[0] + 2, before[1] + 2 * (route == "wide"),
+                    before[2] + 2 * (route == "global"))
+            if backward_counts() != want:
                 raise RuntimeError(f"din_attention_fused's backward did not launch the "
-                                   f"{'tile' if tile else 'global'} backward kernel once")
+                                   f"{route} backward kernel once")
             if not all(torch.equal(a, b) for a, b in zip(got, direct)):
                 raise RuntimeError(f"din_attention_fused B={B} T={T} K={K} {activation} {wn} "
                                    f"{rs}: its backward differs from din_attention_backward")
-            name = "din_attention_backward" if tile else "din_attention_global_backward"
+            name = DIN_BACKWARD_ERR_KEY[route]
             note, grad_err = din_backward_close(q, keys, maskf, weights, saved, cot,
                                                 (activation, wn, rs))
-            note = f"{'tile' if tile else 'global'} kernel: {note}"
+            note = f"{route} kernel: {note}"
             max_err[name] = max(max_err[name], grad_err)
-            if tile:
+            if route != "global":
                 g_note, grad_err = din_backward_close(q, keys, maskf, weights, saved, cot,
                                                       (activation, wn, rs), global_kernel=True)
                 note += f"; global kernel: {g_note}"
@@ -1885,13 +1935,15 @@ def din_staged(seeds, negatives: bool = False, batch: int = DIN_BATCH):
     return batches, labels
 
 
-def din_model(dim: int = DIN_DIM):
+def din_model(dim: int = DIN_DIM, att_hidden_units=(80, 40)):
     """DIN at model_step.py's width (attention 80-40 sigmoid, BatchNorm on
     the 97-wide concat at dim 32, Dice tower 256-128-64, f32) on the card,
-    weights from seed 0; ``dim`` replaces the embedding dim."""
+    weights from seed 0; ``dim`` replaces the embedding dim,
+    ``att_hidden_units`` the attention's scorer."""
     from recommender_system_tpu_torch import DIN
 
-    model = DIN(din_columns(dim=dim), behavior_feature_list=("item_id",), device="cuda",
+    model = DIN(din_columns(dim=dim), behavior_feature_list=("item_id",),
+                att_hidden_units=att_hidden_units, device="cuda",
                 generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         # the default init std of 1e-4 would leave the embeddings, and so
@@ -1915,18 +1967,20 @@ def counted():
 
 def read_counts() -> dict:
     """Every wrapper's launches, and of them the launches of the global
-    kernels of the three wrappers that have one
-    (``<wrapper>.global_launches``) and of the long path of the four sparse
-    row rules (``<wrapper>.long_launches``)."""
+    kernels of the wrappers that have one (``<wrapper>.global_launches``),
+    of the attention backward's wide kernel
+    (``din_attention_backward.wide_launches``) and of the long path of the
+    four sparse row rules (``<wrapper>.long_launches``)."""
     counts = {fn.__name__: fn.launches for fn in counted()}
     counts.update({f"{fn.__name__}.{attr}": getattr(fn, attr) for fn in counted()
-                   for attr in ("global_launches", "long_launches") if hasattr(fn, attr)})
+                   for attr in ("global_launches", "wide_launches", "long_launches")
+                   if hasattr(fn, attr)})
     return counts
 
 
 def zero_counts() -> None:
     for fn in counted():
-        for attr in ("launches", "global_launches", "long_launches"):
+        for attr in ("launches", "global_launches", "wide_launches", "long_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
 
@@ -1945,6 +1999,12 @@ def launches_want(**launches) -> dict:
 def global_key(name: str) -> str:
     """The key of ``name``'s global kernel launches in ``read_counts``."""
     return f"{name}.global_launches"
+
+
+def wide_key(name: str) -> str:
+    """The key of ``name``'s wide kernel launches in ``read_counts`` (the
+    attention backward's)."""
+    return f"{name}.wide_launches"
 
 
 def long_key(name: str) -> str:
@@ -2047,10 +2107,11 @@ def serve_din(model, name: str = "DIN", on_global: bool = False):
 def din_wide_path(card) -> dict:
     """Phase 3r: DIN at model_step.py's width with its embedding dim 128
     (table_d128 of 300,000 x 128), whose attention's keys only the global
-    kernel takes: three fused K=8 calls through ``Trainer.multi_step`` (the
-    second captures the graph, the third replays it), then served through
-    ``Scorer(batch_size=8192)``. Every attention launch must be one of the
-    global kernel. Returns the launches of each."""
+    forward kernel takes: three fused K=8 calls through
+    ``Trainer.multi_step`` (the second captures the graph, the third
+    replays it), then served through ``Scorer(batch_size=8192)``. Every
+    attention launch must be one of the global kernel, every backward one
+    of the wide kernel. Returns the launches of each."""
     from recommender_system_tpu_torch import FusedAdagrad
     from recommender_system_tpu_torch.training import Adagrad
 
@@ -2062,7 +2123,7 @@ def din_wide_path(card) -> dict:
         launches_want(din_attention_fused=3 * K, din_attention_backward=3 * K,
                       fused_adagrad_apply=3 * K,
                       **{global_key("din_attention_fused"): 3 * K,
-                         global_key("din_attention_backward"): 3 * K}), card,
+                         wide_key("din_attention_backward"): 3 * K}), card,
         touched=table_d32_touched(batches))
     _, _, serve_launches = serve_din(trainer.model, name, on_global=True)
     print(f"phase 3r took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2479,9 +2540,19 @@ def check_global_shapes(card) -> dict:
                 launches_want(fused_adagrad_apply=1, din_attention_fused=1,
                               din_attention_backward=1,
                               **{global_key("din_attention_fused"): 1,
-                                 global_key("din_attention_backward"): 1}),
+                                 wide_key("din_attention_backward"): 1}),
                 lambda: card_against_cpu(dien_model(gru_hidden=128), batches, labels,
                                          "DIEN(gru_hidden=128)"))
+    # DIN with a scorer wider than 80-40: the attention backward's global
+    # kernel (the forward's tiled kernel takes the scorer)
+    batches, labels = din_staged([0], batch=DIEN_SMALL_BATCH)
+    counted_run(f"one fused step of DIN(att_hidden_units={DIN_WIDE_SCORER}) at batch 1,024",
+                launches_want(fused_adagrad_apply=1, din_attention_fused=1,
+                              din_attention_backward=1,
+                              **{global_key("din_attention_backward"): 1}),
+                lambda: card_against_cpu(din_model(att_hidden_units=DIN_WIDE_SCORER),
+                                         batches, labels,
+                                         f"DIN(att_hidden_units={DIN_WIDE_SCORER})"))
     print(f"global kernels: each shape launched its wrapper's global kernel and agreed "
           f"with the CPU; on {card}", flush=True)
     return out
@@ -2845,65 +2916,111 @@ def time_global_kernels(card, errors: dict, counts: dict, wide: dict) -> list:
             "one fused step of DIEN(gru_hidden=128) at batch 1,024"][
             global_key("din_attention_fused")],
         "shapes": shapes})
-    entries.append(time_global_backward(card, errors, counts, wide, gen))
+    entries.extend(time_global_backward(card, errors, counts, wide, gen))
     return entries
 
 
-def time_global_backward(card, errors: dict, counts: dict, wide: dict, gen) -> dict:
-    """Phase 4 for the attention backward's global kernel (the shapes the
-    tile kernel does not take) at B=8,192, 80-40 at the global forward
-    kernel's three timed shapes, on the forward's saved weights and a
-    cotangent: its device time and per call, its plain version's, and the
-    bound (``din_backward_bound``). Returns its ``kernels`` entry, timed at
-    the first shape (phase 3r's)."""
+def backward_record(fn, plain, shape, valid: int, kernel: str, what: str, card) -> dict:
+    """One backward kernel timed on the card at ``shape`` (B, T, K, H1,
+    H2): its device time from the profiler (all of its call's launches),
+    per call, its plain version's, and the bounds over all positions and
+    over the ``valid`` ones."""
+    B, T, K_, H1, H2 = shape
+    with torch.inference_mode():
+        kernel_dev = device_ms(fn, iters=5)
+        plain_dev = device_ms(plain, iters=3)
+        rec = {"B": B, "K": K_, "T": T, "H1": H1, "H2": H2,
+               "call_ms": call_ms(fn, iters=10, warmup=2),
+               "plain_call_ms": call_ms(plain, iters=5, warmup=1)}
+    # the kernel, beside its own launches: the pack, the row terms, the
+    # dlogits, the reduction, dq
+    if not any(kernel in k for k in kernel_dev) or not all(
+            "din_backward" in k or "row_terms" in k for k in kernel_dev):
+        raise RuntimeError(f"din_attention_backward at {shape} ran {dict(kernel_dev)}, not "
+                           f"{kernel}")
+    rec.update(ms=sum(kernel_dev.values()), plain_ms=sum(plain_dev.values()), library_ms=None,
+               launches_a_call=len(kernel_dev))
+    rec["bound_ms"], rec["bound_by"], rec["f32_bound_ms"] = din_backward_bound(*shape)
+    rec["valid_bound_ms"] = din_backward_bound(*shape, positions=valid)[0]
+    print(f"timing din_attention_backward ({what}, {kernel}) B={B} T={T} K={K_} H1={H1} "
+          f"H2={H2}: device {rec['ms']:.5f} ms in {len(kernel_dev)} kernels "
+          f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the tensor cores' bound "
+          f"{rec['bound_ms']:.5f} ms, {rec['bound_by']}; over the {valid} valid positions "
+          f"{rec['valid_bound_ms']:.5f} ms), {rec['call_ms']:.5f} ms per call; plain: device "
+          f"{rec['plain_ms']:.5f} ms, {rec['plain_call_ms']:.5f} ms per call; on {card}",
+          flush=True)
+    return rec
+
+
+def time_global_backward(card, errors: dict, counts: dict, wide: dict, gen) -> list:
+    """Phase 4 for the attention backward's wide and global kernels, on the
+    forward's saved weights and a cotangent, each against its plain version
+    and the bound (``din_backward_bound``, also over the valid positions):
+    the wide kernel at B=8,192, 80-40 at the global forward kernel's three
+    timed shapes (its entry timed at the first, phase 3r's); the global
+    kernel there too (the launcher's ``global_kernel``) and at its own
+    path's shape, DIN's attention with a 128-64 scorer (phase 3k), where its
+    entry is timed. Returns the two ``kernels`` entries."""
     from recommender_system_tpu_torch.ops import kernels
     from recommender_system_tpu_torch.ops.din_vjp import din_attention_backward_ref
-    from recommender_system_tpu_torch.ops.kernels import din_attention_backward
 
-    shapes = []
-    for K_, T in DIN_GLOBAL_SHAPES:
-        q, keys, mask, weights = din_inputs(gen, DIN_BATCH, T, K_, 80, 40)
+    def inputs(B, T, K_, H1, H2):
+        q, keys, mask, weights = din_inputs(gen, B, T, K_, H1, H2)
         mask = mask.float()
         with torch.inference_mode():
             _, saved = kernels._din_launch(q, keys, mask, *weights, "sigmoid", True, False, True)
-            cot = torch.randn(DIN_BATCH, K_, generator=gen, device="cuda")
-            args = (q, keys, mask, *weights, saved, cot)
-            if kernels.din_backward_kernel_takes(*args, "sigmoid", False):
-                raise RuntimeError(f"the backward's tile kernel takes K={K_}, T={T}")
-            kernel_dev = device_ms(lambda: din_attention_backward(*args), iters=5)
-            plain_dev = device_ms(lambda: din_attention_backward_ref(*args), iters=3)
-            rec = {"K": K_, "T": T,
-                   "call_ms": call_ms(lambda: din_attention_backward(*args), iters=10, warmup=2),
-                   "plain_call_ms": call_ms(lambda: din_attention_backward_ref(*args), iters=5,
-                                            warmup=1)}
-        if not any("din_backward_kernel" in k for k in kernel_dev):
-            raise RuntimeError(f"din_attention_backward at K={K_}, T={T} ran "
-                               f"{dict(kernel_dev)}, not its global kernel")
-        rec.update(ms=sum(kernel_dev.values()), plain_ms=sum(plain_dev.values()),
-                   library_ms=None)
-        rec["bound_ms"], rec["bound_by"], rec["f32_bound_ms"] = din_backward_bound(
-            DIN_BATCH, T, K_, 80, 40)
-        print(f"timing din_attention_backward (global kernel) B={DIN_BATCH} T={T} K={K_} "
-              f"H1=80 H2=40: device {rec['ms']:.5f} ms in {len(kernel_dev)} kernels "
-              f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the tensor cores' bound "
-              f"{rec['bound_ms']:.5f} ms, {rec['bound_by']}), {rec['call_ms']:.5f} ms per "
-              f"call; plain: device {rec['plain_ms']:.5f} ms, {rec['plain_call_ms']:.5f} ms "
-              f"per call; on {card}", flush=True)
-        shapes.append(rec)
-        del q, keys, mask, weights, saved, cot, args
-    first = {k: v for k, v in shapes[0].items() if k not in ("K", "T")}
-    key = global_key("din_attention_backward")
-    return {
+        cot = torch.randn(B, K_, generator=gen, device="cuda")
+        return (q, keys, mask, *weights, saved, cot), int((mask > 0.5).sum().item())
+
+    wide_shapes, global_shapes = [], []
+    for K_, T in DIN_GLOBAL_SHAPES:
+        shape = (DIN_BATCH, T, K_, 80, 40)
+        args, valid = inputs(*shape)
+        if kernels.din_backward_route(*args, "sigmoid", False) != "wide":
+            raise RuntimeError(f"the backward's wide kernel does not take K={K_}, T={T}")
+        plain = lambda: din_attention_backward_ref(*args)  # noqa: E731
+        wide_shapes.append(backward_record(
+            lambda: kernels._din_backward_launch(*args, "sigmoid", True, False), plain, shape,
+            valid, "din_backward_wide_kernel", "wide kernel", card))
+        global_shapes.append(backward_record(
+            lambda: kernels._din_backward_launch(*args, "sigmoid", True, False,
+                                                 global_kernel=True), plain, shape, valid,
+            "din_backward_kernel", "global kernel", card))
+        del args
+    shape = (DIN_BATCH, DIN_T, DIN_DIM) + DIN_WIDE_SCORER
+    args, valid = inputs(*shape)
+    if kernels.din_backward_route(*args, "sigmoid", False) != "global":
+        raise RuntimeError(f"the backward's global kernel does not take {shape}")
+    own = backward_record(lambda: kernels._din_backward_launch(*args, "sigmoid", True, False),
+                          lambda: din_attention_backward_ref(*args), shape, valid,
+                          "din_backward_kernel", "global kernel", card)
+    del args
+    first = {k: v for k, v in wide_shapes[0].items() if k not in ("B", "K", "T", "H1", "H2")}
+    dien = counts["one fused step of DIEN(gru_hidden=128) at batch 1,024"]
+    scorer_path = f"one fused step of DIN(att_hidden_units={DIN_WIDE_SCORER}) at batch 1,024"
+    return [{
+        "name": "din_attention_backward (din_backward_wide_kernel)", "route": "cuda",
+        "source": "recommender_system_tpu_torch/csrc/din_attention.cu",
+        "replaces": "recommender_system_tpu/ops/din_vjp.py:120",
+        "launches": wide["train"][wide_key("din_attention_backward")],
+        "max_abs_err": errors["din_attention_wide_backward"], **first,
+        "path": f"DIN at dim {DIN_WIDE_DIM} trained, three K=8 calls (phase 3r)",
+        "timed_at": f"B={DIN_BATCH} T={DIN_T} K={DIN_WIDE_DIM} H1=80 H2=40",
+        "global_launches_there": wide["train"][global_key("din_attention_backward")],
+        "dien_gru_hidden_128_launches": dien[wide_key("din_attention_backward")],
+        "dien_gru_hidden_128_global_launches": dien[global_key("din_attention_backward")],
+        "shapes": wide_shapes,
+    }, {
         "name": "din_attention_backward (din_backward_kernel)", "route": "cuda",
         "source": "recommender_system_tpu_torch/csrc/din_attention.cu",
         "replaces": "recommender_system_tpu/ops/din_vjp.py:120",
-        "launches": wide["train"][key], "max_abs_err": errors["din_attention_global_backward"],
-        **first,
-        "path": f"DIN at dim {DIN_WIDE_DIM} trained, three K=8 calls (phase 3r)",
-        "timed_at": f"B={DIN_BATCH} T={DIN_T} K={DIN_WIDE_DIM} H1=80 H2=40",
-        "dien_gru_hidden_128_launches": counts[
-            "one fused step of DIEN(gru_hidden=128) at batch 1,024"][key],
-        "shapes": shapes}
+        "launches": counts[scorer_path][global_key("din_attention_backward")],
+        "max_abs_err": errors["din_attention_global_backward"],
+        **{k: v for k, v in own.items() if k not in ("B", "K", "T", "H1", "H2")},
+        "path": f"{scorer_path} (phase 3k)",
+        "timed_at": "B={} T={} K={} H1={} H2={}".format(*shape),
+        "shapes": global_shapes,
+    }]
 
 
 # ---------------------------------------------------------------------------
@@ -4834,6 +4951,7 @@ def main() -> int:
         "replaces": "recommender_system_tpu/ops/din_vjp.py:120",
         "launches": din_fused_launches["din_attention_backward"],
         "global_launches": din_fused_launches[global_key("din_attention_backward")],
+        "wide_launches": din_fused_launches[wide_key("din_attention_backward")],
         "max_abs_err": din_errs["din_attention_backward"],
         **din_times["backward"],
         "serving_launches": din_serve_launches["din_attention_backward"],

@@ -58,8 +58,13 @@ TF32 off:
 - DIEN's graphed K=8 call at ``model_step.py``'s width with ``Adagrad`` and
   ``FusedAdagrad`` (``dien``).
 
-``--what fm,cross`` keeps only the parts named (default: all twelve,
-``adam,rows,attention,steps,fm,cross,family,loops,fm_global,cross_global,rules,dien``).
+- ``din_attention_backward`` at B=8,192, 80-40, at DIN's shape and the
+  global forward kernel's three: device time, time per call and peak
+  memory beyond the inputs (``backward``); the graphed K=8 calls of DIN at
+  embedding dim 128 and of ``DIEN(gru_hidden=128)`` (``wide_steps``).
+
+``--what fm,cross`` keeps only the parts named (default: all fourteen,
+``adam,rows,attention,steps,fm,cross,family,loops,fm_global,cross_global,rules,dien,backward,wide_steps``).
 
 Each turn prints ``TURN <label> {json}``; the run ends with one line per
 metric listing every turn's value, and the card's name and power limit.
@@ -425,8 +430,69 @@ def time_dien(cs, torch) -> dict:
             "dien_graphed_max_ms": most}
 
 
+def peak_mb(torch, fn) -> float:
+    """Device memory one call of ``fn`` allocates at its peak beyond what
+    was allocated before it, in MB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def time_backward(cs, torch) -> dict:
+    """``din_attention_backward`` (the public wrapper: whichever kernel the
+    tree routes to) at B=8,192, 80-40, at DIN's shape and the global forward
+    kernel's three (``DIN_GLOBAL_SHAPES``), on the forward's saved weights
+    and a cotangent from a seed: device time (profiler), time per call
+    (CUDA events) and peak memory beyond the inputs (``backward``)."""
+    from recommender_system_tpu_torch.ops import kernels
+    from recommender_system_tpu_torch.ops.kernels import din_attention_backward
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for K_, T in ((cs.DIN_DIM, cs.DIN_T), *cs.DIN_GLOBAL_SHAPES):
+        q, keys, mask, weights = cs.din_inputs(gen, cs.DIN_BATCH, T, K_, 80, 40)
+        mask = mask.float()
+        with torch.inference_mode():
+            _, saved = kernels._din_launch(q, keys, mask, *weights, "sigmoid", True, False, True)
+            cot = torch.randn(cs.DIN_BATCH, K_, generator=gen, device="cuda")
+            args = (q, keys, mask, *weights, saved, cot)
+            name = f"backward_k{K_}_t{T}"
+            out[f"{name}_ms"] = sum(cs.device_ms(lambda: din_attention_backward(*args),
+                                                 iters=5).values())
+            out[f"{name}_call_ms"] = cs.call_ms(lambda: din_attention_backward(*args),
+                                                iters=10, warmup=2)
+            out[f"{name}_peak_mb"] = peak_mb(torch, lambda: din_attention_backward(*args))
+        del q, keys, mask, weights, saved, cot, args
+    return out
+
+
+def time_wide_steps(cs, torch) -> dict:
+    """The graphed K=8 calls whose attention backward takes K=128: DIN at
+    embedding dim 128 (phase 3r's) and ``DIEN(gru_hidden=128)``, at
+    model_step.py's width with ``Adagrad`` and ``FusedAdagrad``: ms a step
+    (``per_step``), the median, least and most of three (``wide_steps``)."""
+    from recommender_system_tpu_torch import FusedAdagrad, Trainer
+    from recommender_system_tpu_torch.training import Adagrad
+
+    out = {}
+    cells = {"din_d128": (lambda: cs.din_model(cs.DIN_WIDE_DIM),
+                          lambda: cs.din_staged(range(cs.K))),
+             "dien_h128": (lambda: cs.dien_model(gru_hidden=128),
+                           lambda: cs.din_staged(range(cs.K), negatives=True))}
+    for name, (model, data) in cells.items():
+        trainer = Trainer(model(), Adagrad(cs.LR), fused_embedding=FusedAdagrad(cs.LR))
+        least, median, most = per_step(torch, trainer.multi_step, *data())
+        out.update({f"{name}_graphed_ms": median, f"{name}_graphed_min_ms": least,
+                    f"{name}_graphed_max_ms": most})
+        del trainer
+    return out
+
+
 PARTS = ("adam", "rows", "attention", "steps", "fm", "cross", "family", "loops",
-         "fm_global", "cross_global", "rules", "dien")
+         "fm_global", "cross_global", "rules", "dien", "backward", "wide_steps")
 
 
 def turn(label: str, tree: Path, what) -> None:
@@ -469,6 +535,10 @@ def turn(label: str, tree: Path, what) -> None:
         rec.update(time_rules(cs, torch))
     if "dien" in what:
         rec.update(time_dien(cs, torch))
+    if "backward" in what:
+        rec.update(time_backward(cs, torch))
+    if "wide_steps" in what:
+        rec.update(time_wide_steps(cs, torch))
     print(f"TURN {label} {json.dumps(rec)}", flush=True)
 
 

@@ -121,14 +121,17 @@
 //
 // The backward (the counterpart of _din_remat_bwd in
 // recommender_system_tpu/ops/din_vjp.py, which XLA compiles: the TPU has no
-// backward kernel) has two kernels. From the inputs, the forward's weights
-// [B, T] (the tiled kernel writes them through a pointer that is null when
-// serving; the global kernel's scratch holds them) and the output's
-// cotangent g, each writes dq, dkeys and every weight's gradient.
+// backward kernel) has three kernels. From the inputs, the forward's
+// weights [B, T] (the tiled kernel writes them through a pointer that is
+// null when serving; the global kernel's scratch holds them) and the
+// output's cotangent g, each writes dq, dkeys and every weight's gradient.
 // din_backward_tile_kernel (below, with its design) takes DIN's and
 // DIEN's shapes, K <= 32, H1 <= 80, H2 <= 40, T <= 64, in two launches
-// with the block-order reduction. The global kernel takes every shape the
-// forward takes, in six launches:
+// with the block-order reduction; din_backward_wide_kernel (below) the
+// rest of K <= 128 at that scorer, any T (DIN at embedding dim 128,
+// DIEN(gru_hidden=128), long histories), in three. The global kernel takes
+// every other shape the forward takes (wider scorers, K past 128), in six
+// launches:
 // - the packed weights WX = [Wk - Wm ; Wp ; Wq + Wm] and W2, zero-padded;
 //   the per-row terms b1 + q (Wq + Wm) (the global kernel's row-term
 //   kernel); dlogit a row: dscore = g . k (or g), with the softmax the row
@@ -164,9 +167,10 @@
 // din_kernel_takes). din_attention_backward_scratch gives the floats of
 // scratch the tile kernel's backward takes (-1 where it does not take the
 // shape), and din_attention_backward launches it and the reduction on it;
+// din_attention_wide_backward_scratch and din_attention_wide_backward do
+// the same for the wide kernel's three launches, and
 // din_attention_global_backward_scratch and din_attention_global_backward
-// do the same for the global kernel's six launches (ops/kernels.py
-// din_backward_kernel_takes picks).
+// for the global kernel's six (ops/kernels.py din_backward_route picks).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -1000,16 +1004,17 @@ __device__ __forceinline__ float4 load_key4(const float* __restrict__ kr, bool v
 // columns, a thread one column of every row, the rows' queries staged in
 // shared memory kTermK columns at a time. Run before the global kernel,
 // which reads each group's rows.
-__global__ void __launch_bounds__(kTermCols)
-din_attention_global_kernel_row_terms(const float* __restrict__ query,
-                                      const float* __restrict__ w1,
-                                      const float* __restrict__ b1, float* __restrict__ terms,
-                                      int batch, int K, int H1) {
+// (a block of kTermCols threads: rows kTermRows bx.., columns kTermCols by..)
+__device__ __forceinline__ void row_terms_block(const float* __restrict__ query,
+                                                const float* __restrict__ w1,
+                                                const float* __restrict__ b1,
+                                                float* __restrict__ terms, int batch, int K,
+                                                int H1, long long bx, int by) {
   __shared__ float q_s[kTermRows][kTermK];
   const int tid = threadIdx.x;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kTermRows;
+  const long long row0 = bx * kTermRows;
   const int nr = static_cast<int>(min(static_cast<long long>(kTermRows), batch - row0));
-  const int j = blockIdx.y * kTermCols + tid;
+  const int j = by * kTermCols + tid;
   float acc[kTermRows];
 #pragma unroll
   for (int r = 0; r < kTermRows; ++r) acc[r] = 0.f;
@@ -1036,6 +1041,14 @@ din_attention_global_kernel_row_terms(const float* __restrict__ query,
     const float bj = __ldg(b1 + j);
     for (int r = 0; r < nr; ++r) terms[(row0 + r) * H1 + j] = bj + acc[r];
   }
+}
+
+__global__ void __launch_bounds__(kTermCols)
+din_attention_global_kernel_row_terms(const float* __restrict__ query,
+                                      const float* __restrict__ w1,
+                                      const float* __restrict__ b1, float* __restrict__ terms,
+                                      int batch, int K, int H1) {
+  row_terms_block(query, w1, b1, terms, batch, K, H1, blockIdx.x, blockIdx.y);
 }
 
 template <int NH>
@@ -3058,6 +3071,1197 @@ cudaError_t tile_launch(int device, int batch, int T, long long& blocks) {
   return cudaSuccess;
 }
 
+// --- din_backward_wide_kernel: the backward where K <= 128, H1 <= 80 and
+// H2 <= 40 at the shapes the tile kernel does not take (K past 32, or rows
+// past 64 positions: DIN at embedding dim 128, DIEN(gru_hidden=128), long
+// behaviour histories). Bound: operations, as the tile kernel's; its
+// design is the tile kernel's, widened:
+// - a team takes a unit of batch rows at a time (two at K <= 32, three
+//   past it; a persistent grid over the units) and puts only their valid
+//   positions through the products: the first row's, then the next's, in
+//   tiles of 64, so a tile holds the end of one row and the start of the
+//   next, and a row past 64 valid positions spans tiles. Each row's sums
+//   are carried across its tiles: the softmax's row term c (from a first
+//   sweep over the unit, four threads a position, g . k from device memory,
+//   which also counts the valid positions and writes the masked ones'
+//   dkeys, s g or 0), the sums of dh and of dX_qk k, which give the row's
+//   dq once the unit's tiles are done, and dA += q^T (the sum of dh), added
+//   once a unit into the block's running sum in shared memory (at K <= 32
+//   the team's partial in device memory);
+// - past K = 32 both warpgroups of the block take the same tile. Layer 1
+//   is split over K (a warpgroup its half of the 16-column blocks, the two
+//   partial sums swapped through shared memory and added in one order);
+//   layer 2 and dh (N = 40 and 80 over 10 and 5 k-steps) both warpgroups
+//   compute alike, as each needs du and dh as A; dX (32-column chunks of
+//   K, [k | q*k], N = 64), dWX (the same chunks as its m-tiles) and dW2
+//   (its two m-tiles) are split between them, so that a thread's running
+//   sums are 40 or 80 floats for dWX and 20 for dW2 at K = 128, where one
+//   warpgroup would need 180. At K <= 32 a warpgroup's running sums fit
+//   (dWX one m-tile, dW2 two: 80 floats), and each warpgroup takes its own
+//   units and tiles (SOLO), with the tile kernel's memory plan: two tiles
+//   in flight an SM, each waiting on its own chain, layer 1's and dX's B
+//   resident in shared memory, dW2's and dWX's B a half of the tile's
+//   positions at a time (chip_lab_din_backward.py: the shared tile spent
+//   ~27 us a tile at K = 32, T = 1,000);
+// - every product is m64nNk8 in 3xTF32 with A in registers (tile_step,
+//   tile_sum_issue). The weights come split from a pack kernel
+//   (din_backward_wide_pack) in the orientations the products read:
+//   layer 2's and dh's B stay in shared memory; past K = 32 layer 1's and
+//   dX's B (160 KB each at K = 128) stream through a ring of 4 k-steps a
+//   warpgroup by cp.async, 3 k-steps ahead across tiles. Wq + Wm (dq) is
+//   read from device memory, and every row's term b1 + q (Wq + Wm) comes
+//   from the first launch;
+// - the unit's queries, cotangents and row terms are staged once a unit;
+//   a tile's keys, weights (s) and, for scores, its cotangents by
+//   cp.async; the tile's positions come from the mask, a warp a row, from
+//   a cursor a row.
+// The running dWX, dW2 (registers), biases' sums and dA are written once a
+// team as its partial in din_backward_reduce's layout (sums_layout with Kp
+// = KT); every sum's order is fixed, so two calls agree bitwise. Three
+// launches: the pack with every row's term, this kernel, the reduction.
+constexpr int kWM = 64;                 // positions a tile
+constexpr int kWThreads = 256;          // two warpgroups on one tile
+constexpr int kWSlots = 4;              // a warpgroup's ring of weight k-steps
+constexpr int kWSlot = kTStep1;         // floats of a ring slot: an N = 80 k-step
+constexpr int kWStepX = 2 * 2 * 32 * 8;  // a dX k-step: N = 64, big and small
+// dlogit from din_backward_dlogits launched first (a fourth launch, one more
+// read of the keys, a [B * T] scratch) instead of the kernel's own sweep
+// and per-tile g . k (chip_lab_din_backward.py times both)
+constexpr bool kWidePreDlogits = false;
+// a team's first thread counts the cycles of each phase of its units and
+// tiles (kWidePhases of them) and writes the sums, as floats, over the
+// first positions of dkeys at the end: for chip_lab_din_backward.py's
+// wide_clocks variant only (its results are not gradients)
+constexpr bool kWideClocks = false;
+constexpr int kWidePhases = 15;
+
+// The packed weights, offsets in floats: layer 1's B (KT / 4 k-steps, as
+// the tile kernel's), dX's (KT / 32 chunks of 10 k-steps), then what a
+// block keeps in shared memory at the same offsets from res: layer 2's B
+// (10 k-steps), dh's (5), b2, w3 and Wq + Wm [KT][80]
+struct WidePack {
+  long long w1, wx, res, w2, w2t, b2, w3, wa, total;
+};
+
+__host__ __device__ inline WidePack wide_pack(int KT) {
+  WidePack P;
+  P.w1 = 0;
+  P.wx = P.w1 + static_cast<long long>(KT / 4) * kTStep1;
+  P.res = P.wx + static_cast<long long>(KT / 32) * 10 * kWStepX;
+  P.w2 = 0;  // from res
+  P.w2t = P.w2 + (kTH1 / 8) * kTStep2;
+  P.b2 = P.w2t + (kTH2 / 8) * kTStep1;
+  P.w3 = P.b2 + kTH2;
+  P.wa = P.w3 + kTH2;
+  P.total = P.res + P.wa + static_cast<long long>(KT) * kTH1;
+  return P;
+}
+
+// A block's shared memory, offsets in floats: the resident weights and the
+// two rings, then a team's part (the block's one team, or at K <= 32 each
+// warpgroup's): the tile's keys, the region (the partial sums of layer 1
+// swapped; then h1 in dW2's A order and du's split parts, dW2's B; then
+// dh's split parts, dWX's B), the warps' sums of a tile's rows, the unit's
+// rows (queries, cotangents, row terms, carried sums of dX_qk k and of
+// dh), the tile's dlogits, weights and positions, the team's bias sums,
+// and a few words
+template <int KT>
+struct WideSmem {
+  // at K <= 32 a warpgroup's running sums fit in its registers (dWX one
+  // m-tile, dW2 two), so each warpgroup takes its own units and tiles, two
+  // tiles in flight an SM; past it the two share a tile
+  static constexpr bool kSolo = KT == 32;
+  static constexpr int kTeams = kSolo ? 2 : 1;
+  // batch rows a team takes at a time: past K = 32 three, whose valid
+  // positions fill a tile better than a pair's (at T = 50 ~1.7 tiles of 64
+  // a unit against ~1.3 a pair) and share its fixed work
+  static constexpr int kRows = kSolo ? 2 : 3;
+  static constexpr int kSK = KT + 4;  // a staged key row's stride
+  // layer 2's and dh's B, b2 and w3; then the block's dA [KT][80] (shared
+  // tile) or layer 1's and dX's B (alone: resident, where the shared
+  // tile's stream through its rings)
+  static constexpr int kW2 = (kTH1 / 8) * kTStep2 + (kTH2 / 8) * kTStep1 + 2 * kTH2;
+  static constexpr int kRing = kW2 + (kSolo ? (KT / 4) * kTStep1 + (KT / 32) * 10 * kWStepX
+                                            : KT * kTH1);
+  static constexpr int kTeam0 = (kRing + (kSolo ? 0 : 2 * kWSlots * kWSlot) + 31) / 32 * 32;
+  // a team's part, offsets from its start; alone the region takes dW2's
+  // and dWX's B a half of the tile's positions at a time
+  static constexpr int kKeys = 0;
+  static constexpr int kRegion = kKeys + kWM * kSK;
+  static constexpr int kRegionFloats = kSolo ? kWM * kTH1 + (kWM / 16) * kTStep2 : 2 * kWM * kTH1;
+  static constexpr int kRedRs = kRegion + kRegionFloats;  // [4 warps][kRows][80]
+  static constexpr int kRedEs = kRedRs + 4 * kRows * kTH1;  // [4 warps][kRows][KT]
+  static constexpr int kRed2 = kRedEs + 4 * kRows * KT;     // [4 warps][db2 40 | dw3 40]
+  static constexpr int kQ = kRed2 + 4 * 2 * kTH2;           // [kRows][KT]
+  static constexpr int kG = kQ + kRows * KT;
+  static constexpr int kEs = kG + kRows * KT;
+  static constexpr int kA = kEs + kRows * KT;  // [kRows][80]
+  static constexpr int kRs = kA + kRows * kTH1;
+  static constexpr int kDl = kRs + kRows * kTH1;
+  static constexpr int kS = kDl + kWM;
+  static constexpr int kIdx = kS + kWM;
+  static constexpr int kSums = kIdx + kWM;  // db1 80, db2 40, dw3 40, db3
+  // [8 warps][2 kRows] sums, c, counts and cursors [kRows] each, the clocks
+  static constexpr int kMisc = kSums + kTH1 + 2 * kTH2 + 4;
+  static constexpr int kTeamFloats = (kMisc + 20 * kRows + 2 * kWidePhases + 31) / 32 * 32;
+  static constexpr int kTotal = kTeam0 + kTeams * kTeamFloats;
+  static constexpr int kBytes = 4 * kTotal;
+  static_assert(kRing % 4 == 0 && kTeam0 % 32 == 0 && kRegion % 32 == 0 && kQ % 4 == 0 &&
+                    kG % 4 == 0 && kEs % 4 == 0, "aligned parts");
+  static_assert(kBytes <= static_cast<int>(kMaxSharedBytes), "the wide kernel's shared memory");
+  static_assert(kRegionFloats >= (kSolo ? (kWM / 16) * kTStep1 : 0), "a half of dh's parts fits");
+};
+
+// g . k over columns c_lo .. c_hi - 1 in order, one fma a column from 0
+// (float4 loads with vq: c_lo and c_hi - c_lo multiples of 4, k 16-byte
+// aligned); the wide kernel's sweep and tiles take dscore this way, a
+// quarter of the columns a thread, so both get the same value
+__device__ __forceinline__ float quarter_dot(const float* g, const float* k, int c_lo, int c_hi,
+                                             bool vq) {
+  float ds = 0.f;
+  if (vq) {
+    for (int c = c_lo; c < c_hi; c += 4) {
+      const float4 kv = *reinterpret_cast<const float4*>(k + c);
+      const float4 gv = *reinterpret_cast<const float4*>(g + c);
+      ds = fmaf(gv.x, kv.x, ds);
+      ds = fmaf(gv.y, kv.y, ds);
+      ds = fmaf(gv.z, kv.z, ds);
+      ds = fmaf(gv.w, kv.w, ds);
+    }
+  } else {
+    for (int c = c_lo; c < c_hi; ++c) ds = fmaf(g[c], k[c], ds);
+  }
+  return ds;
+}
+
+// The wide kernel's first launch, blocks of kTermCols threads: the first
+// `pack` blocks write the packed weights, split into big and small TF32
+// parts (split_fast) in the products' K-major core-matrix layouts; the rest
+// every row's term b1 + q (Wq + Wm) into terms [batch][H1], as the global
+// forward kernel's row-term kernel does, 16 rows a block
+__global__ void __launch_bounds__(kTermCols)
+din_backward_wide_pack(const float* __restrict__ w1, const float* __restrict__ b1,
+                       const float* __restrict__ w2, const float* __restrict__ b2,
+                       const float* __restrict__ w3, const float* __restrict__ query,
+                       float* __restrict__ packed, float* __restrict__ terms, int batch, int K,
+                       int H1, int H2, int KT, int pack) {
+  if (static_cast<int>(blockIdx.x) >= pack) {
+    row_terms_block(query, w1, b1, terms, batch, K, H1, blockIdx.x - pack, 0);
+    return;
+  }
+  const WidePack P = wide_pack(KT);
+  const int stride = pack * blockDim.x;
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  auto wkm = [&](int c, int h) { return __fsub_rn(w1[(K + c) * H1 + h], w1[(2 * K + c) * H1 + h]); };
+  auto wp = [&](int c, int h) { return w1[(3 * K + c) * H1 + h]; };
+  // layer 1: k-step 4 j + sub reads [Wk - Wm] (sub 0, 1) or [Wp] (2, 3)
+  // rows 16 j + 4 (k % 4) + 2 (sub % 2) + k / 4, as the tile kernel's
+  for (int f = i0; f < (KT / 4) * kTH1 * 8; f += stride) {
+    const int kk = f & 7, n = (f >> 3) % kTH1, st = (f >> 3) / kTH1;
+    const int sub = st & 3;
+    const int c = 16 * (st >> 2) + 4 * (kk & 3) + 2 * (sub & 1) + (kk >> 2);
+    const float v = n < H1 && c < K ? (sub < 2 ? wkm(c, n) : wp(c, n)) : 0.f;
+    put_split(packed + P.w1 + st * kTStep1 + core_offset(n, kk), kTH1 * 8, v);
+  }
+  // dX: chunk ch of 32 columns of K, k-step kt reads rows 8 kt + 2 (k % 4)
+  // + k / 4 of H1; n < 32 the chunk's [Wk - Wm] columns, else its [Wp] ones
+  for (int f = i0; f < (KT / 32) * 10 * 64 * 8; f += stride) {
+    const int kk = f & 7, n = (f >> 3) & 63, kt = (f >> 9) % 10, ch = (f >> 9) / 10;
+    const int h = 8 * kt + 2 * (kk & 3) + (kk >> 2);
+    const int c = 32 * ch + (n & 31);
+    const float v = h < H1 && c < K ? (n < 32 ? wkm(c, h) : wp(c, h)) : 0.f;
+    put_split(packed + P.wx + (ch * 10 + kt) * kWStepX + core_offset(n, kk), 64 * 8, v);
+  }
+  float* res = packed + P.res;
+  for (int f = i0; f < (kTH1 / 8) * kTH2 * 8; f += stride) {
+    const int kk = f & 7, n = (f >> 3) % kTH2, kt = (f >> 3) / kTH2;
+    const int h = 8 * kt + 2 * (kk & 3) + (kk >> 2);
+    const float v = h < H1 && n < H2 ? w2[h * H2 + n] : 0.f;
+    put_split(res + P.w2 + kt * kTStep2 + core_offset(n, kk), kTH2 * 8, v);
+  }
+  for (int f = i0; f < (kTH2 / 8) * kTH1 * 8; f += stride) {
+    const int kk = f & 7, n = (f >> 3) % kTH1, kt = (f >> 3) / kTH1;
+    const int z = 8 * kt + 2 * (kk & 3) + (kk >> 2);
+    const float v = n < H1 && z < H2 ? w2[n * H2 + z] : 0.f;
+    put_split(res + P.w2t + kt * kTStep1 + core_offset(n, kk), kTH1 * 8, v);
+  }
+  for (int i = i0; i < kTH2; i += stride) {
+    res[P.b2 + i] = i < H2 ? b2[i] : 0.f;
+    res[P.w3 + i] = i < H2 ? w3[i] : 0.f;
+  }
+  for (int i = i0; i < KT * kTH1; i += stride) {
+    const int c = i / kTH1, h = i - c * kTH1;
+    res[P.wa + i] = c < K && h < H1 ? __fadd_rn(w1[c * H1 + h], w1[(2 * K + c) * H1 + h]) : 0.f;
+  }
+}
+
+template <int KT>
+__global__ void __launch_bounds__(kWThreads, 1)
+din_backward_wide_kernel(const float* __restrict__ query, const float* __restrict__ keys,
+                         const float* __restrict__ mask, const float* __restrict__ weights,
+                         const float* __restrict__ grad, const float* __restrict__ packed,
+                         const float* __restrict__ terms, const float* __restrict__ dlg,
+                         float* __restrict__ dq, float* __restrict__ dkeys,
+                         float* __restrict__ partials, BackPlan L, int batch, int T, int K,
+                         int H1, bool relu, bool softmax, bool pool, bool vec) {
+  using S = WideSmem<KT>;
+  constexpr bool SOLO = S::kSolo;
+  constexpr int NT = SOLO ? 128 : kWThreads;   // a team's threads
+  constexpr int NCH = KT / 32;                 // 32-column chunks of K
+  constexpr int NXW = NCH >= 2 ? NCH / 2 : 1;  // dX chunks, dWX m-tiles a warpgroup may own
+  constexpr int NW2 = SOLO ? 2 : 1;            // dW2's m-tiles a warpgroup owns
+  constexpr int L1B = SOLO ? KT / 16 : KT / 32;  // layer-1 16-column blocks a warpgroup takes
+  constexpr int L1S = 4 * L1B;                 // and its k-steps
+  constexpr int R = S::kRows;                  // batch rows a unit
+  extern __shared__ __align__(1024) float4 wide_smem4[];
+  float* smem = reinterpret_cast<float*>(wide_smem4);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int wt = tid & 127;
+  const int w = wt >> 5;  // warp of the warpgroup
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int i4 = lane & 3;
+  const int team = SOLO ? wg : 0;
+  const int lt = SOLO ? wt : tid;  // thread of the team
+  const WidePack PK = wide_pack(KT);
+  const float* w2_s = smem + PK.w2;
+  const float* w2t_s = smem + PK.w2t;
+  const float* b2_s = smem + PK.b2;
+  const float* w3_s = smem + PK.w3;
+  // Wq + Wm [KT][80], for dq, from the packed weights in device memory;
+  // past K = 32 the block's dA [KT][80] takes its place in shared memory
+  // (dA's updates a unit cost 21 % of the time at K = 128 in device
+  // memory, chip_lab_din_backward.py)
+  const float* wa = packed + PK.res + PK.wa;
+  const float* l1b_s = smem + S::kW2;                    // alone: layer 1's B
+  const float* dxb_s = l1b_s + (KT / 4) * kTStep1;       // and dX's
+  float* tsm = smem + S::kTeam0 + team * S::kTeamFloats;  // the team's part
+  float* keys_s = tsm + S::kKeys;
+  float* region = tsm + S::kRegion;
+  float* du_s = region + kWM * kTH1;
+  float* red_rs = tsm + S::kRedRs;
+  float* red_es = tsm + S::kRedEs;
+  float* red2 = tsm + S::kRed2;
+  float* q_s = tsm + S::kQ;
+  float* g_s = tsm + S::kG;
+  float* es_s = tsm + S::kEs;
+  float* a_s = tsm + S::kA;
+  float* rs_s = tsm + S::kRs;
+  float* dl_s = tsm + S::kDl;
+  float* s_s = tsm + S::kS;
+  int* idx_s = reinterpret_cast<int*>(tsm + S::kIdx);
+  float* sums = tsm + S::kSums;
+  float* misc = tsm + S::kMisc;  // [8 warps][2 R] sums, then c, counts, cursors [R] each
+  float* c_s = misc + 16 * R;
+  int* cnt_s = reinterpret_cast<int*>(misc + 17 * R);
+  int* cur_s = reinterpret_cast<int*>(misc + 18 * R);
+  long long* clk_s = reinterpret_cast<long long*>(misc + 20 * R);  // kWideClocks' sums
+  long long tprev = 0;
+  auto tick = [&](int phase) {
+    if (kWideClocks && lt == 0) {
+      const long long now = clock64();
+      clk_s[phase] += now - tprev;
+      tprev = now;
+    }
+  };
+
+  // a team's barrier: its warpgroup's, or the block's
+  auto bar = [&]() {
+    if (SOLO) {
+      wg_bar(wg);
+    } else {
+      __syncthreads();
+    }
+  };
+  // a quarter of K's columns, each thread's of a position's g . k (float4
+  // steps where a quarter is whole float4s)
+  const int kq = (K + 3) / 4;
+  const bool vq = vec && kq % 4 == 0;
+  // what this warpgroup owns of a shared tile: dX chunks x0 .. x0 + nx - 1,
+  // dWX m-tiles (the same chunks' [k | q*k] columns) x0 .. x0 + nm - 1,
+  // dW2's m-tile wg, n-tiles of h1, du and dh that it stores (mine80,
+  // mine40); alone (SOLO) every one of them
+  const int x0 = SOLO ? 0 : NCH >= 2 ? wg * (NCH / 2) : 0;
+  const int nx = SOLO ? 1 : NCH >= 2 ? NCH / 2 : wg;
+  const int nm = SOLO ? 1 : NCH >= 2 ? NCH / 2 : 1 - wg;
+  auto mine80 = [&](int j) { return SOLO || (j >= kTH1 / 16) == (wg == 1); };
+  auto mine40 = [&](int j) { return SOLO || (j >= 3) == (wg == 1); };
+
+  // the resident weights; shared memory past the rings 0 (keys' columns
+  // past K are never copied to and read as 0)
+  for (int i = tid; i < S::kW2 / 4; i += kWThreads) {
+    cp_async16(smem + 4 * i, packed + PK.res + 4 * i);
+  }
+  if (SOLO) {
+    for (int i = tid; i < PK.res / 4; i += kWThreads) {
+      cp_async16(smem + S::kW2 + 4 * i, packed + 4 * i);
+    }
+  }
+  cp_async_commit();
+  for (int i = (SOLO ? S::kTeam0 : S::kW2) + tid; i < S::kTotal; i += kWThreads) {
+    if (i < S::kRing || i >= S::kTeam0) smem[i] = 0.f;
+  }
+  float* out = partials + (static_cast<long long>(blockIdx.x) * S::kTeams + team) * L.acc;
+  float* dA = SOLO ? out + L.o_ax + 2LL * KT * kTH1 : smem + PK.wa;
+  if (SOLO) {
+    for (int i = lt; i < KT * kTH1; i += NT) dA[i] = 0.f;
+  }
+
+  // the warpgroup's stream of weight k-steps, each tile the same: its
+  // layer-1 k-steps, then its dX chunks' 10 each, copied into a ring of
+  // kWSlots, kWSlots - 1 ahead
+  float* ring = smem + S::kRing + wg * kWSlots * kWSlot;
+  const int seq = L1S + 10 * nx;
+  long long issued = 0, used = 0;
+  auto issue = [&]() {
+    const int j = static_cast<int>(issued % seq);
+    const float* src;
+    int n;
+    if (j < L1S) {
+      src = packed + PK.w1 + static_cast<long long>((SOLO ? 0 : wg * L1S) + j) * kTStep1;
+      n = kTStep1;
+    } else {
+      const int jj = j - L1S;
+      src = packed + PK.wx + static_cast<long long>((x0 + jj / 10) * 10 + jj % 10) * kWStepX;
+      n = kWStepX;
+    }
+    float* dst = ring + (issued % kWSlots) * kWSlot;
+    for (int i = wt; i < n / 4; i += 128) cp_async16(dst + 4 * i, src + 4 * i);
+    cp_async_commit();
+    ++issued;
+  };
+  // the next k-step's B: its copy waited for by every thread of the
+  // warpgroup, whose barrier also ends the last k-step's reads of the slot
+  // that the next copy takes
+  auto take = [&]() -> const float* {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kWSlots - 2) : "memory");
+    fence_async_smem();
+    wg_bar(wg);
+    issue();
+    return ring + (used++ % kWSlots) * kWSlot;
+  };
+  // the tile's j-th k-step of B of this warpgroup's stream: alone from the
+  // resident copies, else the ring's next
+  auto wb = [&](int j) -> const float* {
+    if (SOLO) return j < L1S ? l1b_s + j * kTStep1 : dxb_s + (j - L1S) * kWStepX;
+    return take();
+  };
+  if (!SOLO) {
+    for (int s = 0; s < kWSlots - 1; ++s) issue();
+  }
+  cp_async_wait_all();
+  fence_async_smem();
+  __syncthreads();
+
+  float dwx[NXW][kTH1 / 2], dw2[NW2][kTH2 / 2];
+#pragma unroll
+  for (int m = 0; m < NXW; ++m) {
+#pragma unroll
+    for (int i = 0; i < kTH1 / 2; ++i) dwx[m][i] = 0.f;
+  }
+#pragma unroll
+  for (int m = 0; m < NW2; ++m) {
+#pragma unroll
+    for (int i = 0; i < kTH2 / 2; ++i) dw2[m][i] = 0.f;
+  }
+  const int p_lo = 16 * w + g;  // this thread's accumulator rows: positions p_lo, p_hi
+  const int p_hi = p_lo + 8;
+  const int h1b = 4 * (g & 3) + 2 * (g >> 2) + 32 * i4;
+  const int cb = 32 * (g >> 2) + 8 * i4 + (g & 3);
+  const long long units = (static_cast<long long>(batch) + R - 1) / R;
+  if (kWideClocks && lt == 0) tprev = clock64();
+
+  for (long long unit = static_cast<long long>(blockIdx.x) * S::kTeams + team; unit < units;
+       unit += static_cast<long long>(gridDim.x) * S::kTeams) {
+    const long long b0 = static_cast<long long>(R) * unit;
+    const int nrows = static_cast<int>(min(static_cast<long long>(R), batch - b0));
+    bar();  // the last unit is done with every buffer
+    for (int i = lt; i < R * KT; i += NT) {
+      const int r = i / KT, c = i - r * KT;
+      const bool in = r < nrows && c < K;
+      q_s[i] = in ? query[(b0 + r) * K + c] : 0.f;
+      g_s[i] = in && pool ? grad[(b0 + r) * K + c] : 0.f;
+      es_s[i] = 0.f;
+    }
+    for (int i = lt; i < R * kTH1; i += NT) {
+      const int r = i / kTH1, h = i - r * kTH1;
+      a_s[i] = r < nrows && h < H1 ? terms[(b0 + r) * H1 + h] : 0.f;
+      rs_s[i] = 0.f;
+    }
+    bar();
+
+    // the sweep, four threads a position (each a quarter of its columns),
+    // U positions a thread in flight, their loads issued before the sums:
+    // count the valid ones; a masked one's dkeys is s g (pooled) or 0 (its
+    // dlogit is 0); under the softmax, c = sum_t s dscore over the valid
+    // ones, dscore = g . k as each tile takes it (quarter_dot's order)
+    {
+      constexpr int U = KT == 32 ? 4 : KT == 64 ? 2 : 1;
+      constexpr int KQ4 = KT / 16;  // float4s of a quarter, at most
+      float part[2 * R];  // each row's c, then each row's count
+#pragma unroll
+      for (int k = 0; k < 2 * R; ++k) part[k] = 0.f;
+      const int qtr = lt & 3;
+      const int c_lo = qtr * kq, c_hi = min(K, c_lo + kq);
+      const bool dots = softmax && dlg == nullptr;
+      for (int r = 0; r < nrows; ++r) {
+        const long long b = b0 + r;
+        const float* gr = g_s + r * KT;
+        for (int t0 = 0; t0 < T; t0 += U * (NT / 4)) {
+          bool in[U], valid[U];
+          float sv[U], ds[U];
+          long long pos[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int t = t0 + u * (NT / 4) + (lt >> 2);
+            in[u] = t < T;
+            pos[u] = b * T + (in[u] ? t : 0);
+            valid[u] = in[u] && mask[pos[u]] > 0.5f;
+            sv[u] = in[u] ? weights[pos[u]] : 0.f;
+          }
+          if (vq) {
+            float4 kv[U][KQ4];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+#pragma unroll
+              for (int i = 0; i < KQ4; ++i) {
+                kv[u][i] = valid[u] && dots && pool && c_lo + 4 * i < c_hi
+                               ? *reinterpret_cast<const float4*>(keys + pos[u] * K + c_lo + 4 * i)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              float d = 0.f;
+#pragma unroll
+              for (int i = 0; i < KQ4; ++i) {
+                if (c_lo + 4 * i < c_hi) {
+                  const float4 gv = *reinterpret_cast<const float4*>(gr + c_lo + 4 * i);
+                  d = fmaf(gv.x, kv[u][i].x, d);
+                  d = fmaf(gv.y, kv[u][i].y, d);
+                  d = fmaf(gv.z, kv[u][i].z, d);
+                  d = fmaf(gv.w, kv[u][i].w, d);
+                }
+              }
+              ds[u] = d;
+            }
+          } else {
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              ds[u] = valid[u] && dots && pool
+                          ? quarter_dot(gr, keys + pos[u] * K, c_lo, c_hi, false) : 0.f;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (in[u] && !valid[u]) {
+              float* dk = dkeys + pos[u] * K;
+              if (vq) {
+                for (int c = c_lo; c < c_hi; c += 4) {
+                  const float4 gv = *reinterpret_cast<const float4*>(gr + c);
+                  *reinterpret_cast<float4*>(dk + c) =
+                      make_float4(sv[u] * gv.x, sv[u] * gv.y, sv[u] * gv.z, sv[u] * gv.w);
+                }
+              } else {
+                for (int c = c_lo; c < c_hi; ++c) dk[c] = sv[u] * gr[c];
+              }
+            }
+            if (!pool && valid[u] && dots && qtr == 0) ds[u] = grad[pos[u]];
+            float d = ds[u];
+            d += __shfl_xor_sync(kFull, d, 1);
+            d += __shfl_xor_sync(kFull, d, 2);
+            if (qtr == 0 && valid[u]) {
+#pragma unroll
+              for (int k = 0; k < R; ++k) {
+                if (k == r) {
+                  part[R + k] += 1.f;
+                  part[k] = fmaf(sv[u], d, part[k]);
+                }
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 2 * R; ++k) {
+        const float v = warp_sum(part[k]);
+        if (lane == 0) misc[(lt >> 5) * 2 * R + k] = v;
+      }
+    }
+    bar();
+    if (lt < 2 * R) {
+      float v = 0.f;
+      for (int i = 0; i < NT / 32; ++i) v += misc[i * 2 * R + lt];
+      if (lt < R) {
+        c_s[lt] = v;
+        cur_s[lt] = 0;
+      } else {
+        cnt_s[lt - R] = static_cast<int>(v);
+      }
+    }
+    bar();
+    tick(0);
+    // the unit's valid positions, the rows' in turn: row r's are pre[r] ..
+    // pre[r + 1] - 1
+    int pre[R + 1];
+    pre[0] = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) pre[r + 1] = pre[r] + cnt_s[r];
+    const int n_all = pre[R];
+    // the row of the unit's valid position gp
+    auto row_at = [&](int gp) {
+      int r = 0;
+#pragma unroll
+      for (int k = 1; k < R; ++k) r += gp >= pre[k];
+      return r;
+    };
+
+    for (int tt = 0; tt * kWM < n_all; ++tt) {
+      const int p0 = tt * kWM;
+      const int np = min(kWM, n_all - p0);
+      const int rA = row_at(p0), rB = row_at(p0 + np - 1);  // the tile's first and last rows
+      const int nr = rB - rA + 1;
+      auto row_of = [&](int p) { return row_at(p0 + p); };
+
+      // the tile's positions: warp w takes row rA + w's next ones from its
+      // cursor
+      if (lt < 32 * R) {
+        const int r = rA + w;
+        int lo = 0, hi = 0;
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          if (k == r) {
+            lo = max(pre[k], p0);
+            hi = min(pre[k + 1], p0 + np);
+          }
+        }
+        const int m = r <= rB ? hi - lo : 0;
+        const int base = lo - p0;
+        if (m > 0) {
+          const float* mr = mask + (b0 + r) * T;
+          // windows of 32 positions, four loaded at once
+          int t = cur_s[r], got = 0;
+          while (got < m) {
+            bool vv[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int tl = t + 32 * k + lane;
+              vv[k] = tl < T && mr[tl] > 0.5f;
+            }
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              if (got < m) {
+                const int tl = t + lane;
+                const bool v = vv[k];
+                const unsigned bal = __ballot_sync(kFull, v);
+                const int rank = __popc(bal & ((1u << lane) - 1u));
+                const int take_n = min(__popc(bal), m - got);
+                if (v && rank < take_n) idx_s[base + got + rank] = tl;
+                if (take_n < __popc(bal)) {
+                  t += __ffs(__ballot_sync(kFull, v && rank == take_n - 1));
+                } else {
+                  t += 32;
+                }
+                got += take_n;
+              }
+            }
+          }
+          if (lane == 0) cur_s[r] = t;
+        }
+      }
+      bar();
+      tick(1);
+      // the tile's keys, weights and (for scores) cotangents, by cp.async
+      {
+        if (vec) {
+          const int per = K / 4;
+          for (int i = lt; i < np * per; i += NT) {
+            const int p = i / per;
+            const int c = 4 * (i - p * per);
+            cp_async16(keys_s + p * S::kSK + c, keys + ((b0 + row_of(p)) * T + idx_s[p]) * K + c);
+          }
+        } else {
+          for (int i = lt; i < np * K; i += NT) {
+            const int p = i / K;
+            const int c = i - p * K;
+            cp_async4(keys_s + p * S::kSK + c, keys + ((b0 + row_of(p)) * T + idx_s[p]) * K + c);
+          }
+        }
+        if (lt < np) {
+          const long long pos = (b0 + row_of(lt)) * T + idx_s[lt];
+          cp_async4(s_s + lt, weights + pos);
+          if (dlg != nullptr) {
+            cp_async4(dl_s + lt, dlg + pos);
+          } else if (!pool) {
+            cp_async4(dl_s + lt, grad + pos);
+          }
+        }
+        cp_async_commit();
+        cp_async_wait_all();
+      }
+      bar();
+      tick(2);
+      // dlogit: dscore = g . k (four threads a position, a quarter of the
+      // columns each, then a fixed tree: as the sweep took it for c, so
+      // where the softmax leaves a row's dlogits 0, as at T = 1, they come
+      // out 0) or g; s (dscore - c) under the softmax; 0 past the tile's
+      // positions
+      if (dlg != nullptr) {
+        if (lt >= np && lt < kWM) dl_s[lt] = 0.f;
+      } else {
+        for (int i = lt; i < 4 * kWM; i += NT) {
+          const int p = i >> 2, qtr = i & 3;
+          float ds = 0.f;
+          if (p < np) {
+            if (pool) {
+              const int c_lo = qtr * kq;
+              ds = quarter_dot(g_s + row_of(p) * KT, keys_s + p * S::kSK, c_lo,
+                               min(K, c_lo + kq), vq);
+            } else if (qtr == 0) {
+              ds = dl_s[p];
+            }
+          }
+          ds += __shfl_xor_sync(kFull, ds, 1);
+          ds += __shfl_xor_sync(kFull, ds, 2);
+          __syncwarp();
+          if (qtr == 0) {
+            dl_s[p] = p < np ? (softmax ? s_s[p] * (ds - c_s[row_of(p)]) : ds) : 0.f;
+          }
+        }
+      }
+      bar();
+      tick(3);
+
+      const bool v_lo = p_lo < np, v_hi = p_hi < np;
+      const int r_lo = v_lo ? row_of(p_lo) : 0;
+      const int r_hi = v_hi ? row_of(p_hi) : 0;
+
+      // layer 1 again, this warpgroup's half of K's 16-column blocks:
+      // [k | q*k] [Wk - Wm ; Wp]
+      float hacc[kTH1 / 2];
+#pragma unroll
+      for (int i = 0; i < kTH1 / 2; ++i) hacc[i] = 0.f;
+      {
+        const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float* kl = keys_s + p_lo * S::kSK + 4 * i4;
+        const float* kh = keys_s + p_hi * S::kSK + 4 * i4;
+        const float* ql = q_s + r_lo * KT + 4 * i4;
+        const float* qh = q_s + r_hi * KT + 4 * i4;
+#pragma unroll
+        for (int jb = 0; jb < L1B; ++jb) {
+          const int j = (SOLO ? 0 : wg * L1B) + jb;
+          const float4 cl = v_lo ? *reinterpret_cast<const float4*>(kl + 16 * j) : zero4;
+          const float4 ch = v_hi ? *reinterpret_cast<const float4*>(kh + 16 * j) : zero4;
+          const float4 qa = *reinterpret_cast<const float4*>(ql + 16 * j);
+          const float4 qb = *reinterpret_cast<const float4*>(qh + 16 * j);
+          const float* b = wb(4 * jb);
+          tile_step<kTH1>(hacc, cl.x, ch.x, cl.y, ch.y, b);
+          b = wb(4 * jb + 1);
+          tile_step<kTH1>(hacc, cl.z, ch.z, cl.w, ch.w, b);
+          b = wb(4 * jb + 2);
+          tile_step<kTH1>(hacc, __fmul_rn(qa.x, cl.x), __fmul_rn(qb.x, ch.x),
+                          __fmul_rn(qa.y, cl.y), __fmul_rn(qb.y, ch.y), b);
+          b = wb(4 * jb + 3);
+          tile_step<kTH1>(hacc, __fmul_rn(qa.z, cl.z), __fmul_rn(qb.z, ch.z),
+                          __fmul_rn(qa.w, cl.w), __fmul_rn(qb.w, ch.w), b);
+        }
+      }
+      tile_end(hacc);
+      tick(4);
+      if (!SOLO) {
+        // the two halves' sums swapped (a thread the same elements in both
+        // warpgroups), added in one order: h1 = act(a + (half 0 + half 1))
+#pragma unroll
+        for (int i = 0; i < kTH1 / 2; ++i) region[(wg * (kTH1 / 2) + i) * 128 + wt] = hacc[i];
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < kTH1 / 2; ++i) {
+          hacc[i] = __fadd_rn(hacc[i], region[((1 - wg) * (kTH1 / 2) + i) * 128 + wt]);
+        }
+        __syncthreads();  // both have read the halves: the region takes h1
+      }
+#pragma unroll
+      for (int j = 0; j < kTH1 / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = 8 * j + 2 * i4 + (e & 1);
+          hacc[4 * j + e] = act(a_s[(e < 2 ? r_lo : r_hi) * kTH1 + h] + hacc[4 * j + e], relu);
+        }
+      }
+      // h1 in dW2's A order, the first warpgroup its first 5 n-tiles, the
+      // second the rest
+#pragma unroll
+      for (int j = 0; j < kTH1 / 8; ++j) {
+        if (mine80(j)) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) region[h1_slot(h1b, w, e >> 1, j, e & 1)] = hacc[4 * j + e];
+        }
+      }
+
+      tick(5);
+      // layer 2 again (both warpgroups); du = dlogit w3 act'(h2); the
+      // warps' sums of du (db2) and h2 dlogit (dw3), and du's split parts
+      // (dW2's B), the first warpgroup n-tiles 0-2, the second 3-4
+      float z[kTH2 / 2];
+#pragma unroll
+      for (int i = 0; i < kTH2 / 2; ++i) z[i] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < kTH1 / 8; ++kt) {
+        tile_step<kTH2>(z, hacc[4 * kt], hacc[4 * kt + 2], hacc[4 * kt + 1], hacc[4 * kt + 3],
+                        w2_s + kt * kTStep2);
+      }
+      tile_end(z);
+      {
+        const float d_lo = dl_s[p_lo], d_hi = dl_s[p_hi];
+#pragma unroll
+        for (int j = 0; j < kTH2 / 8; ++j) {
+          float sw3[2] = {0.f, 0.f}, sb2[2] = {0.f, 0.f};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * i4 + (e & 1);
+            const float d = e < 2 ? d_lo : d_hi;
+            const float h2 = act(z[4 * j + e] + b2_s[col], relu);
+            const float du = (d * w3_s[col]) * dact(h2, relu);
+            z[4 * j + e] = du;
+            sw3[e & 1] = fmaf(h2, d, sw3[e & 1]);
+            sb2[e & 1] += du;
+          }
+          if (mine40(j)) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float b2sum = rows_sum(sb2[c]);
+              const float w3sum = rows_sum(sw3[c]);
+              if (g == 0) {
+                red2[w * 2 * kTH2 + 8 * j + 2 * i4 + c] = b2sum;
+                red2[w * 2 * kTH2 + kTH2 + 8 * j + 2 * i4 + c] = w3sum;
+              }
+            }
+          }
+        }
+      }
+
+      // dW2 += h1^T du over the tile's positions, the warpgroup's m-tiles:
+      // h1's columns 0-63 (the first warpgroup), 64-79 (the second, its
+      // first warp's rows), or both, their products in flight together;
+      // du's split parts (dW2's B) put by the first warpgroup for n-tiles
+      // 0-2, the second 3-4, or alone in halves of the positions, the
+      // half's warps
+      constexpr int HV = SOLO ? 2 : 1;
+      constexpr int KS = kWM / 8 / HV;  // k-steps a half
+#pragma unroll
+      for (int half = 0; half < HV; ++half) {
+        if (!SOLO || (w >> 1) == half) {
+#pragma unroll
+          for (int j = 0; j < kTH2 / 8; ++j) {
+            if (mine40(j)) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                put_split(du_s + (2 * w + (e >> 1) - KS * half) * kTStep2 + cb + 64 * j +
+                              4 * (e & 1),
+                          kTH2 * 8, z[4 * j + e]);
+              }
+            }
+          }
+        }
+        fence_async_smem();
+        bar();
+        if (half == 0) tick(6);
+#pragma unroll
+        for (int k0 = KS * half; k0 < KS * (half + 1); k0 += kTSumSteps) {
+          float a[NW2][kTSumSteps][4], t[NW2][kTH2 / 2];
+#pragma unroll
+          for (int mi = 0; mi < NW2; ++mi) {
+            const int mt = SOLO ? mi : wg;
+#pragma unroll
+            for (int s = 0; s < kTSumSteps; ++s) {
+              const float4 v =
+                  mt == 0 ? *reinterpret_cast<const float4*>(region + 4 * ((k0 + s) * 128 + wt))
+                  : w == 0 ? *reinterpret_cast<const float4*>(region + kWM * 64 +
+                                                              4 * ((k0 + s) * 32 + lane))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+              a[mi][s][0] = v.x; a[mi][s][1] = v.y; a[mi][s][2] = v.z; a[mi][s][3] = v.w;
+            }
+          }
+          wg_fence();
+#pragma unroll
+          for (int mi = 0; mi < NW2; ++mi) {
+            const int mt = SOLO ? mi : wg;
+            tile_sum_issue<kTH2, kTSumSteps>(t[mi], a[mi], du_s + (k0 - KS * half) * kTStep2,
+                                             kTStep2, mt == 1 && w != 0);
+          }
+          wg_commit();
+          wg_wait_all();
+#pragma unroll
+          for (int mi = 0; mi < NW2; ++mi) tile_sum_add(dw2[mi], t[mi]);
+        }
+        if (half + 1 < HV) bar();  // the half's parts are read before the next half's go in
+      }
+      tick(7);
+
+      // dh = (du W2^T) act'(h1), both warpgroups
+      float dh[kTH1 / 2];
+#pragma unroll
+      for (int i = 0; i < kTH1 / 2; ++i) dh[i] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < kTH2 / 8; ++kt) {
+        tile_step<kTH1>(dh, z[4 * kt], z[4 * kt + 2], z[4 * kt + 1], z[4 * kt + 3],
+                        w2t_s + kt * kTStep1);
+      }
+      tile_end(dh);
+#pragma unroll
+      for (int j = 0; j < kTH1 / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dh[4 * j + e] = dh[4 * j + e] * dact(region[h1_slot(h1b, w, e >> 1, j, e & 1)], relu);
+        }
+      }
+      bar();  // h1 and du's parts are read: the region takes dh's parts
+      tick(8);
+
+      // the warps' sums of dh over each of the tile's rows, n-tile j
+      auto rows_dh = [&](int j) {
+        for (int r = rA; r < rA + nr; ++r) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float v = rows_sum((r_lo == r ? dh[4 * j + c] : 0.f) +
+                                     (r_hi == r ? dh[4 * j + 2 + c] : 0.f));
+            if (g == 0) red_rs[(w * R + r) * kTH1 + 8 * j + 2 * i4 + c] = v;
+          }
+        }
+      };
+      // dh's split parts (dWX's B) at k-step ks of the region, n-tile j
+      auto put_dh = [&](int ks, int j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          put_split(region + (ks + (e >> 1)) * kTStep1 + cb + 64 * j + 4 * (e & 1), kTH1 * 8,
+                    dh[4 * j + e]);
+        }
+      };
+      // dX = dh [Wk - Wm ; Wp]^T, chunk ci of the warpgroup's: dkeys = s g +
+      // dX_k + dX_qk q, and the warps' sums of the dq terms dX_qk k over
+      // each of the tile's rows
+      auto dx_chunk = [&](int ci) {
+        const int chunk = x0 + ci;
+        float x[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) x[i] = 0.f;
+#pragma unroll
+        for (int kt = 0; kt < kTH1 / 8; ++kt) {
+          const float* b = wb(L1S + 10 * ci + kt);
+          tile_step<64>(x, dh[4 * kt], dh[4 * kt + 2], dh[4 * kt + 1], dh[4 * kt + 3], b);
+        }
+        tile_end(x);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const int c = 32 * chunk + 8 * j + 2 * i4;
+            const int p = hi ? p_hi : p_lo;
+            const int r = hi ? r_hi : r_lo;
+            float dk[2], ev[2] = {0.f, 0.f};
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1) {
+              const int e = 2 * hi + e1;
+              const float dqk = x[4 * (j + 4) + e];
+              const float base = pool ? s_s[p] * g_s[r * KT + c + e1] : 0.f;
+              dk[e1] = (base + x[4 * j + e]) + dqk * q_s[r * KT + c + e1];
+              ev[e1] = dqk * keys_s[p * S::kSK + c + e1];
+            }
+            if (hi ? v_hi : v_lo) {
+              float* o = dkeys + ((b0 + r) * T + idx_s[p]) * K + c;
+              if (K % 2 == 0 && c < K) {
+                *reinterpret_cast<float2*>(o) = make_float2(dk[0], dk[1]);
+              } else {
+                if (c < K) o[0] = dk[0];
+                if (c + 1 < K) o[1] = dk[1];
+              }
+            } else {
+              ev[0] = ev[1] = 0.f;
+            }
+            x[4 * (j + 4) + 2 * hi] = ev[0];
+            x[4 * (j + 4) + 2 * hi + 1] = ev[1];
+          }
+        }
+        for (int r = rA; r < rA + nr; ++r) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float v = rows_sum((r_lo == r ? x[4 * (j + 4) + c] : 0.f) +
+                                       (r_hi == r ? x[4 * (j + 4) + 2 + c] : 0.f));
+              if (g == 0) red_es[(w * R + r) * KT + 32 * chunk + 8 * j + 2 * i4 + c] = v;
+            }
+          }
+        }
+      };
+      // dWX += X^T dh over k-steps k0 .. k0 + kTSumSteps - 1 of the tile's
+      // positions, m-tile mi of the warpgroup's (X's columns 16 w + g and
+      // + 8 of the chunk's [k | q*k]), dh's parts at b
+      auto dwx_steps = [&](int mi, int k0, const float* b) {
+        const int xc = 32 * (x0 + mi) + ((16 * w + g) & 31);
+        const float* xk = keys_s + i4 * S::kSK + xc;
+        float xa[kTSumSteps][4];
+#pragma unroll
+        for (int s = 0; s < kTSumSteps; ++s) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = 8 * (k0 + s) + i4 + 4 * (e >> 1);
+            float v = p < np ? xk[(8 * (k0 + s) + 4 * (e >> 1)) * S::kSK + 8 * (e & 1)] : 0.f;
+            if (w >= 2) v = __fmul_rn(q_s[(p < np ? row_of(p) : 0) * KT + xc + 8 * (e & 1)], v);
+            xa[s][e] = v;
+          }
+        }
+        tile_sum_steps<kTH1, kTSumSteps>(dwx[mi], xa, b, kTStep1);
+      };
+      // the rows' carried sums (the 4 warps in order), the bias sums, db3
+      auto add_sums = [&]() {
+        for (int i = lt; i < nr * kTH1; i += NT) {
+          const int r = rA + i / kTH1, h = i % kTH1;
+          float v = red_rs[r * kTH1 + h];
+          for (int ww = 1; ww < 4; ++ww) v += red_rs[(ww * R + r) * kTH1 + h];
+          rs_s[r * kTH1 + h] += v;
+        }
+        for (int i = lt; i < nr * KT; i += NT) {
+          const int r = rA + i / KT, c = i % KT;
+          float v = red_es[r * KT + c];
+          for (int ww = 1; ww < 4; ++ww) v += red_es[(ww * R + r) * KT + c];
+          es_s[r * KT + c] += v;
+        }
+        if (lt < kTH2) {
+          float v2 = red2[lt], v3 = red2[kTH2 + lt];
+          for (int ww = 1; ww < 4; ++ww) {
+            v2 += red2[ww * 2 * kTH2 + lt];
+            v3 += red2[ww * 2 * kTH2 + kTH2 + lt];
+          }
+          sums[kTH1 + lt] += v2;
+          sums[kTH1 + kTH2 + lt] += v3;
+        } else if (lt >= 64 && lt < 96) {
+          const float v = warp_sum(dl_s[lane] + dl_s[lane + 32]);
+          if (lane == 0) sums[kTH1 + 2 * kTH2] += v;
+        }
+      };
+
+      if (SOLO) {
+        // alone, as the tile kernel: the rows' sums, dX, then dWX over the
+        // tile's positions in halves of 32, the half's warps putting their
+        // dh's parts in the region
+#pragma unroll
+        for (int j = 0; j < kTH1 / 8; ++j) rows_dh(j);
+        tick(9);
+        dx_chunk(0);
+        tick(10);
+        bar();
+        add_sums();
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if ((w >> 1) == half) {
+#pragma unroll
+            for (int j = 0; j < kTH1 / 8; ++j) put_dh(2 * (w & 1), j);
+          }
+          fence_async_smem();
+          bar();
+          dwx_steps(0, 4 * half, region);
+          if (half == 0) bar();  // the half's parts are read before the next half's go in
+        }
+        tick(11);
+        tick(12);
+        tick(13);
+      } else {
+        // dh's parts, the first warpgroup n-tiles 0-4, the second 5-9, and
+        // their rows' sums; then dX and dWX side by side
+#pragma unroll
+        for (int j = 0; j < kTH1 / 8; ++j) {
+          if (mine80(j)) {
+            put_dh(2 * w, j);
+            rows_dh(j);
+          }
+        }
+        fence_async_smem();
+        bar();
+        tick(9);
+#pragma unroll
+        for (int ci = 0; ci < NXW; ++ci) {
+          if (ci < nx) dx_chunk(ci);
+        }
+        tick(10);
+#pragma unroll
+        for (int mi = 0; mi < NXW; ++mi) {
+          if (mi < nm) {
+#pragma unroll
+            for (int k0 = 0; k0 < kWM / 8; k0 += kTSumSteps) {
+              dwx_steps(mi, k0, region + k0 * kTStep1);
+            }
+          }
+        }
+        tick(11);
+        bar();
+        tick(12);
+        add_sums();
+        tick(13);
+      }
+    }
+    bar();  // the rows' carried sums are in
+
+    // the unit's rows: dq = (the sum of dX_qk k) + (the sum of dh) (Wq +
+    // Wm)^T, a warp a column c of every row, its lanes over H1 (a read of
+    // Wq + Wm's row c), then a fixed tree, four columns at once, their
+    // reads in flight together; dA += q^T (the sum of dh), the rows in
+    // order; db1 += the sums of dh
+    for (int c0 = lt >> 5; c0 < K; c0 += 4 * (NT / 32)) {
+      float wv[4][3];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = c0 + u * (NT / 32);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const int h = lane + 32 * k;
+          wv[u][k] = c < K && h < kTH1 ? wa[c * kTH1 + h] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = c0 + u * (NT / 32);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float v = 0.f;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const int h = lane + 32 * k;
+            if (h < kTH1) v = fmaf(rs_s[r * kTH1 + h], wv[u][k], v);
+          }
+          v = warp_sum(v);
+          if (lane == 0 && c < K && r < nrows) dq[(b0 + r) * K + c] = es_s[r * KT + c] + v;
+        }
+      }
+    }
+    for (int i = lt; i < KT * kTH1; i += NT) {
+      const int c = i / kTH1, h = i - c * kTH1;
+      float v = dA[i];
+      for (int r = 0; r < nrows; ++r) v = fmaf(q_s[r * KT + c], rs_s[r * kTH1 + h], v);
+      dA[i] = v;
+    }
+    if (lt < kTH1) {
+      float v = rs_s[lt];
+      for (int r = 1; r < R; ++r) v += rs_s[r * kTH1 + lt];
+      sums[lt] += v;
+    }
+    tick(kWidePhases - 1);
+  }
+  if (kWideClocks && lt == 0) {
+    for (int i = 0; i < kWidePhases; ++i) {
+      dkeys[(static_cast<long long>(blockIdx.x) * S::kTeams + team) * 16 + i] =
+          static_cast<float>(clk_s[i]);
+    }
+  }
+
+  // this team's partial sums, in din_backward_reduce's layout (dA there
+  // already where it lives in device memory)
+  cp_async_wait_all();
+  __syncthreads();
+  if (!SOLO) {
+    for (int i = lt; i < KT * kTH1; i += NT) out[L.o_ax + 2LL * KT * kTH1 + i] = dA[i];
+  }
+#pragma unroll
+  for (int mi = 0; mi < NXW; ++mi) {
+    if (mi < nm) {
+#pragma unroll
+      for (int j = 0; j < kTH1 / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = p_lo + 8 * (e >> 1);  // the m-tile's row: [k | q*k] column
+          const int row = (m >> 5) * KT + 32 * (x0 + mi) + (m & 31);
+          out[L.o_ax + row * kTH1 + 8 * j + 2 * i4 + (e & 1)] = dwx[mi][4 * j + e];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < NW2; ++mi) {
+#pragma unroll
+    for (int j = 0; j < kTH2 / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 64 * (SOLO ? mi : wg) + p_lo + 8 * (e >> 1);
+        if (m < kTH1) out[L.o_a2 + m * kTH2 + 8 * j + 2 * i4 + (e & 1)] = dw2[mi][4 * j + e];
+      }
+    }
+  }
+  for (int i = lt; i < kTH1; i += NT) out[L.o_ab1 + i] = sums[i];
+  for (int i = lt; i < kTH2; i += NT) {
+    out[L.o_ab2 + i] = sums[kTH1 + i];
+    out[L.o_aw3 + i] = sums[kTH1 + kTH2 + i];
+  }
+  if (lt == 0) out[L.o_ab3] = sums[kTH1 + 2 * kTH2];
+}
+
+using WideKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                            const float*, const float*, const float*, float*, float*, float*,
+                            BackPlan, int, int, int, int, bool, bool, bool, bool);
+
+// the wide kernel's K padded: 32, 64 or 128, a template instantiation each
+constexpr int kWideK[] = {32, 64, 128};
+const WideKernel kWideKernels[] = {din_backward_wide_kernel<32>, din_backward_wide_kernel<64>,
+                                   din_backward_wide_kernel<128>};
+const int kWideBytes[] = {WideSmem<32>::kBytes, WideSmem<64>::kBytes, WideSmem<128>::kBytes};
+const int kWideTeams[] = {WideSmem<32>::kTeams, WideSmem<64>::kTeams, WideSmem<128>::kTeams};
+const int kWideRows[] = {WideSmem<32>::kRows, WideSmem<64>::kRows, WideSmem<128>::kRows};
+
+int wide_slot(int K) { return K <= 32 ? 0 : K <= 64 ? 1 : 2; }
+
+bool wide_takes(int T, int K, int H1, int H2) {
+  return K <= 128 && H1 <= kTH1 && H2 <= kTH2 && !tile_takes(T, K, H1, H2);
+}
+
+// the wide kernel's running sums, one partial a team of `blocks`
+BackPlan wide_sums(int slot, long long blocks) {
+  BackPlan L{};
+  L.Kp = kWideK[slot];
+  L.H1p = kTH1;
+  L.H1m = kTH1;
+  L.H2p = kTH2;
+  sums_layout(L);
+  L.blocks = blocks * kWideTeams[slot];
+  return L;
+}
+
+// The wide kernel's grid for a shape, chosen once a shape and device and
+// kept: a block an SM, no more than its teams' units of rows
+struct WideLaunch {
+  int device, batch, slot;
+  long long blocks;
+};
+
+cudaError_t wide_launch(int device, int batch, int slot, long long& blocks) {
+  static std::mutex lock;
+  static std::vector<WideLaunch> known;
+  std::lock_guard<std::mutex> hold(lock);
+  for (const WideLaunch& t : known) {
+    if (t.device == device && t.batch == batch && t.slot == slot) {
+      blocks = t.blocks;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kWideKernels[slot], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWideBytes[slot]);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kWideKernels[slot], kWThreads,
+                                                        kWideBytes[slot]);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long units = (static_cast<long long>(batch) + kWideRows[slot] - 1) / kWideRows[slot];
+  const long long need = (units + kWideTeams[slot] - 1) / kWideTeams[slot];
+  blocks = static_cast<long long>(sms) * per_sm;
+  if (blocks > need) blocks = need;
+  known.push_back({device, batch, slot, blocks});
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int din_attention_forward(const float* query, const float* keys,
@@ -3248,6 +4452,76 @@ extern "C" int din_attention_backward(const float* query, const float* keys, con
   din_backward_tile_kernel<<<static_cast<int>(blocks), kTThreads, kTSmemBytes, s>>>(
       query, keys, mask, w1, b1, w2, b2, w3, weights, grad, dq, dkeys, partials, L, batch, T, K,
       H1, H2, relu != 0, softmax != 0, scores == 0, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long outs = 4LL * K * H1 + H1 + static_cast<long long>(H1) * H2 + 2LL * H2 + 1;
+  const long long red_blocks = (32 * outs + kPrepThreads - 1) / kPrepThreads;
+  din_backward_reduce<<<static_cast<int>(red_blocks < 65536 ? red_blocks : 65536), kPrepThreads,
+                        0, s>>>(partials, dw1, db1, dw2, db2, dw3, db3, K, H1, H2, L);
+  return cudaGetLastError();
+}
+
+extern "C" long long din_attention_wide_backward_scratch(int batch, int T, int K, int H1, int H2) {
+  if (batch <= 0 || T <= 0 || K <= 0 || H1 <= 0 || H2 <= 0 || !wide_takes(T, K, H1, H2)) {
+    return -1;
+  }
+  const int slot = wide_slot(K);
+  int device = 0;
+  long long blocks = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return -1;
+  if (wide_launch(device, batch, slot, blocks) != cudaSuccess) return -1;
+  const BackPlan L = wide_sums(slot, blocks);
+  return wide_pack(kWideK[slot]).total + L.blocks * L.acc + static_cast<long long>(batch) * H1 +
+         (kWidePreDlogits ? static_cast<long long>(batch) * T : 0);
+}
+
+extern "C" int din_attention_wide_backward(const float* query, const float* keys, const float* mask,
+                                           const float* w1, const float* b1, const float* w2,
+                                           const float* b2, const float* w3, const float* b3,
+                                           const float* weights, const float* grad, float* dq,
+                                           float* dkeys, float* dw1, float* db1, float* dw2,
+                                           float* db2, float* dw3, float* db3, float* scratch,
+                                           int batch, int T, int K, int H1, int H2, int relu,
+                                           int softmax, int scores, void* stream) {
+  (void)b3;  // the softmax's shift: no gradient flows through it but db3
+  if (batch <= 0 || T <= 0 || K <= 0 || H1 <= 0 || H2 <= 0 || !wide_takes(T, K, H1, H2)) {
+    return cudaErrorInvalidValue;
+  }
+  const int slot = wide_slot(K);
+  const int KT = kWideK[slot];
+  int device = 0;
+  long long blocks = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = wide_launch(device, batch, slot, blocks);
+  if (err != cudaSuccess) return err;
+  const BackPlan L = wide_sums(slot, blocks);
+  // scratch: the packed weights, the teams' partials, the rows' terms (and
+  // the dlogits)
+  const WidePack P = wide_pack(KT);
+  float* packed = scratch;
+  float* partials = scratch + P.total;
+  float* terms = partials + L.blocks * L.acc;
+  float* dl = kWidePreDlogits ? terms + static_cast<long long>(batch) * H1 : nullptr;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int kPackBlocks = 64;
+  const long long prep_blocks = kPackBlocks + (static_cast<long long>(batch) + kTermRows - 1) /
+                                                  kTermRows;
+  din_backward_wide_pack<<<static_cast<int>(prep_blocks), kTermCols, 0, s>>>(
+      w1, b1, w2, b2, w3, query, packed, terms, batch, K, H1, H2, KT, kPackBlocks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (kWidePreDlogits) {
+    const long long work = 32LL * batch;
+    const long long grid = (work + kPrepThreads - 1) / kPrepThreads;
+    din_backward_dlogits<<<static_cast<int>(grid < 65536 ? grid : 65536), kPrepThreads, 0, s>>>(
+        keys, mask, weights, grad, dl, batch, T, K, softmax != 0, scores == 0,
+        K % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(grad) % 16 == 0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dkeys) % 16 == 0;
+  kWideKernels[slot]<<<static_cast<int>(blocks), kWThreads, kWideBytes[slot], s>>>(
+      query, keys, mask, weights, grad, packed, terms, dl, dq, dkeys, partials, L, batch, T, K,
+      H1, relu != 0, softmax != 0, scores == 0, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long outs = 4LL * K * H1 + H1 + static_cast<long long>(H1) * H2 + 2LL * H2 + 1;
   const long long red_blocks = (32 * outs + kPrepThreads - 1) / kPrepThreads;

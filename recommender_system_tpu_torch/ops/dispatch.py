@@ -10,11 +10,11 @@
   wrappers of the cross stack, the FM logit and the DIN attention pick
   between two kernels of their source by the shape (``ops/kernels.py``),
   never the plain version on the card, and so does the DIN attention's
-  backward (``din_attention_backward``: its tile kernel or its global
-  kernel).
+  backward (``din_attention_backward``: its tile, wide or global kernel).
 - Each wrapper counts its launches (``<wrapper>.launches``,
-  ``<wrapper>.global_launches`` for a global kernel, and
-  ``<wrapper>.long_launches`` for the sparse rules' long path).
+  ``<wrapper>.global_launches`` for a global kernel,
+  ``din_attention_backward.wide_launches`` for the backward's wide kernel,
+  and ``<wrapper>.long_launches`` for the sparse rules' long path).
   ``launch_counts`` and ``add_launches`` read and raise them all: a captured CUDA graph
   (``Trainer.make_multi_step``) counts nothing while it is captured and adds
   the launches it holds each time it is replayed.
@@ -55,9 +55,9 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel and no plain version for device {device}")
 
 
-# a wrapper's counts: every launch, and of them the global kernel's and the
-# long path's
-COUNTS = ("launches", "global_launches", "long_launches")
+# a wrapper's counts: every launch, and of them the global kernel's, the
+# attention backward's wide kernel's and the long path's
+COUNTS = ("launches", "global_launches", "wide_launches", "long_launches")
 
 
 def _counted():
@@ -72,7 +72,8 @@ def _counted():
 
 def launch_counts() -> Dict[str, int]:
     """Every wrapper's counts, keyed ``<wrapper>.launches``,
-    ``<wrapper>.global_launches`` and ``<wrapper>.long_launches``."""
+    ``<wrapper>.global_launches``, ``<wrapper>.wide_launches`` and
+    ``<wrapper>.long_launches``, where the wrapper has them."""
     return {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn in _counted()
             for attr in COUNTS if hasattr(fn, attr)}
 

@@ -27,8 +27,10 @@ plain version; a build failure or a launch error raises.
 - ``din_attention_fused`` (``csrc/din_attention.cu``), plain version
   ``din_attention_ref``; its backward ``din_attention_backward`` (the same
   source: a tile kernel where ``din_backward_kernel_takes``, DIN's and
-  DIEN's scorer, else a global kernel at every shape the forward takes),
-  plain version ``din_attention_backward_ref`` (``ops/din_vjp.py``);
+  DIEN's scorer; a wide kernel where ``din_backward_wide_takes``, K up to
+  128 and any T at that scorer; else a global kernel at every shape the
+  forward takes), plain version ``din_attention_backward_ref``
+  (``ops/din_vjp.py``);
 - ``fused_adagrad_apply``, ``fused_sgd_apply`` and ``fused_adam_apply``
   (``ops/fused_adagrad.py``) and ``scatter_add_sorted``
   (``ops/embedding_grad.py``), whose kernels are in ``csrc/sparse_rows.cu``;
@@ -72,6 +74,8 @@ SOURCES = {
         "din_attention_global_forward": ([_PTR] * 11 + [_INT] * 8 + [_PTR], _INT),
         "din_attention_backward": ([_PTR] * 20 + [_INT] * 8 + [_PTR], _INT),
         "din_attention_backward_scratch": ([_INT] * 5, _INT64),
+        "din_attention_wide_backward": ([_PTR] * 20 + [_INT] * 8 + [_PTR], _INT),
+        "din_attention_wide_backward_scratch": ([_INT] * 5, _INT64),
         "din_attention_global_backward": ([_PTR] * 20 + [_INT] * 8 + [_PTR], _INT),
         "din_attention_global_backward_scratch": ([_INT] * 5, _INT64),
     },
@@ -721,17 +725,51 @@ def din_backward_kernel_takes(query, keys, mask, w1, b1, w2, b2, w3, b3, weights
         and T <= lim["T"]
 
 
+# the widths the backward's wide kernel takes (csrc/din_attention.cu
+# wide_takes): K <= 128 (padded to 32, 64 or 128) and a 80-40 scorer or
+# narrower, at any T, where the tile kernel does not take the shape
+DIN_BACKWARD_WIDE = dict(K=128, H1=80, H2=40)
+
+
+def din_backward_wide_takes(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
+                            activation, return_scores) -> bool:
+    """True where ``din_attention_backward`` launches the wide kernel: the
+    global kernel takes these inputs, they are within
+    ``DIN_BACKWARD_WIDE``, and the tile kernel does not take them
+    (``din_backward_kernel_takes``). Shapes, dtypes, layouts and the
+    activation alone decide, never the data."""
+    if _din_backward_fault(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
+                           activation, return_scores) is not None:
+        return False
+    if din_backward_kernel_takes(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
+                                 activation, return_scores):
+        return False
+    lim = DIN_BACKWARD_WIDE
+    return keys.shape[2] <= lim["K"] and w1.shape[1] <= lim["H1"] and w2.shape[1] <= lim["H2"]
+
+
+def din_backward_route(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
+                       activation, return_scores) -> str:
+    """Which backward kernel ``din_attention_backward`` launches for these
+    inputs: ``"tile"``, ``"wide"`` or ``"global"``."""
+    args = (query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad, activation, return_scores)
+    if din_backward_kernel_takes(*args):
+        return "tile"
+    return "wide" if din_backward_wide_takes(*args) else "global"
+
+
 def _din_backward_launch(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, grad,
                          activation: str, weight_normalization: bool, return_scores: bool,
                          global_kernel: bool = False):
-    """One launch of the backward: the tile kernel where
-    ``din_backward_kernel_takes``, else (or where ``global_kernel``, which
-    only a comparison of the two kernels asks for) the global kernel."""
+    """One launch of the backward: the kernel ``din_backward_route`` names,
+    or the global kernel where ``global_kernel`` (which only a comparison of
+    the kernels asks for). A plan or launch that fails raises."""
     tensors = (query, keys, mask, w1, b1, w2, b2, w3, b3)
     check_din_backward_args(*tensors, weights, grad, activation, return_scores)
-    tile = not global_kernel and din_backward_kernel_takes(*tensors, weights, grad, activation,
-                                                           return_scores)
-    entry = "din_attention_backward" if tile else "din_attention_global_backward"
+    route = "global" if global_kernel else din_backward_route(*tensors, weights, grad,
+                                                              activation, return_scores)
+    entry = {"tile": "din_attention_backward", "wide": "din_attention_wide_backward",
+             "global": "din_attention_global_backward"}[route]
     B, T, K = keys.shape
     H1, H2 = w1.shape[1], w2.shape[1]
     grads = [torch.empty_like(t) for t in (query, keys, w1, b1, w2, b2, w3, b3)]
@@ -751,7 +789,8 @@ def _din_backward_launch(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, gra
     if err != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
     din_attention_backward.launches += 1
-    din_attention_backward.global_launches += not tile
+    din_attention_backward.wide_launches += route == "wide"
+    din_attention_backward.global_launches += route == "global"
     return tuple(grads)
 
 
@@ -762,10 +801,12 @@ def din_attention_backward(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, g
     T]`` and the output's cotangent ``grad`` -> ``(dq, dkeys, dw1, db1, dw2,
     db2, dw3, db3)``, the JAX package's ``_din_remat_bwd``. On CUDA one
     launch of a backward kernel of ``csrc/din_attention.cu`` at every
-    shape: the tile kernel where ``din_backward_kernel_takes`` (DIN's and
-    DIEN's scorer), else the global kernel, counted also in
-    ``global_launches`` (either sums its weight gradients in a fixed
-    order, no atomics: two calls agree bitwise); on the CPU
+    shape (``din_backward_route``): the tile kernel where
+    ``din_backward_kernel_takes`` (DIN's and DIEN's scorer), the wide
+    kernel where ``din_backward_wide_takes`` (K up to 128, any T), counted
+    also in ``wide_launches``, else the global kernel, counted also in
+    ``global_launches`` (each sums its weight gradients in a fixed order,
+    no atomics: two calls agree bitwise); on the CPU
     ``din_attention_backward_ref``."""
     tensors = [t.to(torch.float32).contiguous() for t in (query, keys, mask, w1, b1, w2, b2,
                                                          w3, b3, weights, grad)]
@@ -776,6 +817,7 @@ def din_attention_backward(query, keys, mask, w1, b1, w2, b2, w3, b3, weights, g
 
 
 din_attention_backward.launches = 0
+din_attention_backward.wide_launches = 0
 din_attention_backward.global_launches = 0
 
 

@@ -3,7 +3,8 @@ package's (forward and ``jax.vjp`` gradients), ``din_attention_backward_ref``
 (the backward kernel's plain version) against autograd through
 ``din_attention_ref`` in float64, the ``din_attention_backward`` wrapper on
 the CPU, the shapes its global kernel's check takes, and where its tile
-kernel takes over (``din_backward_kernel_takes``)."""
+and wide kernels take over (``din_backward_kernel_takes``,
+``din_backward_wide_takes``)."""
 import numpy as np
 import pytest
 import torch
@@ -277,6 +278,54 @@ def test_backward_tile_kernel_takes_within_its_limits(case, return_scores):
     assert takes == (K <= lim["K"] and H1 <= lim["H1"] and H2 <= lim["H2"] and T <= lim["T"])
 
 
+# the wide kernel's edges: (B, T, K, H1, H2) it takes (past the tile
+# kernel's T or K, up to K=128 and 80-40, any T), and one past each of its
+# limits, or within the tile kernel's
+WIDE_TAKES = {
+    "k128_t50": (8192, 50, 128, 80, 40),
+    "k64_t200": (8192, 200, 64, 80, 40),
+    "k32_t1000": (8192, 1000, 32, 80, 40),
+    "t65": (4, 65, 32, 80, 40),
+    "k33": (4, 50, 33, 80, 40),
+    "k100_t1": (4, 1, 100, 80, 40),
+    "k128_t65_narrow": (4, 65, 128, 1, 1),
+    "t128": (4, 128, 8, 10, 5),
+    "t100000": (2, 100_000, 32, 80, 40),
+}
+WIDE_REFUSES = {
+    "k129": (4, 50, 129, 80, 40),
+    "h1_81": (4, 65, 32, 81, 40),
+    "h2_41": (4, 65, 32, 80, 41),
+    "k128_h1_81": (4, 50, 128, 81, 40),
+    "tile_din": (8192, 50, 32, 80, 40),
+    "tile_t64": (4, 64, 32, 80, 40),
+    "tile_k32": (4, 1, 32, 80, 40),
+}
+
+
+@pytest.mark.parametrize("return_scores", [False, True], ids=["pooled", "scores"])
+@pytest.mark.parametrize("case", sorted(WIDE_TAKES) + sorted(WIDE_REFUSES))
+def test_backward_wide_kernel_takes_within_its_limits(case, return_scores):
+    """``din_backward_wide_takes`` on meta tensors: the wide kernel takes
+    K <= 128, H1 <= 80 and H2 <= 40 at any T, where the tile kernel does not
+    take the shape, and nothing past any of its limits; the router names
+    exactly one kernel at every shape, and the global kernel's check takes
+    them all."""
+    takes = case in WIDE_TAKES
+    B, T, K, H1, H2 = (WIDE_TAKES if takes else WIDE_REFUSES)[case]
+    args = _meta(B, T, K, H1, H2, return_scores)
+    for activation in ("sigmoid", "relu"):
+        assert kernels.din_backward_wide_takes(*args, activation, return_scores) == takes
+        tile = din_backward_kernel_takes(*args, activation, return_scores)
+        assert not (tile and takes)
+        want = "tile" if tile else "wide" if takes else "global"
+        assert kernels.din_backward_route(*args, activation, return_scores) == want
+    check_din_backward_args(*args, "sigmoid", return_scores)
+    lim = kernels.DIN_BACKWARD_WIDE
+    within = K <= lim["K"] and H1 <= lim["H1"] and H2 <= lim["H2"]
+    assert takes == (within and not din_backward_kernel_takes(*args, "sigmoid", return_scores))
+
+
 def test_backward_tile_kernel_refuses_what_no_kernel_takes():
     """Where the global kernel's check raises, the tile kernel does not take
     the inputs either: the predicate never raises."""
@@ -292,6 +341,7 @@ def test_backward_tile_kernel_refuses_what_no_kernel_takes():
         with pytest.raises((TypeError, ValueError)):
             check_din_backward_args(*call)
         assert not din_backward_kernel_takes(*call)
+        assert not kernels.din_backward_wide_takes(*call)
 
 
 @pytest.mark.parametrize("flags", FLAGS[:4], ids=FLAG_IDS[:4])
@@ -311,12 +361,13 @@ def test_cpu_router_launches_nothing(flags, monkeypatch):
         cot = torch.from_numpy(_cotangent(B, T, K, flags[2]))
         score = din_attention_ref(tensors[0], tensors[1], maskf, *tensors[2:], flags[0],
                                   flags[1], True)
-        counts = (din_attention_backward.launches, din_attention_backward.global_launches)
+        counts = (din_attention_backward.launches, din_attention_backward.wide_launches,
+                  din_attention_backward.global_launches)
         got = din_attention_backward(tensors[0], tensors[1], maskf, *tensors[2:], score, cot,
                                      *flags)
         want = din_attention_backward_ref(tensors[0], tensors[1], maskf, *tensors[2:], score,
                                           cot, *flags)
-        assert (din_attention_backward.launches,
+        assert (din_attention_backward.launches, din_attention_backward.wide_launches,
                 din_attention_backward.global_launches) == counts
         for name, g, w in zip(NAMES, got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)

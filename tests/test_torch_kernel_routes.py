@@ -1,6 +1,7 @@
 """Which kernel the cross, FM and DIN attention wrappers (the attention's
 backward too) launch on the card at each shape: the fast kernel of their
-source where ``*_kernel_takes``, else the source's global kernel, and never
+source where ``*_kernel_takes`` (the backward's wide kernel where
+``din_backward_wide_takes``), else the source's global kernel, and never
 the plain version. Runs on the CPU with every tensor counted as on the card
 and a recording stand-in for the built library."""
 import contextlib
@@ -37,6 +38,7 @@ def fake_card(monkeypatch):
         monkeypatch.setattr(fn, "launches", 0)
         monkeypatch.setattr(fn, "global_launches", 0)
     monkeypatch.setattr(din_attention_backward, "launches", 0)
+    monkeypatch.setattr(din_attention_backward, "wide_launches", 0)
     monkeypatch.setattr(din_attention_backward, "global_launches", 0)
     return lib
 
@@ -102,11 +104,13 @@ ROUTES = {
 
 # the backward's entry points after each forward of the attention, by the
 # case's index in ROUTES: its scratch's size, then the launch, of the tile
-# kernel (K <= 32, H1 <= 80, H2 <= 40, T <= 64) or else the global kernel
+# kernel (K <= 32, H1 <= 80, H2 <= 40, T <= 64), else of the wide kernel (K
+# <= 128, H1 <= 80, H2 <= 40, any T), else of the global kernel
 DIN_TILE_BACKWARD = ["din_attention_backward_scratch", "din_attention_backward"]
+DIN_WIDE_BACKWARD = ["din_attention_wide_backward_scratch", "din_attention_wide_backward"]
 DIN_GLOBAL_BACKWARD = ["din_attention_global_backward_scratch", "din_attention_global_backward"]
-DIN_BACKWARD = [DIN_TILE_BACKWARD, *[DIN_GLOBAL_BACKWARD] * 5, DIN_TILE_BACKWARD,
-                DIN_GLOBAL_BACKWARD]
+DIN_BACKWARD = [DIN_TILE_BACKWARD, *[DIN_WIDE_BACKWARD] * 4, DIN_GLOBAL_BACKWARD,
+                DIN_TILE_BACKWARD, DIN_WIDE_BACKWARD]
 
 
 @pytest.mark.parametrize("name", sorted(ROUTES))
@@ -126,6 +130,8 @@ def test_wrapper_launches_a_kernel_at_every_shape(fake_card, name):
     assert fn.launches == len(cases)
     assert fn.global_launches == sum("global" in entry for _, entry in cases)
     assert din_attention_backward.launches == sum(bool(back) for back in backward)
+    assert din_attention_backward.wide_launches == sum(back == DIN_WIDE_BACKWARD
+                                                       for back in backward)
     assert din_attention_backward.global_launches == sum(back == DIN_GLOBAL_BACKWARD
                                                          for back in backward)
 
@@ -145,16 +151,25 @@ def test_wrapper_raises_where_the_build_fails(fake_card, monkeypatch, name, case
     assert (fn.launches, fn.global_launches) == (0, 0)
 
 
-# backward inputs -> (the router's entries, the global kernel's on request)
+# backward inputs -> the router's entries (the global kernel's follow on
+# request): the tile kernel within its limits; the wide kernel past them
+# (T past 64, K past 32) up to K=128 and 80-40; the global kernel past K=128
+# or a scorer wider than 80-40, at any T
 BACKWARD_ROUTES = [
     (dict(), DIN_TILE_BACKWARD),
     (dict(B=2, T=50, K=32, H1=80, H2=40), DIN_TILE_BACKWARD),
     (dict(B=2, T=64, K=32, H1=80, H2=40), DIN_TILE_BACKWARD),
-    (dict(B=2, T=65, K=32, H1=80, H2=40), DIN_GLOBAL_BACKWARD),
-    (dict(B=2, T=50, K=33, H1=80, H2=40), DIN_GLOBAL_BACKWARD),
+    (dict(B=2, T=65, K=32, H1=80, H2=40), DIN_WIDE_BACKWARD),
+    (dict(B=2, T=50, K=33, H1=80, H2=40), DIN_WIDE_BACKWARD),
     (dict(B=2, T=50, K=32, H1=81, H2=40), DIN_GLOBAL_BACKWARD),
     (dict(B=2, T=50, K=32, H1=80, H2=41), DIN_GLOBAL_BACKWARD),
-    (dict(B=2, T=50, K=128, H1=80, H2=40), DIN_GLOBAL_BACKWARD),
+    (dict(B=2, T=50, K=128, H1=80, H2=40), DIN_WIDE_BACKWARD),
+    (dict(B=2, T=200, K=64, H1=80, H2=40), DIN_WIDE_BACKWARD),
+    (dict(B=2, T=1000, K=32, H1=80, H2=40), DIN_WIDE_BACKWARD),
+    (dict(B=2, T=7, K=100, H1=80, H2=40), DIN_WIDE_BACKWARD),
+    (dict(B=2, T=50, K=129, H1=80, H2=40), DIN_GLOBAL_BACKWARD),
+    (dict(B=2, T=65, K=8, H1=81, H2=40), DIN_GLOBAL_BACKWARD),
+    (dict(B=2, T=200, K=128, H1=80, H2=41), DIN_GLOBAL_BACKWARD),
 ]
 
 
@@ -162,9 +177,12 @@ BACKWARD_ROUTES = [
 @pytest.mark.parametrize("case", range(len(BACKWARD_ROUTES)))
 def test_backward_counts_launches_per_route(fake_card, case, return_scores):
     """``din_attention_backward`` calls the tile kernel's entry points where
-    ``din_backward_kernel_takes`` and the global kernel's elsewhere; both
-    count in ``launches``, the global kernel also in ``global_launches``;
-    the launcher's ``global_kernel`` takes the global kernel at any shape."""
+    ``din_backward_kernel_takes``, the wide kernel's where
+    ``din_backward_wide_takes`` and the global kernel's elsewhere, as
+    ``din_backward_route`` names them; each counts in ``launches``, the wide
+    kernel also in ``wide_launches``, the global kernel in
+    ``global_launches``; the launcher's ``global_kernel`` takes the global
+    kernel at any shape."""
     shape, entries = BACKWARD_ROUTES[case]
     q, keys, mask, *weights = [t.detach() for t in _din(**shape)]
     B, T, K = keys.shape
@@ -173,9 +191,15 @@ def test_backward_counts_launches_per_route(fake_card, case, return_scores):
     args = (q, keys, mask.float(), *weights, saved, grad, "sigmoid", True, return_scores)
     assert kernels.din_backward_kernel_takes(*args[:11], "sigmoid", return_scores) == (
         entries == DIN_TILE_BACKWARD)
+    assert kernels.din_backward_wide_takes(*args[:11], "sigmoid", return_scores) == (
+        entries == DIN_WIDE_BACKWARD)
+    route = {"din_attention_backward": "tile", "din_attention_wide_backward": "wide",
+             "din_attention_global_backward": "global"}[entries[1]]
+    assert kernels.din_backward_route(*args[:11], "sigmoid", return_scores) == route
     grads = din_attention_backward(*args)
     assert [g.shape for g in grads] == [t.shape for t in (q, keys, *weights)]
     kernels._din_backward_launch(*args, global_kernel=True)
     assert fake_card.calls == [*entries, *DIN_GLOBAL_BACKWARD]
     assert din_attention_backward.launches == 2
+    assert din_attention_backward.wide_launches == (entries == DIN_WIDE_BACKWARD)
     assert din_attention_backward.global_launches == 1 + (entries == DIN_GLOBAL_BACKWARD)

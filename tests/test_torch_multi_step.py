@@ -454,16 +454,21 @@ def test_launch_counts_read_and_raise_every_counter():
         "cross_fused.launches", "cross_fused.global_launches", "fm_fused.launches",
         "fm_fused.global_launches", "din_attention_fused.launches",
         "din_attention_fused.global_launches", "din_attention_backward.launches",
-        "din_attention_backward.global_launches", "fused_adagrad_apply.launches",
+        "din_attention_backward.global_launches", "din_attention_backward.wide_launches",
+        "fused_adagrad_apply.launches",
         "fused_adagrad_apply.long_launches", "fused_sgd_apply.launches",
         "fused_sgd_apply.long_launches", "fused_adam_apply.launches",
         "fused_adam_apply.long_launches", "scatter_add_sorted.launches",
         "scatter_add_sorted.long_launches"}
-    add_launches({"fused_adam_apply.launches": 8, "cross_fused.global_launches": 2})
+    add_launches({"fused_adam_apply.launches": 8, "cross_fused.global_launches": 2,
+                  "din_attention_backward.wide_launches": 3})
     after = launch_counts()
     assert after["fused_adam_apply.launches"] == counts["fused_adam_apply.launches"] + 8
     assert after["cross_fused.global_launches"] == counts["cross_fused.global_launches"] + 2
-    add_launches({"fused_adam_apply.launches": -8, "cross_fused.global_launches": -2})
+    assert (after["din_attention_backward.wide_launches"]
+            == counts["din_attention_backward.wide_launches"] + 3)
+    add_launches({"fused_adam_apply.launches": -8, "cross_fused.global_launches": -2,
+                  "din_attention_backward.wide_launches": -3})
     assert launch_counts() == counts
 
 
