@@ -1,6 +1,7 @@
 """Check and time the DIN attention's two backward kernels on the card.
 
     python3 chip_lab_din_backward.py [--skip-check] [--skip-time] [--variants a,b]
+        [--wide-variants a,b] [--wide-clocks] [--wide-at-tile] [--only tile|wide|global]
 
 Builds ``csrc/din_attention.cu`` and prints the backward kernels' registers
 and spills (``din_backward_tile_kernel``, the tile kernel;
@@ -24,7 +25,10 @@ kernels in turns with these: ``chip_turns.py --what backward``. ``--variants`` b
 copies of the source (``VARIANTS``) and times each one's tile kernel entry
 point in turns with the unedited source (``base``) at DIN's shape, and
 ``--wide-variants`` each one's wide kernel entry point at the three global
-shapes; their results are not checked.
+shapes; their results are not checked. ``--wide-clocks`` prints the wide
+kernel's cycles by phase (the ``wide_clocks`` variant, which inserts the
+clock reads), ``--wide-at-tile`` times the wide kernel against the tile
+kernel at DIN's shape (the ``wide_at_tile`` variant).
 """
 from __future__ import annotations
 
@@ -113,10 +117,39 @@ VARIANTS = {
                    "__device__ __forceinline__ void tile_end(float (&acc)[M]) {\n  wg_wait_all();\n")],
     # no dA (its 20 running sums a thread)
     "no_da": [("            da[i] = fmaf(q_s[r * kTK + ca], v, da[i]);\n", "")],
-    # the wide kernel's dlogit from din_backward_dlogits launched first
-    # instead of its own sweep over the pair and g . k a tile
-    "wide_pre_dlogits": [("constexpr bool kWidePreDlogits = false;",
-                          "constexpr bool kWidePreDlogits = true;")],
+    # the wide kernel's dlogit from din_backward_dlogits launched first (a
+    # fourth launch, one more read of the keys, a [B * T] scratch) instead
+    # of its own sweep over the unit and g . k a tile
+    "wide_pre_dlogits": [
+        ("const float* __restrict__ terms, float* __restrict__ dq,",
+         "const float* __restrict__ terms, const float* __restrict__ dlg, float* __restrict__ dq,"),
+        ("const float*, const float*, float*, float*, float*, BackPlan",
+         "const float*, const float*, const float*, float*, float*, float*, BackPlan"),
+        ("      const bool dots = softmax;  // c needs g . k only under the softmax",
+         "      const bool dots = false;"),
+        ("if (!pool) cp_async4(dl_s + lt, grad + pos);", "cp_async4(dl_s + lt, dlg + pos);"),
+        ("      for (int i = lt; i < 4 * kWM; i += NT) {\n        const int p = i >> 2, qtr = i & 3;",
+         "      if (lt >= np && lt < kWM) dl_s[lt] = 0.f;\n"
+         "      for (int i = lt; i < 0; i += NT) {\n        const int p = i >> 2, qtr = i & 3;"),
+        ("  return wide_pack(kWideK[slot]).total + L.blocks * L.acc + static_cast<long long>(batch) * H1;",
+         "  return wide_pack(kWideK[slot]).total + L.blocks * L.acc + static_cast<long long>(batch) * H1 +\n"
+         "         static_cast<long long>(batch) * T;"),
+        ("  float* terms = partials + L.blocks * L.acc;\n",
+         "  float* terms = partials + L.blocks * L.acc;\n"
+         "  float* dl = terms + static_cast<long long>(batch) * H1;\n"),
+        ("  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&\n"
+         "                   reinterpret_cast<uintptr_t>(dkeys) % 16 == 0;\n",
+         "  {\n"
+         "    const long long grid = (32LL * batch + kPrepThreads - 1) / kPrepThreads;\n"
+         "    din_backward_dlogits<<<static_cast<int>(grid < 65536 ? grid : 65536), kPrepThreads, 0, s>>>(\n"
+         "        keys, mask, weights, grad, dl, batch, T, K, softmax != 0, scores == 0,\n"
+         "        K % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&\n"
+         "            reinterpret_cast<uintptr_t>(grad) % 16 == 0);\n"
+         "    if ((err = cudaGetLastError()) != cudaSuccess) return err;\n"
+         "  }\n"
+         "  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&\n"
+         "                   reinterpret_cast<uintptr_t>(dkeys) % 16 == 0;\n"),
+        ("packed, terms, dq, dkeys", "packed, terms, dl, dq, dkeys")],
     # the wide kernel's weight ring, 3 or 6 k-steps a warpgroup
     "wide_slots3": [("constexpr int kWSlots = 4; ", "constexpr int kWSlots = 3; ")],
     "wide_slots6": [("constexpr int kWSlots = 4; ", "constexpr int kWSlots = 6; ")],
@@ -124,7 +157,7 @@ VARIANTS = {
     # wrong): the sweep's masked dkeys stores; its g . k for c; the
     # weight-gradient products; dX's products; the keys' copies
     "wide_no_masked": [("            if (in[u] && !valid[u]) {", "            if (false) {")],
-    "wide_no_c": [("      const bool dots = softmax && dlg == nullptr;",
+    "wide_no_c": [("      const bool dots = softmax;  // c needs g . k only under the softmax",
                    "      const bool dots = false;")],
     "wide_no_wgrad": [
         ("            tile_sum_issue<kTH2, kTSumSteps>(t[mi], a[mi], du_s + (k0 - KS * half) * kTStep2,\n"
@@ -139,8 +172,67 @@ VARIANTS = {
     # the wide kernel's pair end without dA's updates
     "wide_no_da": [("      for (int r = 0; r < nrows; ++r) v = fmaf(q_s[r * KT + c], rs_s[r * kTH1 + h], v);\n      dA[i] = v;",
                     "      (void)v;")],
-    # the wide kernel's cycles a phase (kWideClocks; time_clocks reads them)
-    "wide_clocks": [("constexpr bool kWideClocks = false;", "constexpr bool kWideClocks = true;")],
+    # the wide kernel's cycles a phase (time_clocks reads them): a team's
+    # first thread sums each phase's cycles (tick(i), WIDE_PHASES) over its
+    # units and tiles and writes the sums, as floats, over the first
+    # positions of dkeys at the end (its results are not gradients)
+    "wide_clocks": [
+        ("constexpr int kWStepX = 2 * 2 * 32 * 8;  // a dX k-step: N = 64, big and small\n",
+         "constexpr int kWStepX = 2 * 2 * 32 * 8;  // a dX k-step: N = 64, big and small\n"
+         "constexpr int kWidePhases = 15;\n"),
+        ("(kMisc + 20 * kRows + 31)", "(kMisc + 20 * kRows + 2 * kWidePhases + 31)"),
+        ("  int* cur_s = reinterpret_cast<int*>(misc + 18 * R);\n",
+         "  int* cur_s = reinterpret_cast<int*>(misc + 18 * R);\n"
+         "  long long* clk_s = reinterpret_cast<long long*>(misc + 20 * R);\n"
+         "  long long tprev = 0;\n"
+         "  auto tick = [&](int phase) {\n"
+         "    if (lt == 0) {\n"
+         "      const long long now = clock64();\n"
+         "      clk_s[phase] += now - tprev;\n"
+         "      tprev = now;\n"
+         "    }\n"
+         "  };\n"),
+        ("  const long long units = (static_cast<long long>(batch) + R - 1) / R;\n",
+         "  const long long units = (static_cast<long long>(batch) + R - 1) / R;\n"
+         "  if (lt == 0) tprev = clock64();\n"),
+        *[(f"{sp}{a}", f"{sp}tick({i});\n{sp}{a}") for i, sp, a in (
+            (0, "    ", "// the unit's valid positions, the rows' in turn"),
+            (1, "      ", "// the tile's keys, weights and (for scores) cotangents, by cp.async"),
+            (2, "      ", "// dlogit: dscore = g . k (four threads a position"),
+            (5, "      ", "// layer 2 again (both warpgroups); du = dlogit w3 act'(h2)"))],
+        *[(a, f"{a}{sp}{t}\n") for a, sp, t in (
+            ("      tile_end(hacc);\n", "      ", "tick(4);"),
+            ("        if (half + 1 < HV) bar();  // the half's parts are read before the next "
+             "half's go in\n      }\n", "      ", "tick(7);"),
+            ("      bar();  // h1 and du's parts are read: the region takes dh's parts\n", "      ",
+             "tick(8);"),
+            ("        for (int j = 0; j < kTH1 / 8; ++j) rows_dh(j);\n", "        ", "tick(9);"),
+            ("        dx_chunk(0);\n", "        ", "tick(10);"),
+            ("          if (half == 0) bar();  // the half's parts are read before the next "
+             "half's go in\n        }\n", "        ", "tick(11);\n        tick(12);\n        tick(13);"),
+            ("          if (ci < nx) dx_chunk(ci);\n        }\n", "        ", "tick(10);"))],
+        ("        bar();\n#pragma unroll\n        for (int k0 = KS * half; k0 < KS * (half + 1); "
+         "k0 += kTSumSteps) {",
+         "        bar();\n        if (half == 0) tick(6);\n#pragma unroll\n"
+         "        for (int k0 = KS * half; k0 < KS * (half + 1); k0 += kTSumSteps) {"),
+        ("      bar();\n\n      const bool v_lo = p_lo < np, v_hi = p_hi < np;",
+         "      bar();\n      tick(3);\n\n      const bool v_lo = p_lo < np, v_hi = p_hi < np;"),
+        ("        bar();\n#pragma unroll\n        for (int ci = 0; ci < NXW; ++ci) {",
+         "        bar();\n        tick(9);\n#pragma unroll\n        for (int ci = 0; ci < NXW; ++ci) {"),
+        ("        }\n        bar();\n        add_sums();\n      }",
+         "        }\n        tick(11);\n        bar();\n        tick(12);\n        add_sums();\n"
+         "        tick(13);\n      }"),
+        ("      sums[lt] += v;\n    }\n  }\n",
+         "      sums[lt] += v;\n    }\n    tick(kWidePhases - 1);\n  }\n"
+         "  if (lt == 0) {\n"
+         "    for (int i = 0; i < kWidePhases; ++i) {\n"
+         "      dkeys[(static_cast<long long>(blockIdx.x) * S::kTeams + team) * 16 + i] =\n"
+         "          static_cast<float>(clk_s[i]);\n"
+         "    }\n"
+         "  }\n")],
+    # the wide kernel also at the tile kernel's shapes (time_wide_at_tile)
+    "wide_at_tile": [("  return K <= 128 && H1 <= kTH1 && H2 <= kTH2 && !tile_takes(T, K, H1, H2);",
+                      "  return K <= 128 && H1 <= kTH1 && H2 <= kTH2;")],
     # no reduction of the partials after the tile kernel
     "no_reduce": [
         ("      H1, H2, relu != 0, softmax != 0, scores == 0, vec);\n"
@@ -267,14 +359,21 @@ def tile_kernel_notes(log: str) -> list:
     return notes
 
 
+_BUILT = {}  # variant name -> its library, built once a run
+
+
 def build_variants(names):
+    """The variants' libraries, each built once a run: those not yet built,
+    by one ``nvcc`` each, all started together."""
     from recommender_system_tpu_torch.ops import kernels
 
     out_dir = kernels.BUILD_DIR / "lab_backward"
     out_dir.mkdir(parents=True, exist_ok=True)
     source = SRC.read_text()
     jobs = {}
-    for name in names:
+    for name in dict.fromkeys(names):
+        if name in _BUILT:
+            continue
         text = source
         for old, new in VARIANTS[name]:
             if text.count(old) != 1:
@@ -286,7 +385,6 @@ def build_variants(names):
         jobs[name] = (lib, subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib),
                                               str(cu)], stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
-    libs = {}
     for name, (lib, proc) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -299,8 +397,8 @@ def build_variants(names):
             argtypes, restype = kernels.SOURCES["din_attention"][fn]
             getattr(handle, fn).argtypes = argtypes
             getattr(handle, fn).restype = restype
-        libs[name] = handle
-    return libs
+        _BUILT[name] = handle
+    return {name: _BUILT[name] for name in names}
 
 
 def time_variants(names, wide: bool = False) -> None:
@@ -309,7 +407,7 @@ def time_variants(names, wide: bool = False) -> None:
     shapes instead."""
     from recommender_system_tpu_torch.ops import kernels
 
-    libs = build_variants(names)
+    libs = build_variants(["base", *names])
     gen = torch.Generator(device="cuda").manual_seed(5)
     stream = torch.cuda.current_stream().cuda_stream
     shapes = ([(cs.DIN_BATCH, T, K, 80, 40) for K, T in cs.DIN_GLOBAL_SHAPES] if wide
@@ -340,7 +438,57 @@ def time_variants(names, wide: bool = False) -> None:
         del q, keys, mask, weights, saved, cot, grads
 
 
-# the wide kernel's phases under kWideClocks, in its order (tick(i))
+def time_wide_at_tile(turns: int = 3) -> None:
+    """The wide kernel (``din_backward_wide_kernel<32>``, the
+    ``wide_at_tile`` variant) against the tile kernel at DIN's shape (B=8,192,
+    T=50, K=32, 80-40), the tile kernel then the wide kernel, ``turns``
+    times, by CUDA events; the wide kernel's gradients against the plain
+    version's (largest error over each gradient's scale)."""
+    from recommender_system_tpu_torch.ops import kernels
+    from recommender_system_tpu_torch.ops.din_vjp import din_attention_backward_ref
+
+    libs = build_variants(["base", "wide_at_tile"])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    stream = torch.cuda.current_stream().cuda_stream
+    B, T, K, H1, H2 = cs.DIN_BATCH, cs.DIN_T, cs.DIN_DIM, 80, 40
+    q, keys, mask, weights = cs.din_inputs(gen, B, T, K, H1, H2)
+    maskf = mask.float()
+    with torch.inference_mode():
+        out, saved = kernels._din_launch(q, keys, maskf, *weights, "sigmoid", True, False, True)
+    cot = torch.randn(out.shape, generator=gen, device="cuda")
+    grads = [torch.empty_like(t) for t in (q, keys, *weights)]
+    runs = {"tile": (libs["base"], "din_attention_backward"),
+            "wide": (libs["wide_at_tile"], "din_attention_wide_backward")}
+
+    def launch(what):
+        lib, entry = runs[what]
+        scratch = torch.empty(getattr(lib, entry + "_scratch")(B, T, K, H1, H2), device="cuda")
+        err = getattr(lib, entry)(
+            *(t.data_ptr() for t in (q, keys, maskf, *weights, saved, cot, *grads, scratch)),
+            B, T, K, H1, H2, 0, 1, 0, stream)
+        if err != 0:
+            raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+
+    launch("wide")
+    torch.cuda.synchronize()
+    names = ("dq", "dkeys", "dw1", "db1", "dw2", "db2", "dw3", "db3")
+    ref = din_attention_backward_ref(q, keys, maskf, *weights, saved, cot, "sigmoid", True,
+                                     False)
+    errs = {n: (g - r).abs().max().item()
+            / cs.din_grad_scale(n, r, keys, maskf, saved, cot, ("sigmoid", True, False))
+            for n, g, r in zip(names, grads, ref)}
+    rec = {"tile": [], "wide": []}
+    for _ in range(turns):
+        for what in ("tile", "wide"):
+            rec[what].append(cs.call_ms(lambda: launch(what), iters=30, warmup=3))
+    print(f"wide kernel at the tile kernel's shape B={B} T={T} K={K} H1={H1} H2={H2}, "
+          f"in turns: tile kernel {rec['tile']} ms, wide kernel {rec['wide']} ms a call; the "
+          f"wide kernel's error over each gradient's scale against the plain version "
+          f"{ {n: f'{e:.2e}' for n, e in errs.items()} }", flush=True)
+    del q, keys, mask, weights, saved, cot, grads
+
+
+# the wide kernel's phases in the wide_clocks variant, in its order (tick(i))
 WIDE_PHASES = ["unit: rows, sweep", "collect", "stage keys", "dlogit", "layer 1",
                "swap, h1", "layer 2, du", "dW2", "dh", "dh parts", "dX", "dWX", "barrier",
                "row sums", "unit: dq, dA"]
@@ -394,6 +542,8 @@ def main() -> int:
                         help="variants timed on the wide kernel at the three global shapes")
     parser.add_argument("--wide-clocks", action="store_true",
                         help="the wide kernel's cycles by phase (the wide_clocks variant)")
+    parser.add_argument("--wide-at-tile", action="store_true",
+                        help="the wide kernel against the tile kernel at DIN's shape")
     parser.add_argument("--only", default="", choices=["", "tile", "wide", "global"],
                         help="check only the cases the router sends to this kernel")
     args = parser.parse_args()
@@ -414,6 +564,11 @@ def main() -> int:
     print("\n".join(ptxas), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    variants = [*filter(None, args.variants.split(",")),
+                *filter(None, args.wide_variants.split(","))]
+    variants += ["wide_clocks"] * args.wide_clocks + ["base", "wide_at_tile"] * args.wide_at_tile
+    if variants:
+        build_variants(["base", *variants])
     if not args.skip_check:
         check(args.only)
     if not args.skip_time:
@@ -424,6 +579,8 @@ def main() -> int:
         time_variants(args.wide_variants.split(","), wide=True)
     if args.wide_clocks:
         time_clocks()
+    if args.wide_at_tile:
+        time_wide_at_tile()
     print("\n".join(ptxas))
     print(cs.card_line())
     return 0

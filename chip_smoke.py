@@ -303,10 +303,11 @@ Phases, each of which raises on failure (exit code not 0):
    host overhead included), and the library call where there is one (the
    DIN attention and its backward against two bounds: the tensor cores' at
    three TF32 passes, its ``bound_ms``, and f32 outside them,
-   ``f32_bound_ms``; the backward's tile kernel at DIN's shape, its wide
-   kernel and its global kernel at the global forward kernel's three
-   shapes, the global kernel also at DIN's shape with a 128-64 scorer);
-   each
+   ``f32_bound_ms``, the backward's over its unmasked positions, the
+   least work, and over all of them, ``all_positions_bound_ms``; the
+   backward's tile kernel at DIN's shape, its wide kernel and its global
+   kernel at the global forward kernel's three shapes, the global kernel
+   also at DIN's shape with a 128-64 scorer); each
    Scorer's latency and throughput (host clock), its device busy time per
    batch and its top kernels; the training throughput of a fused K=8 call,
    graphed and looped (CUDA events), its device idle share, the top device
@@ -2264,19 +2265,22 @@ def time_din(trainer, scorer, requests, batches, labels, card, rules=None) -> di
                            f"kernel and the reduction: {dict(bwd_dev)}")
     bwd.update(ms=sum(bwd_dev.values()), plain_ms=sum(plain_bwd_dev.values()), library_ms=None,
                by_kernel={name[:60]: ms for name, ms in bwd_dev.items()})
-    bwd["bound_ms"], bwd["bound_by"], bwd["f32_bound_ms"] = din_backward_bound(B, T, Kd, H1, H2)
-    bwd["share_of_bound"] = bwd["bound_ms"] / bwd["ms"]
-    # the tile kernel skips masked positions: the bound over the unmasked ones
+    # the least work is over the unmasked positions: a masked one adds to no
+    # product (the tile kernel skips them)
     valid = int((mask > 0.5).sum().item())
     bwd["valid_positions"] = valid
-    bwd["valid_bound_ms"] = din_backward_bound(B, T, Kd, H1, H2, positions=valid)[0]
+    bwd["bound_ms"], bwd["bound_by"], bwd["f32_bound_ms"] = din_backward_bound(
+        B, T, Kd, H1, H2, positions=valid)
+    bwd["all_positions_bound_ms"], bwd["all_positions_bound_by"], _ = din_backward_bound(
+        B, T, Kd, H1, H2)
+    bwd["share_of_bound"] = bwd["bound_ms"] / bwd["ms"]
     rec["backward"] = bwd
     print(f"timing din_attention_backward (tile kernel) B={B} T={T} K={Kd} H1={H1} H2={H2}: "
           f"device {bwd['ms']:.5f} ms in {len(bwd_dev)} kernels "
           f"({100 * bwd['share_of_bound']:.1f}% "
-          f"of the tensor-core bound {bwd['bound_ms']:.5f} ms, {bwd['bound_by']}, 3xTF32; "
-          f"f32 bound {bwd['f32_bound_ms']:.5f} ms; over its {valid} unmasked positions of "
-          f"{B * T}: {bwd['valid_bound_ms']:.5f} ms), {bwd['call_ms']:.5f} ms per call; "
+          f"of the tensor-core bound over its {valid} unmasked positions {bwd['bound_ms']:.5f} "
+          f"ms, {bwd['bound_by']}, 3xTF32; f32 bound {bwd['f32_bound_ms']:.5f} ms; over all "
+          f"{B * T}: {bwd['all_positions_bound_ms']:.5f} ms), {bwd['call_ms']:.5f} ms per call; "
           f"plain din_attention_backward_ref: device {bwd['plain_ms']:.5f} ms in "
           f"{len(plain_bwd_dev)} kernel kinds, {bwd['plain_call_ms']:.5f} ms per call; "
           f"by kernel {bwd['by_kernel']}; on {card}", flush=True)
@@ -2923,8 +2927,8 @@ def time_global_kernels(card, errors: dict, counts: dict, wide: dict) -> list:
 def backward_record(fn, plain, shape, valid: int, kernel: str, what: str, card) -> dict:
     """One backward kernel timed on the card at ``shape`` (B, T, K, H1,
     H2): its device time from the profiler (all of its call's launches),
-    per call, its plain version's, and the bounds over all positions and
-    over the ``valid`` ones."""
+    per call, its plain version's, and the bound over the ``valid``
+    positions (``bound_ms``, the least work) and over all of them."""
     B, T, K_, H1, H2 = shape
     with torch.inference_mode():
         kernel_dev = device_ms(fn, iters=5)
@@ -2940,13 +2944,17 @@ def backward_record(fn, plain, shape, valid: int, kernel: str, what: str, card) 
                            f"{kernel}")
     rec.update(ms=sum(kernel_dev.values()), plain_ms=sum(plain_dev.values()), library_ms=None,
                launches_a_call=len(kernel_dev))
-    rec["bound_ms"], rec["bound_by"], rec["f32_bound_ms"] = din_backward_bound(*shape)
-    rec["valid_bound_ms"] = din_backward_bound(*shape, positions=valid)[0]
+    # the least work is over the valid positions: a masked one adds to no product
+    rec["valid_positions"] = valid
+    rec["bound_ms"], rec["bound_by"], rec["f32_bound_ms"] = din_backward_bound(
+        *shape, positions=valid)
+    rec["all_positions_bound_ms"], rec["all_positions_bound_by"], _ = din_backward_bound(*shape)
     print(f"timing din_attention_backward ({what}, {kernel}) B={B} T={T} K={K_} H1={H1} "
           f"H2={H2}: device {rec['ms']:.5f} ms in {len(kernel_dev)} kernels "
-          f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the tensor cores' bound "
-          f"{rec['bound_ms']:.5f} ms, {rec['bound_by']}; over the {valid} valid positions "
-          f"{rec['valid_bound_ms']:.5f} ms), {rec['call_ms']:.5f} ms per call; plain: device "
+          f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the tensor cores' bound over the "
+          f"{valid} valid positions {rec['bound_ms']:.5f} ms, {rec['bound_by']}; over all "
+          f"{B * T} {rec['all_positions_bound_ms']:.5f} ms), {rec['call_ms']:.5f} ms per call; "
+          f"plain: device "
           f"{rec['plain_ms']:.5f} ms, {rec['plain_call_ms']:.5f} ms per call; on {card}",
           flush=True)
     return rec

@@ -444,22 +444,26 @@ def peak_mb(torch, fn) -> float:
 def time_backward(cs, torch) -> dict:
     """``din_attention_backward`` (the public wrapper: whichever kernel the
     tree routes to) at B=8,192, 80-40, at DIN's shape and the global forward
-    kernel's three (``DIN_GLOBAL_SHAPES``), on the forward's saved weights
-    and a cotangent from a seed: device time (profiler), time per call
-    (CUDA events) and peak memory beyond the inputs (``backward``)."""
+    kernel's three (``DIN_GLOBAL_SHAPES``), and at DIN's shape with a
+    128-64 scorer (``DIN_WIDE_SCORER``, the global kernel's own path), on
+    the forward's saved weights and a cotangent from a seed: device time
+    (profiler), time per call (CUDA events) and peak memory beyond the
+    inputs (``backward``)."""
     from recommender_system_tpu_torch.ops import kernels
     from recommender_system_tpu_torch.ops.kernels import din_attention_backward
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     out = {}
-    for K_, T in ((cs.DIN_DIM, cs.DIN_T), *cs.DIN_GLOBAL_SHAPES):
-        q, keys, mask, weights = cs.din_inputs(gen, cs.DIN_BATCH, T, K_, 80, 40)
+    shapes = [(cs.DIN_DIM, cs.DIN_T, 80, 40), *((K_, T, 80, 40) for K_, T in cs.DIN_GLOBAL_SHAPES),
+              (cs.DIN_DIM, cs.DIN_T, *cs.DIN_WIDE_SCORER)]
+    for K_, T, H1, H2 in shapes:
+        q, keys, mask, weights = cs.din_inputs(gen, cs.DIN_BATCH, T, K_, H1, H2)
         mask = mask.float()
         with torch.inference_mode():
             _, saved = kernels._din_launch(q, keys, mask, *weights, "sigmoid", True, False, True)
             cot = torch.randn(cs.DIN_BATCH, K_, generator=gen, device="cuda")
             args = (q, keys, mask, *weights, saved, cot)
-            name = f"backward_k{K_}_t{T}"
+            name = f"backward_k{K_}_t{T}" + ("" if (H1, H2) == (80, 40) else f"_h{H1}_{H2}")
             out[f"{name}_ms"] = sum(cs.device_ms(lambda: din_attention_backward(*args),
                                                  iters=5).values())
             out[f"{name}_call_ms"] = cs.call_ms(lambda: din_attention_backward(*args),

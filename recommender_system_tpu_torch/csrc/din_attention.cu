@@ -3124,16 +3124,6 @@ constexpr int kWThreads = 256;          // two warpgroups on one tile
 constexpr int kWSlots = 4;              // a warpgroup's ring of weight k-steps
 constexpr int kWSlot = kTStep1;         // floats of a ring slot: an N = 80 k-step
 constexpr int kWStepX = 2 * 2 * 32 * 8;  // a dX k-step: N = 64, big and small
-// dlogit from din_backward_dlogits launched first (a fourth launch, one more
-// read of the keys, a [B * T] scratch) instead of the kernel's own sweep
-// and per-tile g . k (chip_lab_din_backward.py times both)
-constexpr bool kWidePreDlogits = false;
-// a team's first thread counts the cycles of each phase of its units and
-// tiles (kWidePhases of them) and writes the sums, as floats, over the
-// first positions of dkeys at the end: for chip_lab_din_backward.py's
-// wide_clocks variant only (its results are not gradients)
-constexpr bool kWideClocks = false;
-constexpr int kWidePhases = 15;
 
 // The packed weights, offsets in floats: layer 1's B (KT / 4 k-steps, as
 // the tile kernel's), dX's (KT / 32 chunks of 10 k-steps), then what a
@@ -3201,9 +3191,9 @@ struct WideSmem {
   static constexpr int kS = kDl + kWM;
   static constexpr int kIdx = kS + kWM;
   static constexpr int kSums = kIdx + kWM;  // db1 80, db2 40, dw3 40, db3
-  // [8 warps][2 kRows] sums, c, counts and cursors [kRows] each, the clocks
+  // [8 warps][2 kRows] sums, c, counts and cursors [kRows] each
   static constexpr int kMisc = kSums + kTH1 + 2 * kTH2 + 4;
-  static constexpr int kTeamFloats = (kMisc + 20 * kRows + 2 * kWidePhases + 31) / 32 * 32;
+  static constexpr int kTeamFloats = (kMisc + 20 * kRows + 31) / 32 * 32;
   static constexpr int kTotal = kTeam0 + kTeams * kTeamFloats;
   static constexpr int kBytes = 4 * kTotal;
   static_assert(kRing % 4 == 0 && kTeam0 % 32 == 0 && kRegion % 32 == 0 && kQ % 4 == 0 &&
@@ -3300,10 +3290,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
 din_backward_wide_kernel(const float* __restrict__ query, const float* __restrict__ keys,
                          const float* __restrict__ mask, const float* __restrict__ weights,
                          const float* __restrict__ grad, const float* __restrict__ packed,
-                         const float* __restrict__ terms, const float* __restrict__ dlg,
-                         float* __restrict__ dq, float* __restrict__ dkeys,
-                         float* __restrict__ partials, BackPlan L, int batch, int T, int K,
-                         int H1, bool relu, bool softmax, bool pool, bool vec) {
+                         const float* __restrict__ terms, float* __restrict__ dq,
+                         float* __restrict__ dkeys, float* __restrict__ partials, BackPlan L,
+                         int batch, int T, int K, int H1, bool relu, bool softmax, bool pool,
+                         bool vec) {
   using S = WideSmem<KT>;
   constexpr bool SOLO = S::kSolo;
   constexpr int NT = SOLO ? 128 : kWThreads;   // a team's threads
@@ -3356,15 +3346,6 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
   float* c_s = misc + 16 * R;
   int* cnt_s = reinterpret_cast<int*>(misc + 17 * R);
   int* cur_s = reinterpret_cast<int*>(misc + 18 * R);
-  long long* clk_s = reinterpret_cast<long long*>(misc + 20 * R);  // kWideClocks' sums
-  long long tprev = 0;
-  auto tick = [&](int phase) {
-    if (kWideClocks && lt == 0) {
-      const long long now = clock64();
-      clk_s[phase] += now - tprev;
-      tprev = now;
-    }
-  };
 
   // a team's barrier: its warpgroup's, or the block's
   auto bar = [&]() {
@@ -3470,7 +3451,6 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
   const int h1b = 4 * (g & 3) + 2 * (g >> 2) + 32 * i4;
   const int cb = 32 * (g >> 2) + 8 * i4 + (g & 3);
   const long long units = (static_cast<long long>(batch) + R - 1) / R;
-  if (kWideClocks && lt == 0) tprev = clock64();
 
   for (long long unit = static_cast<long long>(blockIdx.x) * S::kTeams + team; unit < units;
        unit += static_cast<long long>(gridDim.x) * S::kTeams) {
@@ -3504,7 +3484,7 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
       for (int k = 0; k < 2 * R; ++k) part[k] = 0.f;
       const int qtr = lt & 3;
       const int c_lo = qtr * kq, c_hi = min(K, c_lo + kq);
-      const bool dots = softmax && dlg == nullptr;
+      const bool dots = softmax;  // c needs g . k only under the softmax
       for (int r = 0; r < nrows; ++r) {
         const long long b = b0 + r;
         const float* gr = g_s + r * KT;
@@ -3601,7 +3581,6 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
       }
     }
     bar();
-    tick(0);
     // the unit's valid positions, the rows' in turn: row r's are pre[r] ..
     // pre[r + 1] - 1
     int pre[R + 1];
@@ -3671,7 +3650,6 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
         }
       }
       bar();
-      tick(1);
       // the tile's keys, weights and (for scores) cotangents, by cp.async
       {
         if (vec) {
@@ -3691,47 +3669,37 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
         if (lt < np) {
           const long long pos = (b0 + row_of(lt)) * T + idx_s[lt];
           cp_async4(s_s + lt, weights + pos);
-          if (dlg != nullptr) {
-            cp_async4(dl_s + lt, dlg + pos);
-          } else if (!pool) {
-            cp_async4(dl_s + lt, grad + pos);
-          }
+          if (!pool) cp_async4(dl_s + lt, grad + pos);
         }
         cp_async_commit();
         cp_async_wait_all();
       }
       bar();
-      tick(2);
       // dlogit: dscore = g . k (four threads a position, a quarter of the
       // columns each, then a fixed tree: as the sweep took it for c, so
       // where the softmax leaves a row's dlogits 0, as at T = 1, they come
       // out 0) or g; s (dscore - c) under the softmax; 0 past the tile's
       // positions
-      if (dlg != nullptr) {
-        if (lt >= np && lt < kWM) dl_s[lt] = 0.f;
-      } else {
-        for (int i = lt; i < 4 * kWM; i += NT) {
-          const int p = i >> 2, qtr = i & 3;
-          float ds = 0.f;
-          if (p < np) {
-            if (pool) {
-              const int c_lo = qtr * kq;
-              ds = quarter_dot(g_s + row_of(p) * KT, keys_s + p * S::kSK, c_lo,
-                               min(K, c_lo + kq), vq);
-            } else if (qtr == 0) {
-              ds = dl_s[p];
-            }
+      for (int i = lt; i < 4 * kWM; i += NT) {
+        const int p = i >> 2, qtr = i & 3;
+        float ds = 0.f;
+        if (p < np) {
+          if (pool) {
+            const int c_lo = qtr * kq;
+            ds = quarter_dot(g_s + row_of(p) * KT, keys_s + p * S::kSK, c_lo,
+                             min(K, c_lo + kq), vq);
+          } else if (qtr == 0) {
+            ds = dl_s[p];
           }
-          ds += __shfl_xor_sync(kFull, ds, 1);
-          ds += __shfl_xor_sync(kFull, ds, 2);
-          __syncwarp();
-          if (qtr == 0) {
-            dl_s[p] = p < np ? (softmax ? s_s[p] * (ds - c_s[row_of(p)]) : ds) : 0.f;
-          }
+        }
+        ds += __shfl_xor_sync(kFull, ds, 1);
+        ds += __shfl_xor_sync(kFull, ds, 2);
+        __syncwarp();
+        if (qtr == 0) {
+          dl_s[p] = p < np ? (softmax ? s_s[p] * (ds - c_s[row_of(p)]) : ds) : 0.f;
         }
       }
       bar();
-      tick(3);
 
       const bool v_lo = p_lo < np, v_hi = p_hi < np;
       const int r_lo = v_lo ? row_of(p_lo) : 0;
@@ -3768,7 +3736,6 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
         }
       }
       tile_end(hacc);
-      tick(4);
       if (!SOLO) {
         // the two halves' sums swapped (a thread the same elements in both
         // warpgroups), added in one order: h1 = act(a + (half 0 + half 1))
@@ -3799,7 +3766,6 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
         }
       }
 
-      tick(5);
       // layer 2 again (both warpgroups); du = dlogit w3 act'(h2); the
       // warps' sums of du (db2) and h2 dlogit (dw3), and du's split parts
       // (dW2's B), the first warpgroup n-tiles 0-2, the second 3-4
@@ -3866,7 +3832,6 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
         }
         fence_async_smem();
         bar();
-        if (half == 0) tick(6);
 #pragma unroll
         for (int k0 = KS * half; k0 < KS * (half + 1); k0 += kTSumSteps) {
           float a[NW2][kTSumSteps][4], t[NW2][kTH2 / 2];
@@ -3897,7 +3862,6 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
         }
         if (half + 1 < HV) bar();  // the half's parts are read before the next half's go in
       }
-      tick(7);
 
       // dh = (du W2^T) act'(h1), both warpgroups
       float dh[kTH1 / 2];
@@ -3917,7 +3881,6 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
         }
       }
       bar();  // h1 and du's parts are read: the region takes dh's parts
-      tick(8);
 
       // the warps' sums of dh over each of the tile's rows, n-tile j
       auto rows_dh = [&](int j) {
@@ -4048,9 +4011,7 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
         // dh's parts in the region
 #pragma unroll
         for (int j = 0; j < kTH1 / 8; ++j) rows_dh(j);
-        tick(9);
         dx_chunk(0);
-        tick(10);
         bar();
         add_sums();
 #pragma unroll
@@ -4064,9 +4025,6 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
           dwx_steps(0, 4 * half, region);
           if (half == 0) bar();  // the half's parts are read before the next half's go in
         }
-        tick(11);
-        tick(12);
-        tick(13);
       } else {
         // dh's parts, the first warpgroup n-tiles 0-4, the second 5-9, and
         // their rows' sums; then dX and dWX side by side
@@ -4079,12 +4037,10 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
         }
         fence_async_smem();
         bar();
-        tick(9);
 #pragma unroll
         for (int ci = 0; ci < NXW; ++ci) {
           if (ci < nx) dx_chunk(ci);
         }
-        tick(10);
 #pragma unroll
         for (int mi = 0; mi < NXW; ++mi) {
           if (mi < nm) {
@@ -4094,11 +4050,8 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
             }
           }
         }
-        tick(11);
         bar();
-        tick(12);
         add_sums();
-        tick(13);
       }
     }
     bar();  // the rows' carried sums are in
@@ -4146,13 +4099,6 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
       for (int r = 1; r < R; ++r) v += rs_s[r * kTH1 + lt];
       sums[lt] += v;
     }
-    tick(kWidePhases - 1);
-  }
-  if (kWideClocks && lt == 0) {
-    for (int i = 0; i < kWidePhases; ++i) {
-      dkeys[(static_cast<long long>(blockIdx.x) * S::kTeams + team) * 16 + i] =
-          static_cast<float>(clk_s[i]);
-    }
   }
 
   // this team's partial sums, in din_backward_reduce's layout (dA there
@@ -4196,8 +4142,8 @@ din_backward_wide_kernel(const float* __restrict__ query, const float* __restric
 }
 
 using WideKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
-                            const float*, const float*, const float*, float*, float*, float*,
-                            BackPlan, int, int, int, int, bool, bool, bool, bool);
+                            const float*, const float*, float*, float*, float*, BackPlan, int, int,
+                            int, int, bool, bool, bool, bool);
 
 // the wide kernel's K padded: 32, 64 or 128, a template instantiation each
 constexpr int kWideK[] = {32, 64, 128};
@@ -4470,8 +4416,7 @@ extern "C" long long din_attention_wide_backward_scratch(int batch, int T, int K
   if (cudaGetDevice(&device) != cudaSuccess) return -1;
   if (wide_launch(device, batch, slot, blocks) != cudaSuccess) return -1;
   const BackPlan L = wide_sums(slot, blocks);
-  return wide_pack(kWideK[slot]).total + L.blocks * L.acc + static_cast<long long>(batch) * H1 +
-         (kWidePreDlogits ? static_cast<long long>(batch) * T : 0);
+  return wide_pack(kWideK[slot]).total + L.blocks * L.acc + static_cast<long long>(batch) * H1;
 }
 
 extern "C" int din_attention_wide_backward(const float* query, const float* keys, const float* mask,
@@ -4494,13 +4439,11 @@ extern "C" int din_attention_wide_backward(const float* query, const float* keys
   if (err == cudaSuccess) err = wide_launch(device, batch, slot, blocks);
   if (err != cudaSuccess) return err;
   const BackPlan L = wide_sums(slot, blocks);
-  // scratch: the packed weights, the teams' partials, the rows' terms (and
-  // the dlogits)
+  // scratch: the packed weights, the teams' partials, the rows' terms
   const WidePack P = wide_pack(KT);
   float* packed = scratch;
   float* partials = scratch + P.total;
   float* terms = partials + L.blocks * L.acc;
-  float* dl = kWidePreDlogits ? terms + static_cast<long long>(batch) * H1 : nullptr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int kPackBlocks = 64;
   const long long prep_blocks = kPackBlocks + (static_cast<long long>(batch) + kTermRows - 1) /
@@ -4508,19 +4451,10 @@ extern "C" int din_attention_wide_backward(const float* query, const float* keys
   din_backward_wide_pack<<<static_cast<int>(prep_blocks), kTermCols, 0, s>>>(
       w1, b1, w2, b2, w3, query, packed, terms, batch, K, H1, H2, KT, kPackBlocks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (kWidePreDlogits) {
-    const long long work = 32LL * batch;
-    const long long grid = (work + kPrepThreads - 1) / kPrepThreads;
-    din_backward_dlogits<<<static_cast<int>(grid < 65536 ? grid : 65536), kPrepThreads, 0, s>>>(
-        keys, mask, weights, grad, dl, batch, T, K, softmax != 0, scores == 0,
-        K % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
-            reinterpret_cast<uintptr_t>(grad) % 16 == 0);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
   const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(dkeys) % 16 == 0;
   kWideKernels[slot]<<<static_cast<int>(blocks), kWThreads, kWideBytes[slot], s>>>(
-      query, keys, mask, weights, grad, packed, terms, dl, dq, dkeys, partials, L, batch, T, K,
+      query, keys, mask, weights, grad, packed, terms, dq, dkeys, partials, L, batch, T, K,
       H1, relu != 0, softmax != 0, scores == 0, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long outs = 4LL * K * H1 + H1 + static_cast<long long>(H1) * H2 + 2LL * H2 + 1;

@@ -470,11 +470,14 @@ def main(argv=None) -> dict:
 
 if __name__ == "__main__":
     main()
-    if "TORCHELASTIC_RUN_ID" in os.environ:
-        # a torchrun worker whose work is done and printed ends here, without
-        # the interpreter's teardown: torch's C++ teardown of a gloo job at
-        # exit aborted a worker now and then ("terminate called without an
-        # active exception", no Python frame left), failing the job
+    if "TORCHELASTIC_RUN_ID" in os.environ and parse_args().device == "cpu":
+        # A workaround, not a repair: torch's own C++ teardown of a gloo job
+        # at interpreter exit aborts a worker now and then ("terminate called
+        # without an active exception", no Python frame left), failing the
+        # job. So a gloo torchrun worker whose work is done and printed ends
+        # here without the interpreter's teardown (no atexit handlers, no
+        # finalisation). NCCL jobs, where the abort was never seen, exit as
+        # usual.
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(0)
